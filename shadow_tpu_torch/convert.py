@@ -1,0 +1,66 @@
+"""Carry simulation state across from the reference package.
+
+In this simulator the state that plays the part of a model's weights is the
+network parameter set (``NetParams``): host placement, NIC rates and bucket
+capacities, the (G, G) latency table and the q24 drop thresholds every loss
+draw compares against. ``net_params_from_arrays`` builds the port's
+``NetParams`` from those fields given as plain numpy arrays — e.g. the
+fields of a ``shadow_tpu.network.fluid.NetParams`` — so the tests can feed
+both packages the same state without this package importing the reference.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from shadow_tpu_torch.core.time import SimTime
+from shadow_tpu_torch.network.fluid import MAX_UNIT, NetParams
+
+#: the NetParams array fields carried across
+FIELDS = ("host_node", "rate_up", "rate_down", "cap_up", "cap_down",
+          "latency_ns", "drop_thresh")
+
+
+def net_params_from_arrays(d: dict, seed: int, round_ns: SimTime,
+                           max_unit: int = MAX_UNIT) -> NetParams:
+    """The port's NetParams from ``d``, a dict of numpy arrays named as
+    NetParams' fields (``host_node``, ``rate_up``, ``rate_down``,
+    ``cap_up``, ``cap_down``, ``latency_ns``, ``drop_thresh``).
+
+    The rates go through the port's own validation and capacity rule
+    (``NetParams.build`` with ``round_ns`` and ``max_unit``); the given
+    capacities must equal what that rule derives, or the arrays came from
+    another configuration and ValueError is raised. The thresholds are
+    taken as given: they are already quantized (q24), and re-deriving them
+    from a reliability matrix could only lose bits."""
+    missing = sorted(set(FIELDS) - set(d))
+    if missing:
+        raise ValueError(f"net_params_from_arrays: missing fields {missing}")
+    a = {k: np.asarray(d[k]) for k in FIELDS}
+    for k in FIELDS:
+        if not np.issubdtype(a[k].dtype, np.integer):
+            raise ValueError(f"net_params_from_arrays: {k} must be an "
+                             f"integer array, got {a[k].dtype}")
+    h = a["host_node"].shape
+    g = a["latency_ns"].shape
+    if len(h) != 1 or any(a[k].shape != h for k in (
+            "rate_up", "rate_down", "cap_up", "cap_down")):
+        raise ValueError("net_params_from_arrays: per-host arrays must all "
+                         "be (H,)")
+    if len(g) != 2 or g[0] != g[1] or a["drop_thresh"].shape != g:
+        raise ValueError("net_params_from_arrays: latency_ns and drop_thresh "
+                         "must both be (G, G)")
+    if (a["drop_thresh"] > (1 << 24)).any():
+        raise ValueError("net_params_from_arrays: drop_thresh exceeds q24")
+    built = NetParams.build(
+        host_node=a["host_node"], rate_up=a["rate_up"],
+        rate_down=a["rate_down"], latency_ns=a["latency_ns"],
+        reliability=np.ones(g, dtype=np.float32), seed=seed,
+        round_ns=round_ns, max_unit=max_unit)
+    for k in ("cap_up", "cap_down"):
+        if not np.array_equal(getattr(built, k), a[k]):
+            raise ValueError(
+                f"net_params_from_arrays: {k} does not follow from the "
+                f"rates at round_ns={round_ns}, max_unit={max_unit}")
+    built.drop_thresh = a["drop_thresh"].astype(np.uint32)
+    return built

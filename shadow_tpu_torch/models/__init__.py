@@ -1,0 +1,12 @@
+"""Workload applications ("model families").
+
+Plugin re-implementations of the workload behaviours the benchmark configs
+need. Ported so far:
+
+- echo:   minimal UDP request/response pair (smoke tests)
+- tgen:   stream transfer client/server in tgen's shape (connect, request
+          N bytes, stream back, record completion)
+
+A config naming another model of ``shadow_tpu.models`` is refused at load
+(config/schema.py).
+"""

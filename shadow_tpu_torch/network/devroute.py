@@ -1,0 +1,300 @@
+"""Device-routing machinery for the columnar data plane.
+
+The port of shadow_tpu/network/devroute.py. The columnar plane
+(network/colplane.py) routes loss-draw batches either to the numpy twin
+(fluid.loss_flags) or to the CUDA kernels (ops/propagate.py) — the paths
+are bit-identical, so routing is pure wall-clock policy. This base class
+carries what that policy needs:
+
+- background device attach + floor calibration (simulations start on the
+  numpy twin and switch over when the device publishes); a failed attach
+  raises on the simulation thread — on a CUDA device a failed build or
+  launch is an error, never a silent fall back to the twin,
+- the adaptive floor: realized readback stalls are compared against what
+  the numpy twin would have cost; the floor backs off x4 when the device
+  is clearly losing and decays back toward the calibrated floor when it
+  stops (a starved floor also decays on a round-count cooldown),
+- fused multi-round device windows: draw batches accumulate lazily across
+  rounds and dispatch as ONE device launch per causal window instead of
+  one per round, with a two-slot in-flight pipeline (deferred readbacks
+  overlap subsequent host rounds) and a live break-even estimate from
+  window telemetry deciding when the device is worth engaging at all.
+  Windows below the floor, and windows that find both slots busy, resolve
+  on the host twin: that is the reference's determinism-safe routing, and
+  the run summary counts the windows the device served,
+- teardown safety (close() joins the attach thread),
+- the latency/deferred/outstanding accessors the controller polls.
+"""
+
+from __future__ import annotations
+
+from shadow_tpu_torch.core.time import SimTime, T_NEVER
+
+#: deferred windows in flight at once (double-buffered handles): window
+#: N's device execution overlaps the build of window N+1; a third window
+#: waits (stays lazy) rather than queueing unbounded device memory
+WINDOW_SLOTS = 2
+#: EMA weight for the per-window fixed-cost estimate (dispatch + stall)
+_BE_ALPHA = 0.25
+#: hysteresis around the break-even unit count: engage above 1.25x,
+#: release below 0.8x — so a window size hovering at break-even does not
+#: flap the routing decision every window
+_BE_ENGAGE = 1.25
+_BE_RELEASE = 0.8
+
+
+class DeviceRoutedPlane:
+    """Mixin state + helpers; subclasses populate graph/params/_deferred/
+    outstanding and call _init_device_routing() from __init__."""
+
+    def _init_device_routing(self, backend: str, tpu_options, params,
+                             device: str = "cuda") -> None:
+        self.max_batch = int(
+            getattr(tpu_options, "tpu_max_batch", 65536) or 65536)
+        self.max_pkts = int(getattr(tpu_options, "unit_mtus", 10) or 10)
+        self.device = None
+        self.device_floor = float("inf")
+        self._dev_stall = 0.0
+        self._dev_reads = 0
+        self._dev_units = 0
+        self._dev_warm = False  # first read (attach) is excluded
+        self._floor_cooldown = 0  # rounds until a starved floor decays
+        self._np_per_unit = 4e-6  # refined by calibration when available
+        self._floor0 = float("inf")  # calibrated floor: decay lower bound
+        self._floor_forced = False  # explicit tpu_device_floor > 0: the
+        #                             operator owns routing; break-even
+        #                             estimation and probe clamping yield
+        #: fused-window state (experimental.device_window_rounds; 0 = auto)
+        self.window_rounds = int(
+            getattr(tpu_options, "device_window_rounds", 0) or 0)
+        self._win_open_rounds = 0  # barriers since the window opened
+        self._win_inflight = 0  # dispatched windows not yet fully read
+        self._win_engaged = False  # hysteresis state of the flush gate
+        self._win_cost_ema = 0.0  # seconds of host wall per window
+        self.dev_windows = 0  # fused windows dispatched to the device
+        self.dev_window_units = 0  # units those windows carried
+        self._max_window_units = 0  # biggest window this run has seen
+        self._probe_clamped = False  # probing suppressed
+        self._bg_thread = None
+        self._bg_error = None  # a failed attach, re-raised on the sim thread
+        if backend != "tpu":
+            # tpu_mesh is refused at config load (config/schema.py); the
+            # thread policies run the host twin only
+            return
+        floor = int(getattr(tpu_options, "tpu_device_floor", 0) or 0)
+        if floor < 0:
+            # device draws disabled: the numpy twin serves every batch
+            # (the ablation row — results are bit-identical by
+            # construction, only wall time moves)
+            return
+        if floor > 0:
+            from shadow_tpu_torch.ops.propagate import DeviceDrawPlane
+
+            self.device = DeviceDrawPlane(params.seed, self.max_batch,
+                                          max_pkts=self.max_pkts,
+                                          device=device)
+            self.device_floor = floor
+            self._floor_forced = True
+            return
+        # auto mode: kernel build/load, warm-up and floor calibration run
+        # on a background thread — except when a previous run of this
+        # process already attached this parameter tuple, in which case the
+        # cached plane (and its calibration) publishes SYNCHRONOUSLY so the
+        # device is live from round 0. Probe the cache via sys.modules so a
+        # cold process does not import torch's CUDA state on the main
+        # thread just to find an empty cache. Both paths are bit-identical
+        # and event order is canonical, so WHEN the device comes online
+        # cannot affect results — only wall time.
+        import sys
+
+        mod = sys.modules.get("shadow_tpu_torch.ops.propagate")
+        key = (int(params.seed), self.max_batch, self.max_pkts, device)
+        hit = (mod.DeviceDrawPlane._cache.get(key)
+               if mod is not None else None)
+        if hit is not None:
+            self._publish_device(*hit)
+        else:
+            import threading
+
+            self._bg_thread = threading.Thread(
+                target=self._bg_init_device, args=(params.seed, device),
+                daemon=True)
+            self._bg_thread.start()
+
+    def _publish_device(self, plane, dev_s: float,
+                        np_per_unit: float) -> None:
+        if np_per_unit > 0:
+            self._np_per_unit = np_per_unit
+            self.device_floor = max(512, min(
+                int(dev_s / np_per_unit), self.max_batch))
+            self._floor0 = self.device_floor
+        self.device = plane  # publish last (reads are GIL-atomic)
+
+    def _bg_init_device(self, seed: int, device: str) -> None:
+        try:
+            from shadow_tpu_torch.ops.propagate import DeviceDrawPlane
+
+            self._publish_device(*DeviceDrawPlane.attach_cached(
+                seed, self.max_batch, self.max_pkts, device))
+        except BaseException as exc:  # noqa: BLE001 — re-raised below
+            self._bg_error = exc
+
+    def raise_attach_error(self) -> None:
+        """Re-raise a failed background attach on the calling thread."""
+        exc = self._bg_error
+        if exc is not None:
+            self._bg_error = None
+            raise RuntimeError(f"device attach failed: {exc}") from exc
+
+    def close(self) -> None:
+        """Join the background device-attach thread (if any) and raise the
+        error it hit, if any."""
+        t = self._bg_thread
+        if t is not None and t.is_alive():
+            t.join()
+        self.raise_attach_error()
+
+    # -- adaptive floor + window break-even ---------------------------------
+    def break_even_units(self) -> int:
+        """Units at which one fused window dispatch beats the host twin,
+        from live telemetry: the EMA'd per-window host cost (dispatch wall
+        + readback stall) divided by the calibrated per-unit host cost.
+        Before the first window lands, fall back to the calibrated floor
+        (same quantity measured at attach time)."""
+        if self._win_cost_ema > 0.0 and self._np_per_unit > 0.0:
+            return max(256, int(self._win_cost_ema / self._np_per_unit))
+        return int(self._floor0) if self._floor0 != float("inf") else 4096
+
+    def window_gate_units(self, engaged: bool) -> float:
+        """The unit count a deferred window must reach to route to the
+        device. An explicitly forced tpu_device_floor IS the gate (the
+        operator owns routing — tests and A/B runs rely on it); otherwise
+        the live break-even estimate applies with hysteresis: 1.25x to
+        engage, and a currently-engaged window releases only below 0.8x,
+        so a size hovering at break-even does not flap the decision."""
+        if self._floor_forced:
+            return self.device_floor
+        return max(self.device_floor,
+                   (_BE_RELEASE if engaged else _BE_ENGAGE)
+                   * self.break_even_units())
+
+    def _record_window(self, n_units: int, host_cost: float) -> None:
+        """One fused window landed: fold its realized host-side cost
+        (dispatch wall + any readback stall) into the break-even EMA and
+        the run counters."""
+        self.dev_windows += 1
+        self.dev_window_units += n_units
+        if not self._dev_warm:
+            self._dev_warm = True  # compile/attach window: not signal
+            return
+        if self._win_cost_ema == 0.0:
+            self._win_cost_ema = host_cost
+        else:
+            self._win_cost_ema += _BE_ALPHA * (host_cost - self._win_cost_ema)
+
+    def _note_window_units(self, n_units: int) -> None:
+        """Track the biggest causal window this config has produced and
+        clamp device probing when the config provably cannot reach
+        break-even : if even the largest window
+        is under 25% of break-even, re-probing the device on a cadence
+        only burns dispatches — stop until the traffic shape changes."""
+        if self._floor_forced:
+            if n_units > self._max_window_units:
+                self._max_window_units = n_units
+            return
+        if n_units > self._max_window_units:
+            self._max_window_units = n_units
+            if self._probe_clamped and \
+                    n_units >= 0.25 * self.break_even_units():
+                self._probe_clamped = False
+        elif (not self._probe_clamped
+              and self._max_window_units > 0
+              and self._dev_warm
+              and self._max_window_units < 0.25 * self.break_even_units()):
+            self._probe_clamped = True
+
+    def _floor_cooldown_tick(self) -> None:
+        """Called on barriers that did NOT use the device: a backed-off
+        floor must be able to recover even when it now starves the device
+        entirely (no reads -> no stall windows). When probing is clamped
+        (the config's windows cannot reach break-even) the decay pauses:
+        recovering the floor would only re-probe a device that provably
+        loses at this config's window sizes."""
+        if self._probe_clamped:
+            return
+        if self.device_floor > self._floor0 and self._floor_cooldown > 0:
+            self._floor_cooldown -= 1
+            if self._floor_cooldown == 0:
+                self.device_floor = max(self._floor0, self.device_floor // 4)
+                self._floor_cooldown = 512
+                self._dev_stall = 0.0
+                self._dev_reads = 0
+                self._dev_units = 0
+
+    def _record_dev_read(self, dt: float, n_units: int) -> None:
+        if not self._dev_warm:
+            self._dev_warm = True  # compile/attach stall: not signal
+        else:
+            self._dev_stall += dt
+            self._dev_reads += 1
+            self._dev_units += n_units
+
+    def _floor_settle(self) -> None:
+        """Every 8 realized device reads, compare stalls against what the
+        numpy twin would have cost for the same units: back off only when
+        the device is clearly LOSING, decay back toward the live
+        break-even estimate (never below the calibrated floor) when it
+        stops (results are identical either way)."""
+        if self._dev_reads < 8:
+            return
+        np_cost = self._np_per_unit * self._dev_units
+        lo = max(self._floor0, float(self.break_even_units()))
+        if self._dev_stall > 4 * np_cost + 0.02:
+            self.device_floor = min(self.device_floor * 4, 1 << 30)
+            self._floor_cooldown = 512
+        elif self._dev_stall < np_cost and self.device_floor > lo:
+            self.device_floor = max(lo, self.device_floor // 4)
+        self._dev_stall = 0.0
+        self._dev_reads = 0
+        self._dev_units = 0
+
+    def device_summary(self) -> dict:
+        """Window/speculation telemetry for the run summary (wall-clock
+        routing state — volatile across runs, never simulation state)."""
+        return {
+            "windows_dispatched": self.dev_windows,
+            "window_units": self.dev_window_units,
+            # speculative windows belong to the C engine, not ported yet
+            "spec_hits": 0,
+            "spec_draws": 0,
+            "break_even_units": self.break_even_units(),
+            "max_window_units": self._max_window_units,
+            "probe_clamped": self._probe_clamped,
+            "spec_clamped": False,
+            "window_rounds": self.window_rounds or "auto",
+        }
+
+    def heartbeat_note(self) -> str:
+        """One heartbeat-line fragment describing the routing decision."""
+        if self.device is None:
+            return "dev=off"
+        state = "clamped" if self._probe_clamped else (
+            "engaged" if self.dev_windows else "probing")
+        return (f"dev={state} windows={self.dev_windows} "
+                f"be={self.break_even_units()} "
+                f"maxwin={self._max_window_units}")
+
+    # -- accessors shared by the controller --------------------------------
+    def latency_between(self, src_host: int, dst_host: int) -> SimTime:
+        p = self.params
+        return int(self.graph.latency_ns[p.host_node[src_host],
+                                         p.host_node[dst_host]])
+
+    def has_immediate_work(self) -> bool:
+        """True if the next round must run even with empty event queues
+        (deferred ingress backlog waiting on token refill)."""
+        return bool(self._deferred)
+
+    def earliest_outstanding(self) -> SimTime:
+        """Earliest event time any in-flight draw batch can produce."""
+        return min((b.deadline for b in self.outstanding), default=T_NEVER)

@@ -1,0 +1,145 @@
+"""Device selection and the CUDA kernel build for shadow_tpu_torch.
+
+Replaces shadow_tpu/ops/jaxcfg.py. Two jobs:
+
+- ``select_device(name)``: turn ``--device cuda|cpu`` into a
+  ``torch.device``. Asking for ``cuda`` where PyTorch sees no card is an
+  error, never a silent CPU run.
+- ``kernel_lib(stem)``: the ctypes handle of ``csrc/<stem>.cu`` built for
+  Hopper (``sm_90a``) into a shared library with a plain C interface.
+  Builds happen at first use into ``shadow_tpu_torch/_build/`` (listed in
+  .gitignore), named by a hash of the sources and flags, so an edited
+  source rebuilds and an unchanged one loads at once. A failed build
+  raises with nvcc's output. Nothing here is imported from outside the
+  repository.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-lineinfo")
+
+#: C signatures of every entry point, per source (pointers and the stream
+#: are c_void_p: ctypes would pass a bare int as 32 bits and cut it)
+_SIGNATURES = {
+    "draw": {
+        "shadow_draw_flags": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+        "shadow_min_draw": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+        "shadow_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
+}
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+class DeviceUnavailable(ValueError):
+    """The caller asked for a device this process cannot use."""
+
+
+def select_device(name: str = "cuda"):
+    """``torch.device`` for ``name`` (``cuda`` or ``cpu``). Raises
+    DeviceUnavailable for ``cuda`` when no card is visible."""
+    import torch
+
+    if name == "cpu":
+        return torch.device("cpu")
+    if name != "cuda":
+        raise DeviceUnavailable(
+            f"unknown device {name!r} (want cuda or cpu)")
+    if not torch.cuda.is_available():
+        raise DeviceUnavailable(
+            "device cuda requested but torch.cuda.is_available() is false; "
+            "pass --device cpu to run the plain PyTorch kernels on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, nvcc on PATH, or
+    /usr/local/cuda/bin/nvcc."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin);"
+        " the CUDA kernels of shadow_tpu_torch/csrc cannot be built")
+
+
+def _lib_path(src: Path) -> Path:
+    h = hashlib.sha256()
+    h.update(src.name.encode() + b"\0" + src.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return BUILD / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def _build(src: Path) -> Path:
+    """Build ``src`` with nvcc unless the library for these exact sources
+    exists; returns the library path. Raises with nvcc's output."""
+    out = _lib_path(src)
+    if out.exists():
+        return out
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}) building {out.name}:\n"
+            f"$ {' '.join(cmd)}\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    return out
+
+
+def kernel_lib(stem: str):
+    """ctypes handle of ``csrc/<stem>.cu``, built on first use, with the
+    argument and result types of its entry points set."""
+    lib = _libs.get(stem)
+    if lib is not None:
+        return lib
+    src = CSRC / f"{stem}.cu"
+    if not src.exists():
+        raise RuntimeError(f"kernel source {src} is missing")
+    with _lock:
+        lib = _libs.get(stem)
+        if lib is not None:
+            return lib
+        lib = ctypes.CDLL(str(_build(src)))
+        for name, (res, args) in _SIGNATURES[stem].items():
+            fn = getattr(lib, name)
+            fn.restype = res
+            fn.argtypes = args
+        _libs[stem] = lib
+    return lib
+
+
+def check_launch(lib, code: int, what: str) -> None:
+    """Raise if a C entry point reported a launch error."""
+    if code != 0:
+        msg = lib.shadow_cuda_error_string(code)
+        raise RuntimeError(
+            f"{what}: CUDA launch failed with error {code} "
+            f"({msg.decode() if msg else 'unknown'})")

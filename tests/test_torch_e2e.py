@@ -1,0 +1,197 @@
+"""Whole simulations under both packages: shadow_tpu (the reference) and
+shadow_tpu_torch (the port), same config and seed, tpu_batch policy, the
+port on ``--device cpu`` (its kernels' plain PyTorch versions).
+
+The bar is byte identity, not closeness: the same hosts/ output tree
+(output_tree_digest), the same summary counts, and the same per-round
+state_digests.jsonl stream (tools/bisect_divergence.py --a REF --b PORT
+exits 0), at tpu_device_floor 1 (every draw window through the device
+plane) and 10**9 (every window on the host twin). Unported features are
+refused by name with exit 2.
+"""
+
+import contextlib
+import importlib.util
+import io
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import yaml
+
+from shadow_tpu import cli as ref_cli
+from shadow_tpu.core.controller import VOLATILE_SUMMARY_KEYS as REF_VOLATILE
+from shadow_tpu.fleet import output_tree_digest as ref_tree_digest
+from shadow_tpu_torch import cli as port_cli
+from shadow_tpu_torch.core.controller import VOLATILE_SUMMARY_KEYS
+from shadow_tpu_torch.utils.digest import output_tree_digest
+
+ROOT = Path(__file__).resolve().parents[1]
+EX = ROOT / "examples"
+COUNTS = ("rounds", "events", "units_sent", "units_dropped", "bytes_sent")
+
+
+def _run(main, cfg, data_dir, extra=()):
+    argv = [str(cfg), "--scheduler-policy", "tpu_batch", "--data-directory",
+            str(data_dir), "--json-summary", "--quiet", *extra]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    assert rc == 0, f"{main.__module__} {argv} exited {rc}"
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _stable(summary, volatile):
+    return {k: v for k, v in summary.items() if k not in volatile}
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("floor", [1, 10**9])
+@pytest.mark.parametrize("config, digest_every", [
+    # echo runs 24 rounds: digest every 5 so its stream is not empty
+    ("echo.yaml", 5), ("tgen_100host.yaml", 50)])
+def test_identical_to_reference(tmp_path, config, digest_every, floor):
+    extra = ["--set", f"experimental.tpu_device_floor={floor}",
+             "--state-digest-every", str(digest_every)]
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    ref = _run(ref_cli.main, EX / config, ref_dir, extra)
+    port = _run(port_cli.main, EX / config, port_dir,
+                extra + ["--device", "cpu"])
+    assert port["process_errors"] == [] == ref["process_errors"]
+    assert _stable(port, VOLATILE_SUMMARY_KEYS) == _stable(ref, REF_VOLATILE)
+    assert output_tree_digest(port_dir) == ref_tree_digest(ref_dir)
+    assert (port_dir / "state_digests.jsonl").read_text() == (
+        ref_dir / "state_digests.jsonl").read_text()
+    bis = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "bisect_divergence.py"),
+         "--a", str(ref_dir), "--b", str(port_dir)],
+        capture_output=True, text=True, timeout=120)
+    assert bis.returncode == 0, bis.stdout + bis.stderr
+    if config == "tgen_100host.yaml":  # chip_smoke.py's trace phase
+        cs = _chip_smoke()
+        assert {k: ref[k] for k in COUNTS} == cs.TGEN100_COUNTS
+        assert ref_tree_digest(ref_dir) == cs.TGEN100_TREE_DIGEST
+    if floor == 1 and config == "tgen_100host.yaml":
+        # the forced floor really sent windows through the device plane
+        assert port["device"]["windows_dispatched"] > 0
+        assert (port["device"]["windows_dispatched"]
+                == ref["device"]["windows_dispatched"])
+
+
+@pytest.mark.parametrize("config", ["echo.yaml", "tgen_100host.yaml",
+                                    "tgen_1k.yaml"])
+def test_show_config_matches_reference(config, capsys):
+    argv = [str(EX / config), "--scheduler-policy", "tpu_batch",
+            "--show-config"]
+    assert ref_cli.main(argv) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert port_cli.main(argv) == 0
+    assert json.loads(capsys.readouterr().out) == want
+
+
+def test_echo_constant_in_chip_smoke_is_the_reference(tmp_path):
+    s = _run(ref_cli.main, EX / "echo.yaml", tmp_path / "ref")
+    assert s["process_errors"] == []
+    assert ref_tree_digest(tmp_path / "ref") == _chip_smoke().ECHO_TREE_DIGEST
+
+
+@pytest.mark.slow
+def test_tgen_1k_identical_and_chip_smoke_constants(tmp_path):
+    cs = _chip_smoke()
+    extra = ["--set", "experimental.tpu_device_floor=1"]
+    ref = _run(ref_cli.main, EX / "tgen_1k.yaml", tmp_path / "ref", extra)
+    port = _run(port_cli.main, EX / "tgen_1k.yaml", tmp_path / "port",
+                extra + ["--device", "cpu"])
+    assert {k: ref[k] for k in COUNTS} == cs.TGEN1K_COUNTS
+    assert ref_tree_digest(tmp_path / "ref") == cs.TGEN1K_TREE_DIGEST
+    assert _stable(port, VOLATILE_SUMMARY_KEYS) == _stable(ref, REF_VOLATILE)
+    assert output_tree_digest(tmp_path / "port") == cs.TGEN1K_TREE_DIGEST
+
+
+def _echo_doc():
+    return yaml.safe_load((EX / "echo.yaml").read_text())
+
+
+def _with(mutate):
+    doc = _echo_doc()
+    mutate(doc)
+    return doc
+
+
+REFUSALS = {
+    "thread_per_core": ([], None, "scheduler_policy thread_per_core"),
+    "thread_per_host": (["--scheduler-policy", "thread_per_host"], None,
+                        "scheduler_policy thread_per_host"),
+    "tpu_mesh": (["--scheduler-policy", "tpu_mesh"], None,
+                 "scheduler_policy tpu_mesh"),
+    "faults": (["--scheduler-policy", "tpu_batch"], lambda d: d.update(
+        faults={"events": [{"time": "2s", "kind": "host_down",
+                            "hosts": ["server"]}]}), "fault injection"),
+    "telemetry": (["--scheduler-policy", "tpu_batch"],
+                  lambda d: d.update(telemetry=None), "telemetry"),
+    "sample_every": (["--scheduler-policy", "tpu_batch", "--sample-every",
+                      "1s"], None, "telemetry"),
+    "checkpoint": (["--scheduler-policy", "tpu_batch", "--checkpoint-every",
+                    "1s"], None, "checkpoint/resume"),
+    "resume": (["--scheduler-policy", "tpu_batch", "--resume-from",
+                "x.ckpt"], None, "checkpoint/resume"),
+    "live": (["--scheduler-policy", "tpu_batch", "--live-endpoint", "auto"],
+             None, "live endpoint"),
+    "replay": (["--scheduler-policy", "tpu_batch", "--replay-commands",
+                "c.jsonl"], None, "live endpoint"),
+    "supervise": (["--scheduler-policy", "tpu_batch", "--supervise"], None,
+                  "supervised runs"),
+    "shards": (["--scheduler-policy", "tpu_batch", "--shards", "2"], None,
+               "sharding"),
+    "device_transport": (["--scheduler-policy", "tpu_batch", "--set",
+                          "experimental.device_transport=true"], None,
+                         "device_transport"),
+    "mesh_shards": (["--scheduler-policy", "tpu_batch", "--set",
+                     "experimental.tpu_mesh_shards=4"], None,
+                    "tpu_mesh_shards"),
+    "pcap": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
+        "server"].update(pcap_enabled=True), "packet capture"),
+    "managed": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
+        "server"]["processes"][0].update(path="/bin/true"),
+        "managed native processes"),
+    "model": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
+        "server"]["processes"][0].update(
+            path="pyapp:shadow_tpu.models.gossip:GossipNode"),
+        "workload model 'gossip'"),
+    "no_card": (["--scheduler-policy", "tpu_batch", "--device", "cuda"],
+                None, "torch.cuda.is_available() is false"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_unported_features_are_refused_by_name(tmp_path, capsys, case):
+    extra, mutate, needle = REFUSALS[case]
+    if case == "no_card":
+        import torch
+
+        if torch.cuda.is_available():
+            pytest.skip("a card is present")
+    cfg = EX / "echo.yaml"
+    if mutate is not None:
+        cfg = tmp_path / "cfg.yaml"
+        cfg.write_text(yaml.safe_dump(_with(mutate)))
+    rc = port_cli.main([str(cfg), "--data-directory", str(tmp_path / "d"),
+                        "--quiet", *extra])
+    err = capsys.readouterr().err
+    assert rc == 2, err
+    assert err.startswith("shadow_tpu_torch: ") and needle in err, err
+    assert len(err.strip().splitlines()) == 1, err
+
+
+def test_fork_verb_is_refused(capsys):
+    assert port_cli.main(["fork", "examples/echo.yaml"]) == 2
+    assert "fork verb" in capsys.readouterr().err

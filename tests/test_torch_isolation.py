@@ -1,0 +1,68 @@
+"""shadow_tpu_torch stands alone: no module of the port, nor chip_smoke.py,
+imports jax or anything of the reference package shadow_tpu (the card
+machine has no JAX), and the port runs with both made unimportable."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "shadow_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "shadow_tpu")
+
+
+def _imported(path):
+    """Every absolute module name a file imports (any nesting level)."""
+    out = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            out.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.append(node.module)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            out.append(node.args[0].value)
+    return out
+
+
+def _forbidden(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(
+    p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [n for n in _imported(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_sees_forbidden_imports():
+    """The scan itself: it flags what it must and passes the port."""
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("shadow_tpu") and _forbidden("shadow_tpu.ops.prng")
+    assert not _forbidden("shadow_tpu_torch.ops.prng")
+
+
+def test_port_runs_with_jax_and_reference_blocked(tmp_path):
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['shadow_tpu'] = None\n"
+        "from shadow_tpu_torch.cli import main\n"
+        f"rc = main(['examples/echo.yaml', '--scheduler-policy', "
+        f"'tpu_batch', '--device', 'cpu', '--set', "
+        f"'experimental.tpu_device_floor=1', '--data-directory', "
+        f"{str(tmp_path / 'd')!r}, '--quiet'])\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'shadow_tpu.'))"
+        " for m, v in sys.modules.items() if v is not None), 'leak'\n"
+        "sys.exit(rc)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert (tmp_path / "d" / "hosts" / "client" / "client.log").exists()
