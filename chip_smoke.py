@@ -8,27 +8,50 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases, in order; any failure exits non-zero:
 
 1. device  — a CUDA card is visible; prints its name and power limit.
-2. build   — builds (or loads) the kernel library of shadow_tpu_torch/csrc
-             with nvcc; prints the seconds.
-3. kernels — each kernel against its plain PyTorch version on the same
+2. build   — builds (or loads) the kernel libraries of shadow_tpu_torch/csrc
+             with nvcc, one process per source, all at once; prints the
+             seconds.
+3. kernels — each draw kernel against its plain PyTorch version on the same
              inputs on the card, bit for bit (tolerance 0: integer math),
              over every bucket shape, ragged batch lengths, lane widths,
              thresholds and two seeds.
-4. echo    — examples/echo.yaml through the port's CLI on the card; its
+4. mesh kernels — mesh_exchange, mesh_round_step and mesh_scan against
+             their plain versions, bit for bit, over N in {1, 2, 8} shards,
+             m in the four exchange buckets with w at each, C in {256,
+             2048}, K in {1, 8, 32}, two seeds (one above 2**32), a
+             destination-skewed window, blackholed (rok = 0) units, the
+             uint64 edge of the bucket math, need <= 0 rows and saturating
+             rebases.
+5. echo    — examples/echo.yaml through the port's CLI on the card; its
              output tree must equal the reference's (constant below).
-5. main    — examples/tgen_1k.yaml under tpu_batch through the port's CLI
+6. main    — examples/tgen_1k.yaml under tpu_batch through the port's CLI
              on the card, once with tpu_device_floor=1 (every draw window
              on the card) and once as a user runs it (auto floor); both
              must give the reference's counts and output tree. Kernel
              launch counts are reset just before and read just after: every
              kernel must have launched. The floor-1 run keeps a copy of
              every window it hands draw_flags.
-6. timing  — both kernels and their plain versions timed on those windows
-             (the run's own traffic): card time per launch, with the bound
-             for the same work.
-7. trace   — examples/tgen_100host.yaml at tpu_device_floor=1 under
-             torch.profiler; its counts and output tree must equal the
-             reference's. Prints the card's busy share of the run's wall
+7. mesh path — examples/tgen_1k.yaml under tpu_mesh, once at
+             tpu_mesh_floor=0 (every causal window through mesh_exchange)
+             and once as a user runs it (default floor); the same counts
+             and tree again. Launch counts reset before, read after:
+             mesh_exchange must have launched once per window formed.
+             Nothing wraps the program in these two runs; a third floor-0
+             run, untimed, keeps a copy of every exchange window and the
+             columns of every barrier batch.
+8. mesh standalone — the standalone round API (MeshDataPlane.round_step
+             and scan_rounds) at tgen_1k's size (1,000 hosts, 2,048 unit
+             slots, K up to 32) on that run's own barrier batches, in
+             order, the bucket state carried through all of them; 64
+             round_steps and a sample of scans held against the plain
+             versions; launch counts reset before, read after.
+9. timing  — every kernel and its plain version timed on the main paths'
+             own inputs: card time per launch, with the bound for the same
+             work.
+10. trace  — examples/tgen_100host.yaml under torch.profiler, at
+             tpu_device_floor=1 under tpu_batch and at tpu_mesh_floor=0
+             under tpu_mesh; counts and output tree must equal the
+             reference's. Prints the card's busy share of each run's wall
              time and device time by kernel/copy name (a profiler that
              cannot trace the card is reported; the run's own failures
              are not caught).
@@ -52,6 +75,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -83,12 +107,27 @@ PEAK_INT32_OPS_PER_S = 67e12 / 4
 #: counter's shift and OR, and the draw's shift and compare (or min)
 OPS_PER_LANE = 20 * 3 + 5 * 2 + 1 + 2 + 2
 
+#: kernel -> (its source, the TPU program it replaces, the CUDA kernels
+#: one wrapper call launches, as torch.profiler names them)
 PLAN = {
     "draw_flags": ("shadow_tpu_torch/csrc/draw.cu",
-                   "shadow_tpu/ops/propagate.py:85"),
+                   "shadow_tpu/ops/propagate.py:85", ("draw_flags_kernel",)),
     "min_draw": ("shadow_tpu_torch/csrc/draw.cu",
-                 "shadow_tpu/ops/propagate.py:58"),
+                 "shadow_tpu/ops/propagate.py:58", ("min_draw_kernel",)),
+    "mesh_exchange": ("shadow_tpu_torch/csrc/mesh.cu",
+                      "shadow_tpu/parallel/mesh.py:222",
+                      ("mesh_send_kernel", "mesh_recv_kernel")),
+    "mesh_round_step": ("shadow_tpu_torch/csrc/mesh.cu",
+                        "shadow_tpu/parallel/mesh.py:103",
+                        ("mesh_round_step_kernel", "mesh_reduce_kernel")),
+    "mesh_scan": ("shadow_tpu_torch/csrc/mesh.cu",
+                  "shadow_tpu/parallel/mesh.py:202",
+                  ("mesh_scan_kernel", "mesh_reduce_kernel")),
 }
+#: the exchange buckets (MeshDataPlane.EXCHANGE_BUCKETS)
+MESH_BUCKETS = (256, 1024, 4096, 16384)
+#: MAX_RATE of network/fluid.py: the uint64 edge of the bucket math
+MAX_RATE = 16_000_000_000
 
 
 def phase(name: str) -> None:
@@ -108,7 +147,7 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-# -- phase 3: kernels against their plain versions -----------------------------
+# -- phase 3: kernels against their plain versions ----------------------------
 
 def sweep_inputs(rng, p: int, rows: int):
     """(rows, p) uint32 inputs covering the edge cases: npkts in
@@ -191,7 +230,162 @@ def check_kernels(torch, np, prop, dev) -> dict:
     return err
 
 
-# -- phase 5: the main path, with its draw windows kept ------------------------
+# -- phase 4: mesh kernels against their plain versions -----------------------
+
+def same(torch, got, want, what: str) -> int:
+    """Largest absolute difference between two tuples of int64 tensors;
+    fails unless they are equal in shape, dtype and every value."""
+    err = 0
+    for a, b in zip(got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"{what}: {tuple(a.shape)} {a.dtype} != plain "
+                 f"{tuple(b.shape)} {b.dtype}")
+        if a.numel():
+            err = max(err, int((a - b).abs().max()))
+        if not torch.equal(a, b):
+            fail(f"{what}: differs from the plain version (max abs err "
+                 f"{err})")
+    return err
+
+
+def exchange_inputs(np, rng, n: int, m: int, skew: bool):
+    """(6, n, m) int64 exchange input: destinations over 1,000 hosts (all
+    on shard 0 when ``skew``), arrival times, 64-bit uids, npkts in
+    [-1, 12], thresholds {0, 1, 16106, 2**24} and random, 3/4 valid."""
+    u = np.zeros((6, n, m), np.int64)
+    u[0] = rng.integers(0, 1000, (n, m)) * (n if skew else 1)
+    u[1] = rng.integers(0, 1 << 40, (n, m))
+    u[2] = rng.integers(0, 1 << 58, (n, m))
+    u[3] = rng.integers(-1, 13, (n, m))
+    u[4] = np.where(rng.random((n, m)) < 0.7,
+                    rng.choice(np.array([0, 1, 16106, 1 << 24]), (n, m)),
+                    rng.integers(0, 1 << 24, (n, m)))
+    u[5] = rng.random((n, m)) < 0.75
+    return u
+
+
+def round_tables(np, rng, n: int, h: int = 1000, g: int = 32):
+    """(host_node, latency_ns, drop_thresh, rate, cap) for h hosts padded
+    to a multiple of n, every seventh host at MAX_RATE (the uint64 edge)."""
+    hs = -(-h // n)
+    hp = hs * n
+    lat = rng.integers(1_000_000, 60_000_000, (g, g))
+    th = np.where(rng.random((g, g)) < 0.5, 0,
+                  rng.choice(np.array([1, 16106, 1 << 24]), (g, g)))
+    rate = rng.integers(125_000, MAX_RATE, hp)
+    rate[::7] = MAX_RATE
+    cap = np.maximum(16384, rate * 2_000_000 // 10 ** 9)
+    cap = np.minimum(cap, (1 << 31) - 2)
+    return (rng.integers(0, g, hp), lat, th, rate, cap), hs
+
+
+def round_state(np, rng, tables, n: int, hs: int, t_now: int):
+    """(3, n, hs) bucket state mixing, host by host: the uint64 edge (a
+    refill interval ending at a second's last nanosecond; debt making
+    need = k * rate + rate - 1 for a 60-byte first unit), full buckets
+    (need <= 0), idle ones (a saturating rebase) and random state."""
+    rate = tables[3].reshape(hs, n).T
+    cap = tables[4].reshape(hs, n).T
+    st = np.zeros((3, n, hs), np.int64)
+    case = rng.integers(0, 4, (n, hs))
+    case[rate == MAX_RATE] = 0
+    for s_, j in zip(*np.nonzero(case == 0)):
+        st[0, s_, j] = t_now - (3 * 10 ** 9 + 10 ** 9 - 1)
+        st[2, s_, j] = 11 * rate[s_, j] + rate[s_, j] - 1 - 60
+    full = case == 1
+    st[0][full], st[1][full] = t_now, cap[full]
+    idle = case == 2
+    st[0][idle], st[1][idle] = t_now - 50 * 10 ** 9, cap[idle] // 3
+    rnd = case == 3
+    st[0][rnd] = t_now - rng.integers(0, 3 * 10 ** 9, int(rnd.sum()))
+    st[1][rnd] = rng.integers(0, cap[rnd])
+    st[2][rnd] = rng.integers(0, 4 * cap[rnd])
+    return st
+
+
+def round_units(np, rng, n: int, hs: int, c: int, t_now: int):
+    """(6, n, c) int64 round input: per shard a random count of src-sorted
+    units (the first ones 60 bytes, the rest up to 15,000), padding
+    (src_l == hs) last, one unit in ten blackholed (rok = 0)."""
+    u = np.zeros((6, n, c), np.int64)
+    u[0] = hs
+    for s_ in range(n):
+        k = int(rng.integers(0, c + 1))
+        u[0, s_, :k] = np.sort(rng.integers(0, hs, k))
+        u[0, s_, :min(k, 1)] = 0  # shard 0's host 0 runs at MAX_RATE
+    u[1] = rng.integers(0, hs * n, (n, c))
+    u[2] = rng.integers(40, 15001, (n, c))
+    u[2, :, :2] = 60
+    u[3] = t_now + rng.integers(0, 2_000_000, (n, c))
+    u[4] = rng.integers(0, 1 << 58, (n, c))
+    u[5] = rng.random((n, c)) < 0.9
+    return u
+
+
+def check_mesh_kernels(torch, np, mesh, dev) -> dict:
+    """Every mesh kernel against its plain version on the card over the
+    sweep of the module docstring. Returns the largest absolute error per
+    kernel (the tolerance is 0)."""
+    rng = np.random.default_rng(20261018)
+    seeds = (2, (1 << 32) + 0xDEADBEEF)  # one key word, then both
+    err = {k: 0 for k in mesh.LAUNCHES}
+    n_cmp = 0
+    for n in (1, 2, 8):
+        for m in MESH_BUCKETS:
+            for skew in (False, True):
+                x = torch.from_numpy(exchange_inputs(np, rng, n, m,
+                                                     skew)).to(dev)
+                for w in sorted({min(n * m, b) for b in MESH_BUCKETS}):
+                    for seed in seeds:
+                        got = mesh.mesh_exchange(x, seed, 10, w)
+                        want = mesh.exchange_rounds_plain(x, seed, 10, w)
+                        err["mesh_exchange"] = max(err["mesh_exchange"], same(
+                            torch, got, want, f"mesh_exchange n={n} m={m} "
+                            f"w={w} seed={seed} skew={skew}"))
+                        n_cmp += 1
+    for n in (1, 2, 8):
+        tabs, hs = round_tables(np, rng, n)
+        tables = tuple(torch.from_numpy(np.asarray(t, np.int64)).to(dev)
+                       for t in tabs)
+        t0 = 40 * 10 ** 9
+        for c in (256, 2048):
+            state = torch.from_numpy(round_state(np, rng, tabs, n, hs,
+                                                 t0)).to(dev)
+            for seed in seeds:
+                st, t_now = state, t0
+                for rnd in range(3):  # stateful: the kernel's state carries
+                    units = torch.from_numpy(round_units(
+                        np, rng, n, hs, c, t_now)).to(dev)
+                    got = mesh.mesh_round_step(st, units, tables, t_now,
+                                               seed, 10)
+                    want = mesh.round_step_plain(st, units, tables, t_now,
+                                                 seed, 10)
+                    err["mesh_round_step"] = max(
+                        err["mesh_round_step"], same(
+                            torch, got, want, f"mesh_round_step n={n} c={c} "
+                            f"seed={seed} round={rnd}"))
+                    st = got[1]
+                    t_now += 3 * 10 ** 9 + 10 ** 9 - 1
+                    n_cmp += 1
+                for k in (1, 8, 32):
+                    units = torch.from_numpy(np.stack([round_units(
+                        np, rng, n, hs, c, t0 + j * 2_000_000)
+                        for j in range(k)])).to(dev)
+                    t_nows = torch.arange(k, device=dev) * 2_000_000 + t0
+                    got = mesh.mesh_scan(state, units, tables, t_nows, seed,
+                                         10)
+                    want = mesh.scan_rounds_plain(state, units, tables,
+                                                  t_nows, seed, 10)
+                    err["mesh_scan"] = max(err["mesh_scan"], same(
+                        torch, got, want, f"mesh_scan n={n} c={c} k={k} "
+                        f"seed={seed}"))
+                    n_cmp += 1
+    print(f"{n_cmp} mesh kernel/plain comparisons, all bit-identical",
+          flush=True)
+    return err
+
+
+# -- phase 6: the main path, with its draw windows kept -----------------------
 
 @contextlib.contextmanager
 def recording_windows(prop):
@@ -240,13 +434,245 @@ def window_mix(torch, prop, windows) -> dict:
                                          True)}
 
 
-# -- phase 6: kernel times on the main path's windows --------------------------
+# -- phases 7 and 8: the mesh path and the standalone round API ---------------
+
+@contextlib.contextmanager
+def recording_exchanges(mesh):
+    """Keep a device copy of every (6, N, m) window MeshDataPlane hands the
+    mesh_exchange wrapper while the block runs, with its seed, width and
+    w. The copy is made around the wrapper, so its launch count is
+    untouched."""
+    windows = []
+    wrapper = mesh.mesh_exchange
+
+    def record(units, seed, max_pkts, w):
+        out = wrapper(units, seed, max_pkts, w)
+        windows.append((units.clone(), seed, max_pkts, w))
+        return out
+
+    mesh.mesh_exchange = record
+    try:
+        yield windows
+    finally:
+        mesh.mesh_exchange = wrapper
+
+
+@contextlib.contextmanager
+def recording_barriers():
+    """Keep the columns (t_now, src, dst, size, t_emit, uid, rok) of every
+    barrier batch the mesh plane's runs form after bootstrap while the block
+    runs, in order: what MeshDataPlane.round_step would take for that round
+    (rok: the unit's route is not blackholed)."""
+    import numpy as np
+
+    from shadow_tpu_torch.network.colplane import ColumnarPlane
+    from shadow_tpu_torch.network.graph import INF_I64
+
+    barriers = []
+    vector = ColumnarPlane._barrier_vector
+
+    def record(self, rows, segs, round_start, round_end, uids_l=None):
+        if self.mesh_plane is not None and round_start >= self.bootstrap_end:
+            src, dst, size, t_emit, uid = self._batch_columns(rows, segs,
+                                                              uids_l)
+            p = self.params
+            rok = self.graph.latency_ns[p.host_node[src],
+                                        p.host_node[dst]] < INF_I64
+            barriers.append((int(round_start), src, dst, size, t_emit,
+                             uid.astype(np.int64), rok))
+        return vector(self, rows, segs, round_start, round_end, uids_l)
+
+    ColumnarPlane._barrier_vector = record
+    try:
+        yield barriers
+    finally:
+        ColumnarPlane._barrier_vector = vector
+
+
+def traffic_mix(np, windows, barriers) -> dict:
+    """What the recorded floor-0 run hands the mesh kernels: units per
+    exchange window, and units, sizes and blackholed share per barrier."""
+    per_window = [int((u[5] != 0).sum()) for u, _, _, _ in windows]
+    per_barrier = np.array([len(b[1]) for b in barriers])
+    sizes = np.concatenate([b[3] for b in barriers])
+    rok = np.concatenate([b[6] for b in barriers])
+    vals, counts = np.unique(sizes, return_counts=True)
+    top = np.argsort(-counts)[:6]
+    return {
+        "windows": len(windows), "window_units": sum(per_window),
+        "units_a_window": sum(per_window) / max(1, len(windows)),
+        "largest_window": max(per_window, default=0),
+        "buckets": sorted({u.shape[2] for u, _, _, _ in windows}),
+        "barriers": len(barriers), "barrier_units": int(per_barrier.sum()),
+        "units_a_barrier": float(per_barrier.mean()),
+        "largest_barrier": int(per_barrier.max()),
+        "size_top": {int(vals[i]): int(counts[i]) for i in top},
+        "size_15000_share": float((sizes == 15000).mean()),
+        "blackholed_share": float(1 - rok.mean())}
+
+
+def mesh_path(cli, mesh, digest, tmp: str, device: str = "cuda") -> tuple:
+    """tgen_1k under tpu_mesh at floor 0 and at the default floor, checked
+    against the reference, with nothing around the program; then a third,
+    untimed floor-0 run that records every exchange window and every
+    barrier batch. Returns (launches of the first two runs, the windows,
+    the barriers)."""
+    mesh.reset_launches()
+    runs = {}
+    for label, extra in (("floor0", ["--set",
+                                     "experimental.tpu_mesh_floor=0"]),
+                         ("default", [])):
+        d = os.path.join(tmp, f"tgen_1k_mesh_{label}")
+        argv = [str(EXAMPLES / "tgen_1k.yaml"), "--scheduler-policy",
+                "tpu_mesh", "--device", device, "--data-directory", d]
+        t0 = time.perf_counter()
+        s = run_cli(cli, argv + extra)
+        wall = time.perf_counter() - t0
+        check_run(s, d, digest, TGEN1K_COUNTS, TGEN1K_TREE_DIGEST,
+                  f"tgen_1k tpu_mesh ({label})")
+        runs[label] = s
+        pw = s["phase_wall"]
+        mesh_keys = {k: v for k, v in pw.items() if k.startswith("mesh_")}
+        print(f"tgen_1k tpu_mesh ({label}): counts and tree match the "
+              f"reference; wall {wall:.3f} s (controller "
+              f"{s['wall_seconds']:.3f} s), "
+              f"{s['sim_sec_per_wall_sec']:.3f} sim-s/wall-s, "
+              f"{pw['mesh_windows']} windows; {json.dumps(mesh_keys)}; "
+              f"phase_wall {json.dumps(pw)}", flush=True)
+    launches = dict(mesh.LAUNCHES)
+    print(f"launches on the mesh path: {json.dumps(launches)}", flush=True)
+    formed = runs["floor0"]["phase_wall"]["mesh_windows"]
+    if formed <= 0:
+        fail("the floor-0 tpu_mesh run formed no exchange window")
+    if launches["mesh_exchange"] < formed:
+        fail(f"mesh_exchange launched {launches['mesh_exchange']} times, "
+             f"fewer than the {formed} windows the floor-0 run formed")
+    d = os.path.join(tmp, "tgen_1k_mesh_recorded")
+    with recording_exchanges(mesh) as windows, \
+            recording_barriers() as barriers:
+        s = run_cli(cli, [str(EXAMPLES / "tgen_1k.yaml"),
+                          "--scheduler-policy", "tpu_mesh", "--device",
+                          device, "--data-directory", d, "--set",
+                          "experimental.tpu_mesh_floor=0"])
+    check_run(s, d, digest, TGEN1K_COUNTS, TGEN1K_TREE_DIGEST,
+              "tgen_1k tpu_mesh (floor0, recorded)")
+    pw = s["phase_wall"]
+    print(f"tgen_1k tpu_mesh (floor0, recorded, untimed): controller "
+          f"{s['wall_seconds']:.3f} s, {s['sim_sec_per_wall_sec']:.3f} "
+          f"sim-s/wall-s, mesh_* "
+          f"{pw['mesh_build'] + pw['mesh_dispatch'] + pw['mesh_readback']:.4f}"
+          f" s (the recording's cost shows against the floor0 run above)",
+          flush=True)
+    if len(windows) != formed or not barriers:
+        fail(f"the recorded floor-0 run kept {len(windows)} windows (the "
+             f"timed run formed {formed}) and {len(barriers)} barriers")
+    import numpy as np
+
+    print(f"floor-0 traffic (recorded run, untimed): "
+          f"{json.dumps(traffic_mix(np, windows, barriers))}", flush=True)
+    return launches, windows, barriers
+
+
+def mesh_standalone(torch, np, mesh, barriers, tmp: str,
+                    device: str = "cuda", picks: int = 64,
+                    scans_kept: int = 8) -> dict:
+    """MeshDataPlane.round_step and scan_rounds at tgen_1k's size, fed the
+    floor-0 run's own barrier batches in order, the bucket state carried
+    from the first to the last. ``picks`` barriers spread over the run go
+    through round_step, the runs of barriers between them through
+    scan_rounds (7 barriers, then 1, then groups of up to 32; padded to K
+    in {1, 8, 32}). Every
+    round_step, the first group of each K and ``scans_kept`` K=32 groups
+    spread over the run are held against the plain versions. Returns the
+    launches, the largest absolute errors, the checked rounds and K=32
+    groups (for timing), and the plane."""
+    from shadow_tpu_torch.config import load_config
+    from shadow_tpu_torch.core.controller import Controller
+
+    cfg = load_config(str(EXAMPLES / "tgen_1k.yaml"), {
+        "experimental.scheduler_policy": "tpu_mesh",
+        "general.data_directory": os.path.join(tmp, "standalone")})
+    ctrl = Controller(cfg, mirror_log=False, device=device)
+    plane = ctrl.engine.mesh_plane  # the run's own plane: tgen_1k's params
+    print(f"standalone plane: {plane.params.rate_up.shape[0]} hosts, "
+          f"{plane.n_shards} shard(s) of {plane.hs}, "
+          f"{plane.units_per_shard} unit slots; {len(barriers)} barriers",
+          flush=True)
+    seed, mp, tables = plane._seed, plane._max_pkts, plane._tables
+    err = {"mesh_round_step": 0, "mesh_scan": 0}
+    rounds, scans, seen_k = [], [], set()
+    total = len(barriers)
+    pick = set(evenly(list(range(total)), picks))
+    pad = np.stack(plane.shard_units_np([], [], [], [], []))
+    caps = [7, 1]  # the first two groups: K = 8 with a padding round, K = 1
+    mesh.reset_launches()
+    i = 0
+    while i < total:
+        if i in pick:
+            t_now, *cols = barriers[i]
+            units = plane.shard_units(*cols)
+            before = plane.state.clone()
+            recv, g_min, counters = plane.round_step(units, t_now)
+            want = mesh.round_step_plain(before, units, tables, t_now, seed,
+                                         mp)
+            got = (torch.from_numpy(recv).to(units.device), plane.state,
+                   torch.tensor([g_min], device=units.device),
+                   torch.from_numpy(counters).to(units.device))
+            err["mesh_round_step"] = max(err["mesh_round_step"], same(
+                torch, got, want, f"MeshDataPlane.round_step barrier {i}"))
+            rounds.append((before, units, t_now))
+            i += 1
+            continue
+        cap = caps.pop(0) if caps else plane.SCAN_KMAX
+        j = i
+        while j < total and j - i < cap and j not in pick:
+            j += 1
+        part = [(plane.shard_units_np(*cols), t) for t, *cols in
+                barriers[i:j]]
+        k_real = j - i
+        k = 1 if k_real == 1 else (8 if k_real <= 8 else plane.SCAN_KMAX)
+        keep = k == plane.SCAN_KMAX and i >= len(scans) * total / scans_kept
+        check = keep or k not in seen_k
+        before = plane.state.clone() if check else None
+        got = plane.scan_rounds(part)
+        if check:
+            dev = before.device
+            units = torch.from_numpy(np.stack(
+                [np.stack(c[0]) for c in part] + [pad] * (k - k_real))).to(
+                dev)
+            t_nows = torch.tensor([c[1] for c in part] + [part[-1][1]]
+                                  * (k - k_real), device=dev)
+            want = mesh.scan_rounds_plain(before, units, tables, t_nows,
+                                          seed, mp)
+            err["mesh_scan"] = max(err["mesh_scan"], same(
+                torch, (torch.from_numpy(np.stack(got)).to(dev),
+                        plane.state), (want[0][:k_real], want[1]),
+                f"MeshDataPlane.scan_rounds K={k} from barrier {i}"))
+            seen_k.add(k)
+            if keep:
+                scans.append((before, units, t_nows))
+        i = j
+    launches = dict(mesh.LAUNCHES)
+    print(f"launches on the standalone round API: {json.dumps(launches)}; "
+          f"checked {len(rounds)} round_steps and scans of K in "
+          f"{sorted(seen_k)} ({len(scans)} K=32 groups kept)", flush=True)
+    for name in ("mesh_round_step", "mesh_scan"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was never launched by the standalone "
+                 f"round API")
+    if not scans:
+        fail("the standalone round API formed no K=32 scan group")
+    return {"launches": launches, "err": err, "rounds": rounds,
+            "scans": scans, "ctx": (seed, mp, tables), "plane": plane}
+
+
+# -- phase 9: kernel times on the main paths' inputs --------------------------
 
 def lanes_needed(torch, prop, x, key, width: int, early_exit: bool) -> int:
     """Threefry evaluations the kernel needs for these inputs: every lane
     below min(npkts, width) for min_draw; for draw_flags only units with a
     threshold, up to and including the first lane that drops the unit."""
-    draws, valid = prop._lane_draws(x, key, width)
+    draws, valid = prop._packed_draws(x, key, width)
     lanes = valid.sum(dim=1)
     if not early_exit:
         return int(lanes.sum())
@@ -367,10 +793,10 @@ def profiled(torch, fn):
     return result, device
 
 
-def profiler_ms(torch, calls: list, kernel: str):
-    """Cross-check of card_ms: device time per launch of the CUDA kernel
-    named ``kernel`` as torch.profiler saw it, or None (with what it did
-    see) when it saw no launch of it."""
+def profiler_ms(torch, calls: list, kernels: tuple):
+    """Cross-check of card_ms: device time per call of the CUDA kernels
+    named in ``kernels`` (each call launches one of each) as torch.profiler
+    saw them, or None (with what it did see) when it saw no launch."""
     def run():
         for fn in calls:
             fn()
@@ -378,16 +804,17 @@ def profiler_ms(torch, calls: list, kernel: str):
     _, device = profiled(torch, run)
     if device is None:
         return None
-    mine = [us for name, us in device if kernel in name]
+    mine = [us for name, us in device if any(k in name for k in kernels)]
     if not mine:
         names = sorted({name[:50] for name, _ in device})
-        print(f"  torch.profiler saw no {kernel} in {len(device)} device "
+        print(f"  torch.profiler saw no {kernels} in {len(device)} device "
               f"events ({len(calls)} calls); it saw {names}", flush=True)
         return None
-    if len(mine) != len(calls):
-        print(f"  torch.profiler saw {len(mine)} of {len(calls)} {kernel} "
-              f"launches", flush=True)
-    return sum(mine) / len(mine) / 1e3
+    want = len(calls) * len(kernels)
+    if len(mine) != want:
+        print(f"  torch.profiler saw {len(mine)} of {want} launches of "
+              f"{kernels}", flush=True)
+    return sum(mine) / len(mine) * len(kernels) / 1e3
 
 
 def evenly(items: list, k: int) -> list:
@@ -426,7 +853,7 @@ def measure(torch, prop, name: str, inputs: list, key, width: int,
         "ms": card_ms(torch, calls, rate),
         # the plain version is about 220 small kernels a call
         "plain_ms": card_ms(torch, plain_calls, rate, chunk=2),
-        "profiler_ms": profiler_ms(torch, calls, f"{name}_kernel"),
+        "profiler_ms": profiler_ms(torch, calls, PLAN[name][2]),
         "launch_ms": host_ms(torch, calls),
         "plain_launch_ms": host_ms(torch, plain_calls),
         "dispatch_read_ms": host_ms(torch, trips),
@@ -489,6 +916,163 @@ def time_kernels(torch, prop, windows) -> dict:
     return {"draw_flags": rows, "min_draw": mins}
 
 
+def mesh_lanes(torch, prop, uid, lanes, th, seed: int, width: int) -> int:
+    """Threefry evaluations the mesh kernels need for these units (int64
+    tensors): for each unit with a threshold, its lanes below
+    min(lanes, width) up to and including the first that drops it (the
+    kernels' early exit)."""
+    m32 = 0xFFFFFFFF
+    draws, valid = prop._lane_draws(uid & m32, (uid >> 32) & m32, lanes,
+                                    (seed & m32, (seed >> 32) & m32), width)
+    hit = (draws < th[:, None]) & valid
+    first = torch.where(hit.any(1), hit.to(torch.int32).argmax(1) + 1,
+                        valid.sum(1))
+    return int(torch.where(th > 0, first, torch.zeros_like(first)).sum())
+
+
+def exchange_work(torch, prop, units, seed: int, width: int, w: int) -> tuple:
+    """(bytes, operations) of one mesh_exchange call. Bytes: the valid
+    column of every one of the (N, m) slots, the other five fields of the
+    valid units only, the (N, w, 4) table and g_min written once.
+    Operations: 75 per threefry lane its valid units need."""
+    n, m = units.shape[1:]
+    ok = units[5] != 0
+    n_ok = int(ok.sum())
+    lanes = torch.clamp(units[3][ok], max=width) & 0xFFFFFFFF
+    nbytes = n * m * 8 + 5 * 8 * n_ok + n * w * 32 + 8
+    return nbytes, OPS_PER_LANE * mesh_lanes(
+        torch, prop, units[2][ok], lanes, units[4][ok] & 0xFFFFFFFF, seed,
+        width)
+
+
+def round_work(torch, prop, state, units_k, tables, seed: int,
+               width: int) -> tuple:
+    """(bytes, operations) of K rounds in one call on (K, 6, N, C) units,
+    the bucket state carried. Bytes: the state and every host's rate and
+    cap read once and the state written once (the rebase touches every
+    host); every slot's src_l column and the other five fields of the
+    units in use (src_l < Hs); the table entries the routed units gather
+    (host_node of their sources and destinations, latency and threshold of
+    their node pairs), each distinct entry once; the (K, N, N, C, 4)
+    tables, K g_min and K counter pairs written once. Operations: 75 per
+    threefry lane the routed units need (thresholds gathered as the kernel
+    does)."""
+    host_node, _lat, thresh = tables[:3]
+    k, _, n, c = units_k.shape
+    hs = state.shape[2]
+    h_pad = host_node.shape[0]
+    src_l, dst_g, size, _te, uid, rok = units_k.unbind(1)
+    used = src_l < hs
+    route = used & (rok != 0)
+    shard = torch.arange(n, device=units_k.device)[:, None]
+    src_g = (torch.clamp(src_l, max=hs - 1) * n + shard)[route]
+    dst_g = torch.clamp(dst_g[route], max=h_pad - 1)
+    sn, dn = host_node[src_g], host_node[dst_g]
+    g = thresh.shape[0]
+    nbytes = (2 * state.numel() + 2 * h_pad) * 8 \
+        + k * n * c * 8 + 5 * 8 * int(used.sum()) \
+        + 8 * int(torch.unique(torch.cat([src_g, dst_g])).numel()) \
+        + 16 * int(torch.unique(sn * g + dn).numel()) \
+        + k * (n * n * c * 32 + 24)
+    npk = torch.clamp(-((-size) // 1500), min=1, max=width)
+    return nbytes, OPS_PER_LANE * mesh_lanes(
+        torch, prop, uid[route], npk[route], thresh[sn, dn] & 0xFFFFFFFF,
+        seed, width)
+
+
+def measure_mesh(torch, name: str, calls: list, plain_calls: list,
+                 nbytes: float, ops: float, rate: float, what: str) -> dict:
+    """One row of the timing table for a mesh kernel: card time per call
+    (queued behind a spin kernel), the profiler's, the plain version's,
+    the host's launch cost, and the bound for ``nbytes`` and ``ops`` a
+    call."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    row = {
+        "inputs": what, "calls": len(calls),
+        "ms": card_ms(torch, calls, rate),
+        # the plain version is hundreds of small kernels a call (thousands
+        # for a K-round scan, past the CUDA launch queue), so it is
+        # timed back to back with the host's launch cost included
+        "plain_ms": host_ms(torch, plain_calls, reps=5),
+        "profiler_ms": profiler_ms(torch, calls, PLAN[name][2]),
+        "launch_ms": host_ms(torch, calls),
+        "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"  {name} {what} x{row['calls']}: card {row['ms']:.6f} ms "
+          f"(profiler {row['profiler_ms']}), plain with host launch "
+          f"{row['plain_ms']:.6f} ms, kernel with host launch "
+          f"{row['launch_ms']:.6f} ms, bound "
+          f"{row['bound_ms']:.9f} ms ({row['bound_by']})", flush=True)
+    return row
+
+
+def time_mesh_kernels(torch, np, prop, mesh, windows, rounds, scans, ctx,
+                      plane) -> dict:
+    """mesh_exchange on 64 of the floor-0 run's windows spread over the run
+    (the headline; a row per bucket when the run used several), with the
+    host's whole MeshDataPlane.exchange_rounds of the same windows beside
+    it; mesh_round_step on the standalone phase's rounds and mesh_scan on
+    its K = 32 groups (the run's own barriers)."""
+    rate = spin_rate(torch)
+    seed, width, tables = ctx
+    out = {"mesh_exchange": [], "mesh_round_step": [], "mesh_scan": []}
+    buckets = sorted({u.shape[2] for u, _, _, _ in windows})
+    groups = [("run windows", evenly(windows, 64))] + [
+        (f"m={m}", evenly([x for x in windows if x[0].shape[2] == m], 64))
+        for m in (buckets if len(buckets) > 1 else ())]
+    for what, sel in groups:
+        work = [exchange_work(torch, prop, u, s_, mp, w)
+                for u, s_, mp, w in sel]
+        row = measure_mesh(
+            torch, "mesh_exchange",
+            [lambda x=x: mesh.mesh_exchange(*x) for x in sel],
+            [lambda x=x: mesh.exchange_rounds_plain(*x) for x in sel],
+            sum(b for b, _ in work) / len(sel),
+            sum(o for _, o in work) / len(sel), rate,
+            f"{what} m={sorted({u.shape[2] for u, _, _, _ in sel})}")
+        arrs = []
+        for u, _, _, _ in sel:  # N = 1: the shard axis holds every unit
+            ok = (u[5, 0] != 0).cpu().numpy()
+            a = u[:5, 0].cpu().numpy()[:, ok]
+            arrs.append((np.zeros(a.shape[1], np.int64), *a))
+        row["plane_window_ms"] = host_ms(
+            torch, [lambda a=a: plane.exchange_rounds(*a) for a in arrs],
+            reps=5)
+        print(f"  MeshDataPlane.exchange_rounds of those windows (build, "
+              f"copy in, launch, wait, copy out): "
+              f"{row['plane_window_ms']:.6f} ms a window", flush=True)
+        out["mesh_exchange"].append(row)
+    work = [round_work(torch, prop, st, u[None], tables, seed, width)
+            for st, u, _ in rounds]
+    used = sum(int((u[0] < st.shape[2]).sum()) for st, u, _ in rounds)
+    out["mesh_round_step"].append(measure_mesh(
+        torch, "mesh_round_step",
+        [lambda r=r: mesh.mesh_round_step(r[0], r[1], tables, r[2], seed,
+                                          width) for r in rounds],
+        [lambda r=r: mesh.round_step_plain(r[0], r[1], tables, r[2], seed,
+                                           width) for r in rounds],
+        sum(b for b, _ in work) / len(rounds),
+        sum(o for _, o in work) / len(rounds), rate,
+        f"{len(rounds)} run barriers C={rounds[0][1].shape[-1]}, "
+        f"{used / len(rounds):.2f} units a round"))
+    work = [round_work(torch, prop, st, uk, tables, seed, width)
+            for st, uk, _ in scans]
+    k = scans[0][1].shape[0]
+    used = sum(int((uk[:, 0] < st.shape[2]).sum()) for st, uk, _ in scans)
+    out["mesh_scan"].append(measure_mesh(
+        torch, "mesh_scan",
+        [lambda g=g: mesh.mesh_scan(g[0], g[1], tables, g[2], seed, width)
+         for g in scans],
+        [lambda g=g: mesh.scan_rounds_plain(g[0], g[1], tables, g[2], seed,
+                                            width) for g in scans[:2]],
+        sum(b for b, _ in work) / len(scans),
+        sum(o for _, o in work) / len(scans), rate,
+        f"{len(scans)} groups of K={k} run barriers, "
+        f"{used / len(scans) / k:.2f} units a round"))
+    return out
+
+
 def dispatch_breakdown(torch, prop, window, dev, n: int = 200) -> dict:
     """Host wall microseconds per step of one DeviceDrawPlane.dispatch of
     ``window`` (the steps of DeviceDrawPlane._launch, each timed alone over
@@ -527,7 +1111,7 @@ def dispatch_breakdown(torch, prop, window, dev, n: int = 200) -> dict:
     return out
 
 
-# -- phases 4, 5, 7: the port's CLI on the card --------------------------------
+# -- phases 5, 6, 7, 10: the port's CLI on the card ---------------------------
 
 def run_cli(cli, argv: list) -> dict:
     """Run the port's CLI in this process; returns its JSON summary."""
@@ -553,32 +1137,37 @@ def check_run(summary: dict, data_dir: str, digest, counts, tree,
         fail(f"{what}: output tree {have} != reference {tree}")
 
 
-def trace_run(torch, cli, digest, tmp: str) -> None:
-    """Profile one device-heavy run (checked against the reference); print
-    the card's busy share."""
-    d = os.path.join(tmp, "trace")
+def trace_run(torch, cli, digest, tmp: str, policy: str = "tpu_batch") -> None:
+    """Profile one device-heavy run of tgen_100host under ``policy``
+    (tpu_batch at tpu_device_floor=1, tpu_mesh at tpu_mesh_floor=0),
+    checked against the reference; print the card's busy share."""
+    d = os.path.join(tmp, f"trace_{policy}")
+    knob = ("experimental.tpu_device_floor=1" if policy == "tpu_batch"
+            else "experimental.tpu_mesh_floor=0")
+    label = f"{policy} {knob.split('.')[1]}"
     t0 = time.perf_counter()
     s, device = profiled(torch, lambda: run_cli(cli, [
-        str(EXAMPLES / "tgen_100host.yaml"), "--scheduler-policy",
-        "tpu_batch", "--device", "cuda", "--set",
-        "experimental.tpu_device_floor=1", "--data-directory", d]))
+        str(EXAMPLES / "tgen_100host.yaml"), "--scheduler-policy", policy,
+        "--device", "cuda", "--set", knob, "--data-directory", d]))
     wall = time.perf_counter() - t0
     check_run(s, d, digest, TGEN100_COUNTS, TGEN100_TREE_DIGEST,
-              "tgen_100host (floor 1, profiled)")
-    if s["device"]["windows_dispatched"] <= 0:
-        fail("tgen_100host at floor 1 dispatched no window to the card")
+              f"tgen_100host ({label}, profiled)")
+    windows = (s["device"]["windows_dispatched"] if policy == "tpu_batch"
+               else s["phase_wall"]["mesh_windows"])
+    if windows <= 0:
+        fail(f"tgen_100host ({label}) sent no window to the card")
     if device is None:
-        print("trace: torch.profiler could not trace the card; busy share "
-              "not measured", flush=True)
+        print(f"trace ({label}): torch.profiler could not trace the card; "
+              f"busy share not measured", flush=True)
         return
     by_name: dict = {}
     for name, us in device:
         by_name[name] = by_name.get(name, 0.0) + us
     busy_s = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"trace: tgen_100host floor 1 under the profiler: counts and tree "
-          f"match the reference; wall {wall:.3f} s, "
-          f"{s['device']['windows_dispatched']} windows, device busy "
+    print(f"trace: tgen_100host {label} under the profiler: counts and "
+          f"tree match the reference; wall {wall:.3f} s, "
+          f"{windows} windows, device busy "
           f"{busy_s:.6f} s = {busy_s / wall:.6f} of wall "
           f"(idle {1 - busy_s / wall:.6f}); device us by name: "
           f"{json.dumps({k[:60]: round(v, 1) for k, v in top})}",
@@ -598,6 +1187,7 @@ def main() -> int:
         from shadow_tpu_torch import cli
         from shadow_tpu_torch.ops import devcfg
         from shadow_tpu_torch.ops import propagate as prop
+        from shadow_tpu_torch.parallel import mesh
         from shadow_tpu_torch.utils.digest import output_tree_digest
     except ImportError as exc:
         fail(f"cannot import the port (run from a checkout): {exc}")
@@ -610,14 +1200,20 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     phase("build")
-    built = not any(devcfg.BUILD.glob("libdraw-*.so"))
+    stems = ("draw", "mesh")
+    built = [st for st in stems
+             if not devcfg._lib_path(devcfg.CSRC / f"{st}.cu").exists()]
     t0 = time.perf_counter()
-    devcfg.kernel_lib("draw")
-    print(f"kernel_lib('draw') {'built' if built else 'loaded'} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    with ThreadPoolExecutor(max_workers=len(stems)) as pool:
+        list(pool.map(devcfg.kernel_lib, stems))  # one nvcc each, at once
+    print(f"kernel libraries {stems} ready in {time.perf_counter() - t0:.2f}"
+          f" s (built: {built or 'none, all loaded'})", flush=True)
 
     phase("kernels")
     max_err = check_kernels(torch, np, prop, dev)
+
+    phase("mesh kernels")
+    max_err.update(check_mesh_kernels(torch, np, mesh, dev))
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
 
@@ -676,20 +1272,37 @@ def main() -> int:
     mix = window_mix(torch, prop, windows)
     print(f"floor-1 windows: {json.dumps(mix)}", flush=True)
 
+    phase("mesh path")
+    mesh_launches, mesh_windows, barriers = mesh_path(
+        cli, mesh, output_tree_digest, tmp)
+    launches["mesh_exchange"] = mesh_launches["mesh_exchange"]
+
+    phase("mesh standalone")
+    sa = mesh_standalone(torch, np, mesh, barriers, tmp)
+    del barriers
+    for name in ("mesh_round_step", "mesh_scan"):
+        launches[name] = sa["launches"][name]
+        max_err[name] = max(max_err[name], sa["err"][name])
+
     phase("timing")
     timing = time_kernels(torch, prop, windows)
     dispatch_breakdown(torch, prop, max(windows, key=lambda w: w[0].shape[1]),
                        dev)
     del windows
+    timing.update(time_mesh_kernels(torch, np, prop, mesh, mesh_windows,
+                                    sa["rounds"], sa["scans"], sa["ctx"],
+                                    sa["plane"]))
+    del mesh_windows, sa
 
     phase("trace")
-    trace_run(torch, cli, output_tree_digest, tmp)
+    trace_run(torch, cli, output_tree_digest, tmp, "tpu_batch")
+    trace_run(torch, cli, output_tree_digest, tmp, "tpu_mesh")
     shutil.rmtree(tmp, ignore_errors=True)
 
     kernels = []
     for name, rows in timing.items():
         head = rows[0]  # the main path's own inputs
-        src, replaces = PLAN[name]
+        src, replaces, _ = PLAN[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],

@@ -4,7 +4,7 @@ The port of shadow_tpu/cli.py: the same flags and the same config files.
 Flags of features that are not ported yet are still parsed, so that the
 config load refuses them by name (exit 2) rather than argparse rejecting
 an unknown flag. ``--device {cuda,cpu}`` (default cuda) says where the
-loss-draw kernels run; ``cuda`` without a visible card is an error, never
+data-plane kernels run; ``cuda`` without a visible card is an error, never
 a silent CPU run.
 
 Usage:
@@ -102,8 +102,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="where the loss-draw kernels run (default cuda); cpu runs "
-        "their plain PyTorch versions",
+        help="where the data-plane kernels run (default cuda): the "
+        "loss-draw kernels under tpu_batch, the mesh kernels "
+        "(mesh_exchange, mesh_round_step, mesh_scan) under tpu_mesh; cpu "
+        "runs their plain PyTorch versions",
     )
     p.add_argument(
         "--set",

@@ -34,7 +34,7 @@ from shadow_tpu_torch.utils.units import parse_bandwidth, parse_size
 SCHEDULER_POLICIES = ("thread_per_core", "thread_per_host", "tpu_batch",
                       "tpu_mesh")
 #: the policies this package runs (the rest are refused by name)
-PORTED_POLICIES = ("tpu_batch",)
+PORTED_POLICIES = ("tpu_batch", "tpu_mesh")
 LOG_LEVELS = ("error", "warning", "info", "debug", "trace")
 #: congestion-control algorithms (network/transport.py
 #: CONGESTION_CONTROLS keys, duplicated here so config validation does
@@ -471,13 +471,15 @@ def refuse_unported(cfg: ConfigOptions) -> None:
     if e.scheduler_policy not in PORTED_POLICIES:
         _refuse(f"scheduler_policy {e.scheduler_policy} (ported: "
                 f"{', '.join(PORTED_POLICIES)}; pass --scheduler-policy "
-                f"tpu_batch)")
+                f"tpu_batch or tpu_mesh)")
     if e.device_transport:
         _refuse("experimental.device_transport: true (the device "
                 "transport kernel)")
-    if e.tpu_mesh_shards > 1:
+    if e.scheduler_policy == "tpu_batch" and e.tpu_mesh_shards > 1:
         _refuse("experimental.tpu_mesh_shards > 1 (draws sharded over "
                 "several devices)")
+    # under tpu_mesh, tpu_mesh_shards above the visible device count is
+    # refused where the device is known (network/devroute.py)
     if g.checkpoint_every is not None:
         _refuse("checkpoint/resume (general.checkpoint_every)")
     if g.live_endpoint is not None or g.replay_commands is not None:

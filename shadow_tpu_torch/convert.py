@@ -7,11 +7,18 @@ draw compares against. ``net_params_from_arrays`` builds the port's
 ``NetParams`` from those fields given as plain numpy arrays — e.g. the
 fields of a ``shadow_tpu.network.fluid.NetParams`` — so the tests can feed
 both packages the same state without this package importing the reference.
+
+``mesh_state_from_arrays`` carries the other state of the mesh data plane,
+its sharded egress bucket state (``t_base``, ``tokens``, ``debt``, each
+(N, Hs): row i = shard i's hosts), into the port's plane
+(``parallel.mesh.MeshDataPlane.set_state``), so two planes can start from
+the same state mid-run.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from shadow_tpu_torch.core.time import SimTime
 from shadow_tpu_torch.network.fluid import MAX_UNIT, NetParams
@@ -64,3 +71,18 @@ def net_params_from_arrays(d: dict, seed: int, round_ns: SimTime,
                 f"rates at round_ns={round_ns}, max_unit={max_unit}")
     built.drop_thresh = a["drop_thresh"].astype(np.uint32)
     return built
+
+
+def mesh_state_from_arrays(t_base, tokens, debt) -> torch.Tensor:
+    """The (3, N, Hs) int64 bucket state [t_base, tokens, debt] of a mesh
+    plane from three (N, Hs) integer arrays (numpy, or anything
+    ``np.asarray`` reads, such as a reference plane's sharded arrays)."""
+    a = [np.asarray(x) for x in (t_base, tokens, debt)]
+    for name, x in zip(("t_base", "tokens", "debt"), a):
+        if not np.issubdtype(x.dtype, np.integer):
+            raise ValueError(f"mesh_state_from_arrays: {name} must be an "
+                             f"integer array, got {x.dtype}")
+        if x.ndim != 2 or x.shape != a[0].shape:
+            raise ValueError("mesh_state_from_arrays: t_base, tokens and "
+                             "debt must all be (N, Hs)")
+    return torch.from_numpy(np.stack(a).astype(np.int64))

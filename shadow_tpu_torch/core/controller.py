@@ -21,7 +21,8 @@ event (or the earliest event an in-flight draw batch can produce) — idle
 sim time costs nothing (the closed-form token buckets account elapsed time
 exactly, so results are identical to grinding through empty rounds).
 
-``device`` ("cuda" or "cpu") is where the loss-draw kernels run. The
+``device`` ("cuda" or "cpu") is where the data-plane kernels run (the
+loss draws under tpu_batch, the mesh programs under tpu_mesh). The
 reference's faults, telemetry, live plane, checkpoints, supervision,
 sharding and managed processes are refused at config load
 (config/schema.py::refuse_unported).
@@ -137,11 +138,14 @@ class Controller:
         # events), not O(all hosts). A host (re)activates on its queue's
         # empty->nonempty edge.
         self._active: set = set()  # host IDS (ints sort at C speed)
-        # tpu_batch runs the array-native columnar plane with its loss
-        # draws on the device (network/colplane.py)
+        # the tpu policies run the array-native columnar plane
+        # (network/colplane.py): tpu_batch with its loss draws on the
+        # device, tpu_mesh with each causal window's draws and arrival
+        # exchange as one sharded program (parallel/mesh.py)
+        backend = {"tpu_batch": "tpu", "tpu_mesh": "mesh"}[policy]
         self.engine = ColumnarPlane(
             self.graph, params, self.hosts, self.round_ns,
-            backend="tpu", tpu_options=cfg.experimental,
+            backend=backend, tpu_options=cfg.experimental,
             bootstrap_end=cfg.general.bootstrap_end_time, device=device,
         )
         self.engine.activate = self._active.add

@@ -1,13 +1,15 @@
 """Scheduler policies: how hosts execute within a round.
 
 The port of shadow_tpu/core/scheduler.py, reduced to the ``tpu_batch``
-policy: hosts run serially on the main thread, in host-id order, while the
-per-round network data plane runs on the card. Event execution overlaps
-device work through dispatch asynchrony, not Python threads: the columnar
-plane dispatches ONE fused launch per multi-round window (two in-flight
-windows, deferred readbacks at causal deadlines — network/devroute.py), so
-the card computes window N while this thread runs the events and barriers
-of window N+1.
+and ``tpu_mesh`` policies: hosts run serially on the main thread, in
+host-id order, while the per-round network data plane runs on the card.
+Under tpu_batch, event execution overlaps device work through dispatch
+asynchrony, not Python threads: the columnar plane dispatches ONE fused
+launch per multi-round window (two in-flight windows, deferred readbacks
+at causal deadlines — network/devroute.py), so the card computes window N
+while this thread runs the events and barriers of window N+1. Under
+tpu_mesh, each causal window's exchange runs when its deadline comes due,
+and the thread waits for it (as the reference does).
 
 The thread policies (``thread_per_core``, ``thread_per_host``) run the
 per-unit plane (network/engine.py), which is not ported yet; config load
@@ -56,7 +58,7 @@ class SerialScheduler:
 
 
 def make_scheduler(policy: str, hosts: Sequence, parallelism: int):
-    if policy == "tpu_batch":
+    if policy in ("tpu_batch", "tpu_mesh"):
         return SerialScheduler(hosts)
     raise ValueError(f"scheduler policy {policy!r} is not ported to "
                      f"shadow_tpu_torch yet")

@@ -5,7 +5,7 @@
 //   draw_flags  <- _draw_kernel      (propagate.py:85), per-unit drop flags
 //   min_draw    <- _min_draw_kernel  (propagate.py:58), per-unit min draw
 // and, inside both, the threefry2x32 that shadow_tpu/ops/prng.py:30 traces
-// with xp=jnp.
+// with xp=jnp (csrc/threefry.cuh).
 //
 // Bound on an H100: a unit costs one Threefry evaluation (75 integer
 // operations that differ from lane to lane) per packet lane it needs, at
@@ -36,39 +36,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "threefry.cuh"
+
 namespace {
 
-constexpr uint32_t kParity = 0x1BD11BDAu;
-constexpr int kPktShift = 26;  // packet-lane index position in counter word 1
+using shadow_tf::kPktShift;
+using shadow_tf::threefry2x32;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-// Threefry-2x32, 20 rounds: rotations (13,15,26,6) and (17,29,16,24), a key
-// injection after every 4 rounds, uint32 wraparound throughout.
-__device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1,
-                                              uint32_t c0, uint32_t c1) {
-  const uint32_t k2 = k0 ^ k1 ^ kParity;
-  uint32_t x0 = c0 + k0;
-  uint32_t x1 = c1 + k1;
-#define TF_ROUND(r)      \
-  x0 += x1;              \
-  x1 = rotl32(x1, (r));  \
-  x1 ^= x0;
-#define TF_GROUP_A TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-#define TF_GROUP_B TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  TF_GROUP_A x0 += k1; x1 += k2 + 1u;
-  TF_GROUP_B x0 += k2; x1 += k0 + 2u;
-  TF_GROUP_A x0 += k0; x1 += k1 + 3u;
-  TF_GROUP_B x0 += k1; x1 += k2 + 4u;
-  TF_GROUP_A x0 += k2; x1 += k0 + 5u;
-#undef TF_GROUP_B
-#undef TF_GROUP_A
-#undef TF_ROUND
-  return make_uint2(x0, x1);
-}
 
 // packed: (4, P) uint32 rows [uid_lo, uid_hi, npkts, thresh], row-major.
 // words: (P / 32,) uint32, bit u of word w = unit 32*w + u drops.
@@ -81,16 +56,7 @@ __global__ void draw_flags_kernel(const uint32_t* __restrict__ packed, int P,
     const uint32_t lo = packed[i];
     const uint32_t hi = packed[P + i];
     const uint32_t lanes = min(packed[2 * P + i], width);
-    const uint32_t th = packed[3 * P + i];
-    if (th != 0u) {  // threshold 0 can never hit
-      for (uint32_t p = 0; p < lanes; ++p) {
-        const uint2 x = threefry2x32(k0, k1, lo, hi | (p << kPktShift));
-        if ((x.x >> 8) < th) {
-          hit = true;
-          break;
-        }
-      }
-    }
+    hit = shadow_tf::any_lane_hits(k0, k1, lo, hi, lanes, packed[3 * P + i]);
   }
   // P is a multiple of 32, so every warp is either wholly inside or wholly
   // outside [0, P): the full-mask ballot is well defined

@@ -1,4 +1,4 @@
-"""The columnar data plane: array-native unit flow for the tpu_batch policy.
+"""The columnar data plane: array-native unit flow for the tpu policies.
 
 The port of shadow_tpu/network/colplane.py's Python plane. Same simulation
 semantics as the reference (bit-identical results), traffic represented as
@@ -16,6 +16,12 @@ batch-level data end-to-end:
   passes, then ALL accumulated batches resolve in ONE threefry call; a
   window that clears the device floor dispatches as ONE CUDA launch and
   reads back asynchronously (network/devroute.py, ops/propagate.py).
+- **The mesh plane (tpu_mesh) rides the same machinery**: departures are
+  closed form host-side, so a barrier's units only need draws and the
+  arrival exchange, which a whole causal window batches into one sharded
+  program (parallel/mesh.py::mesh_exchange). Windows below
+  ``experimental.tpu_mesh_floor`` units take the numpy twin instead
+  (identical flags: pure functions of unit identity).
 - **Resolved rows live in a sorted pending store**: each flushed batch
   becomes a (time, key)-sorted row list; every round the engine extracts
   the due prefixes (bisect), buckets them per destination host, and each
@@ -26,8 +32,7 @@ batch-level data end-to-end:
 Not ported yet, and refused at config load rather than run differently:
 the C engine (native/colcore; ``native_colcore: true`` runs this Python
 plane, as the reference does when its ``_colcore`` fails to import), the
-mesh plane (tpu_mesh), the device transport, fault injection and
-multi-process sharding.
+device transport, fault injection and multi-process sharding.
 
 Store row layout (tuples; each host's pending list is kept sorted by the
 unique (t, key) prefix):
@@ -104,7 +109,7 @@ class _Outstanding:
 
 
 class ColumnarPlane(DeviceRoutedPlane):
-    """The columnar engine: the network plane of the tpu_batch policy."""
+    """The columnar engine: the network plane of the tpu policies."""
 
     def __init__(self, graph: NetworkGraph, params: NetParams, hosts,
                  round_ns: SimTime, backend: str = "numpy",
@@ -135,6 +140,10 @@ class ColumnarPlane(DeviceRoutedPlane):
         self.min_used_latency: SimTime = T_NEVER
         self.qdisc = str(getattr(tpu_options, "interface_qdisc", "fifo")
                          or "fifo")
+        #: minimum due-window unit count for the mesh collective; smaller
+        #: windows resolve on the numpy twin (identical flags)
+        _mf = getattr(tpu_options, "tpu_mesh_floor", None)
+        self.mesh_floor = 2048 if _mf is None else int(_mf)
         #: per-phase wall-clock breakdown, merged into the run summary by
         #: the controller. window_* phases attribute the fused multi-round
         #: device windows: host-side array build vs async dispatch vs
@@ -290,11 +299,53 @@ class ColumnarPlane(DeviceRoutedPlane):
         n = len(rows)
         if n == 0:
             return
-        if n <= SMALL_BARRIER:
+        if n <= SMALL_BARRIER and self.mesh_plane is None:
             self._barrier_scalar(rows, segs, round_start, round_end, uids_l)
         else:
             self._barrier_vector(rows, segs, round_start, round_end, uids_l)
         self.phase_wall["barrier"] += _walltime.perf_counter() - t0
+
+    def _mesh_materialize(self) -> None:
+        """Resolve EVERY lazily-accumulated mesh barrier in one fused
+        collective dispatch: the accumulated window's units run through
+        draws + the arrival exchange as one sharded program
+        (parallel/mesh.py::mesh_exchange); each barrier's handle then reads
+        its own units out of the shared exchange tables. Draws are pure
+        functions of unit identity, so batch order is immaterial — the
+        lazy-numpy coalescing discipline, one program instead of one per
+        barrier."""
+        pend = [b for b in self.outstanding
+                if isinstance(b.handle, _MeshLazy)]
+        if not pend:
+            return
+        total = sum(len(b.handle.uid) for b in pend)
+        if total < self.mesh_floor:
+            # small window: the collective's fixed cost loses to the numpy
+            # twin — convert to lazily-coalesced numpy batches (flags
+            # identical either way: pure functions of identity)
+            for b in pend:
+                h = b.handle
+                u = h.uid.astype(np.uint64)
+                b.uid_lo = (u & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+                b.uid_hi = (u >> np.uint64(32)).astype(np.uint32)
+                b.npk = h.npk.astype(np.uint32)
+                b.thresh = h.th.astype(np.uint32)
+                b.handle = None
+            return
+
+        def cat(field):
+            return np.concatenate([getattr(b.handle, field) for b in pend])
+
+        parts = self.mesh_plane.exchange_rounds(
+            cat("src"), cat("dst"), cat("arrival"), cat("uid"),
+            cat("npk"), cat("th"))
+        from shadow_tpu_torch.parallel.mesh import F_FLAGS, F_UID
+
+        tab = np.concatenate(parts) if len(parts) > 1 else parts[0]
+        tab = tab[tab[:, F_FLAGS] >= 2]  # valid rows only
+        tab = tab[np.argsort(tab[:, F_UID])]  # sorted ONCE, shared
+        for b in pend:
+            b.handle = _MeshHandle(tab, b.handle.uid)
 
     # -- scalar barrier (exact twin of the vector math, for tiny rounds) ---
     def _barrier_scalar(self, rows, segs, round_start: SimTime,
@@ -374,8 +425,10 @@ class ColumnarPlane(DeviceRoutedPlane):
             max(round_end, min(arrival_l)), None))
 
     # -- vector barrier -----------------------------------------------------
-    def _barrier_vector(self, rows, segs, round_start: SimTime,
-                        round_end: SimTime, uids_l=None) -> None:
+    @staticmethod
+    def _batch_columns(rows, segs, uids_l=None) -> tuple:
+        """A barrier's units as columns (src, dst, size, t_emit, uid), in
+        emission order: per source host (``segs``), its rows FIFO."""
         n = len(rows)
         size = np.fromiter((r[E_SIZE] for r in rows), dtype=np.int64,
                            count=n)
@@ -394,11 +447,21 @@ class ColumnarPlane(DeviceRoutedPlane):
             bases = np.array([s[2] for s in segs], dtype=np.int64)
             uid = (np.repeat(bases - starts, counts)
                    + np.arange(n, dtype=np.int64)).astype(np.uint64)
+        return src, dst, size, t_emit, uid
+
+    def _barrier_vector(self, rows, segs, round_start: SimTime,
+                        round_end: SimTime, uids_l=None) -> None:
+        src, dst, size, t_emit, uid = self._batch_columns(rows, segs, uids_l)
+        n = len(rows)
+        use_mesh = (self.mesh_plane is not None
+                    and round_start >= self.bootstrap_end)
         if round_start < self.bootstrap_end:
             depart = t_emit.copy()  # bootstrap: unlimited bandwidth
         else:
-            # host-side closed-form departures (one implementation:
-            # fluid.TokenBuckets)
+            # host-side closed-form departures for every backend (one
+            # implementation: fluid.TokenBuckets) — computing them where
+            # the emissions originate is what lets the mesh plane defer its
+            # collective to the causal deadline
             depart = self.buckets.depart_times(src, size, t_emit,
                                                round_start)
 
@@ -436,6 +499,22 @@ class ColumnarPlane(DeviceRoutedPlane):
         arrival_l = arrival.tolist()
 
         live = bool((thresh > 0).any())
+        if use_mesh and live:
+            # LAZY collective batch: arrivals are known host-side, draws
+            # are pure functions of unit identity, so the whole causal
+            # window (every barrier until the earliest arrival comes due)
+            # resolves in ONE sharded draws+exchange program at flush
+            # (_mesh_materialize) — fused across rounds, not per barrier
+            npk = np.minimum(np.maximum(1, -(-size // MTU)),
+                             HARD_MAX_PKTS).astype(np.int64)
+            deadline = max(round_end, int(arrival.min()))
+            self.outstanding.append(_Outstanding(
+                keep_rows, src_l, arrival_l, keys_l, None, None, None,
+                None, round_end, deadline,
+                _MeshLazy(src.astype(np.int64), dst.astype(np.int64),
+                          arrival, uid.astype(np.int64), npk,
+                          thresh.astype(np.int64))))
+            return
         if not live:
             # nothing can drop: skip draws entirely, straight to the store
             self._store_resolved(keep_rows, src_l, arrival_l, keys_l, None,
@@ -583,6 +662,8 @@ class ColumnarPlane(DeviceRoutedPlane):
         if not any(b.deadline < limit for b in self.outstanding):
             return
         t0 = _walltime.perf_counter()
+        if self.mesh_plane is not None:
+            self._mesh_materialize()
         if self.device is not None:
             # a deadline closes the open window here (even a fixed-K
             # window — causality outranks K): route the WHOLE accumulated
@@ -637,6 +718,10 @@ class ColumnarPlane(DeviceRoutedPlane):
             if b.handle is None:
                 flags = next(it)
                 flags_l = flags.tolist() if flags.any() else None
+            elif isinstance(b.handle, _MeshHandle):
+                arrival_a, mflags = b.handle.read()
+                b.arrival = arrival_a.tolist()
+                flags_l = mflags.tolist() if mflags.any() else None
             else:
                 r0 = _walltime.perf_counter()
                 flags = b.handle.read()
@@ -650,6 +735,12 @@ class ColumnarPlane(DeviceRoutedPlane):
 
     def flush_all(self) -> None:
         self.flush_due(T_NEVER + 1)
+        if self.mesh_plane is not None:
+            # the collective's per-window wall attribution in the run
+            # summary (mesh_* keys in phase_wall)
+            for k, v in self.mesh_plane.phase.items():
+                self.phase_wall[f"mesh_{k}"] = (
+                    round(v, 4) if isinstance(v, float) else v)
 
     def _store_resolved(self, rows, src_l, arrival, keys, flags,
                         round_end: SimTime) -> None:
@@ -739,6 +830,47 @@ class _ConcatHandle:
         self.plane._stall_sample(_walltime.perf_counter() - t0)
         self.plane._window_done()
         return flags
+
+
+class _MeshLazy:
+    """A barrier's units awaiting the fused collective (draws + arrival
+    exchange): post-blackhole arrays, arrivals already resolved host-side.
+    Converted to a _MeshHandle over the window's shared exchange tables by
+    _mesh_materialize."""
+
+    __slots__ = ("src", "dst", "arrival", "uid", "npk", "th")
+
+    def __init__(self, src, dst, arrival, uid, npk, th):
+        self.src = src
+        self.dst = dst
+        self.arrival = arrival
+        self.uid = uid
+        self.npk = npk
+        self.th = th
+
+
+class _MeshHandle:
+    """A barrier's view over the window's uid-sorted exchange table (built
+    once in _mesh_materialize, shared across the window's barriers)."""
+
+    __slots__ = ("tab", "uids")
+
+    def __init__(self, tab, uids):
+        self.tab = tab  # (rows, 4) int64, valid rows only, uid-ascending
+        self.uids = uids  # (n,) int64, batch order (post blackhole filter)
+
+    def read(self):
+        """(arrival times, drop flags) of the batch's units, in batch
+        order. Raises when the table lacks one of them."""
+        from shadow_tpu_torch.parallel.mesh import F_FLAGS, F_TARR, F_UID
+
+        tab = self.tab
+        idx = np.searchsorted(tab[:, F_UID], self.uids)
+        if (idx >= len(tab)).any() or (tab[idx, F_UID] != self.uids).any():
+            raise RuntimeError(
+                "mesh exchange table is missing units — collective "
+                "routing bug (capacity truncation?)")
+        return tab[idx, F_TARR], (tab[idx, F_FLAGS] & 1).astype(bool)
 
 
 def _row_t(row):

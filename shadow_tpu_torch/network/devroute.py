@@ -3,8 +3,10 @@
 The port of shadow_tpu/network/devroute.py. The columnar plane
 (network/colplane.py) routes loss-draw batches either to the numpy twin
 (fluid.loss_flags) or to the CUDA kernels (ops/propagate.py) — the paths
-are bit-identical, so routing is pure wall-clock policy. This base class
-carries what that policy needs:
+are bit-identical, so routing is pure wall-clock policy. Under
+``scheduler_policy: tpu_mesh`` it builds the mesh data plane instead
+(parallel/mesh.py; ``mesh_plane``). This base class carries what that
+policy needs:
 
 - background device attach + floor calibration (simulations start on the
   numpy twin and switch over when the device publishes); a failed attach
@@ -77,10 +79,11 @@ class DeviceRoutedPlane:
         self._probe_clamped = False  # probing suppressed
         self._bg_thread = None
         self._bg_error = None  # a failed attach, re-raised on the sim thread
+        self.mesh_plane = None
+        if backend == "mesh":
+            self._init_mesh(tpu_options, params, device)
         if backend != "tpu":
-            # tpu_mesh is refused at config load (config/schema.py); the
-            # thread policies run the host twin only
-            return
+            return  # the mesh and thread policies dispatch no draw window
         floor = int(getattr(tpu_options, "tpu_device_floor", 0) or 0)
         if floor < 0:
             # device draws disabled: the numpy twin serves every batch
@@ -120,6 +123,31 @@ class DeviceRoutedPlane:
                 target=self._bg_init_device, args=(params.seed, device),
                 daemon=True)
             self._bg_thread.start()
+
+    def _init_mesh(self, tpu_options, params, device: str) -> None:
+        """scheduler_policy: tpu_mesh — each causal window's loss draws,
+        arrival exchange and lookahead minimum run as one sharded program
+        (parallel/mesh.py), hosts sharded over N shards held on the one
+        device. Bit-identical to the host planes, so the policy cannot
+        change results."""
+        from shadow_tpu_torch.ops import devcfg
+        from shadow_tpu_torch.parallel.mesh import MeshDataPlane
+
+        visible = devcfg.visible_devices(devcfg.select_device(device))
+        n_shards = int(getattr(tpu_options, "tpu_mesh_shards", 0) or 0)
+        if n_shards > visible:
+            raise ValueError(
+                f"config error: experimental.tpu_mesh_shards={n_shards} "
+                f"exceeds the {visible} visible {device} device(s) "
+                f"(tpu_mesh over several cards is not ported to "
+                f"shadow_tpu_torch yet)")
+        n = n_shards or visible
+        # per-shard slot width of the standalone round API: tracks
+        # realistic per-barrier chunk sizes, not max_batch
+        ups = max(256, min(2048, 4096 // n))
+        self.mesh_plane = MeshDataPlane(
+            params, n_shards=n, units_per_shard=ups,
+            max_pkts=self.max_pkts, device=device)
 
     def _publish_device(self, plane, dev_s: float,
                         np_per_unit: float) -> None:
@@ -276,7 +304,7 @@ class DeviceRoutedPlane:
 
     def heartbeat_note(self) -> str:
         """One heartbeat-line fragment describing the routing decision."""
-        if self.device is None:
+        if self.device is None and self.mesh_plane is None:
             return "dev=off"
         state = "clamped" if self._probe_clamped else (
             "engaged" if self.dev_windows else "probing")

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,9 +44,26 @@ _SIGNATURES = {
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
         "shadow_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "mesh": {
+        "shadow_mesh_exchange": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]),
+        "shadow_mesh_rounds": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
+            ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
+        "shadow_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
-_lock = threading.Lock()
+#: one lock per source, so two sources build at once in two threads
+_locks = {stem: threading.Lock() for stem in _SIGNATURES}
 _libs: dict = {}
 
 
@@ -70,6 +88,16 @@ def select_device(name: str = "cuda"):
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def visible_devices(device) -> int:
+    """How many devices of ``device``'s type this process can use: the
+    CUDA cards PyTorch sees, or 1 for the CPU."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device_count()
+    return 1
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: $CUDA_HOME/bin/nvcc, nvcc on PATH, or
     /usr/local/cuda/bin/nvcc."""
@@ -87,9 +115,27 @@ def nvcc_path() -> str:
         " the CUDA kernels of shadow_tpu_torch/csrc cannot be built")
 
 
+def _included(src: Path) -> list:
+    """``src`` and every csrc header it includes (``#include "x.cuh"``,
+    followed transitively), sorted by name."""
+    seen = {src.name: src}
+    todo = [src]
+    while todo:
+        for m in re.finditer(r'^\s*#include\s+"([^"]+)"',
+                             todo.pop().read_text(), re.M):
+            dep = CSRC / m.group(1)
+            if m.group(1) not in seen and dep.exists():
+                seen[m.group(1)] = dep
+                todo.append(dep)
+    return [seen[k] for k in sorted(seen)]
+
+
 def _lib_path(src: Path) -> Path:
+    """Library name: a hash of the source, the headers it includes and the
+    flags, so editing any of them rebuilds."""
     h = hashlib.sha256()
-    h.update(src.name.encode() + b"\0" + src.read_bytes())
+    for f in _included(src):
+        h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
@@ -123,7 +169,7 @@ def kernel_lib(stem: str):
     src = CSRC / f"{stem}.cu"
     if not src.exists():
         raise RuntimeError(f"kernel source {src} is missing")
-    with _lock:
+    with _locks[stem]:
         lib = _libs.get(stem)
         if lib is not None:
             return lib

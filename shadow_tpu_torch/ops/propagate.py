@@ -76,15 +76,24 @@ def _bucket(n: int, cap: int) -> int:
 
 # -- plain PyTorch versions ---------------------------------------------------
 
-def _lane_draws(packed: torch.Tensor, seed_key, width: int):
-    """(P, width) int64 24-bit draws and the (P, width) lane-valid mask."""
-    rows = packed.to(torch.int64)
-    lo, hi, npk = rows[0], rows[1], rows[2]
-    pkt = torch.arange(width, dtype=torch.int64, device=packed.device)[None, :]
-    c0 = lo[:, None].expand(-1, width)
-    c1 = hi[:, None] | (pkt << PKT_SHIFT)
+def _lane_draws(lo: torch.Tensor, hi: torch.Tensor, lanes: torch.Tensor,
+                seed_key, width: int):
+    """24-bit threefry draws of packet lanes 0..width-1 of each unit, and
+    which lanes count (p < lanes): two (..., width) int64 tensors for the
+    units' (...) int64 uid words ``lo``, ``hi`` and lane counts ``lanes``
+    (uint32 values)."""
+    pkt = torch.arange(width, dtype=torch.int64, device=lo.device)
+    c0 = lo[..., None].expand(*lo.shape, width)
+    c1 = hi[..., None] | (pkt << PKT_SHIFT)
     x0, _ = threefry2x32_torch(int(seed_key[0]), int(seed_key[1]), c0, c1)
-    return x0 >> 8, pkt < npk[:, None]
+    return x0 >> 8, pkt < lanes[..., None]
+
+
+def _packed_draws(packed: torch.Tensor, seed_key, width: int):
+    """_lane_draws of a (rows, P) uint32 batch [uid_lo, uid_hi, npkts, ...]:
+    (P, width) draws and lane mask."""
+    rows = packed.to(torch.int64)
+    return _lane_draws(rows[0], rows[1], rows[2], seed_key, width)
 
 
 def packbits_little(flags: torch.Tensor) -> torch.Tensor:
@@ -98,7 +107,7 @@ def draw_flags_plain(packed: torch.Tensor, seed_key,
     """Plain version of the draw_flags kernel (and of the reference's
     _draw_kernel): a unit drops iff some lane p < min(npkts, width) has
     its 24-bit draw below the unit's threshold."""
-    draws, valid = _lane_draws(packed, seed_key, width)
+    draws, valid = _packed_draws(packed, seed_key, width)
     thresh = packed[3].to(torch.int64)[:, None]
     return packbits_little(((draws < thresh) & valid).any(dim=1))
 
@@ -107,7 +116,7 @@ def min_draw_plain(packed: torch.Tensor, seed_key,
                    width: int = MAX_PKTS) -> torch.Tensor:
     """Plain version of the min_draw kernel (and of the reference's
     _min_draw_kernel)."""
-    draws, valid = _lane_draws(packed, seed_key, width)
+    draws, valid = _packed_draws(packed, seed_key, width)
     m = torch.where(valid, draws, torch.full_like(draws, SENTINEL))
     return m.min(dim=1).values.to(torch.uint32)
 

@@ -1,13 +1,15 @@
 """Whole simulations under both packages: shadow_tpu (the reference) and
-shadow_tpu_torch (the port), same config and seed, tpu_batch policy, the
-port on ``--device cpu`` (its kernels' plain PyTorch versions).
+shadow_tpu_torch (the port), same config and seed, the port on
+``--device cpu`` (its kernels' plain PyTorch versions).
 
 The bar is byte identity, not closeness: the same hosts/ output tree
 (output_tree_digest), the same summary counts, and the same per-round
 state_digests.jsonl stream (tools/bisect_divergence.py --a REF --b PORT
-exits 0), at tpu_device_floor 1 (every draw window through the device
-plane) and 10**9 (every window on the host twin). Unported features are
-refused by name with exit 2.
+exits 0). Under tpu_batch at tpu_device_floor 1 (every draw window through
+the device plane) and 10**9 (every window on the host twin); under
+tpu_mesh at the default tpu_mesh_floor and at 0 (every causal window
+through the mesh exchange). Unported features are refused by name with
+exit 2.
 """
 
 import contextlib
@@ -33,8 +35,8 @@ EX = ROOT / "examples"
 COUNTS = ("rounds", "events", "units_sent", "units_dropped", "bytes_sent")
 
 
-def _run(main, cfg, data_dir, extra=()):
-    argv = [str(cfg), "--scheduler-policy", "tpu_batch", "--data-directory",
+def _run(main, cfg, data_dir, extra=(), policy="tpu_batch"):
+    argv = [str(cfg), "--scheduler-policy", policy, "--data-directory",
             str(data_dir), "--json-summary", "--quiet", *extra]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -45,6 +47,21 @@ def _run(main, cfg, data_dir, extra=()):
 
 def _stable(summary, volatile):
     return {k: v for k, v in summary.items() if k not in volatile}
+
+
+def _assert_identical(ref, port, ref_dir, port_dir):
+    """Same summary (but for wall-clock telemetry), output tree and state
+    digest stream; bisect_divergence finds no divergence."""
+    assert port["process_errors"] == [] == ref["process_errors"]
+    assert _stable(port, VOLATILE_SUMMARY_KEYS) == _stable(ref, REF_VOLATILE)
+    assert output_tree_digest(port_dir) == ref_tree_digest(ref_dir)
+    assert (port_dir / "state_digests.jsonl").read_text() == (
+        ref_dir / "state_digests.jsonl").read_text()
+    bis = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "bisect_divergence.py"),
+         "--a", str(ref_dir), "--b", str(port_dir)],
+        capture_output=True, text=True, timeout=120)
+    assert bis.returncode == 0, bis.stdout + bis.stderr
 
 
 def _chip_smoke():
@@ -66,16 +83,7 @@ def test_identical_to_reference(tmp_path, config, digest_every, floor):
     ref = _run(ref_cli.main, EX / config, ref_dir, extra)
     port = _run(port_cli.main, EX / config, port_dir,
                 extra + ["--device", "cpu"])
-    assert port["process_errors"] == [] == ref["process_errors"]
-    assert _stable(port, VOLATILE_SUMMARY_KEYS) == _stable(ref, REF_VOLATILE)
-    assert output_tree_digest(port_dir) == ref_tree_digest(ref_dir)
-    assert (port_dir / "state_digests.jsonl").read_text() == (
-        ref_dir / "state_digests.jsonl").read_text()
-    bis = subprocess.run(
-        [sys.executable, str(ROOT / "tools" / "bisect_divergence.py"),
-         "--a", str(ref_dir), "--b", str(port_dir)],
-        capture_output=True, text=True, timeout=120)
-    assert bis.returncode == 0, bis.stdout + bis.stderr
+    _assert_identical(ref, port, ref_dir, port_dir)
     if config == "tgen_100host.yaml":  # chip_smoke.py's trace phase
         cs = _chip_smoke()
         assert {k: ref[k] for k in COUNTS} == cs.TGEN100_COUNTS
@@ -117,6 +125,127 @@ def test_tgen_1k_identical_and_chip_smoke_constants(tmp_path):
     assert output_tree_digest(tmp_path / "port") == cs.TGEN1K_TREE_DIGEST
 
 
+#: copies of the reference tests' configs: 48 sources flooding one sink
+#: (tests/test_multichip.py INCAST: every exchange slice maximally
+#: destination-skewed) and bulk transfers under loss (tests/test_colplane.py
+#: TGEN_LOSSY)
+INCAST = """
+general:
+  stop_time: 20s
+  seed: 9
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [
+        directed 0
+        node [ id 0 host_bandwidth_up "20 Mbit" host_bandwidth_down "20 Mbit" ]
+        node [ id 1 host_bandwidth_up "20 Mbit" host_bandwidth_down "20 Mbit" ]
+        edge [ source 0 target 1 latency "15 ms" packet_loss 0.01 ]
+        edge [ source 0 target 0 latency "4 ms" packet_loss 0.004 ]
+        edge [ source 1 target 1 latency "4 ms" ]
+      ]
+hosts:
+  sink:
+    network_node_id: 1
+    processes:
+      - path: pyapp:shadow_tpu.models.echo:EchoServer
+        args: ["9000"]
+  src:
+    network_node_id: 0
+    quantity: 48
+    processes:
+      - path: pyapp:shadow_tpu.models.echo:EchoClient
+        args: ["sink", "9000", "15", "xxxxxxxxxxxxxxxxxxxxxxxxxxxxxxxx"]
+"""
+
+TGEN_LOSSY = """
+general:
+  stop_time: 30s
+  seed: 7
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [
+        directed 0
+        node [ id 0 host_bandwidth_up "20 Mbit" host_bandwidth_down "20 Mbit" ]
+        node [ id 1 host_bandwidth_up "10 Mbit" host_bandwidth_down "5 Mbit" ]
+        edge [ source 0 target 1 latency "25 ms" packet_loss 0.02 ]
+        edge [ source 0 target 0 latency "5 ms" packet_loss 0.01 ]
+        edge [ source 1 target 1 latency "5 ms" ]
+      ]
+hosts:
+  server:
+    network_node_id: 0
+    processes:
+      - path: pyapp:shadow_tpu.models.tgen:TGenServer
+        args: ["8080"]
+  client:
+    network_node_id: 1
+    quantity: 4
+    processes:
+      - path: pyapp:shadow_tpu.models.tgen:TGenClient
+        args: ["400 kB", "2", serial, "8080", server]
+        start_time: 500 ms
+"""
+
+#: name -> (config file or inline YAML, state digest interval)
+MESH_CONFIGS = {"echo": (EX / "echo.yaml", 5),
+                "tgen_100host": (EX / "tgen_100host.yaml", 50),
+                "incast": (INCAST, 50), "tgen_lossy": (TGEN_LOSSY, 50)}
+
+
+@pytest.mark.parametrize("floor", [None, 0])
+@pytest.mark.parametrize("config", sorted(MESH_CONFIGS))
+def test_tpu_mesh_identical_to_reference(tmp_path, config, floor):
+    """scheduler_policy tpu_mesh through both packages: the reference runs
+    its sharded programs over conftest's 8 CPU devices, the port its plain
+    versions with every shard on the CPU. At floor 0 every causal window
+    goes through the exchange, and both count the same windows."""
+    cfg, digest_every = MESH_CONFIGS[config]
+    if isinstance(cfg, str):
+        path = tmp_path / f"{config}.yaml"
+        path.write_text(cfg)
+        cfg = path
+    extra = ["--state-digest-every", str(digest_every)]
+    if floor is not None:
+        extra += ["--set", f"experimental.tpu_mesh_floor={floor}"]
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    ref = _run(ref_cli.main, cfg, ref_dir, extra, policy="tpu_mesh")
+    port = _run(port_cli.main, cfg, port_dir, extra + ["--device", "cpu"],
+                policy="tpu_mesh")
+    _assert_identical(ref, port, ref_dir, port_dir)
+    windows = port["phase_wall"]["mesh_windows"]
+    assert windows == ref["phase_wall"]["mesh_windows"]
+    if floor == 0 and config != "echo":
+        assert windows > 0 and port["units_dropped"] > 0
+    if config == "tgen_100host":  # chip_smoke.py's mesh trace phase
+        assert {k: ref[k] for k in COUNTS} == _chip_smoke().TGEN100_COUNTS
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("floor", [None, 0])
+def test_tgen_1k_tpu_mesh_identical_and_chip_smoke_constants(tmp_path, floor):
+    """chip_smoke.py's mesh path holds tgen_1k under tpu_mesh to the
+    tpu_batch constants: the reference gives them at both floors too."""
+    cs = _chip_smoke()
+    extra = [] if floor is None else [
+        "--set", f"experimental.tpu_mesh_floor={floor}"]
+    ref = _run(ref_cli.main, EX / "tgen_1k.yaml", tmp_path / "ref", extra,
+               policy="tpu_mesh")
+    port = _run(port_cli.main, EX / "tgen_1k.yaml", tmp_path / "port",
+                extra + ["--device", "cpu"], policy="tpu_mesh")
+    assert {k: ref[k] for k in COUNTS} == cs.TGEN1K_COUNTS
+    assert ref_tree_digest(tmp_path / "ref") == cs.TGEN1K_TREE_DIGEST
+    assert _stable(port, VOLATILE_SUMMARY_KEYS) == _stable(ref, REF_VOLATILE)
+    assert output_tree_digest(tmp_path / "port") == cs.TGEN1K_TREE_DIGEST
+    assert (port["phase_wall"]["mesh_windows"]
+            == ref["phase_wall"]["mesh_windows"])
+    if floor == 0:
+        assert port["phase_wall"]["mesh_windows"] > 0
+
+
 def _echo_doc():
     return yaml.safe_load((EX / "echo.yaml").read_text())
 
@@ -131,8 +260,6 @@ REFUSALS = {
     "thread_per_core": ([], None, "scheduler_policy thread_per_core"),
     "thread_per_host": (["--scheduler-policy", "thread_per_host"], None,
                         "scheduler_policy thread_per_host"),
-    "tpu_mesh": (["--scheduler-policy", "tpu_mesh"], None,
-                 "scheduler_policy tpu_mesh"),
     "faults": (["--scheduler-policy", "tpu_batch"], lambda d: d.update(
         faults={"events": [{"time": "2s", "kind": "host_down",
                             "hosts": ["server"]}]}), "fault injection"),
@@ -158,6 +285,10 @@ REFUSALS = {
     "mesh_shards": (["--scheduler-policy", "tpu_batch", "--set",
                      "experimental.tpu_mesh_shards=4"], None,
                     "tpu_mesh_shards"),
+    "mesh_shards_over_devices": (["--scheduler-policy", "tpu_mesh",
+                                  "--device", "cpu", "--set",
+                                  "experimental.tpu_mesh_shards=2"], None,
+                                 "tpu_mesh_shards=2 exceeds the 1 visible"),
     "pcap": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
         "server"].update(pcap_enabled=True), "packet capture"),
     "managed": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][

@@ -42,6 +42,14 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_scan_covers_the_mesh_plane():
+    """The parallel/ modules (the mesh data plane) are among the files
+    scanned above."""
+    names = {str(f.relative_to(ROOT)) for f in FILES}
+    assert {"shadow_tpu_torch/parallel/__init__.py",
+            "shadow_tpu_torch/parallel/mesh.py"} <= names
+
+
 def test_scan_sees_forbidden_imports():
     """The scan itself: it flags what it must and passes the port."""
     assert _forbidden("jax") and _forbidden("jax.numpy")
@@ -59,6 +67,28 @@ def test_port_runs_with_jax_and_reference_blocked(tmp_path):
         f"'tpu_batch', '--device', 'cpu', '--set', "
         f"'experimental.tpu_device_floor=1', '--data-directory', "
         f"{str(tmp_path / 'd')!r}, '--quiet'])\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'shadow_tpu.'))"
+        " for m, v in sys.modules.items() if v is not None), 'leak'\n"
+        "sys.exit(rc)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert (tmp_path / "d" / "hosts" / "client" / "client.log").exists()
+
+
+def test_port_runs_tpu_mesh_with_jax_and_reference_blocked(tmp_path):
+    """The tpu_mesh path (network/devroute.py -> parallel/mesh.py) with
+    every window through the exchange, jax and the reference unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['shadow_tpu'] = None\n"
+        "from shadow_tpu_torch.cli import main\n"
+        f"rc = main(['examples/echo.yaml', '--scheduler-policy', "
+        f"'tpu_mesh', '--device', 'cpu', '--set', "
+        f"'experimental.tpu_mesh_floor=0', '--data-directory', "
+        f"{str(tmp_path / 'd')!r}, '--quiet'])\n"
+        "import shadow_tpu_torch.parallel.mesh\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'shadow_tpu.'))"
         " for m, v in sys.modules.items() if v is not None), 'leak'\n"
         "sys.exit(rc)\n")
