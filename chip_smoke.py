@@ -22,16 +22,23 @@ Phases, in order; any failure exits non-zero:
              destination-skewed window, blackholed (rok = 0) units, the
              uint64 edge of the bucket math, need <= 0 rows and saturating
              rebases.
-5. echo    — examples/echo.yaml through the port's CLI on the card; its
+5. transport kernels — ack_advance against its plain version, bit for
+             bit, over a sweep of both congestion controls, slow start and
+             congestion avoidance, CUBIC epoch adoption, d < 0 and d > 0,
+             now before the epoch, cwnd at or above the CUBIC target,
+             w_max above 2**32 and newly up to 2**21, at n in {1, 17, 161,
+             4096, 65536, 70000} rows and two seeds; and the whole
+             DeviceAckKernel.run round trip against the numpy host version.
+6. echo    — examples/echo.yaml through the port's CLI on the card; its
              output tree must equal the reference's (constant below).
-6. main    — examples/tgen_1k.yaml under tpu_batch through the port's CLI
+7. main    — examples/tgen_1k.yaml under tpu_batch through the port's CLI
              on the card, once with tpu_device_floor=1 (every draw window
              on the card) and once as a user runs it (auto floor); both
              must give the reference's counts and output tree. Kernel
              launch counts are reset just before and read just after: every
              kernel must have launched. The floor-1 run keeps a copy of
              every window it hands draw_flags.
-7. mesh path — examples/tgen_1k.yaml under tpu_mesh, once at
+8. mesh path — examples/tgen_1k.yaml under tpu_mesh, once at
              tpu_mesh_floor=0 (every causal window through mesh_exchange)
              and once as a user runs it (default floor); the same counts
              and tree again. Launch counts reset before, read after:
@@ -39,16 +46,26 @@ Phases, in order; any failure exits non-zero:
              Nothing wraps the program in these two runs; a third floor-0
              run, untimed, keeps a copy of every exchange window and the
              columns of every barrier batch.
-8. mesh standalone — the standalone round API (MeshDataPlane.round_step
+9. mesh standalone — the standalone round API (MeshDataPlane.round_step
              and scan_rounds) at tgen_1k's size (1,000 hosts, 2,048 unit
              slots, K up to 32) on that run's own barrier batches, in
              order, the bucket state carried through all of them; 64
              round_steps and a sample of scans held against the plain
              versions; launch counts reset before, read after.
-9. timing  — every kernel and its plain version timed on the main paths'
+10. transport path — experimental.device_transport on, through the CLI:
+             tgen_1k under tpu_batch with the device floor lowered to 1
+             in this process (every cohort on the card) and as a user
+             runs it (the reference's floor, 4096 rows); web_cdn_100k to
+             1,500 ms at floor 1, and to 500 ms as a user runs it. Each gives the
+             reference's counts, tree and (web_cdn_100k) last state digest;
+             launch counts are reset before each leg and read after:
+             ack_advance launches once per cohort sent to the card plus
+             once for the attach's warm-up. The 1,500 ms leg keeps a copy
+             of every cohort for the timing phase.
+11. timing  — every kernel and its plain version timed on the main paths'
              own inputs: card time per launch, with the bound for the same
              work.
-10. trace  — examples/tgen_100host.yaml under torch.profiler, at
+12. trace  — examples/tgen_100host.yaml under torch.profiler, at
              tpu_device_floor=1 under tpu_batch and at tpu_mesh_floor=0
              under tpu_mesh; counts and output tree must equal the
              reference's. Prints the card's busy share of each run's wall
@@ -66,6 +83,7 @@ them from the reference package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -93,6 +111,28 @@ TGEN100_COUNTS = {"rounds": 1787, "events": 90523, "units_sent": 89478,
                   "units_dropped": 316, "bytes_sent": 903630840}
 TGEN100_TREE_DIGEST = (
     "5bfed8c0366841aae26cfad1711448251f31cd0c62b7bcb67111cc699c3d4d24")
+#: examples/web_cdn_100k.yaml cut to a stop time (identical with the device
+#: transport on and off), from
+#:   python -m shadow_tpu examples/web_cdn_100k.yaml --scheduler-policy \
+#:     tpu_batch --set experimental.native_colcore=false \
+#:     --set experimental.device_transport=true --stop-time <t> \
+#:     --state-digest-every <last round>
+#: with the tree from shadow_tpu.fleet.output_tree_digest and the state
+#: digest from the last line of state_digests.jsonl. At 500 ms no host has
+#: written its log yet (the tree is empty), so the state digest of the last
+#: round is what holds the run to the reference there.
+WEB500_COUNTS = {"rounds": 62, "events": 71478, "units_sent": 59591,
+                 "units_dropped": 0, "bytes_sent": 44159115}
+WEB500_TREE_DIGEST = (
+    "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855")
+WEB500_STATE_DIGEST = (
+    "416f6aa8ac3fe4127ff0ef5e1cfab4f87698e06abe94d93d8fd64935b03fcd64")
+WEB1500_COUNTS = {"rounds": 562, "events": 2344677, "units_sent": 2382834,
+                  "units_dropped": 0, "bytes_sent": 8755431092}
+WEB1500_TREE_DIGEST = (
+    "f2363262ec4fc7d2d00dde59c3265e6bcc33ff032f7048a7eef451375834367c")
+WEB1500_STATE_DIGEST = (
+    "f5098e07dbac31757bdcd2d44740b4bd263f60ef9166f94e75a37f0b96642ab3")
 
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth,
 #: and INT32 operations outside the tensor cores — 64 INT32 lanes per SM
@@ -123,6 +163,9 @@ PLAN = {
     "mesh_scan": ("shadow_tpu_torch/csrc/mesh.cu",
                   "shadow_tpu/parallel/mesh.py:202",
                   ("mesh_scan_kernel", "mesh_reduce_kernel")),
+    "ack_advance": ("shadow_tpu_torch/csrc/transport.cu",
+                    "shadow_tpu/ops/transport_kernels.py:112",
+                    ("ack_advance_kernel",)),
 }
 #: the exchange buckets (MeshDataPlane.EXCHANGE_BUCKETS)
 MESH_BUCKETS = (256, 1024, 4096, 16384)
@@ -227,6 +270,86 @@ def check_kernels(torch, np, prop, dev) -> dict:
                      f"version")
             n_cmp += 2
     print(f"{n_cmp} kernel/plain comparisons, all bit-identical", flush=True)
+    return err
+
+
+# -- phase 5: transport kernels against their plain version -------------------
+
+#: the cube root's edges: around 0, 1, 2, 3 cubed and the top of its range
+ICBRT_EDGES = (0, 1, 7, 8, 26, 27, (1 << 20) ** 3 - 1, (1 << 20) ** 3)
+
+
+def ack_sweep(np, rng, n: int) -> tuple:
+    """Nine (n,) int64 ack_advance input columns [cc_id, cwnd, ssthresh,
+    w_max, epoch_start, snd_una, bytes_acked, cum_ack, now] covering: both
+    congestion controls; slow start and congestion avoidance; CUBIC epoch
+    adoption (epoch_start 0); CUBIC's d < 0 and d > 0 (now a few seconds
+    or many hours past the epoch), and now before the epoch (a negative
+    floor division); cwnd at or above the CUBIC target (the creep step);
+    w_max above 2**32; newly from 1 to 2**21. cwnd >= MIN_CWND, as the
+    transport keeps it."""
+    min_cwnd = 2 * 1460
+    cc_id = rng.integers(0, 2, n)
+    cwnd = np.where(rng.random(n) < 0.2,
+                    rng.choice(np.array([min_cwnd, min_cwnd + 1, 14600]), n),
+                    rng.integers(min_cwnd, 1 << 34, n))
+    ssthresh = np.where(rng.random(n) < 0.4, 1 << 62,
+                        rng.integers(min_cwnd, 1 << 34, n))
+    w_max = np.where(rng.random(n) < 0.3,
+                     rng.choice(np.array([0, (1 << 32) - 1, 1 << 32,
+                                          (1 << 32) + 1, 1 << 36]), n),
+                     rng.integers(0, 1 << 36, n))
+    now = rng.integers(10 ** 12, 10 ** 13, n)
+    since = rng.choice(np.array([-1, 0, 1, 2]), n)
+    gap = np.select([since == -1, since == 0, since == 1],
+                    [-rng.integers(1, 10 ** 12, n),
+                     rng.integers(0, 10 ** 9, n),
+                     rng.integers(10 ** 9, 2 * 10 ** 11, n)],
+                    rng.integers(2 * 10 ** 11, 10 ** 15, n))
+    epoch_start = np.where(rng.random(n) < 0.25, 0, now - gap)
+    snd_una = rng.integers(0, 1 << 40, n)
+    newly = np.where(rng.random(n) < 0.2,
+                     rng.choice(np.array([1, (1 << 20) - 1, 1 << 20,
+                                          (1 << 20) + 1, 1 << 21]), n),
+                     rng.integers(1, (1 << 21) + 1, n))
+    bytes_acked = rng.integers(0, 1 << 40, n)
+    cols = (cc_id, cwnd, ssthresh, w_max, epoch_start, snd_una,
+            bytes_acked, snd_una + newly, now)
+    return tuple(np.ascontiguousarray(c, dtype=np.int64) for c in cols)
+
+
+#: row counts of the transport sweep: one row, the shipped configs' cohort
+#: sizes, the reference's device floor, its top bucket and past it
+ACK_SIZES = (1, 17, 161, 4096, 65536, 70000)
+
+
+def check_transport_kernels(torch, np, tk, dev) -> int:
+    """ack_advance against its plain version on the card, bit for bit,
+    over the sweep at every size of ACK_SIZES and two seeds; then the
+    whole DeviceAckKernel.run round trip (staging, copies, launch) against
+    the numpy host version. Returns the largest absolute error (the
+    tolerance is 0)."""
+    err = 0
+    n_cmp = 0
+    kern = tk.DeviceAckKernel("cuda")
+    for seed in (3, 20261017):
+        rng = np.random.default_rng(seed)
+        for n in ACK_SIZES:
+            cols = ack_sweep(np, rng, n)
+            x = torch.from_numpy(np.stack(cols)).to(dev)
+            got = tk.ack_advance_device(x)
+            want = torch.stack(tk.ack_advance_torch(*x.unbind(0)))
+            torch.cuda.synchronize()
+            err = max(err, same(torch, (got,), (want,),
+                                f"ack_advance n={n} seed={seed}"))
+            for i, (a, b) in enumerate(zip(kern.run(*cols),
+                                           tk.ack_advance(*cols))):
+                if not np.array_equal(a, b):
+                    fail(f"DeviceAckKernel.run n={n} seed={seed} differs "
+                         f"from the numpy host version in output {i}")
+            n_cmp += 2
+    print(f"{n_cmp} transport kernel comparisons, all bit-identical",
+          flush=True)
     return err
 
 
@@ -385,7 +508,7 @@ def check_mesh_kernels(torch, np, mesh, dev) -> dict:
     return err
 
 
-# -- phase 6: the main path, with its draw windows kept -----------------------
+# -- phase 7: the main path, with its draw windows kept -----------------------
 
 @contextlib.contextmanager
 def recording_windows(prop):
@@ -434,7 +557,7 @@ def window_mix(torch, prop, windows) -> dict:
                                          True)}
 
 
-# -- phases 7 and 8: the mesh path and the standalone round API ---------------
+# -- phases 8 and 9: the mesh path and the standalone round API ---------------
 
 @contextlib.contextmanager
 def recording_exchanges(mesh):
@@ -666,7 +789,113 @@ def mesh_standalone(torch, np, mesh, barriers, tmp: str,
             "scans": scans, "ctx": (seed, mp, tables), "plane": plane}
 
 
-# -- phase 9: kernel times on the main paths' inputs --------------------------
+# -- phase 10: the device transport through the CLI ---------------------------
+
+@contextlib.contextmanager
+def recording_cohorts(dt):
+    """Keep a copy of the nine columns of every cohort the device transport
+    hands the device path while the block runs. The copy is made around
+    DeviceTransport._kernel, so no launch count moves."""
+    cohorts = []
+    kernel = dt.DeviceTransport._kernel
+
+    def record(self, cols, n):
+        if self._devk is not None and n >= dt._DEVICE_FLOOR:
+            cohorts.append(tuple(c.copy() for c in cols))
+        return kernel(self, cols, n)
+
+    dt.DeviceTransport._kernel = record
+    try:
+        yield cohorts
+    finally:
+        dt.DeviceTransport._kernel = kernel
+
+
+def last_state_digest(data_dir: str) -> str:
+    """The digest on the last line of a run's state_digests.jsonl."""
+    with open(os.path.join(data_dir, "state_digests.jsonl")) as f:
+        return json.loads(f.read().strip().splitlines()[-1])["digest"]
+
+
+def transport_path(cli, tk, dt, digest, tmp: str) -> tuple:
+    """The device transport (experimental.device_transport) through the
+    port's CLI, four legs, each with the launch count reset just before
+    and read just after: tgen_1k under tpu_batch with every cohort on the
+    card (the module's device floor lowered to 1 in this process), then
+    as a user runs it (the reference's floor, so the two legs' transport
+    ticks compare the card with the numpy host version on the same
+    cohorts); web_cdn_100k at floor 1 to 1,500 ms, keeping a copy of every
+    cohort; web_cdn_100k as a user runs it (the reference's floor) to
+    500 ms. Each leg must give the reference's counts, tree and (for
+    web_cdn_100k) last state digest, and launch ack_advance once per cohort
+    it sent to the card, plus once for the attach's warm-up. Returns the
+    launches of all legs and the recorded cohorts."""
+    web = ["--set", "experimental.native_colcore=false"]
+    legs = (
+        ("tgen_1k floor1", "tgen_1k.yaml", 1, [], TGEN1K_COUNTS,
+         TGEN1K_TREE_DIGEST, None),
+        ("tgen_1k user", "tgen_1k.yaml", None, [], TGEN1K_COUNTS,
+         TGEN1K_TREE_DIGEST, None),
+        ("web_cdn_100k floor1 1500ms", "web_cdn_100k.yaml", 1,
+         web + ["--stop-time", "1500ms", "--state-digest-every",
+                str(WEB1500_COUNTS["rounds"])],
+         WEB1500_COUNTS, WEB1500_TREE_DIGEST, WEB1500_STATE_DIGEST),
+        ("web_cdn_100k user 500ms", "web_cdn_100k.yaml", None,
+         web + ["--stop-time", "500ms", "--state-digest-every",
+                str(WEB500_COUNTS["rounds"])],
+         WEB500_COUNTS, WEB500_TREE_DIGEST, WEB500_STATE_DIGEST),
+    )
+    floor0 = dt._DEVICE_FLOOR
+    launches = 0
+    recorded = []
+    for label, cfg, floor, extra, counts, tree, state in legs:
+        d = os.path.join(tmp, label.replace(" ", "_"))
+        argv = [str(EXAMPLES / cfg), "--scheduler-policy", "tpu_batch",
+                "--device", "cuda", "--data-directory", d, "--set",
+                "experimental.device_transport=true", *extra]
+        dt._DEVICE_FLOOR = floor0 if floor is None else floor
+        gc.collect()  # the previous leg's hosts, outside this leg's wall
+        try:
+            tk.reset_launches()
+            t0 = time.perf_counter()
+            if label.startswith("web_cdn_100k floor1"):
+                with recording_cohorts(dt) as recorded:
+                    s = run_cli(cli, argv)
+            else:
+                s = run_cli(cli, argv)
+            wall = time.perf_counter() - t0
+            n = tk.LAUNCHES["ack_advance"]
+        finally:
+            dt._DEVICE_FLOOR = floor0
+        check_run(s, d, digest, counts, tree, f"{label} (device transport)")
+        if state is not None and last_state_digest(d) != state:
+            fail(f"{label}: last state digest {last_state_digest(d)} != "
+                 f"reference {state}")
+        dtr = s["device_transport"]
+        print(f"{label}: counts, tree"
+              f"{' and state digest' if state else ''} match the "
+              f"reference; wall {wall:.3f} s (controller "
+              f"{s['wall_seconds']:.3f} s), {s['sim_sec_per_wall_sec']:.6f}"
+              f" sim-s/wall-s, ack_advance launches {n}, device_transport "
+              f"{json.dumps(dtr)}, phase_wall {json.dumps(s['phase_wall'])}",
+              flush=True)
+        if n != dtr["device_cohorts"] + 1:
+            fail(f"{label}: ack_advance launched {n} times, not once per "
+                 f"device cohort ({dtr['device_cohorts']}) plus the "
+                 f"attach's warm-up")
+        if floor is not None and dtr["device_cohorts"] <= 0:
+            fail(f"{label}: no cohort went to the card at floor {floor}")
+        launches += n
+    if not recorded:
+        fail("the web_cdn_100k floor-1 leg recorded no cohort")
+    sizes = [len(c[0]) for c in recorded]
+    print(f"web_cdn_100k floor-1 cohorts: {len(sizes)}, rows "
+          f"{sum(sizes)} (mean {sum(sizes) / len(sizes):.2f}, largest "
+          f"{max(sizes)})", flush=True)
+    return launches, recorded
+
+
+# -- phase 11: kernel times on the main paths' inputs -------------------------
 
 def lanes_needed(torch, prop, x, key, width: int, early_exit: bool) -> int:
     """Threefry evaluations the kernel needs for these inputs: every lane
@@ -1073,6 +1302,104 @@ def time_mesh_kernels(torch, np, prop, mesh, windows, rounds, scans, ctx,
     return out
 
 
+#: integer operations of one ack_advance row, by the branch the row takes
+#: (csrc/transport.cu): every row subtracts for newly, adds bytes_acked and
+#: compares for slow start (3); slow start adds a min and an add (2);
+#: NewReno's step is a multiply, a divide, a max and an add after the
+#: cc_id compare (5); CUBIC's is the cc_id compare, epoch adoption (a
+#: compare, two selects), t_ms (subtract, divide), the 2**32 cap, the cube
+#: root's argument (multiply, divide, multiply), the cube root (21 trips
+#: of add, add, shift, multiply, multiply, compare, select), d (subtract,
+#: two clamps), |d|, delta (three multiplies, two divides), the target
+#: (add or subtract, two clamps), the 2**20 cap, the target compare, and
+#: the increment (subtract, min, multiply, divide, max, add, min)
+ACK_OPS_BASE = 3
+ACK_OPS_SLOW_START = 2
+ACK_OPS_NEWRENO = 5
+ACK_OPS_CUBIC = 1 + 3 + 2 + 1 + 3 + 21 * 7 + 3 + 1 + 5 + 3 + 1 + 1 + 7
+#: bytes of one row: nine int64 inputs read, five int64 outputs written
+ACK_BYTES_A_ROW = (9 + 5) * 8
+
+
+def ack_work(np, cols) -> tuple:
+    """(bytes, operations) of one ack_advance call on the nine columns
+    ``cols``: the branch each row takes decides its operations."""
+    cc_id, cwnd, ssthresh = cols[0], cols[1], cols[2]
+    ss = cwnd < ssthresh
+    cubic = ~ss & (cc_id == 1)
+    ops = (len(cc_id) * ACK_OPS_BASE + int(ss.sum()) * ACK_OPS_SLOW_START
+           + int(cubic.sum()) * ACK_OPS_CUBIC
+           + int((~ss & ~cubic).sum()) * ACK_OPS_NEWRENO)
+    return len(cc_id) * ACK_BYTES_A_ROW, ops
+
+
+def spread_rows(np, cohorts, n: int) -> tuple:
+    """Nine columns of ``n`` rows: the recorded cohorts' rows, evenly
+    spaced across the run (repeated when the run had fewer)."""
+    rows = [np.concatenate([c[i] for c in cohorts]) for i in range(9)]
+    idx = np.linspace(0, len(rows[0]) - 1, n).round().astype(np.int64)
+    return tuple(np.ascontiguousarray(r[idx]) for r in rows)
+
+
+def time_transport_kernel(torch, np, tk, cohorts, dev) -> list:
+    """ack_advance on 64 of the web_cdn_100k floor-1 leg's cohorts spread
+    over the run (the headline), then on 4,096 and 65,536 of their rows:
+    card time per launch (queued behind a spin kernel), the profiler's, the
+    plain version's on the card, the host's launch cost, the whole
+    DeviceAckKernel.run round trip and the numpy host version (which
+    serves cohorts below the device floor) by the host clock, and the
+    bound."""
+    rate = spin_rate(torch)
+    kern = tk.DeviceAckKernel("cuda")
+    groups = [("run cohorts", evenly(cohorts, 64))] + [
+        (f"{n} rows", [spread_rows(np, cohorts, n)] * 16)
+        for n in (4096, 65536)]
+    rows = []
+    for what, sel in groups:
+        xs = [torch.from_numpy(np.stack(c)).to(dev) for c in sel]
+        work = [ack_work(np, c) for c in sel]
+        nbytes = sum(b for b, _ in work) / len(sel)
+        ops = sum(o for _, o in work) / len(sel)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+        calls = [lambda x=x: tk.ack_advance_device(x) for x in xs]
+        plain = [lambda x=x: tk.ack_advance_torch(*x.unbind(0)) for x in xs]
+        for c in sel[:3]:
+            kern.run(*c)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            for c in sel:
+                kern.run(*c)
+        trip_ms = (time.perf_counter() - t0) * 1e3 / (5 * len(sel))
+        t0 = time.perf_counter()
+        for _ in range(5):
+            for c in sel:
+                tk.ack_advance(*c)
+        numpy_ms = (time.perf_counter() - t0) * 1e3 / (5 * len(sel))
+        row = {
+            "inputs": what, "calls": len(sel),
+            "rows_a_call": sum(len(c[0]) for c in sel) / len(sel),
+            "ms": card_ms(torch, calls, rate),
+            # about 200 small kernels a call
+            "plain_ms": card_ms(torch, plain, rate, chunk=2),
+            "profiler_ms": profiler_ms(torch, calls, PLAN["ack_advance"][2]),
+            "launch_ms": host_ms(torch, calls),
+            "round_trip_ms": trip_ms, "numpy_ms": numpy_ms,
+            "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"  ack_advance {what} x{row['calls']} "
+              f"({row['rows_a_call']:.2f} rows a call): card "
+              f"{row['ms']:.6f} ms (profiler {row['profiler_ms']}), plain "
+              f"{row['plain_ms']:.6f} ms, with host launch "
+              f"{row['launch_ms']:.6f} ms, DeviceAckKernel.run round trip "
+              f"{trip_ms:.6f} ms against the numpy host version's "
+              f"{numpy_ms:.6f} ms (host clock), bound "
+              f"{row['bound_ms']:.9f} ms ({row['bound_by']}); no single "
+              f"PyTorch call computes this function", flush=True)
+        rows.append(row)
+    return rows
+
+
 def dispatch_breakdown(torch, prop, window, dev, n: int = 200) -> dict:
     """Host wall microseconds per step of one DeviceDrawPlane.dispatch of
     ``window`` (the steps of DeviceDrawPlane._launch, each timed alone over
@@ -1111,7 +1438,7 @@ def dispatch_breakdown(torch, prop, window, dev, n: int = 200) -> dict:
     return out
 
 
-# -- phases 5, 6, 7, 10: the port's CLI on the card ---------------------------
+# -- phases 6-8, 10 and 12: the port's CLI on the card ------------------------
 
 def run_cli(cli, argv: list) -> dict:
     """Run the port's CLI in this process; returns its JSON summary."""
@@ -1186,7 +1513,9 @@ def main() -> int:
     try:
         from shadow_tpu_torch import cli
         from shadow_tpu_torch.ops import devcfg
+        from shadow_tpu_torch.network import devtransport as dt
         from shadow_tpu_torch.ops import propagate as prop
+        from shadow_tpu_torch.ops import transport_kernels as tk
         from shadow_tpu_torch.parallel import mesh
         from shadow_tpu_torch.utils.digest import output_tree_digest
     except ImportError as exc:
@@ -1200,7 +1529,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     phase("build")
-    stems = ("draw", "mesh")
+    stems = ("draw", "mesh", "transport")
     built = [st for st in stems
              if not devcfg._lib_path(devcfg.CSRC / f"{st}.cu").exists()]
     t0 = time.perf_counter()
@@ -1214,6 +1543,9 @@ def main() -> int:
 
     phase("mesh kernels")
     max_err.update(check_mesh_kernels(torch, np, mesh, dev))
+
+    phase("transport kernels")
+    max_err["ack_advance"] = check_transport_kernels(torch, np, tk, dev)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
 
@@ -1284,6 +1616,10 @@ def main() -> int:
         launches[name] = sa["launches"][name]
         max_err[name] = max(max_err[name], sa["err"][name])
 
+    phase("transport path")
+    launches["ack_advance"], cohorts = transport_path(
+        cli, tk, dt, output_tree_digest, tmp)
+
     phase("timing")
     timing = time_kernels(torch, prop, windows)
     dispatch_breakdown(torch, prop, max(windows, key=lambda w: w[0].shape[1]),
@@ -1293,6 +1629,8 @@ def main() -> int:
                                     sa["rounds"], sa["scans"], sa["ctx"],
                                     sa["plane"]))
     del mesh_windows, sa
+    timing["ack_advance"] = time_transport_kernel(torch, np, tk, cohorts, dev)
+    del cohorts
 
     phase("trace")
     trace_run(torch, cli, output_tree_digest, tmp, "tpu_batch")

@@ -50,7 +50,7 @@ CONGESTION_CONTROL_NAMES = ("newreno", "cubic")
 MODEL_REGISTRY = ("tgen", "gossip", "tor", "echo", "httpd", "web",
                   "dns", "abr")
 #: the models this package has its own copy of (models/)
-PORTED_MODELS = ("tgen", "echo")
+PORTED_MODELS = ("tgen", "echo", "web", "dns")
 
 
 @dataclass
@@ -472,9 +472,6 @@ def refuse_unported(cfg: ConfigOptions) -> None:
         _refuse(f"scheduler_policy {e.scheduler_policy} (ported: "
                 f"{', '.join(PORTED_POLICIES)}; pass --scheduler-policy "
                 f"tpu_batch or tpu_mesh)")
-    if e.device_transport:
-        _refuse("experimental.device_transport: true (the device "
-                "transport kernel)")
     if e.scheduler_policy == "tpu_batch" and e.tpu_mesh_shards > 1:
         _refuse("experimental.tpu_mesh_shards > 1 (draws sharded over "
                 "several devices)")

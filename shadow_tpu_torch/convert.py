@@ -13,6 +13,14 @@ its sharded egress bucket state (``t_base``, ``tokens``, ``debt``, each
 (N, Hs): row i = shard i's hosts), into the port's plane
 (``parallel.mesh.MeshDataPlane.set_state``), so two planes can start from
 the same state mid-run.
+
+``transport_columns_from_arrays`` carries the device transport's state:
+a column snapshot of every stream endpoint (``hid``, ``local_port``,
+``remote_host``, ``remote_port`` and the transport columns of
+``network.devtransport.COLUMNS``, each (n,) int64), as the reference's
+``shadow_tpu.network.devtransport.export_columns`` writes it, into the
+port's snapshot, which ``network.devtransport.adopt_columns`` writes back
+into live endpoints; ``transport_columns_to_arrays`` is the way back.
 """
 
 from __future__ import annotations
@@ -86,3 +94,38 @@ def mesh_state_from_arrays(t_base, tokens, debt) -> torch.Tensor:
             raise ValueError("mesh_state_from_arrays: t_base, tokens and "
                              "debt must all be (N, Hs)")
     return torch.from_numpy(np.stack(a).astype(np.int64))
+
+
+def transport_columns_from_arrays(d: dict) -> dict:
+    """The port's endpoint column snapshot from ``d``, a dict of integer
+    arrays named as ``network.devtransport.KEY_COLUMNS + COLUMNS`` (for
+    example the reference's ``export_columns``): every column present,
+    1-D and of one length; returned as int64 copies in canonical order.
+    Raises ValueError on a missing, extra, non-integer or ragged
+    column."""
+    from shadow_tpu_torch.network.devtransport import COLUMNS, KEY_COLUMNS
+
+    names = KEY_COLUMNS + COLUMNS
+    missing = [k for k in names if k not in d]
+    extra = sorted(set(d) - set(names))
+    if missing or extra:
+        raise ValueError(f"transport_columns_from_arrays: missing columns "
+                         f"{missing}, unknown columns {extra}")
+    out = {}
+    for k in names:
+        a = np.asarray(d[k])
+        if not np.issubdtype(a.dtype, np.integer) or a.ndim != 1:
+            raise ValueError(f"transport_columns_from_arrays: {k} must be "
+                             f"a 1-D integer array, got {a.dtype} "
+                             f"{a.shape}")
+        out[k] = a.astype(np.int64)
+    if len({len(a) for a in out.values()}) != 1:
+        raise ValueError("transport_columns_from_arrays: columns differ "
+                         "in length")
+    return out
+
+
+def transport_columns_to_arrays(cols: dict) -> dict:
+    """A port snapshot (``export_columns``) as plain numpy int64 arrays
+    under the reference's column names, in its order."""
+    return transport_columns_from_arrays(cols)

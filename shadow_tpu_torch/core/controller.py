@@ -152,6 +152,9 @@ class Controller:
         for h in self.hosts:
             h.engine = self.engine
             h.equeue.on_first = partial(self._active.add, h.id)
+        # experimental.device_transport (network/devtransport.py):
+        # wall-clock policy only, every path is bit-identical
+        self.engine.attach_devtransport(cfg.experimental, device)
         self.scheduler = make_scheduler(policy, self.hosts,
                                         cfg.general.parallelism)
 
@@ -285,6 +288,11 @@ class Controller:
         dyn = self.cfg.experimental.use_dynamic_runahead
         next_gc = _GC_EVERY_ROUNDS
         hosts = self.hosts
+        # device transport: deferred host rounds replay inside
+        # end_of_round; their event counts fold back into `executed`, so
+        # the skip-ahead decision, the events total and the round grid
+        # are the scalar twin's
+        devt = self.engine.devt
         while now < stop:
             if self._interrupt is not None:
                 # graceful shutdown: the signal arrived during the last
@@ -305,6 +313,8 @@ class Controller:
                     self._active.discard(h.id)
             self._events_wall += _walltime.perf_counter() - t_ev
             self.engine.end_of_round(now, round_end)
+            if devt is not None:
+                executed += devt.take_executed()
             self.rounds += 1
             self.events += executed
             if dig and self.rounds % dig == 0:
@@ -441,6 +451,13 @@ class Controller:
             # identical output trees.
             "device_windows_dispatched": self.engine.dev_windows,
             "device": self.engine.device_summary(),
+            # device transport: wall-clock routing telemetry for the
+            # columnar endpoint ticks; engaged = at least one cohort
+            # advanced through the batched kernel
+            **({} if self.engine.devt is None else {
+                "device_transport_engaged": self.engine.devt.cohorts > 0,
+                "device_transport": self.engine.devt.summary(),
+            }),
             # the C engine (native/colcore) is not ported: the Python
             # columnar plane ran, whatever experimental.native_colcore said
             "native_colcore": "not_ported",

@@ -7,7 +7,8 @@ processes. All Host state is host-local: cross-host interaction happens
 only through the network engine at round boundaries.
 
 A copy of shadow_tpu/host/host.py for the columnar plane: the per-unit
-plane's Unit path, packet capture, telemetry flow records, the fault
+plane's Unit path, packet capture, the telemetry collector (flow records
+are dropped, as the reference drops them with telemetry off), the fault
 lifecycle (crash/reboot), the C endpoint twin and checkpoint pickling are
 not ported yet (their config keys are refused at load).
 """
@@ -56,6 +57,13 @@ class Host:
         #: egress rows are plain tuples; resolved arrival rows for the
         #: current round land in _inbox (see network/colplane.py)
         self.colplane = None
+        #: columnar transport engine (network/devtransport.py) when
+        #: experimental.device_transport is on: ack-dominated rounds defer
+        #: to the barrier and advance as one batched kernel (bit-identical)
+        self.devt = None
+        #: the telemetry collector; always None here (the telemetry:
+        #: section is refused at load), so models skip flow bookkeeping
+        self.telemetry = None
         self.egress_rows: list[tuple] = []
         self._inbox = None
         self.ingress_deferred_rows: list[tuple] = []
@@ -126,6 +134,14 @@ class Host:
             self._n_events += n
             return n
         self._inbox = None
+        devt = self.devt
+        if devt is not None and devt.intercept(self, rows, end):
+            # device transport: the whole round (inbox AND due timers)
+            # defers to the barrier, where cohorts of clean acks across
+            # hosts advance as ONE batched kernel and everything replays
+            # through this method's exact merge; the event count reports
+            # through DeviceTransport.take_executed
+            return 0
         eq = self.equeue
         heap = eq._heap
         dispatch = self.dispatch_row
@@ -240,6 +256,14 @@ class Host:
             self.counters.add("units_unroutable", 1)
             return
         ep.handle_fields(kind, nbytes, payload, seq, t)
+
+    def record_flow(self, kind: str, peer, t_open: SimTime,
+                    ttfb: Optional[SimTime], nbytes: int, status: str,
+                    retx: int = 0, x: Optional[int] = None) -> None:
+        """One application-flow lifecycle record, called at flow close
+        from model code. The telemetry collector that keeps these records
+        is not ported (``telemetry`` is always None), so the record is
+        dropped, exactly as the reference drops it with telemetry off."""
 
     def mark_ack(self, ep) -> None:
         """Queue a coalesced barrier ack for this endpoint (transport's

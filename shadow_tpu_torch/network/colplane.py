@@ -29,10 +29,16 @@ batch-level data end-to-end:
   key) — the canonical order (core/events.py BAND_NET) — charging the
   ingress token bucket per row at dispatch time, in event order.
 
+- **The device transport** (``experimental.device_transport``,
+  network/devtransport.py): ack-dominated host rounds defer to the
+  barrier, where their clean cumulative acks advance as one batched
+  kernel (ops/transport_kernels.py) before the rounds replay in canonical
+  order (``end_of_round``; wall in ``phase_wall.transport_tick``).
+
 Not ported yet, and refused at config load rather than run differently:
 the C engine (native/colcore; ``native_colcore: true`` runs this Python
-plane, as the reference does when its ``_colcore`` fails to import), the
-device transport, fault injection and multi-process sharding.
+plane, as the reference does when its ``_colcore`` fails to import), fault
+injection and multi-process sharding.
 
 Store row layout (tuples; each host's pending list is kept sorted by the
 unique (t, key) prefix):
@@ -152,10 +158,31 @@ class ColumnarPlane(DeviceRoutedPlane):
         self.phase_wall = {"barrier": 0.0, "draw_flush": 0.0,
                            "extract": 0.0, "ingress_deferred": 0.0,
                            "window_build": 0.0, "window_dispatch": 0.0,
-                           "window_readback": 0.0}
+                           "window_readback": 0.0, "transport_tick": 0.0}
         for h in hosts:
             h.colplane = self
         self._init_device_routing(backend, tpu_options, params, device)
+        #: device-resident columnar transport (network/devtransport.py),
+        #: set by attach_devtransport
+        self.devt = None
+
+    def attach_devtransport(self, tpu_options, device: str = "cuda"):
+        """Attach the columnar transport engine when
+        experimental.device_transport is on (the controller calls this
+        once the plane is built). Every path is bit-identical, so the key
+        is wall-clock policy only. In the reference the engine stands down
+        when the C engine is attached (colcore owns the scalar fast path
+        there); the C engine is not ported, so here it always attaches.
+        Returns the engine or None."""
+        if not getattr(tpu_options, "device_transport", False):
+            return None
+        from shadow_tpu_torch.network.devtransport import DeviceTransport
+
+        self.devt = DeviceTransport(self, device)
+        self.devt.start_device_attach()
+        for h in self.hosts:
+            h.devt = self.devt
+        return self.devt
 
     # state queries (controller) -------------------------------------------
     def pending_head(self) -> SimTime:
@@ -247,6 +274,12 @@ class ColumnarPlane(DeviceRoutedPlane):
         """The round barrier: resolve all rows emitted this round, then
         advance the fused device-window state machine. Windows open and
         close ONLY at round boundaries."""
+        if self.devt is not None:
+            # deferred host rounds replay (and their ack cohorts advance
+            # as one batched kernel) BEFORE the barrier collects emitters,
+            # so replayed emissions join this round's barrier exactly as
+            # live-dispatched ones would have
+            self.devt.flush_round(round_end)
         self._barrier_round(round_start, round_end)
         self._window_tick(round_end)
 

@@ -175,11 +175,14 @@ class DeviceRoutedPlane:
             raise RuntimeError(f"device attach failed: {exc}") from exc
 
     def close(self) -> None:
-        """Join the background device-attach thread (if any) and raise the
-        error it hit, if any."""
+        """Join the background device-attach threads (the draw plane's and
+        the device transport's, if any) and raise the error one hit."""
         t = self._bg_thread
         if t is not None and t.is_alive():
             t.join()
+        devt = getattr(self, "devt", None)
+        if devt is not None:
+            devt.close()
         self.raise_attach_error()
 
     # -- adaptive floor + window break-even ---------------------------------

@@ -60,6 +60,12 @@ _SIGNATURES = {
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
         "shadow_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "transport": {
+        "shadow_ack_advance": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p]),
+        "shadow_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
 #: one lock per source, so two sources build at once in two threads

@@ -14,6 +14,7 @@ import torch
 
 from shadow_tpu_torch.network.fluid import NetParams
 from shadow_tpu_torch.ops import propagate as prop
+from shadow_tpu_torch.ops import transport_kernels as tk
 from shadow_tpu_torch.parallel import mesh
 from shadow_tpu_torch.parallel.mesh import MeshDataPlane
 
@@ -99,3 +100,27 @@ def test_mesh_kernels_match_plain_on_card(dev, n):
         want = mesh.scan_rounds_plain(plane.state, uk, plane._tables, tk,
                                       seed, 10)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 17, 161, 4096, 70000])
+def test_ack_advance_matches_plain_on_card(dev, n):
+    """The transport kernel against its plain version on the card, and the
+    whole DeviceAckKernel.run round trip against the numpy host version,
+    on a sweep of every branch (chip_smoke.ack_sweep)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cols = cs.ack_sweep(np, np.random.default_rng(n), n)
+    x = torch.from_numpy(np.stack(cols)).to(dev)
+    tk.reset_launches()
+    got = tk.ack_advance_device(x)
+    assert tk.LAUNCHES["ack_advance"] == 1
+    assert torch.equal(got, torch.stack(tk.ack_advance_torch(*x.unbind(0))))
+    for a, b in zip(tk.DeviceAckKernel("cuda").run(*cols),
+                    tk.ack_advance(*cols)):
+        assert np.array_equal(a, b)

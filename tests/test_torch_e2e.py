@@ -125,6 +125,73 @@ def test_tgen_1k_identical_and_chip_smoke_constants(tmp_path):
     assert output_tree_digest(tmp_path / "port") == cs.TGEN1K_TREE_DIGEST
 
 
+@pytest.mark.parametrize("floor", [None, 1])
+def test_device_transport_tgen_100host_gives_pinned_results(tmp_path,
+                                                            monkeypatch,
+                                                            floor):
+    """tgen streams too: with experimental.device_transport on (at the
+    reference's device floor, and at 1 so that every cohort takes the
+    device path, here the plain PyTorch version), tgen_100host gives the
+    counts and tree pinned above, which the reference gives with the
+    feature off."""
+    from shadow_tpu_torch.network import devtransport
+
+    if floor is not None:
+        monkeypatch.setattr(devtransport, "_DEVICE_FLOOR", floor)
+    cs = _chip_smoke()
+    port = _run(port_cli.main, EX / "tgen_100host.yaml", tmp_path / "port",
+                ["--device", "cpu", "--set",
+                 "experimental.device_transport=true"])
+    assert port["process_errors"] == []
+    assert {k: port[k] for k in COUNTS} == cs.TGEN100_COUNTS
+    assert output_tree_digest(tmp_path / "port") == cs.TGEN100_TREE_DIGEST
+    s = port["device_transport"]
+    assert port["device_transport_engaged"] and s["cohorts"] > 0
+    if floor is None:
+        assert s["device_cohorts"] == 0  # no cohort reaches 4096 rows
+
+
+@pytest.mark.slow
+def test_web_cdn_100k_identical_and_chip_smoke_constants(tmp_path):
+    """web_cdn_100k (100k hosts, the reference's device-transport config)
+    at 500 ms as chip_smoke.py's user leg runs it: the reference and the
+    port give chip_smoke.py's counts, tree and last state digest."""
+    cs = _chip_smoke()
+    extra = ["--set", "experimental.native_colcore=false", "--set",
+             "experimental.device_transport=true", "--stop-time", "500ms",
+             "--state-digest-every", str(cs.WEB500_COUNTS["rounds"])]
+    cfg = EX / "web_cdn_100k.yaml"
+    ref = _run(ref_cli.main, cfg, tmp_path / "ref", extra)
+    port = _run(port_cli.main, cfg, tmp_path / "port",
+                extra + ["--device", "cpu"])
+    assert {k: ref[k] for k in COUNTS} == cs.WEB500_COUNTS
+    assert ref_tree_digest(tmp_path / "ref") == cs.WEB500_TREE_DIGEST
+    assert cs.last_state_digest(tmp_path / "ref") == cs.WEB500_STATE_DIGEST
+    assert _stable(port, VOLATILE_SUMMARY_KEYS) == _stable(ref, REF_VOLATILE)
+    assert output_tree_digest(tmp_path / "port") == cs.WEB500_TREE_DIGEST
+    assert (tmp_path / "port" / "state_digests.jsonl").read_text() == (
+        tmp_path / "ref" / "state_digests.jsonl").read_text()
+    assert port["device_transport"]["cohorts"] > 0
+
+
+@pytest.mark.slow
+def test_tgen_1k_device_transport_gives_chip_smoke_constants(tmp_path,
+                                                            monkeypatch):
+    """chip_smoke.py's first transport leg: tgen_1k with the device
+    transport on and every cohort on the device path gives the tpu_batch
+    constants."""
+    from shadow_tpu_torch.network import devtransport
+
+    monkeypatch.setattr(devtransport, "_DEVICE_FLOOR", 1)
+    cs = _chip_smoke()
+    port = _run(port_cli.main, EX / "tgen_1k.yaml", tmp_path / "port",
+                ["--device", "cpu", "--set",
+                 "experimental.device_transport=true"])
+    assert {k: port[k] for k in COUNTS} == cs.TGEN1K_COUNTS
+    assert output_tree_digest(tmp_path / "port") == cs.TGEN1K_TREE_DIGEST
+    assert port["device_transport"]["device_cohorts"] > 0
+
+
 #: copies of the reference tests' configs: 48 sources flooding one sink
 #: (tests/test_multichip.py INCAST: every exchange slice maximally
 #: destination-skewed) and bulk transfers under loss (tests/test_colplane.py
@@ -279,9 +346,6 @@ REFUSALS = {
                   "supervised runs"),
     "shards": (["--scheduler-policy", "tpu_batch", "--shards", "2"], None,
                "sharding"),
-    "device_transport": (["--scheduler-policy", "tpu_batch", "--set",
-                          "experimental.device_transport=true"], None,
-                         "device_transport"),
     "mesh_shards": (["--scheduler-policy", "tpu_batch", "--set",
                      "experimental.tpu_mesh_shards=4"], None,
                     "tpu_mesh_shards"),

@@ -50,6 +50,17 @@ def test_scan_covers_the_mesh_plane():
             "shadow_tpu_torch/parallel/mesh.py"} <= names
 
 
+def test_scan_covers_the_transport_slice():
+    """The device transport's modules, the kernel's module and the web and
+    DNS models are among the files scanned above."""
+    names = {str(f.relative_to(ROOT)) for f in FILES}
+    assert {"shadow_tpu_torch/network/devtransport.py",
+            "shadow_tpu_torch/ops/transport_kernels.py",
+            "shadow_tpu_torch/models/web.py",
+            "shadow_tpu_torch/models/dns.py",
+            "shadow_tpu_torch/convert.py"} <= names
+
+
 def test_scan_sees_forbidden_imports():
     """The scan itself: it flags what it must and passes the port."""
     assert _forbidden("jax") and _forbidden("jax.numpy")
@@ -96,3 +107,35 @@ def test_port_runs_tpu_mesh_with_jax_and_reference_blocked(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert (tmp_path / "d" / "hosts" / "client" / "client.log").exists()
+
+
+def test_port_runs_device_transport_with_jax_and_reference_blocked(tmp_path):
+    """The device-transport path (network/devtransport.py ->
+    ops/transport_kernels.py) on the web and DNS models, every cohort
+    through the device path, jax and the reference unimportable."""
+    from tests.test_torch_transport import WEB_CFG
+
+    cfg = tmp_path / "web.yaml"
+    cfg.write_text(WEB_CFG)
+    code = (
+        "import sys, json\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['shadow_tpu'] = None\n"
+        "from shadow_tpu_torch.cli import main\n"
+        "from shadow_tpu_torch.network import devtransport\n"
+        "devtransport._DEVICE_FLOOR = 1\n"
+        f"rc = main([{str(cfg)!r}, '--scheduler-policy', 'tpu_batch', "
+        f"'--device', 'cpu', '--set', 'experimental.device_transport=true', "
+        f"'--stop-time', '4s', '--data-directory', "
+        f"{str(tmp_path / 'd')!r}, '--quiet', '--json-summary'])\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'shadow_tpu.'))"
+        " for m, v in sys.modules.items() if v is not None), 'leak'\n"
+        "sys.exit(rc)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    import json
+
+    summary = json.loads(r.stdout.strip().splitlines()[-1])
+    assert summary["process_errors"] == []
+    assert summary["device_transport"]["cohorts"] > 0
