@@ -9,12 +9,13 @@ Phases, in order; any failure exits non-zero:
 
 1. device  — a CUDA card is visible; prints its name and power limit.
 2. build   — builds (or loads) the kernel libraries of shadow_tpu_torch/csrc
-             with nvcc, one process per source, all at once; prints the
-             seconds.
+             with nvcc and the C engine (csrc/colcore.c) with cc, one
+             process per source, all at once; prints the seconds.
 3. kernels — each draw kernel against its plain PyTorch version on the same
              inputs on the card, bit for bit (tolerance 0: integer math),
              over every bucket shape, ragged batch lengths, lane widths,
-             thresholds and two seeds.
+             thresholds and two seeds; the threefry2x32 device function
+             alone against its plain version.
 4. mesh kernels — mesh_exchange, mesh_round_step and mesh_scan against
              their plain versions, bit for bit, over N in {1, 2, 8} shards,
              m in the four exchange buckets with w at each, C in {256,
@@ -29,49 +30,72 @@ Phases, in order; any failure exits non-zero:
              w_max above 2**32 and newly up to 2**21, at n in {1, 17, 161,
              4096, 65536, 70000} rows and two seeds; and the whole
              DeviceAckKernel.run round trip against the numpy host version.
-6. echo    — examples/echo.yaml through the port's CLI on the card; its
-             output tree must equal the reference's (constant below).
-7. main    — examples/tgen_1k.yaml under tpu_batch through the port's CLI
-             on the card, once with tpu_device_floor=1 (every draw window
-             on the card) and once as a user runs it (auto floor); both
-             must give the reference's counts and output tree. Kernel
-             launch counts are reset just before and read just after: every
-             kernel must have launched. The floor-1 run keeps a copy of
-             every window it hands draw_flags.
-8. mesh path — examples/tgen_1k.yaml under tpu_mesh, once at
-             tpu_mesh_floor=0 (every causal window through mesh_exchange)
-             and once as a user runs it (default floor); the same counts
+6. apsp kernels — the min-plus squaring kernel against its plain version,
+             whole runs of ceil(log2 G) squarings, latency with tolerance
+             0 and reliability as exact float32 bits: G in {1, 2, 17}, the
+             real topologies of topology_tornet400.gml, tor_1m.yaml and
+             tgen_1k.yaml, and seeded graphs at G = 1,000 and 2,048 with
+             ties, separate components and subnormal products.
+7. echo    — examples/echo.yaml through the port's CLI on the card, on the
+             Python columnar plane and on the C engine; its output tree
+             must equal the reference's (constant below).
+8. main    — examples/tgen_1k.yaml under tpu_batch on the Python columnar
+             plane (native_colcore: false), once with tpu_device_floor=1
+             (every draw window on the card) and once at the auto floor;
+             both must give the reference's counts and output tree. Kernel
+             launch counts are reset just before and read just after:
+             every kernel must have launched. The floor-1 run keeps a copy
+             of every window it hands draw_flags.
+9. mesh path — examples/tgen_1k.yaml under tpu_mesh on the Python plane,
+             once at tpu_mesh_floor=0 (every causal window through
+             mesh_exchange) and once at the default floor; the same counts
              and tree again. Launch counts reset before, read after:
              mesh_exchange must have launched once per window formed.
              Nothing wraps the program in these two runs; a third floor-0
              run, untimed, keeps a copy of every exchange window and the
              columns of every barrier batch.
-9. mesh standalone — the standalone round API (MeshDataPlane.round_step
+10. mesh standalone — the standalone round API (MeshDataPlane.round_step
              and scan_rounds) at tgen_1k's size (1,000 hosts, 2,048 unit
              slots, K up to 32) on that run's own barrier batches, in
              order, the bucket state carried through all of them; 64
              round_steps and a sample of scans held against the plain
              versions; launch counts reset before, read after.
-10. transport path — experimental.device_transport on, through the CLI:
+11. transport path — experimental.device_transport on, on the Python plane
+             (under the C engine it stands down), through the CLI:
              tgen_1k under tpu_batch with the device floor lowered to 1
              in this process (every cohort on the card) and as a user
              runs it (the reference's floor, 4096 rows); web_cdn_100k to
-             1,500 ms at floor 1, and to 500 ms as a user runs it. Each gives the
+             500 ms at floor 1 and as a user runs it. Each gives the
              reference's counts, tree and (web_cdn_100k) last state digest;
              launch counts are reset before each leg and read after:
              ack_advance launches once per cohort sent to the card plus
-             once for the attach's warm-up. The 1,500 ms leg keeps a copy
-             of every cohort for the timing phase.
-11. timing  — every kernel and its plain version timed on the main paths'
-             own inputs: card time per launch, with the bound for the same
-             work.
-12. trace  — examples/tgen_100host.yaml under torch.profiler, at
-             tpu_device_floor=1 under tpu_batch and at tpu_mesh_floor=0
-             under tpu_mesh; counts and output tree must equal the
-             reference's. Prints the card's busy share of each run's wall
-             time and device time by kernel/copy name (a profiler that
-             cannot trace the card is reported; the run's own failures
-             are not caught).
+             once for the attach's warm-up. The floor-1 web leg keeps a
+             copy of every cohort for the timing phase.
+12. engine path — the C engine, the user's default: tgen_1k under
+             tpu_batch as a user runs it, again with the draw plane attached
+             before round 0 (speculation runs from the start) and at
+             tpu_device_floor=1; under tpu_mesh at floor 0 and at the
+             default floor; web_cdn_100k at full width to 1,500 ms. Each
+             gives the reference's counts, tree (and web_cdn_100k's last
+             state digest) and reports native_colcore; launch counts are
+             reset before each leg and read after: min_draw launches for
+             the speculative waves, draw_flags at floor 1, mesh_exchange
+             once per window at floor 0.
+13. apsp path — apsp_device, the port's device-APSP entry point, on the
+             card on the three real topologies: equal to the plain version
+             and to graph.py's routing tables; launches reset before, read
+             after.
+14. timing  — every kernel and its plain version timed on the main paths'
+             own inputs (APSP at G = 4,096): card time per launch or call,
+             with the bound for the same work.
+15. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
+             plane, at tpu_device_floor=1 under tpu_batch and at
+             tpu_mesh_floor=0 under tpu_mesh, and on the C engine at
+             tpu_device_floor=1; counts and output tree must
+             equal the reference's. Prints the card's busy share of each
+             run's wall time and device time by kernel/copy name (a
+             profiler that cannot trace the card is reported; the run's
+             own failures are not caught).
 
 Prints a JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. The reference constants come from
@@ -150,6 +174,8 @@ OPS_PER_LANE = 20 * 3 + 5 * 2 + 1 + 2 + 2
 #: kernel -> (its source, the TPU program it replaces, the CUDA kernels
 #: one wrapper call launches, as torch.profiler names them)
 PLAN = {
+    "threefry2x32": ("shadow_tpu_torch/csrc/threefry.cuh",
+                     "shadow_tpu/ops/prng.py:30", ("threefry_kernel",)),
     "draw_flags": ("shadow_tpu_torch/csrc/draw.cu",
                    "shadow_tpu/ops/propagate.py:85", ("draw_flags_kernel",)),
     "min_draw": ("shadow_tpu_torch/csrc/draw.cu",
@@ -166,7 +192,20 @@ PLAN = {
     "ack_advance": ("shadow_tpu_torch/csrc/transport.cu",
                     "shadow_tpu/ops/transport_kernels.py:112",
                     ("ack_advance_kernel",)),
+    "apsp": ("shadow_tpu_torch/csrc/apsp.cu", "shadow_tpu/ops/apsp.py:30",
+             ("apsp_square_kernel",)),
 }
+#: the Python columnar plane: the earlier legs' engine, written out now
+#: that the C engine is the default
+PY_PLANE = ["--set", "experimental.native_colcore=false"]
+#: the kernels whose bodies run the threefry2x32 device function: its
+#: launches on the main paths are theirs
+THREEFRY_INSIDE = ("draw_flags", "min_draw", "mesh_exchange",
+                   "mesh_round_step", "mesh_scan")
+#: integer operations of one threefry2x32 evaluation whose counters vary
+#: from call to call: 20 rounds x (add, rotate, xor), 5 key injections x 2
+#: adds, the two initial adds
+THREEFRY_OPS = 20 * 3 + 5 * 2 + 2
 #: the exchange buckets (MeshDataPlane.EXCHANGE_BUCKETS)
 MESH_BUCKETS = (256, 1024, 4096, 16384)
 #: MAX_RATE of network/fluid.py: the uint64 edge of the bucket math
@@ -271,6 +310,30 @@ def check_kernels(torch, np, prop, dev) -> dict:
             n_cmp += 2
     print(f"{n_cmp} kernel/plain comparisons, all bit-identical", flush=True)
     return err
+
+
+def check_threefry(torch, np, prng, dev) -> int:
+    """The threefry2x32 device function alone (threefry_kernel) against
+    ops/prng.py's plain version on the card, bit for bit, at n in {1, 33,
+    65536} random counter pairs and two keys (one with the high word
+    set)."""
+    rng = np.random.default_rng(17)
+    n_cmp = 0
+    for n in (1, 33, 65536):
+        c = rng.integers(0, 1 << 32, (2, n), dtype=np.uint64).astype(
+            np.uint32)
+        x = torch.from_numpy(c).to(dev)
+        for key in ((11, 0), (0xDEADBEEF, 0x12345678)):
+            got = prng.threefry2x32_device(x, key)
+            xi = x.to(torch.int64)
+            want = torch.stack(prng.threefry2x32_torch(
+                key[0], key[1], xi[0], xi[1]))
+            if abs_err(torch, got, want):
+                fail(f"threefry2x32 n={n} key={key}: kernel != plain")
+            n_cmp += 1
+    print(f"{n_cmp} threefry2x32 kernel/plain comparisons, all "
+          f"bit-identical", flush=True)
+    return 0
 
 
 # -- phase 5: transport kernels against their plain version -------------------
@@ -508,7 +571,7 @@ def check_mesh_kernels(torch, np, mesh, dev) -> dict:
     return err
 
 
-# -- phase 7: the main path, with its draw windows kept -----------------------
+# -- phase 8: the main path, with its draw windows kept -----------------------
 
 @contextlib.contextmanager
 def recording_windows(prop):
@@ -557,7 +620,7 @@ def window_mix(torch, prop, windows) -> dict:
                                          True)}
 
 
-# -- phases 8 and 9: the mesh path and the standalone round API ---------------
+# -- phases 9 and 10: the mesh path and the standalone round API --------------
 
 @contextlib.contextmanager
 def recording_exchanges(mesh):
@@ -635,7 +698,8 @@ def traffic_mix(np, windows, barriers) -> dict:
 
 
 def mesh_path(cli, mesh, digest, tmp: str, device: str = "cuda") -> tuple:
-    """tgen_1k under tpu_mesh at floor 0 and at the default floor, checked
+    """tgen_1k under tpu_mesh on the Python columnar plane at floor 0 and
+    at the default floor, checked
     against the reference, with nothing around the program; then a third,
     untimed floor-0 run that records every exchange window and every
     barrier batch. Returns (launches of the first two runs, the windows,
@@ -647,7 +711,8 @@ def mesh_path(cli, mesh, digest, tmp: str, device: str = "cuda") -> tuple:
                          ("default", [])):
         d = os.path.join(tmp, f"tgen_1k_mesh_{label}")
         argv = [str(EXAMPLES / "tgen_1k.yaml"), "--scheduler-policy",
-                "tpu_mesh", "--device", device, "--data-directory", d]
+                "tpu_mesh", "--device", device, "--data-directory", d,
+                *PY_PLANE]
         t0 = time.perf_counter()
         s = run_cli(cli, argv + extra)
         wall = time.perf_counter() - t0
@@ -676,7 +741,7 @@ def mesh_path(cli, mesh, digest, tmp: str, device: str = "cuda") -> tuple:
         s = run_cli(cli, [str(EXAMPLES / "tgen_1k.yaml"),
                           "--scheduler-policy", "tpu_mesh", "--device",
                           device, "--data-directory", d, "--set",
-                          "experimental.tpu_mesh_floor=0"])
+                          "experimental.tpu_mesh_floor=0", *PY_PLANE])
     check_run(s, d, digest, TGEN1K_COUNTS, TGEN1K_TREE_DIGEST,
               "tgen_1k tpu_mesh (floor0, recorded)")
     pw = s["phase_wall"]
@@ -789,7 +854,7 @@ def mesh_standalone(torch, np, mesh, barriers, tmp: str,
             "scans": scans, "ctx": (seed, mp, tables), "plane": plane}
 
 
-# -- phase 10: the device transport through the CLI ---------------------------
+# -- phase 11: the device transport through the CLI ---------------------------
 
 @contextlib.contextmanager
 def recording_cohorts(dt):
@@ -824,24 +889,25 @@ def transport_path(cli, tk, dt, digest, tmp: str) -> tuple:
     card (the module's device floor lowered to 1 in this process), then
     as a user runs it (the reference's floor, so the two legs' transport
     ticks compare the card with the numpy host version on the same
-    cohorts); web_cdn_100k at floor 1 to 1,500 ms, keeping a copy of every
+    cohorts); web_cdn_100k at floor 1 to 500 ms, keeping a copy of every
     cohort; web_cdn_100k as a user runs it (the reference's floor) to
     500 ms. Each leg must give the reference's counts, tree and (for
     web_cdn_100k) last state digest, and launch ack_advance once per cohort
-    it sent to the card, plus once for the attach's warm-up. Returns the
-    launches of all legs and the recorded cohorts."""
-    web = ["--set", "experimental.native_colcore=false"]
+    it sent to the card, plus once for the attach's warm-up. Every leg runs
+    the Python columnar plane: under the C engine the device transport
+    stands down. Returns the launches of all legs and the recorded
+    cohorts."""
     legs = (
         ("tgen_1k floor1", "tgen_1k.yaml", 1, [], TGEN1K_COUNTS,
          TGEN1K_TREE_DIGEST, None),
         ("tgen_1k user", "tgen_1k.yaml", None, [], TGEN1K_COUNTS,
          TGEN1K_TREE_DIGEST, None),
-        ("web_cdn_100k floor1 1500ms", "web_cdn_100k.yaml", 1,
-         web + ["--stop-time", "1500ms", "--state-digest-every",
-                str(WEB1500_COUNTS["rounds"])],
-         WEB1500_COUNTS, WEB1500_TREE_DIGEST, WEB1500_STATE_DIGEST),
+        ("web_cdn_100k floor1 500ms", "web_cdn_100k.yaml", 1,
+         ["--stop-time", "500ms", "--state-digest-every",
+          str(WEB500_COUNTS["rounds"])],
+         WEB500_COUNTS, WEB500_TREE_DIGEST, WEB500_STATE_DIGEST),
         ("web_cdn_100k user 500ms", "web_cdn_100k.yaml", None,
-         web + ["--stop-time", "500ms", "--state-digest-every",
+         ["--stop-time", "500ms", "--state-digest-every",
                 str(WEB500_COUNTS["rounds"])],
          WEB500_COUNTS, WEB500_TREE_DIGEST, WEB500_STATE_DIGEST),
     )
@@ -852,7 +918,7 @@ def transport_path(cli, tk, dt, digest, tmp: str) -> tuple:
         d = os.path.join(tmp, label.replace(" ", "_"))
         argv = [str(EXAMPLES / cfg), "--scheduler-policy", "tpu_batch",
                 "--device", "cuda", "--data-directory", d, "--set",
-                "experimental.device_transport=true", *extra]
+                "experimental.device_transport=true", *PY_PLANE, *extra]
         dt._DEVICE_FLOOR = floor0 if floor is None else floor
         gc.collect()  # the previous leg's hosts, outside this leg's wall
         try:
@@ -895,7 +961,7 @@ def transport_path(cli, tk, dt, digest, tmp: str) -> tuple:
     return launches, recorded
 
 
-# -- phase 11: kernel times on the main paths' inputs -------------------------
+# -- phase 14: kernel times on the main paths' inputs -------------------------
 
 def lanes_needed(torch, prop, x, key, width: int, early_exit: bool) -> int:
     """Threefry evaluations the kernel needs for these inputs: every lane
@@ -1115,13 +1181,14 @@ def spread_units(torch, windows, p: int, rows: int):
     return units[:rows, idx].to(torch.uint32).contiguous()
 
 
-def time_kernels(torch, prop, windows) -> dict:
+def time_kernels(torch, prop, windows, waves) -> dict:
     """Per kernel: a headline row on the main path's own inputs, then rows
     at bigger buckets. draw_flags: 64 of the floor-1 run's windows evenly
     spaced across it (the headline; with more than one bucket in the run,
     a row per bucket too), then the 1024 and 65536 buckets filled with the
-    run's units. min_draw (its consumer, speculation, comes with the C
-    engine): the pinned 16384 bucket filled with the run's units."""
+    run's units. min_draw: the speculative waves the C engine's cached leg
+    launched (the headline), then the pinned 16384 bucket filled with the
+    floor-1 run's units."""
     rate = spin_rate(torch)
     key, width = windows[0][1], windows[0][2]
     plane = prop.DeviceDrawPlane((key[1] << 32) | key[0], 65536,
@@ -1140,9 +1207,44 @@ def time_kernels(torch, prop, windows) -> dict:
                             width, rate, plane))
     spec = prop.DeviceDrawPlane.SPEC_BUCKET
     mins = [measure(torch, prop, "min_draw",
+                    evenly([w for w, _, _ in waves], 64), waves[0][1],
+                    waves[0][2], rate, plane),
+            measure(torch, prop, "min_draw",
                     [spread_units(torch, windows, spec, 3)] * 16, key,
                     width, rate, plane)]
     return {"draw_flags": rows, "min_draw": mins}
+
+
+def time_threefry(torch, prop, prng, windows, rate: float) -> list:
+    """threefry2x32 alone on the counters of every packet lane the floor-1
+    run's windows name (each unit's first min(npkts, width) lanes): the
+    evaluations the draw kernels make on the main path, as one call."""
+    units = real_units(torch, windows)
+    key, width = windows[0][1], windows[0][2]
+    lanes = torch.clamp(units[2], max=width)
+    p = torch.arange(width, device=units.device)
+    keep = p[None, :] < lanes[:, None]
+    c0 = units[0][:, None].expand(-1, width)[keep]
+    c1 = (units[1][:, None] | (p[None, :] << 26)).expand(-1, width)[keep]
+    x = torch.stack([c0, c1]).to(torch.uint32).contiguous()
+    n = x.shape[1]
+    xi = x.to(torch.int64)
+    calls = [lambda: prng.threefry2x32_device(x, key)]
+    plain = [lambda: prng.threefry2x32_torch(key[0], key[1], xi[0], xi[1])]
+    nbytes, ops = 16 * n, THREEFRY_OPS * n
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    row = {"inputs": f"{n} lanes of the floor-1 run's windows",
+           "calls": 1, "ms": card_ms(torch, calls, rate),
+           "plain_ms": card_ms(torch, plain, rate, chunk=1),
+           "profiler_ms": profiler_ms(torch, calls, PLAN["threefry2x32"][2]),
+           "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"  threefry2x32 on {n} run lanes: card {row['ms']:.6f} ms "
+          f"(profiler {row['profiler_ms']}), plain {row['plain_ms']:.6f} "
+          f"ms, bound {row['bound_ms']:.9f} ms ({row['bound_by']})",
+          flush=True)
+    return [row]
 
 
 def mesh_lanes(torch, prop, uid, lanes, th, seed: int, width: int) -> int:
@@ -1438,7 +1540,316 @@ def dispatch_breakdown(torch, prop, window, dev, n: int = 200) -> dict:
     return out
 
 
-# -- phases 6-8, 10 and 12: the port's CLI on the card ------------------------
+# -- phase 6: the APSP kernel against its plain version -----------------------
+
+#: reliabilities of apsp_case's edges: ordinary losses, values whose
+#: products go subnormal (1e-20, 2**-63, 2**-64), a subnormal operand
+#: (1e-40) and the rounding edge just above 2**-126
+APSP_RELS = (1.0, 0.99, 0.5, 1 - 2.0 ** -23, 1e-20, 2.0 ** -63,
+             2.0 ** -64, 2.0 ** -126 * (1 + 2.0 ** -23), 2.0 ** -126,
+             1e-40)
+
+
+def apsp_case(np, rng, g: int) -> tuple:
+    """A seeded one-hop graph of ``g`` nodes for the APSP checks: about
+    four edges a node, half of them 1, 2 or 3 ms (many tied paths), the
+    rest distinct; three components that no edge joins and 2 % of the
+    nodes isolated (unreachable pairs); reliabilities from APSP_RELS,
+    four edges in five from its ordinary first three.
+    Returns (int64 latency with INF_I64 and a 0 diagonal, float32
+    reliability with a 1.0 diagonal), apsp_device's input."""
+    from shadow_tpu_torch.network.graph import INF_I64
+
+    lat = np.full((g, g), INF_I64, dtype=np.int64)
+    rel = np.zeros((g, g), dtype=np.float32)
+    comp = rng.integers(0, 3, g)
+    comp[rng.random(g) < 0.02] = -1
+    src = np.repeat(np.arange(g), 4)
+    dst = rng.integers(0, g, src.size)
+    ok = (comp[src] == comp[dst]) & (comp[src] >= 0) & (src != dst)
+    src, dst = src[ok], dst[ok]
+    ns = np.where(rng.random(src.size) < 0.5,
+                  rng.integers(1, 4, src.size) * 1_000_000,
+                  rng.integers(1_000_000, 80_000_000, src.size))
+    # one edge in five carries a tiny or edge-case reliability
+    pick = np.where(rng.random(src.size) < 0.8,
+                    rng.integers(0, 3, src.size),
+                    rng.integers(3, len(APSP_RELS), src.size))
+    r = np.array(APSP_RELS, dtype=np.float32)[pick]
+    lat[src, dst] = lat[dst, src] = ns
+    rel[src, dst] = rel[dst, src] = r
+    np.fill_diagonal(lat, 0)
+    np.fill_diagonal(rel, 1.0)
+    return lat, rel
+
+
+def apsp_topologies(np) -> list:
+    """(name, latency, reliability) of the shipped configs' real
+    topologies, as graph.py hands them to its APSP solve."""
+    import yaml
+
+    from shadow_tpu_torch.network.gml import parse_gml, parse_gml_file
+    from shadow_tpu_torch.network.graph import apsp_inputs
+
+    out = [("topology_tornet400 (G=30)", *apsp_inputs(parse_gml_file(
+        str(EXAMPLES / "topology_tornet400.gml"))))]
+    for name in ("tor_1m", "tgen_1k"):
+        doc = yaml.safe_load((EXAMPLES / f"{name}.yaml").read_text())
+        lat, rel = apsp_inputs(parse_gml(doc["network"]["graph"]["inline"]))
+        out.append((f"{name} (G={lat.shape[0]})", lat, rel))
+    return out
+
+
+def apsp_tables(torch, np, lat, rel, dev) -> tuple:
+    """apsp_device's int32 / float32 device tables of one graph."""
+    from shadow_tpu_torch.network.graph import INF_I32
+
+    return (torch.from_numpy(np.minimum(lat, int(INF_I32)).astype(
+                np.int32)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(rel)).to(dev))
+
+
+def apsp_err(torch, got, want, what: str) -> int:
+    """Compare a squaring result with the plain version's: latency with
+    tolerance 0, reliability as exact float32 bits; fail on any
+    difference. Returns the largest absolute difference (0)."""
+    err = max(abs_err(torch, got[0], want[0]),
+              abs_err(torch, got[1].view(torch.int32),
+                      want[1].view(torch.int32)))
+    if err:
+        fail(f"apsp {what}: kernel differs from the plain version "
+             f"(largest difference {err})")
+    return err
+
+
+def check_apsp_kernels(torch, np, apsp, dev) -> int:
+    """The squaring kernel against the plain version on the card, whole
+    runs of ceil(log2 G) squarings: G in {1, 2, 17}, the real topologies,
+    and seeded graphs at G = 1,000 and 2,048 (ties, separate components,
+    subnormal products)."""
+    cases = [(f"G={g}", *apsp_case(np, np.random.default_rng(g), g))
+             for g in (1, 2, 17)]
+    cases += apsp_topologies(np)
+    cases += [(f"seeded G={g}", *apsp_case(np, np.random.default_rng(g), g))
+              for g in (1000, 2048)]
+    err = 0
+    for what, lat, rel in cases:
+        lat32, rel32 = apsp_tables(torch, np, lat, rel, dev)
+        steps = apsp.squaring_steps(lat.shape[0])
+        got = apsp.squarings(lat32, rel32, steps)
+        want = apsp.squarings_plain(lat32, rel32, steps)
+        torch.cuda.synchronize()
+        err = max(err, apsp_err(torch, got, want, what))
+        unreach = int((got[0] >= int(apsp.INF_I32)).sum())
+        sub = int(((got[1] > 0) & (got[1] < 2.0 ** -126)).sum())
+        zero = int((got[1] == 0).sum())
+        print(f"  apsp {what}: {steps} squarings bit-identical "
+              f"({unreach} unreachable pairs, {zero} zero and {sub} "
+              f"subnormal reliabilities)", flush=True)
+    return err
+
+
+# -- phase 13: the device-APSP entry point ------------------------------------
+
+def apsp_path(np, apsp) -> int:
+    """apsp_device, the port's device-APSP entry point, on the card for
+    each real topology, as a caller hands it graph.py's one-hop tables:
+    the result equals the plain version's (on the CPU) array for array
+    and graph.py's numpy routing table on reachable pairs. Returns the
+    kernel's launches."""
+    from shadow_tpu_torch.network.graph import INF_I64, _apsp_minplus
+
+    topos = apsp_topologies(np)
+    apsp.reset_launches()
+    t0 = time.perf_counter()
+    results = [apsp.apsp_device(lat, rel) for _, lat, rel in topos]
+    wall = time.perf_counter() - t0
+    launches = apsp.LAUNCHES["apsp"]
+    for (what, lat, rel), (d_lat, d_rel) in zip(topos, results):
+        p_lat, p_rel = apsp.apsp_device(lat, rel, device="cpu")
+        if not (np.array_equal(d_lat, p_lat)
+                and np.array_equal(d_rel.view(np.int32),
+                                   p_rel.view(np.int32))):
+            fail(f"apsp_device {what}: the card differs from the plain "
+                 f"version on the CPU")
+        n_lat, n_rel = _apsp_minplus(lat.copy(), rel.copy())
+        reach = n_lat < INF_I64
+        if not (np.array_equal(d_lat < INF_I64, reach)
+                and np.array_equal(d_lat[reach], n_lat[reach])
+                and np.array_equal(d_rel[reach], n_rel[reach])):
+            fail(f"apsp_device {what}: differs from graph.py's routing "
+                 f"table on reachable pairs")
+    want = sum(apsp.squaring_steps(lat.shape[0]) for _, lat, _ in topos)
+    print(f"apsp_device on {[w for w, _, _ in topos]}: equal to the plain "
+          f"version and to graph.py's routing tables; {launches} launches "
+          f"({want} squarings), {wall * 1e3:.3f} ms with copies and the "
+          f"first call's load", flush=True)
+    if launches != want:
+        fail(f"apsp launched {launches} times for {want} squarings")
+    return launches
+
+
+def time_apsp(torch, np, apsp, rate: float, dev, g: int = 4096) -> list:
+    """The APSP kernel on a seeded graph of ``g`` nodes (full-Tor
+    topologies are a few thousand nodes): card time of the whole
+    ceil(log2 G) squarings, the profiler's, the plain version's, and the
+    bound. Operations: three a candidate (add, compare, select) over G**3
+    candidates a squaring; bytes: each squaring reads and writes both
+    (G, G) tables once."""
+    lat, rel = apsp_case(np, np.random.default_rng(g), g)
+    lat32, rel32 = apsp_tables(torch, np, lat, rel, dev)
+    steps = apsp.squaring_steps(g)
+    call = [lambda: apsp.squarings(lat32, rel32, steps)]
+    ms = card_ms(torch, call, rate, reps=3, chunk=1)
+    _, device = profiled(torch, call[0])
+    prof = None
+    if device is not None:
+        # the profiler drops a launch now and then: scale its mean
+        mine = [us for name, us in device if "apsp_square_kernel" in name]
+        if mine:
+            prof = sum(mine) / len(mine) * steps / 1e3
+        if len(mine) != steps:
+            print(f"  torch.profiler saw {len(mine)} of {steps} launches of "
+                  f"apsp_square_kernel", flush=True)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = apsp.squarings_plain(lat32, rel32, steps)
+    b.record()
+    b.synchronize()
+    plain_ms = a.elapsed_time(b)
+    apsp_err(torch, call[0](), want, f"G={g}")
+    nbytes = steps * 4 * 4 * g * g
+    ops = 3 * g ** 3 * steps
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    row = {"G": g, "squarings": steps, "ms": ms, "profiler_ms": prof,
+           "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"  apsp G={g} ({steps} squarings): card {ms:.6f} ms (profiler "
+          f"{prof}), plain {plain_ms:.3f} ms, bound {row['bound_ms']:.6f} "
+          f"ms ({row['bound_by']}); {row['ms'] / row['bound_ms']:.3f}x the "
+          f"bound", flush=True)
+    return [row]
+
+
+# -- phase 12: the C engine's legs, the user's default ------------------------
+
+@contextlib.contextmanager
+def recording_min_draws(prop):
+    """Keep a device copy of every (3, P) batch the min_draw wrapper gets
+    while the block runs (the speculative waves), with its key and width.
+    The copy is made around the wrapper, so its launch count is untouched."""
+    waves = []
+    wrapper = prop.min_draw
+
+    def record(packed, seed_key, width):
+        out = wrapper(packed, seed_key, width)
+        waves.append((packed.clone(), tuple(int(k) for k in seed_key),
+                      int(width)))
+        return out
+
+    prop.min_draw = record
+    try:
+        yield waves
+    finally:
+        prop.min_draw = wrapper
+
+
+def engine_path(cli, prop, mesh, digest, tmp: str) -> tuple:
+    """The C engine (experimental.native_colcore, the default) through the
+    port's CLI: tgen_1k under tpu_batch as a user runs it (auto floor, the
+    draw plane attaching in the background as in a fresh process), again
+    with the plane attached before round 0 (a second auto run in one
+    process finds it cached: speculation runs from the start), and at
+    tpu_device_floor=1; under tpu_mesh at tpu_mesh_floor=0 and at the
+    default floor; web_cdn_100k at full width to 1,500 ms as a user runs
+    it. Launch counts are reset just before each leg and read just after.
+    Each leg must give the reference's counts and tree (and, for
+    web_cdn_100k, last state digest), report that the engine ran, and
+    launch what its path launches: min_draw beyond its warm-up on the
+    cached leg, draw_flags on the floor-1 leg, mesh_exchange once per
+    window at floor 0. Returns the launches summed over the legs, the
+    speculative waves the cached leg handed min_draw, and the legs'
+    summaries."""
+    tgen = str(EXAMPLES / "tgen_1k.yaml")
+    legs = (
+        ("tgen_1k tpu_batch user", tgen, "tpu_batch", [], TGEN1K_COUNTS,
+         TGEN1K_TREE_DIGEST, None),
+        ("tgen_1k tpu_batch cached", tgen, "tpu_batch", [], TGEN1K_COUNTS,
+         TGEN1K_TREE_DIGEST, None),
+        ("tgen_1k tpu_batch floor1", tgen, "tpu_batch",
+         ["--set", "experimental.tpu_device_floor=1"], TGEN1K_COUNTS,
+         TGEN1K_TREE_DIGEST, None),
+        ("tgen_1k tpu_mesh floor0", tgen, "tpu_mesh",
+         ["--set", "experimental.tpu_mesh_floor=0"], TGEN1K_COUNTS,
+         TGEN1K_TREE_DIGEST, None),
+        ("tgen_1k tpu_mesh default", tgen, "tpu_mesh", [], TGEN1K_COUNTS,
+         TGEN1K_TREE_DIGEST, None),
+        ("web_cdn_100k user 1500ms", str(EXAMPLES / "web_cdn_100k.yaml"),
+         "tpu_batch", ["--stop-time", "1500ms", "--state-digest-every",
+                       str(WEB1500_COUNTS["rounds"])], WEB1500_COUNTS,
+         WEB1500_TREE_DIGEST, WEB1500_STATE_DIGEST),
+    )
+    total = {k: 0 for k in ("draw_flags", "min_draw", "mesh_exchange")}
+    summaries, waves = {}, []
+    for label, cfg, policy, extra, counts, tree, state in legs:
+        d = os.path.join(tmp, "engine_" + label.replace(" ", "_"))
+        argv = [cfg, "--scheduler-policy", policy, "--device", "cuda",
+                "--data-directory", d, *extra]
+        if label.endswith("user"):
+            # a fresh process has attached no draw plane yet
+            prop.DeviceDrawPlane._cache.clear()
+        gc.collect()  # the previous leg's hosts, outside this leg's wall
+        prop.reset_launches()
+        mesh.reset_launches()
+        t0 = time.perf_counter()
+        if label.endswith("cached"):
+            with recording_min_draws(prop) as waves:
+                s = run_cli(cli, argv)
+        else:
+            s = run_cli(cli, argv)
+        wall = time.perf_counter() - t0
+        n = {**prop.LAUNCHES, "mesh_exchange": mesh.LAUNCHES["mesh_exchange"]}
+        check_run(s, d, digest, counts, tree, f"{label} (C engine)")
+        if state is not None and last_state_digest(d) != state:
+            fail(f"{label} (C engine): last state digest "
+                 f"{last_state_digest(d)} != reference {state}")
+        if s.get("native_colcore") is not True:
+            fail(f"{label}: the C engine did not run "
+                 f"(native_colcore {s.get('native_colcore')!r})")
+        if "device_transport" in s:
+            fail(f"{label}: the device transport ran beside the C engine")
+        summaries[label] = s
+        dv = s["device"]
+        print(f"{label} (C engine): counts, tree"
+              f"{' and state digest' if state else ''} match the "
+              f"reference; wall {wall:.3f} s (controller "
+              f"{s['wall_seconds']:.3f} s), {s['sim_sec_per_wall_sec']:.6f}"
+              f" sim-s/wall-s, launches {json.dumps(n)}, device "
+              f"{json.dumps(dv)}, phase_wall {json.dumps(s['phase_wall'])}",
+              flush=True)
+        if label.endswith("cached") and n["min_draw"] <= 0:
+            fail(f"{label}: no speculative min_draw wave was launched")
+        if label.endswith("floor1") and n["draw_flags"] <= 0:
+            fail(f"{label}: draw_flags was never launched at floor 1")
+        if label.endswith("floor0"):
+            formed = s["phase_wall"]["mesh_windows"]
+            if formed <= 0 or n["mesh_exchange"] != formed:
+                fail(f"{label}: mesh_exchange launched "
+                     f"{n['mesh_exchange']} times for {formed} windows")
+        for k in total:
+            total[k] += n[k]
+    print(f"launches on the C engine's legs: {json.dumps(total)}; "
+          f"speculative waves recorded: {len(waves)}", flush=True)
+    for k, v in total.items():
+        if v <= 0:
+            fail(f"kernel {k} was never launched on the C engine's legs")
+    return total, waves, summaries
+
+
+# -- phases 7-9, 11, 12 and 15: the port's CLI on the card -------------------
 
 def run_cli(cli, argv: list) -> dict:
     """Run the port's CLI in this process; returns its JSON summary."""
@@ -1464,18 +1875,22 @@ def check_run(summary: dict, data_dir: str, digest, counts, tree,
         fail(f"{what}: output tree {have} != reference {tree}")
 
 
-def trace_run(torch, cli, digest, tmp: str, policy: str = "tpu_batch") -> None:
+def trace_run(torch, cli, digest, tmp: str, policy: str = "tpu_batch",
+              engine: bool = False) -> None:
     """Profile one device-heavy run of tgen_100host under ``policy``
-    (tpu_batch at tpu_device_floor=1, tpu_mesh at tpu_mesh_floor=0),
-    checked against the reference; print the card's busy share."""
-    d = os.path.join(tmp, f"trace_{policy}")
+    (tpu_batch at tpu_device_floor=1, tpu_mesh at tpu_mesh_floor=0) on the
+    Python columnar plane or, with ``engine``, the C engine, checked
+    against the reference; print the card's busy share."""
+    d = os.path.join(tmp, f"trace_{policy}_{int(engine)}")
     knob = ("experimental.tpu_device_floor=1" if policy == "tpu_batch"
             else "experimental.tpu_mesh_floor=0")
-    label = f"{policy} {knob.split('.')[1]}"
+    label = (f"{policy} {knob.split('.')[1]}, "
+             f"{'C engine' if engine else 'Python plane'}")
     t0 = time.perf_counter()
     s, device = profiled(torch, lambda: run_cli(cli, [
         str(EXAMPLES / "tgen_100host.yaml"), "--scheduler-policy", policy,
-        "--device", "cuda", "--set", knob, "--data-directory", d]))
+        "--device", "cuda", "--set", knob, "--data-directory", d,
+        *([] if engine else PY_PLANE)]))
     wall = time.perf_counter() - t0
     check_run(s, d, digest, TGEN100_COUNTS, TGEN100_TREE_DIGEST,
               f"tgen_100host ({label}, profiled)")
@@ -1511,8 +1926,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA card")
     try:
-        from shadow_tpu_torch import cli
-        from shadow_tpu_torch.ops import devcfg
+        from shadow_tpu_torch import cli, native
+        from shadow_tpu_torch.ops import apsp, devcfg, prng
         from shadow_tpu_torch.network import devtransport as dt
         from shadow_tpu_torch.ops import propagate as prop
         from shadow_tpu_torch.ops import transport_kernels as tk
@@ -1529,17 +1944,37 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     phase("build")
-    stems = ("draw", "mesh", "transport")
+    stems = ("draw", "mesh", "transport", "apsp")
     built = [st for st in stems
              if not devcfg._lib_path(devcfg.CSRC / f"{st}.cu").exists()]
+    engine_built = not native.lib_path().exists()
+    done = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        fn()
+        done[name] = time.perf_counter() - t
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(stems)) as pool:
-        list(pool.map(devcfg.kernel_lib, stems))  # one nvcc each, at once
-    print(f"kernel libraries {stems} ready in {time.perf_counter() - t0:.2f}"
-          f" s (built: {built or 'none, all loaded'})", flush=True)
+    with ThreadPoolExecutor(max_workers=len(stems) + 1) as pool:
+        # one nvcc for each source and cc for the C engine, all at once
+        jobs = [pool.submit(timed, st, lambda st=st: devcfg.kernel_lib(st))
+                for st in stems]
+        jobs.append(pool.submit(timed, "colcore", native.colcore))
+        for job in jobs:
+            try:
+                job.result()
+            except Exception as exc:  # noqa: BLE001 — reported, then fail
+                fail(f"build: {exc}")
+    print(f"kernel libraries {stems} and the C engine ready in "
+          f"{time.perf_counter() - t0:.2f} s (each: "
+          f"{json.dumps({k: round(v, 2) for k, v in done.items()})}; built: "
+          f"{built + (['colcore'] if engine_built else []) or 'none'})",
+          flush=True)
 
     phase("kernels")
     max_err = check_kernels(torch, np, prop, dev)
+    max_err["threefry2x32"] = check_threefry(torch, np, prng, dev)
 
     phase("mesh kernels")
     max_err.update(check_mesh_kernels(torch, np, mesh, dev))
@@ -1547,20 +1982,27 @@ def main() -> int:
     phase("transport kernels")
     max_err["ack_advance"] = check_transport_kernels(torch, np, tk, dev)
 
+    phase("apsp kernels")
+    max_err["apsp"] = check_apsp_kernels(torch, np, apsp, dev)
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
 
     phase("echo")
-    d = os.path.join(tmp, "echo")
-    s = run_cli(cli, [str(EXAMPLES / "echo.yaml"), "--scheduler-policy",
-                      "tpu_batch", "--device", "cuda",
-                      "--data-directory", d])
-    if s["process_errors"]:
-        fail(f"echo: process errors {s['process_errors']}")
-    tree = output_tree_digest(d)
-    if tree != ECHO_TREE_DIGEST:
-        fail(f"echo output tree {tree} != reference {ECHO_TREE_DIGEST}")
-    print(f"echo: tree digest matches the reference ({tree[:16]})",
-          flush=True)
+    for label, extra in (("Python plane", PY_PLANE), ("C engine", [])):
+        d = os.path.join(tmp, f"echo_{len(extra)}")
+        s = run_cli(cli, [str(EXAMPLES / "echo.yaml"), "--scheduler-policy",
+                          "tpu_batch", "--device", "cuda",
+                          "--data-directory", d, *extra])
+        if s["process_errors"]:
+            fail(f"echo ({label}): process errors {s['process_errors']}")
+        if s["native_colcore"] is not (label == "C engine"):
+            fail(f"echo ({label}): native_colcore {s['native_colcore']}")
+        tree = output_tree_digest(d)
+        if tree != ECHO_TREE_DIGEST:
+            fail(f"echo ({label}) output tree {tree} != reference "
+                 f"{ECHO_TREE_DIGEST}")
+        print(f"echo ({label}): tree digest matches the reference "
+              f"({tree[:16]})", flush=True)
 
     phase("main path")
     prop.reset_launches()
@@ -1570,7 +2012,8 @@ def main() -> int:
                          ("auto", [])):
         d = os.path.join(tmp, f"tgen_1k_{label}")
         argv = [str(EXAMPLES / "tgen_1k.yaml"), "--scheduler-policy",
-                "tpu_batch", "--device", "cuda", "--data-directory", d]
+                "tpu_batch", "--device", "cuda", "--data-directory", d,
+                *PY_PLANE]
         t0 = time.perf_counter()
         if label == "floor1":
             with recording_windows(prop) as windows:
@@ -1582,21 +2025,24 @@ def main() -> int:
                   TGEN1K_TREE_DIGEST, f"tgen_1k ({label})")
         runs[label] = s
         dv = s["device"]
-        print(f"tgen_1k ({label}): counts and tree match the reference; "
-              f"wall {wall:.3f} s (controller {s['wall_seconds']:.3f} s), "
+        print(f"tgen_1k ({label}, Python plane): counts and tree match the "
+              f"reference; wall {wall:.3f} s (controller "
+              f"{s['wall_seconds']:.3f} s), "
               f"{s['sim_sec_per_wall_sec']:.3f} sim-s/wall-s, "
               f"{dv['windows_dispatched']} windows (largest "
               f"{dv['max_window_units']} units), {dv['window_units']} "
               f"window units = "
               f"{dv['window_units'] / s['units_sent']:.4f} of units_sent, "
               f"phase_wall {json.dumps(s['phase_wall'])}", flush=True)
-    launches = dict(prop.LAUNCHES)
-    print(f"launches on the main path: {json.dumps(launches)}", flush=True)
-    for name, n in launches.items():
+    py_launches = dict(prop.LAUNCHES)
+    print(f"launches on the Python plane's main path: "
+          f"{json.dumps(py_launches)}", flush=True)
+    for name, n in py_launches.items():
         if n <= 0:
             fail(f"kernel {name} was never launched on the main path")
-    if launches["draw_flags"] < runs["floor1"]["device"]["windows_dispatched"]:
-        fail(f"draw_flags launched {launches['draw_flags']} times, fewer "
+    if py_launches["draw_flags"] < runs["floor1"]["device"][
+            "windows_dispatched"]:
+        fail(f"draw_flags launched {py_launches['draw_flags']} times, fewer "
              f"than the {runs['floor1']['device']['windows_dispatched']} "
              f"windows the floor-1 run dispatched")
     if not windows:
@@ -1607,7 +2053,7 @@ def main() -> int:
     phase("mesh path")
     mesh_launches, mesh_windows, barriers = mesh_path(
         cli, mesh, output_tree_digest, tmp)
-    launches["mesh_exchange"] = mesh_launches["mesh_exchange"]
+    launches = {"mesh_exchange": mesh_launches["mesh_exchange"]}
 
     phase("mesh standalone")
     sa = mesh_standalone(torch, np, mesh, barriers, tmp)
@@ -1620,23 +2066,37 @@ def main() -> int:
     launches["ack_advance"], cohorts = transport_path(
         cli, tk, dt, output_tree_digest, tmp)
 
+    phase("engine path")
+    engine, waves, _ = engine_path(cli, prop, mesh, output_tree_digest, tmp)
+    for name, n in engine.items():
+        launches[name] = launches.get(name, 0) + n
+
+    phase("apsp path")
+    launches["apsp"] = apsp_path(np, apsp)
+
     phase("timing")
-    timing = time_kernels(torch, prop, windows)
+    timing = {"threefry2x32": time_threefry(torch, prop, prng, windows,
+                                            spin_rate(torch))}
+    timing.update(time_kernels(torch, prop, windows, waves))
     dispatch_breakdown(torch, prop, max(windows, key=lambda w: w[0].shape[1]),
                        dev)
-    del windows
+    del windows, waves
     timing.update(time_mesh_kernels(torch, np, prop, mesh, mesh_windows,
                                     sa["rounds"], sa["scans"], sa["ctx"],
                                     sa["plane"]))
     del mesh_windows, sa
     timing["ack_advance"] = time_transport_kernel(torch, np, tk, cohorts, dev)
     del cohorts
+    timing["apsp"] = time_apsp(torch, np, apsp, spin_rate(torch), dev)
 
     phase("trace")
     trace_run(torch, cli, output_tree_digest, tmp, "tpu_batch")
     trace_run(torch, cli, output_tree_digest, tmp, "tpu_mesh")
+    trace_run(torch, cli, output_tree_digest, tmp, "tpu_batch", engine=True)
     shutil.rmtree(tmp, ignore_errors=True)
 
+    # the device function's launches are those of the kernels that run it
+    launches["threefry2x32"] = sum(launches[k] for k in THREEFRY_INSIDE)
     kernels = []
     for name, rows in timing.items():
         head = rows[0]  # the main path's own inputs
@@ -1647,6 +2107,8 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,
+            **({"inside": list(THREEFRY_INSIDE)}
+               if name == "threefry2x32" else {}),
             "shapes": rows})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -165,7 +165,8 @@ class ExperimentalOptions:
     #: tpu_mesh: min due-window units for the collective program; smaller
     #: windows take the bit-identical numpy twin
     tpu_mesh_floor: int = 2048
-    #: C engine for the columnar plane (native/colcore). Bit-identical to
+    #: C engine for the columnar plane (csrc/colcore.c, built with the C
+    #: compiler at first use by shadow_tpu_torch/native). Bit-identical to
     #: the Python paths; off forces the pure-Python twin (test oracle).
     native_colcore: bool = True
     #: device-resident columnar transport (network/devtransport.py):

@@ -21,6 +21,10 @@ event (or the earliest event an in-flight draw batch can produce) — idle
 sim time costs nothing (the closed-form token buckets account elapsed time
 exactly, so results are identical to grinding through empty rounds).
 
+With the C engine attached (``experimental.native_colcore``, the
+default; network/colplane.py) the engine's ``run_round`` replaces the
+scheduler's per-host loop and keeps the active-host set itself.
+
 ``device`` ("cuda" or "cpu") is where the data-plane kernels run (the
 loss draws under tpu_batch, the mesh programs under tpu_mesh). The
 reference's faults, telemetry, live plane, checkpoints, supervision,
@@ -57,7 +61,8 @@ _GC_EVERY_ROUNDS = 5000
 #: simulation state — strip these when diffing summaries for determinism
 #: (WHICH windows the device served legitimately varies run to run while
 #: output trees stay bit-identical). The reference's list, plus
-#: "native_colcore": which host engine ran is as immaterial to results.
+#: "native_colcore" (whether the C engine ran): which host engine ran is
+#: as immaterial to results.
 VOLATILE_SUMMARY_KEYS = ("wall_seconds", "sim_sec_per_wall_sec",
                          "phase_wall", "max_rss_mb", "device",
                          "device_windows_dispatched", "sim_shards",
@@ -152,8 +157,20 @@ class Controller:
         for h in self.hosts:
             h.engine = self.engine
             h.equeue.on_first = partial(self._active.add, h.id)
+        # C engine (csrc/colcore.c): owns the per-round host loop and
+        # maintains the active set directly; activations route through it
+        # so its sorted active-set snapshot merges new members
+        # incrementally instead of re-snapshotting every round
+        self._c_core = self.engine._c
+        if self._c_core is not None:
+            self._c_core.bind_active(self._active)
+            act = self._c_core.activate
+            self.engine.activate = act
+            for h in self.hosts:
+                h.equeue.on_first = partial(act, h.id)
         # experimental.device_transport (network/devtransport.py):
-        # wall-clock policy only, every path is bit-identical
+        # wall-clock policy only, every path is bit-identical; it stands
+        # down when the C engine is attached
         self.engine.attach_devtransport(cfg.experimental, device)
         self.scheduler = make_scheduler(policy, self.hosts,
                                         cfg.general.parallelism)
@@ -306,11 +323,16 @@ class Controller:
             round_end = min(now + w, stop)
             self.engine.start_of_round(now, round_end)
             t_ev = _walltime.perf_counter()
-            active = [hosts[i] for i in sorted(self._active)]
-            executed = self.scheduler.run_round(round_end, active)
-            for h in active:
-                if not h.equeue._heap:
-                    self._active.discard(h.id)
+            if self._c_core is not None:
+                # the C loop snapshots + sorts the active set, merges each
+                # host's inbox/heap, and discards drained hosts itself
+                executed = self._c_core.run_round(round_end)
+            else:
+                active = [hosts[i] for i in sorted(self._active)]
+                executed = self.scheduler.run_round(round_end, active)
+                for h in active:
+                    if not h.equeue._heap:
+                        self._active.discard(h.id)
             self._events_wall += _walltime.perf_counter() - t_ev
             self.engine.end_of_round(now, round_end)
             if devt is not None:
@@ -341,10 +363,15 @@ class Controller:
                 # hence 'rounds' and bucket rebase instants — identical to a
                 # run whose flags were computed inline. The columnar
                 # plane's resolved-but-undelivered store rows count as
-                # queued events here (pending_head).
+                # queued events here (pending_head). The C core computes
+                # the same min natively (it drops cancelled heads exactly
+                # like next_time, so the round grid cannot move).
                 def _next_queued():
-                    nq = min((hosts[i].equeue.next_time()
-                              for i in self._active), default=T_NEVER)
+                    if self._c_core is not None:
+                        nq = self._c_core.next_time()
+                    else:
+                        nq = min((hosts[i].equeue.next_time()
+                                  for i in self._active), default=T_NEVER)
                     return min(nq, self.engine.pending_head())
 
                 nt = _next_queued()
@@ -458,9 +485,9 @@ class Controller:
                 "device_transport_engaged": self.engine.devt.cohorts > 0,
                 "device_transport": self.engine.devt.summary(),
             }),
-            # the C engine (native/colcore) is not ported: the Python
-            # columnar plane ran, whatever experimental.native_colcore said
-            "native_colcore": "not_ported",
+            # which host engine ran: the C engine (csrc/colcore.c) or the
+            # Python columnar plane
+            "native_colcore": self._c_core is not None,
         }
 
 

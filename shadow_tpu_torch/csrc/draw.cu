@@ -5,7 +5,10 @@
 //   draw_flags  <- _draw_kernel      (propagate.py:85), per-unit drop flags
 //   min_draw    <- _min_draw_kernel  (propagate.py:58), per-unit min draw
 // and, inside both, the threefry2x32 that shadow_tpu/ops/prng.py:30 traces
-// with xp=jnp (csrc/threefry.cuh).
+// with xp=jnp (csrc/threefry.cuh). threefry_kernel evaluates that device
+// function alone, one counter pair a thread (the reference traces it only
+// inside its programs): it is how chip_smoke.py times the function and
+// holds it against ops/prng.py's plain version; no run path launches it.
 //
 // Bound on an H100: a unit costs one Threefry evaluation (75 integer
 // operations that differ from lane to lane) per packet lane it needs, at
@@ -83,6 +86,17 @@ __global__ void min_draw_kernel(const uint32_t* __restrict__ packed, int P,
   out[i] = m;
 }
 
+// counters: (2, n) uint32 rows [c0, c1]; out: (2, n) uint32 rows [x0, x1].
+__global__ void threefry_kernel(const uint32_t* __restrict__ counters, int n,
+                                uint32_t k0, uint32_t k1,
+                                uint32_t* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint2 x = threefry2x32(k0, k1, counters[i], counters[n + i]);
+  out[i] = x.x;
+  out[n + i] = x.y;
+}
+
 }  // namespace
 
 extern "C" {
@@ -108,6 +122,17 @@ int shadow_min_draw(const void* packed, int P, uint32_t k0, uint32_t k1,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(packed), P, k0, k1,
       static_cast<uint32_t>(width), static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int shadow_threefry(const void* counters, int n, uint32_t k0, uint32_t k1,
+                    void* out, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + kThreads - 1) / kThreads;
+  threefry_kernel<<<blocks, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(counters), n, k0, k1,
+      static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

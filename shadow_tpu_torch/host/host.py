@@ -6,11 +6,13 @@ the engine's arrays, indexed by host id), socket namespace, event queue, and
 processes. All Host state is host-local: cross-host interaction happens
 only through the network engine at round boundaries.
 
-A copy of shadow_tpu/host/host.py for the columnar plane: the per-unit
-plane's Unit path, packet capture, the telemetry collector (flow records
-are dropped, as the reference drops them with telemetry off), the fault
-lifecycle (crash/reboot), the C endpoint twin and checkpoint pickling are
-not ported yet (their config keys are refused at load).
+A copy of shadow_tpu/host/host.py for the columnar plane, with its C
+engine hooks (the engine's stream endpoints and packed emission, when
+network/colplane.py attached it). The per-unit plane's Unit path, packet
+capture, the telemetry collector (flow records are dropped, as the
+reference drops them with telemetry off), the fault lifecycle
+(crash/reboot) and checkpoint pickling are not ported yet (their config
+keys are refused at load).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from shadow_tpu_torch.core.time import SimTime
 from shadow_tpu_torch.network import unit as U
 from shadow_tpu_torch.network.fluid import HEADER, MTU
 from shadow_tpu_torch.network.transport import (
-    DatagramSocket, StreamEndpoint, ESTABLISHED)
+    CONGESTION_CONTROLS, DatagramSocket, StreamEndpoint, ESTABLISHED)
 from shadow_tpu_torch.utils.counters import Counters
 
 EPHEMERAL_BASE = 49152
@@ -46,8 +48,10 @@ class Host:
             controller.cfg.experimental.unit_mtus * MTU - HEADER)
         #: congestion control for this host's stream endpoints
         #: (experimental.congestion_control, overridable per host via
-        #: hosts.<name>.congestion_control)
+        #: hosts.<name>.congestion_control); cc_id is the C twin's
+        #: dispatch integer, read at core bind (colcore.c init_core)
         self.cc_name = cc or controller.cfg.experimental.congestion_control
+        self.cc_id = CONGESTION_CONTROLS[self.cc_name].cc_id
         self.rng = host_rng(seed, host_id)
         self.equeue = EventQueue()
         self.counters = Counters()
@@ -74,6 +78,15 @@ class Host:
         self._n_dgrams = 0
         self._n_dgrams_recv = 0
         self._n_events = 0
+        #: fault-injection state the C engine reads and folds into (faults.py
+        #: is not ported: a host is never down, and without the plane's
+        #: faults_active the engine counts nothing torn down or blackholed)
+        self.down = False
+        self._n_teardown = 0
+        self._n_blackholed = 0
+        #: packet capture (utils/pcap.py is not ported): always None, so
+        #: every host takes the C engine's dispatch when it is attached
+        self.pcap = None
         self.processes: list = []
         # sockets
         self._listeners: dict[int, Callable] = {}  # port -> on_accept
@@ -282,6 +295,13 @@ class Host:
         layers: one tuple append, no Unit object, no uid mint (uids are
         assigned vectorized at the barrier in the same per-host emission
         order)."""
+        c = getattr(self.colplane, "_c", None)
+        if c is not None:
+            # C engine: packed egress row, no tuple (the C side also
+            # tracks the emitters list and the emitted counter)
+            c.emit_row(self.id, kind, dst, size, self._now, sport, dport,
+                       nbytes, seq, frag_idx, nfrags, payload)
+            return
         eg = self.egress_rows
         if not eg:
             self.colplane.emitters.append(self)
@@ -297,9 +317,7 @@ class Host:
         BAND_NET heap entries are deliberately excluded — the planes
         represent in-flight arrivals differently (host heap vs pending
         store), and their effects surface through the counters and
-        endpoint machines below. The fault fields (down, teardown,
-        blackholed) are constant here: fault injection is not ported, and
-        they stay in the record so it hashes as the reference's does."""
+        endpoint machines below."""
         conns = []
         for key in sorted(self._conns):
             ep = self._conns[key]
@@ -309,14 +327,14 @@ class Host:
         return {
             "now": self._now,
             "uid": self._uid_counter,
-            "down": False,
+            "down": self.down,
             "emitted": self._n_emitted,
             "delivered": self._n_delivered,
             "dgrams": self._n_dgrams,
             "dgrams_recv": self._n_dgrams_recv,
             "events": self._n_events,
-            "teardown": 0,
-            "blackholed": 0,
+            "teardown": self._n_teardown,
+            "blackholed": self._n_blackholed,
             "counters": dict(self.counters.c),
             "rng": self.rng.bit_generator.state,
             "timers": self.equeue.live_times(exclude_band=BAND_NET),
@@ -346,6 +364,14 @@ class Host:
     def _make_endpoint(self, local_port: int, remote_host: int,
                        remote_port: int, initiator: bool) -> StreamEndpoint:
         exp = self.controller.cfg.experimental
+        core = getattr(self.colplane, "_c", None)
+        if core is not None:
+            # C stream endpoint (native/colcore): the exact protocol twin
+            # of StreamEndpoint, bit-identical under the colcore suites
+            return core.make_endpoint(
+                self.id, local_port, remote_host, remote_port,
+                initiator, exp.socket_send_buffer, exp.socket_recv_buffer,
+                self.cc_id)
         return StreamEndpoint(
             self, local_port, remote_host, remote_port, initiator=initiator,
             send_buffer=exp.socket_send_buffer,

@@ -29,6 +29,17 @@ class TGenServer:
         self.api.log(f"tgen server listening on {self.port}")
 
     def _on_accept(self, conn, now):
+        serve = getattr(conn, "tgen_serve", None)
+        if serve is not None:
+            # C-engine endpoint: request parsing and counted-byte pushing
+            # run in the C engine (exact twin of the closures below, which
+            # remain the Python-plane path); only the once-per-transfer
+            # request notification comes back here
+            def on_request(want):
+                self.transfers += 1
+
+            serve(on_request)
+            return
         pending = {"n": 0}
 
         def push(room=0):
@@ -135,14 +146,21 @@ class TGenClient:
             self.api.log(f"transfer-failed peer={peer}: {msg}")
             self._next()
 
-        got = {"n": 0}
+        tgen_client = getattr(conn, "tgen_client", None)
+        if tgen_client is not None:
+            # C-engine endpoint: received-byte counting runs in the C
+            # engine; finish fires once per transfer with the same
+            # (now, got) the Python closure would compute
+            tgen_client(self.size, finish)
+        else:
+            got = {"n": 0}
 
-        def on_data(nbytes, payload, now):
-            got["n"] += nbytes
-            if got["n"] >= self.size:
-                finish(now, got["n"])
+            def on_data(nbytes, payload, now):
+                got["n"] += nbytes
+                if got["n"] >= self.size:
+                    finish(now, got["n"])
 
-        conn.on_data = on_data
+            conn.on_data = on_data
         conn.on_connected = on_connected
         conn.on_error = on_error
         if self.idle_timeout_ns:

@@ -29,16 +29,25 @@ batch-level data end-to-end:
   key) — the canonical order (core/events.py BAND_NET) — charging the
   ingress token bucket per row at dispatch time, in event order.
 
+- **The C engine** (``experimental.native_colcore``, on by default under
+  the fifo qdisc; csrc/colcore.c, built by shadow_tpu_torch/native): the
+  same structures with C hot loops — the host event loop, extraction, the
+  barrier, stream endpoints, inline loss draws — bit-identical to the
+  Python paths of this file, which run when it is off. Under it, big live
+  barriers hand off to the device window machinery
+  (``_dispatch_device_batch``) or the mesh collective
+  (``_queue_mesh_batch``), and auto-mode ``tpu_batch`` speculates the
+  prefix-min draws of future uids on the device (``min_draw``), which the
+  engine consults instead of drawing inline.
 - **The device transport** (``experimental.device_transport``,
   network/devtransport.py): ack-dominated host rounds defer to the
   barrier, where their clean cumulative acks advance as one batched
   kernel (ops/transport_kernels.py) before the rounds replay in canonical
-  order (``end_of_round``; wall in ``phase_wall.transport_tick``).
+  order (``end_of_round``; wall in ``phase_wall.transport_tick``). It
+  stands down when the C engine is attached, as in the reference.
 
 Not ported yet, and refused at config load rather than run differently:
-the C engine (native/colcore; ``native_colcore: true`` runs this Python
-plane, as the reference does when its ``_colcore`` fails to import), fault
-injection and multi-process sharding.
+fault injection and multi-process sharding.
 
 Store row layout (tuples; each host's pending list is kept sorted by the
 unique (t, key) prefix):
@@ -78,7 +87,9 @@ SMALL_BARRIER = 48
 
 class StoreBatch:
     """One resolved batch: store-row tuples pre-sorted by (t, key),
-    consumed as a moving prefix by per-round extraction."""
+    consumed as a moving prefix by per-round extraction. (With the C
+    engine attached the store holds its packed CBatch instead; the engine
+    fetches this class by module path for the batches it hands back.)"""
 
     __slots__ = ("rows", "pos")
 
@@ -137,6 +148,10 @@ class ColumnarPlane(DeviceRoutedPlane):
         self.units_dropped = 0
         self.units_blackholed = 0
         self.bytes_sent = 0
+        #: fault injection is not ported: no filter, no per-host blackhole
+        #: accounting (the C engine reads faults_active at bind)
+        self.fault_filter = None
+        self.faults_active = False
         self.emitters: list = []  # hosts with egress rows this round
         self.ack_hosts: list = []  # hosts owing coalesced barrier acks
         self._deferred: set = set()  # hosts with ingress backlog
@@ -162,20 +177,48 @@ class ColumnarPlane(DeviceRoutedPlane):
         for h in hosts:
             h.colplane = self
         self._init_device_routing(backend, tpu_options, params, device)
+        #: C engine (csrc/colcore.c): same structures, C hot loops;
+        #: bit-identical to this file's Python paths, which run when it is
+        #: not attached
+        self._c = None
+        self.attach_colcore(tpu_options)
         #: device-resident columnar transport (network/devtransport.py),
         #: set by attach_devtransport
         self.devt = None
 
+    def attach_colcore(self, tpu_options):
+        """Build (at first use) and attach the C engine over the current
+        structures when the policy is tpu_batch or tpu_mesh, the qdisc is
+        fifo and experimental.native_colcore is on. Returns the core or
+        None. A failed build raises (shadow_tpu_torch/native): it never
+        falls back to the Python plane. Resolved batches already in the
+        store convert to the engine's packed CBatch shells in place (the
+        deque's identity is load-bearing — the core caches it)."""
+        self._c = None
+        if not (self.backend in ("tpu", "mesh") and self.qdisc == "fifo"
+                and getattr(tpu_options, "native_colcore", True)):
+            return None
+        from shadow_tpu_torch.native import colcore
+
+        _colcore = colcore()
+        for i, b in enumerate(self.pending):
+            if isinstance(b, StoreBatch):
+                cb = _colcore.shell("CBatch")
+                cb._restore_state((b.pos, list(b.rows)))
+                self.pending[i] = cb
+        self._c = _colcore.Core(self)
+        return self._c
+
     def attach_devtransport(self, tpu_options, device: str = "cuda"):
         """Attach the columnar transport engine when
-        experimental.device_transport is on (the controller calls this
-        once the plane is built). Every path is bit-identical, so the key
-        is wall-clock policy only. In the reference the engine stands down
-        when the C engine is attached (colcore owns the scalar fast path
-        there); the C engine is not ported, so here it always attaches.
-        Returns the engine or None."""
+        experimental.device_transport is on and the C engine is not (the
+        controller calls this once the plane is built; colcore already
+        owns the scalar fast path). Every path is bit-identical, so the
+        key is wall-clock policy only. Returns the engine or None."""
         if not getattr(tpu_options, "device_transport", False):
             return None
+        if self._c is not None:
+            return None  # colcore IS the fast scalar twin (module doc)
         from shadow_tpu_torch.network.devtransport import DeviceTransport
 
         self.devt = DeviceTransport(self, device)
@@ -195,10 +238,13 @@ class ColumnarPlane(DeviceRoutedPlane):
         dt = round_start - self._last_refill
         self._last_refill = round_start
         if dt > 0:
-            p = self.params
-            add_down = clamped_refill(p.rate_down, p.cap_down, dt)
-            self.tokens_down += np.minimum(
-                add_down, p.cap_down - self.tokens_down)
+            if self._c is not None:
+                self._c.refill_ingress(dt)
+            else:
+                p = self.params
+                add_down = clamped_refill(p.rate_down, p.cap_down, dt)
+                self.tokens_down += np.minimum(
+                    add_down, p.cap_down - self.tokens_down)
         if self._deferred:
             t0 = _walltime.perf_counter()
             self._drain_deferred(round_start)
@@ -206,7 +252,10 @@ class ColumnarPlane(DeviceRoutedPlane):
                 _walltime.perf_counter() - t0)
         if self.pending:
             t0 = _walltime.perf_counter()
-            self._extract(round_end)
+            if self._c is not None:
+                self._c.extract(round_end)
+            else:
+                self._extract(round_end)
             self.phase_wall["extract"] += _walltime.perf_counter() - t0
 
     def _extract(self, round_end: SimTime) -> None:
@@ -250,6 +299,8 @@ class ColumnarPlane(DeviceRoutedPlane):
         """Retry ingress-deferred rows against the refilled buckets, in
         host-id order, delivering inline at round_start — mirroring the
         per-unit plane's direct deliver() calls before any host event."""
+        # copy + clear in place: the set's object identity is load-bearing
+        # when the C engine is attached (it caches the set)
         drain = list(self._deferred)
         self._deferred.clear()
         tokens = self.tokens_down
@@ -291,12 +342,40 @@ class ColumnarPlane(DeviceRoutedPlane):
             self.ack_hosts = []
             if len(acks) > 1:
                 acks.sort(key=lambda h: h.id)
-            for h in acks:
-                eps = list(h._ack_eps)
-                h._ack_eps.clear()
-                for ep in eps:
-                    if ep.state != 0:  # not CLOSED
-                        ep.receiver.flush_ack()
+            if self._c is not None:
+                # the whole coalesced-ack flush loop runs in C (the
+                # _ack_eps dicts are identity-stable — cleared in place,
+                # never rebound — so the C engine caches them)
+                self._c.flush_acks(acks)
+            else:
+                for h in acks:
+                    # snapshot + clear IN PLACE: the dict's identity is
+                    # load-bearing when the C engine is attached
+                    eps = list(h._ack_eps)
+                    h._ack_eps.clear()
+                    for ep in eps:
+                        if ep.state != 0:  # not CLOSED
+                            ep.receiver.flush_ack()
+        if self._c is not None and self.fault_filter is None:
+            # C barrier protocol: tuple = big live batch for the device
+            # dispatch machinery; True = kept rows stored inline (tick the
+            # floor cooldown, like the vector twin's non-device branch);
+            # None = nothing survived (no tick — the twin never ticks on
+            # empty rounds)
+            r = self._c.barrier(round_start, round_end)
+            if isinstance(r, tuple):
+                if len(r) == 10:  # mesh hand-off (src/dst arrays appended)
+                    self._queue_mesh_batch(r, round_end)
+                else:
+                    self._dispatch_device_batch(r, round_end)
+            elif r and self.device is not None:
+                self._floor_cooldown_tick()
+            self.phase_wall["barrier"] += _walltime.perf_counter() - t0
+            return
+        if self._c is not None:
+            # fault_filter rounds run the Python barrier below: flush the
+            # packed C egress buffers into host.egress_rows first
+            self._c.materialize_egress()
         emitters = self.emitters
         if not emitters:
             return
@@ -308,6 +387,8 @@ class ColumnarPlane(DeviceRoutedPlane):
         rr = self.qdisc == "round_robin"
         uids_l = None
         for h in emitters:
+            # copy + clear in place: the egress list's object identity is
+            # load-bearing when the C engine is attached (it caches it)
             hr = h.egress_rows[:]
             h.egress_rows.clear()
             k = len(hr)
@@ -566,6 +647,31 @@ class ColumnarPlane(DeviceRoutedPlane):
             keep_rows, src_l, arrival_l, keys_l, uid_lo, uid_hi, npk,
             thresh, round_end, deadline, None))
 
+    def _queue_mesh_batch(self, r, round_end: SimTime) -> None:
+        """C-barrier mesh hand-off: append the lazy collective batch
+        exactly as the Python vector path does."""
+        (keep_rows, src_l, arrival, keys_l, uid_lo, uid_hi, npk, thresh,
+         src_a, dst_a) = r
+        uid64 = (uid_lo.astype(np.int64)
+                 | (uid_hi.astype(np.int64) << np.int64(32)))
+        deadline = max(round_end, int(arrival.min()))
+        self.outstanding.append(_Outstanding(
+            keep_rows, src_l, arrival.tolist(), keys_l, None, None, None,
+            None, round_end, deadline,
+            _MeshLazy(src_a.astype(np.int64), dst_a.astype(np.int64),
+                      arrival, uid64, npk.astype(np.int64),
+                      thresh.astype(np.int64))))
+
+    def _dispatch_device_batch(self, r, round_end: SimTime) -> None:
+        """A C barrier handed back a big live batch: it joins the open
+        device window as a lazy batch (the window state machine owns all
+        device dispatch — one fused launch per window, two-slot async
+        pipeline)."""
+        keep_rows, src_l, arrival, keys_l, uid_lo, uid_hi, npk, thresh = r
+        deadline = max(round_end, int(arrival.min()))
+        self.outstanding.append(_Outstanding(
+            keep_rows, src_l, arrival.tolist(), keys_l, uid_lo, uid_hi,
+            npk, thresh, round_end, deadline, None))
 
     # -- fused multi-round device windows -----------------------------------
     def _window_tick(self, round_end: SimTime) -> None:
@@ -586,7 +692,14 @@ class ColumnarPlane(DeviceRoutedPlane):
             if self._bg_error is not None:
                 self.raise_attach_error()
             return
-        if not self.outstanding:
+        if (self._c is not None and not self._spec_checked
+                and self.window_rounds == 0):
+            # speculation is an auto-mode feature: a fixed K asks for the
+            # deterministic deferred-window discipline only
+            self._spec_enable()
+        if self._spec_on:
+            self._spec_tick()
+        if not self.outstanding:  # the common C-plane round: all inline
             self._win_open_rounds = 0
             return
         lazy = [b for b in self.outstanding if b.handle is None]
@@ -682,6 +795,153 @@ class ColumnarPlane(DeviceRoutedPlane):
         if dt > 2e-5:
             self._win_cost_ema += 0.25 * dt
 
+    # -- speculative forward windows (C plane) -------------------------------
+    def _spec_enable(self) -> None:
+        """One-time switch: speculation runs under the C engine (its class
+        tracker and consult table) unless a fault filter forces the
+        Python barrier."""
+        self._spec_checked = True
+        self._spec_on = self.fault_filter is None
+
+    def _spec_tick(self) -> None:
+        """Drive the speculative pipeline once per round: install every
+        speculative wave whose device readback has landed (is_ready —
+        never a stall), then, on a coarse cadence so single-host demand
+        coalesces into fused waves, pull per-host demand from the C class
+        tracker and dispatch it as one launch. A wave speculates the
+        PREFIX-MIN threefry draw for a contiguous range of FUTURE uids
+        under each host's recent npkts classes — threshold-independent
+        (dropped == min_draw < thresh), so one row serves every
+        destination. The C consult verifies uid range + npkts exactly; a
+        wrong guess costs device cycles, never correctness."""
+        pend = self._spec_pending
+        if pend:
+            keep = []
+            for wave in pend:
+                if wave[0].is_ready():
+                    self._install_spec(wave)
+                else:
+                    keep.append(wave)
+            self._spec_pending = keep
+        self._spec_round += 1
+        if (self._spec_round & 15
+                or len(self._spec_pending) >= WINDOW_SLOTS):
+            return  # demand keeps queueing C-side between drains
+        if (self._spec_round & 255 == 0 and self.dev_windows >= 4
+                and self._spec_round >= 1024):
+            # live economics: fold the C consult counters and compare
+            # realized spend — wave build + dispatch wall plus a
+            # compute-contention share for the speculated rows — against
+            # realized savings (verified hits x the inline C draw cost,
+            # ~0.22us for a full-quantum unit, the reference's host
+            # estimate). A losing speculation stops demanding new waves;
+            # installed windows keep serving their remaining hits.
+            hits, draws = self._c.spec_stats()
+            self.spec_hits += hits
+            self.spec_draws += draws
+            spend = self._spec_spend + 2.5e-8 * self._spec_units
+            if spend > self.spec_hits * 2.2e-7:
+                self._spec_on = False
+                self._spec_clamped = True
+                return
+        # demand coalescing: a wave's fixed dispatch cost wants a sizable
+        # host cohort; the coarse age cadence (every 256 rounds) flushes
+        # stragglers so every demanding host gets a window within ~one
+        # round-trip of simulated time
+        min_hosts = 1 if self._spec_round & 255 == 0 else 160
+        d = self._c.spec_demand(min_hosts)
+        if d is not None:
+            self._dispatch_spec(d)
+
+    #: classes cheaper than this many packet draws are not worth a wave
+    #: row (the inline threefry twin beats the speculation overhead);
+    #: must match SPEC_MIN_NPK in csrc/colcore.c
+    SPEC_MIN_NPK = 4
+
+    def _dispatch_spec(self, d) -> None:
+        """Build and dispatch one speculative wave: for each demanded host
+        a contiguous future-uid range min-drawn under up to two npkts
+        classes, packed with vectorized range arithmetic. Waves chunk at
+        the ONE pinned shape (DeviceDrawPlane.SPEC_BUCKET), whole hosts
+        per chunk (a host's classes must install together)."""
+        hosts, u0, n, npk_a, npk_b = d
+        n64 = n.astype(np.int64)
+        rows = (n64 * ((npk_a >= self.SPEC_MIN_NPK).astype(np.int64)
+                       + (npk_b >= self.SPEC_MIN_NPK).astype(np.int64)))
+        bucket = self.device.SPEC_BUCKET
+        lo_idx = 0
+        idx = np.flatnonzero(rows > 0)
+        while lo_idx < idx.size:
+            acc, take = 0, []
+            while lo_idx < idx.size and \
+                    acc + int(rows[idx[lo_idx]]) <= bucket:
+                acc += int(rows[idx[lo_idx]])
+                take.append(idx[lo_idx])
+                lo_idx += 1
+            if not take:  # single host larger than the bucket: skip it
+                lo_idx += 1
+                continue
+            g = np.asarray(take)
+            self._dispatch_spec_group(
+                hosts[g], u0[g], n[g], npk_a[g], npk_b[g])
+
+    def _dispatch_spec_group(self, hosts, u0, n, npk_a, npk_b) -> None:
+        t0 = _walltime.perf_counter()
+        n64 = n.astype(np.int64)
+        parts_lo: list = []
+        parts_hi: list = []
+        parts_npk: list = []
+        off_a = np.full(len(hosts), -1, dtype=np.int64)
+        off_b = np.full(len(hosts), -1, dtype=np.int64)
+        off = 0
+        for npk_c, offs in ((npk_a, off_a), (npk_b, off_b)):
+            use = np.flatnonzero(npk_c >= self.SPEC_MIN_NPK)
+            if use.size == 0:
+                continue
+            ns = n64[use]
+            total = int(ns.sum())
+            starts = np.cumsum(ns) - ns
+            uid = (np.repeat(u0[use], ns)
+                   + (np.arange(total, dtype=np.int64)
+                      - np.repeat(starts, ns)).astype(np.uint64))
+            parts_lo.append((uid & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+            parts_hi.append((uid >> np.uint64(32)).astype(np.uint32))
+            parts_npk.append(
+                np.repeat(npk_c[use].astype(np.uint32), ns))
+            offs[use] = off + starts
+            off += total
+        if off == 0:
+            return
+        t1 = _walltime.perf_counter()
+        dh = self.device.dispatch_min(
+            np.concatenate(parts_lo), np.concatenate(parts_hi),
+            np.concatenate(parts_npk),
+            min_bucket=self.device.SPEC_BUCKET)
+        self._spec_pending.append(
+            (dh, (hosts, u0, n, npk_a, npk_b), off_a, off_b))
+        self.dev_windows += 1
+        self.dev_window_units += off
+        self._spec_units += off
+        t2 = _walltime.perf_counter()
+        self.phase_wall["window_build"] += t1 - t0
+        self.phase_wall["window_dispatch"] += t2 - t1
+        # the economics clamp compares speculation's OWN spend against its
+        # hits; deferred-window walls must not be billed to it
+        self._spec_spend += t2 - t0
+
+    def _install_spec(self, wave) -> None:
+        """A speculative wave's min-draws landed: hand them to the C
+        consult table in one call (per-host slices by unit offset)."""
+        t0 = _walltime.perf_counter()
+        dh, d, off_a, off_b = wave
+        mins = dh.read()
+        hosts, u0, n, npk_a, npk_b = d
+        self._c.spec_install(hosts, u0, n, npk_a, npk_b, off_a, off_b,
+                             np.ascontiguousarray(mins))
+        dt = _walltime.perf_counter() - t0
+        self.phase_wall["window_build"] += dt
+        self._spec_spend += dt
+
     # result consumption ----------------------------------------------------
     def flush_due(self, limit: SimTime) -> None:
         """Resolve in-flight batches: every batch whose deadline precedes
@@ -768,6 +1028,18 @@ class ColumnarPlane(DeviceRoutedPlane):
 
     def flush_all(self) -> None:
         self.flush_due(T_NEVER + 1)
+        if (self._spec_on or self._spec_clamped) and self._c is not None:
+            # drain the C consult counters (hits served from speculative
+            # windows vs inline draws) into the run telemetry — also
+            # after an economics clamp, since installed windows keep
+            # serving hits; in-flight speculative waves are dropped (a
+            # cache of a pure function, never simulation state)
+            hits, draws = self._c.spec_stats()
+            self.spec_hits += hits
+            self.spec_draws += draws
+            self._spec_pending = []
+        if self._c is not None:
+            self._c.fold_counters()
         if self.mesh_plane is not None:
             # the collective's per-window wall attribution in the run
             # summary (mesh_* keys in phase_wall)
@@ -778,7 +1050,12 @@ class ColumnarPlane(DeviceRoutedPlane):
     def _store_resolved(self, rows, src_l, arrival, keys, flags,
                         round_end: SimTime) -> None:
         """Flags known (None = all survive): build one sorted StoreBatch
-        of arrival rows for the surviving units."""
+        of arrival rows for the surviving units (the C engine's packed
+        batch when it is attached)."""
+        if self._c is not None:
+            self._c.store_resolved(rows, src_l, arrival, keys, flags,
+                                   round_end)
+            return
         out: list = []
         nbytes_total = 0
         sent = 0

@@ -75,8 +75,18 @@ class DeviceRoutedPlane:
         self._win_cost_ema = 0.0  # seconds of host wall per window
         self.dev_windows = 0  # fused windows dispatched to the device
         self.dev_window_units = 0  # units those windows carried
+        self.spec_hits = 0  # C-plane speculative-window consults served
+        self.spec_draws = 0  # C-plane inline draws (speculation missed)
         self._max_window_units = 0  # biggest window this run has seen
         self._probe_clamped = False  # probing suppressed
+        #: speculative forward windows (C plane only; colplane drives)
+        self._spec_on = False
+        self._spec_checked = False
+        self._spec_clamped = False  # live economics turned speculation off
+        self._spec_pending = []
+        self._spec_round = 0
+        self._spec_spend = 0.0  # wall seconds speculation itself cost
+        self._spec_units = 0  # rows speculation itself dispatched
         self._bg_thread = None
         self._bg_error = None  # a failed attach, re-raised on the sim thread
         self.mesh_plane = None
@@ -176,13 +186,16 @@ class DeviceRoutedPlane:
 
     def close(self) -> None:
         """Join the background device-attach threads (the draw plane's and
-        the device transport's, if any) and raise the error one hit."""
+        the device transport's, if any), drop the C engine (its counters
+        were folded by flush_all) and raise the error an attach hit."""
         t = self._bg_thread
         if t is not None and t.is_alive():
             t.join()
         devt = getattr(self, "devt", None)
         if devt is not None:
             devt.close()
+        self._c = None
+        self._spec_pending = []
         self.raise_attach_error()
 
     # -- adaptive floor + window break-even ---------------------------------
@@ -295,13 +308,12 @@ class DeviceRoutedPlane:
         return {
             "windows_dispatched": self.dev_windows,
             "window_units": self.dev_window_units,
-            # speculative windows belong to the C engine, not ported yet
-            "spec_hits": 0,
-            "spec_draws": 0,
+            "spec_hits": self.spec_hits,
+            "spec_draws": self.spec_draws,
             "break_even_units": self.break_even_units(),
             "max_window_units": self._max_window_units,
             "probe_clamped": self._probe_clamped,
-            "spec_clamped": False,
+            "spec_clamped": self._spec_clamped,
             "window_rounds": self.window_rounds or "auto",
         }
 
@@ -311,6 +323,10 @@ class DeviceRoutedPlane:
             return "dev=off"
         state = "clamped" if self._probe_clamped else (
             "engaged" if self.dev_windows else "probing")
+        if self._spec_clamped:
+            state += "+spec_clamped"
+        elif self.spec_hits:
+            state += "+spec"
         return (f"dev={state} windows={self.dev_windows} "
                 f"be={self.break_even_units()} "
                 f"maxwin={self._max_window_units}")

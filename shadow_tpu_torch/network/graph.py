@@ -120,6 +120,39 @@ def _parse_loss(v) -> float:
 
 
 def from_gml(gml: GmlGraph) -> NetworkGraph:
+    lat, rel, defaults, node_id_map = _one_hop(gml)
+    # APSP must not relax through the (host-pair) diagonal: set diag to 0 for
+    # the solve (identity of min-plus), then restore self-latencies after.
+    self_lat = lat.diagonal().copy()
+    self_rel = rel.diagonal().copy()
+    np.fill_diagonal(lat, 0)
+    np.fill_diagonal(rel, 1.0)
+    lat, rel = _apsp_minplus(lat, rel)
+    np.fill_diagonal(lat, self_lat)
+    np.fill_diagonal(rel, self_rel)
+
+    return NetworkGraph(
+        n_nodes=len(defaults),
+        latency_ns=lat,
+        reliability=rel,
+        node_defaults=defaults,
+        node_id_map=node_id_map,
+    )
+
+
+def apsp_inputs(gml: GmlGraph) -> tuple:
+    """The one-hop (latency, reliability) tables that from_gml hands its
+    APSP solve (0 / 1.0 diagonal): the input of ops/apsp.py::apsp_device
+    for this topology."""
+    lat, rel, _, _ = _one_hop(gml)
+    np.fill_diagonal(lat, 0)
+    np.fill_diagonal(rel, 1.0)
+    return lat, rel
+
+
+def _one_hop(gml: GmlGraph) -> tuple:
+    """One-hop latency/reliability tables (self-latencies on the diagonal),
+    node defaults and the GML id -> index map."""
     nodes = gml.nodes
     edges = gml.edges
     g = len(nodes)
@@ -175,24 +208,7 @@ def from_gml(gml: GmlGraph) -> NetworkGraph:
             finite = row[row < INF_I64]
             lat[i, i] = int(finite.min()) if finite.size else NS_PER_MS
             rel[i, i] = 1.0
-
-    # APSP must not relax through the (host-pair) diagonal: set diag to 0 for
-    # the solve (identity of min-plus), then restore self-latencies after.
-    self_lat = lat.diagonal().copy()
-    self_rel = rel.diagonal().copy()
-    np.fill_diagonal(lat, 0)
-    np.fill_diagonal(rel, 1.0)
-    lat, rel = _apsp_minplus(lat, rel)
-    np.fill_diagonal(lat, self_lat)
-    np.fill_diagonal(rel, self_rel)
-
-    return NetworkGraph(
-        n_nodes=g,
-        latency_ns=lat,
-        reliability=rel,
-        node_defaults=defaults,
-        node_id_map=node_id_map,
-    )
+    return lat, rel, defaults, node_id_map
 
 
 def one_gbit_switch(latency_ns: SimTime = NS_PER_MS) -> NetworkGraph:

@@ -886,6 +886,13 @@ class DatagramSocket:
         if nfrags == 1:  # the overwhelmingly common case: one row, go
             cp = host.colplane
             if cp is not None:
+                c = cp._c
+                if c is not None:
+                    # C engine: packed egress row
+                    c.emit_row(host.id, U.DGRAM, dst_host, nbytes + HEADER,
+                               host._now, port, dst_port, nbytes, dgram,
+                               0, 1, payload)
+                    return
                 # columnar fast path: inline the emit_msg tuple append
                 # (this call is the hottest emission site at gossip scale)
                 eg = host.egress_rows

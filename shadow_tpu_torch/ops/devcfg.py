@@ -42,6 +42,9 @@ _SIGNATURES = {
         "shadow_min_draw": (ctypes.c_int, [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+        "shadow_threefry": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+            ctypes.c_void_p, ctypes.c_void_p]),
         "shadow_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "mesh": {
@@ -64,6 +67,12 @@ _SIGNATURES = {
         "shadow_ack_advance": (ctypes.c_int, [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p]),
+        "shadow_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
+    "apsp": {
+        "shadow_apsp_square": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]),
         "shadow_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
 }

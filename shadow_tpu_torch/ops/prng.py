@@ -15,8 +15,12 @@ Three implementations of one function:
   ``<`` or ``min`` on ``torch.uint32`` on the CPU (only ``^`` and casts), so
   it computes in ``int64`` holding values in [0, 2**32), masking after
   every add and shift;
-- ``threefry2x32`` in ``csrc/draw.cu``: the ``__device__`` function inside
-  the draw kernels.
+- ``threefry2x32`` in ``csrc/threefry.cuh``: the ``__device__`` function
+  inside the draw and mesh kernels. ``threefry2x32_device`` launches it
+  alone (``threefry_kernel`` in ``csrc/draw.cu``) on a CUDA tensor of
+  counters, and runs ``threefry2x32_torch`` on a CPU one; no run path
+  calls it: it times the function and holds it against the plain version
+  on the card (chip_smoke.py). ``LAUNCHES`` counts its launches.
 
 Loss decisions avoid floats entirely: a unit is dropped iff
 ``draw_24bit < floor(loss * 2**24)`` with the threshold precomputed
@@ -89,6 +93,45 @@ def threefry2x32_torch(k0, k1, c0, c1):
         x0 = (x0 + ks[j % 3]) & _M32
         x1 = (x1 + ks[(j + 1) % 3] + j) & _M32
     return x0, x1
+
+
+#: threefry_kernel launches (only CUDA launches count)
+LAUNCHES = {"threefry2x32": 0}
+
+
+def threefry2x32_device(counters, seed_key):
+    """Threefry-2x32 of a (2, n) uint32 tensor of counter pairs [c0, c1]
+    under the key ``seed_key`` = (k0, k1); returns (2, n) uint32 [x0, x1].
+    CPU tensor: the plain version. CUDA tensor: threefry_kernel on the
+    current stream, or an exception."""
+    import torch
+
+    from shadow_tpu_torch.ops import devcfg
+
+    if counters.dtype != torch.uint32 or counters.dim() != 2 \
+            or counters.shape[0] != 2 or not counters.is_contiguous():
+        raise ValueError(f"threefry2x32: want a contiguous (2, n) uint32 "
+                         f"tensor, got {counters.dtype} "
+                         f"{tuple(counters.shape)}")
+    k0, k1 = int(seed_key[0]) & _M32, int(seed_key[1]) & _M32
+    if counters.device.type == "cpu":
+        c = counters.to(torch.int64)
+        return torch.stack(threefry2x32_torch(k0, k1, c[0], c[1])).to(
+            torch.uint32)
+    if counters.device.type != "cuda":
+        raise ValueError(f"threefry2x32: unsupported device "
+                         f"{counters.device}")
+    n = counters.shape[1]
+    out = torch.empty_like(counters)
+    if n == 0:
+        return out
+    lib = devcfg.kernel_lib("draw")
+    code = lib.shadow_threefry(
+        counters.data_ptr(), n, k0, k1, out.data_ptr(),
+        torch.cuda.current_stream(counters.device).cuda_stream)
+    devcfg.check_launch(lib, code, "threefry2x32")
+    LAUNCHES["threefry2x32"] += 1
+    return out
 
 
 def quantize_loss(reliability: np.ndarray) -> np.ndarray:

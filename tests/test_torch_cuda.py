@@ -124,3 +124,48 @@ def test_ack_advance_matches_plain_on_card(dev, n):
     for a, b in zip(tk.DeviceAckKernel("cuda").run(*cols),
                     tk.ack_advance(*cols)):
         assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 17, 300])
+def test_apsp_matches_plain_on_card(dev, g):
+    """The min-plus squaring kernel against its plain version on the card,
+    bit for bit, on a graph with ties, separate components and
+    subnormal reliability products (chip_smoke.apsp_case)."""
+    import importlib.util
+    from pathlib import Path
+
+    from shadow_tpu_torch.network.graph import INF_I32
+    from shadow_tpu_torch.ops import apsp
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    lat, rel = cs.apsp_case(np, np.random.default_rng(g), g)
+    lat32 = torch.from_numpy(
+        np.minimum(lat, int(INF_I32)).astype(np.int32)).to(dev)
+    rel32 = torch.from_numpy(rel).to(dev)
+    steps = apsp.squaring_steps(g)
+    apsp.reset_launches()
+    got = apsp.squarings(lat32, rel32, steps)
+    assert apsp.LAUNCHES["apsp"] == steps
+    want = apsp.squarings_plain(lat32, rel32, steps)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_threefry_alone_matches_plain_on_card(dev):
+    from shadow_tpu_torch.ops import prng
+
+    rng = np.random.default_rng(3)
+    c = rng.integers(0, 1 << 32, (2, 4097), dtype=np.uint64).astype(np.uint32)
+    x = torch.from_numpy(c).to(dev)
+    for seed in SEEDS:
+        key = (seed & 0xFFFFFFFF, seed >> 32)
+        xi = x.to(torch.int64)
+        want = torch.stack(prng.threefry2x32_torch(key[0], key[1], xi[0],
+                                                   xi[1]))
+        assert torch.equal(prng.threefry2x32_device(x, key).to(torch.int64),
+                           want)

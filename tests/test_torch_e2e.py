@@ -8,8 +8,10 @@ state_digests.jsonl stream (tools/bisect_divergence.py --a REF --b PORT
 exits 0). Under tpu_batch at tpu_device_floor 1 (every draw window through
 the device plane) and 10**9 (every window on the host twin); under
 tpu_mesh at the default tpu_mesh_floor and at 0 (every causal window
-through the mesh exchange). Unported features are refused by name with
-exit 2.
+through the mesh exchange). The port runs with its C engine (the
+default) and with the Python columnar plane (``native_colcore: false``);
+the reference runs its Python plane, which needs no build of its engine.
+Unported features are refused by name with exit 2.
 """
 
 import contextlib
@@ -33,6 +35,10 @@ from shadow_tpu_torch.utils.digest import output_tree_digest
 ROOT = Path(__file__).resolve().parents[1]
 EX = ROOT / "examples"
 COUNTS = ("rounds", "events", "units_sent", "units_dropped", "bytes_sent")
+#: the host engine of the port's run: the C engine or the Python plane
+ENGINES = {"c_engine": [], "python_plane": [
+    "--set", "experimental.native_colcore=false"]}
+REF_PLANE = ENGINES["python_plane"]
 
 
 def _run(main, cfg, data_dir, extra=(), policy="tpu_batch"):
@@ -72,17 +78,20 @@ def _chip_smoke():
     return mod
 
 
+@pytest.mark.parametrize("engine", sorted(ENGINES))
 @pytest.mark.parametrize("floor", [1, 10**9])
 @pytest.mark.parametrize("config, digest_every", [
     # echo runs 24 rounds: digest every 5 so its stream is not empty
     ("echo.yaml", 5), ("tgen_100host.yaml", 50)])
-def test_identical_to_reference(tmp_path, config, digest_every, floor):
+def test_identical_to_reference(tmp_path, config, digest_every, floor,
+                                engine):
     extra = ["--set", f"experimental.tpu_device_floor={floor}",
              "--state-digest-every", str(digest_every)]
     ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
-    ref = _run(ref_cli.main, EX / config, ref_dir, extra)
+    ref = _run(ref_cli.main, EX / config, ref_dir, extra + REF_PLANE)
     port = _run(port_cli.main, EX / config, port_dir,
-                extra + ["--device", "cpu"])
+                extra + ENGINES[engine] + ["--device", "cpu"])
+    assert port["native_colcore"] is (engine == "c_engine")
     _assert_identical(ref, port, ref_dir, port_dir)
     if config == "tgen_100host.yaml":  # chip_smoke.py's trace phase
         cs = _chip_smoke()
@@ -133,7 +142,8 @@ def test_device_transport_tgen_100host_gives_pinned_results(tmp_path,
     reference's device floor, and at 1 so that every cohort takes the
     device path, here the plain PyTorch version), tgen_100host gives the
     counts and tree pinned above, which the reference gives with the
-    feature off."""
+    feature off. The C engine is off: under it the transport stands
+    down."""
     from shadow_tpu_torch.network import devtransport
 
     if floor is not None:
@@ -141,7 +151,7 @@ def test_device_transport_tgen_100host_gives_pinned_results(tmp_path,
     cs = _chip_smoke()
     port = _run(port_cli.main, EX / "tgen_100host.yaml", tmp_path / "port",
                 ["--device", "cpu", "--set",
-                 "experimental.device_transport=true"])
+                 "experimental.device_transport=true", *REF_PLANE])
     assert port["process_errors"] == []
     assert {k: port[k] for k in COUNTS} == cs.TGEN100_COUNTS
     assert output_tree_digest(tmp_path / "port") == cs.TGEN100_TREE_DIGEST
@@ -178,15 +188,15 @@ def test_web_cdn_100k_identical_and_chip_smoke_constants(tmp_path):
 def test_tgen_1k_device_transport_gives_chip_smoke_constants(tmp_path,
                                                             monkeypatch):
     """chip_smoke.py's first transport leg: tgen_1k with the device
-    transport on and every cohort on the device path gives the tpu_batch
-    constants."""
+    transport on (the C engine off, so that it does not stand down) and
+    every cohort on the device path gives the tpu_batch constants."""
     from shadow_tpu_torch.network import devtransport
 
     monkeypatch.setattr(devtransport, "_DEVICE_FLOOR", 1)
     cs = _chip_smoke()
     port = _run(port_cli.main, EX / "tgen_1k.yaml", tmp_path / "port",
                 ["--device", "cpu", "--set",
-                 "experimental.device_transport=true"])
+                 "experimental.device_transport=true", *REF_PLANE])
     assert {k: port[k] for k in COUNTS} == cs.TGEN1K_COUNTS
     assert output_tree_digest(tmp_path / "port") == cs.TGEN1K_TREE_DIGEST
     assert port["device_transport"]["device_cohorts"] > 0
@@ -263,9 +273,10 @@ MESH_CONFIGS = {"echo": (EX / "echo.yaml", 5),
                 "incast": (INCAST, 50), "tgen_lossy": (TGEN_LOSSY, 50)}
 
 
+@pytest.mark.parametrize("engine", sorted(ENGINES))
 @pytest.mark.parametrize("floor", [None, 0])
 @pytest.mark.parametrize("config", sorted(MESH_CONFIGS))
-def test_tpu_mesh_identical_to_reference(tmp_path, config, floor):
+def test_tpu_mesh_identical_to_reference(tmp_path, config, floor, engine):
     """scheduler_policy tpu_mesh through both packages: the reference runs
     its sharded programs over conftest's 8 CPU devices, the port its plain
     versions with every shard on the CPU. At floor 0 every causal window
@@ -279,9 +290,12 @@ def test_tpu_mesh_identical_to_reference(tmp_path, config, floor):
     if floor is not None:
         extra += ["--set", f"experimental.tpu_mesh_floor={floor}"]
     ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
-    ref = _run(ref_cli.main, cfg, ref_dir, extra, policy="tpu_mesh")
-    port = _run(port_cli.main, cfg, port_dir, extra + ["--device", "cpu"],
+    ref = _run(ref_cli.main, cfg, ref_dir, extra + REF_PLANE,
+               policy="tpu_mesh")
+    port = _run(port_cli.main, cfg, port_dir,
+                extra + ENGINES[engine] + ["--device", "cpu"],
                 policy="tpu_mesh")
+    assert port["native_colcore"] is (engine == "c_engine")
     _assert_identical(ref, port, ref_dir, port_dir)
     windows = port["phase_wall"]["mesh_windows"]
     assert windows == ref["phase_wall"]["mesh_windows"]

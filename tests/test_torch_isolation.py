@@ -3,6 +3,7 @@ imports jax or anything of the reference package shadow_tpu (the card
 machine has no JAX), and the port runs with both made unimportable."""
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -61,6 +62,33 @@ def test_scan_covers_the_transport_slice():
             "shadow_tpu_torch/convert.py"} <= names
 
 
+def _c_strings(path):
+    """Every string literal of a C source (comments stripped first)."""
+    text = re.sub(r"/\*.*?\*/|//[^\n]*", "", path.read_text(), flags=re.S)
+    return re.findall(r'"((?:[^"\\\n]|\\.)*)"', text)
+
+
+C_FILES = sorted((ROOT / "shadow_tpu_torch" / "csrc").glob("*.c"))
+
+
+@pytest.mark.parametrize("path", C_FILES, ids=lambda p: str(
+    p.relative_to(ROOT)))
+def test_c_sources_name_no_reference_module(path):
+    """The C engine imports modules by name at run time: none of its
+    string literals may name a module of the reference package."""
+    strings = _c_strings(path)
+    assert "shadow_tpu_torch.network.colplane" in strings
+    bad = [s for s in strings if re.search(r"\bshadow_tpu\.", s)]
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+def test_c_string_scan_sees_a_reference_module(tmp_path):
+    src = tmp_path / "x.c"
+    src.write_text('/* "shadow_tpu.a" */ f("shadow_tpu.network.x", "y\\"");')
+    assert _c_strings(src) == ["shadow_tpu.network.x", 'y\\"']
+    assert C_FILES, "no C source under shadow_tpu_torch/csrc"
+
+
 def test_scan_sees_forbidden_imports():
     """The scan itself: it flags what it must and passes the port."""
     assert _forbidden("jax") and _forbidden("jax.numpy")
@@ -69,6 +97,9 @@ def test_scan_sees_forbidden_imports():
 
 
 def test_port_runs_with_jax_and_reference_blocked(tmp_path):
+    """The default path, the C engine built from the port's own copy
+    attached: nothing of jax or the reference is imported, the engine's
+    own module lookup included."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -80,6 +111,7 @@ def test_port_runs_with_jax_and_reference_blocked(tmp_path):
         f"{str(tmp_path / 'd')!r}, '--quiet'])\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'shadow_tpu.'))"
         " for m, v in sys.modules.items() if v is not None), 'leak'\n"
+        "assert 'shadow_tpu_torch.native._colcore' in sys.modules\n"
         "sys.exit(rc)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
@@ -126,6 +158,7 @@ def test_port_runs_device_transport_with_jax_and_reference_blocked(tmp_path):
         "devtransport._DEVICE_FLOOR = 1\n"
         f"rc = main([{str(cfg)!r}, '--scheduler-policy', 'tpu_batch', "
         f"'--device', 'cpu', '--set', 'experimental.device_transport=true', "
+        f"'--set', 'experimental.native_colcore=false', "
         f"'--stop-time', '4s', '--data-directory', "
         f"{str(tmp_path / 'd')!r}, '--quiet', '--json-summary'])\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'shadow_tpu.'))"

@@ -76,3 +76,22 @@ def test_quantize_loss_matches_reference():
     rel[0, 0], rel[1, 1] = 1.0, 0.0
     np.testing.assert_array_equal(port.quantize_loss(rel),
                                   ref.quantize_loss(rel))
+
+
+@pytest.mark.parametrize("key", [(11, 0), (0xDEADBEEF, 0x12345678)])
+def test_device_wrapper_on_cpu_runs_the_plain_version(key):
+    """threefry2x32_device, the wrapper of the function's standalone
+    kernel, on a CPU tensor: the reference generator's numbers, no
+    launch counted; malformed input refused."""
+    c0, c1 = _inputs(7, 1000)[:2]
+    before = dict(port.LAUNCHES)
+    got = port.threefry2x32_device(torch.from_numpy(np.stack([c0, c1])),
+                                   key).numpy()
+    want = ref.threefry2x32(np.uint32(key[0]), np.uint32(key[1]), c0, c1,
+                            xp=np)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert port.LAUNCHES == before
+    with pytest.raises(ValueError):
+        port.threefry2x32_device(torch.zeros((3, 4), dtype=torch.uint32), key)
+    with pytest.raises(ValueError):
+        port.threefry2x32_device(torch.zeros((2, 4), dtype=torch.int64), key)
