@@ -17,12 +17,18 @@ Phases, in order; any failure exits non-zero:
              thresholds and two seeds; the threefry2x32 device function
              alone against its plain version.
 4. mesh kernels — mesh_exchange, mesh_round_step and mesh_scan against
-             their plain versions, bit for bit, over N in {1, 2, 8} shards,
-             m in the four exchange buckets with w at each, C in {256,
-             2048}, K in {1, 8, 32}, two seeds (one above 2**32), a
-             destination-skewed window, blackholed (rok = 0) units, the
-             uint64 edge of the bucket math, need <= 0 rows and saturating
-             rebases.
+             their plain versions, bit for bit, over N in {1, 2, 8, 16, 32}
+             shards (both sides of the cluster limit), m in the exchange
+             buckets with w at each, round tables of tgen_1k's size and
+             past the shared-memory limit (20,000 hosts; G = 512), C in
+             {64, 256, 2048, 257}, K in {1, 8, 32}, rounds whose real prefix
+             is 0, 1, 255, 256, 257 and C units, two seeds (one above
+             2**32), a destination-skewed window, blackholed (rok = 0)
+             units, the uint64 edge of the bucket math, need <= 0 rows and
+             saturating rebases; then MeshDataPlane.exchange_rounds over
+             windows whose bucket grows and shrinks, against fresh CPU
+             planes. Every launch path (cluster or pair,
+             shared or device memory) must have been taken.
 5. transport kernels — ack_advance against its plain version, bit for
              bit, over a sweep of both congestion controls, slow start and
              congestion avoidance, CUBIC epoch adoption, d < 0 and d > 0,
@@ -87,7 +93,12 @@ Phases, in order; any failure exits non-zero:
              after.
 14. timing  — every kernel and its plain version timed on the main paths'
              own inputs (APSP at G = 4,096): card time per launch or call,
-             with the bound for the same work.
+             with the bound for the same work; for the mesh kernels also
+             the kernels the profiler saw a call; mesh_exchange launched
+             as the plane launches it, through an ExchangeStage on the
+             floor-0 run's windows (reading and writing page-locked
+             memory), and MeshDataPlane.exchange_rounds' host time a
+             window.
 15. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
              plane, at tpu_device_floor=1 under tpu_batch and at
              tpu_mesh_floor=0 under tpu_mesh, and on the C engine at
@@ -182,13 +193,13 @@ PLAN = {
                  "shadow_tpu/ops/propagate.py:58", ("min_draw_kernel",)),
     "mesh_exchange": ("shadow_tpu_torch/csrc/mesh.cu",
                       "shadow_tpu/parallel/mesh.py:222",
-                      ("mesh_send_kernel", "mesh_recv_kernel")),
+                      ("mesh_exchange_kernel",)),
     "mesh_round_step": ("shadow_tpu_torch/csrc/mesh.cu",
                         "shadow_tpu/parallel/mesh.py:103",
-                        ("mesh_round_step_kernel", "mesh_reduce_kernel")),
+                        ("mesh_rounds_kernel",)),
     "mesh_scan": ("shadow_tpu_torch/csrc/mesh.cu",
                   "shadow_tpu/parallel/mesh.py:202",
-                  ("mesh_scan_kernel", "mesh_reduce_kernel")),
+                  ("mesh_rounds_kernel",)),
     "ack_advance": ("shadow_tpu_torch/csrc/transport.cu",
                     "shadow_tpu/ops/transport_kernels.py:112",
                     ("ack_advance_kernel",)),
@@ -489,14 +500,15 @@ def round_state(np, rng, tables, n: int, hs: int, t_now: int):
     return st
 
 
-def round_units(np, rng, n: int, hs: int, c: int, t_now: int):
-    """(6, n, c) int64 round input: per shard a random count of src-sorted
-    units (the first ones 60 bytes, the rest up to 15,000), padding
-    (src_l == hs) last, one unit in ten blackholed (rok = 0)."""
+def round_units(np, rng, n: int, hs: int, c: int, t_now: int,
+                used: int | None = None):
+    """(6, n, c) int64 round input: per shard a random count (or ``used``)
+    of src-sorted units (the first ones 60 bytes, the rest up to 15,000),
+    padding (src_l == hs) last, one unit in ten blackholed (rok = 0)."""
     u = np.zeros((6, n, c), np.int64)
     u[0] = hs
     for s_ in range(n):
-        k = int(rng.integers(0, c + 1))
+        k = int(rng.integers(0, c + 1)) if used is None else min(used, c)
         u[0, s_, :k] = np.sort(rng.integers(0, hs, k))
         u[0, s_, :min(k, 1)] = 0  # shard 0's host 0 runs at MAX_RATE
     u[1] = rng.integers(0, hs * n, (n, c))
@@ -508,16 +520,36 @@ def round_units(np, rng, n: int, hs: int, c: int, t_now: int):
     return u
 
 
+#: the mesh sweep's round shapes (N, hosts, G): tgen_1k's 1,000 hosts and
+#: 32 nodes on every shard count (N = 16 and 32 on both sides of the
+#: cluster limit), and tables past the shared-memory limit (20,000 hosts;
+#: G = 512), which read device memory
+MESH_ROUND_SHAPES = ((1, 1000, 32), (2, 1000, 32), (8, 1000, 32),
+                     (16, 1000, 32), (32, 1000, 32), (1, 20000, 32),
+                     (8, 1000, 512), (32, 20000, 32))
+#: real prefixes (units a shard) of the rounds of the prefix sweep, each
+#: capped at C
+MESH_PREFIXES = (0, 1, 255, 256, 257, 1 << 30)
+#: successive window sizes for the staged exchange: the bucket grows and
+#: shrinks (20,000 units are two slices)
+STAGED_WINDOWS = (700, 30, 5000, 200, 20000, 1, 3000, 40)
+
+
 def check_mesh_kernels(torch, np, mesh, dev) -> dict:
     """Every mesh kernel against its plain version on the card over the
-    sweep of the module docstring. Returns the largest absolute error per
-    kernel (the tolerance is 0)."""
+    sweep of the module docstring, every launch path counted; then the
+    plane's staged exchange_rounds over windows whose bucket grows and
+    shrinks, against fresh CPU planes. Returns the largest
+    absolute error per kernel (the tolerance is 0)."""
+    from shadow_tpu_torch.parallel.mesh import MeshDataPlane
+
     rng = np.random.default_rng(20261018)
     seeds = (2, (1 << 32) + 0xDEADBEEF)  # one key word, then both
     err = {k: 0 for k in mesh.LAUNCHES}
     n_cmp = 0
-    for n in (1, 2, 8):
-        for m in MESH_BUCKETS:
+    mesh.reset_launches()
+    for n in (1, 2, 8, 16, 32):
+        for m in MESH_BUCKETS if n <= 8 else MESH_BUCKETS[:2]:
             for skew in (False, True):
                 x = torch.from_numpy(exchange_inputs(np, rng, n, m,
                                                      skew)).to(dev)
@@ -529,14 +561,17 @@ def check_mesh_kernels(torch, np, mesh, dev) -> dict:
                             torch, got, want, f"mesh_exchange n={n} m={m} "
                             f"w={w} seed={seed} skew={skew}"))
                         n_cmp += 1
-    for n in (1, 2, 8):
-        tabs, hs = round_tables(np, rng, n)
+    for n, h, g in MESH_ROUND_SHAPES:
+        tabs, hs = round_tables(np, rng, n, h, g)
         tables = tuple(torch.from_numpy(np.asarray(t, np.int64)).to(dev)
                        for t in tabs)
         t0 = 40 * 10 ** 9
-        for c in (256, 2048):
+        # 64: fewer slots than a block's threads; 257: columns not 16-byte
+        # aligned
+        for c in (64, 256, 2048, 257):
             state = torch.from_numpy(round_state(np, rng, tabs, n, hs,
                                                  t0)).to(dev)
+            what = f"n={n} hosts={h} g={g} c={c}"
             for seed in seeds:
                 st, t_now = state, t0
                 for rnd in range(3):  # stateful: the kernel's state carries
@@ -548,14 +583,16 @@ def check_mesh_kernels(torch, np, mesh, dev) -> dict:
                                                  seed, 10)
                     err["mesh_round_step"] = max(
                         err["mesh_round_step"], same(
-                            torch, got, want, f"mesh_round_step n={n} c={c} "
+                            torch, got, want, f"mesh_round_step {what} "
                             f"seed={seed} round={rnd}"))
                     st = got[1]
                     t_now += 3 * 10 ** 9 + 10 ** 9 - 1
                     n_cmp += 1
-                for k in (1, 8, 32):
+                for k, used in ((1, None), (8, None), (32, None),
+                                (len(MESH_PREFIXES), MESH_PREFIXES)):
                     units = torch.from_numpy(np.stack([round_units(
-                        np, rng, n, hs, c, t0 + j * 2_000_000)
+                        np, rng, n, hs, c, t0 + j * 2_000_000,
+                        None if used is None else used[j])
                         for j in range(k)])).to(dev)
                     t_nows = torch.arange(k, device=dev) * 2_000_000 + t0
                     got = mesh.mesh_scan(state, units, tables, t_nows, seed,
@@ -563,11 +600,55 @@ def check_mesh_kernels(torch, np, mesh, dev) -> dict:
                     want = mesh.scan_rounds_plain(state, units, tables,
                                                   t_nows, seed, 10)
                     err["mesh_scan"] = max(err["mesh_scan"], same(
-                        torch, got, want, f"mesh_scan n={n} c={c} k={k} "
-                        f"seed={seed}"))
+                        torch, got, want, f"mesh_scan {what} k={k} "
+                        f"prefixes={used} seed={seed}"))
                     n_cmp += 1
-    print(f"{n_cmp} mesh kernel/plain comparisons, all bit-identical",
-          flush=True)
+    for n in (1, 8, 32):
+        err["mesh_exchange"] = max(err["mesh_exchange"], check_staged(
+            np, rng, MeshDataPlane, n))
+        n_cmp += len(STAGED_WINDOWS)
+    paths = dict(mesh.PATHS)
+    print(f"{n_cmp} mesh kernel/plain comparisons, all bit-identical; "
+          f"launches {json.dumps(dict(mesh.LAUNCHES))}; paths "
+          f"{json.dumps(paths)}", flush=True)
+    missed = [k for k, v in paths.items() if v <= 0]
+    if missed:
+        fail(f"the mesh sweep never took the launch paths {missed}")
+    return err
+
+
+def check_staged(np, rng, plane_cls, n: int) -> int:
+    """MeshDataPlane.exchange_rounds on the card over STAGED_WINDOWS in
+    turn (one plane: its bucket buffers are reused as the windows grow and
+    shrink), each window's tables against a fresh CPU plane's
+    (exchange_rounds_plain). Returns the largest absolute error."""
+    from shadow_tpu_torch.network.fluid import NetParams
+
+    h, g = 1000, 32
+    params = NetParams.build(
+        host_node=rng.integers(0, g, h).astype(np.int32),
+        rate_up=rng.integers(2_000_000, 50_000_000, h),
+        rate_down=rng.integers(2_000_000, 50_000_000, h),
+        latency_ns=rng.integers(1_000_000, 60_000_000, (g, g)),
+        reliability=np.full((g, g), 0.97, np.float32),
+        seed=(1 << 32) + 7, round_ns=2_000_000)
+    plane = plane_cls(params, n_shards=n, device="cuda")
+    err = 0
+    for total in STAGED_WINDOWS:
+        win = (rng.integers(0, h, total), rng.integers(0, h, total),
+               rng.integers(0, 1 << 40, total),
+               rng.integers(0, 1 << 58, total), rng.integers(1, 11, total),
+               rng.choice(np.array([0, 1, 16106, 1 << 24]), total))
+        want = plane_cls(params, n_shards=n, device="cpu").exchange_rounds(
+            *win)
+        got = plane.exchange_rounds(*win)
+        what = f"MeshDataPlane.exchange_rounds n={n} window of {total}"
+        if len(got) != len(want):
+            fail(f"{what}: {len(got)} tables, want {len(want)}")
+        for a, b in zip(got, want):
+            if a.shape != b.shape or not np.array_equal(a, b):
+                fail(f"{what}: differs from the plain version")
+            err = max(err, int(np.abs(a - b).max(initial=0)))
     return err
 
 
@@ -624,23 +705,25 @@ def window_mix(torch, prop, windows) -> dict:
 
 @contextlib.contextmanager
 def recording_exchanges(mesh):
-    """Keep a device copy of every (6, N, m) window MeshDataPlane hands the
-    mesh_exchange wrapper while the block runs, with its seed, width and
-    w. The copy is made around the wrapper, so its launch count is
-    untouched."""
+    """Keep a device copy of every (6, N, m) window MeshDataPlane stages for
+    the card (ExchangeStage.dispatch) while the block runs, with its seed,
+    width and w. The copy is made before the dispatch, so its launch count
+    is untouched."""
+    import torch
+
     windows = []
-    wrapper = mesh.mesh_exchange
+    dispatch = mesh.ExchangeStage.dispatch
 
-    def record(units, seed, max_pkts, w):
-        out = wrapper(units, seed, max_pkts, w)
-        windows.append((units.clone(), seed, max_pkts, w))
-        return out
+    def record(self, seed, max_pkts, stream):
+        windows.append((torch.from_numpy(self.units.copy()).to(
+            stream.device), seed, max_pkts, self.shape[2]))
+        return dispatch(self, seed, max_pkts, stream)
 
-    mesh.mesh_exchange = record
+    mesh.ExchangeStage.dispatch = record
     try:
         yield windows
     finally:
-        mesh.mesh_exchange = wrapper
+        mesh.ExchangeStage.dispatch = dispatch
 
 
 @contextlib.contextmanager
@@ -1088,10 +1171,12 @@ def profiled(torch, fn):
     return result, device
 
 
-def profiler_ms(torch, calls: list, kernels: tuple):
+def profiler_ms(torch, calls: list, kernels: tuple, seen: dict = None):
     """Cross-check of card_ms: device time per call of the CUDA kernels
     named in ``kernels`` (each call launches one of each) as torch.profiler
-    saw them, or None (with what it did see) when it saw no launch."""
+    saw them, or None (with what it did see) when it saw no launch.
+    ``seen``, when given, gets the kernels of every name (copies and sets
+    left out) the profiler saw per call."""
     def run():
         for fn in calls:
             fn()
@@ -1099,6 +1184,10 @@ def profiler_ms(torch, calls: list, kernels: tuple):
     _, device = profiled(torch, run)
     if device is None:
         return None
+    if seen is not None:
+        for name, _ in device:
+            if not name.startswith(("Memcpy", "Memset")):
+                seen[name[:60]] = seen.get(name[:60], 0) + 1 / len(calls)
     mine = [us for name, us in device if any(k in name for k in kernels)]
     if not mine:
         names = sorted({name[:50] for name, _ in device})
@@ -1314,11 +1403,12 @@ def round_work(torch, prop, state, units_k, tables, seed: int,
 def measure_mesh(torch, name: str, calls: list, plain_calls: list,
                  nbytes: float, ops: float, rate: float, what: str) -> dict:
     """One row of the timing table for a mesh kernel: card time per call
-    (queued behind a spin kernel), the profiler's, the plain version's,
-    the host's launch cost, and the bound for ``nbytes`` and ``ops`` a
-    call."""
+    (queued behind a spin kernel), the profiler's and the kernels it saw a
+    call, the plain version's, the host's launch cost, and the bound for
+    ``nbytes`` and ``ops`` a call."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    seen: dict = {}
     row = {
         "inputs": what, "calls": len(calls),
         "ms": card_ms(torch, calls, rate),
@@ -1326,14 +1416,16 @@ def measure_mesh(torch, name: str, calls: list, plain_calls: list,
         # for a K-round scan, past the CUDA launch queue), so it is
         # timed back to back with the host's launch cost included
         "plain_ms": host_ms(torch, plain_calls, reps=5),
-        "profiler_ms": profiler_ms(torch, calls, PLAN[name][2]),
+        "profiler_ms": profiler_ms(torch, calls, PLAN[name][2], seen),
+        "kernels_a_call": seen,
         "launch_ms": host_ms(torch, calls),
         "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     print(f"  {name} {what} x{row['calls']}: card {row['ms']:.6f} ms "
-          f"(profiler {row['profiler_ms']}), plain with host launch "
-          f"{row['plain_ms']:.6f} ms, kernel with host launch "
-          f"{row['launch_ms']:.6f} ms, bound "
+          f"(profiler {row['profiler_ms']}, kernels a call "
+          f"{json.dumps(seen)}), plain "
+          f"with host launch {row['plain_ms']:.6f} ms, kernel with host "
+          f"launch {row['launch_ms']:.6f} ms, bound "
           f"{row['bound_ms']:.9f} ms ({row['bound_by']})", flush=True)
     return row
 
@@ -1341,12 +1433,16 @@ def measure_mesh(torch, name: str, calls: list, plain_calls: list,
 def time_mesh_kernels(torch, np, prop, mesh, windows, rounds, scans, ctx,
                       plane) -> dict:
     """mesh_exchange on 64 of the floor-0 run's windows spread over the run
-    (the headline; a row per bucket when the run used several), with the
-    host's whole MeshDataPlane.exchange_rounds of the same windows beside
-    it; mesh_round_step on the standalone phase's rounds and mesh_scan on
-    its K = 32 groups (the run's own barriers)."""
+    (the headline; a row per bucket when the run used several), launched as
+    the plane launches it: each window in an ExchangeStage of its bucket,
+    the kernel reading the window from and writing its table to the
+    stage's page-locked buffers; the host's whole
+    MeshDataPlane.exchange_rounds of the same windows beside it;
+    mesh_round_step on the standalone phase's rounds and mesh_scan on its
+    K = 32 groups (the run's own barriers)."""
     rate = spin_rate(torch)
     seed, width, tables = ctx
+    stream = torch.cuda.current_stream()
     out = {"mesh_exchange": [], "mesh_round_step": [], "mesh_scan": []}
     buckets = sorted({u.shape[2] for u, _, _, _ in windows})
     groups = [("run windows", evenly(windows, 64))] + [
@@ -1355,13 +1451,25 @@ def time_mesh_kernels(torch, np, prop, mesh, windows, rounds, scans, ctx,
     for what, sel in groups:
         work = [exchange_work(torch, prop, u, s_, mp, w)
                 for u, s_, mp, w in sel]
+        stages = []
+        for u, s_, mp, w in sel:  # each window in a stage of its own
+            st = mesh.ExchangeStage(*u.shape[1:], w, u.device)
+            st.units[...] = u.cpu().numpy()
+            st.dispatch(s_, mp, stream)
+            want = torch.cat([t.reshape(-1) for t in
+                              mesh.exchange_rounds_plain(u, s_, mp, w)])
+            if not torch.equal(torch.from_numpy(st.out), want.cpu()):
+                fail(f"mesh_exchange {what}: the staged window differs from "
+                     f"the plain version")
+            stages.append((st, s_, mp))
         row = measure_mesh(
             torch, "mesh_exchange",
-            [lambda x=x: mesh.mesh_exchange(*x) for x in sel],
+            [lambda x=x: x[0].launch(x[1], x[2], stream) for x in stages],
             [lambda x=x: mesh.exchange_rounds_plain(*x) for x in sel],
             sum(b for b, _ in work) / len(sel),
             sum(o for _, o in work) / len(sel), rate,
-            f"{what} m={sorted({u.shape[2] for u, _, _, _ in sel})}")
+            f"{what} m={sorted({u.shape[2] for u, _, _, _ in sel})}, "
+            f"through ExchangeStage")
         arrs = []
         for u, _, _, _ in sel:  # N = 1: the shard axis holds every unit
             ok = (u[5, 0] != 0).cpu().numpy()
@@ -1370,8 +1478,8 @@ def time_mesh_kernels(torch, np, prop, mesh, windows, rounds, scans, ctx,
         row["plane_window_ms"] = host_ms(
             torch, [lambda a=a: plane.exchange_rounds(*a) for a in arrs],
             reps=5)
-        print(f"  MeshDataPlane.exchange_rounds of those windows (build, "
-              f"copy in, launch, wait, copy out): "
+        print(f"  MeshDataPlane.exchange_rounds of those windows (pack, "
+              f"launch, wait, copy the table out): "
               f"{row['plane_window_ms']:.6f} ms a window", flush=True)
         out["mesh_exchange"].append(row)
     work = [round_work(torch, prop, st, u[None], tables, seed, width)

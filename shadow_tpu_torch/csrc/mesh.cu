@@ -17,15 +17,79 @@
 //
 // The shard axis. JAX runs one program per device of a mesh and moves the
 // exchange table with lax.all_to_all. Here one block owns one source shard
-// (its hosts h with h % N == s, its bucket state row, its units), and the
-// exchange is a write into the destination shard's slot of a table in
-// device memory: send[s, d, rank] (exchange) or received[d, s, rank] (round
-// step). A block never reads another block's state, so rounds need no
-// grid-wide synchronisation; the only cross-shard steps are the receive
-// (a second launch) and the reductions of the barrier minimum and the
-// counters (a second launch, mesh_reduce_kernel, for the round kernels).
-// A later multi-card port swaps the write into the table for an NCCL
-// all_to_all between the two launches and keeps the per-shard work.
+// (its hosts h with h % N == s, its bucket state row, its units); the
+// exchange is a write into the destination shard's slot of a table, which
+// the destination block then reads.
+//
+// What bounds these kernels on an H100, and the design. The work is tiny:
+// tgen_1k's windows hold about 37 units (N = 1, m = 256) and its rounds
+// about 24 units in 2,048 slots, so a call moves kilobytes and computes a
+// few hundred Threefry lanes: nanoseconds at the card's rates (chip_smoke.py
+// computes each call's bound). What costs is latency: launches, the chain of
+// dependent loads and block barriers inside one block (a shard is one
+// block, so N = 1 runs on one SM of 132), and the host round trip around
+// each launch. The first design (two launches a call, every slot walked,
+// the state in device memory, up to 10 Threefry lanes in a row per unit)
+// took 0.785 ms a K = 32 scan of tgen_1k's rounds, 0.031 ms a round step
+// and 0.0073 ms a window (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
+// This design:
+// - One launch per call. The N shard blocks run as one thread block cluster
+//   (cudaLaunchKernelEx with a cluster dimension of N): the receive reads
+//   each source block's counts and rows through distributed shared memory
+//   after cluster.sync(), and block 0 reduces the rounds' barrier minimum
+//   and counters after the last round, where the first design needed a
+//   second launch for each.
+// - Work only on real slots. Units fill each shard's slots from the front
+//   (padding last, valid units first), so a block first finds the real
+//   prefix (one pass with a block maximum) and runs the body only on the
+//   tiles inside it. The rows of the rounds' received table past each
+//   destination's count come from one memset of the table before the
+//   launch, spread over the card (one block wrote 64 KB a round row by
+//   row); the exchange writes its few zero rows with 16-byte stores.
+// - Loss draws lane-parallel (tile_draws): the block's threads share the
+//   (unit, lane) pairs of a tile, so a tile of a few dozen units costs one
+//   Threefry evaluation a thread instead of up to 10 in a row.
+// - Round state in shared memory. Where they fit, a block loads its
+//   shard's bucket state, its hosts' rate and cap, host_node and the
+//   (G, G) latency and threshold tables into shared memory once per launch
+//   (cp.async), carries the state there across the K rounds (the per-round
+//   rebase over every host then reads shared memory) and writes it back
+//   once. Each round's unit columns (the src_l column up to kSrcWin slots,
+//   the first tile of the other five) are prefetched with cp.async into a
+//   second buffer while the round before runs.
+// - Small tiles in one warp. Where a tile's real units fit one warp (most
+//   rounds), the two scans and the rank run as warp shuffles with no block
+//   barrier.
+// - The debt commit as two native 32-bit shared-memory atomics (the H100
+//   has no 64-bit shared-memory add; the compiler spins on a CAS).
+// - The plane's exchange window is read from and its table written to
+//   page-locked host memory in place (the plane passes their device
+//   addresses), so a window is one launch and no copy. The kernel then
+//   waits on PCIe: its card time a window rises, but it stays below that
+//   of one cudaMemcpyAsync each way around a kernel on device memory, and
+//   the host's time a window falls with it.
+// Measured on the same inputs (tools/mesh_ab.py, NVIDIA H100 80GB HBM3,
+// 700 W): 0.143 ms a K = 32 scan, 0.0114 ms a round step, 0.0053 ms a
+// window on device memory. What is left is the per-round chain: the rebase
+// over every host, the prefix pass, the prefetch's copies, the draws and
+// the 64-bit divisions of the bucket math, one block barrier after
+// another.
+//
+// Which shapes take which path (the wrapper in parallel/mesh.py chooses by
+// shape alone and counts each path; a refused launch raises there):
+// - N <= kClusterMax (16, a non-portable cluster size the H100 launches):
+//   one cluster launch. Above it (up to kMaxShards), the kernels run as
+//   two launches: mesh_send_kernel then mesh_recv_kernel for the exchange,
+//   the round kernel then mesh_reduce_kernel for the rounds. The
+//   send/receive pair is also the seam where a multi-card slice puts an
+//   NCCL all_to_all.
+// - Exchange send rows: in each source block's shared memory when
+//   N * m * 32 bytes <= kDynSmemMax, else in a device-memory table inside
+//   the same launch.
+// - Rounds: tables and state resident in shared memory when
+//   round_smem_bytes() <= kDynSmemMax (tgen_1k: 117,632 bytes), else read
+//   from device memory (the prefetch buffers stay in shared memory either
+//   way).
 //
 // Bit identity. All math is integer, held to the plain PyTorch versions in
 // shadow_tpu_torch/parallel/mesh.py with tolerance 0:
@@ -42,26 +106,25 @@
 // - the stable argsort + searchsorted rank of the reference is the count of
 //   earlier units of the same source shard with the same destination:
 //   __match_any_sync within a warp, a prefix over the block's warps, and a
-//   running count carried from tile to tile.
-//
-// Bound on an H100: a unit costs up to max_pkts Threefry evaluations (75
-// integer operations each) and about 100 bytes in and 32 out. On tgen_1k's
-// windows (tens of units, N=1, m=256) that is nanoseconds of work against
-// microseconds of launch: the launches and the host round trip around them
-// set the time (chip_smoke.py measures both). The design is the simple one:
-// one block per shard walking its units in tiles of kThreads, so a window
-// with one shard uses one SM.
+//   running count carried from tile to tile;
+// - slots past the real prefix are padding (src_l >= Hs, or valid == 0):
+//   the reference's program computes them and discards every value, so
+//   skipping them changes nothing.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (shadow_tpu_torch/ops/devcfg.py does this).
 // Interface: plain C, loaded with ctypes; each entry point launches its
-// kernels on the given stream and returns cudaGetLastError() (0 = launched).
+// kernels on the given stream and returns the first CUDA error (0 =
+// launched).
 
 #include <climits>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "threefry.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -71,10 +134,24 @@ typedef unsigned long long u64;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxShards = 32;
+// blocks in one cluster: 8 is portable; 16 needs the non-portable attribute
+// (parallel/mesh.py CLUSTER_MAX)
+constexpr int kClusterMax = 16;
+// dynamic shared memory a mesh kernel asks for at most (227 KB a block on
+// the H100, less the static scratch; parallel/mesh.py SMEM_MAX)
+constexpr int kDynSmemMax = 200 * 1024;
+// src_l slots of a round prefetched into shared memory (the real-prefix
+// pass reads the rest from device memory)
+constexpr int kSrcWin = 2048;
 constexpr i64 kNsPerSec = 1000000000LL;
 constexpr i64 kMtu = 1500;
 constexpr i64 kInf = 1LL << 62;
 constexpr i64 kNegInf = LLONG_MIN;
+
+// exchange paths (parallel/mesh.py exchange_path)
+constexpr int kPathPair = 0;
+constexpr int kPathClusterGlobal = 1;
+constexpr int kPathClusterSmem = 2;
 
 // -- integer helpers with the reference's semantics --------------------------
 
@@ -104,7 +181,11 @@ __device__ __forceinline__ i64 jidx(i64 i, i64 size) {
 }
 
 // fluid's bytes_over: rate * dt // 1e9 with the sub-second product in uint64
+// (dt in [0, 1 s), every round's case: q = 0 and r = dt, no floor steps)
 __device__ __forceinline__ i64 bytes_over(i64 rate, i64 dt) {
+  if (dt >= 0 && dt < kNsPerSec)
+    return static_cast<i64>(static_cast<u64>(rate) * static_cast<u64>(dt) /
+                            static_cast<u64>(kNsPerSec));
   const i64 q = floordiv(dt, kNsPerSec);
   const i64 r = floormod(dt, kNsPerSec);
   const i64 frac = static_cast<i64>(
@@ -124,7 +205,43 @@ __device__ __forceinline__ i64 ceil_ns(i64 need, i64 rate) {
   return wadd(wmul(q, kNsPerSec), frac);
 }
 
-// -- block-wide scans --------------------------------------------------------
+// -- memory helpers ----------------------------------------------------------
+
+// the shared-space address of a pointer into shared memory
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// one 8-byte asynchronous copy from device to shared memory (cp.async)
+__device__ __forceinline__ void cp_async8(i64* smem, const i64* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// a 32-byte table row as two 16-byte stores (rows are 32-byte aligned)
+__device__ __forceinline__ void put_row(i64* row, i64 a, i64 b, i64 c,
+                                        i64 d) {
+  longlong2* r = reinterpret_cast<longlong2*>(row);
+  r[0] = make_longlong2(a, b);
+  r[1] = make_longlong2(c, d);
+}
+__device__ __forceinline__ void copy_row(i64* to, const i64* from) {
+  const longlong2* f = reinterpret_cast<const longlong2*>(from);
+  longlong2* t = reinterpret_cast<longlong2*>(to);
+  const longlong2 x = f[0];
+  const longlong2 y = f[1];
+  t[0] = x;
+  t[1] = y;
+}
+
+// -- block-wide scans and reductions -----------------------------------------
 
 struct OpSum {
   __device__ i64 operator()(i64 a, i64 b) const { return wadd(a, b); }
@@ -138,15 +255,22 @@ struct OpMin {
 
 // Inclusive scan of v over the block (every thread calls it); *total gets
 // the whole block's reduction. warp_tot: kWarps slots of shared memory.
+// one_warp (the same in every thread): only warp 0 holds values other
+// than the identity, so its own scan is the block's and no barrier is
+// needed; the other warps' results and totals are not to be used.
 template <typename Op>
 __device__ i64 block_scan(i64 v, Op op, i64 identity, i64* warp_tot,
-                          i64* total) {
+                          i64* total, bool one_warp = false) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const i64 t = __shfl_up_sync(0xFFFFFFFFu, v, o);
     if (lane >= o) v = op(t, v);
+  }
+  if (one_warp) {
+    *total = __shfl_sync(0xFFFFFFFFu, v, 31);
+    return v;
   }
   if (lane == 31) warp_tot[warp] = v;
   __syncthreads();
@@ -166,17 +290,67 @@ __device__ i64 block_scan(i64 v, Op op, i64 identity, i64* warp_tot,
   return v;
 }
 
+// Maximum of v over the block, returned to every thread. scratch: kWarps
+// ints of shared memory, free again after the caller's next barrier.
+__device__ int block_max(int v, int* scratch) {
+  v = __reduce_max_sync(0xFFFFFFFFu, v);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int m = scratch[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) m = scratch[w] > m ? scratch[w] : m;
+  return m;
+}
+
+// Sums of a and b and the minimum of c over the block, valid in thread 0.
+// scratch: kWarps x 3 of shared memory, free after the caller's next barrier.
+__device__ void block_sum_sum_min(i64* a, i64* b, i64* c, i64 (*scratch)[3]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    *a = wadd(*a, __shfl_xor_sync(0xFFFFFFFFu, *a, o));
+    *b = wadd(*b, __shfl_xor_sync(0xFFFFFFFFu, *b, o));
+    const i64 t = __shfl_xor_sync(0xFFFFFFFFu, *c, o);
+    *c = t < *c ? t : *c;
+  }
+  if ((threadIdx.x & 31) == 0) {
+    scratch[threadIdx.x >> 5][0] = *a;
+    scratch[threadIdx.x >> 5][1] = *b;
+    scratch[threadIdx.x >> 5][2] = *c;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kWarps; ++w) {
+      *a = wadd(*a, scratch[w][0]);
+      *b = wadd(*b, scratch[w][1]);
+      *c = scratch[w][2] < *c ? scratch[w][2] : *c;
+    }
+  }
+}
+
 // Rank of this thread's unit among the units of its shard with the same
 // destination ds (0..n; n = no destination), counting every earlier tile
-// through carry[] (n + 1 running counts in shared memory).
+// through carry[] (n + 1 running counts in shared memory). one_warp (the
+// same in every thread): only warp 0 has active units, and it ranks them
+// alone, without block barriers.
 struct RankScratch {
   int warp_cnt[kWarps][kMaxShards + 1];
   int carry[kMaxShards + 1];
 };
 
-__device__ int tile_rank(int ds, bool active, int n, RankScratch* sc) {
+__device__ int tile_rank(int ds, bool active, int n, RankScratch* sc,
+                         bool one_warp = false) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  if (one_warp) {
+    if (warp != 0) return 0;
+    const unsigned peers = __match_any_sync(0xFFFFFFFFu, active ? ds : -1);
+    const int wrank = __popc(peers & ((1u << lane) - 1u));
+    const int rank = active ? sc->carry[ds] + wrank : 0;
+    __syncwarp();
+    if (active && wrank == 0) sc->carry[ds] += __popc(peers);
+    __syncwarp();
+    return rank;
+  }
   for (int i = threadIdx.x; i < kWarps * (n + 1); i += blockDim.x)
     sc->warp_cnt[i / (n + 1)][i % (n + 1)] = 0;
   __syncthreads();
@@ -199,72 +373,187 @@ __device__ int tile_rank(int ds, bool active, int n, RankScratch* sc) {
   return rank;
 }
 
-__device__ __forceinline__ void put_row(i64* row, i64 a, i64 b, i64 c,
-                                        i64 d) {
-  row[0] = a;
-  row[1] = b;
-  row[2] = c;
-  row[3] = d;
+// The loss draws of one tile's units, lane-parallel: the block's threads
+// share the (unit, lane) pairs of the first `count` units, so a tile of a
+// few dozen units takes one Threefry evaluation a thread instead of up to
+// `width` in a row. A unit drops iff one of its first `lanes` lanes draws a
+// 24-bit value below th (th == 0 never drops); every lane is drawn, where
+// any_lane_hits stops at the first hit: the answer is the same. Returns the
+// calling thread's unit's flag. Every thread calls it.
+struct DrawScratch {
+  uint32_t lo[kThreads], hi[kThreads], lanes[kThreads], th[kThreads];
+  int hit[kThreads];
+};
+
+__device__ bool tile_draws(uint32_t lo, uint32_t hi, uint32_t lanes,
+                           uint32_t th, int count, uint32_t width,
+                           uint32_t k0, uint32_t k1, DrawScratch* d) {
+  const int t = threadIdx.x;
+  d->lo[t] = lo;
+  d->hi[t] = hi;
+  d->lanes[t] = th == 0u ? 0u : lanes;
+  d->th[t] = th;
+  d->hit[t] = 0;
+  __syncthreads();
+  const int pairs = count * static_cast<int>(width);
+  for (int idx = t; idx < pairs; idx += kThreads) {
+    const int u = idx / static_cast<int>(width);
+    const uint32_t l = static_cast<uint32_t>(idx - u * static_cast<int>(width));
+    if (l < d->lanes[u]) {
+      const uint2 x = shadow_tf::threefry2x32(
+          k0, k1, d->lo[u], d->hi[u] | (l << shadow_tf::kPktShift));
+      if ((x.x >> 8) < d->th[u]) d->hit[u] = 1;
+    }
+  }
+  __syncthreads();
+  return d->hit[t] != 0;
 }
 
 // -- mesh_exchange -----------------------------------------------------------
 
 // units: (6, n, m) int64 rows [dst_g, t_arr, uid, npkts, thresh, valid].
-// Block s (source shard) draws each valid unit's flag and writes its row
-// [dst_g // n, t_arr, uid, dropped | valid << 1] to send[s, dst_g % n, rank];
-// counts[s, d] = units of shard s sent to shard d; local_min[s] = the
-// earliest t_arr of its valid units (kInf if none). Rows of send past
-// counts[s, d] are not written: mesh_recv reads only the counted ones.
-__global__ void __launch_bounds__(kThreads)
-mesh_send_kernel(const i64* __restrict__ units, int n, int m, uint32_t k0,
-                 uint32_t k1, uint32_t width, i64* __restrict__ send,
-                 int* __restrict__ counts, i64* __restrict__ local_min) {
-  __shared__ RankScratch sc;
-  __shared__ i64 warp_tot[kWarps];
-  const int s = blockIdx.x;
+// Source shard s's send phase: draws each valid unit's flag and writes its
+// row [dst_g // n, t_arr, uid, dropped | valid << 1] to rows[(d * m + rank)
+// * 4] (send[s, d, rank]); leaves the count of units sent to destination d
+// in sc->carry[d] and returns the earliest t_arr of its valid units (kInf if
+// none) to every thread. Only the tiles up to the last valid slot run.
+__device__ i64 send_phase(const i64* __restrict__ units, int s, int n, int m,
+                          uint32_t k0, uint32_t k1, uint32_t width, i64* rows,
+                          RankScratch* sc, DrawScratch* dr, i64* warp_tot,
+                          int* red_i) {
   const i64 plane = static_cast<i64>(n) * m;
-  if (threadIdx.x <= n) sc.carry[threadIdx.x] = 0;
-  __syncthreads();
+  const i64* u_ok = units + 5 * plane + static_cast<i64>(s) * m;
+  int last = -1;
+  for (int i = threadIdx.x; i < m; i += kThreads)
+    if (u_ok[i] != 0) last = i;
+  if (threadIdx.x <= n) sc->carry[threadIdx.x] = 0;
+  const int p = block_max(last, red_i) + 1;
   i64 my_min = kInf;
-  for (int base = 0; base < m; base += kThreads) {
+  for (int base = 0; base < p; base += kThreads) {
     const int i = base + threadIdx.x;
-    const bool active = i < m;
+    const bool active = i < p;
     int ds = n;
-    i64 dst = 0, t_arr = 0, uid = 0, flags = 0;
-    if (active) {
+    i64 dst = 0, t_arr = 0, uid = 0;
+    uint32_t lanes = 0, th = 0;
+    if (active && u_ok[i] != 0) {
       const i64 at = static_cast<i64>(s) * m + i;
       dst = units[at];
       t_arr = units[plane + at];
       uid = units[2 * plane + at];
       const i64 npk = units[3 * plane + at];
-      const i64 th = units[4 * plane + at];
-      if (units[5 * plane + at] != 0) {
-        ds = static_cast<int>(floormod(dst, n));
-        const i64 npk_c = npk < static_cast<i64>(width) ? npk : width;
-        const uint32_t lanes = min(static_cast<uint32_t>(npk_c), width);
-        const bool dropped = shadow_tf::any_lane_hits(
-            k0, k1, static_cast<uint32_t>(uid),
-            static_cast<uint32_t>(static_cast<u64>(uid) >> 32), lanes,
-            static_cast<uint32_t>(th));
-        flags = (dropped ? 1 : 0) | 2;
-        my_min = t_arr < my_min ? t_arr : my_min;
-      }
+      th = static_cast<uint32_t>(units[4 * plane + at]);
+      ds = static_cast<int>(floormod(dst, n));
+      const i64 npk_c = npk < static_cast<i64>(width) ? npk : width;
+      lanes = min(static_cast<uint32_t>(npk_c), width);
+      my_min = t_arr < my_min ? t_arr : my_min;
     }
-    const int rank = tile_rank(ds, active, n, &sc);
-    if (active && ds < n) {
-      i64* row = send + ((static_cast<i64>(s) * n + ds) * m + rank) * 4;
-      put_row(row, floordiv(dst, n), t_arr, uid, flags);
-    }
+    const bool dropped = tile_draws(
+        static_cast<uint32_t>(uid),
+        static_cast<uint32_t>(static_cast<u64>(uid) >> 32), lanes, th,
+        min(p - base, kThreads), width, k0, k1, dr);
+    const i64 flags = (dropped ? 1 : 0) | 2;
+    const int rank = tile_rank(ds, active, n, sc, p - base <= 32);
+    if (ds < n)
+      put_row(rows + (static_cast<i64>(ds) * m + rank) * 4, floordiv(dst, n),
+              t_arr, uid, flags);
   }
-  if (threadIdx.x < n) counts[s * n + threadIdx.x] = sc.carry[threadIdx.x];
   i64 total;
   block_scan(my_min, OpMin(), kInf, warp_tot, &total);
-  if (threadIdx.x == 0) local_min[s] = total;
+  return total;
 }
 
-// Block i (destination shard) gathers send[:, i] in (source shard, slot)
-// order, the counted rows first, into recv[i] (w rows: the first w of them,
-// then zero rows). Block 0 also writes g_min = min(local_min).
+// Destination shard i's receive phase: the rows sent to it, in (source
+// shard, slot) order, into recv[i] (w rows: the first w of them, then zero
+// rows). off[j] = rows from sources before j, off[n] = all of them;
+// source(j) = the base of source j's (n, m, 4) send rows.
+template <typename Source>
+__device__ void recv_phase(int i, int n, int m, int w, const int* off,
+                           Source source, i64* __restrict__ recv) {
+  const int total = off[n];
+  for (int r = threadIdx.x; r < w; r += kThreads) {
+    i64* out = recv + (static_cast<i64>(i) * w + r) * 4;
+    if (r < total) {
+      int j = 0;
+      while (off[j + 1] <= r) ++j;
+      copy_row(out, source(j) + (static_cast<i64>(i) * m + (r - off[j])) * 4);
+    } else {
+      put_row(out, 0, 0, 0, 0);
+    }
+  }
+}
+
+// One launch for N <= kClusterMax: the n blocks are one cluster; block s is
+// source shard s in the send phase and destination shard s in the receive
+// phase, cluster.sync() between them. kSmemRows: the send rows live in the
+// source block's dynamic shared memory and destinations read them through
+// distributed shared memory; otherwise in send (n, n, m, 4) in device
+// memory. Block 0 writes g_min.
+template <bool kSmemRows>
+__global__ void __launch_bounds__(kThreads)
+mesh_exchange_kernel(const i64* __restrict__ units, int n, int m, int w,
+                     uint32_t k0, uint32_t k1, uint32_t width,
+                     i64* __restrict__ send, i64* __restrict__ recv,
+                     i64* __restrict__ g_min) {
+  extern __shared__ __align__(16) i64 dyn[];
+  __shared__ RankScratch sc;
+  __shared__ DrawScratch dr;
+  __shared__ i64 warp_tot[kWarps];
+  __shared__ int red_i[kWarps];
+  __shared__ i64 local_min;
+  __shared__ int off[kMaxShards + 1];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int s = blockIdx.x;  // the grid is one cluster
+  i64* rows = kSmemRows ? dyn : send + static_cast<i64>(s) * n * m * 4;
+  const i64 mn = send_phase(units, s, n, m, k0, k1, width, rows, &sc, &dr,
+                            warp_tot, red_i);
+  if (threadIdx.x == 0) local_min = mn;
+  if (!kSmemRows) __threadfence();
+  cluster.sync();
+  if (threadIdx.x == 0) {
+    int run = 0;
+    for (int j = 0; j < n; ++j) {
+      off[j] = run;
+      run += cluster.map_shared_rank(&sc, j)->carry[s];
+    }
+    off[n] = run;
+    if (s == 0) {
+      i64 g = kInf;
+      for (int j = 0; j < n; ++j) {
+        const i64 v = *cluster.map_shared_rank(&local_min, j);
+        g = v < g ? v : g;
+      }
+      *g_min = g;
+    }
+  }
+  __syncthreads();
+  recv_phase(s, n, m, w, off,
+             [&](int j) -> const i64* {
+               return kSmemRows ? cluster.map_shared_rank(dyn, j)
+                                : send + static_cast<i64>(j) * n * m * 4;
+             },
+             recv);
+  cluster.sync();  // a block's shared memory outlives every read of it
+}
+
+// N > kClusterMax: the send phase as a launch of its own, its rows in
+// send[s] and its counts and minimum in device memory ...
+__global__ void __launch_bounds__(kThreads)
+mesh_send_kernel(const i64* __restrict__ units, int n, int m, uint32_t k0,
+                 uint32_t k1, uint32_t width, i64* __restrict__ send,
+                 int* __restrict__ counts, i64* __restrict__ local_min) {
+  __shared__ RankScratch sc;
+  __shared__ DrawScratch dr;
+  __shared__ i64 warp_tot[kWarps];
+  __shared__ int red_i[kWarps];
+  const int s = blockIdx.x;
+  const i64 mn = send_phase(units, s, n, m, k0, k1, width,
+                            send + static_cast<i64>(s) * n * m * 4, &sc, &dr,
+                            warp_tot, red_i);
+  if (threadIdx.x < n) counts[s * n + threadIdx.x] = sc.carry[threadIdx.x];
+  if (threadIdx.x == 0) local_min[s] = mn;
+}
+
+// ... then the receive phase (block 0 also writes g_min = min(local_min)).
 __global__ void __launch_bounds__(kThreads)
 mesh_recv_kernel(const i64* __restrict__ send, const int* __restrict__ counts,
                  const i64* __restrict__ local_min, int n, int m, int w,
@@ -285,206 +574,239 @@ mesh_recv_kernel(const i64* __restrict__ send, const int* __restrict__ counts,
     }
   }
   __syncthreads();
-  const int total = off[n];
-  for (int r = threadIdx.x; r < w; r += kThreads) {
-    i64* out = recv + (static_cast<i64>(i) * w + r) * 4;
-    if (r < total) {
-      int j = 0;
-      while (off[j + 1] <= r) ++j;
-      const i64* row =
-          send + ((static_cast<i64>(j) * n + i) * m + (r - off[j])) * 4;
-      put_row(out, row[0], row[1], row[2], row[3]);
-    } else {
-      put_row(out, 0, 0, 0, 0);
-    }
-  }
+  recv_phase(i, n, m, w, off,
+             [&](int j) -> const i64* {
+               return send + static_cast<i64>(j) * n * m * 4;
+             },
+             recv);
 }
 
 // -- mesh_round_step and mesh_scan -------------------------------------------
 
 struct RoundArgs {
-  i64* t_base;  // (n, hs) bucket state, updated in place
-  i64* tokens;
-  i64* debt;
+  const i64* state_in;  // (3, n, hs) [t_base, tokens, debt]
+  i64* state_out;       // (3, n, hs), the state after the last round
   const i64* host_node;  // (h_pad,)
   const i64* lat;        // (g, g)
   const i64* thresh;     // (g, g)
   const i64* rate;       // (h_pad,)
   const i64* cap;        // (h_pad,)
-  int n, hs, c, h_pad, g;
+  const i64* units;      // (k, 6, n, c)
+  const i64* t_now_k;    // (k,), or null: one round at t_now
+  i64 t_now;
+  i64* received;  // (k, n, n, c, 4)
+  i64* partials;  // (k, n, 3) [sent, dropped, min t_arr] per shard
+  i64* g_min;     // (k,)
+  i64* counters;  // (k, 2) [sent, dropped]
+  int k, n, hs, c, h_pad, g;
+  int win, tile;  // prefetched slots: src_l up to win, the rest up to tile
+  int resident;   // tables and state in shared memory
   uint32_t k0, k1, width;
 };
 
-// One round of shard s = blockIdx.x. units: (6, n, c) int64 rows [src_l,
-// dst_g, size, t_emit, uid, rok], src-sorted within each shard, padding
-// (src_l == hs) last. Writes received[d, s, :] for every destination d (the
-// counted rows, then zero rows) and partials[s] = [sent, dropped, min t_arr
-// of the routed units].
-__device__ void round_body(const RoundArgs& a, const i64* __restrict__ units,
-                           i64 t_now, i64* __restrict__ received,
-                           i64* __restrict__ partials, RankScratch* sc,
-                           i64* warp_tot, i64* carry) {
+// Where a block reads its shard's bucket state (indexed by local host) and
+// the tables: shared-memory copies or device memory, the same indexing.
+struct View {
+  i64* tb;
+  i64* tok;
+  i64* debt;
+  const i64* rate;  // rate[h * rstride]: the shard's hosts
+  const i64* cap;
+  i64 rstride;
+  const i64* node;  // (h_pad,)
+  const i64* lat;   // (g, g)
+  const i64* thresh;
+};
+
+// One round's unit columns for this shard: the prefetched slots from
+// shared memory, the others from device memory. g: field f of slot i at
+// g[f * plane + i].
+struct Cols {
+  const i64* g;
+  const i64* buf;
+  i64 plane;
+  int win, tile;
+  __device__ i64 src(int i) const { return i < win ? buf[i] : g[i]; }
+  __device__ i64 at(int f, int i) const {
+    return i < tile ? buf[win + (f - 1) * tile + i] : g[f * plane + i];
+  }
+};
+
+__device__ void prefetch_round(const i64* g, i64* buf, i64 plane, int win,
+                               int tile) {
+  for (int i = threadIdx.x; i < win; i += kThreads) cp_async8(buf + i, g + i);
+  for (int f = 1; f < 6; ++f)
+    for (int i = threadIdx.x; i < tile; i += kThreads)
+      cp_async8(buf + win + (f - 1) * tile + i, g + f * plane + i);
+}
+
+struct RoundScratch {
+  RankScratch sc;
+  DrawScratch dr;
+  i64 warp_tot[kWarps];
+  i64 red[kWarps][3];
+  int red_i[kWarps];
+  i64 carry[2];  // running sum of sizes, running max of segment bases
+};
+
+// debt[sl] += size, exact modulo 2^64. In shared memory as two native
+// 32-bit atomics, the low word's carry added to the high word (the H100
+// has no 64-bit shared-memory add: the compiler spins on a
+// compare-and-swap); in device memory one 64-bit atomic.
+__device__ __forceinline__ void add_debt(const View& v, int resident, i64 sl,
+                                         i64 size) {
+  const u64 x = static_cast<u64>(size);
+  if (!resident) {
+    atomicAdd(reinterpret_cast<u64*>(v.debt + sl), x);
+    return;
+  }
+  const unsigned w = smem_u32(v.debt + sl);  // little-endian: low word first
+  const unsigned lo = static_cast<unsigned>(x);
+  unsigned old;
+  asm volatile("atom.shared.add.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "r"(w), "r"(lo)
+               : "memory");
+  const unsigned hi = static_cast<unsigned>(x >> 32) + (old + lo < old);
+  if (hi != 0)
+    asm volatile("red.shared.add.u32 [%0], %1;\n" ::"r"(w + 4), "r"(hi)
+                 : "memory");
+}
+
+// Round j of shard s = blockIdx.x. Units are src-sorted within each shard,
+// padding (src_l >= hs) last. Writes the counted rows of received[j, d, s]
+// for every destination d (the rest of the table was zeroed before the
+// launch) and partials[j, s].
+__device__ void round_body(const RoundArgs& a, const View& v, const Cols& u,
+                           int j, RoundScratch* rs) {
   const int s = blockIdx.x;
   const int n = a.n, hs = a.hs, c = a.c;
-  const i64 row0 = static_cast<i64>(s) * hs;
-  // lazy saturation rebase at the barrier (fluid.TokenBuckets.rebase)
+  const i64 t_now = a.t_now_k ? a.t_now_k[j] : a.t_now;
+  // lazy saturation rebase at the barrier (fluid.TokenBuckets.rebase), and
+  // the real prefix: slots [0, p) hold every unit with src_l < hs
   for (int h = threadIdx.x; h < hs; h += kThreads) {
-    const i64 gh = static_cast<i64>(h) * n + s;
-    const i64 avail = wsub(wadd(a.tokens[row0 + h],
-                                bytes_over(a.rate[gh],
-                                           wsub(t_now, a.t_base[row0 + h]))),
-                           a.debt[row0 + h]);
-    if (avail > a.cap[gh]) {
-      a.t_base[row0 + h] = t_now;
-      a.tokens[row0 + h] = a.cap[gh];
-      a.debt[row0 + h] = 0;
+    const i64 cp = v.cap[h * v.rstride];
+    const i64 avail = wsub(wadd(v.tok[h], bytes_over(v.rate[h * v.rstride],
+                                                     wsub(t_now, v.tb[h]))),
+                           v.debt[h]);
+    if (avail > cp) {
+      v.tb[h] = t_now;
+      v.tok[h] = cp;
+      v.debt[h] = 0;
     }
   }
-  if (threadIdx.x <= n) sc->carry[threadIdx.x] = 0;
+  int last = -1;
+  for (int i = threadIdx.x; i < c; i += kThreads)
+    if (u.src(i) < hs) last = i;
+  if (threadIdx.x <= n) rs->sc.carry[threadIdx.x] = 0;
   if (threadIdx.x == 0) {
-    carry[0] = 0;        // running sum of sizes
-    carry[1] = kNegInf;  // running max of the segment bases
+    rs->carry[0] = 0;
+    rs->carry[1] = kNegInf;
   }
-  __syncthreads();
-  const i64 plane = static_cast<i64>(n) * c;
-  const i64* u_src = units;
-  const i64* u_dst = units + plane;
-  const i64* u_size = units + 2 * plane;
-  const i64* u_emit = units + 3 * plane;
-  const i64* u_uid = units + 4 * plane;
-  const i64* u_rok = units + 5 * plane;
+  const int p = block_max(last, rs->red_i) + 1;
+  i64* rcv = a.received + static_cast<i64>(j) * n * n * c * 4;
   i64 sent = 0, dropped_ct = 0, my_min = kInf;
-  for (int base = 0; base < c; base += kThreads) {
+  for (int base = 0; base < p; base += kThreads) {
     const int i = base + threadIdx.x;
-    const bool active = i < c;
-    const i64 at = static_cast<i64>(s) * c + i;
-    const i64 src_l = active ? u_src[at] : hs;
+    const bool active = i < p;
+    const i64 src_l = active ? u.src(i) : hs;
     const bool valid = active && src_l < hs;
-    const i64 size_m = valid ? u_size[at] : 0;
+    const i64 size_m = valid ? u.at(2, i) : 0;
+    const bool one_warp = p - base <= 32;  // most rounds: a few dozen units
     // per-source FIFO cumulative bytes: csum, then the running max of the
     // segment starts (the reference's cumsum and cummax)
     i64 tile_sum;
-    const i64 csum = wadd(carry[0], block_scan(size_m, OpSum(), 0, warp_tot,
-                                               &tile_sum));
-    const i64 prev = i == 0 ? -1 : (active ? u_src[at - 1] : hs);
-    const i64 v = active && src_l != prev ? wsub(csum, size_m) : 0;
+    const i64 csum = wadd(rs->carry[0],
+                          block_scan(size_m, OpSum(), 0, rs->warp_tot,
+                                     &tile_sum, one_warp));
+    const i64 prev = i == 0 ? -1 : (active ? u.src(i - 1) : hs);
+    const i64 sv = active && src_l != prev ? wsub(csum, size_m) : 0;
     i64 tile_max;
-    i64 seg_base = block_scan(active ? v : kNegInf, OpMax(), kNegInf,
-                              warp_tot, &tile_max);
-    seg_base = seg_base > carry[1] ? seg_base : carry[1];
-    int ds = n;
-    i64 dst_g = 0, t_arr = 0, uid = 0, flags = 0;
+    i64 seg_base = block_scan(active ? sv : kNegInf, OpMax(), kNegInf,
+                              rs->warp_tot, &tile_max, one_warp);
+    seg_base = seg_base > rs->carry[1] ? seg_base : rs->carry[1];
+    bool route = false;
+    i64 dst_g = 0, t_arr = 0, uid = 0;
+    uint32_t lanes = 0, th = 0;
     if (active) {
       const i64 sl = src_l < hs - 1 ? src_l : hs - 1;
-      const i64 slj = row0 + jidx(sl, hs);
-      const i64 need = wsub(wadd(a.debt[slj], wsub(csum, seg_base)),
-                            a.tokens[slj]);
+      const i64 slj = jidx(sl, hs);
+      const i64 need = wsub(wadd(v.debt[slj], wsub(csum, seg_base)),
+                            v.tok[slj]);
       const i64 t_ready =
-          need > 0 ? wadd(a.t_base[slj],
-                          ceil_ns(need, a.rate[jidx(sl, hs) * n + s]))
-                   : 0;
-      const i64 t_emit = u_emit[at];
+          need > 0
+              ? wadd(v.tb[slj], ceil_ns(need, v.rate[slj * v.rstride]))
+              : 0;
+      const i64 t_emit = u.at(3, i);
       const i64 t_dep = t_emit > t_ready ? t_emit : t_ready;
-      dst_g = u_dst[at];
-      uid = u_uid[at];
+      dst_g = u.at(1, i);
+      uid = u.at(4, i);
       const i64 src_g = wadd(wmul(sl, n), s);
-      const i64 sn = jidx(a.host_node[jidx(src_g < a.h_pad - 1
-                                               ? src_g : a.h_pad - 1,
-                                           a.h_pad)], a.g);
-      const i64 dn = jidx(a.host_node[jidx(dst_g < a.h_pad - 1
-                                               ? dst_g : a.h_pad - 1,
-                                           a.h_pad)], a.g);
-      t_arr = wadd(t_dep, a.lat[sn * a.g + dn]);
-      const bool route = valid && u_rok[at] != 0;
+      const i64 sn = jidx(v.node[jidx(src_g < a.h_pad - 1 ? src_g
+                                                          : a.h_pad - 1,
+                                      a.h_pad)], a.g);
+      const i64 dn = jidx(v.node[jidx(dst_g < a.h_pad - 1 ? dst_g
+                                                          : a.h_pad - 1,
+                                      a.h_pad)], a.g);
+      t_arr = wadd(t_dep, v.lat[sn * a.g + dn]);
+      route = valid && u.at(5, i) != 0;
       if (route) {
-        const i64 size = u_size[at];
-        i64 npk = -floordiv(-size, kMtu);
+        i64 npk = -floordiv(-size_m, kMtu);
         npk = npk < 1 ? 1 : npk;
         npk = npk < static_cast<i64>(a.width) ? npk : a.width;
-        const bool dropped = shadow_tf::any_lane_hits(
-            a.k0, a.k1, static_cast<uint32_t>(uid),
-            static_cast<uint32_t>(static_cast<u64>(uid) >> 32),
-            static_cast<uint32_t>(npk),
-            static_cast<uint32_t>(a.thresh[sn * a.g + dn]));
-        ds = static_cast<int>(floormod(dst_g, n));
-        flags = (dropped ? 1 : 0) | 2;
-        sent += dropped ? 0 : 1;
-        dropped_ct += dropped ? 1 : 0;
-        my_min = t_arr < my_min ? t_arr : my_min;
+        lanes = static_cast<uint32_t>(npk);
+        th = static_cast<uint32_t>(v.thresh[sn * a.g + dn]);
       }
     }
-    const int rank = tile_rank(ds, active, n, sc);
-    if (active && ds < n) {
-      i64* row = received + ((static_cast<i64>(ds) * n + s) * c + rank) * 4;
-      put_row(row, floordiv(dst_g, n), t_arr, uid, flags);
+    const bool dropped = tile_draws(
+        static_cast<uint32_t>(uid),
+        static_cast<uint32_t>(static_cast<u64>(uid) >> 32), lanes, th,
+        min(p - base, kThreads), a.width, a.k0, a.k1, &rs->dr);
+    int ds = n;
+    i64 flags = 0;
+    if (route) {
+      ds = static_cast<int>(floormod(dst_g, n));
+      flags = (dropped ? 1 : 0) | 2;
+      sent += dropped ? 0 : 1;
+      dropped_ct += dropped ? 1 : 0;
+      my_min = t_arr < my_min ? t_arr : my_min;
     }
+    const int rank = tile_rank(ds, active, n, &rs->sc, one_warp);
+    if (ds < n)
+      put_row(rcv + ((static_cast<i64>(ds) * n + s) * c + rank) * 4,
+              floordiv(dst_g, n), t_arr, uid, flags);
     if (threadIdx.x == 0) {
-      carry[0] = wadd(carry[0], tile_sum);
-      carry[1] = tile_max > carry[1] ? tile_max : carry[1];
+      rs->carry[0] = wadd(rs->carry[0], tile_sum);
+      rs->carry[1] = tile_max > rs->carry[1] ? tile_max : rs->carry[1];
     }
     __syncthreads();
   }
   // commit: debt += per-source sums (segment_sum; every read of the
   // pre-commit debt above is done). Integer atomics: exact in any order.
-  for (int i = threadIdx.x; i < c; i += kThreads) {
-    const i64 at = static_cast<i64>(s) * c + i;
-    const i64 src_l = u_src[at];
+  for (int i = threadIdx.x; i < p; i += kThreads) {
+    const i64 src_l = u.src(i);
     const i64 sl = src_l < hs - 1 ? src_l : hs - 1;
-    if (src_l < hs && sl >= 0 && u_size[at] != 0)
-      atomicAdd(reinterpret_cast<u64*>(&a.debt[row0 + sl]),
-                static_cast<u64>(u_size[at]));
+    if (src_l < hs && sl >= 0) {
+      const i64 size = u.at(2, i);
+      if (size != 0) add_debt(v, a.resident, sl, size);
+    }
   }
-  // the rows of received[:, s] past each destination's count are zero
-  for (int d = 0; d < n; ++d) {
-    i64* blk = received + (static_cast<i64>(d) * n + s) * c * 4;
-    for (int r = sc->carry[d] + threadIdx.x; r < c; r += kThreads)
-      put_row(blk + static_cast<i64>(r) * 4, 0, 0, 0, 0);
-  }
-  i64 tot_sent, tot_drop, tot_min;
-  block_scan(sent, OpSum(), 0, warp_tot, &tot_sent);
-  block_scan(dropped_ct, OpSum(), 0, warp_tot, &tot_drop);
-  block_scan(my_min, OpMin(), kInf, warp_tot, &tot_min);
+  block_sum_sum_min(&sent, &dropped_ct, &my_min, rs->red);
   if (threadIdx.x == 0) {
-    partials[s * 3] = tot_sent;
-    partials[s * 3 + 1] = tot_drop;
-    partials[s * 3 + 2] = tot_min;
+    i64* part = a.partials + (static_cast<i64>(j) * n + s) * 3;
+    part[0] = sent;
+    part[1] = dropped_ct;
+    part[2] = my_min;
   }
-  __syncthreads();  // state and carries are reused by the next round
+  __syncthreads();  // state, scratch and carries are reused by the next round
 }
 
-__global__ void __launch_bounds__(kThreads)
-mesh_round_step_kernel(RoundArgs a, const i64* __restrict__ units, i64 t_now,
-                       i64* __restrict__ received,
-                       i64* __restrict__ partials) {
-  __shared__ RankScratch sc;
-  __shared__ i64 warp_tot[kWarps];
-  __shared__ i64 carry[2];
-  round_body(a, units, t_now, received, partials, &sc, warp_tot, carry);
-}
-
-// K rounds in one launch: block s carries its shard's bucket state (in
-// device memory, read and written only by this block) from round to round.
-__global__ void __launch_bounds__(kThreads)
-mesh_scan_kernel(RoundArgs a, const i64* __restrict__ units_k,
-                 const i64* __restrict__ t_now_k, int k,
-                 i64* __restrict__ received_k, i64* __restrict__ partials_k) {
-  __shared__ RankScratch sc;
-  __shared__ i64 warp_tot[kWarps];
-  __shared__ i64 carry[2];
-  const i64 u_step = 6LL * a.n * a.c;
-  const i64 r_step = static_cast<i64>(a.n) * a.n * a.c * 4;
-  for (int j = 0; j < k; ++j)
-    round_body(a, units_k + j * u_step, t_now_k[j], received_k + j * r_step,
-               partials_k + static_cast<i64>(j) * a.n * 3, &sc, warp_tot,
-               carry);
-}
-
-// partials (k, n, 3) -> g_min (k,) and counters (k, 2) [sent, dropped]
-__global__ void mesh_reduce_kernel(const i64* __restrict__ partials, int n,
-                                   int k, i64* __restrict__ g_min,
-                                   i64* __restrict__ counters) {
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < k;
-       j += gridDim.x * blockDim.x) {
+// partials (k, n, 3) of rounds [j0, k) -> g_min and counters, one round a
+// thread of the calling threads.
+__device__ void reduce_rounds(const i64* __restrict__ partials, int n, int k,
+                              int j0, int stride, i64* __restrict__ g_min,
+                              i64* __restrict__ counters) {
+  for (int j = j0; j < k; j += stride) {
     i64 sent = 0, dropped = 0, g = kInf;
     for (int s = 0; s < n; ++s) {
       const i64* p = partials + (static_cast<i64>(j) * n + s) * 3;
@@ -498,91 +820,288 @@ __global__ void mesh_reduce_kernel(const i64* __restrict__ partials, int n,
   }
 }
 
+// K rounds (K = 1 for mesh_round_step) in one launch, block s = shard s,
+// its bucket state carried from round to round in shared memory (resident)
+// or in state_out. kCluster: the n blocks are one cluster and block 0
+// reduces every round's partials after the last round; otherwise
+// mesh_reduce_kernel does, as a second launch.
+template <bool kCluster>
+__global__ void __launch_bounds__(kThreads) mesh_rounds_kernel(RoundArgs a) {
+  extern __shared__ __align__(16) i64 dyn[];
+  __shared__ RoundScratch rs;
+  const int s = blockIdx.x;
+  const int n = a.n, hs = a.hs, gg = a.g * a.g;
+  const i64 sh = static_cast<i64>(s) * hs;
+  const i64 st_plane = static_cast<i64>(n) * hs;
+  View v;
+  i64* bufs;
+  if (a.resident) {
+    i64* p = dyn;
+    v.tb = p;
+    v.tok = p + hs;
+    v.debt = p + 2 * hs;
+    i64* rate_s = p + 3 * hs;
+    i64* cap_s = p + 4 * hs;
+    i64* node_s = p + 5 * hs;
+    i64* lat_s = node_s + a.h_pad;
+    i64* th_s = lat_s + gg;
+    bufs = th_s + gg;
+    for (int h = threadIdx.x; h < hs; h += kThreads) {
+      cp_async8(v.tb + h, a.state_in + sh + h);
+      cp_async8(v.tok + h, a.state_in + st_plane + sh + h);
+      cp_async8(v.debt + h, a.state_in + 2 * st_plane + sh + h);
+      cp_async8(rate_s + h, a.rate + static_cast<i64>(h) * n + s);
+      cp_async8(cap_s + h, a.cap + static_cast<i64>(h) * n + s);
+    }
+    for (int i = threadIdx.x; i < a.h_pad; i += kThreads)
+      cp_async8(node_s + i, a.host_node + i);
+    for (int i = threadIdx.x; i < gg; i += kThreads) {
+      cp_async8(lat_s + i, a.lat + i);
+      cp_async8(th_s + i, a.thresh + i);
+    }
+    v.rate = rate_s;
+    v.cap = cap_s;
+    v.rstride = 1;
+    v.node = node_s;
+    v.lat = lat_s;
+    v.thresh = th_s;
+  } else {
+    bufs = dyn;
+    v.tb = a.state_out + sh;
+    v.tok = a.state_out + st_plane + sh;
+    v.debt = a.state_out + 2 * st_plane + sh;
+    for (int h = threadIdx.x; h < hs; h += kThreads) {
+      v.tb[h] = a.state_in[sh + h];
+      v.tok[h] = a.state_in[st_plane + sh + h];
+      v.debt[h] = a.state_in[2 * st_plane + sh + h];
+    }
+    v.rate = a.rate + s;
+    v.cap = a.cap + s;
+    v.rstride = n;
+    v.node = a.host_node;
+    v.lat = a.lat;
+    v.thresh = a.thresh;
+  }
+  const i64 plane = static_cast<i64>(n) * a.c;
+  const int bsz = a.win + 5 * a.tile;
+  const int k = a.k > 0 ? a.k : 1;
+  const i64* u0 = a.units + static_cast<i64>(s) * a.c;
+  prefetch_round(u0, bufs, plane, a.win, a.tile);
+  cp_async_commit();
+  for (int j = 0; j < k; ++j) {
+    cp_async_wait_all();  // round j's columns (and the tables) landed
+    __syncthreads();
+    if (j + 1 < k)
+      prefetch_round(u0 + (j + 1) * 6 * plane, bufs + ((j + 1) & 1) * bsz,
+                     plane, a.win, a.tile);
+    cp_async_commit();
+    const Cols u{u0 + j * 6 * plane, bufs + (j & 1) * bsz, plane, a.win,
+                 a.tile};
+    round_body(a, v, u, j, &rs);
+  }
+  if (a.resident) {
+    for (int h = threadIdx.x; h < hs; h += kThreads) {
+      a.state_out[sh + h] = v.tb[h];
+      a.state_out[st_plane + sh + h] = v.tok[h];
+      a.state_out[2 * st_plane + sh + h] = v.debt[h];
+    }
+  }
+  if constexpr (kCluster) {
+    __threadfence();
+    cg::this_cluster().sync();
+    if (s == 0)
+      reduce_rounds(a.partials, n, k, threadIdx.x, kThreads, a.g_min,
+                    a.counters);
+  }
+}
+
+// N > kClusterMax: partials (k, n, 3) -> g_min (k,) and counters (k, 2)
+__global__ void mesh_reduce_kernel(const i64* __restrict__ partials, int n,
+                                   int k, i64* __restrict__ g_min,
+                                   i64* __restrict__ counters) {
+  reduce_rounds(partials, n, k, blockIdx.x * blockDim.x + threadIdx.x,
+                gridDim.x * blockDim.x, g_min, counters);
+}
+
+// -- launch helpers ----------------------------------------------------------
+
+// Dynamic shared memory of the round kernel (parallel/mesh.py
+// round_smem_bytes): two prefetch buffers, plus the tables and state when
+// resident.
+i64 round_smem_bytes(int hs, int c, int h_pad, int g, bool resident) {
+  const i64 win = c < kSrcWin ? c : kSrcWin;
+  const i64 tile = c < kThreads ? c : kThreads;
+  i64 words = 2 * (win + 5 * tile);
+  if (resident) words += 5LL * hs + h_pad + 2LL * g * g;
+  return 8 * words;
+}
+
+// Allow a kernel up to kDynSmemMax of dynamic shared memory and, for a
+// cluster kernel, clusters of up to 16 blocks. Once per kernel.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, bool cluster) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDynSmemMax);
+  if (e == cudaSuccess && cluster)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+template <auto Kernel>
+cudaError_t prepared(bool cluster) {
+  static const cudaError_t e = prepare(Kernel, cluster);
+  return e;
+}
+
+// Launch Kernel with n blocks of kThreads as one cluster of n blocks.
+template <auto Kernel, typename... Args>
+cudaError_t launch_cluster(int n, size_t smem, cudaStream_t st,
+                           Args... args) {
+  cudaError_t e = prepared<Kernel>(true);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, Kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 bool bad_shape(int n, int per_shard, int width) {
   return n < 1 || n > kMaxShards || per_shard < 1 || width < 1 || width > 64;
 }
 
-RoundArgs round_args(void* t_base, void* tokens, void* debt, int n, int hs,
-                     int c, const void* host_node, int h_pad, const void* lat,
-                     const void* thresh, int g, const void* rate,
-                     const void* cap, uint32_t k0, uint32_t k1, int width) {
-  RoundArgs a;
-  a.t_base = static_cast<i64*>(t_base);
-  a.tokens = static_cast<i64*>(tokens);
-  a.debt = static_cast<i64*>(debt);
-  a.host_node = static_cast<const i64*>(host_node);
-  a.lat = static_cast<const i64*>(lat);
-  a.thresh = static_cast<const i64*>(thresh);
-  a.rate = static_cast<const i64*>(rate);
-  a.cap = static_cast<const i64*>(cap);
-  a.n = n;
-  a.hs = hs;
-  a.c = c;
-  a.h_pad = h_pad;
-  a.g = g;
-  a.k0 = k0;
-  a.k1 = k1;
-  a.width = static_cast<uint32_t>(width);
-  return a;
+bool misaligned(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// units (6, n, m) -> recv (n, w, 4), g_min (1,); send (n, n, m, 4),
-// counts (n, n) int32 and local_min (n,) are scratch.
-int shadow_mesh_exchange(const void* units, int n, int m, int w, uint32_t k0,
-                         uint32_t k1, int width, void* send, void* counts,
-                         void* local_min, void* recv, void* g_min,
-                         void* stream) {
-  if (bad_shape(n, m, width) || w < 1 || w > n * m)
+// units (6, n, m) -> recv (n, w, 4), g_min (1,). path: 0 = the pair
+// (send (n, n, m, 4), counts (n, n) int32 and local_min (n,) are scratch),
+// 1 = one cluster launch with send as scratch, 2 = one cluster launch with
+// the send rows in shared memory (send, counts, local_min unused).
+// units, recv and g_min may be the device addresses of page-locked host
+// memory (the plane's staging: the kernel reads and writes it in place).
+int shadow_mesh_exchange(void* units, int n, int m, int w, uint32_t k0,
+                         uint32_t k1, int width, int path, void* send,
+                         void* counts, void* local_min, void* recv,
+                         void* g_min, void* stream) {
+  const i64 rows_bytes = 32LL * n * m;
+  if (bad_shape(n, m, width) || w < 1 || w > n * m || misaligned(recv) ||
+      path < kPathPair || path > kPathClusterSmem ||
+      (path != kPathPair && n > kClusterMax) ||
+      (path == kPathClusterSmem && rows_bytes > kDynSmemMax))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  mesh_send_kernel<<<n, kThreads, 0, st>>>(
-      static_cast<const i64*>(units), n, m, k0, k1,
-      static_cast<uint32_t>(width), static_cast<i64*>(send),
-      static_cast<int*>(counts), static_cast<i64*>(local_min));
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  mesh_recv_kernel<<<n, kThreads, 0, st>>>(
-      static_cast<const i64*>(send), static_cast<const int*>(counts),
-      static_cast<const i64*>(local_min), n, m, w, static_cast<i64*>(recv),
-      static_cast<i64*>(g_min));
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e;
+  const i64* u = static_cast<const i64*>(units);
+  i64* snd = static_cast<i64*>(send);
+  i64* rcv = static_cast<i64*>(recv);
+  i64* gm = static_cast<i64*>(g_min);
+  if (path == kPathPair) {
+    mesh_send_kernel<<<n, kThreads, 0, st>>>(
+        u, n, m, k0, k1, static_cast<uint32_t>(width), snd,
+        static_cast<int*>(counts), static_cast<i64*>(local_min));
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    mesh_recv_kernel<<<n, kThreads, 0, st>>>(
+        snd, static_cast<const int*>(counts),
+        static_cast<const i64*>(local_min), n, m, w, rcv, gm);
+    e = cudaGetLastError();
+  } else if (path == kPathClusterGlobal) {
+    e = launch_cluster<mesh_exchange_kernel<false>>(
+        n, 0, st, u, n, m, w, k0, k1, static_cast<uint32_t>(width), snd, rcv,
+        gm);
+  } else {
+    e = launch_cluster<mesh_exchange_kernel<true>>(
+        n, static_cast<size_t>(rows_bytes), st, u, n, m, w, k0, k1,
+        static_cast<uint32_t>(width), snd, rcv, gm);
+  }
+  return static_cast<int>(e);
 }
 
-// One round (k == 0) or k rounds (k >= 1, units (k, 6, n, c), t_now_k
-// (k,)): state (n, hs) x3 updated in place; received (k, n, n, c, 4),
-// g_min (k,), counters (k, 2); partials (k, n, 3) is scratch.
-int shadow_mesh_rounds(void* t_base, void* tokens, void* debt, int n, int hs,
+// The device address of pinned host memory (for kernels that read and
+// write it in place); 0 on success.
+int shadow_mesh_device_pointer(void* host, void** dev) {
+  return static_cast<int>(cudaHostGetDevicePointer(dev, host, 0));
+}
+
+// One round (k == 0, at t_now) or k rounds (k >= 1, units (k, 6, n, c),
+// t_now_k (k,)): state_in (3, n, hs) is read, state_out (3, n, hs) gets
+// the state after the last round; received (k, n, n, c, 4), g_min (k,),
+// counters (k, 2); partials (k, n, 3) is scratch. cluster: one cluster
+// launch (n <= kClusterMax), else the round kernel then mesh_reduce_kernel;
+// resident: tables and state in shared memory (round_smem_bytes must fit).
+int shadow_mesh_rounds(const void* state_in, void* state_out, int n, int hs,
                        const void* units, int c, int k, long long t_now,
                        const void* t_now_k, const void* host_node, int h_pad,
                        const void* lat, const void* thresh, int g,
                        const void* rate, const void* cap, uint32_t k0,
-                       uint32_t k1, int width, void* received, void* partials,
-                       void* g_min, void* counters, void* stream) {
+                       uint32_t k1, int width, int cluster, int resident,
+                       void* received, void* partials, void* g_min,
+                       void* counters, void* stream) {
+  const i64 smem = round_smem_bytes(hs, c, h_pad, g, resident != 0);
   if (bad_shape(n, c, width) || hs < 1 || k < 0 || g < 1 ||
-      h_pad != n * hs)
+      h_pad != n * hs || (cluster && n > kClusterMax) ||
+      smem > kDynSmemMax || misaligned(received) ||
+      (k == 0) != (t_now_k == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const RoundArgs a = round_args(t_base, tokens, debt, n, hs, c, host_node,
-                                 h_pad, lat, thresh, g, rate, cap, k0, k1,
-                                 width);
-  const i64* u = static_cast<const i64*>(units);
-  i64* rcv = static_cast<i64*>(received);
-  i64* part = static_cast<i64*>(partials);
-  if (k == 0) {
-    mesh_round_step_kernel<<<n, kThreads, 0, st>>>(a, u, t_now, rcv, part);
-  } else {
-    mesh_scan_kernel<<<n, kThreads, 0, st>>>(
-        a, u, static_cast<const i64*>(t_now_k), k, rcv, part);
-  }
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  RoundArgs a;
+  a.state_in = static_cast<const i64*>(state_in);
+  a.state_out = static_cast<i64*>(state_out);
+  a.host_node = static_cast<const i64*>(host_node);
+  a.lat = static_cast<const i64*>(lat);
+  a.thresh = static_cast<const i64*>(thresh);
+  a.rate = static_cast<const i64*>(rate);
+  a.cap = static_cast<const i64*>(cap);
+  a.units = static_cast<const i64*>(units);
+  a.t_now_k = static_cast<const i64*>(t_now_k);
+  a.t_now = t_now;
+  a.received = static_cast<i64*>(received);
+  a.partials = static_cast<i64*>(partials);
+  a.g_min = static_cast<i64*>(g_min);
+  a.counters = static_cast<i64*>(counters);
+  a.k = k;
+  a.n = n;
+  a.hs = hs;
+  a.c = c;
+  a.h_pad = h_pad;
+  a.g = g;
+  a.win = c < kSrcWin ? c : kSrcWin;
+  a.tile = c < kThreads ? c : kThreads;
+  a.resident = resident != 0;
+  a.k0 = k0;
+  a.k1 = k1;
+  a.width = static_cast<uint32_t>(width);
+  // the rows past each destination's count are zero: one memset over the
+  // card, where one block a shard would write them row by row
   const int steps = k == 0 ? 1 : k;
+  cudaError_t e = cudaMemsetAsync(
+      received, 0, 32LL * steps * n * n * c, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (cluster)
+    return static_cast<int>(launch_cluster<mesh_rounds_kernel<true>>(
+        n, static_cast<size_t>(smem), st, a));
+  e = prepared<mesh_rounds_kernel<false>>(false);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  mesh_rounds_kernel<false><<<n, kThreads, smem, st>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
   mesh_reduce_kernel<<<(steps + 127) / 128, 128, 0, st>>>(
-      part, n, steps, static_cast<i64*>(g_min), static_cast<i64*>(counters));
+      a.partials, n, steps, a.g_min, a.counters);
   return static_cast<int>(cudaGetLastError());
 }
 

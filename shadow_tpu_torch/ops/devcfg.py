@@ -50,17 +50,19 @@ _SIGNATURES = {
     "mesh": {
         "shadow_mesh_exchange": (ctypes.c_int, [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]),
-        "shadow_mesh_rounds": (ctypes.c_int, [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
-            ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
+        "shadow_mesh_rounds": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]),
+        "shadow_mesh_device_pointer": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]),
         "shadow_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "transport": {

@@ -26,9 +26,16 @@ programs, one per granularity, each a hand-written CUDA kernel
 N shards on one device. PyTorch has no virtual devices, so the plane holds
 all N shards' bucket state as (N, Hs) tensors on its one ``torch.device``
 and the reference's ``lax.all_to_all`` becomes the in-device exchange
-``received[i] = send[:, i]``. The kernels run one block per shard, so a
-later multi-card slice can put an NCCL all_to_all between the send and the
-receive without touching the per-shard work.
+``received[i] = send[:, i]``. The kernels run one block per shard.
+
+Launch paths, chosen by shape alone (``exchange_path``, ``round_path``;
+csrc/mesh.cu says why): up to CLUSTER_MAX shards a call is ONE launch of
+the N blocks as a thread block cluster; above it the exchange runs as a
+send launch and a receive launch (the seam where a multi-card slice puts an
+NCCL all_to_all) and the rounds as a round launch and a reduce launch. The
+exchange keeps its send rows in shared memory where N * m * 32 bytes fit
+SMEM_MAX; the rounds keep their tables and bucket state in shared memory
+where ``round_smem_bytes`` fits it. ``PATHS`` counts the launches of each.
 
 Each wrapper checks dtypes, shapes, contiguity and device, runs the plain
 version for CPU tensors and, for CUDA tensors, launches its kernel on the
@@ -61,16 +68,64 @@ F_DST, F_TARR, F_UID, F_FLAGS = range(4)
 INF = 1 << 62
 #: shards a kernel launch supports (csrc/mesh.cu kMaxShards)
 MAX_SHARDS = 32
+#: shards that run as one thread block cluster (csrc/mesh.cu kClusterMax)
+CLUSTER_MAX = 16
+#: dynamic shared memory a mesh kernel asks for at most (kDynSmemMax)
+SMEM_MAX = 200 * 1024
+#: threads a block (kThreads) and src_l slots of a round prefetched into
+#: shared memory (kSrcWin)
+THREADS = 256
+SRC_WIN = 2048
 _M32 = 0xFFFFFFFF
 
 #: kernel launches per wrapper since the last reset_launches(); only CUDA
 #: launches count (the plain version on a CPU tensor is not a launch)
 LAUNCHES = {"mesh_exchange": 0, "mesh_round_step": 0, "mesh_scan": 0}
+#: wrapper calls per launch path since the last reset_launches(): the
+#: exchange's three paths, and the rounds' launch shape (cluster or pair)
+#: and where their tables live (shared or device memory)
+PATHS = {"exchange_cluster_smem": 0, "exchange_cluster_global": 0,
+         "exchange_pair": 0, "rounds_cluster": 0, "rounds_pair": 0,
+         "rounds_smem": 0, "rounds_global": 0}
+#: exchange_path's names, in csrc/mesh.cu's numbering of the paths
+_EXCHANGE_PATHS = ("pair", "cluster_global", "cluster_smem")
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PATHS):
+        for k in counts:
+            counts[k] = 0
+
+
+def exchange_path(n: int, m: int) -> str:
+    """How mesh_exchange runs N shards of m slots: ``cluster_smem`` (one
+    cluster launch, the send rows in shared memory), ``cluster_global`` (one
+    cluster launch, the send rows in device memory) or ``pair`` (a send and
+    a receive launch, above CLUSTER_MAX shards)."""
+    if n > CLUSTER_MAX:
+        return "pair"
+    return "cluster_smem" if 32 * n * m <= SMEM_MAX else "cluster_global"
+
+
+def round_smem_bytes(hs: int, c: int, h_pad: int, g: int,
+                     resident: bool) -> int:
+    """Dynamic shared memory of the round kernel (csrc/mesh.cu
+    round_smem_bytes): two buffers of a round's prefetched unit columns,
+    plus, when ``resident``, the shard's bucket state, rate and cap (5 Hs),
+    host_node (H_pad) and the latency and threshold tables (2 G^2), all
+    int64."""
+    words = 2 * (min(c, SRC_WIN) + 5 * min(c, THREADS))
+    if resident:
+        words += 5 * hs + h_pad + 2 * g * g
+    return 8 * words
+
+
+def round_path(n: int, hs: int, c: int, g: int) -> tuple:
+    """(cluster, resident) for mesh_round_step and mesh_scan on N shards of
+    Hs hosts, C slots and G nodes: one cluster launch up to CLUSTER_MAX
+    shards; tables and state in shared memory where they fit SMEM_MAX."""
+    return (n <= CLUSTER_MAX,
+            round_smem_bytes(hs, c, n * hs, g, True) <= SMEM_MAX)
 
 
 # -- plain PyTorch versions ---------------------------------------------------
@@ -291,11 +346,42 @@ def _check_round(state, units, tables, what: str) -> None:
                          f"{state.device}")
 
 
+def exchange_scratch(n: int, m: int, path: str, device) -> tuple:
+    """Device scratch of one mesh_exchange launch on ``path``: (send
+    (N, N, m, 4) int64 or None, counts (N, N) int32 or None, local_min (N,)
+    int64 or None); the cluster kernels keep what they can in shared
+    memory."""
+    send = counts = local_min = None
+    if path != "cluster_smem":
+        send = torch.empty((n, n, m, 4), dtype=torch.int64, device=device)
+    if path == "pair":
+        counts = torch.empty((n, n), dtype=torch.int32, device=device)
+        local_min = torch.empty(n, dtype=torch.int64, device=device)
+    return send, counts, local_min
+
+
+def _exchange_launch(units_ptr: int, n: int, m: int, w: int, seed: int,
+                     max_pkts: int, path: str, scratch: tuple,
+                     recv_ptr: int, g_min_ptr: int, stream: int) -> None:
+    """Launch mesh_exchange on ``path`` (csrc/mesh.cu shadow_mesh_exchange)
+    and count it, or raise."""
+    lib = devcfg.kernel_lib("mesh")
+    code = lib.shadow_mesh_exchange(
+        units_ptr, n, m, w, seed & _M32, (seed >> 32) & _M32, max_pkts,
+        _EXCHANGE_PATHS.index(path),
+        *(None if t is None else t.data_ptr() for t in scratch), recv_ptr,
+        g_min_ptr, stream)
+    devcfg.check_launch(lib, code, "mesh_exchange")
+    LAUNCHES["mesh_exchange"] += 1
+    PATHS[f"exchange_{path}"] += 1
+
+
 def mesh_exchange(units: torch.Tensor, seed: int, max_pkts: int, w: int):
     """One causal window's draws + arrival exchange + barrier minimum:
     (6, N, m) int64 -> (received (N, w, 4), g_min (1,)); see
     exchange_rounds_plain. CPU tensor: the plain version. CUDA tensor: the
-    kernel on the current stream, or an exception."""
+    kernel on the current stream (on exchange_path's path), or an
+    exception."""
     what = "mesh_exchange"
     _check(units, 3, what, "units")
     if units.shape[0] != 6:
@@ -306,59 +392,59 @@ def mesh_exchange(units: torch.Tensor, seed: int, max_pkts: int, w: int):
         raise ValueError(f"{what}: w must be in [1, {n * m}], got {w}")
     if units.device.type == "cpu":
         return exchange_rounds_plain(units, seed, max_pkts, w)
-    lib = devcfg.kernel_lib("mesh")
     dev = units.device
-    send = torch.empty((n, n, m, 4), dtype=torch.int64, device=dev)
-    counts = torch.empty((n, n), dtype=torch.int32, device=dev)
-    local_min = torch.empty(n, dtype=torch.int64, device=dev)
+    path = exchange_path(n, m)
     recv = torch.empty((n, w, 4), dtype=torch.int64, device=dev)
     g_min = torch.empty(1, dtype=torch.int64, device=dev)
-    code = lib.shadow_mesh_exchange(
-        units.data_ptr(), n, m, w, seed & _M32, (seed >> 32) & _M32,
-        max_pkts, send.data_ptr(), counts.data_ptr(), local_min.data_ptr(),
-        recv.data_ptr(), g_min.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    devcfg.check_launch(lib, code, what)
-    LAUNCHES[what] += 1
+    _exchange_launch(units.data_ptr(), n, m, w, seed, max_pkts, path,
+                     exchange_scratch(n, m, path, dev), recv.data_ptr(),
+                     g_min.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
     return recv, g_min
 
 
 def _launch_rounds(what, state, units, tables, k, t_now, t_now_k, seed,
                    max_pkts):
     """Launch mesh_round_step (k == 0: one round at t_now) or mesh_scan
-    (k rounds at t_now_k) on a copy of the state."""
+    (k rounds at t_now_k) on round_path's path; the kernel writes the new
+    state to a fresh tensor."""
     n, hs = state.shape[1:]
     c = units.shape[-1]
+    g = tables[1].shape[0]
     dev = state.device
     steps = max(k, 1)
+    cluster, resident = round_path(n, hs, c, g)
     lib = devcfg.kernel_lib("mesh")
-    state = state.clone()  # updated in place by the kernel
+    state_out = torch.empty_like(state)
     received = torch.empty((steps, n, n, c, 4), dtype=torch.int64,
                            device=dev)
-    partials = torch.empty((steps, n, 3), dtype=torch.int64, device=dev)
-    g_min = torch.empty(steps, dtype=torch.int64, device=dev)
-    counters = torch.empty((steps, 2), dtype=torch.int64, device=dev)
+    aux = torch.empty(steps * (3 * n + 3), dtype=torch.int64, device=dev)
+    partials = aux[:steps * 3 * n]
+    g_min = aux[steps * 3 * n:steps * (3 * n + 1)]
+    counters = aux[steps * (3 * n + 1):].view(steps, 2)
     host_node, lat, thresh, rate, cap = tables
     code = lib.shadow_mesh_rounds(
-        state[0].data_ptr(), state[1].data_ptr(), state[2].data_ptr(), n, hs,
-        units.data_ptr(), c, k, t_now,
-        None if t_now_k is None else t_now_k.data_ptr(),
-        host_node.data_ptr(), n * hs, lat.data_ptr(), thresh.data_ptr(),
-        lat.shape[0], rate.data_ptr(), cap.data_ptr(), seed & _M32,
-        (seed >> 32) & _M32, max_pkts, received.data_ptr(),
+        state.data_ptr(), state_out.data_ptr(), n, hs, units.data_ptr(), c,
+        k, t_now, None if t_now_k is None else t_now_k.data_ptr(),
+        host_node.data_ptr(), n * hs, lat.data_ptr(), thresh.data_ptr(), g,
+        rate.data_ptr(), cap.data_ptr(), seed & _M32, (seed >> 32) & _M32,
+        max_pkts, int(cluster), int(resident), received.data_ptr(),
         partials.data_ptr(), g_min.data_ptr(), counters.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     devcfg.check_launch(lib, code, what)
     LAUNCHES[what] += 1
-    return received, state, g_min, counters
+    PATHS["rounds_cluster" if cluster else "rounds_pair"] += 1
+    PATHS["rounds_smem" if resident else "rounds_global"] += 1
+    return received, state_out, g_min, counters
 
 
 def mesh_round_step(state: torch.Tensor, units: torch.Tensor, tables,
                     t_now: int, seed: int, max_pkts: int):
     """One sharded round; arguments and results as round_step_plain. CPU
     tensors: the plain version. CUDA tensors: the kernel on the current
-    stream (the state is copied, never updated in place), or an
-    exception."""
+    stream (the new state is a new tensor, ``state`` is not written), or an
+    exception. Padding (src_l == Hs) must come last in each shard's slots,
+    as shard_units_np packs it."""
     what = "mesh_round_step"
     _check(units, 3, what, "units")
     _check_round(state, units, tables, what)
@@ -393,6 +479,61 @@ def mesh_scan(state: torch.Tensor, units_k: torch.Tensor, tables,
 
 # -- the plane ----------------------------------------------------------------
 
+def device_pointer(t: torch.Tensor) -> int:
+    """The card's address of a page-locked host tensor (for a kernel that
+    reads or writes it in place), or an exception."""
+    import ctypes
+
+    lib = devcfg.kernel_lib("mesh")
+    out = ctypes.c_void_p()
+    code = lib.shadow_mesh_device_pointer(t.data_ptr(), ctypes.byref(out))
+    devcfg.check_launch(lib, code, "mesh device pointer")
+    return int(out.value or 0)
+
+
+class ExchangeStage:
+    """The buffers of one exchange bucket (N, m, w), made once and kept for
+    the plane's life: the packed (6, N, m) units in host memory (``units``,
+    a numpy view; page-locked on a card) and, on a card, the launch's
+    scratch, the output (recv (N, w, 4) then g_min, contiguous) in
+    page-locked host memory (``out``) and one CUDA event. The kernel reads
+    the units from and writes the output to the page-locked buffers in
+    place, through their device addresses, so a window queues no copy: one
+    cudaMemcpyAsync each way around the kernel cost more card time and more
+    host time a window of tgen_1k's floor-0 run (PERF.md)."""
+
+    def __init__(self, n: int, m: int, w: int, device) -> None:
+        self.shape = (n, m, w)
+        cuda = device.type == "cuda"
+        self.host_in = torch.zeros((6, n, m), dtype=torch.int64,
+                                   pin_memory=cuda)
+        self.units = self.host_in.numpy()
+        if not cuda:
+            return
+        self.path = exchange_path(n, m)
+        self.scratch = exchange_scratch(n, m, self.path, device)
+        self.host_out = torch.empty(4 * n * w + 1, dtype=torch.int64,
+                                    pin_memory=True)
+        self.out = self.host_out.numpy()
+        self.event = torch.cuda.Event()
+        out = device_pointer(self.host_out)
+        self._ptrs = (device_pointer(self.host_in), out, out + 8 * 4 * n * w)
+
+    def launch(self, seed: int, max_pkts: int, stream) -> None:
+        """Queue mesh_exchange on ``units`` into ``out`` on ``stream``."""
+        n, m, w = self.shape
+        units, recv, g_min = self._ptrs
+        _exchange_launch(units, n, m, w, seed, max_pkts, self.path,
+                         self.scratch, recv, g_min, stream.cuda_stream)
+
+    def dispatch(self, seed: int, max_pkts: int, stream) -> None:
+        """Run mesh_exchange on ``units`` into ``out`` on ``stream`` and
+        wait for it on the event."""
+        self.launch(seed, max_pkts, stream)
+        self.event.record(stream)
+        self.event.synchronize()
+
+
 class MeshDataPlane:
     """Host-sharded data plane over N shards on one device.
 
@@ -418,6 +559,8 @@ class MeshDataPlane:
         n = n_shards or devcfg.visible_devices(self.device)
         if not 1 <= n <= MAX_SHARDS:
             raise ValueError(f"{n} shards (want 1..{MAX_SHARDS})")
+        #: exchange buffers by (N, m, w): at most 16 shapes (the buckets)
+        self._stages: dict = {}
         self.n_shards = n
         self.units_per_shard = int(units_per_shard)
         self.params = params
@@ -511,12 +654,29 @@ class MeshDataPlane:
             i += k
         return out
 
+    def stage(self, m: int, w: int) -> ExchangeStage:
+        """The buffers of bucket (N, m, w), made on first use."""
+        key = (self.n_shards, m, w)
+        st = self._stages.get(key)
+        if st is None:
+            st = self._stages[key] = ExchangeStage(*key, self.device)
+        return st
+
     def exchange_rounds(self, src, dst, t_arr, uid, npk, th):
         """Resolve a causal window's units: draws + arrival exchange in as
         few launches as the slot buckets allow. Inputs are 1-D numpy arrays
         over ALL the window's (post-blackhole) units, in emission order.
         Returns a list of materialized (N*w, 4) exchange tables covering
-        every unit (F_* field order; F_FLAGS bit1 marks valid rows)."""
+        every unit (F_* field order; F_FLAGS bit1 marks valid rows); the
+        tables are the caller's own.
+
+        Each slice is packed straight into its bucket's page-locked buffer
+        (ExchangeStage), exchanged on the card and waited for on one CUDA
+        event; one slice is in flight at a time, so a buffer is never
+        rewritten while the card reads it. Every slice rewrites the valid
+        column of every slot: units left in a buffer by a larger window are
+        invalid slots, which the kernel skips and the plain version
+        discards."""
         n = self.n_shards
         out = []
         total = len(src)
@@ -525,6 +685,7 @@ class MeshDataPlane:
         i = 0
         step = self.EXCHANGE_BUCKETS[-1]
         ph = self.phase
+        cols = (dst, t_arr, uid, npk, th)
         while i < total:
             t0 = _walltime.perf_counter()
             j = min(total, i + step)
@@ -538,28 +699,37 @@ class MeshDataPlane:
             wneed = min(n * m, int(j - i))
             w = min(n * m,
                     next(b for b in self.EXCHANGE_BUCKETS if b >= wneed))
-            packed = np.zeros((6, n, m), dtype=np.int64)
-            order = np.argsort(sh, kind="stable")
-            if order.size:
+            st = self.stage(m, w)
+            packed = st.units
+            packed[5] = 0
+            if n == 1:  # one shard: the slots are the slice in order
+                k = j - i
+                for f, col in enumerate(cols):
+                    packed[f, 0, :k] = col[sl]
+                packed[5, 0, :k] = 1
+            else:
+                order = np.argsort(sh, kind="stable")
                 rank = np.concatenate(
                     [np.arange(k, dtype=np.int64) for k in counts])
                 shs = sh[order]
-                packed[0, shs, rank] = np.asarray(dst[sl], np.int64)[order]
-                packed[1, shs, rank] = np.asarray(t_arr[sl], np.int64)[order]
-                packed[2, shs, rank] = np.asarray(uid[sl], np.int64)[order]
-                packed[3, shs, rank] = np.asarray(npk[sl], np.int64)[order]
-                packed[4, shs, rank] = np.asarray(th[sl], np.int64)[order]
+                for f, col in enumerate(cols):
+                    packed[f, shs, rank] = np.asarray(col[sl],
+                                                      np.int64)[order]
                 packed[5, shs, rank] = 1
             t1 = _walltime.perf_counter()
-            recv, _gmin = mesh_exchange(
-                torch.from_numpy(packed).to(self.device), self._seed,
-                self._max_pkts, w)
             if self._cuda:
-                # block on the exchange, as the reference does: without it
-                # the card's execution would land in the readback bucket
-                torch.cuda.current_stream(self.device).synchronize()
-            t2 = _walltime.perf_counter()
-            out.append(recv.cpu().numpy().reshape(-1, 4))
+                # block on the exchange, as the reference does: the launch
+                # lands in dispatch, copying the table out of the
+                # page-locked buffer in readback
+                st.dispatch(self._seed, self._max_pkts,
+                            torch.cuda.current_stream(self.device))
+                t2 = _walltime.perf_counter()
+                out.append(st.out[:4 * n * w].reshape(-1, 4).copy())
+            else:
+                recv, _gmin = mesh_exchange(st.host_in, self._seed,
+                                            self._max_pkts, w)
+                t2 = _walltime.perf_counter()
+                out.append(recv.numpy().reshape(-1, 4))
             t3 = _walltime.perf_counter()
             ph["build"] += t1 - t0
             ph["dispatch"] += t2 - t1

@@ -68,9 +68,18 @@ def test_draw_kernels_match_plain_on_card(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 2, 8])
-def test_mesh_kernels_match_plain_on_card(dev, n):
+@pytest.mark.parametrize("c", [64, 1024])
+@pytest.mark.parametrize("h", [13, 20000])
+@pytest.mark.parametrize("n", [1, 2, 8, 16, 32])
+def test_mesh_kernels_match_plain_on_card(dev, n, h, c):
+    """Every launch path: N up to and past the cluster limit, exchange
+    buckets whose send rows fit shared memory and buckets whose rows do
+    not, round tables resident in shared memory (13 hosts) and read from
+    device memory (20,000 hosts), C = 64 slots (fewer than a block's
+    threads) and 1,024, and scans whose real prefixes are 0, 1, 60, 257
+    and 700 units (at most C)."""
     rng = np.random.default_rng(9 + n)
+    mesh.reset_launches()
     for m, w in ((256, 256), (1024, 2048)):
         u = np.zeros((6, n, m), np.int64)
         u[0] = rng.integers(0, 13, (n, m))
@@ -85,7 +94,7 @@ def test_mesh_kernels_match_plain_on_card(dev, n):
             got = mesh.mesh_exchange(x, seed, 10, w)
             want = mesh.exchange_rounds_plain(x, seed, 10, w)
             assert all(torch.equal(a, b) for a, b in zip(got, want))
-    plane = MeshDataPlane(_params(), n_shards=n, units_per_shard=64,
+    plane = MeshDataPlane(_params(h), n_shards=n, units_per_shard=c,
                           device="cuda")
     units = plane.shard_units(*_batch(rng, 13, 60, 10 ** 9))
     for seed in SEEDS:
@@ -100,6 +109,42 @@ def test_mesh_kernels_match_plain_on_card(dev, n):
         want = mesh.scan_rounds_plain(plane.state, uk, plane._tables, tk,
                                       seed, 10)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+        uk = torch.stack([
+            plane.shard_units(*_batch(rng, h, min(k, c), j * 10 ** 9))
+            for j, k in enumerate((0, 1, 60, 257, 700))])
+        tk = torch.arange(5, device=dev) * 10 ** 9
+        got = mesh.mesh_scan(plane.state, uk, plane._tables, tk, seed, 10)
+        want = mesh.scan_rounds_plain(plane.state, uk, plane._tables, tk,
+                                      seed, 10)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    cluster, resident = mesh.round_path(n, plane.hs, c, 4)
+    assert mesh.PATHS["rounds_cluster" if cluster else "rounds_pair"] == 6
+    assert mesh.PATHS["rounds_smem" if resident else "rounds_global"] == 6
+    want = {k: 0 for k in mesh.PATHS if k.startswith("exchange_")}
+    for m in (256, 1024):
+        want[f"exchange_{mesh.exchange_path(n, m)}"] += len(SEEDS)
+    assert {k: mesh.PATHS[k] for k in want} == want
+
+
+@pytest.mark.cuda
+def test_staged_exchange_matches_plain_on_card(dev):
+    """MeshDataPlane.exchange_rounds on the card over windows whose bucket
+    grows and shrinks, against a fresh CPU plane's tables."""
+    rng = np.random.default_rng(4)
+    for n in (1, 8):
+        plane = MeshDataPlane(_params(), n_shards=n, device="cuda")
+        for total in (700, 30, 5000, 1, 20000, 200):
+            win = (rng.integers(0, 13, total), rng.integers(0, 13, total),
+                   rng.integers(0, 1 << 40, total),
+                   rng.integers(0, 1 << 58, total),
+                   rng.integers(1, 11, total),
+                   rng.choice(np.array([0, 1, 16106, 1 << 24]), total))
+            want = MeshDataPlane(_params(), n_shards=n,
+                                 device="cpu").exchange_rounds(*win)
+            got = plane.exchange_rounds(*win)
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda

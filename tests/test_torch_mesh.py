@@ -375,6 +375,93 @@ def test_arrivals_route_to_destination_shards():
     assert seen == 40
 
 
+def test_staged_windows_leak_no_rows():
+    """The plane reuses one set of buffers per (N, m, w) bucket: a large
+    window, a small one and a large one again give what fresh planes and
+    the reference give, and the small window's tables hold only its own
+    units."""
+    params = make_params(13, seed=(1 << 32) + 9)
+    for n in (1, 2, 8):
+        _, port = planes(params, n)
+        rng = np.random.default_rng(n)
+        wins = [window(rng, 13, total, "mixed")
+                for total in (3000, 200, 3000, 20000, 5)]
+        for win in wins:
+            ref, fresh = planes(params, n)
+            got = port.exchange_rounds(*win)
+            for tabs in (fresh.exchange_rounds(*win),
+                         ref.exchange_rounds(*win)):
+                assert len(got) == len(tabs)
+                for g, w in zip(got, tabs):
+                    np.testing.assert_array_equal(g, w)
+            tab = np.concatenate(got)
+            assert sorted(tab[tab[:, F_FLAGS] >= 2, F_UID].tolist()) == \
+                sorted(win[3].tolist())
+        assert len(port._stages) <= 16
+
+
+def test_stage_cache_is_keyed_by_bucket():
+    """One ExchangeStage per (N, m, w), made on first use and reused; the
+    buckets bound the cache to 16 shapes."""
+    port = MeshDataPlane(port_params(make_params(13)), n_shards=2,
+                         device="cpu")
+    a = port.stage(256, 512)
+    assert port.stage(256, 512) is a and a.shape == (2, 256, 512)
+    assert a.units.shape == (6, 2, 256) and a.units.dtype == np.int64
+    assert port.stage(1024, 1024) is not a
+    buckets = port.EXCHANGE_BUCKETS
+    for m in buckets:
+        for w in buckets:
+            port.stage(m, min(2 * m, w))
+    assert set(port._stages) == {(2, m, min(2 * m, w)) for m in buckets
+                                 for w in buckets}
+    assert len(port._stages) <= 16
+    rng = np.random.default_rng(1)
+    for total in (5, 700, 5000, 20000, 3):
+        port.exchange_rounds(*window(rng, 13, total, "mixed"))
+    assert len(port._stages) <= 16
+
+
+@pytest.mark.parametrize("n, m, path", [
+    (1, 256, "cluster_smem"), (1, 4096, "cluster_smem"),
+    (1, 16384, "cluster_global"), (8, 256, "cluster_smem"),
+    (8, 1024, "cluster_global"), (16, 256, "cluster_smem"),
+    (16, 1024, "cluster_global"), (17, 256, "pair"), (32, 16384, "pair")])
+def test_exchange_path_by_shape(n, m, path):
+    """One cluster launch up to CLUSTER_MAX shards, the send rows in shared
+    memory while N * m * 32 bytes fit SMEM_MAX; the pair above it."""
+    assert mesh.CLUSTER_MAX == 16
+    assert mesh.exchange_path(n, m) == path
+    assert (32 * n * m <= mesh.SMEM_MAX) == (path == "cluster_smem") or \
+        path == "pair"
+
+
+@pytest.mark.parametrize("n, h, c, g, want", [
+    # tgen_1k: 1,000 hosts, 32 nodes, 2,048 slots: 117,632 bytes resident
+    (1, 1000, 2048, 32, (True, True)),
+    (16, 1000, 2048, 32, (True, True)),
+    (32, 1000, 2048, 32, (False, True)),
+    (1, 20000, 2048, 32, (True, False)),
+    (8, 1000, 256, 512, (True, False)),
+    (32, 20000, 256, 32, (False, False)),
+    (2, 13, 64, 4, (True, True))])
+def test_round_path_by_shape(n, h, c, g, want):
+    hs = -(-h // n)
+    assert mesh.round_path(n, hs, c, g) == want
+    resident = mesh.round_smem_bytes(hs, c, n * hs, g, True)
+    assert (resident <= mesh.SMEM_MAX) == want[1]
+    # the two prefetch buffers alone: src_l up to 2,048 slots, the other
+    # five fields up to one tile of 256
+    assert mesh.round_smem_bytes(hs, c, n * hs, g, False) == \
+        16 * (min(c, 2048) + 5 * min(c, 256))
+    assert resident - mesh.round_smem_bytes(hs, c, n * hs, g, False) == \
+        8 * (5 * hs + n * hs + 2 * g * g)
+
+
+def test_round_smem_bytes_at_tgen_1k():
+    assert mesh.round_smem_bytes(1000, 2048, 1000, 32, True) == 117_632
+
+
 def test_cpu_plane_launches_no_kernel():
     mesh.reset_launches()
     ref, port = planes(make_params(13), 2)
@@ -382,6 +469,7 @@ def test_cpu_plane_launches_no_kernel():
     port.round_step(port.shard_units([0], [1], [100], [0], [1]), 0)
     assert mesh.LAUNCHES == {"mesh_exchange": 0, "mesh_round_step": 0,
                              "mesh_scan": 0}
+    assert not any(mesh.PATHS.values())
 
 
 def _units(n=2, m=256, dtype=torch.int64):
