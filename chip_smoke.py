@@ -13,9 +13,16 @@ Phases, in order; any failure exits non-zero:
              process per source, all at once; prints the seconds.
 3. kernels — each draw kernel against its plain PyTorch version on the same
              inputs on the card, bit for bit (tolerance 0: integer math),
-             over every bucket shape, ragged batch lengths, lane widths,
-             thresholds and two seeds; the threefry2x32 device function
-             alone against its plain version.
+             pads included: buckets of 32 to 65,536 units, real unit
+             counts P, P/2 + 1, 1 and 0, lane widths 1, 10, 16, 31, 32,
+             33 and 64, npkts 0 and above the width, thresholds 0, units
+             hit on lane 0 only and on the last lane only, two seeds; the
+             draw plane's page-locked slots (dispatches in flight read in
+             reverse, buckets that shrink and grow, a min_draw result
+             across its slot's reuse, a dropped handle, warm_shapes and
+             calibrate) against a CPU plane; the threefry2x32 device
+             function alone against its plain version on both of its
+             load paths.
 4. mesh kernels — mesh_exchange, mesh_round_step and mesh_scan against
              their plain versions, bit for bit, over N in {1, 2, 8, 16, 32}
              shards (both sides of the cluster limit), m in the exchange
@@ -93,8 +100,13 @@ Phases, in order; any failure exits non-zero:
              after.
 14. timing  — every kernel and its plain version timed on the main paths'
              own inputs (APSP at G = 4,096): card time per launch or call,
-             with the bound for the same work; for the mesh kernels also
-             the kernels the profiler saw a call; mesh_exchange launched
+             with the bound for the same work; the draw kernels as the
+             plane launches them (on page-locked slots, in place) and on
+             device memory; the draw plane's staging in place against one
+             copy each way at P = 256, 16,384 and 65,536, and the steps
+             of a window's dispatch and read on the host; for the mesh
+             kernels also the kernels the profiler saw a call;
+             mesh_exchange launched
              as the plane launches it, through an ExchangeStage on the
              floor-0 run's windows (reading and writing page-locked
              memory), and MeshDataPlane.exchange_rounds' host time a
@@ -103,8 +115,11 @@ Phases, in order; any failure exits non-zero:
              plane, at tpu_device_floor=1 under tpu_batch and at
              tpu_mesh_floor=0 under tpu_mesh, and on the C engine at
              tpu_device_floor=1; counts and output tree must
-             equal the reference's. Prints the card's busy share of each
-             run's wall time and device time by kernel/copy name (a
+             equal the reference's; under tpu_batch the profiler must see
+             one draw kernel a window dispatch (a few dropped launches
+             allowed) and no host<->device copy. Prints the card's busy
+             share of each run's wall time and device time by kernel/copy
+             name (a
              profiler that cannot trace the card is reported; the run's
              own failures are not caught).
 
@@ -268,41 +283,89 @@ def abs_err(torch, got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+#: the draw sweep's lane widths (one lane a thread up to 32, two above)
+#: and bucket sizes
+DRAW_WIDTHS = (1, 10, 16, 31, 32, 33, 64)
+DRAW_SIZES = tuple(32 << i for i in range(12))  # 32 .. 65,536
+
+
+def lane_edges(torch, prop, x, key, width: int):
+    """``x`` (4, P) with the thresholds of some units set so that exactly
+    one lane drops them: lane 0 where it holds the unit's least draw, else
+    the last lane where that one does (units of two lanes or more). Returns
+    (the new batch, units hit on lane 0 only, on the last lane only)."""
+    draws, valid = prop._packed_draws(x, key, width)
+    d = torch.where(valid, draws, torch.full_like(draws, 1 << 24))
+    lanes = valid.sum(1)
+    least = d.min(1).values
+    single = ((d == least[:, None]).sum(1) == 1) & (lanes >= 2)
+    last = d.gather(1, (lanes - 1).clamp(min=0)[:, None])[:, 0]
+    first_only = single & (d[:, 0] == least)
+    last_only = single & ~first_only & (last == least)
+    th = x[3].to(torch.int64)
+    th = torch.where(first_only | last_only, least + 1, th)
+    out = x.clone()
+    out[3] = th.to(torch.uint32)
+    return out, int(first_only.sum()), int(last_only.sum())
+
+
+def draw_sweep(torch, np, prop, dev, rng, p: int, width: int, key):
+    """The draw sweep's cases at bucket ``p``: (kernel, (rows, P) batch on
+    the card, n) with n in {P, P/2 + 1, 1, 0}: sweep_inputs' npkts (0, 1,
+    10, 64 and random, so both 0 and above the width) and thresholds (0, 1,
+    2**24 and random), with lane_edges' single-lane hits."""
+    x, first, last = lane_edges(
+        torch, prop, torch.from_numpy(sweep_inputs(rng, p, 4)).to(dev), key,
+        width)
+    cases = []
+    for n in sorted({p, p // 2 + 1, 1, 0}, reverse=True):
+        cases.append(("draw_flags", x, n))
+        cases.append(("min_draw", x[:3].contiguous(), n))
+    return cases, first, last
+
+
 def check_kernels(torch, np, prop, dev) -> dict:
-    """Every bucket x width x seed, kernel == plain bit for bit; then
-    ragged batch lengths through DeviceDrawPlane.dispatch on the card.
-    Returns the largest absolute error per kernel (the tolerance is 0)."""
+    """Every bucket from 32 to 65,536 x width x seed x real unit count,
+    kernel == plain bit for bit (pads included); then ragged batch lengths
+    through DeviceDrawPlane.dispatch on the card, and the slots' hazards
+    (check_slots). Returns the largest absolute error per kernel (the
+    tolerance is 0)."""
     rng = np.random.default_rng(20261017)
     seeds = (2, (1 << 32) + 0xDEADBEEF)  # one key word, then both
     err = {"draw_flags": 0, "min_draw": 0}
-    n_cmp = 0
-    b = prop.MIN_BUCKET
-    while b <= 65536:
-        for rows, kern, plain in ((4, prop.draw_flags, prop.draw_flags_plain),
-                                  (3, prop.min_draw, prop.min_draw_plain)):
-            x = torch.from_numpy(sweep_inputs(rng, b, rows)).to(dev)
-            for width in (1, 10, 64):
-                for seed in seeds:
-                    key = (seed & 0xFFFFFFFF, seed >> 32)
-                    got = kern(x, key, width)
-                    want = plain(x, key, width)
+    n_cmp = edges = 0
+    for b in DRAW_SIZES:
+        for width in DRAW_WIDTHS:
+            for seed in seeds:
+                key = (seed & 0xFFFFFFFF, seed >> 32)
+                cases, first, last = draw_sweep(torch, np, prop, dev, rng,
+                                                b, width, key)
+                edges += first + last
+                for name, x, n in cases:
+                    got = getattr(prop, name)(x, key, width, n)
+                    want = getattr(prop, f"{name}_plain")(x, key, width, n)
                     torch.cuda.synchronize()
                     e = abs_err(torch, got, want)
-                    err[kern.__name__] = max(err[kern.__name__], e)
+                    err[name] = max(err[name], e)
                     if got.dtype != want.dtype or e != 0:
-                        fail(f"{kern.__name__} differs from its plain "
-                             f"version at P={b} width={width} seed={seed}"
-                             f" (max abs err {e})")
+                        fail(f"{name} differs from its plain version at "
+                             f"P={b} n={n} width={width} seed={seed} (max "
+                             f"abs err {e})")
+                    pad = got[(n + 31) // 32 * (4 if name == "draw_flags"
+                                                else 32):]
+                    fill = 0 if name == "draw_flags" else prop.SENTINEL
+                    if not bool((pad.to(torch.int64) == fill).all()):
+                        fail(f"{name} P={b} n={n}: a pad is not {fill}")
                     n_cmp += 1
-        b <<= 1
+    if edges == 0:
+        fail("the sweep built no single-lane hit")
     for n in (1, 255, 257, 700):
         for seed in seeds:
             plane = prop.DeviceDrawPlane(seed, 65536, max_pkts=10,
                                          device="cuda")
             x = sweep_inputs(rng, n, 4)
             got = plane.dispatch(*x).read()
-            p = prop._bucket(n, 65536)
-            pad = np.zeros((4, p), np.uint32)
+            pad = np.zeros((4, prop._bucket(n, 65536)), np.uint32)
             pad[:, :n] = x
             want = prop.draw_flags_plain(
                 torch.from_numpy(pad).to(dev), plane._seed_key(None), 10)
@@ -311,30 +374,94 @@ def check_kernels(torch, np, prop, dev) -> dict:
             if not np.array_equal(got, want):
                 fail(f"dispatch of {n} units differs from the plain version")
             gmin = plane.dispatch_min(*x[:3], min_bucket=plane.SPEC_BUCKET)
-            pad = np.zeros((3, plane.SPEC_BUCKET), np.uint32)
-            pad[:, :n] = x[:3]
             wmin = prop.min_draw_plain(
-                torch.from_numpy(pad).to(dev), plane._seed_key(None), 10)
-            if not np.array_equal(gmin.read(), wmin.cpu().numpy()[:n]):
+                torch.from_numpy(x[:3].copy()).to(dev),
+                plane._seed_key(None), 10)
+            if not np.array_equal(gmin.read(), wmin.cpu().numpy()):
                 fail(f"dispatch_min of {n} units differs from the plain "
                      f"version")
             n_cmp += 2
-    print(f"{n_cmp} kernel/plain comparisons, all bit-identical", flush=True)
+    n_cmp += check_slots(torch, np, prop, rng)
+    print(f"{n_cmp} kernel/plain comparisons ({edges} units hit on one "
+          f"lane only), all bit-identical", flush=True)
     return err
+
+
+def check_slots(torch, np, prop, rng) -> int:
+    """The page-locked slots' hazards on the card, against a CPU plane:
+    five dispatches in flight on one bucket read last first; buckets of
+    65,536, 256 and 65,536 units in turn, the second large batch smaller
+    than the first (a reused slot: no stale unit, pads rewritten); a
+    min_draw result read before its slot is reused, unchanged after; a
+    handle dropped unread; warm_shapes and calibrate through the slots.
+    Returns the comparisons made."""
+    seed = (1 << 32) + 77
+    card = prop.DeviceDrawPlane(seed, 65536, device="cuda")
+    host = prop.DeviceDrawPlane(seed, 65536, device="cpu")
+    n_cmp = 0
+
+    def same(got, want, what):
+        nonlocal n_cmp
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"draw slots: {what} differs from the CPU plane")
+        n_cmp += 1
+
+    batches = [sweep_inputs(rng, n, 4) for n in (200, 17, 256, 1, 90)]
+    handles = [card.dispatch(*b) for b in batches]
+    if card.slots("draw_flags", 256):
+        fail("draw slots: a slot in flight was handed out twice")
+    for b, h in reversed(list(zip(batches, handles))):
+        same(h.read(), host.dispatch(*b).read(), f"in flight, n={len(b[0])}")
+    for n in (60000, 200, 40000, 256, 65536, 1):
+        b = sweep_inputs(rng, n, 4)
+        h = card.dispatch(*b)
+        slot = h._slot
+        same(h.read(), host.dispatch(*b).read(), f"bucket sequence n={n}")
+        pad = np.zeros((4, prop._bucket(n, 65536)), np.uint32)
+        pad[:, :n] = b
+        want = prop.draw_flags_plain(torch.from_numpy(pad),
+                                     card._seed_key(None), card.max_pkts)
+        same(slot.out, want.numpy(), f"whole slot after n={n}")
+    spec = card.SPEC_BUCKET
+    a, b = sweep_inputs(rng, 3000, 3), sweep_inputs(rng, 9000, 3)
+    first = card.dispatch_min(*a, min_bucket=spec).read()
+    kept = first.copy()
+    second = card.dispatch_min(*b, min_bucket=spec).read()
+    same(first, kept, "a min_draw result after its slot's reuse")
+    same(first, host.dispatch_min(*a, min_bucket=spec).read(), "min_draw")
+    same(second, host.dispatch_min(*b, min_bucket=spec).read(), "min_draw")
+    h = card.dispatch_min(*a, min_bucket=spec)
+    free = len(card.slots("min_draw", spec))
+    del h
+    if len(card.slots("min_draw", spec)) != free + 1:
+        fail("draw slots: a dropped handle kept its slot")
+    warm = prop.DeviceDrawPlane(seed, 4096, device="cuda")
+    warm.warm_shapes()
+    warm.calibrate()
+    for n in (700, 3, 4096):
+        b = sweep_inputs(rng, n, 4)
+        same(warm.dispatch(*b).read(), host.dispatch(*b).read(),
+             f"after warm_shapes and calibrate, n={n}")
+    return n_cmp
 
 
 def check_threefry(torch, np, prng, dev) -> int:
     """The threefry2x32 device function alone (threefry_kernel) against
-    ops/prng.py's plain version on the card, bit for bit, at n in {1, 33,
-    65536} random counter pairs and two keys (one with the high word
-    set)."""
+    ops/prng.py's plain version on the card, bit for bit, at n in {1, 4,
+    33, 4099, 65536, 65537} random counter pairs (its 16-byte path where
+    n % 4 == 0, and its scalar path) and two keys (one with the high word
+    set), and on counters that start 4 bytes past a 16-byte boundary."""
     rng = np.random.default_rng(17)
     n_cmp = 0
-    for n in (1, 33, 65536):
+    for n in (1, 4, 33, 4099, 65536, 65537):
         c = rng.integers(0, 1 << 32, (2, n), dtype=np.uint64).astype(
             np.uint32)
         x = torch.from_numpy(c).to(dev)
-        for key in ((11, 0), (0xDEADBEEF, 0x12345678)):
+        # the same counters 4 bytes past a 16-byte boundary: scalar loads
+        shifted = torch.empty(2 * n + 1, dtype=torch.uint32, device=dev)
+        shifted[1:] = x.view(-1)
+        for x, key in ((x, (11, 0)), (x, (0xDEADBEEF, 0x12345678)),
+                       (shifted[1:].view(2, n), (0xDEADBEEF, 0x12345678))):
             got = prng.threefry2x32_device(x, key)
             xi = x.to(torch.int64)
             want = torch.stack(prng.threefry2x32_torch(
@@ -655,31 +782,40 @@ def check_staged(np, rng, plane_cls, n: int) -> int:
 # -- phase 8: the main path, with its draw windows kept -----------------------
 
 @contextlib.contextmanager
-def recording_windows(prop):
-    """Keep a device copy of every (4, P) batch that DeviceDrawPlane hands
-    the draw_flags wrapper while the block runs, with its key and width.
-    The copy is made around the wrapper, so its launch count is untouched."""
-    windows = []
-    wrapper = prop.draw_flags
+def recording_draws(prop, kernel: str):
+    """Keep every batch DeviceDrawPlane hands ``kernel`` (draw_flags: the
+    windows; min_draw: the speculative waves) while the block runs, as
+    (packed (rows, P) on the card with the units past the real ones
+    zeroed, key, width, real units n). The launch is wrapped, so its count
+    is untouched; the batch is copied on the host during the run and moved
+    to the card after it."""
+    import torch
 
-    def record(packed, seed_key, width):
-        out = wrapper(packed, seed_key, width)
-        windows.append((packed.clone(), tuple(int(k) for k in seed_key),
-                        int(width)))
-        return out
+    kept, records = [], []
+    launch = prop.DrawSlot.launch
 
-    prop.draw_flags = record
+    def record(slot, n, seed_key, width, stream):
+        if slot.kernel == kernel:
+            kept.append((slot.inp[:, :n].copy(), slot.p,
+                         tuple(int(k) for k in seed_key), int(width), n))
+        return launch(slot, n, seed_key, width, stream)
+
+    prop.DrawSlot.launch = record
     try:
-        yield windows
+        yield records
     finally:
-        prop.draw_flags = wrapper
+        prop.DrawSlot.launch = launch
+        for a, p, key, width, n in kept:
+            x = torch.zeros((a.shape[0], p), dtype=torch.uint32)
+            x[:, :n] = torch.from_numpy(a)
+            records.append((x.to("cuda"), key, width, n))
 
 
 def window_mix(torch, prop, windows) -> dict:
     """What the recorded windows hold: buckets, units, npkts, thresholds,
     and the lanes the kernel needs (with and without its early exit)."""
     buckets: dict = {}
-    for w, _, _ in windows:
+    for w, *_ in windows:
         buckets[w.shape[1]] = buckets.get(w.shape[1], 0) + 1
     units = real_units(torch, windows)
     key, width = windows[0][1], windows[0][2]
@@ -692,8 +828,7 @@ def window_mix(torch, prop, windows) -> dict:
     return {
         "windows": len(windows), "buckets": dict(sorted(buckets.items())),
         "units": units.shape[1],
-        "max_units": max(int((w[2].long() > 0).sum())
-                         for w, _, _ in windows),
+        "max_units": max(n for *_, n in windows),
         "npkts_top": top(units[2]), "thresh_top": top(units[3]),
         "thresh_zero_share": float((units[3] == 0).double().mean()),
         "lanes_all": lanes_needed(torch, prop, units, key, width, False),
@@ -1208,45 +1343,73 @@ def evenly(items: list, k: int) -> list:
     return [items[i * len(items) // k] for i in range(k)]
 
 
-def measure(torch, prop, name: str, inputs: list, key, width: int,
-            rate: float, plane) -> dict:
-    """One row of the timing table: ``name``'s kernel and plain version
-    over ``inputs`` (a list of packed device tensors), each launched once
-    per rep, with the bound for the same work."""
+def plane_slots(torch, prop, name: str, inputs: list) -> list:
+    """One DrawSlot a distinct batch of ``inputs`` ((packed, key, width, n)
+    on the card), filled with it: the plane's launch, in place."""
+    slots, made = [], {}
+    for x, key, width, n in inputs:
+        slot = made.get(id(x))
+        if slot is None:
+            slot = made[id(x)] = prop.DrawSlot(name, x.shape[1], x.device)
+            slot.inp[:] = x.cpu().numpy()
+        slots.append((slot, key, width, n))
+    return slots
+
+
+def measure(torch, prop, name: str, inputs: list, rate: float,
+            plane) -> dict:
+    """One row of the timing table: ``name``'s kernel over ``inputs`` (a
+    list of (packed on the card, key, width, real units n)), each launched
+    once per rep: as the plane launches it (``ms``: reading and writing
+    page-locked memory in place) and on device tensors (``device_ms``);
+    its plain version; the plane's dispatch + read; the bound for the same
+    work."""
     kern = getattr(prop, name)
     plain = getattr(prop, f"{name}_plain")
-    calls = [lambda x=x: kern(x, key, width) for x in inputs]
-    plain_calls = [lambda x=x: plain(x, key, width) for x in inputs]
-    host_arrays = [x.cpu().numpy() for x in inputs]
-    if name == "draw_flags":
-        trips = [lambda a=a: plane.dispatch(*a).read() for a in host_arrays]
-    else:
-        trips = [lambda a=a: plane.dispatch_min(
-            *a, min_bucket=a.shape[1]).read() for a in host_arrays]
+    stream = torch.cuda.current_stream()
+    staged = [lambda s=s: s[0].launch(s[3], s[1], s[2], stream)
+              for s in plane_slots(torch, prop, name, inputs)]
+    calls = [lambda a=a: kern(*a) for a in inputs]
+    plain_calls = [lambda a=a: plain(*a) for a in inputs]
+    trips = []
+    for x, key, width, n in inputs:
+        a = x[:, :n].cpu().numpy()
+        seed = (key[1] << 32) | key[0]
+        trips.append(
+            (lambda a=a, seed=seed: plane.dispatch(*a, seed=seed).read())
+            if name == "draw_flags" else
+            (lambda a=a, seed=seed, p=x.shape[1]: plane.dispatch_min(
+                *a, min_bucket=p, seed=seed).read()))
     nbytes = ops = 0
-    for x in inputs:
+    for x, key, width, n in inputs:
         p = x.shape[1]
-        nbytes += x.shape[0] * 4 * p + (p // 8 if name == "draw_flags"
+        nbytes += x.shape[0] * 4 * n + (p // 8 if name == "draw_flags"
                                         else 4 * p)
         ops += OPS_PER_LANE * lanes_needed(torch, prop, x, key, width,
                                            name == "draw_flags")
     t_bytes = nbytes / len(inputs) / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / len(inputs) / PEAK_INT32_OPS_PER_S * 1e3
     row = {
-        "P": sorted({x.shape[1] for x in inputs}), "calls": len(inputs),
-        "ms": card_ms(torch, calls, rate),
+        "P": sorted({x.shape[1] for x, *_ in inputs}), "calls": len(inputs),
+        "units_a_call": sum(n for *_, n in inputs) / len(inputs),
+        "ms": card_ms(torch, staged, rate),
+        "profiler_ms": profiler_ms(torch, staged, PLAN[name][2]),
+        "device_ms": card_ms(torch, calls, rate),
+        "device_profiler_ms": profiler_ms(torch, calls, PLAN[name][2]),
         # the plain version is about 220 small kernels a call
         "plain_ms": card_ms(torch, plain_calls, rate, chunk=2),
-        "profiler_ms": profiler_ms(torch, calls, PLAN[name][2]),
         "launch_ms": host_ms(torch, calls),
         "plain_launch_ms": host_ms(torch, plain_calls),
         "dispatch_read_ms": host_ms(torch, trips),
         "bytes": nbytes / len(inputs), "ops": ops / len(inputs),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    print(f"  {name} P={row['P']} x{row['calls']}: card {row['ms']:.6f} ms "
-          f"(profiler {row['profiler_ms']}), plain {row['plain_ms']:.6f} ms,"
-          f" with host launch {row['launch_ms']:.6f} / plain "
+    print(f"  {name} P={row['P']} x{row['calls']} "
+          f"({row['units_a_call']:.2f} units a call): card {row['ms']:.6f} "
+          f"ms in place (profiler {row['profiler_ms']}), "
+          f"{row['device_ms']:.6f} ms on device memory (profiler "
+          f"{row['device_profiler_ms']}), plain {row['plain_ms']:.6f} ms, "
+          f"with host launch {row['launch_ms']:.6f} / plain "
           f"{row['plain_launch_ms']:.6f} ms, dispatch+read "
           f"{row['dispatch_read_ms']:.6f} ms, bound {row['bound_ms']:.9f} "
           f"ms ({row['bound_by']})", flush=True)
@@ -1254,20 +1417,20 @@ def measure(torch, prop, name: str, inputs: list, key, width: int,
 
 
 def real_units(torch, windows):
-    """(4, U) int64: the windows' real units (npkts > 0; the rest is the
-    bucket's padding), in run order. int64, as PyTorch indexes no uint32
-    tensor."""
-    wide = [w.long() for w, _, _ in windows]
-    return torch.cat([w[:, w[2] > 0] for w in wide], dim=1)
+    """(rows, U) int64: the batches' real units (the first n of each; the
+    rest is the bucket's padding), in run order. int64, as PyTorch indexes
+    no uint32 tensor."""
+    return torch.cat([w[:, :n].long() for w, _, _, n in windows], dim=1)
 
 
-def spread_units(torch, windows, p: int, rows: int):
-    """(rows, p) uint32: ``p`` of the windows' real units, evenly spaced
-    across the run, as one full bucket."""
+def spread_units(torch, windows, p: int, rows: int) -> tuple:
+    """``p`` of the windows' real units, evenly spaced across the run, as
+    one full bucket: (packed (rows, p) uint32, key, width, p)."""
     units = real_units(torch, windows)
     idx = torch.linspace(0, units.shape[1] - 1, p,
                          device=units.device).round().to(torch.int64)
-    return units[:rows, idx].to(torch.uint32).contiguous()
+    _, key, width, _ = windows[0]
+    return (units[:rows, idx].to(torch.uint32).contiguous(), key, width, p)
 
 
 def time_kernels(torch, prop, windows, waves) -> dict:
@@ -1282,26 +1445,99 @@ def time_kernels(torch, prop, windows, waves) -> dict:
     key, width = windows[0][1], windows[0][2]
     plane = prop.DeviceDrawPlane((key[1] << 32) | key[0], 65536,
                                  max_pkts=width, device="cuda")
-    packed = [w for w, _, _ in windows]
-    rows = [measure(torch, prop, "draw_flags", evenly(packed, 64), key,
-                    width, rate, plane)]
-    buckets = sorted({w.shape[1] for w in packed})
+    rows = [measure(torch, prop, "draw_flags", evenly(windows, 64), rate,
+                    plane)]
+    buckets = sorted({w.shape[1] for w, *_ in windows})
     for p in buckets if len(buckets) > 1 else ():
         rows.append(measure(torch, prop, "draw_flags",
-                            evenly([w for w in packed if w.shape[1] == p],
-                                   64), key, width, rate, plane))
+                            evenly([w for w in windows if w[0].shape[1] == p],
+                                   64), rate, plane))
     for p in (1024, 65536):
         rows.append(measure(torch, prop, "draw_flags",
-                            [spread_units(torch, windows, p, 4)] * 16, key,
-                            width, rate, plane))
+                            [spread_units(torch, windows, p, 4)] * 16, rate,
+                            plane))
     spec = prop.DeviceDrawPlane.SPEC_BUCKET
-    mins = [measure(torch, prop, "min_draw",
-                    evenly([w for w, _, _ in waves], 64), waves[0][1],
-                    waves[0][2], rate, plane),
+    mins = [measure(torch, prop, "min_draw", evenly(waves, 64), rate, plane),
             measure(torch, prop, "min_draw",
-                    [spread_units(torch, windows, spec, 3)] * 16, key,
-                    width, rate, plane)]
+                    [spread_units(torch, windows, spec, 3)] * 16, rate,
+                    plane)]
     return {"draw_flags": rows, "min_draw": mins}
+
+
+class CopyStaging:
+    """The staging the draw plane does not use, for the comparison alone:
+    one cudaMemcpyAsync each way between a page-locked DrawSlot and a
+    device buffer of the same shape around the kernel."""
+
+    def __init__(self, torch, prop, kernel: str, p: int, dev) -> None:
+        self.prop = prop
+        self.slot = prop.DrawSlot(kernel, p, dev)
+        self.dev_in = torch.empty_like(self.slot.host_in, device=dev)
+        self.dev_out = torch.empty_like(self.slot.host_out, device=dev)
+
+    def launch(self, n: int, key, width: int, stream) -> None:
+        slot = self.slot
+        self.dev_in.copy_(slot.host_in, non_blocking=True)
+        self.prop._launch_kernel(slot.kernel, self.dev_in.data_ptr(), slot.p,
+                                 n, key, width, self.dev_out.data_ptr(),
+                                 stream.cuda_stream)
+        slot.host_out.copy_(self.dev_out, non_blocking=True)
+        slot.event.record(stream)
+
+
+def compare_staging(torch, np, prop, windows, waves, dev) -> list:
+    """The draw plane's two stagings on the same batches, in turns (in
+    place, copied, copied, in place): the kernel reading and writing the
+    page-locked slot in place, against one cudaMemcpyAsync each way to a
+    device buffer. At P = 256 (64 of the floor-1 run's windows), 16,384
+    (the speculative waves) and 65,536 (the run's units filling the
+    bucket): host ms of a round trip (fill the slot's real columns, launch,
+    wait on the event, copy the result out) and card ms of the launch
+    (with its copies). Returns a row per P."""
+    rate = spin_rate(torch)
+    stream = torch.cuda.current_stream()
+    cases = (("draw_flags", evenly(windows, 64)),
+             ("min_draw", evenly(waves, 64)),
+             ("draw_flags", [spread_units(torch, windows, 65536, 4)] * 4))
+    rows = []
+    for name, batches in cases:
+        p = batches[0][0].shape[1]
+        host = [(x[:, :n].cpu().numpy(), key, width) for x, key, width, n
+                in batches]
+        stages = {"in_place": prop.DrawSlot(name, p, dev),
+                  "copied": CopyStaging(torch, prop, name, p, dev)}
+
+        def trips(design):
+            stage = stages[design]
+            slot = stage if design == "in_place" else stage.slot
+
+            def trip(a, key, width):
+                n = a.shape[1]
+                slot.inp[:, :n] = a
+                stage.launch(n, key, width, stream)
+                slot.event.synchronize()
+                return slot.out.copy()
+            return [lambda h=h: trip(*h) for h in host]
+
+        def launches(design):
+            stage = stages[design]
+            return [lambda h=h: stage.launch(h[0].shape[1], h[1], h[2],
+                                             stream) for h in host]
+
+        row = {"P": p, "kernel": name, "calls": len(batches),
+               "units_a_call": sum(n for *_, n in batches) / len(batches)}
+        for design in ("in_place", "copied", "copied", "in_place"):
+            row.setdefault(f"{design}_trip_ms", []).append(
+                host_ms(torch, trips(design)))
+            row.setdefault(f"{design}_card_ms", []).append(
+                card_ms(torch, launches(design), rate))
+        rows.append(row)
+        print(f"  staging {name} P={p} ({row['units_a_call']:.1f} units a "
+              f"call): round trip ms in place {row['in_place_trip_ms']}, "
+              f"copied {row['copied_trip_ms']}; card ms in place "
+              f"{row['in_place_card_ms']}, copied {row['copied_card_ms']}",
+              flush=True)
+    return rows
 
 
 def time_threefry(torch, prop, prng, windows, rate: float) -> list:
@@ -1331,8 +1567,8 @@ def time_threefry(torch, prop, prng, windows, rate: float) -> list:
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     print(f"  threefry2x32 on {n} run lanes: card {row['ms']:.6f} ms "
           f"(profiler {row['profiler_ms']}), plain {row['plain_ms']:.6f} "
-          f"ms, bound {row['bound_ms']:.9f} ms ({row['bound_by']})",
-          flush=True)
+          f"ms, bound {row['bound_ms']:.9f} ms ({row['bound_by']}); "
+          f"{row['bound_ms'] / row['ms']:.3f} of the bound", flush=True)
     return [row]
 
 
@@ -1610,39 +1846,64 @@ def time_transport_kernel(torch, np, tk, cohorts, dev) -> list:
     return rows
 
 
-def dispatch_breakdown(torch, prop, window, dev, n: int = 200) -> dict:
-    """Host wall microseconds per step of one DeviceDrawPlane.dispatch of
-    ``window`` (the steps of DeviceDrawPlane._launch, each timed alone over
-    n repeats, then the whole dispatch)."""
-    w, key, width = window
-    x = w.cpu().numpy()
-    p = x.shape[1]
+def dispatch_breakdown(torch, prop, window, n: int = 200) -> dict:
+    """Host wall microseconds of each step of a window's dispatch and read,
+    timed where they run: n dispatches of ``window``, each read before the
+    next (as on the main path), going through the steps of
+    DeviceDrawPlane._launch, DrawSlot.launch and the handle's read in
+    order with a clock read between steps; then the plane's own dispatch,
+    read and round trip (their sum and the steps' may differ by the
+    clock's own cost)."""
+    w, key, width, units = window
+    x = w[:, :units].cpu().numpy()
     plane = prop.DeviceDrawPlane((key[1] << 32) | key[0], 65536,
                                  max_pkts=width, device="cuda")
-    stage = torch.empty((4, p), dtype=torch.uint32, pin_memory=True)
-    stage.numpy()[:] = x
-    dev_in = stage.to(dev)
-    dev_out = prop.draw_flags(dev_in, key, width)
-    host = torch.empty(p // 8, dtype=torch.uint8, pin_memory=True)
-    steps = {
-        "pinned_alloc": lambda: torch.empty((4, p), dtype=torch.uint32,
-                                            pin_memory=True),
-        "stage_fill": lambda: stage.numpy().__setitem__(slice(None), x),
-        "h2d": lambda: stage.to(dev, non_blocking=True),
-        "launch": lambda: prop.draw_flags(dev_in, key, width),
-        "d2h": lambda: host.copy_(dev_out, non_blocking=True),
-        "event": lambda: torch.cuda.Event().record(),
-        "dispatch": lambda: plane.dispatch(*x),
-    }
-    out = {}
-    for name, fn in steps.items():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    plane.dispatch(*x).read()  # the bucket's slot
+    names = ("bucket", "take_slot", "fill", "seed_key", "current_stream",
+             "launch", "event_record", "handle", "wait", "read")
+    out = dict.fromkeys(names, 0.0)
+    clock = time.perf_counter
+    for _ in range(n):
+        t = [clock()]
+        p = prop._bucket(units, plane.max_batch)
+        t.append(clock())
+        slot = plane.slots("draw_flags", p).pop()
+        t.append(clock())
+        for r in range(4):
+            slot.inp[r, :units] = x[r]
+        t.append(clock())
+        seed_key = plane._seed_key(None)
+        t.append(clock())
+        stream = torch.cuda.current_stream(plane.device)
+        t.append(clock())
+        prop._launch_kernel("draw_flags", slot._ptrs[0], p, units, seed_key,
+                            width, slot._ptrs[1], stream.cuda_stream)
+        t.append(clock())
+        slot.event.record(stream)
+        t.append(clock())
+        h = prop.DrawHandle(plane, slot, units)
+        t.append(clock())
+        slot.event.synchronize()
+        t.append(clock())
+        h.read()
+        t.append(clock())
+        for name, a, b in zip(names, t, t[1:]):
+            out[name] += b - a
+    for name in ("dispatch", "read_landed", "round_trip"):
+        total = 0.0
         for _ in range(n):
-            fn()
-        out[name] = (time.perf_counter() - t0) / n * 1e6
-        torch.cuda.synchronize()
-    print(f"  dispatch host us at P={p}: "
+            t0 = clock()
+            h = plane.dispatch(*x)
+            t1 = clock()
+            if name == "read_landed":
+                h._slot.event.synchronize()
+                t1 = clock()
+            h.read()
+            total += {"dispatch": t1 - t0, "read_landed": clock() - t1,
+                      "round_trip": clock() - t0}[name]
+        out[name] = total
+    out = {k: v / n * 1e6 for k, v in out.items()}
+    print(f"  dispatch host us at P={w.shape[1]} ({units} units): "
           f"{json.dumps({k: round(v, 2) for k, v in out.items()})}",
           flush=True)
     return out
@@ -1844,27 +2105,6 @@ def time_apsp(torch, np, apsp, rate: float, dev, g: int = 4096) -> list:
 
 # -- phase 12: the C engine's legs, the user's default ------------------------
 
-@contextlib.contextmanager
-def recording_min_draws(prop):
-    """Keep a device copy of every (3, P) batch the min_draw wrapper gets
-    while the block runs (the speculative waves), with its key and width.
-    The copy is made around the wrapper, so its launch count is untouched."""
-    waves = []
-    wrapper = prop.min_draw
-
-    def record(packed, seed_key, width):
-        out = wrapper(packed, seed_key, width)
-        waves.append((packed.clone(), tuple(int(k) for k in seed_key),
-                      int(width)))
-        return out
-
-    prop.min_draw = record
-    try:
-        yield waves
-    finally:
-        prop.min_draw = wrapper
-
-
 def engine_path(cli, prop, mesh, digest, tmp: str) -> tuple:
     """The C engine (experimental.native_colcore, the default) through the
     port's CLI: tgen_1k under tpu_batch as a user runs it (auto floor, the
@@ -1914,7 +2154,7 @@ def engine_path(cli, prop, mesh, digest, tmp: str) -> tuple:
         mesh.reset_launches()
         t0 = time.perf_counter()
         if label.endswith("cached"):
-            with recording_min_draws(prop) as waves:
+            with recording_draws(prop, "min_draw") as waves:
                 s = run_cli(cli, argv)
         else:
             s = run_cli(cli, argv)
@@ -2010,6 +2250,24 @@ def trace_run(torch, cli, digest, tmp: str, policy: str = "tpu_batch",
         print(f"trace ({label}): torch.profiler could not trace the card; "
               f"busy share not measured", flush=True)
         return
+    if policy == "tpu_batch":
+        # one kernel a dispatch (windows_dispatched counts the C engine's
+        # speculative min_draw waves too) and no copy: the kernels read and
+        # write the page-locked slots in place. The profiler drops a
+        # launch now and then (PERF.md), so a few may be missing.
+        seen = sum(1 for name, _ in device
+                   if "draw_flags_kernel" in name
+                   or "min_draw_kernel" in name)
+        copies = [name for name, _ in device
+                  if name.startswith(("Memcpy HtoD", "Memcpy DtoH"))]
+        print(f"trace ({label}): {seen} draw kernels seen for {windows} "
+              f"dispatches, {len(copies)} host<->device copies", flush=True)
+        if copies:
+            fail(f"tgen_100host ({label}): the draw windows queued "
+                 f"{len(copies)} copies ({sorted(set(copies))[:4]})")
+        if not windows - max(2, windows // 50) <= seen <= windows:
+            fail(f"tgen_100host ({label}): {seen} draw kernels for "
+                 f"{windows} dispatches, not one each")
     by_name: dict = {}
     for name, us in device:
         by_name[name] = by_name.get(name, 0.0) + us
@@ -2124,7 +2382,7 @@ def main() -> int:
                 *PY_PLANE]
         t0 = time.perf_counter()
         if label == "floor1":
-            with recording_windows(prop) as windows:
+            with recording_draws(prop, "draw_flags") as windows:
                 s = run_cli(cli, argv + extra)
         else:
             s = run_cli(cli, argv + extra)
@@ -2186,8 +2444,10 @@ def main() -> int:
     timing = {"threefry2x32": time_threefry(torch, prop, prng, windows,
                                             spin_rate(torch))}
     timing.update(time_kernels(torch, prop, windows, waves))
-    dispatch_breakdown(torch, prop, max(windows, key=lambda w: w[0].shape[1]),
-                       dev)
+    compare_staging(torch, np, prop, windows, waves, dev)
+    # a window of the run's median size
+    dispatch_breakdown(torch, prop,
+                       sorted(windows, key=lambda w: w[3])[len(windows) // 2])
     del windows, waves
     timing.update(time_mesh_kernels(torch, np, prop, mesh, mesh_windows,
                                     sa["rounds"], sa["scans"], sa["ctx"],

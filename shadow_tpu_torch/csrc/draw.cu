@@ -6,26 +6,51 @@
 //   min_draw    <- _min_draw_kernel  (propagate.py:58), per-unit min draw
 // and, inside both, the threefry2x32 that shadow_tpu/ops/prng.py:30 traces
 // with xp=jnp (csrc/threefry.cuh). threefry_kernel evaluates that device
-// function alone, one counter pair a thread (the reference traces it only
-// inside its programs): it is how chip_smoke.py times the function and
-// holds it against ops/prng.py's plain version; no run path launches it.
+// function alone (the reference traces it only inside its programs): it is
+// how chip_smoke.py times the function and holds it against ops/prng.py's
+// plain version; no run path launches it.
 //
-// Bound on an H100: a unit costs one Threefry evaluation (75 integer
-// operations that differ from lane to lane) per packet lane it needs, at
-// most width lanes (10 by default, 64 at most). tgen_1k's windows pad to
-// 256 units and need about 200 lanes each: about 15,000 operations and
-// 4 KiB moved, about 1.2 ns at the card's memory bandwidth, against about
-// 3.4 us per launch measured (H100 SXM, 700 W, chip_smoke.py). So launch
-// latency and the host<->device copies around the launch, not this code, set
-// the time of a dispatch (chip_smoke.py measures both).
+// Bound on an H100: a unit costs one Threefry evaluation (about 75 integer
+// operations) per packet lane it needs, at most width lanes (10 by
+// default, 64 at most). tgen_1k's draw windows pad to 256 units and hold
+// about 41 real ones with about 260 lanes: a few KiB moved and 20,000
+// operations, nanoseconds at the card's rates. What sets a window's time is
+// latency: the launch, the read of the window over PCIe, and the chain of
+// dependent operations inside one thread.
 //
-// Design: one thread per unit, a loop over its lanes. draw_flags leaves the
-// loop at the first lane that drops the unit (the reference computes every
-// lane and masks; the answer is the same) and each warp packs its 32 flags
-// with __ballot_sync into one uint32 word: on a little-endian card those 4
-// bytes are np.packbits(flags, bitorder="little") of the warp's 32 units.
-// This first design is correct and simple, not fast: no lane-level
-// parallelism inside a unit, no fusion of the copies around the launch.
+// Design:
+// - Lane-parallel. A segment of seg threads draws one unit (seg the next
+//   power of two >= min(width, 32); above 32 lanes a thread takes two), so
+//   a unit's lanes are drawn at once, and the segment combines them with
+//   one warp-synchronous instruction (a ballot for draw_flags,
+//   __reduce_min_sync for min_draw). A block holds 32 units (32 * seg
+//   threads): its segment leaders leave one result a unit in shared
+//   memory, and its first warp packs the 32 drop flags into one uint32
+//   with a second ballot (on a little-endian card those 4 bytes are
+//   np.packbits(flags, bitorder="little")) or stores the 32 minima as one
+//   128-byte row. The block first stages its units' columns in shared
+//   memory, a 128-byte row at a time: read in place, the window then
+//   crosses PCIe in a few large requests, not one small one a thread.
+// - Only real units. The caller passes the real unit count n <= P; the grid
+//   covers ceil(n / 32) blocks, so padded units cost no Threefry work, and
+//   the output past them is written as padding (flag words 0, minima
+//   0xFFFFFFFF), which is what the plain versions give there. The input
+//   past n is never read, so a buffer reused for a smaller batch needs no
+//   clearing.
+// - In place. The draw plane passes the device addresses of page-locked
+//   host buffers, so a window is one launch and no copy
+//   (ops/propagate.py; chip_smoke.py measures that against one copy each
+//   way around the kernel).
+// - threefry_kernel takes four counter pairs a thread with 16-byte loads
+//   and stores of each row (four independent chains), where n and the
+//   addresses allow it.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; tools/draw_ab.py, chip_smoke.py):
+// 0.0027 ms a tgen_1k window on device memory against 0.0036 ms for the
+// one-thread-a-unit loop this replaced, about 0.005 ms in place (the read
+// crosses PCIe), and a dispatch's host time 3-4x lower; min_draw on a full
+// 16,384-unit bucket about 8 % slower than that loop (a 16-thread segment
+// for units of 1 to 10 lanes leaves most of its threads idle once the card
+// is busy); threefry_kernel 0.0038 ms by the profiler, its bound 0.0035.
 //
 // The threefry key (the simulation seed) is a kernel argument, i.e. data:
 // one build serves every seed, as the reference's kernels take it traced
@@ -43,97 +68,201 @@
 
 namespace {
 
-using shadow_tf::kPktShift;
+using shadow_tf::kNoDraw;
+using shadow_tf::lane_pair_min;
+using shadow_tf::segment_mask;
 using shadow_tf::threefry2x32;
 
+constexpr int kUnitsPerBlock = 32;
+constexpr int kMaxBlock = kUnitsPerBlock * 32;
 constexpr int kThreads = 256;
 
-// packed: (4, P) uint32 rows [uid_lo, uid_hi, npkts, thresh], row-major.
-// words: (P / 32,) uint32, bit u of word w = unit 32*w + u drops.
-__global__ void draw_flags_kernel(const uint32_t* __restrict__ packed, int P,
-                                  uint32_t k0, uint32_t k1, uint32_t width,
-                                  uint32_t* __restrict__ words) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool hit = false;
-  if (i < P) {
-    const uint32_t lo = packed[i];
-    const uint32_t hi = packed[P + i];
-    const uint32_t lanes = min(packed[2 * P + i], width);
-    hit = shadow_tf::any_lane_hits(k0, k1, lo, hi, lanes, packed[3 * P + i]);
-  }
-  // P is a multiple of 32, so every warp is either wholly inside or wholly
-  // outside [0, P): the full-mask ballot is well defined
-  const uint32_t word = __ballot_sync(0xFFFFFFFFu, hit);
-  if (i < P && (threadIdx.x & 31) == 0) words[i >> 5] = word;
+// The block's 32 units: the first `rows` rows of their columns, staged in
+// shared memory by whole 128-byte rows (one load a row, warps taking a row
+// each), so a window read in place crosses PCIe in a few large requests
+// and not as one small request a thread. Units past n read 0. Every
+// thread calls it.
+template <int kRows>
+__device__ __forceinline__ void stage_units(
+    const uint32_t* __restrict__ packed, int P, int n,
+    uint32_t (&cols)[kRows][kUnitsPerBlock]) {
+  const int lane = static_cast<int>(threadIdx.x & 31u);
+  const int u = static_cast<int>(blockIdx.x) * kUnitsPerBlock + lane;
+  for (int r = static_cast<int>(threadIdx.x >> 5); r < kRows;
+       r += static_cast<int>(blockDim.x >> 5))
+    cols[r][lane] = u < n ? packed[r * P + u] : 0u;
+  __syncthreads();
 }
 
-// packed: (3, P) uint32 rows [uid_lo, uid_hi, npkts]; out: (P,) uint32, the
-// minimum 24-bit draw over the unit's first min(npkts, width) lanes, or
-// 0xFFFFFFFF when that is no lane at all.
-__global__ void min_draw_kernel(const uint32_t* __restrict__ packed, int P,
-                                uint32_t k0, uint32_t k1, uint32_t width,
-                                uint32_t* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P) return;
-  const uint32_t lo = packed[i];
-  const uint32_t hi = packed[P + i];
-  const uint32_t lanes = min(packed[2 * P + i], width);
-  uint32_t m = 0xFFFFFFFFu;
-  for (uint32_t p = 0; p < lanes; ++p) {
-    const uint2 x = threefry2x32(k0, k1, lo, hi | (p << kPktShift));
-    m = min(m, x.x >> 8);
+// out[pad0 .. end) = fill, spread over every thread of the grid.
+__device__ __forceinline__ void fill_pads(uint32_t* __restrict__ out,
+                                          int pad0, int end, uint32_t fill) {
+  const int stride = static_cast<int>(gridDim.x * blockDim.x);
+  for (int i = pad0 + static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+       i < end; i += stride)
+    out[i] = fill;
+}
+
+// packed: (4, P) uint32 rows [uid_lo, uid_hi, npkts, thresh], row-major,
+// of which the first n units are real. words: (P / 32,) uint32, bit u of
+// word w = unit 32*w + u drops; 0 past the real units.
+__global__ void __launch_bounds__(kMaxBlock)
+draw_flags_kernel(const uint32_t* __restrict__ packed, int P, int n,
+                  uint32_t k0, uint32_t k1, uint32_t width, int log_seg,
+                  uint32_t* __restrict__ words) {
+  __shared__ uint32_t cols[4][kUnitsPerBlock];
+  __shared__ uint32_t unit_hit[kUnitsPerBlock];
+  stage_units<4>(packed, P, n, cols);
+  const int ub = static_cast<int>(threadIdx.x >> log_seg);
+  const uint32_t th = cols[3][ub];
+  // th == 0 never drops, and units past n have npkts 0 here: no lane of
+  // either is drawn
+  const uint32_t lanes = th == 0u ? 0u : min(cols[2][ub], width);
+  const uint32_t lane = threadIdx.x & ((1u << log_seg) - 1u);
+  const uint32_t m =
+      lane_pair_min(k0, k1, cols[0][ub], cols[1][ub], lanes, lane);
+  // every thread of the warp votes; each segment reads its own bits
+  const bool hit =
+      (__ballot_sync(0xFFFFFFFFu, m < th) & segment_mask(1 << log_seg)) != 0u;
+  if (lane == 0u) unit_hit[ub] = hit;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const uint32_t word = __ballot_sync(0xFFFFFFFFu,
+                                        unit_hit[threadIdx.x] != 0u);
+    if (threadIdx.x == 0) words[blockIdx.x] = word;
   }
-  out[i] = m;
+  fill_pads(words, static_cast<int>(gridDim.x), P / 32, 0u);
+}
+
+// packed: (3, P) uint32 rows [uid_lo, uid_hi, npkts], of which the first n
+// units are real; out: (P,) uint32, the minimum 24-bit draw over the unit's
+// first min(npkts, width) lanes, or 0xFFFFFFFF when that is no lane at all
+// (and past the real units).
+__global__ void __launch_bounds__(kMaxBlock)
+min_draw_kernel(const uint32_t* __restrict__ packed, int P, int n,
+                uint32_t k0, uint32_t k1, uint32_t width, int log_seg,
+                uint32_t* __restrict__ out) {
+  __shared__ uint32_t cols[3][kUnitsPerBlock];
+  __shared__ uint32_t unit_min[kUnitsPerBlock];
+  stage_units<3>(packed, P, n, cols);
+  const int ub = static_cast<int>(threadIdx.x >> log_seg);
+  const uint32_t lane = threadIdx.x & ((1u << log_seg) - 1u);
+  uint32_t m = lane_pair_min(k0, k1, cols[0][ub], cols[1][ub],
+                             min(cols[2][ub], width), lane);
+  m = __reduce_min_sync(segment_mask(1 << log_seg), m);
+  if (lane == 0u) unit_min[ub] = m;
+  __syncthreads();
+  if (threadIdx.x < 32)
+    out[blockIdx.x * kUnitsPerBlock + threadIdx.x] = unit_min[threadIdx.x];
+  fill_pads(out, static_cast<int>(gridDim.x) * kUnitsPerBlock, P, kNoDraw);
 }
 
 // counters: (2, n) uint32 rows [c0, c1]; out: (2, n) uint32 rows [x0, x1].
-__global__ void threefry_kernel(const uint32_t* __restrict__ counters, int n,
-                                uint32_t k0, uint32_t k1,
-                                uint32_t* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// Four pairs a thread; kVec: n % 4 == 0 and both rows 16-byte aligned, so
+// each row's four words move as one 16-byte load or store.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+threefry_kernel(const uint32_t* __restrict__ counters, int n, uint32_t k0,
+                uint32_t k1, uint32_t* __restrict__ out) {
+  const int i = 4 * static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
   if (i >= n) return;
-  const uint2 x = threefry2x32(k0, k1, counters[i], counters[n + i]);
-  out[i] = x.x;
-  out[n + i] = x.y;
+  uint32_t c0[4], c1[4];
+  if (kVec) {
+    const uint4 a = *reinterpret_cast<const uint4*>(counters + i);
+    const uint4 b = *reinterpret_cast<const uint4*>(counters + n + i);
+    c0[0] = a.x; c0[1] = a.y; c0[2] = a.z; c0[3] = a.w;
+    c1[0] = b.x; c1[1] = b.y; c1[2] = b.z; c1[3] = b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      c0[j] = i + j < n ? counters[i + j] : 0u;
+      c1[j] = i + j < n ? counters[n + i + j] : 0u;
+    }
+  }
+  uint2 x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = threefry2x32(k0, k1, c0[j], c1[j]);
+  if (kVec) {
+    *reinterpret_cast<uint4*>(out + i) =
+        make_uint4(x[0].x, x[1].x, x[2].x, x[3].x);
+    *reinterpret_cast<uint4*>(out + n + i) =
+        make_uint4(x[0].y, x[1].y, x[2].y, x[3].y);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (i + j < n) {
+        out[i + j] = x[j].x;
+        out[n + i + j] = x[j].y;
+      }
+    }
+  }
+}
+
+// log2 of the segment width: the next power of two >= min(width, 32).
+int log_segment(int width) {
+  int log_seg = 0;
+  while ((1 << log_seg) < width && log_seg < 5) ++log_seg;
+  return log_seg;
+}
+
+bool bad_draw_args(int P, int n, int width) {
+  return P <= 0 || P % 32 != 0 || n < 0 || n > P || width < 1 || width > 64;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-int shadow_draw_flags(const void* packed, int P, uint32_t k0, uint32_t k1,
-                      int width, void* words, void* stream) {
-  if (P <= 0 || P % 32 != 0 || width < 1 || width > 64)
+// Grids: max(1, ceil(n / 32)) blocks of 32 * seg threads.
+int shadow_draw_flags(const void* packed, int P, int n, uint32_t k0,
+                      uint32_t k1, int width, void* words, void* stream) {
+  if (bad_draw_args(P, n, width))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (P + kThreads - 1) / kThreads;
-  draw_flags_kernel<<<blocks, kThreads, 0,
+  const int log_seg = log_segment(width);
+  const int blocks = n > 0 ? (n + kUnitsPerBlock - 1) / kUnitsPerBlock : 1;
+  draw_flags_kernel<<<blocks, kUnitsPerBlock << log_seg, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(packed), P, k0, k1,
-      static_cast<uint32_t>(width), static_cast<uint32_t*>(words));
+      static_cast<const uint32_t*>(packed), P, n, k0, k1,
+      static_cast<uint32_t>(width), log_seg, static_cast<uint32_t*>(words));
   return static_cast<int>(cudaGetLastError());
 }
 
-int shadow_min_draw(const void* packed, int P, uint32_t k0, uint32_t k1,
-                    int width, void* out, void* stream) {
-  if (P <= 0 || width < 1 || width > 64)
+int shadow_min_draw(const void* packed, int P, int n, uint32_t k0,
+                    uint32_t k1, int width, void* out, void* stream) {
+  if (bad_draw_args(P, n, width))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (P + kThreads - 1) / kThreads;
-  min_draw_kernel<<<blocks, kThreads, 0,
+  const int log_seg = log_segment(width);
+  const int blocks = n > 0 ? (n + kUnitsPerBlock - 1) / kUnitsPerBlock : 1;
+  min_draw_kernel<<<blocks, kUnitsPerBlock << log_seg, 0,
                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(packed), P, k0, k1,
-      static_cast<uint32_t>(width), static_cast<uint32_t*>(out));
+      static_cast<const uint32_t*>(packed), P, n, k0, k1,
+      static_cast<uint32_t>(width), log_seg, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 int shadow_threefry(const void* counters, int n, uint32_t k0, uint32_t k1,
                     void* out, void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n + kThreads - 1) / kThreads;
-  threefry_kernel<<<blocks, kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(counters), n, k0, k1,
-      static_cast<uint32_t*>(out));
+  const int quads = (n + 3) / 4;
+  const int blocks = (quads + kThreads - 1) / kThreads;
+  const auto* c = static_cast<const uint32_t*>(counters);
+  auto* o = static_cast<uint32_t*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (n % 4 == 0 && aligned16(c) && aligned16(o))
+    threefry_kernel<true><<<blocks, kThreads, 0, s>>>(c, n, k0, k1, o);
+  else
+    threefry_kernel<false><<<blocks, kThreads, 0, s>>>(c, n, k0, k1, o);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The device address of page-locked host memory (for a kernel that reads
+// or writes it in place); 0 on success.
+int shadow_device_pointer(void* host, void** dev) {
+  return static_cast<int>(cudaHostGetDevicePointer(dev, host, 0));
 }
 
 const char* shadow_cuda_error_string(int code) {

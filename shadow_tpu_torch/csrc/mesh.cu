@@ -377,8 +377,7 @@ __device__ int tile_rank(int ds, bool active, int n, RankScratch* sc,
 // share the (unit, lane) pairs of the first `count` units, so a tile of a
 // few dozen units takes one Threefry evaluation a thread instead of up to
 // `width` in a row. A unit drops iff one of its first `lanes` lanes draws a
-// 24-bit value below th (th == 0 never drops); every lane is drawn, where
-// any_lane_hits stops at the first hit: the answer is the same. Returns the
+// 24-bit value below th (th == 0 never drops). Returns the
 // calling thread's unit's flag. Every thread calls it.
 struct DrawScratch {
   uint32_t lo[kThreads], hi[kThreads], lanes[kThreads], th[kThreads];
@@ -1034,7 +1033,7 @@ int shadow_mesh_exchange(void* units, int n, int m, int w, uint32_t k0,
 
 // The device address of pinned host memory (for kernels that read and
 // write it in place); 0 on success.
-int shadow_mesh_device_pointer(void* host, void** dev) {
+int shadow_device_pointer(void* host, void** dev) {
   return static_cast<int>(cudaHostGetDevicePointer(dev, host, 0));
 }
 

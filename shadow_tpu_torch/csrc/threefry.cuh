@@ -42,18 +42,34 @@ __device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1,
   return make_uint2(x0, x1);
 }
 
-// True iff one of the unit's first `lanes` packet lanes draws a 24-bit value
-// below `th`; leaves the loop at the first such lane (the reference computes
-// every lane and masks: the answer is the same). th == 0 can never hit.
-__device__ __forceinline__ bool any_lane_hits(uint32_t k0, uint32_t k1,
-                                              uint32_t lo, uint32_t hi,
-                                              uint32_t lanes, uint32_t th) {
-  if (th == 0u) return false;
-  for (uint32_t p = 0; p < lanes; ++p) {
-    const uint2 x = threefry2x32(k0, k1, lo, hi | (p << kPktShift));
-    if ((x.x >> 8) < th) return true;
-  }
-  return false;
+// Lane-parallel draws of one unit's packet lanes. A segment of `seg`
+// threads (a power of two up to 32, aligned in its warp) draws one unit:
+// its thread l evaluates lanes l and l + 32, where they lie below `lanes`
+// (l + 32 only when seg is 32, so widths up to 64 take two lanes a thread
+// and no unit's lanes run in a chain of more than two), and the segment
+// combines its threads' results with one warp-synchronous instruction.
+
+// The draw of no lane: above every 24-bit draw.
+constexpr uint32_t kNoDraw = 0xFFFFFFFFu;
+
+// The least 24-bit draw of packet lanes l and l + 32 of the unit (lo, hi)
+// among those below `lanes`; kNoDraw when neither is.
+__device__ __forceinline__ uint32_t lane_pair_min(uint32_t k0, uint32_t k1,
+                                                  uint32_t lo, uint32_t hi,
+                                                  uint32_t lanes,
+                                                  uint32_t l) {
+  uint32_t m = kNoDraw;
+  if (l < lanes) m = threefry2x32(k0, k1, lo, hi | (l << kPktShift)).x >> 8;
+  if (l + 32u < lanes)
+    m = min(m, threefry2x32(k0, k1, lo, hi | ((l + 32u) << kPktShift)).x >> 8);
+  return m;
+}
+
+// The calling thread's segment as a warp mask (seg a power of two <= 32).
+__device__ __forceinline__ uint32_t segment_mask(int seg) {
+  const int lane = static_cast<int>(threadIdx.x & 31u);
+  const uint32_t ones = seg == 32 ? 0xFFFFFFFFu : (1u << seg) - 1u;
+  return ones << (lane & ~(seg - 1));
 }
 
 }  // namespace shadow_tf

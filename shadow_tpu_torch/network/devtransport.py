@@ -44,11 +44,11 @@ device path is unusable, a failed kernel build or warm-up launch is an
 error: it is re-raised on the simulation thread at the next flush (or at
 close), never served from the host version instead.
 
-Not ported yet: the C engine (native/colcore), which in the reference owns
-the host loop and makes this module stand down (``colplane.py:240``);
-packet capture and fault injection, whose hooks in the reference's
-intercept and replay are left out here because their config keys are
-refused at load.
+Under the C engine (``experimental.native_colcore``, the default), which
+owns the host loop, this module stands down, as in the reference: the
+Python columnar plane alone runs it. Not ported yet: packet capture and
+fault injection, whose hooks in the reference's intercept and replay are
+left out here because their config keys are refused at load.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ Replaces shadow_tpu/ops/jaxcfg.py. Two jobs:
   ``torch.device``. Asking for ``cuda`` where PyTorch sees no card is an
   error, never a silent CPU run.
 - ``kernel_lib(stem)``: the ctypes handle of ``csrc/<stem>.cu`` built for
-  Hopper (``sm_90a``) into a shared library with a plain C interface.
+  Hopper (``sm_90a``) into a shared library with a plain C interface;
+  ``device_pointer(t, stem)`` the card's address of a page-locked buffer
+  that such a kernel reads or writes in place.
   Builds happen at first use into ``shadow_tpu_torch/_build/`` (listed in
   .gitignore), named by a hash of the sources and flags, so an edited
   source rebuilds and an unchanged one loads at once. A failed build
@@ -34,17 +36,22 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 #: C signatures of every entry point, per source (pointers and the stream
 #: are c_void_p: ctypes would pass a bare int as 32 bits and cut it)
+_DEVICE_POINTER = (ctypes.c_int, [ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_void_p)])
 _SIGNATURES = {
     "draw": {
         "shadow_draw_flags": (ctypes.c_int, [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+            ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p]),
         "shadow_min_draw": (ctypes.c_int, [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+            ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p]),
         "shadow_threefry": (ctypes.c_int, [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
             ctypes.c_void_p, ctypes.c_void_p]),
+        "shadow_device_pointer": _DEVICE_POINTER,
         "shadow_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "mesh": {
@@ -61,8 +68,7 @@ _SIGNATURES = {
             ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p]),
-        "shadow_mesh_device_pointer": (ctypes.c_int, [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]),
+        "shadow_device_pointer": _DEVICE_POINTER,
         "shadow_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "transport": {
@@ -197,6 +203,17 @@ def kernel_lib(stem: str):
             fn.argtypes = args
         _libs[stem] = lib
     return lib
+
+
+def device_pointer(t, stem: str) -> int:
+    """The card's address of the page-locked host tensor ``t``, for a
+    kernel of ``csrc/<stem>.cu`` that reads or writes it in place, or an
+    exception."""
+    lib = kernel_lib(stem)
+    out = ctypes.c_void_p()
+    code = lib.shadow_device_pointer(t.data_ptr(), ctypes.byref(out))
+    check_launch(lib, code, f"device address of a page-locked {stem} buffer")
+    return int(out.value or 0)
 
 
 def check_launch(lib, code: int, what: str) -> None:

@@ -25,14 +25,17 @@ Design notes (carried over from the reference):
   small batches can route to the bit-identical numpy twin
   (fluid.loss_flags) with no semantic difference.
 - Static shapes: batches pad to power-of-two buckets between MIN_BUCKET
-  and the configured cap (padded rows carry npkts 0 and thresh 0 and can
-  never hit).
-- Deferred readback: ``dispatch`` stages the packed batch in pinned host
-  memory, copies it to the card and the result back without blocking, and
-  records a CUDA event; the result is only *consumed* when the simulation
-  clock reaches the batch's causal deadline (``DrawHandle.is_ready`` polls
-  the event, ``read`` waits on it), so the round trip overlaps later host
-  rounds instead of stalling each one.
+  and the configured cap. The kernels take the real unit count n: they
+  draw nothing for the padding and write its flags as 0 (its minima as
+  SENTINEL), as the reference's padded rows (npkts 0, thresh 0) give.
+- Deferred readback: ``dispatch`` fills a page-locked slot of its bucket
+  (DrawSlot, made once and reused), launches the kernel on the slot in
+  place (it reads the batch and writes the result through their device
+  addresses: no copy, no allocation) and records the slot's CUDA event;
+  the result is only *consumed* when the simulation clock reaches the
+  batch's causal deadline (``DrawHandle.is_ready`` polls the event,
+  ``read`` waits on it, copies the result out and frees the slot), so the
+  round trip overlaps later host rounds instead of stalling each one.
 - The threefry key is data (a kernel argument), not a build constant: one
   build serves every seed, which the fleet's shared draw plane relies on.
 - calibrate() measures the real dispatch+readback latency and the numpy
@@ -89,11 +92,17 @@ def _lane_draws(lo: torch.Tensor, hi: torch.Tensor, lanes: torch.Tensor,
     return x0 >> 8, pkt < lanes[..., None]
 
 
-def _packed_draws(packed: torch.Tensor, seed_key, width: int):
-    """_lane_draws of a (rows, P) uint32 batch [uid_lo, uid_hi, npkts, ...]:
-    (P, width) draws and lane mask."""
+def _packed_draws(packed: torch.Tensor, seed_key, width: int,
+                  n: int | None = None):
+    """_lane_draws of a (rows, P) uint32 batch [uid_lo, uid_hi, npkts, ...]
+    whose first ``n`` units (all by default) are real: (P, width) draws and
+    lane mask (no lane of a unit past n counts)."""
     rows = packed.to(torch.int64)
-    return _lane_draws(rows[0], rows[1], rows[2], seed_key, width)
+    lanes = rows[2]
+    if n is not None and n < rows.shape[1]:
+        real = torch.arange(rows.shape[1], device=rows.device) < n
+        lanes = torch.where(real, lanes, torch.zeros_like(lanes))
+    return _lane_draws(rows[0], rows[1], lanes, seed_key, width)
 
 
 def packbits_little(flags: torch.Tensor) -> torch.Tensor:
@@ -102,28 +111,30 @@ def packbits_little(flags: torch.Tensor) -> torch.Tensor:
     return (flags.to(torch.int64).view(-1, 8) * w).sum(1).to(torch.uint8)
 
 
-def draw_flags_plain(packed: torch.Tensor, seed_key,
-                     width: int = MAX_PKTS) -> torch.Tensor:
+def draw_flags_plain(packed: torch.Tensor, seed_key, width: int = MAX_PKTS,
+                     n: int | None = None) -> torch.Tensor:
     """Plain version of the draw_flags kernel (and of the reference's
     _draw_kernel): a unit drops iff some lane p < min(npkts, width) has
-    its 24-bit draw below the unit's threshold."""
-    draws, valid = _packed_draws(packed, seed_key, width)
+    its 24-bit draw below the unit's threshold; units past ``n`` never
+    drop."""
+    draws, valid = _packed_draws(packed, seed_key, width, n)
     thresh = packed[3].to(torch.int64)[:, None]
     return packbits_little(((draws < thresh) & valid).any(dim=1))
 
 
-def min_draw_plain(packed: torch.Tensor, seed_key,
-                   width: int = MAX_PKTS) -> torch.Tensor:
+def min_draw_plain(packed: torch.Tensor, seed_key, width: int = MAX_PKTS,
+                   n: int | None = None) -> torch.Tensor:
     """Plain version of the min_draw kernel (and of the reference's
-    _min_draw_kernel)."""
-    draws, valid = _packed_draws(packed, seed_key, width)
+    _min_draw_kernel); units past ``n`` read SENTINEL."""
+    draws, valid = _packed_draws(packed, seed_key, width, n)
     m = torch.where(valid, draws, torch.full_like(draws, SENTINEL))
     return m.min(dim=1).values.to(torch.uint32)
 
 
 # -- wrappers -----------------------------------------------------------------
 
-def _check(packed: torch.Tensor, rows: int, width: int, what: str) -> None:
+def _check(packed: torch.Tensor, rows: int, width: int, n, what: str) -> int:
+    """Validate a wrapper's arguments; returns the real unit count."""
     if not isinstance(packed, torch.Tensor):
         raise TypeError(f"{what}: packed must be a torch.Tensor")
     if packed.dtype != torch.uint32:
@@ -141,100 +152,185 @@ def _check(packed: torch.Tensor, rows: int, width: int, what: str) -> None:
         raise ValueError(f"{what}: width must be in [1, 64], got {width}")
     if packed.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {packed.device}")
+    n = p if n is None else int(n)
+    if not 0 <= n <= p:
+        raise ValueError(f"{what}: n must be in [0, {p}], got {n}")
+    return n
 
 
 def _key_words(seed_key) -> tuple:
     return int(seed_key[0]) & SENTINEL, int(seed_key[1]) & SENTINEL
 
 
-def draw_flags(packed: torch.Tensor, seed_key,
-               width: int = MAX_PKTS) -> torch.Tensor:
-    """Per-unit drop flags, bit-packed: (4, P) uint32 -> (P/8,) uint8.
-    ``seed_key`` is the (2,) threefry key [seed_lo, seed_hi] (any
+#: kernel -> (its rows of input, its output's dtype, its output's length
+#: at bucket P, its plain version); the kernels' entry points in
+#: csrc/draw.cu are shadow_<kernel>
+_KERNELS = {
+    "draw_flags": (4, torch.uint8, lambda p: p // 8, draw_flags_plain),
+    "min_draw": (3, torch.uint32, lambda p: p, min_draw_plain),
+}
+
+
+def _launch_kernel(name: str, packed_ptr: int, p: int, n: int, seed_key,
+                   width: int, out_ptr: int, stream: int) -> None:
+    """Launch ``name`` (csrc/draw.cu) on the card addresses of its (rows,
+    P) input and its output, and count the launch, or raise."""
+    lib = devcfg.kernel_lib("draw")
+    k0, k1 = _key_words(seed_key)
+    code = getattr(lib, f"shadow_{name}")(packed_ptr, p, n, k0, k1, width,
+                                          out_ptr, stream)
+    devcfg.check_launch(lib, code, name)
+    LAUNCHES[name] += 1
+
+
+def _wrapper(name: str, packed: torch.Tensor, seed_key, width: int,
+             n) -> torch.Tensor:
+    rows, dtype, out_len, plain = _KERNELS[name]
+    n = _check(packed, rows, width, n, name)
+    if packed.device.type == "cpu":
+        return plain(packed, seed_key, width, n)
+    p = packed.shape[1]
+    out = torch.empty(out_len(p), dtype=dtype, device=packed.device)
+    _launch_kernel(name, packed.data_ptr(), p, n, seed_key, width,
+                   out.data_ptr(),
+                   torch.cuda.current_stream(packed.device).cuda_stream)
+    return out
+
+
+def draw_flags(packed: torch.Tensor, seed_key, width: int = MAX_PKTS,
+               n: int | None = None) -> torch.Tensor:
+    """Per-unit drop flags, bit-packed: (4, P) uint32 -> (P/8,) uint8, of
+    which the first ``n`` units (all by default) are real and the rest read
+    0. ``seed_key`` is the (2,) threefry key [seed_lo, seed_hi] (any
     indexable of ints). CPU tensor: the plain version. CUDA tensor: the
     kernel on the current stream, or an exception."""
-    _check(packed, 4, width, "draw_flags")
-    if packed.device.type == "cpu":
-        return draw_flags_plain(packed, seed_key, width)
-    lib = devcfg.kernel_lib("draw")
-    p = packed.shape[1]
-    out = torch.empty(p // 8, dtype=torch.uint8, device=packed.device)
-    k0, k1 = _key_words(seed_key)
-    code = lib.shadow_draw_flags(
-        packed.data_ptr(), p, k0, k1, width, out.data_ptr(),
-        torch.cuda.current_stream(packed.device).cuda_stream)
-    devcfg.check_launch(lib, code, "draw_flags")
-    LAUNCHES["draw_flags"] += 1
-    return out
+    return _wrapper("draw_flags", packed, seed_key, width, n)
 
 
-def min_draw(packed: torch.Tensor, seed_key,
-             width: int = MAX_PKTS) -> torch.Tensor:
-    """Per-unit minimum 24-bit draw: (3, P) uint32 -> (P,) uint32.
-    CPU tensor: the plain version. CUDA tensor: the kernel on the current
-    stream, or an exception."""
-    _check(packed, 3, width, "min_draw")
-    if packed.device.type == "cpu":
-        return min_draw_plain(packed, seed_key, width)
-    lib = devcfg.kernel_lib("draw")
-    p = packed.shape[1]
-    out = torch.empty(p, dtype=torch.uint32, device=packed.device)
-    k0, k1 = _key_words(seed_key)
-    code = lib.shadow_min_draw(
-        packed.data_ptr(), p, k0, k1, width, out.data_ptr(),
-        torch.cuda.current_stream(packed.device).cuda_stream)
-    devcfg.check_launch(lib, code, "min_draw")
-    LAUNCHES["min_draw"] += 1
-    return out
+def min_draw(packed: torch.Tensor, seed_key, width: int = MAX_PKTS,
+             n: int | None = None) -> torch.Tensor:
+    """Per-unit minimum 24-bit draw: (3, P) uint32 -> (P,) uint32, of which
+    the first ``n`` units (all by default) are real and the rest read
+    SENTINEL. CPU tensor: the plain version. CUDA tensor: the kernel on the
+    current stream, or an exception."""
+    return _wrapper("min_draw", packed, seed_key, width, n)
 
 
-# -- deferred-readback handles ------------------------------------------------
+# -- page-locked slots and deferred-readback handles --------------------------
 
-class DrawHandle:
-    """An in-flight device draw: read() yields the (n,) bool flags."""
+class DrawSlot:
+    """The buffers of one dispatch of ``kernel`` at bucket ``p``, made once
+    and reused: the packed (rows, P) input (``inp``, a numpy view) and the
+    output (``out``), in page-locked host memory on a card (plain host
+    memory on the CPU), and one CUDA event. The kernel reads the input and
+    writes the output in place through their device addresses, so a
+    dispatch queues no copy and allocates nothing."""
 
-    __slots__ = ("_out", "_event", "_n")
+    __slots__ = ("kernel", "p", "host_in", "host_out", "inp", "out",
+                 "event", "_ptrs")
 
-    def __init__(self, out: torch.Tensor, event, n: int) -> None:
-        self._out = out  # host tensor (pinned for a CUDA dispatch)
-        self._event = event  # torch.cuda.Event, or None when synchronous
+    def __init__(self, kernel: str, p: int, device) -> None:
+        rows, dtype, out_len, _ = _KERNELS[kernel]
+        cuda = device.type == "cuda"
+        self.kernel, self.p = kernel, p
+        self.host_in = torch.zeros((rows, p), dtype=torch.uint32,
+                                   pin_memory=cuda)
+        self.host_out = torch.zeros(out_len(p), dtype=dtype,
+                                    pin_memory=cuda)
+        self.inp = self.host_in.numpy()
+        self.out = self.host_out.numpy()
+        self.event = torch.cuda.Event() if cuda else None
+        self._ptrs = ((devcfg.device_pointer(self.host_in, "draw"),
+                       devcfg.device_pointer(self.host_out, "draw"))
+                      if cuda else None)
+
+    def launch(self, n: int, seed_key, width: int, stream) -> None:
+        """Run the kernel on the first ``n`` units of ``inp`` into ``out``:
+        on a card queued on ``stream`` with the event recorded after it, on
+        the CPU the plain version at once."""
+        if self.event is None:
+            self.host_out.copy_(_wrapper(self.kernel, self.host_in,
+                                         seed_key, width, n))
+            return
+        _launch_kernel(self.kernel, self._ptrs[0], self.p, n, seed_key,
+                       width, self._ptrs[1], stream.cuda_stream)
+        self.event.record(stream)
+
+
+class _SlotHandle:
+    """An in-flight dispatch on a DrawSlot. read() waits for the kernel,
+    copies the result out of the slot and gives the slot back to its
+    plane; a handle dropped unread gives it back once the kernel is done."""
+
+    __slots__ = ("_plane", "_slot", "_n", "_result")
+
+    def __init__(self, plane, slot: DrawSlot, n: int) -> None:
+        self._plane = plane
+        self._slot = slot
         self._n = n
+        self._result = None
+
+    def _copy_out(self, out: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
 
     def read(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        packed = self._out.numpy()
-        return np.unpackbits(packed, bitorder="little")[: self._n].astype(bool)
+        if self._result is None:
+            slot = self._slot
+            if slot.event is not None:
+                slot.event.synchronize()
+            self._result = self._copy_out(slot.out)
+            self._slot = None
+            self._plane._give(slot)
+        return self._result
 
     def is_ready(self) -> bool:
         """True when the device result has landed host-side — read() will
         not stall."""
-        return self._event is None or self._event.query()
+        slot = self._slot
+        return slot is None or slot.event is None or slot.event.query()
+
+    def __del__(self) -> None:
+        slot = self._slot
+        if slot is not None:
+            if slot.event is not None:
+                slot.event.synchronize()  # the kernel may still write it
+            self._plane._give(slot)
 
 
-class MinDrawHandle:
+class DrawHandle(_SlotHandle):
+    """An in-flight device draw: read() yields the (n,) bool flags."""
+
+    __slots__ = ()
+
+    def _copy_out(self, out: np.ndarray) -> np.ndarray:
+        n = self._n
+        return np.unpackbits(out[:(n + 7) // 8],
+                             bitorder="little")[:n].astype(bool)
+
+
+class MinDrawHandle(_SlotHandle):
     """An in-flight speculative min-draw batch: read() yields (n,) uint32
-    prefix-min draws (see min_draw)."""
+    prefix-min draws (see min_draw), a copy the slot's reuse leaves
+    alone."""
 
-    __slots__ = ("_out", "_event", "_n")
+    __slots__ = ()
 
-    def __init__(self, out: torch.Tensor, event, n: int) -> None:
-        self._out = out
-        self._event = event
-        self._n = n
-
-    def read(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._out.numpy()[: self._n]
-
-    def is_ready(self) -> bool:
-        return self._event is None or self._event.query()
+    def _copy_out(self, out: np.ndarray) -> np.ndarray:
+        return out[:self._n].copy()
 
 
 class DeviceDrawPlane:
     """Dispatches loss-draw batches to the card (or, for ``device="cpu"``,
     to the plain PyTorch versions on the CPU).
+
+    Each (kernel, bucket) keeps a list of free DrawSlots. A dispatch takes
+    one (making another when all are in flight: up to
+    network.devroute.WINDOW_SLOTS windows, the chunks of an oversized
+    batch and the speculative waves can be in flight at once), fills the
+    real units' columns, launches and records the slot's event; reading
+    the handle gives the slot back. Units past the real ones are never
+    read, so a slot needs no clearing between batches of different
+    sizes.
 
     The numpy twin is fluid.loss_flags; tests/test_torch_propagate.py
     asserts the two produce identical flags for identical inputs.
@@ -251,6 +347,7 @@ class DeviceDrawPlane:
         self.max_batch = int(max_batch)
         self.max_pkts = int(max_pkts)  # kernel packet-lane width
         self._cuda = self.device.type == "cuda"
+        self._free: dict = {}  # (kernel, P) -> [DrawSlot] not in flight
         if self._cuda:
             devcfg.kernel_lib("draw")  # build or load now, not mid-round
 
@@ -262,51 +359,51 @@ class DeviceDrawPlane:
         return np.array([s & 0xFFFFFFFF, (s >> 32) & 0xFFFFFFFF],
                         dtype=np.uint32)
 
-    def _launch(self, kernel, cols, p: int, seed, out_dtype, out_len: int):
-        """Stage ``cols`` (padded to p) on the host, run ``kernel`` on the
-        plane's device, and start the copy of its result back. Returns
-        (host result tensor, event or None)."""
+    def slots(self, kernel: str, p: int) -> list:
+        """The free slots of bucket ``p`` of ``kernel``."""
+        return self._free.setdefault((kernel, p), [])
+
+    def _give(self, slot: DrawSlot) -> None:
+        self.slots(slot.kernel, slot.p).append(slot)
+
+    def _launch(self, kernel: str, cols, p: int, seed) -> DrawSlot:
+        """Fill a free slot of bucket ``p`` with ``cols`` and run
+        ``kernel`` on it; returns the slot, in flight."""
+        free = self.slots(kernel, p)
+        try:
+            slot = free.pop()  # atomic under the GIL
+        except IndexError:
+            slot = DrawSlot(kernel, p, self.device)
         n = cols[0].shape[0]
-        stage = torch.empty((len(cols), p), dtype=torch.uint32,
-                            pin_memory=self._cuda)
-        a = stage.numpy()
+        a = slot.inp
         for r, col in enumerate(cols):
             a[r, :n] = col
-        a[:, n:] = 0
-        key = self._seed_key(seed)
-        if not self._cuda:
-            return kernel(stage, key, self.max_pkts), None
-        dev_in = stage.to(self.device, non_blocking=True)
-        dev_out = kernel(dev_in, key, self.max_pkts)
-        host = torch.empty(out_len, dtype=out_dtype, pin_memory=True)
-        host.copy_(dev_out, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
-        return host, ev
+        slot.launch(n, self._seed_key(seed), self.max_pkts,
+                    torch.cuda.current_stream(self.device)
+                    if self._cuda else None)
+        return slot
 
     def dispatch(self, uid_lo: np.ndarray, uid_hi: np.ndarray,
                  npkts: np.ndarray, thresh: np.ndarray,
                  seed: int = None) -> DrawHandle:
-        """Launch one batch (any length <= max_batch) and start the async
-        device->host copy; returns a handle to read when due. ``seed``
-        overrides the plane's seed for this batch."""
+        """Launch one batch (any length <= max_batch); returns a handle to
+        read when due. ``seed`` overrides the plane's seed for this
+        batch."""
         n = uid_lo.shape[0]
         p = _bucket(n, self.max_batch)
-        out, ev = self._launch(draw_flags, (uid_lo, uid_hi, npkts, thresh),
-                               p, seed, torch.uint8, p // 8)
-        return DrawHandle(out, ev, n)
+        slot = self._launch("draw_flags", (uid_lo, uid_hi, npkts, thresh),
+                            p, seed)
+        return DrawHandle(self, slot, n)
 
     def dispatch_min(self, uid_lo: np.ndarray, uid_hi: np.ndarray,
                      npkts: np.ndarray, min_bucket: int = 0,
                      seed: int = None) -> MinDrawHandle:
-        """Launch one speculative min-draw batch with the async
-        device->host copy started. ``min_bucket`` pins the padded shape;
-        ``seed`` overrides the plane's seed."""
+        """Launch one speculative min-draw batch. ``min_bucket`` pins the
+        padded shape; ``seed`` overrides the plane's seed."""
         n = uid_lo.shape[0]
         p = max(_bucket(n, self.max_batch), min_bucket)
-        out, ev = self._launch(min_draw, (uid_lo, uid_hi, npkts), p, seed,
-                               torch.uint32, p)
-        return MinDrawHandle(out, ev, n)
+        slot = self._launch("min_draw", (uid_lo, uid_hi, npkts), p, seed)
+        return MinDrawHandle(self, slot, n)
 
     _cache: dict = {}  # (seed, max_batch, max_pkts, device) -> entry
 
@@ -343,9 +440,10 @@ class DeviceDrawPlane:
 
     def warm_shapes(self, should_abort=None) -> None:
         """Dispatch every padded bucket shape of the draw kernel plus the
-        pinned speculative min-draw shape once. Pure wall-clock work:
-        flags are never read for results here. ``should_abort`` is polled
-        between shapes (attach teardown)."""
+        pinned speculative min-draw shape once, which leaves a slot in
+        each bucket. Pure wall-clock work: flags are never read for
+        results here. ``should_abort`` is polled between shapes (attach
+        teardown)."""
         b = MIN_BUCKET
         while True:
             if should_abort is not None and should_abort():

@@ -479,18 +479,6 @@ def mesh_scan(state: torch.Tensor, units_k: torch.Tensor, tables,
 
 # -- the plane ----------------------------------------------------------------
 
-def device_pointer(t: torch.Tensor) -> int:
-    """The card's address of a page-locked host tensor (for a kernel that
-    reads or writes it in place), or an exception."""
-    import ctypes
-
-    lib = devcfg.kernel_lib("mesh")
-    out = ctypes.c_void_p()
-    code = lib.shadow_mesh_device_pointer(t.data_ptr(), ctypes.byref(out))
-    devcfg.check_launch(lib, code, "mesh device pointer")
-    return int(out.value or 0)
-
-
 class ExchangeStage:
     """The buffers of one exchange bucket (N, m, w), made once and kept for
     the plane's life: the packed (6, N, m) units in host memory (``units``,
@@ -516,8 +504,9 @@ class ExchangeStage:
                                     pin_memory=True)
         self.out = self.host_out.numpy()
         self.event = torch.cuda.Event()
-        out = device_pointer(self.host_out)
-        self._ptrs = (device_pointer(self.host_in), out, out + 8 * 4 * n * w)
+        out = devcfg.device_pointer(self.host_out, "mesh")
+        self._ptrs = (devcfg.device_pointer(self.host_in, "mesh"), out,
+                      out + 8 * 4 * n * w)
 
     def launch(self, seed: int, max_pkts: int, stream) -> None:
         """Queue mesh_exchange on ``units`` into ``out`` on ``stream``."""

@@ -67,6 +67,81 @@ def test_draw_kernels_match_plain_on_card(dev):
                                prop.min_draw_plain(x3, key, 10))
 
 
+def _smoke():
+    """chip_smoke.py as a module: its sweep generators."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 10, 16, 31, 32, 33, 64])
+def test_draw_kernels_edge_sweep_on_card(dev, width):
+    """Lane-parallel draw_flags and min_draw against their plain versions
+    on chip_smoke's edge sweep: P from 32 to 65,536, n in {P, P/2 + 1, 1,
+    0} (pads included in the comparison), npkts 0 and above the width,
+    thresholds 0, and units hit on lane 0 only and on the last lane
+    only."""
+    cs = _smoke()
+    rng = np.random.default_rng(width)
+    edges = 0
+    for p in (32, 64, 256, 4096, 65536):
+        for seed in SEEDS:
+            key = (seed & 0xFFFFFFFF, seed >> 32)
+            cases, first, last = cs.draw_sweep(torch, np, prop, dev, rng, p,
+                                               width, key)
+            edges += first + last
+            for name, x, n in cases:
+                got = getattr(prop, name)(x, key, width, n)
+                want = getattr(prop, f"{name}_plain")(x, key, width, n)
+                assert torch.equal(got, want), (name, p, n, seed)
+    assert edges > 0 or width == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4, 5, 4096, 739532])
+def test_threefry_paths_match_plain_on_card(dev, n):
+    """threefry_kernel's 16-byte path (n % 4 == 0, aligned rows) and its
+    scalar path (other n, or rows 4 bytes past a 16-byte boundary)."""
+    from shadow_tpu_torch.ops import prng
+
+    rng = np.random.default_rng(n)
+    c = rng.integers(0, 1 << 32, (2, n), dtype=np.uint64).astype(np.uint32)
+    x = torch.from_numpy(c).to(dev)
+    shifted = torch.empty(2 * n + 1, dtype=torch.uint32, device=dev)
+    shifted[1:] = x.view(-1)
+    xi = x.to(torch.int64)
+    for key in ((11, 0), (0xDEADBEEF, 0x12345678)):
+        want = torch.stack(prng.threefry2x32_torch(key[0], key[1], xi[0],
+                                                   xi[1]))
+        for inp in (x, shifted[1:].view(2, n)):
+            got = prng.threefry2x32_device(inp, key)
+            assert torch.equal(got.to(torch.int64), want)
+
+
+@pytest.mark.cuda
+def test_draw_slots_hazards_on_card(dev):
+    """The draw plane's page-locked slots on the card against a CPU plane
+    (chip_smoke.check_slots): dispatches in flight read in reverse, a
+    65,536 / 256 / 65,536 bucket sequence, a min_draw result kept across
+    its slot's reuse, a dropped handle, warm_shapes and calibrate; and
+    each dispatch is one launch."""
+    cs = _smoke()
+    prop.reset_launches()
+    assert cs.check_slots(torch, np, prop, np.random.default_rng(1)) > 0
+    plane = prop.DeviceDrawPlane(SEEDS[1], 4096, device="cuda")
+    z = np.ones(100, np.uint32)
+    before = dict(prop.LAUNCHES)
+    plane.dispatch(z, z, z, z).read()
+    plane.dispatch_min(z, z, z).read()
+    assert prop.LAUNCHES == {k: v + 1 for k, v in before.items()}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [64, 1024])
 @pytest.mark.parametrize("h", [13, 20000])
