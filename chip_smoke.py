@@ -41,8 +41,13 @@ Phases, in order; any failure exits non-zero:
              congestion avoidance, CUBIC epoch adoption, d < 0 and d > 0,
              now before the epoch, cwnd at or above the CUBIC target,
              w_max above 2**32 and newly up to 2**21, at n in {1, 17, 161,
-             4096, 65536, 70000} rows and two seeds; and the whole
-             DeviceAckKernel.run round trip against the numpy host version.
+             4096, 65536, 70000} rows and two seeds; the whole
+             DeviceAckKernel.run round trip against the numpy host version;
+             and the transport's slot path (page-locked AckSlots read and
+             written in place, one launch a cohort) over buckets that grow
+             and shrink, a slot reused with fewer rows (its rows past n
+             untouched), both sides of the bucket edges, one row and the
+             largest cohort, one slot a bucket.
 6. apsp kernels — the min-plus squaring kernel against its plain version,
              whole runs of ceil(log2 G) squarings, latency with tolerance
              0 and reliability as exact float32 bits: G in {1, 2, 17}, the
@@ -110,14 +115,21 @@ Phases, in order; any failure exits non-zero:
              as the plane launches it, through an ExchangeStage on the
              floor-0 run's windows (reading and writing page-locked
              memory), and MeshDataPlane.exchange_rounds' host time a
-             window.
+             window; ack_advance as the transport launches it (in place
+             on a page-locked slot) and on device memory, its staging in
+             place against one copy each way at 161, 4,096 and 65,536
+             rows, the steps of a cohort's round trip on the host, and the
+             cohort size from which the card's round trip beats the numpy
+             host version (the floor crossover).
 15. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
              plane, at tpu_device_floor=1 under tpu_batch and at
              tpu_mesh_floor=0 under tpu_mesh, and on the C engine at
              tpu_device_floor=1; counts and output tree must
              equal the reference's; under tpu_batch the profiler must see
              one draw kernel a window dispatch (a few dropped launches
-             allowed) and no host<->device copy. Prints the card's busy
+             allowed) and no host<->device copy. Then phase 11's first
+             transport leg with the draw plane off: one ack_advance_kernel
+             a device cohort and no host<->device copy. Prints the card's busy
              share of each run's wall time and device time by kernel/copy
              name (a
              profiler that cannot trace the card is reported; the run's
@@ -522,14 +534,68 @@ def ack_sweep(np, rng, n: int) -> tuple:
 #: row counts of the transport sweep: one row, the shipped configs' cohort
 #: sizes, the reference's device floor, its top bucket and past it
 ACK_SIZES = (1, 17, 161, 4096, 65536, 70000)
+#: cohort sizes in the order the slot check sends them: buckets that grow
+#: and shrink, a slot reused with fewer rows than before, each side of the
+#: first bucket edges, one row, and the largest cohort (past the
+#: reference's top bucket) twice
+ACK_SLOT_SIZES = (161, 4096, 17, 1, 255, 256, 257, 70000, 65536, 65537,
+                  300, 70000, 3, 161)
+
+
+def check_ack_slots(torch, np, tk, dev, rng) -> int:
+    """The transport's slot path on ``dev`` (a DeviceAckKernel's AckSlots,
+    page-locked on a card, filled in place, one launch and one event a
+    cohort) against the plain version on ``dev`` and the numpy host
+    version, bit for bit, over ACK_SLOT_SIZES; where a slot is reused with
+    fewer rows, its output past n must still hold what the earlier
+    cohorts wrote there (no thread works on a pad); one slot a bucket must
+    have been made. Returns the comparisons made."""
+    kern = tk.DeviceAckKernel(dev.type)
+    per_cohort = 1 if dev.type == "cuda" else 0  # plain runs do not count
+    n_cmp = 0
+    held = {}  # bucket -> the (5, m) outputs its slot holds
+    for n in ACK_SLOT_SIZES:
+        cols = ack_sweep(np, rng, n)
+        before = tk.LAUNCHES["ack_advance"]
+        slot = kern.slots.take(n)
+        for r, c in enumerate(cols):
+            slot.inp[r, :n] = c
+        got = kern.advance(slot, n).copy()
+        if tk.LAUNCHES["ack_advance"] != before + per_cohort:
+            fail(f"ack slots: a cohort of {n} rows launched "
+                 f"{tk.LAUNCHES['ack_advance'] - before} times")
+        x = torch.from_numpy(np.stack(cols)).to(dev)
+        plain = torch.stack(tk.ack_advance_torch(*x.unbind(0))).cpu().numpy()
+        if got.shape != (5, n) or not np.array_equal(got, plain):
+            fail(f"ack slots: n={n} in bucket {slot.p} differs from the "
+                 f"plain version")
+        if not np.array_equal(got, np.stack(tk.ack_advance(*cols))):
+            fail(f"ack slots: n={n} differs from the numpy host version")
+        n_cmp += 2
+        want = held.get(slot.p)
+        if want is not None and want.shape[1] > n:
+            if not np.array_equal(slot.out[:, n:want.shape[1]], want[:, n:]):
+                fail(f"ack slots: the kernel wrote past n={n} in bucket "
+                     f"{slot.p}")
+            want[:, :n] = got
+            n_cmp += 1
+        else:
+            held[slot.p] = got
+        kern.slots.give(slot)
+    buckets = {tk.bucket(n) for n in ACK_SLOT_SIZES}
+    if kern.slots.made != len(buckets):
+        fail(f"ack slots: {kern.slots.made} slots made for "
+             f"{len(buckets)} buckets")
+    return n_cmp
 
 
 def check_transport_kernels(torch, np, tk, dev) -> int:
     """ack_advance against its plain version on the card, bit for bit,
     over the sweep at every size of ACK_SIZES and two seeds; then the
-    whole DeviceAckKernel.run round trip (staging, copies, launch) against
-    the numpy host version. Returns the largest absolute error (the
-    tolerance is 0)."""
+    whole DeviceAckKernel.run round trip (a reused page-locked slot, read
+    and written in place) against the numpy host version; then the slot
+    path over growing and shrinking buckets (check_ack_slots). Returns the
+    largest absolute error (the tolerance is 0)."""
     err = 0
     n_cmp = 0
     kern = tk.DeviceAckKernel("cuda")
@@ -549,6 +615,7 @@ def check_transport_kernels(torch, np, tk, dev) -> int:
                     fail(f"DeviceAckKernel.run n={n} seed={seed} differs "
                          f"from the numpy host version in output {i}")
             n_cmp += 2
+    n_cmp += check_ack_slots(torch, np, tk, dev, np.random.default_rng(9))
     print(f"{n_cmp} transport kernel comparisons, all bit-identical",
           flush=True)
     return err
@@ -1078,14 +1145,15 @@ def mesh_standalone(torch, np, mesh, barriers, tmp: str,
 def recording_cohorts(dt):
     """Keep a copy of the nine columns of every cohort the device transport
     hands the device path while the block runs. The copy is made around
-    DeviceTransport._kernel, so no launch count moves."""
+    DeviceTransport._kernel, from the slot the gather filled, so no launch
+    count moves."""
     cohorts = []
     kernel = dt.DeviceTransport._kernel
 
-    def record(self, cols, n):
-        if self._devk is not None and n >= dt._DEVICE_FLOOR:
-            cohorts.append(tuple(c.copy() for c in cols))
-        return kernel(self, cols, n)
+    def record(self, slot, n):
+        if slot.home is not self._host_slots:
+            cohorts.append(tuple(c.copy() for c in slot.inp[:, :n]))
+        return kernel(self, slot, n)
 
     dt.DeviceTransport._kernel = record
     try:
@@ -1787,15 +1855,66 @@ def spread_rows(np, cohorts, n: int) -> tuple:
     return tuple(np.ascontiguousarray(r[idx]) for r in rows)
 
 
+def ack_slots_of(tk, dev, sel: list) -> list:
+    """(AckSlot, n) a cohort of ``sel``: one slot a distinct cohort,
+    filled with it, as the transport's gather leaves it."""
+    made, out = {}, []
+    for c in sel:
+        n = len(c[0])
+        slot = made.get(id(c))
+        if slot is None:
+            slot = made[id(c)] = tk.AckSlot(tk.bucket(n), dev)
+            for r, col in enumerate(c):
+                slot.inp[r, :n] = col
+        out.append((slot, n))
+    return out
+
+
+def read_rows(out, n: int) -> tuple:
+    """What the transport reads of a cohort's result: cwnd', w_max' and
+    epoch_start' of its n rows, as lists."""
+    return out[2][:n].tolist(), out[3][:n].tolist(), out[4][:n].tolist()
+
+
+def slot_trip(kern, cols) -> None:
+    """The transport's round trip of one cohort (nine columns) on a slot of
+    ``kern``, up to its five output rows on the host: take a slot, fill
+    it, launch and wait on the event, give it back (DeviceAckKernel.run
+    also copies the rows out of the slot)."""
+    n = len(cols[0])
+    slot = kern.slots.take(n)
+    for r, c in enumerate(cols):
+        slot.inp[r, :n] = c
+    kern.advance(slot, n)
+    kern.slots.give(slot)
+
+
+def host_clock_ms(fns: list, reps: int = 5) -> float:
+    """Host clock per call of ``fns`` (each synchronous), after a warm-up
+    of three; the least of ``reps`` passes over all of them."""
+    for fn in fns[:3]:
+        fn()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for fn in fns:
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3 / len(fns)
+
+
 def time_transport_kernel(torch, np, tk, cohorts, dev) -> list:
     """ack_advance on 64 of the web_cdn_100k floor-1 leg's cohorts spread
     over the run (the headline), then on 4,096 and 65,536 of their rows:
-    card time per launch (queued behind a spin kernel), the profiler's, the
-    plain version's on the card, the host's launch cost, the whole
-    DeviceAckKernel.run round trip and the numpy host version (which
-    serves cohorts below the device floor) by the host clock, and the
-    bound."""
+    card time per launch (queued behind a spin kernel) as the transport
+    launches it (on a page-locked AckSlot, in place) and on device tensors,
+    the profiler's, the plain version's on the card, the host's launch
+    cost; by the host clock, the transport's round trip (slot_trip), the
+    whole DeviceAckKernel.run (the same and a copy of the five rows out)
+    and the numpy host version (which serves cohorts below the device
+    floor); and the bound."""
     rate = spin_rate(torch)
+    stream = torch.cuda.current_stream()
     kern = tk.DeviceAckKernel("cuda")
     groups = [("run cohorts", evenly(cohorts, 64))] + [
         (f"{n} rows", [spread_rows(np, cohorts, n)] * 16)
@@ -1808,42 +1927,233 @@ def time_transport_kernel(torch, np, tk, cohorts, dev) -> list:
         ops = sum(o for _, o in work) / len(sel)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+        slots = ack_slots_of(tk, dev, sel)
+        staged = [lambda s=s, n=n: s.launch(n, stream) for s, n in slots]
         calls = [lambda x=x: tk.ack_advance_device(x) for x in xs]
         plain = [lambda x=x: tk.ack_advance_torch(*x.unbind(0)) for x in xs]
-        for c in sel[:3]:
-            kern.run(*c)
-        t0 = time.perf_counter()
-        for _ in range(5):
-            for c in sel:
-                kern.run(*c)
-        trip_ms = (time.perf_counter() - t0) * 1e3 / (5 * len(sel))
-        t0 = time.perf_counter()
-        for _ in range(5):
-            for c in sel:
-                tk.ack_advance(*c)
-        numpy_ms = (time.perf_counter() - t0) * 1e3 / (5 * len(sel))
         row = {
             "inputs": what, "calls": len(sel),
             "rows_a_call": sum(len(c[0]) for c in sel) / len(sel),
-            "ms": card_ms(torch, calls, rate),
+            "ms": card_ms(torch, staged, rate),
+            "profiler_ms": profiler_ms(torch, staged, PLAN["ack_advance"][2]),
+            "device_ms": card_ms(torch, calls, rate),
+            "device_profiler_ms": profiler_ms(torch, calls,
+                                              PLAN["ack_advance"][2]),
             # about 200 small kernels a call
             "plain_ms": card_ms(torch, plain, rate, chunk=2),
-            "profiler_ms": profiler_ms(torch, calls, PLAN["ack_advance"][2]),
-            "launch_ms": host_ms(torch, calls),
-            "round_trip_ms": trip_ms, "numpy_ms": numpy_ms,
+            "launch_ms": host_ms(torch, staged),
+            "slot_trip_ms": host_clock_ms(
+                [lambda c=c: slot_trip(kern, c) for c in sel]),
+            "round_trip_ms": host_clock_ms(
+                [lambda c=c: kern.run(*c) for c in sel]),
+            "numpy_ms": host_clock_ms(
+                [lambda c=c: tk.ack_advance(*c) for c in sel]),
             "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         print(f"  ack_advance {what} x{row['calls']} "
               f"({row['rows_a_call']:.2f} rows a call): card "
-              f"{row['ms']:.6f} ms (profiler {row['profiler_ms']}), plain "
+              f"{row['ms']:.6f} ms in place (profiler "
+              f"{row['profiler_ms']}), {row['device_ms']:.6f} ms on device "
+              f"memory (profiler {row['device_profiler_ms']}), plain "
               f"{row['plain_ms']:.6f} ms, with host launch "
-              f"{row['launch_ms']:.6f} ms, DeviceAckKernel.run round trip "
-              f"{trip_ms:.6f} ms against the numpy host version's "
-              f"{numpy_ms:.6f} ms (host clock), bound "
-              f"{row['bound_ms']:.9f} ms ({row['bound_by']}); no single "
-              f"PyTorch call computes this function", flush=True)
+              f"{row['launch_ms']:.6f} ms; host clock: slot round trip "
+              f"{row['slot_trip_ms']:.6f} ms, DeviceAckKernel.run "
+              f"{row['round_trip_ms']:.6f} ms, numpy host version "
+              f"{row['numpy_ms']:.6f} ms; bound {row['bound_ms']:.9f} ms "
+              f"({row['bound_by']}); no single PyTorch call computes this "
+              f"function", flush=True)
         rows.append(row)
     return rows
+
+
+class AckCopyStaging:
+    """The staging the transport does not use, for the comparison alone:
+    one cudaMemcpyAsync each way between a page-locked AckSlot and device
+    buffers of the same shape around the kernel."""
+
+    def __init__(self, torch, tk, p: int, dev) -> None:
+        self.tk = tk
+        self.slot = tk.AckSlot(p, dev)
+        self.dev_in = torch.empty_like(self.slot.host_in, device=dev)
+        self.dev_out = torch.empty_like(self.slot.host_out, device=dev)
+
+    def launch(self, n: int, stream) -> None:
+        slot = self.slot
+        self.dev_in.copy_(slot.host_in, non_blocking=True)
+        self.tk._launch(self.dev_in.data_ptr(), slot.p, n,
+                        self.dev_out.data_ptr(), stream)
+        slot.host_out.copy_(self.dev_out, non_blocking=True)
+        slot.event.record(stream)
+
+
+def compare_ack_staging(torch, np, tk, cohorts, dev) -> list:
+    """The transport's two possible stagings on the same cohorts, in turns
+    (in place, copied, copied, in place): the kernel reading and writing
+    the page-locked slot in place, against one cudaMemcpyAsync of the
+    whole slot each way to device buffers. On 64 of the web_cdn_100k
+    floor-1 leg's cohorts and on 4,096 and 65,536 of their rows: host ms
+    of a cohort's round trip (fill the slot's n columns, launch, wait on
+    the event, copy the three rows the transport reads; their conversion
+    to Python ints, the same for both, is left out) and card ms of the
+    launch (with its copies). Returns a row per case."""
+    rate = spin_rate(torch)
+    stream = torch.cuda.current_stream()
+    cases = [("run cohorts", evenly(cohorts, 64))] + [
+        (f"{n} rows", [spread_rows(np, cohorts, n)] * 4)
+        for n in (4096, 65536)]
+    rows = []
+    for what, sel in cases:
+        stages = {"in_place": {}, "copied": {}}
+        for c in sel:
+            p = tk.bucket(len(c[0]))
+            if p not in stages["in_place"]:
+                stages["in_place"][p] = tk.AckSlot(p, dev)
+                stages["copied"][p] = AckCopyStaging(torch, tk, p, dev)
+
+        def stage_of(design, n):
+            stage = stages[design][tk.bucket(n)]
+            return stage, (stage if design == "in_place" else stage.slot)
+
+        def trips(design):
+            def trip(c):
+                n = len(c[0])
+                stage, slot = stage_of(design, n)
+                for r, col in enumerate(c):
+                    slot.inp[r, :n] = col
+                stage.launch(n, stream)
+                slot.event.synchronize()
+                return slot.out[2:, :n].copy()
+            return [lambda c=c: trip(c) for c in sel]
+
+        def launches(design):
+            return [lambda c=c: stage_of(design, len(c[0]))[0].launch(
+                len(c[0]), stream) for c in sel]
+
+        for c in sel:  # fill the slots once for the card-only times
+            for design in stages:
+                stage, slot = stage_of(design, len(c[0]))
+                for r, col in enumerate(c):
+                    slot.inp[r, :len(c[0])] = col
+        row = {"inputs": what, "calls": len(sel),
+               "rows_a_call": sum(len(c[0]) for c in sel) / len(sel),
+               "buckets": sorted(stages["in_place"])}
+        for design in ("in_place", "copied", "copied", "in_place"):
+            row.setdefault(f"{design}_trip_ms", []).append(
+                host_ms(torch, trips(design)))
+            row.setdefault(f"{design}_card_ms", []).append(
+                card_ms(torch, launches(design), rate))
+        rows.append(row)
+        print(f"  ack staging {what} ({row['rows_a_call']:.1f} rows a "
+              f"call, buckets {row['buckets']}): round trip ms in place "
+              f"{row['in_place_trip_ms']}, copied {row['copied_trip_ms']}; "
+              f"card ms in place {row['in_place_card_ms']}, copied "
+              f"{row['copied_card_ms']}", flush=True)
+    return rows
+
+
+def ack_breakdown(torch, tk, cohort, reps: int = 200) -> dict:
+    """Host wall microseconds of each step of one cohort's round trip on
+    the card, timed where they run: ``reps`` cohorts, each read before the
+    next (as the transport does), through the steps of AckSlots.take,
+    the gather's fill, AckSlot.launch, the event's wait, the transport's
+    read and the slot's return, with a clock read between steps; then the
+    same round trip as the transport makes it (take, fill,
+    DeviceAckKernel.advance, read, give) and DeviceAckKernel.run (their sums
+    and the steps' may differ by the clock's own cost)."""
+    kern = tk.DeviceAckKernel("cuda")
+    n = len(cohort[0])
+    kern.run(*cohort)  # the bucket's slot
+    names = ("bucket", "take_slot", "fill", "current_stream", "launch",
+             "event_record", "wait", "read", "give")
+    out = dict.fromkeys(names, 0.0)
+    clock = time.perf_counter
+    for _ in range(reps):
+        t = [clock()]
+        tk.bucket(n)
+        t.append(clock())
+        slot = kern.slots.take(n)
+        t.append(clock())
+        for r, c in enumerate(cohort):
+            slot.inp[r, :n] = c
+        t.append(clock())
+        stream = torch.cuda.current_stream(kern.device)
+        t.append(clock())
+        tk._launch(slot._ptrs[0], slot.p, n, slot._ptrs[1], stream)
+        t.append(clock())
+        slot.event.record(stream)
+        t.append(clock())
+        slot.event.synchronize()
+        t.append(clock())
+        read_rows(slot.out, n)
+        t.append(clock())
+        kern.slots.give(slot)
+        t.append(clock())
+        for name, a, b in zip(names, t, t[1:]):
+            out[name] += b - a
+
+    def transport_trip():
+        slot = kern.slots.take(n)
+        for r, c in enumerate(cohort):
+            slot.inp[r, :n] = c
+        read_rows(kern.advance(slot, n), n)
+        kern.slots.give(slot)
+
+    for name, fn in (("round_trip", transport_trip),
+                     ("run", lambda: kern.run(*cohort))):
+        t0 = clock()
+        for _ in range(reps):
+            fn()
+        out[name] = clock() - t0
+    out = {k: v / reps * 1e6 for k, v in out.items()}
+    print(f"  ack cohort host us ({n} rows): "
+          f"{json.dumps({k: round(v, 2) for k, v in out.items()})}",
+          flush=True)
+    return out
+
+
+#: cohort sizes of the floor crossover: the card's round trip against the
+#: numpy host version
+ACK_CROSSOVER_SIZES = (8, 16, 32, 64, 128, 161, 256, 512, 1024, 4096,
+                       16384, 65536)
+
+
+def ack_crossover(torch, np, tk, cohorts, floor: int) -> dict:
+    """Where the card starts to beat the numpy host version on a cohort:
+    at each size of ACK_CROSSOVER_SIZES (the web_cdn_100k floor-1 leg's
+    rows, spread over the run), host ms from a filled slot to the three
+    rows read, on the card (DeviceAckKernel.advance) and by the numpy host
+    version on views of a plain slot's rows (as the transport serves a
+    cohort below its floor); the fill is the same on both sides and left
+    out. The crossover is the least size from which the card wins at
+    every larger size measured (None if it never does)."""
+    kern = tk.DeviceAckKernel("cuda")
+    host = tk.AckSlots("cpu")
+    sizes = {}
+    for n in ACK_CROSSOVER_SIZES:
+        cols = spread_rows(np, cohorts, n)
+        card_slot, host_slot = kern.slots.take(n), host.take(n)
+        for r, c in enumerate(cols):
+            card_slot.inp[r, :n] = c
+            host_slot.inp[r, :n] = c
+        reps = max(20, min(400, 200_000 // n))
+        card = [lambda: read_rows(kern.advance(card_slot, n), n)] * reps
+        numpy = [lambda: read_rows(tk.ack_advance(*host_slot.inp[:, :n]),
+                                   n)] * reps
+        sizes[n] = {"card_ms": host_clock_ms(card),
+                    "numpy_ms": host_clock_ms(numpy)}
+        kern.slots.give(card_slot)
+        host.give(host_slot)
+    cross = None
+    for n in reversed(ACK_CROSSOVER_SIZES):
+        if sizes[n]["card_ms"] >= sizes[n]["numpy_ms"]:
+            break
+        cross = n
+    print(f"  ack floor crossover: the card's round trip beats the numpy "
+          f"host version from {cross} rows up (device floor {floor}); "
+          f"ms by rows: "
+          f"{json.dumps({n: {k: round(v, 6) for k, v in r.items()} for n, r in sizes.items()})}",
+          flush=True)
+    return {"crossover_rows": cross, "sizes": sizes}
 
 
 def dispatch_breakdown(torch, prop, window, n: int = 200) -> dict:
@@ -2282,6 +2592,51 @@ def trace_run(torch, cli, digest, tmp: str, policy: str = "tpu_batch",
           flush=True)
 
 
+def trace_transport(torch, cli, dt, digest, tmp: str) -> None:
+    """Profile phase 11's first leg (tgen_1k with the device transport at
+    floor 1, every cohort on the card) with the draw plane off
+    (tpu_device_floor=-1), so that the card runs the transport alone:
+    counts and tree must equal the reference's, and the profiler must see
+    one ack_advance_kernel a device cohort plus the attach's warm-up (a
+    few dropped launches allowed) and no host<->device copy."""
+    d = os.path.join(tmp, "trace_transport")
+    floor0 = dt._DEVICE_FLOOR
+    dt._DEVICE_FLOOR = 1
+    try:
+        t0 = time.perf_counter()
+        s, device = profiled(torch, lambda: run_cli(cli, [
+            str(EXAMPLES / "tgen_1k.yaml"), "--scheduler-policy",
+            "tpu_batch", "--device", "cuda", "--data-directory", d,
+            "--set", "experimental.device_transport=true", "--set",
+            "experimental.tpu_device_floor=-1", *PY_PLANE]))
+        wall = time.perf_counter() - t0
+    finally:
+        dt._DEVICE_FLOOR = floor0
+    check_run(s, d, digest, TGEN1K_COUNTS, TGEN1K_TREE_DIGEST,
+              "tgen_1k (device transport floor 1, profiled)")
+    want = s["device_transport"]["device_cohorts"] + 1
+    if device is None:
+        print("trace (transport): torch.profiler could not trace the card; "
+              "launches and copies not seen", flush=True)
+        return
+    seen = sum(1 for name, _ in device if "ack_advance_kernel" in name)
+    copies = [name for name, _ in device
+              if name.startswith(("Memcpy HtoD", "Memcpy DtoH"))]
+    busy_s = sum(us for _, us in device) / 1e6
+    print(f"trace (transport): tgen_1k device transport floor 1 under the "
+          f"profiler: counts and tree match the reference; wall "
+          f"{wall:.3f} s, {seen} ack_advance_kernel seen for {want} "
+          f"launches (device cohorts + the attach's warm-up), "
+          f"{len(copies)} host<->device copies, device busy {busy_s:.6f} s",
+          flush=True)
+    if copies:
+        fail(f"the transport's cohorts queued {len(copies)} copies "
+             f"({sorted(set(copies))[:4]})")
+    if not want - max(2, want // 50) <= seen <= want:
+        fail(f"transport trace: {seen} ack_advance kernels for {want} "
+             f"launches, not one a cohort")
+
+
 def main() -> int:
     phase("device")
     try:
@@ -2454,6 +2809,13 @@ def main() -> int:
                                     sa["plane"]))
     del mesh_windows, sa
     timing["ack_advance"] = time_transport_kernel(torch, np, tk, cohorts, dev)
+    ack_extra = {
+        "staging": compare_ack_staging(torch, np, tk, cohorts, dev),
+        # a cohort of the run's median size
+        "breakdown_us": ack_breakdown(
+            torch, tk, sorted(cohorts, key=lambda c: len(c[0]))[
+                len(cohorts) // 2]),
+        "floor": ack_crossover(torch, np, tk, cohorts, dt._DEVICE_FLOOR)}
     del cohorts
     timing["apsp"] = time_apsp(torch, np, apsp, spin_rate(torch), dev)
 
@@ -2461,6 +2823,7 @@ def main() -> int:
     trace_run(torch, cli, output_tree_digest, tmp, "tpu_batch")
     trace_run(torch, cli, output_tree_digest, tmp, "tpu_mesh")
     trace_run(torch, cli, output_tree_digest, tmp, "tpu_batch", engine=True)
+    trace_transport(torch, cli, dt, output_tree_digest, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
 
     # the device function's launches are those of the kernels that run it
@@ -2477,6 +2840,7 @@ def main() -> int:
             "bound_by": head["bound_by"], "library_ms": None,
             **({"inside": list(THREEFRY_INSIDE)}
                if name == "threefry2x32" else {}),
+            **(ack_extra if name == "ack_advance" else {}),
             "shapes": rows})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -33,7 +33,18 @@
 // FP32 rate: bytes bound it. The cohorts of the shipped configs hold tens
 // to a few hundred rows, so launch latency and the host round trip around
 // the launch set the time, not this code (chip_smoke.py measures both).
-// The design is the simple one: one thread per row, 256 threads a block.
+//
+// Design: one thread a row, 256 threads a block, a grid of ceil(n / 256)
+// blocks over the n real rows of a slot of bucket width P (rows stride P,
+// n <= P): no thread works on a pad, and the pads are neither read nor
+// written. DeviceAckKernel (ops/transport_kernels.py) hands the kernel
+// the card's addresses of a page-locked slot that is made once per bucket
+// and reused, so the kernel reads the cohort and writes its result in
+// place across PCIe: a cohort queues one launch and no copy. Each column
+// is contiguous, so a warp's load of one column is 256 consecutive bytes,
+// one coalesced request; the nine loads of a thread are independent and
+// in flight together. chip_smoke.py times this against one copy each way
+// to device memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (shadow_tpu_torch/ops/devcfg.py does this).
@@ -92,15 +103,16 @@ __device__ i64 icbrt(i64 x) {
   return lo;
 }
 
-// in: (9, n) int64 rows [cc_id, cwnd, ssthresh, w_max, epoch_start,
-//     snd_una, bytes_acked, cum_ack, now], row-major
-// out: (5, n) int64 rows [snd_una', bytes_acked', cwnd', w_max',
-//      epoch_start']
-__global__ void ack_advance_kernel(const i64* __restrict__ in, int n,
+// in: (9, p) int64 rows [cc_id, cwnd, ssthresh, w_max, epoch_start,
+//     snd_una, bytes_acked, cum_ack, now], row-major, of which the first
+//     n columns are real
+// out: (5, p) int64 rows [snd_una', bytes_acked', cwnd', w_max',
+//      epoch_start'], of which the first n columns are written
+__global__ void ack_advance_kernel(const i64* __restrict__ in, int p, int n,
                                    i64* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const i64 N = n;  // 64-bit row offsets: 8 * n may pass 2^31
+  const i64 N = p;  // 64-bit row offsets: 8 * p may pass 2^31
   const i64 cc_id = in[i];
   const i64 cwnd = in[N + i];
   const i64 ssthresh = in[2 * N + i];
@@ -161,13 +173,22 @@ __global__ void ack_advance_kernel(const i64* __restrict__ in, int n,
 
 extern "C" {
 
-int shadow_ack_advance(const void* in, int n, void* out, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// ack_advance on the first n of p columns of in (9, p) into out (5, p):
+// device memory, or the device addresses of page-locked host memory
+int shadow_ack_advance(const void* in, int p, int n, void* out,
+                       void* stream) {
+  if (n <= 0 || n > p) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (n + kThreads - 1) / kThreads;
   ack_advance_kernel<<<blocks, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const i64*>(in), n, static_cast<i64*>(out));
+      static_cast<const i64*>(in), p, n, static_cast<i64*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The device address of page-locked host memory (for a kernel that reads
+// or writes it in place); 0 on success.
+int shadow_device_pointer(void* host, void** dev) {
+  return static_cast<int>(cudaHostGetDevicePointer(dev, host, 0));
 }
 
 const char* shadow_cuda_error_string(int code) {

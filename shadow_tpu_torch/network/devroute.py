@@ -15,7 +15,10 @@ policy needs:
 - the adaptive floor: realized readback stalls are compared against what
   the numpy twin would have cost; the floor backs off x4 when the device
   is clearly losing and decays back toward the calibrated floor when it
-  stops (a starved floor also decays on a round-count cooldown),
+  stops (a starved floor also decays on a round-count cooldown). An
+  explicit tpu_device_floor never moves, unlike the reference's, so that
+  the windows such a run dispatches do not depend on how long its reads
+  took,
 - fused multi-round device windows: draw batches accumulate lazily across
   rounds and dispatch as ONE device launch per causal window instead of
   one per round, with a two-slot in-flight pipeline (deferred readbacks
@@ -263,8 +266,9 @@ class DeviceRoutedPlane:
         entirely (no reads -> no stall windows). When probing is clamped
         (the config's windows cannot reach break-even) the decay pauses:
         recovering the floor would only re-probe a device that provably
-        loses at this config's window sizes."""
-        if self._probe_clamped:
+        loses at this config's window sizes. A forced floor never
+        moves (see _floor_settle)."""
+        if self._probe_clamped or self._floor_forced:
             return
         if self.device_floor > self._floor0 and self._floor_cooldown > 0:
             self._floor_cooldown -= 1
@@ -288,7 +292,14 @@ class DeviceRoutedPlane:
         numpy twin would have cost for the same units: back off only when
         the device is clearly LOSING, decay back toward the live
         break-even estimate (never below the calibrated floor) when it
-        stops (results are identical either way)."""
+        stops (results are identical either way).
+
+        An explicitly forced tpu_device_floor never moves: the operator
+        owns routing, so the windows such a run dispatches are a function
+        of the run alone and not of how long its reads took (the reference
+        backs a forced floor off too, so under load its count varies)."""
+        if self._floor_forced:
+            return
         if self._dev_reads < 8:
             return
         np_cost = self._np_per_unit * self._dev_units

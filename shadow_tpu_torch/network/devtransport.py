@@ -206,6 +206,8 @@ class DeviceTransport:
         self._scalar_ema = 0.0
         self._warm = False  # first columnar flush is attach noise
         self._devk = None  # DeviceAckKernel, published by the bg attach
+        # slots of the cohorts the numpy host version serves (plain memory)
+        self._host_slots = TK.AckSlots("cpu")
         self._bg = None
         self._bg_error = None  # a failed attach, re-raised on the sim thread
 
@@ -290,18 +292,17 @@ class DeviceTransport:
             if nacks:
                 self._scalar_ema = _ema(self._scalar_ema, dt / nacks)
         else:
-            fast_maps, cols = self._gather(staged)
-            n = len(cols[0]) if cols is not None else 0
+            fast_maps, ents, slot = self._gather(staged)
+            n = len(ents)
             if n:
-                outs = self._kernel(cols, n)
-                off = 0
-                for fm in fast_maps:
-                    if fm:
-                        for ent in fm.values():
-                            ent.o_cwnd = int(outs[2][off])
-                            ent.o_wmax = int(outs[3][off])
-                            ent.o_eps = int(outs[4][off])
-                            off += 1
+                outs = self._kernel(slot, n)
+                for ent, cw, wm, ep in zip(ents, outs[2][:n].tolist(),
+                                           outs[3][:n].tolist(),
+                                           outs[4][:n].tolist()):
+                    ent.o_cwnd = cw
+                    ent.o_wmax = wm
+                    ent.o_eps = ep
+                slot.home.give(slot)
                 self.cohorts += 1
                 self.acks_batched += n
             for (host, rows, end, _n), fm in zip(staged, fast_maps):
@@ -329,10 +330,12 @@ class DeviceTransport:
 
     # -- gather: rows -> columns --------------------------------------------
     def _gather(self, staged):
-        """Classify each deferred host's ack rows and build the cohort
-        columns. Classification is a guess (replay verifies it row by
-        row); the gathered inputs are the live pre-round state, since
-        deferred hosts ran nothing yet."""
+        """Classify each deferred host's ack rows and write the cohort's
+        inputs straight into the columns of a slot (``_take_slot``).
+        Classification is a guess (replay verifies it row by row); the
+        gathered inputs are the live pre-round state, since deferred hosts
+        ran nothing yet. Returns (a map of row index -> entry for each
+        host, the entries in cohort order, the slot or None)."""
         fast_maps = []
         ents = []
         for host, rows, _end, _n in staged:
@@ -358,11 +361,10 @@ class DeviceTransport:
                 ents.append(ent)
             fast_maps.append(fm)
         if not ents:
-            return fast_maps, None
-        n = len(ents)
-        cols = tuple(np.empty(n, dtype=np.int64) for _ in range(9))
+            return fast_maps, ents, None
+        slot = self._take_slot(len(ents))
         (cc_id, cwnd, ssthresh, w_max, eps, snd_una, bytes_acked, cum,
-         now) = cols
+         now) = slot.inp
         for j, e in enumerate(ents):
             cc_id[j] = e.cc_id
             cwnd[j] = e.cwnd
@@ -373,7 +375,7 @@ class DeviceTransport:
             bytes_acked[j] = e.s.bytes_acked
             cum[j] = e.cum
             now[j] = e.now
-        return fast_maps, cols
+        return fast_maps, ents, slot
 
     @staticmethod
     def _stageable(ep, s, cum) -> bool:
@@ -383,15 +385,25 @@ class DeviceTransport:
         return (ep.state == ESTABLISHED and not s.in_recovery
                 and not s.sacked and not s.rtx_done and cum > s.snd_una)
 
-    def _kernel(self, cols, n: int):
-        """ONE batched dispatch for the whole cohort: the device kernel at
-        or above the device floor (once attached), the numpy host version
-        below it; bit-identical integer programs either way."""
+    def _take_slot(self, n: int):
+        """A slot for a cohort of ``n`` rows: the device kernel's
+        (page-locked on a card) at or above the device floor once it is
+        attached, else one in plain memory for the numpy host version."""
         devk = self._devk
         if devk is not None and n >= _DEVICE_FLOOR:
-            self.device_cohorts += 1
-            return devk.run(*cols)
-        return TK.ack_advance(*cols)
+            return devk.slots.take(n)
+        return self._host_slots.take(n)
+
+    def _kernel(self, slot, n: int):
+        """ONE batched dispatch for the whole cohort in ``slot``: the
+        device kernel if the slot is the device's, else the numpy host
+        version on views of its rows; bit-identical integer programs either
+        way. Returns the five output rows (at least ``n`` columns each),
+        valid until the slot is given back."""
+        if slot.home is self._host_slots:
+            return TK.ack_advance(*slot.inp[:, :n])
+        self.device_cohorts += 1
+        return self._devk.advance(slot, n)
 
     # -- replay: the deferred round, in canonical order ----------------------
     def _replay(self, host, rows, end, fast: Optional[dict]) -> int:

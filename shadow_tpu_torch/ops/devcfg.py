@@ -73,8 +73,9 @@ _SIGNATURES = {
     },
     "transport": {
         "shadow_ack_advance": (ctypes.c_int, [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p]),
+        "shadow_device_pointer": _DEVICE_POINTER,
         "shadow_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "apsp": {

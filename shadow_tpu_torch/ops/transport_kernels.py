@@ -17,14 +17,20 @@ versions that compute the same integers:
   CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts kernel
   launches (plain runs are not launches).
 
-``DeviceAckKernel`` replaces the reference's class of the same name: it
-stages a cohort's nine columns in one pinned buffer, copies them to the
-card in one transfer, launches the kernel on the current stream, copies
-the five outputs back and blocks, as the reference's ``np.asarray(o[:n])``
-does. The reference pads cohorts to pinned bucket shapes (256 ... 65,536)
-and chunks bigger ones at the top bucket, only so that XLA compiles a
-handful of programs; a hand-written kernel takes any row count, so both
-are gone. Rows are independent, so neither can change a result.
+``DeviceAckKernel`` replaces the reference's class of the same name. A
+cohort lives in an ``AckSlot``: a (9, P) int64 input and a (5, P) output,
+page-locked on a card, made once per bucket P (powers of two from 256, as
+the reference's pinned bucket shapes) and reused, and one CUDA event. The
+caller fills the first n input columns in place (network/devtransport.py's
+gather writes each entry straight into them); the kernel reads them and
+writes its result through the slot's device addresses, and the caller
+reads the first n output columns after the event: one launch and one
+event a cohort, no copy and no allocation once its bucket has a slot. The
+reference also chunks cohorts above its top bucket, only so that XLA
+compiles a handful of programs; the kernel takes any row count, so the
+buckets simply go on doubling. Rows are independent and only the first n
+are read, so neither the padding nor a slot's earlier cohort can change a
+result.
 
 Bit-exactness (why int64 arrays equal the scalar Python twin,
 network/transport.py): every operand stays below 2**63 under the
@@ -210,6 +216,26 @@ def ack_advance_torch(cc_id, cwnd, ssthresh, w_max, epoch_start, snd_una,
 
 # -- the kernel wrapper --------------------------------------------------------
 
+#: the smallest slot bucket; buckets double from here (the reference pins
+#: 256 ... 65,536 and chunks above; here they go on doubling)
+MIN_BUCKET = 256
+
+
+def bucket(n: int) -> int:
+    """The slot width for a cohort of ``n`` rows: the least power of two
+    at or above both ``n`` and MIN_BUCKET."""
+    return max(MIN_BUCKET, 1 << max(n - 1, 0).bit_length())
+
+
+def _launch(in_ptr: int, p: int, n: int, out_ptr: int, stream) -> None:
+    """Queue ack_advance_kernel on the first ``n`` of ``p`` columns; the
+    one place a launch is counted."""
+    lib = devcfg.kernel_lib("transport")
+    code = lib.shadow_ack_advance(in_ptr, p, n, out_ptr, stream.cuda_stream)
+    devcfg.check_launch(lib, code, "ack_advance")
+    LAUNCHES["ack_advance"] += 1
+
+
 def ack_advance_device(packed: torch.Tensor) -> torch.Tensor:
     """One cohort's ack advance: (9, n) int64 rows in ``IN_COLUMNS`` order
     -> (5, n) int64 rows in ``OUT_COLUMNS`` order. CPU tensor: the plain
@@ -235,26 +261,93 @@ def ack_advance_device(packed: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"ack_advance: unsupported device {packed.device}")
     out = torch.empty((len(OUT_COLUMNS), n), dtype=torch.int64,
                       device=packed.device)
-    if n == 0:
-        return out
-    lib = devcfg.kernel_lib("transport")
-    code = lib.shadow_ack_advance(
-        packed.data_ptr(), n, out.data_ptr(),
-        torch.cuda.current_stream(packed.device).cuda_stream)
-    devcfg.check_launch(lib, code, "ack_advance")
-    LAUNCHES["ack_advance"] += 1
+    if n:
+        _launch(packed.data_ptr(), n, n, out.data_ptr(),
+                torch.cuda.current_stream(packed.device))
     return out
+
+
+class AckSlot:
+    """The buffers of one cohort at bucket ``p``, made once and reused: the
+    (9, P) int64 input (``inp``, a numpy view, rows in ``IN_COLUMNS``
+    order) and the (5, P) output (``out``, rows in ``OUT_COLUMNS`` order),
+    page-locked on a card (plain memory on the CPU), their device
+    addresses and one CUDA event. ``home`` is the pool it goes back to."""
+
+    __slots__ = ("p", "home", "host_in", "host_out", "inp", "out", "event",
+                 "_ptrs")
+
+    def __init__(self, p: int, device, home=None) -> None:
+        cuda = device.type == "cuda"
+        self.p, self.home = p, home
+        self.host_in = torch.zeros((len(IN_COLUMNS), p), dtype=torch.int64,
+                                   pin_memory=cuda)
+        self.host_out = torch.zeros((len(OUT_COLUMNS), p), dtype=torch.int64,
+                                    pin_memory=cuda)
+        self.inp = self.host_in.numpy()
+        self.out = self.host_out.numpy()
+        self.event = torch.cuda.Event() if cuda else None
+        self._ptrs = ((devcfg.device_pointer(self.host_in, "transport"),
+                       devcfg.device_pointer(self.host_out, "transport"))
+                      if cuda else None)
+
+    def launch(self, n: int, stream=None) -> None:
+        """ack_advance of the first ``n`` input columns into the first
+        ``n`` output columns: on a card the kernel, reading and writing the
+        slot in place, queued on ``stream`` with the event recorded after
+        it; on the CPU the plain version at once."""
+        if n > self.p:
+            raise ValueError(f"ack_advance: {n} rows in a slot of {self.p}")
+        if self.event is None:
+            self.host_out[:, :n] = torch.stack(
+                ack_advance_torch(*self.host_in[:, :n]))
+            return
+        if n:
+            _launch(self._ptrs[0], self.p, n, self._ptrs[1], stream)
+        self.event.record(stream)
+
+    def wait(self) -> None:
+        """Block until the last launch's result is in ``out``."""
+        if self.event is not None:
+            self.event.synchronize()
+
+
+class AckSlots:
+    """The free AckSlots of one device, by bucket. ``made`` counts the
+    slots ever made: after the first cohort of a bucket it stays put while
+    cohorts take and give back one slot at a time."""
+
+    def __init__(self, device) -> None:
+        self.device = torch.device(device)
+        self._free: dict = {}  # bucket -> [AckSlot]
+        self.made = 0
+
+    def take(self, n: int) -> AckSlot:
+        """A free slot whose bucket holds ``n`` rows, made if there is
+        none."""
+        p = bucket(n)
+        free = self._free.setdefault(p, [])
+        if free:
+            return free.pop()
+        self.made += 1
+        return AckSlot(p, self.device, self)
+
+    def give(self, slot: AckSlot) -> None:
+        self._free[slot.p].append(slot)
 
 
 class DeviceAckKernel:
     """ack_advance on a device: the card (the CUDA kernel) or, for
     ``device="cpu"``, the plain PyTorch version. Results equal the numpy
     host version's bit for bit, so routing between them is wall-clock
-    policy only."""
+    policy only. A cohort takes a slot (``slots.take(n)``), fills
+    ``slot.inp[:, :n]``, calls ``advance(slot, n)`` and reads the returned
+    rows before ``slots.give(slot)``."""
 
     def __init__(self, device: str = "cuda") -> None:
         self.device = devcfg.select_device(device)
         self._cuda = self.device.type == "cuda"
+        self.slots = AckSlots(self.device)
         if self._cuda:
             devcfg.kernel_lib("transport")  # build or load now
 
@@ -267,26 +360,29 @@ class DeviceAckKernel:
         k.run(z, z + MIN_CWND, *[z] * 7)
         return k
 
+    def advance(self, slot: AckSlot, n: int) -> np.ndarray:
+        """ack_advance of the first ``n`` rows of ``slot``: one launch and
+        one event on the current stream, then a wait on that event alone.
+        Returns the (5, n) output rows, a view of the slot valid until it
+        is given back."""
+        slot.launch(n, torch.cuda.current_stream(self.device)
+                    if self._cuda else None)
+        slot.wait()
+        return slot.out[:, :n]
+
     def run(self, cc_id, cwnd, ssthresh, w_max, epoch_start, snd_una,
             bytes_acked, cum_ack, now) -> tuple:
         """ack_advance of one cohort (nine int64 numpy columns of one
-        length), on this kernel's device; returns the five output columns
-        as numpy arrays once the result is on the host."""
+        length), through a slot; returns the five output columns as numpy
+        arrays of their own."""
         cols = (cc_id, cwnd, ssthresh, w_max, epoch_start, snd_una,
                 bytes_acked, cum_ack, now)
         n = len(cc_id)
-        stage = torch.empty((len(cols), n), dtype=torch.int64,
-                            pin_memory=self._cuda)
-        a = stage.numpy()
-        for r, c in enumerate(cols):
-            a[r] = c
-        if not self._cuda:
-            out = ack_advance_device(stage).numpy()
-            return tuple(out[i] for i in range(len(OUT_COLUMNS)))
-        dev_out = ack_advance_device(stage.to(self.device, non_blocking=True))
-        host = torch.empty((len(OUT_COLUMNS), n), dtype=torch.int64,
-                           pin_memory=True)
-        host.copy_(dev_out, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
-        out = host.numpy()
-        return tuple(out[i] for i in range(len(OUT_COLUMNS)))
+        slot = self.slots.take(n)
+        try:
+            for r, c in enumerate(cols):
+                slot.inp[r, :n] = c
+            out = self.advance(slot, n)
+            return tuple(out[i].copy() for i in range(len(OUT_COLUMNS)))
+        finally:
+            self.slots.give(slot)

@@ -247,6 +247,40 @@ def test_ack_advance_matches_plain_on_card(dev, n):
 
 
 @pytest.mark.cuda
+def test_ack_slots_match_plain_on_card(dev):
+    """The transport's slot path on the card (chip_smoke.check_ack_slots):
+    buckets that grow and shrink, a reused slot with fewer rows, the
+    bucket edges and the largest cohort, each one launch, against the
+    plain and numpy host versions; one slot a bucket."""
+    cs = _smoke()
+    assert cs.check_ack_slots(torch, np, tk, dev,
+                              np.random.default_rng(3)) > 0
+
+
+@pytest.mark.cuda
+def test_ack_cohort_allocates_nothing_after_its_bucket_is_made(dev):
+    """After the first cohort of a bucket, a cohort makes no slot and no
+    device allocation, and launches once."""
+    kern = tk.DeviceAckKernel("cuda")
+    cols = _smoke().ack_sweep(np, np.random.default_rng(5), 256)
+    kern.run(*(c[:161] for c in cols))
+    made = kern.slots.made
+    allocated = torch.cuda.memory_allocated(dev)
+    tk.reset_launches()
+    for n in (161, 1, 200, 256):
+        slot = kern.slots.take(n)
+        for r, c in enumerate(cols):
+            slot.inp[r, :n] = c[:n]
+        out = kern.advance(slot, n)
+        for a, b in zip(out, tk.ack_advance(*(c[:n] for c in cols))):
+            assert np.array_equal(a, b)
+        kern.slots.give(slot)
+    assert tk.LAUNCHES["ack_advance"] == 4
+    assert kern.slots.made == made
+    assert torch.cuda.memory_allocated(dev) == allocated
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("g", [1, 2, 17, 300])
 def test_apsp_matches_plain_on_card(dev, g):
     """The min-plus squaring kernel against its plain version on the card,

@@ -17,9 +17,11 @@ Unported features are refused by name with exit 2.
 import contextlib
 import importlib.util
 import io
+import itertools
 import json
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -39,6 +41,11 @@ COUNTS = ("rounds", "events", "units_sent", "units_dropped", "bytes_sent")
 ENGINES = {"c_engine": [], "python_plane": [
     "--set", "experimental.native_colcore=false"]}
 REF_PLANE = ENGINES["python_plane"]
+#: device windows of tgen_100host at tpu_device_floor 1 with a state
+#: digest every 50 rounds while the floor holds: the port's count, whose
+#: forced floor never moves, and the reference's on a clock under which no
+#: read stalls (test_reference_forced_floor_follows_its_clock)
+TGEN100_FLOOR1_WINDOWS = 920
 
 
 def _run(main, cfg, data_dir, extra=(), policy="tpu_batch"):
@@ -98,10 +105,75 @@ def test_identical_to_reference(tmp_path, config, digest_every, floor,
         assert {k: ref[k] for k in COUNTS} == cs.TGEN100_COUNTS
         assert ref_tree_digest(ref_dir) == cs.TGEN100_TREE_DIGEST
     if floor == 1 and config == "tgen_100host.yaml":
-        # the forced floor really sent windows through the device plane
-        assert port["device"]["windows_dispatched"] > 0
+        # the forced floor really sent windows through the device plane.
+        # The port's count is a function of the run alone; the
+        # reference's is wall-clock routing (a stalled read backs its
+        # forced floor off, so under load it dispatches fewer windows),
+        # held here to the reference's own invariant (windows > 0) and to
+        # the port's count on a clock that never stalls, below
         assert (port["device"]["windows_dispatched"]
-                == ref["device"]["windows_dispatched"])
+                == TGEN100_FLOOR1_WINDOWS)
+        assert ref["device"]["windows_dispatched"] > 0
+
+
+def _set_plane_clock(monkeypatch, colplane, step: float) -> None:
+    """Give a columnar plane module a wall clock that advances ``step``
+    seconds at every reading: at 0 no read stalls, at 0.03 every timed
+    window read takes 30 ms, as on a loaded host."""
+    ticks = itertools.count()
+    monkeypatch.setattr(colplane, "_walltime", types.SimpleNamespace(
+        perf_counter=lambda: next(ticks) * step))
+
+
+def _floor1_argv(engine=None):
+    argv = ["--set", "experimental.tpu_device_floor=1",
+            "--state-digest-every", "50"]
+    if engine is None:
+        return argv + REF_PLANE
+    return argv + ENGINES[engine] + ["--device", "cpu"]
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_forced_floor_window_count_ignores_read_stalls(tmp_path,
+                                                       monkeypatch, engine):
+    """A forced tpu_device_floor holds however long the window reads
+    take: with every read a 30 ms stall the port dispatches the same
+    windows as with none, and gives the reference's results. (A floor
+    that backed off after slow reads would dispatch fewer windows on a
+    loaded host, and the identity test's count would vary with the
+    load.)"""
+    from shadow_tpu_torch.network import colplane
+
+    _set_plane_clock(monkeypatch, colplane, 0.03)
+    port = _run(port_cli.main, EX / "tgen_100host.yaml", tmp_path / "port",
+                _floor1_argv(engine))
+    assert port["native_colcore"] is (engine == "c_engine")
+    assert port["device"]["windows_dispatched"] == TGEN100_FLOOR1_WINDOWS
+    cs = _chip_smoke()
+    assert {k: port[k] for k in COUNTS} == cs.TGEN100_COUNTS
+    assert output_tree_digest(tmp_path / "port") == cs.TGEN100_TREE_DIGEST
+
+
+@pytest.mark.parametrize("step", [0.0, 0.03])
+def test_reference_forced_floor_follows_its_clock(tmp_path, monkeypatch,
+                                                  step):
+    """Why the identity test pins the port's window count instead of
+    comparing it with the reference's: on a clock that never stalls the
+    reference dispatches TGEN100_FLOOR1_WINDOWS at floor 1, but its forced
+    floor backs off after slow reads, and then it dispatches fewer (its
+    results stay the same: routing is wall-clock policy there)."""
+    from shadow_tpu.network import colplane as ref_colplane
+
+    _set_plane_clock(monkeypatch, ref_colplane, step)
+    ref = _run(ref_cli.main, EX / "tgen_100host.yaml", tmp_path / "ref",
+               _floor1_argv())
+    n = ref["device"]["windows_dispatched"]
+    if step:
+        assert 0 < n < TGEN100_FLOOR1_WINDOWS
+    else:
+        assert n == TGEN100_FLOOR1_WINDOWS
+    assert ({k: ref[k] for k in COUNTS}
+            == _chip_smoke().TGEN100_COUNTS)
 
 
 @pytest.mark.parametrize("config", ["echo.yaml", "tgen_100host.yaml",

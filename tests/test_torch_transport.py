@@ -152,6 +152,113 @@ def test_device_kernel_on_cpu_runs_the_plain_version(n):
         assert g.shape == (n,) and np.array_equal(g, w)
 
 
+# -- the slots: a cohort in a reused buffer of bucket width -------------------
+
+@pytest.mark.parametrize("n, p", [(0, 256), (1, 256), (255, 256),
+                                  (256, 256), (257, 512), (65536, 65536),
+                                  (65537, 131072)])
+def test_bucket_is_the_least_power_of_two_from_256(n, p):
+    assert TK.bucket(n) == p
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 65536, 65537])
+def test_slot_at_bucket_edges_matches_reference(n):
+    """One row, a full bucket and one row past it: the slot path (fill the
+    input view, advance, read the output rows) gives the reference's five
+    columns, and the rows read are exactly the cohort's."""
+    cols = _sweep(n, n)
+    kern = TK.DeviceAckKernel("cpu")
+    slot = kern.slots.take(n)
+    assert slot.p == TK.bucket(n) >= n
+    for r, c in enumerate(cols):
+        slot.inp[r, :n] = c
+    got = kern.advance(slot, n)
+    assert got.shape == (5, n)
+    for g, w in zip(got, REF_TK.ack_advance(*cols)):
+        assert np.array_equal(g, w)
+    kern.slots.give(slot)
+
+
+def test_reused_slot_shows_no_stale_row_and_buckets_grow_and_shrink():
+    """Cohorts whose buckets grow and shrink, through run(): each result
+    is the reference's and as long as its cohort, though a reused slot
+    still holds a bigger cohort's rows past n; one slot a bucket is made
+    and no more."""
+    kern = TK.DeviceAckKernel("cpu")
+    sizes = (300, 5, 70000, 3, 512, 257, 300, 1)
+    for i, n in enumerate(sizes):
+        cols = _sweep(100 + i, n)
+        got = kern.run(*cols)
+        for g, w in zip(got, REF_TK.ack_advance(*cols)):
+            assert g.shape == (n,) and np.array_equal(g, w)
+    assert kern.slots.made == len({TK.bucket(n) for n in sizes}) == 3
+    # the 512 bucket's slot still holds the 512-row cohort past row 300
+    slot = kern.slots.take(300)
+    want = REF_TK.ack_advance(*_sweep(100 + sizes.index(512), 512))
+    assert np.array_equal(slot.out[2, 300:512], want[2][300:512])
+    assert kern.slots.made == 3
+
+
+def test_chip_smoke_slot_check_passes_on_the_cpu():
+    """chip_smoke.check_ack_slots, the card's slot check, runs its whole
+    sequence here on plain-memory slots."""
+    assert CS.check_ack_slots(torch, np, TK, torch.device("cpu"),
+                              np.random.default_rng(9)) > 2 * len(
+                                  CS.ACK_SLOT_SIZES)
+
+
+def test_slot_refuses_more_rows_than_its_bucket():
+    slot = TK.DeviceAckKernel("cpu").slots.take(10)
+    with pytest.raises(ValueError, match="rows in a slot of 256"):
+        slot.launch(257)
+
+
+@pytest.mark.parametrize("floor", [4096, 1])
+def test_gather_fills_the_slot_in_place(tmp_path, monkeypatch, floor):
+    """A whole web run: the gather writes every entry's nine inputs
+    straight into its cohort's slot (the kernel's slot at floor 1, a plain
+    one for the numpy host version at 4096), each cohort's five outputs
+    equal the reference's ack_advance on those inputs bit for bit, and
+    after the first cohort of a bucket no slot is made."""
+    monkeypatch.setattr(dt, "_DEVICE_FLOOR", floor)
+    gather, kernel = dt.DeviceTransport._gather, dt.DeviceTransport._kernel
+    seen = []
+
+    def checked_gather(self, staged):
+        fast_maps, ents, slot = gather(self, staged)
+        if ents:
+            want = np.array([[e.cc_id, e.cwnd, e.ssthresh, e.w_max,
+                              e.epoch_start, e.snd_una, e.s.bytes_acked,
+                              e.cum, e.now] for e in ents], np.int64).T
+            assert np.array_equal(slot.inp[:, :len(ents)], want)
+        return fast_maps, ents, slot
+
+    def checked_kernel(self, slot, n):
+        inputs = slot.inp[:, :n].copy()
+        outs = kernel(self, slot, n)
+        for g, w in zip(outs, REF_TK.ack_advance(*inputs)):
+            assert np.array_equal(g[:n], w)
+        seen.append((slot.home is self._host_slots, slot.p,
+                     (self._devk.slots.made, self._host_slots.made)))
+        return outs
+
+    monkeypatch.setattr(dt.DeviceTransport, "_gather", checked_gather)
+    monkeypatch.setattr(dt.DeviceTransport, "_kernel", checked_kernel)
+    ctl = _port_controller(tmp_path / "port", True)
+    s = ctl.run()["device_transport"]
+    assert len(seen) == s["cohorts"] > 0
+    assert all(host is (floor > 1) for host, _, _ in seen)
+    # one slot a bucket on each side (the device's first is the attach's
+    # warm-up, bucket 256), none made once a bucket has one
+    made = [m for _, _, m in seen]
+    buckets = {p for _, p, _ in seen}
+    assert made[-1] == ((1, len(buckets)) if floor > 1
+                        else (len(buckets | {256}), 0))
+    for i in range(1, len(seen)):
+        if seen[i][1] in {p for _, p, _ in seen[:i]}:
+            assert made[i] == made[i - 1]
+
+
 def test_wrapper_refuses_bad_input():
     good = torch.zeros((9, 4), dtype=torch.int64)
     assert TK.ack_advance_device(good[:, :0].contiguous()).shape == (5, 0)
