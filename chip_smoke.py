@@ -99,11 +99,29 @@ Phases, in order; any failure exits non-zero:
              reset before each leg and read after: min_draw launches for
              the speculative waves, draw_flags at floor 1, mesh_exchange
              once per window at floor 0.
-13. apsp path — apsp_device, the port's device-APSP entry point, on the
+13. policies — the thread policies (thread_per_core, the reference's
+             default, and thread_per_host: the per-unit plane, the
+             reference's CPU baseline, launching no kernel) and the gossip
+             and Tor models, at the shipped host counts (POLICY_LEGS):
+             tgen_1k under both thread policies; gossip_10k and
+             tor_400relay under tpu_batch as a user runs it (C engine), at
+             tpu_device_floor=1 (draw_flags must launch) and under
+             thread_per_core; tor_400relay on the Python plane with the
+             device transport at floor 1 (ack_advance must launch once a
+             device cohort, plus the warm-up); tgen_100host and
+             tor_400relay under thread_per_host. Legs cut short of the
+             config's stop time say so in their label and carry their own
+             reference constants. Each gives the reference's counts, tree
+             (and last state digest where named); launch counts reset
+             before each leg and read after. Prints each leg's sim-s/wall-s
+             and phase_wall, the thread pool's worker count, and for each
+             config the reference's vs_baseline: tpu_batch over
+             thread_per_core, in sim-s/wall-s.
+14. apsp path — apsp_device, the port's device-APSP entry point, on the
              card on the three real topologies: equal to the plain version
              and to graph.py's routing tables; launches reset before, read
              after.
-14. timing  — every kernel and its plain version timed on the main paths'
+15. timing  — every kernel and its plain version timed on the main paths'
              own inputs (APSP at G = 4,096): card time per launch or call,
              with the bound for the same work; the draw kernels as the
              plane launches them (on page-locked slots, in place) and on
@@ -121,7 +139,7 @@ Phases, in order; any failure exits non-zero:
              rows, the steps of a cohort's round trip on the host, and the
              cohort size from which the card's round trip beats the numpy
              host version (the floor crossover).
-15. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
+16. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
              plane, at tpu_device_floor=1 under tpu_batch and at
              tpu_mesh_floor=0 under tpu_mesh, and on the C engine at
              tpu_device_floor=1; counts and output tree must
@@ -195,6 +213,50 @@ WEB1500_TREE_DIGEST = (
     "f2363262ec4fc7d2d00dde59c3265e6bcc33ff032f7048a7eef451375834367c")
 WEB1500_STATE_DIGEST = (
     "f5098e07dbac31757bdcd2d44740b4bd263f60ef9166f94e75a37f0b96642ab3")
+#: the digest of an empty hosts/ tree (no host wrote a log)
+EMPTY_TREE_DIGEST = (
+    "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855")
+#: examples/gossip_10k.yaml (10,000 nodes, 30 s) and tor_400relay.yaml
+#: (1,010 hosts, 60 s): identical under every policy, on either plane and
+#: with the C engine on or off, from
+#:   python -m shadow_tpu examples/<config>.yaml \
+#:     [--state-digest-every <last round>]
+#: No gossip node logs before its stop, so gossip_10k's tree is empty and
+#: the state digest of its last round holds the run to the reference.
+GOSSIP10K_COUNTS = {"rounds": 2265, "events": 1341556,
+                    "units_sent": 1331546, "units_dropped": 4349,
+                    "bytes_sent": 228165232}
+GOSSIP10K_STATE_DIGEST = (
+    "a9910bdd673aa56091be5ee9f0197170370dfb4801477537be4b764caba82891")
+TOR400_COUNTS = {"rounds": 11848, "events": 256536, "units_sent": 252730,
+                 "units_dropped": 1393, "bytes_sent": 1240607816}
+TOR400_TREE_DIGEST = (
+    "cb920bf1489754cbd2757111701eac27c0197c94c5a5b00348c91f0cede64419")
+#: thread_per_host wakes one OS thread per active host every round (30-55
+#: ms a round at 1,000 hosts on an H100 machine's host CPU), so its
+#: 1,000-host legs are cut to 2 s of simulated time, the least that
+#: carries traffic: the reference's results there, from
+#:   python -m shadow_tpu examples/<config>.yaml --stop-time 2s \
+#:     --state-digest-every <last round>
+TGEN1K_2S_COUNTS = {"rounds": 490, "events": 5184, "units_sent": 5370,
+                    "units_dropped": 17, "bytes_sent": 44806220}
+TGEN1K_2S_TREE_DIGEST = (
+    "e2327cbc4f74b4ba399d7e23d570ad8169b6901329f1157b18e15cc035a9f211")
+TGEN1K_2S_STATE_DIGEST = (
+    "c968f6e0ccc8d0f2d090842a32e9907c2bbfe25c8314dfc74ff6d2a1c6a597f5")
+TOR400_2S_COUNTS = {"rounds": 391, "events": 1060, "units_sent": 696,
+                    "units_dropped": 3, "bytes_sent": 46361}
+TOR400_2S_TREE_DIGEST = (
+    "6f88810780fb3397979ba832439019a741b902db514a5f60fab5b18a9df38080")
+TOR400_2S_STATE_DIGEST = (
+    "9bfd41e925fb1466d7e8c9198f85cd3da4324ceb8e591083baea9ff1c51980bd")
+#: the clients and servers still running at 2 s are process errors there
+#: ("expected exit 0, got None" / "still running"): errors_digest of the
+#: reference's list
+TGEN1K_2S_ERRORS = (
+    949, "5b0c99999e9cabbb6261d1073c17d05aec626254493d3fa6d584b37eaac80101")
+TOR400_2S_ERRORS = (
+    600, "bcb1ed3862c35879144c580f73e8140747a2bb530afd043b0ef76dd8f5f8885e")
 
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth,
 #: and INT32 operations outside the tensor cores — 64 INT32 lanes per SM
@@ -208,6 +270,48 @@ PEAK_INT32_OPS_PER_S = 67e12 / 4
 #: xor), 5 key injections x 2 adds, the second word's initial add, the
 #: counter's shift and OR, and the draw's shift and compare (or min)
 OPS_PER_LANE = 20 * 3 + 5 * 2 + 1 + 2 + 2
+
+#: the policies phase: (label, config, policy, extra argv, counts, tree,
+#: last state digest or None, process errors as errors_digest gives them
+#: or None for none). A label ending "floor1" must launch draw_flags; one
+#: ending "transport floor1" runs the device transport with every cohort
+#: on the card; a "user" leg runs with no draw plane attached yet, as a
+#: fresh process does; "cut 2s" legs stop early.
+_DIG_GOSSIP = ["--state-digest-every", str(GOSSIP10K_COUNTS["rounds"])]
+_CUT_2S = ["--stop-time", "2s", "--state-digest-every"]
+_FLOOR1 = ["--set", "experimental.tpu_device_floor=1"]
+POLICY_LEGS = (
+    ("tgen_1k thread_per_core", "tgen_1k.yaml", "thread_per_core", [],
+     TGEN1K_COUNTS, TGEN1K_TREE_DIGEST, None, None),
+    ("tgen_1k thread_per_host cut 2s", "tgen_1k.yaml", "thread_per_host",
+     _CUT_2S + [str(TGEN1K_2S_COUNTS["rounds"])], TGEN1K_2S_COUNTS,
+     TGEN1K_2S_TREE_DIGEST, TGEN1K_2S_STATE_DIGEST, TGEN1K_2S_ERRORS),
+    ("gossip_10k tpu_batch user", "gossip_10k.yaml", "tpu_batch",
+     _DIG_GOSSIP, GOSSIP10K_COUNTS, EMPTY_TREE_DIGEST,
+     GOSSIP10K_STATE_DIGEST, None),
+    ("gossip_10k tpu_batch floor1", "gossip_10k.yaml", "tpu_batch",
+     _DIG_GOSSIP + _FLOOR1, GOSSIP10K_COUNTS, EMPTY_TREE_DIGEST,
+     GOSSIP10K_STATE_DIGEST, None),
+    ("gossip_10k thread_per_core", "gossip_10k.yaml", "thread_per_core",
+     _DIG_GOSSIP, GOSSIP10K_COUNTS, EMPTY_TREE_DIGEST,
+     GOSSIP10K_STATE_DIGEST, None),
+    ("tor_400relay tpu_batch user", "tor_400relay.yaml", "tpu_batch", [],
+     TOR400_COUNTS, TOR400_TREE_DIGEST, None, None),
+    ("tor_400relay tpu_batch floor1", "tor_400relay.yaml", "tpu_batch",
+     _FLOOR1, TOR400_COUNTS, TOR400_TREE_DIGEST, None, None),
+    ("tor_400relay thread_per_core", "tor_400relay.yaml", "thread_per_core",
+     [], TOR400_COUNTS, TOR400_TREE_DIGEST, None, None),
+    ("tor_400relay device transport floor1", "tor_400relay.yaml",
+     "tpu_batch", ["--set", "experimental.device_transport=true",
+                   "--set", "experimental.native_colcore=false"],
+     TOR400_COUNTS, TOR400_TREE_DIGEST, None, None),
+    ("tgen_100host thread_per_host", "tgen_100host.yaml", "thread_per_host",
+     [], TGEN100_COUNTS, TGEN100_TREE_DIGEST, None, None),
+    ("tor_400relay thread_per_host cut 2s", "tor_400relay.yaml",
+     "thread_per_host", _CUT_2S + [str(TOR400_2S_COUNTS["rounds"])],
+     TOR400_2S_COUNTS, TOR400_2S_TREE_DIGEST, TOR400_2S_STATE_DIGEST,
+     TOR400_2S_ERRORS),
+)
 
 #: kernel -> (its source, the TPU program it replaces, the CUDA kernels
 #: one wrapper call launches, as torch.profiler names them)
@@ -1247,7 +1351,7 @@ def transport_path(cli, tk, dt, digest, tmp: str) -> tuple:
     return launches, recorded
 
 
-# -- phase 14: kernel times on the main paths' inputs -------------------------
+# -- phase 15: kernel times on the main paths' inputs -------------------------
 
 def lanes_needed(torch, prop, x, key, width: int, early_exit: bool) -> int:
     """Threefry evaluations the kernel needs for these inputs: every lane
@@ -2328,7 +2432,7 @@ def check_apsp_kernels(torch, np, apsp, dev) -> int:
     return err
 
 
-# -- phase 13: the device-APSP entry point ------------------------------------
+# -- phase 14: the device-APSP entry point ------------------------------------
 
 def apsp_path(np, apsp) -> int:
     """apsp_device, the port's device-APSP entry point, on the card for
@@ -2507,24 +2611,121 @@ def engine_path(cli, prop, mesh, digest, tmp: str) -> tuple:
     return total, waves, summaries
 
 
-# -- phases 7-9, 11, 12 and 15: the port's CLI on the card -------------------
+# -- phase 13: the thread policies and the gossip and Tor models ------------
 
-def run_cli(cli, argv: list) -> dict:
-    """Run the port's CLI in this process; returns its JSON summary."""
+def policies_path(cli, prop, tk, dt, digest, tmp: str, tgen_user: dict):
+    """The thread policies (the per-unit plane, the reference's CPU
+    baseline, which launches no kernel) and the gossip and Tor models
+    through the port's CLI, at the shipped host counts: POLICY_LEGS, in
+    order. Launch counts are reset just before each leg and read just
+    after. Each leg must give the reference's counts and tree (and, where
+    it names one, the last state digest); the thread-policy legs must
+    launch nothing and the tpu_batch legs at floor 1 must launch
+    draw_flags; the device-transport leg must send cohorts to the card and
+    launch ack_advance once for each, plus once for the attach's warm-up.
+    Prints each leg's sim-s/wall-s and phase_wall, the thread pool's
+    worker count and, for each config, the reference's vs_baseline: the
+    tpu_batch leg's sim-s/wall-s (C engine, as a user runs it; tgen_1k's
+    from the engine path, ``tgen_user``) over thread_per_core's. Returns
+    the launches summed over the legs."""
+    print(f"thread_per_core workers: os.cpu_count() = {os.cpu_count()}",
+          flush=True)
+    total = {"draw_flags": 0, "min_draw": 0, "ack_advance": 0}
+    rates = {"tgen_1k": {"tpu_batch": tgen_user["sim_sec_per_wall_sec"]}}
+    floor0 = dt._DEVICE_FLOOR
+    for label, cfg, policy, extra, counts, tree, state, errors in \
+            POLICY_LEGS:
+        d = os.path.join(tmp, "policies_" + label.replace(" ", "_"))
+        argv = [str(EXAMPLES / cfg), "--scheduler-policy", policy,
+                "--device", "cuda", "--data-directory", d, *extra]
+        if label.endswith("user"):
+            # a fresh process has attached no draw plane yet
+            prop.DeviceDrawPlane._cache.clear()
+        devt = label.endswith("transport floor1")
+        gc.collect()  # the previous leg's hosts, outside this leg's wall
+        prop.reset_launches()
+        tk.reset_launches()
+        dt._DEVICE_FLOOR = 1 if devt else floor0
+        try:
+            t0 = time.perf_counter()
+            s = run_cli(cli, argv, cut=errors is not None)
+            wall = time.perf_counter() - t0
+        finally:
+            dt._DEVICE_FLOOR = floor0
+        n = {**prop.LAUNCHES, "ack_advance": tk.LAUNCHES["ack_advance"]}
+        check_run(s, d, digest, counts, tree, label, errors)
+        if state is not None and last_state_digest(d) != state:
+            fail(f"{label}: last state digest {last_state_digest(d)} != "
+                 f"reference {state}")
+        rate = s["sim_sec_per_wall_sec"]
+        print(f"{label}: counts, tree{' and state digest' if state else ''}"
+              f" match the reference; wall {wall:.3f} s (controller "
+              f"{s['wall_seconds']:.3f} s), {rate:.6f} sim-s/wall-s, "
+              f"native_colcore {s['native_colcore']}, launches "
+              f"{json.dumps(n)}, windows {s['device_windows_dispatched']}, "
+              f"phase_wall {json.dumps(s['phase_wall'])}"
+              + (f", device_transport {json.dumps(s['device_transport'])}"
+                 if devt else ""), flush=True)
+        if policy.startswith("thread"):
+            if any(n.values()) or s["native_colcore"]:
+                fail(f"{label}: a thread policy ran the C engine or "
+                     f"launched a kernel ({json.dumps(n)})")
+        elif not devt and s.get("native_colcore") is not True:
+            fail(f"{label}: the C engine did not run")
+        if label.endswith("floor1") and not devt and n["draw_flags"] <= 0:
+            fail(f"{label}: draw_flags was never launched at floor 1")
+        if devt:
+            dtr = s["device_transport"]
+            if dtr["device_cohorts"] <= 0:
+                fail(f"{label}: no cohort went to the card at floor 1")
+            if n["ack_advance"] != dtr["device_cohorts"] + 1:
+                fail(f"{label}: ack_advance launched {n['ack_advance']} "
+                     f"times, not once per device cohort "
+                     f"({dtr['device_cohorts']}) plus the attach's warm-up")
+        for k in total:
+            total[k] += n[k]
+        if label.endswith("user") or policy == "thread_per_core":
+            rates.setdefault(cfg.split(".")[0], {})[
+                "tpu_batch" if label.endswith("user") else policy] = rate
+    for name, r in rates.items():
+        fast, base = r["tpu_batch"], r["thread_per_core"]
+        print(f"vs_baseline {name}: tpu_batch {fast:.6f} / thread_per_core "
+              f"{base:.6f} sim-s/wall-s = {fast / base:.4f}", flush=True)
+    print(f"launches on the policies legs: {json.dumps(total)}", flush=True)
+    return total
+
+
+# -- phases 7-9, 11-13 and 16: the port's CLI on the card -------------------
+
+def run_cli(cli, argv: list, cut: bool = False) -> dict:
+    """Run the port's CLI in this process; returns its JSON summary. A run
+    ``cut`` short of its config's stop time may exit 1: processes that
+    had not finished are process errors there, held by check_run."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv + ["--json-summary", "--quiet"])
-    if rc != 0:
+    if rc not in ((0, 1) if cut else (0,)):
         fail(f"shadow_tpu_torch {' '.join(argv)} exited {rc}")
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
+def errors_digest(errors: list) -> tuple:
+    """(count, sha256 of the lines) of a run's process errors."""
+    import hashlib
+
+    return len(errors), hashlib.sha256(
+        "\n".join(errors).encode()).hexdigest()
+
+
 def check_run(summary: dict, data_dir: str, digest, counts, tree,
-              what: str) -> None:
-    """The run had no process errors, and its counts and output tree are
-    the reference's."""
-    if summary["process_errors"]:
-        fail(f"{what}: process errors {summary['process_errors']}")
+              what: str, errors: tuple = None) -> None:
+    """The run's process errors (none, unless ``errors`` gives the
+    reference's as errors_digest does), counts and output tree are the
+    reference's."""
+    got = errors_digest(summary["process_errors"])
+    if got != (errors or errors_digest([])):
+        fail(f"{what}: process errors {got} != reference {errors} "
+             f"({summary['process_errors'][:3]})")
     got = {k: summary[k] for k in counts}
     if got != counts:
         fail(f"{what}: counts {got} != reference {counts}")
@@ -2788,9 +2989,16 @@ def main() -> int:
         cli, tk, dt, output_tree_digest, tmp)
 
     phase("engine path")
-    engine, waves, _ = engine_path(cli, prop, mesh, output_tree_digest, tmp)
+    engine, waves, engine_runs = engine_path(cli, prop, mesh,
+                                             output_tree_digest, tmp)
     for name, n in engine.items():
         launches[name] = launches.get(name, 0) + n
+
+    phase("policies")
+    for name, n in policies_path(
+            cli, prop, tk, dt, output_tree_digest, tmp,
+            engine_runs["tgen_1k tpu_batch user"]).items():
+        launches[name] += n
 
     phase("apsp path")
     launches["apsp"] = apsp_path(np, apsp)

@@ -105,7 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="where the data-plane kernels run (default cuda): the "
         "loss-draw kernels under tpu_batch, the mesh kernels "
         "(mesh_exchange, mesh_round_step, mesh_scan) under tpu_mesh; cpu "
-        "runs their plain PyTorch versions",
+        "runs their plain PyTorch versions. The thread policies "
+        "(thread_per_core, the default, and thread_per_host) are the "
+        "reference's CPU baseline and launch no kernel",
     )
     p.add_argument(
         "--set",

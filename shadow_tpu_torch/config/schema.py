@@ -33,8 +33,6 @@ from shadow_tpu_torch.utils.units import parse_bandwidth, parse_size
 
 SCHEDULER_POLICIES = ("thread_per_core", "thread_per_host", "tpu_batch",
                       "tpu_mesh")
-#: the policies this package runs (the rest are refused by name)
-PORTED_POLICIES = ("tpu_batch", "tpu_mesh")
 LOG_LEVELS = ("error", "warning", "info", "debug", "trace")
 #: congestion-control algorithms (network/transport.py
 #: CONGESTION_CONTROLS keys, duplicated here so config validation does
@@ -50,7 +48,7 @@ CONGESTION_CONTROL_NAMES = ("newreno", "cubic")
 MODEL_REGISTRY = ("tgen", "gossip", "tor", "echo", "httpd", "web",
                   "dns", "abr")
 #: the models this package has its own copy of (models/)
-PORTED_MODELS = ("tgen", "echo", "web", "dns")
+PORTED_MODELS = ("tgen", "gossip", "tor", "echo", "web", "dns")
 
 
 @dataclass
@@ -469,10 +467,6 @@ def refuse_unported(cfg: ConfigOptions) -> None:
     differently here would break the port's promise of identical
     results."""
     g, e = cfg.general, cfg.experimental
-    if e.scheduler_policy not in PORTED_POLICIES:
-        _refuse(f"scheduler_policy {e.scheduler_policy} (ported: "
-                f"{', '.join(PORTED_POLICIES)}; pass --scheduler-policy "
-                f"tpu_batch or tpu_mesh)")
     if e.scheduler_policy == "tpu_batch" and e.tpu_mesh_shards > 1:
         _refuse("experimental.tpu_mesh_shards > 1 (draws sharded over "
                 "several devices)")

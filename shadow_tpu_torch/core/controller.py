@@ -21,15 +21,19 @@ event (or the earliest event an in-flight draw batch can produce) — idle
 sim time costs nothing (the closed-form token buckets account elapsed time
 exactly, so results are identical to grinding through empty rounds).
 
-With the C engine attached (``experimental.native_colcore``, the
-default; network/colplane.py) the engine's ``run_round`` replaces the
-scheduler's per-host loop and keeps the active-host set itself.
+The plane follows the policy, as in the reference: the thread policies
+run the per-unit plane (network/engine.py, backend numpy: the reference's
+CPU baseline, with no device work), tpu_batch and tpu_mesh the columnar
+plane (network/colplane.py). With the C engine attached to the columnar
+plane (``experimental.native_colcore``, the default) the engine's
+``run_round`` replaces the scheduler's per-host loop and keeps the
+active-host set itself.
 
 ``device`` ("cuda" or "cpu") is where the data-plane kernels run (the
-loss draws under tpu_batch, the mesh programs under tpu_mesh). The
-reference's faults, telemetry, live plane, checkpoints, supervision,
-sharding and managed processes are refused at config load
-(config/schema.py::refuse_unported).
+loss draws under tpu_batch, the mesh programs under tpu_mesh); it is
+checked under every policy. The reference's faults, telemetry, live
+plane, checkpoints, supervision, sharding and managed processes are
+refused at config load (config/schema.py::refuse_unported).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from shadow_tpu_torch.core.time import NS_PER_SEC, NS_PER_US, SimTime, T_NEVER, 
 from shadow_tpu_torch.host.host import Host
 from shadow_tpu_torch.host.process import PluginProcess
 from shadow_tpu_torch.network.colplane import ColumnarPlane
+from shadow_tpu_torch.network.engine import NetworkEngine
 from shadow_tpu_torch.network.fluid import MTU, NetParams
 from shadow_tpu_torch.network.graph import load_graph
 from shadow_tpu_torch.utils.counters import Counters
@@ -139,29 +144,43 @@ class Controller:
             max_unit=cfg.experimental.unit_mtus * MTU,
         )
         policy = cfg.experimental.scheduler_policy
+        backend = {"tpu_batch": "tpu", "tpu_mesh": "mesh"}.get(policy,
+                                                               "numpy")
         # active-host tracking: per-round work is O(hosts with pending
         # events), not O(all hosts). A host (re)activates on its queue's
         # empty->nonempty edge.
         self._active: set = set()  # host IDS (ints sort at C speed)
-        # the tpu policies run the array-native columnar plane
-        # (network/colplane.py): tpu_batch with its loss draws on the
-        # device, tpu_mesh with each causal window's draws and arrival
-        # exchange as one sharded program (parallel/mesh.py)
-        backend = {"tpu_batch": "tpu", "tpu_mesh": "mesh"}[policy]
-        self.engine = ColumnarPlane(
-            self.graph, params, self.hosts, self.round_ns,
-            backend=backend, tpu_options=cfg.experimental,
-            bootstrap_end=cfg.general.bootstrap_end_time, device=device,
-        )
-        self.engine.activate = self._active.add
+        if backend in ("tpu", "mesh"):
+            # the tpu policies run the array-native columnar plane
+            # (network/colplane.py): tpu_batch with its loss draws on the
+            # device, tpu_mesh with each causal window's draws and arrival
+            # exchange as one sharded program (parallel/mesh.py)
+            self.engine = ColumnarPlane(
+                self.graph, params, self.hosts, self.round_ns,
+                backend=backend, tpu_options=cfg.experimental,
+                bootstrap_end=cfg.general.bootstrap_end_time,
+                device=device,
+            )
+            self.engine.activate = self._active.add
+        else:
+            # the thread policies keep the per-unit plane, the
+            # reference-architecture baseline (results are bit-identical
+            # across planes: tests/test_torch_policies.py)
+            self.engine = NetworkEngine(
+                self.graph, params, self.hosts, self.round_ns,
+                backend=backend, tpu_options=cfg.experimental,
+                bootstrap_end=cfg.general.bootstrap_end_time,
+                device=device,
+            )
         for h in self.hosts:
             h.engine = self.engine
             h.equeue.on_first = partial(self._active.add, h.id)
-        # C engine (csrc/colcore.c): owns the per-round host loop and
-        # maintains the active set directly; activations route through it
-        # so its sorted active-set snapshot merges new members
-        # incrementally instead of re-snapshotting every round
-        self._c_core = self.engine._c
+        # C engine (csrc/colcore.c, columnar plane only): owns the
+        # per-round host loop and maintains the active set directly;
+        # activations route through it so its sorted active-set snapshot
+        # merges new members incrementally instead of re-snapshotting
+        # every round
+        self._c_core = getattr(self.engine, "_c", None)
         if self._c_core is not None:
             self._c_core.bind_active(self._active)
             act = self._c_core.activate
@@ -170,8 +189,11 @@ class Controller:
                 h.equeue.on_first = partial(act, h.id)
         # experimental.device_transport (network/devtransport.py):
         # wall-clock policy only, every path is bit-identical; it stands
-        # down when the C engine is attached
-        self.engine.attach_devtransport(cfg.experimental, device)
+        # down when the C engine is attached, and the per-unit plane has
+        # no columnar transport (a no-op there, as in the reference)
+        attach_dt = getattr(self.engine, "attach_devtransport", None)
+        if attach_dt is not None:
+            attach_dt(cfg.experimental, device)
         self.scheduler = make_scheduler(policy, self.hosts,
                                         cfg.general.parallelism)
 
@@ -309,7 +331,7 @@ class Controller:
         # end_of_round; their event counts fold back into `executed`, so
         # the skip-ahead decision, the events total and the round grid
         # are the scalar twin's
-        devt = self.engine.devt
+        devt = getattr(self.engine, "devt", None)
         while now < stop:
             if self._interrupt is not None:
                 # graceful shutdown: the signal arrived during the last
@@ -426,6 +448,7 @@ class Controller:
             h.fold_counters()
             self.counters.merge(h.counters)
         self.engine.close()  # join the device-attach thread before teardown
+        devt = getattr(self.engine, "devt", None)  # the columnar plane's
         sim_sec = end_time / NS_PER_SEC
         rate = sim_sec / self.wall_seconds if self.wall_seconds > 0 else float("inf")
         self.log.info(
@@ -481,9 +504,9 @@ class Controller:
             # device transport: wall-clock routing telemetry for the
             # columnar endpoint ticks; engaged = at least one cohort
             # advanced through the batched kernel
-            **({} if self.engine.devt is None else {
-                "device_transport_engaged": self.engine.devt.cohorts > 0,
-                "device_transport": self.engine.devt.summary(),
+            **({} if devt is None else {
+                "device_transport_engaged": devt.cohorts > 0,
+                "device_transport": devt.summary(),
             }),
             # which host engine ran: the C engine (csrc/colcore.c) or the
             # Python columnar plane

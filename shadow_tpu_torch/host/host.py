@@ -6,13 +6,14 @@ the engine's arrays, indexed by host id), socket namespace, event queue, and
 processes. All Host state is host-local: cross-host interaction happens
 only through the network engine at round boundaries.
 
-A copy of shadow_tpu/host/host.py for the columnar plane, with its C
-engine hooks (the engine's stream endpoints and packed emission, when
-network/colplane.py attached it). The per-unit plane's Unit path, packet
-capture, the telemetry collector (flow records are dropped, as the
-reference drops them with telemetry off), the fault lifecycle
-(crash/reboot) and checkpoint pickling are not ported yet (their config
-keys are refused at load).
+A copy of shadow_tpu/host/host.py for both data planes: the columnar
+plane, with its C engine hooks (the engine's stream endpoints and packed
+emission, when network/colplane.py attached it), and the per-unit plane
+of the thread policies (network/engine.py: Unit emission into ``egress``,
+delivery through ``deliver``). Packet capture, the telemetry collector
+(flow records are dropped, as the reference drops them with telemetry
+off), the fault lifecycle (crash/reboot) and checkpoint pickling are not
+ported yet (their config keys are refused at load).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from shadow_tpu_torch.network import unit as U
 from shadow_tpu_torch.network.fluid import HEADER, MTU
 from shadow_tpu_torch.network.transport import (
     CONGESTION_CONTROLS, DatagramSocket, StreamEndpoint, ESTABLISHED)
+from shadow_tpu_torch.network.unit import Unit
 from shadow_tpu_torch.utils.counters import Counters
 
 EPHEMERAL_BASE = 49152
@@ -57,6 +59,7 @@ class Host:
         self.counters = Counters()
         self._now: SimTime = 0
         self._uid_counter = 0
+        self.egress: list[Unit] = []  # units emitted this round (FIFO)
         #: columnar-plane state (set when the engine is a ColumnarPlane):
         #: egress rows are plain tuples; resolved arrival rows for the
         #: current round land in _inbox (see network/colplane.py)
@@ -84,6 +87,7 @@ class Host:
         self.down = False
         self._n_teardown = 0
         self._n_blackholed = 0
+        self.ingress_deferred: list[Unit] = []  # ingress-bucket backlog
         #: packet capture (utils/pcap.py is not ported): always None, so
         #: every host takes the C engine's dispatch when it is attached
         self.pcap = None
@@ -288,26 +292,85 @@ class Host:
         aeps[ep] = None
 
     # -- units ------------------------------------------------------------
+    def next_uid(self) -> int:
+        uid = (self.id << 32) | self._uid_counter
+        self._uid_counter += 1
+        return uid
+
+    def emit_unit(self, u: Unit) -> None:
+        self.egress.append(u)
+        self._n_emitted += 1
+
     def emit_msg(self, kind: int, dst: int, size: int, nbytes: int,
                  payload, seq: int, sport: int, dport: int,
                  frag_idx: int = 0, nfrags: int = 1) -> None:
         """Field-level emission API shared by the transport and datagram
-        layers: one tuple append, no Unit object, no uid mint (uids are
-        assigned vectorized at the barrier in the same per-host emission
-        order)."""
-        c = getattr(self.colplane, "_c", None)
-        if c is not None:
-            # C engine: packed egress row, no tuple (the C side also
-            # tracks the emitters list and the emitted counter)
-            c.emit_row(self.id, kind, dst, size, self._now, sport, dport,
-                       nbytes, seq, frag_idx, nfrags, payload)
+        layers. Columnar plane: one tuple append, no Unit object, no uid
+        mint (uids are assigned vectorized at the barrier in the same
+        per-host emission order). Per-unit plane: materialize a Unit, the
+        reference-architecture data path."""
+        cp = self.colplane
+        if cp is not None:
+            c = cp._c
+            if c is not None:
+                # C engine: packed egress row, no tuple (the C side also
+                # tracks the emitters list and the emitted counter)
+                c.emit_row(self.id, kind, dst, size, self._now, sport,
+                           dport, nbytes, seq, frag_idx, nfrags, payload)
+                return
+            eg = self.egress_rows
+            if not eg:
+                cp.emitters.append(self)
+            eg.append((kind, dst, size, self._now, sport, dport, nbytes,
+                       seq, frag_idx, nfrags, payload))
+            self._n_emitted += 1
             return
-        eg = self.egress_rows
-        if not eg:
-            self.colplane.emitters.append(self)
-        eg.append((kind, dst, size, self._now, sport, dport, nbytes,
-                   seq, frag_idx, nfrags, payload))
-        self._n_emitted += 1
+        self.emit_unit(Unit(
+            uid=self.next_uid(),
+            src=self.id,
+            dst=dst,
+            size=size,
+            t_emit=self._now,
+            kind=kind,
+            src_port=sport,
+            dst_port=dport,
+            nbytes=nbytes,
+            payload=payload,
+            seq=seq,
+            frag_idx=frag_idx,
+            nfrags=nfrags,
+        ))
+
+    def deliver(self, u: Unit, now: SimTime) -> None:
+        """A unit cleared the ingress token bucket: dispatch to a socket."""
+        self._now = max(self._now, now)
+        self._n_delivered += 1
+        if u.kind == U.DGRAM:
+            sock = self._udp.get(u.dst_port)
+            if sock is not None:
+                sock.handle(u, now)
+            else:
+                self.counters.add("units_unroutable", 1)
+            return
+        key = (u.dst_port, u.src, u.src_port)
+        ep = self._conns.get(key)
+        if ep is None and u.kind == U.SYN:
+            on_accept = self._listeners.get(u.dst_port)
+            if on_accept is None:
+                self.counters.add("units_unroutable", 1)
+                return
+            ep = self._make_endpoint(u.dst_port, u.src, u.src_port,
+                                     initiator=False)
+            ep.state = ESTABLISHED
+            ep.sender.adv_wnd = u.seq  # client window rides the SYN
+            self._conns[key] = ep
+            ep.emit(U.SYNACK, wnd=ep.receiver.window())
+            on_accept(ep, now)
+            return
+        if ep is None:
+            self.counters.add("units_unroutable", 1)
+            return
+        ep.handle(u, now)
 
     # -- determinism sentinel (shadow_tpu/checkpoint.py) ------------------
     def state_fingerprint(self) -> dict:

@@ -6,6 +6,9 @@ need. Ported so far:
 - echo:   minimal UDP request/response pair (smoke tests)
 - tgen:   stream transfer client/server in tgen's shape (connect, request
           N bytes, stream back, record completion)
+- gossip: Bitcoin-like inv/getdata/tx datagram flood
+- tor:    onion-routing relays, exits and clients (3-hop circuits over
+          streams)
 - web:    HTTP/CDN tier: page-loop clients, edge caches, origins
 - dns:    authoritative servers, a caching recursive resolver, and the
           stub client the web model resolves its edges with

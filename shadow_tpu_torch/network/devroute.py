@@ -1,12 +1,15 @@
-"""Device-routing machinery for the columnar data plane.
+"""Shared device-routing machinery for the two data planes.
 
-The port of shadow_tpu/network/devroute.py. The columnar plane
-(network/colplane.py) routes loss-draw batches either to the numpy twin
-(fluid.loss_flags) or to the CUDA kernels (ops/propagate.py) — the paths
-are bit-identical, so routing is pure wall-clock policy. Under
-``scheduler_policy: tpu_mesh`` it builds the mesh data plane instead
-(parallel/mesh.py; ``mesh_plane``). This base class carries what that
-policy needs:
+The port of shadow_tpu/network/devroute.py. Both the per-unit plane
+(network/engine.py, behind the thread policies) and the columnar plane
+(network/colplane.py, behind tpu_batch and tpu_mesh) route loss-draw
+batches either to the numpy twin (fluid.loss_flags) or to the CUDA
+kernels (ops/propagate.py) — the paths are bit-identical, so routing is
+pure wall-clock policy. The thread policies run backend numpy, which
+attaches no device: every batch takes the twin. Under
+``scheduler_policy: tpu_mesh`` the columnar plane builds the mesh data
+plane instead (parallel/mesh.py; ``mesh_plane``). This base class
+carries what that routing needs:
 
 - background device attach + floor calibration (simulations start on the
   numpy twin and switch over when the device publishes); a failed attach

@@ -1,7 +1,7 @@
 """Transports for plugin workloads: reliable streams (TCP-like) and datagrams.
 
-A copy of shadow_tpu/network/transport.py, less the per-unit plane's
-arrival methods and the fault-injection counters (neither is ported yet).
+A copy of shadow_tpu/network/transport.py, less the fault-injection
+counters (faults are not ported yet).
 
 Re-designs the reference's userspace TCP + UDP socket layer (SURVEY.md §1
 layer 9, §2 "TCP stack") as a *fluid* model suited to batched per-round
@@ -68,6 +68,7 @@ from typing import Callable, Optional
 from shadow_tpu_torch.core.time import NS_PER_MS, SimTime
 from shadow_tpu_torch.network.fluid import HEADER
 from shadow_tpu_torch.network import unit as U
+from shadow_tpu_torch.network.unit import Unit
 
 MSS = 1460  # cwnd growth quantum (classic ethernet MSS)
 INIT_CWND = 10 * MSS  # RFC 6928
@@ -776,11 +777,15 @@ class StreamEndpoint:
             self.local_port, self.remote_port)
 
     # -- unit arrivals (dispatched by the host) ---------------------------
+    def handle(self, unit: Unit, now: SimTime) -> None:
+        self.handle_fields(unit.kind, unit.nbytes, unit.payload, unit.seq,
+                           now)
+
     def handle_fields(self, k: int, nbytes: int, payload: Optional[bytes],
                       seq: int, now: SimTime) -> None:
-        """Field-level arrival dispatch from the columnar plane's inbox
-        loop. Control units: nbytes = cumulative ack, seq = advertised
-        window."""
+        """Field-level arrival dispatch shared by the per-unit plane
+        (via handle) and the columnar plane's inbox loop. Control units:
+        nbytes = cumulative ack, seq = advertised window."""
         if self._idle_timer is not None:
             self._rearm_idle()  # any arrival proves the peer is alive
         if k == U.SYN:
@@ -912,6 +917,11 @@ class DatagramSocket:
             emit(U.DGRAM, dst_host, (hi - lo) + HEADER, hi - lo,
                  payload[lo:hi] if payload is not None else None,
                  dgram, port, dst_port, frag_idx=i, nfrags=nfrags)
+
+    def handle(self, unit: Unit, now: SimTime) -> None:
+        self.handle_fields(unit.nbytes, unit.payload,
+                           (unit.src, unit.src_port), unit.seq,
+                           unit.frag_idx, unit.nfrags, now)
 
     def handle_fields(self, nbytes: int, payload: Optional[bytes],
                       src_addr: tuple, dgram: int, frag_idx: int,

@@ -19,5 +19,41 @@ threefry packet lane (fluid.PKT_SHIFT), admitting 2**26 hosts.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
+from shadow_tpu_torch.core.time import SimTime
+from shadow_tpu_torch.network.fluid import HARD_MAX_PKTS, HEADER, MTU
+
 # unit kinds
 SYN, SYNACK, DATA, ACK, FIN, FINACK, DGRAM = range(7)
+KIND_NAMES = ("SYN", "SYNACK", "DATA", "ACK", "FIN", "FINACK", "DGRAM")
+
+
+@dataclass(slots=True)
+class Unit:
+    """One unit of the per-unit plane (network/engine.py, behind the
+    thread policies). The columnar plane carries the same fields as a
+    tuple row and never builds one."""
+
+    uid: int
+    src: int  # source host id
+    dst: int  # destination host id
+    size: int  # wire bytes (payload + HEADER)
+    t_emit: SimTime
+    kind: int
+    src_port: int
+    dst_port: int
+    nbytes: int = 0  # application payload byte count
+    payload: Optional[bytes] = None
+    seq: int = 0  # stream byte offset / datagram id
+    frag_idx: int = 0
+    nfrags: int = 1
+
+    @property
+    def npkts(self) -> int:
+        return min(max(1, -(-self.size // MTU)), HARD_MAX_PKTS)
+
+
+def wire_size(payload_bytes: int) -> int:
+    return payload_bytes + HEADER

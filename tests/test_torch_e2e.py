@@ -410,9 +410,17 @@ def _with(mutate):
 
 
 REFUSALS = {
-    "thread_per_core": ([], None, "scheduler_policy thread_per_core"),
-    "thread_per_host": (["--scheduler-policy", "thread_per_host"], None,
-                        "scheduler_policy thread_per_host"),
+    "abr": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
+        "server"]["processes"][0].update(
+            path="pyapp:shadow_tpu.models.abr:AbrServer"),
+        "workload model 'abr'"),
+    "httpd": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
+        "server"]["processes"][0].update(
+            path="pyapp:shadow_tpu.models.httpd:HttpServer"),
+        "workload model 'httpd'"),
+    "faults_thread_per_core": ([], lambda d: d.update(
+        faults={"events": [{"time": "2s", "kind": "host_down",
+                            "hosts": ["server"]}]}), "fault injection"),
     "faults": (["--scheduler-policy", "tpu_batch"], lambda d: d.update(
         faults={"events": [{"time": "2s", "kind": "host_down",
                             "hosts": ["server"]}]}), "fault injection"),
@@ -444,10 +452,6 @@ REFUSALS = {
     "managed": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
         "server"]["processes"][0].update(path="/bin/true"),
         "managed native processes"),
-    "model": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
-        "server"]["processes"][0].update(
-            path="pyapp:shadow_tpu.models.gossip:GossipNode"),
-        "workload model 'gossip'"),
     "no_card": (["--scheduler-policy", "tpu_batch", "--device", "cuda"],
                 None, "torch.cuda.is_available() is false"),
 }
