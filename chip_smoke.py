@@ -117,11 +117,34 @@ Phases, in order; any failure exits non-zero:
              and phase_wall, the thread pool's worker count, and for each
              config the reference's vs_baseline: tpu_batch over
              thread_per_core, in sim-s/wall-s.
-14. apsp path — apsp_device, the port's device-APSP entry point, on the
+14. faults — fault injection, telemetry, packet capture and the ABR
+             model (FAULT_LEGS), each shipped config at full width and
+             full stop time: abr_1k (1,000 hosts, 45 s) under tpu_batch as
+             a user runs it and at tpu_device_floor=1 and under
+             thread_per_core; web_cdn (316 hosts, 40 s) under tpu_batch as
+             a user runs it and at floor 1, on the Python plane with the
+             device transport at floor 1, under tpu_mesh at
+             tpu_mesh_floor=0 and under thread_per_core; gossip_churn (122
+             hosts, 40 s, 117 fault transitions) under tpu_batch as a user
+             runs it, again with the draw plane attached from round 0 (the
+             speculative min_draw waves run across the transitions) and at
+             floor 1, and under thread_per_host; partition_heal under
+             tpu_batch as a user runs it; then echo with packet capture on
+             both hosts on the C engine. Each gives the reference's
+             counts, tree, last state digest, metrics.jsonl and flows.jsonl
+             (sha256), fault transitions and telemetry block, and echo its
+             .pcap files byte for byte; launch counts reset before each
+             leg and read after: draw_flags on the floor-1 legs, min_draw
+             on the cached leg, ack_advance once a device cohort plus the
+             warm-up, mesh_exchange once a window at floor 0, nothing on
+             the thread policies. Prints each leg's controller wall,
+             sim-s/wall-s, phase_wall with its telemetry share, and
+             launches.
+15. apsp path — apsp_device, the port's device-APSP entry point, on the
              card on the three real topologies: equal to the plain version
              and to graph.py's routing tables; launches reset before, read
              after.
-15. timing  — every kernel and its plain version timed on the main paths'
+16. timing  — every kernel and its plain version timed on the main paths'
              own inputs (APSP at G = 4,096): card time per launch or call,
              with the bound for the same work; the draw kernels as the
              plane launches them (on page-locked slots, in place) and on
@@ -139,7 +162,7 @@ Phases, in order; any failure exits non-zero:
              rows, the steps of a cohort's round trip on the host, and the
              cohort size from which the card's round trip beats the numpy
              host version (the floor crossover).
-16. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
+17. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
              plane, at tpu_device_floor=1 under tpu_batch and at
              tpu_mesh_floor=0 under tpu_mesh, and on the C engine at
              tpu_device_floor=1; counts and output tree must
@@ -258,6 +281,97 @@ TGEN1K_2S_ERRORS = (
 TOR400_2S_ERRORS = (
     600, "bcb1ed3862c35879144c580f73e8140747a2bb530afd043b0ef76dd8f5f8885e")
 
+#: the faults phase: the shipped configs with a faults: or telemetry:
+#: section, at full width and full stop time. The reference's results,
+#: identical under every policy, on either plane and with the C engine on
+#: or off, from
+#:   python -m shadow_tpu examples/<config>.yaml --scheduler-policy \
+#:     tpu_batch --state-digest-every <last round>
+#: "state": the digest on the last line of state_digests.jsonl; "metrics"
+#: and "flows": sha256 of metrics.jsonl and flows.jsonl (None: the config
+#: has no telemetry: section, and the run must write neither file);
+#: "faults": the summary's fault_transitions_applied; "telemetry": its
+#: telemetry block
+FAULT_RESULTS = {
+    "abr_1k": {
+        "counts": {"rounds": 12433, "events": 629286, "units_sent": 610281,
+                   "units_dropped": 5158, "bytes_sent": 3874135578},
+        "tree": "04fd8813e7e7ac817928e607a81473fc"
+                "65869ecb958864a0644f8e18a9abcfe7",
+        "state": "2c8ea87c7fdfc81e7875999a07971148"
+                 "98c75fdcc714b2b3308a22f384e4a4b7",
+        "metrics": "a4c4df74706822303636bb4fcb5ad026"
+                   "ace6a092acfc48bee2d09ecd3ab7d7fc",
+        "flows": "91dbf1d1f4c5a131debaa69eec99ca7c"
+                 "5942a524ca7970dd068f481ec9f10164",
+        "faults": 4,
+        "telemetry": {"samples": 3, "flows_recorded": 11910, "flows": {
+            "abr.segment": {"count": 11880, "ok": 11880, "failed": 0,
+                            "x_mean": 1277533, "p50_ms": 788.529,
+                            "p90_ms": 1409.286, "p99_ms": 5771.362,
+                            "p99_9_ms": 11274.289},
+            "abr.stall": {"count": 30, "ok": 30, "failed": 0,
+                          "p50_ms": 1442.841, "p90_ms": 4429.185,
+                          "p99_ms": 6174.015, "p99_9_ms": 6174.015}}},
+    },
+    "web_cdn": {
+        "counts": {"rounds": 14158, "events": 91369, "units_sent": 83516,
+                   "units_dropped": 688, "bytes_sent": 358908449},
+        "tree": "a5102526b48c1f13a627e424e5580b4a"
+                "6e660026c4328b6732027df882f51f25",
+        "state": "c52267dd99a8af79a60fc89ff3baa80b"
+                 "15c9e7c727ab2509ac77c72806567e01",
+        "metrics": "4a0d60672d4d5f30835a2c815f2d3375"
+                   "169ec8aad4309a9f4a76321d3a261ab2",
+        "flows": "70b48f67bf648056c6944b5882bbb181"
+                 "2b0c2e66f3ad5ef020c7fd75558ca20f",
+        "faults": 4,
+        "telemetry": {"samples": 4, "flows_recorded": 6205, "flows": {
+            "dns.resolve": {"count": 1072, "ok": 1043, "failed": 29,
+                            "p50_ms": 96.469, "p90_ms": 427.819,
+                            "p99_ms": 3154.117, "p99_9_ms": 3154.117},
+            "web.fetch": {"count": 3923, "ok": 3923, "failed": 0,
+                          "p50_ms": 503.316, "p90_ms": 1409.286,
+                          "p99_ms": 8321.499, "p99_9_ms": 14227.079},
+            "web.origin": {"count": 1210, "ok": 1210, "failed": 0,
+                           "p50_ms": 536.871, "p90_ms": 1140.851,
+                           "p99_ms": 7650.41, "p99_9_ms": 9663.676}}},
+    },
+    "gossip_churn": {
+        "counts": {"rounds": 3114, "events": 13653, "units_sent": 13400,
+                   "units_dropped": 25, "bytes_sent": 4258344},
+        "tree": "f91504bd003215486ab6fb4503d47800"
+                "e21d7e2d3a7f654939f1919eceba3475",
+        "state": "86a960be70232f1e3c657179bdfb2b7a"
+                 "bc37e2db7059213939ecb66a9c300154",
+        "metrics": None, "flows": None, "faults": 117, "telemetry": None,
+    },
+    "partition_heal": {
+        "counts": {"rounds": 862, "events": 725, "units_sent": 714,
+                   "units_dropped": 0, "bytes_sent": 5043528},
+        "tree": "1cda198efaac2f7e23158f80e3f1bace"
+                "fd96da3555251833acdbf4a091813038",
+        "state": "1a849bacb7cbedbd454d8366e066ff95"
+                 "490a07190fa35fd32baa08810d1ea873",
+        "metrics": None, "flows": None, "faults": 2, "telemetry": None,
+    },
+}
+#: examples/echo.yaml with packet capture on both hosts, from
+#:   python -m shadow_tpu examples/echo.yaml --scheduler-policy tpu_batch \
+#:     --set hosts.server.pcap_enabled=true \
+#:     --set hosts.client.pcap_enabled=true
+#: the tree (which holds the two .pcap files) and each file's sha256
+PCAP_ARGV = ["--set", "hosts.server.pcap_enabled=true",
+             "--set", "hosts.client.pcap_enabled=true"]
+ECHO_PCAP_TREE_DIGEST = (
+    "2e9a73bdd2cf4941ebcd00263bb434b5ffef654ceab9a94c6a156f23903af240")
+ECHO_PCAPS = {
+    "hosts/client/client.pcap":
+        "df35a1df8324ffdd5c041ecedc20b921813e2efd25d8b735010e10322d6caea7",
+    "hosts/server/server.pcap":
+        "4cc7ba66c40dd5fafb7b95ec9cd6748c332a64ab8dc004a27802a592ff3a4e04",
+}
+
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth,
 #: and INT32 operations outside the tensor cores — 64 INT32 lanes per SM
 #: against 128 FP32 lanes, so a quarter of the 67 TFLOP/s FP32 rate, which
@@ -311,6 +425,33 @@ POLICY_LEGS = (
      "thread_per_host", _CUT_2S + [str(TOR400_2S_COUNTS["rounds"])],
      TOR400_2S_COUNTS, TOR400_2S_TREE_DIGEST, TOR400_2S_STATE_DIGEST,
      TOR400_2S_ERRORS),
+)
+
+#: the faults phase: (label, config, policy, extra argv). A label ending
+#: "floor1" must launch draw_flags; "transport floor1" runs the device
+#: transport on the Python plane with every cohort on the card (ack_advance
+#: once a device cohort, plus the attach's warm-up); "floor0" sends every
+#: causal window through mesh_exchange; a "user" leg runs with no draw plane
+#: attached yet, as a fresh process does, and the "cached" leg after it
+#: finds the plane attached from round 0, so the C engine's speculative
+#: min_draw waves run across the config's fault transitions
+FAULT_LEGS = (
+    ("abr_1k tpu_batch user", "abr_1k", "tpu_batch", []),
+    ("abr_1k tpu_batch floor1", "abr_1k", "tpu_batch", _FLOOR1),
+    ("abr_1k thread_per_core", "abr_1k", "thread_per_core", []),
+    ("web_cdn tpu_batch user", "web_cdn", "tpu_batch", []),
+    ("web_cdn tpu_batch floor1", "web_cdn", "tpu_batch", _FLOOR1),
+    ("web_cdn device transport floor1", "web_cdn", "tpu_batch",
+     ["--set", "experimental.device_transport=true",
+      "--set", "experimental.native_colcore=false"]),
+    ("web_cdn tpu_mesh floor0", "web_cdn", "tpu_mesh",
+     ["--set", "experimental.tpu_mesh_floor=0"]),
+    ("web_cdn thread_per_core", "web_cdn", "thread_per_core", []),
+    ("gossip_churn tpu_batch user", "gossip_churn", "tpu_batch", []),
+    ("gossip_churn tpu_batch cached", "gossip_churn", "tpu_batch", []),
+    ("gossip_churn tpu_batch floor1", "gossip_churn", "tpu_batch", _FLOOR1),
+    ("gossip_churn thread_per_host", "gossip_churn", "thread_per_host", []),
+    ("partition_heal tpu_batch user", "partition_heal", "tpu_batch", []),
 )
 
 #: kernel -> (its source, the TPU program it replaces, the CUDA kernels
@@ -1351,7 +1492,7 @@ def transport_path(cli, tk, dt, digest, tmp: str) -> tuple:
     return launches, recorded
 
 
-# -- phase 15: kernel times on the main paths' inputs -------------------------
+# -- phase 16: kernel times on the main paths' inputs -------------------------
 
 def lanes_needed(torch, prop, x, key, width: int, early_exit: bool) -> int:
     """Threefry evaluations the kernel needs for these inputs: every lane
@@ -2432,7 +2573,7 @@ def check_apsp_kernels(torch, np, apsp, dev) -> int:
     return err
 
 
-# -- phase 14: the device-APSP entry point ------------------------------------
+# -- phase 15: the device-APSP entry point ------------------------------------
 
 def apsp_path(np, apsp) -> int:
     """apsp_device, the port's device-APSP entry point, on the card for
@@ -2695,7 +2836,156 @@ def policies_path(cli, prop, tk, dt, digest, tmp: str, tgen_user: dict):
     return total
 
 
-# -- phases 7-9, 11-13 and 16: the port's CLI on the card -------------------
+# -- phase 14: fault injection, telemetry, packet capture and ABR -----------
+
+def fault_result(summary: dict, data_dir: str, digest) -> dict:
+    """A run's results in FAULT_RESULTS' form: counts, output tree, last
+    state digest, the sha256 of metrics.jsonl and flows.jsonl (None where
+    the run wrote none), fault_transitions_applied and the telemetry
+    block (None where the summary has none)."""
+    import hashlib
+
+    def sha(name):
+        path = os.path.join(data_dir, name)
+        if not os.path.exists(path):
+            return None
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    return {"counts": {k: summary[k] for k in TGEN1K_COUNTS},
+            "tree": digest(data_dir), "state": last_state_digest(data_dir),
+            "metrics": sha("metrics.jsonl"), "flows": sha("flows.jsonl"),
+            "faults": summary.get("fault_transitions_applied"),
+            "telemetry": summary.get("telemetry")}
+
+
+def pcap_result(data_dir: str, digest) -> tuple:
+    """(output tree, {path in the data directory: sha256}) of a run's
+    .pcap files."""
+    import hashlib
+
+    out = {}
+    for p in sorted(Path(data_dir).rglob("*.pcap")):
+        out[str(p.relative_to(data_dir))] = hashlib.sha256(
+            p.read_bytes()).hexdigest()
+    return digest(data_dir), out
+
+
+def faults_path(cli, prop, tk, dt, mesh, digest, tmp: str) -> dict:
+    """The shipped fault and telemetry configs through the port's CLI, at
+    full width and full stop time: FAULT_LEGS in order, then echo with
+    packet capture on both hosts under tpu_batch on the C engine. Launch
+    counts are reset just before each leg and read just after. Each leg
+    must give the reference's counts, tree, last state digest,
+    metrics.jsonl, flows.jsonl, fault transitions and telemetry block
+    (FAULT_RESULTS), the echo leg its .pcap files byte for byte; the
+    thread-policy legs launch nothing, the floor-1 legs launch
+    draw_flags, the cached leg min_draw, the transport leg ack_advance
+    once a device cohort plus the warm-up, the floor-0 leg mesh_exchange
+    once a window. Prints each leg's controller wall, sim-s/wall-s,
+    phase_wall (its telemetry share beside it) and launches. Returns the
+    launches summed over the legs."""
+    total = {"draw_flags": 0, "min_draw": 0, "ack_advance": 0,
+             "mesh_exchange": 0}
+    floor0 = dt._DEVICE_FLOOR
+
+    def launches():
+        return {**prop.LAUNCHES, "ack_advance": tk.LAUNCHES["ack_advance"],
+                "mesh_exchange": mesh.LAUNCHES["mesh_exchange"]}
+
+    def reset():
+        gc.collect()  # the previous leg's hosts, outside this leg's wall
+        prop.reset_launches()
+        tk.reset_launches()
+        mesh.reset_launches()
+
+    for label, name, policy, extra in FAULT_LEGS:
+        want = FAULT_RESULTS[name]
+        d = os.path.join(tmp, "faults_" + label.replace(" ", "_"))
+        argv = [str(EXAMPLES / f"{name}.yaml"), "--scheduler-policy", policy,
+                "--device", "cuda", "--data-directory", d,
+                "--state-digest-every", str(want["counts"]["rounds"]),
+                *extra]
+        if label.endswith("user"):
+            # a fresh process has attached no draw plane yet
+            prop.DeviceDrawPlane._cache.clear()
+        devt = label.endswith("transport floor1")
+        reset()
+        dt._DEVICE_FLOOR = 1 if devt else floor0
+        try:
+            s = run_cli(cli, argv)
+        finally:
+            dt._DEVICE_FLOOR = floor0
+        n = launches()
+        if s["process_errors"]:
+            fail(f"{label}: process errors {s['process_errors'][:3]}")
+        got = fault_result(s, d, digest)
+        for key, v in want.items():
+            if got[key] != v:
+                fail(f"{label}: {key} {got[key]!r} != reference {v!r}")
+        pw = s["phase_wall"]
+        tel = pw.get("telemetry")
+        print(f"{label}: counts, tree, state digest, metrics.jsonl, "
+              f"flows.jsonl, {got['faults']} fault transitions and the "
+              f"telemetry block match the reference; controller "
+              f"{s['wall_seconds']:.3f} s, {s['sim_sec_per_wall_sec']:.6f} "
+              f"sim-s/wall-s, native_colcore {s['native_colcore']}, "
+              f"launches {json.dumps(n)}, windows "
+              f"{s['device_windows_dispatched']}, phase_wall "
+              f"{json.dumps(pw)}"
+              + ("" if tel is None else
+                 f", telemetry {tel / s['wall_seconds']:.6f} of the "
+                 f"controller wall")
+              + (f", device_transport {json.dumps(s['device_transport'])}"
+                 if devt else ""), flush=True)
+        if policy.startswith("thread"):
+            if any(n.values()) or s["native_colcore"]:
+                fail(f"{label}: a thread policy ran the C engine or "
+                     f"launched a kernel ({json.dumps(n)})")
+        elif s["native_colcore"] is devt:
+            fail(f"{label}: native_colcore {s['native_colcore']}")
+        if label.endswith("floor1") and not devt and n["draw_flags"] <= 0:
+            fail(f"{label}: draw_flags was never launched at floor 1")
+        if label.endswith("cached") and n["min_draw"] <= 0:
+            fail(f"{label}: no speculative min_draw wave was launched")
+        if devt:
+            dtr = s["device_transport"]
+            if dtr["device_cohorts"] <= 0:
+                fail(f"{label}: no cohort went to the card at floor 1")
+            if n["ack_advance"] != dtr["device_cohorts"] + 1:
+                fail(f"{label}: ack_advance launched {n['ack_advance']} "
+                     f"times, not once per device cohort "
+                     f"({dtr['device_cohorts']}) plus the attach's warm-up")
+        if label.endswith("floor0"):
+            formed = pw["mesh_windows"]
+            if formed <= 0 or n["mesh_exchange"] != formed:
+                fail(f"{label}: mesh_exchange launched "
+                     f"{n['mesh_exchange']} times for {formed} windows")
+        for k in total:
+            total[k] += n[k]
+
+    d = os.path.join(tmp, "faults_echo_pcap")
+    reset()
+    s = run_cli(cli, [str(EXAMPLES / "echo.yaml"), "--scheduler-policy",
+                      "tpu_batch", "--device", "cuda", "--data-directory", d,
+                      *PCAP_ARGV])
+    n = launches()
+    tree, pcaps = pcap_result(d, digest)
+    if s["process_errors"] or not s["native_colcore"]:
+        fail(f"echo pcap: process errors {s['process_errors']}, "
+             f"native_colcore {s['native_colcore']}")
+    if tree != ECHO_PCAP_TREE_DIGEST or pcaps != ECHO_PCAPS:
+        fail(f"echo pcap: tree {tree}, pcaps {pcaps} != reference "
+             f"{ECHO_PCAP_TREE_DIGEST}, {ECHO_PCAPS}")
+    print(f"echo pcap (C engine): tree and both .pcap files match the "
+          f"reference byte for byte; launches {json.dumps(n)}", flush=True)
+    for k in total:
+        total[k] += n[k]
+    print(f"launches on the faults legs: {json.dumps(total)}", flush=True)
+    return total
+
+
+# -- phases 7-9, 11-14 and 17: the port's CLI on the card -------------------
 
 def run_cli(cli, argv: list, cut: bool = False) -> dict:
     """Run the port's CLI in this process; returns its JSON summary. A run
@@ -2998,6 +3288,11 @@ def main() -> int:
     for name, n in policies_path(
             cli, prop, tk, dt, output_tree_digest, tmp,
             engine_runs["tgen_1k tpu_batch user"]).items():
+        launches[name] += n
+
+    phase("faults")
+    for name, n in faults_path(cli, prop, tk, dt, mesh, output_tree_digest,
+                               tmp).items():
         launches[name] += n
 
     phase("apsp path")

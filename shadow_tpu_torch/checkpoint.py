@@ -99,9 +99,8 @@ def state_digest(controller, sim_now: int):
         # dominate sentinel cost. A corrupted matrix without a moved
         # cursor still surfaces within a round or two through the arrival
         # times, unit counters, and endpoint state it must perturb.
-        # fault injection is not ported: no fault cursor, hashed as the
-        # reference hashes a run without a faults: section
-        "faults": None,
+        "faults": ((controller.faults.idx, controller.faults.applied)
+                   if controller.faults is not None else None),
         "hosts": hosts,
     }
     return _digest(g), hosts

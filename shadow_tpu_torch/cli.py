@@ -201,6 +201,10 @@ def main(argv=None) -> int:
                 "network": cfg.network,
                 "experimental": dataclasses.asdict(cfg.experimental),
                 "hosts": [dataclasses.asdict(h) for h in cfg.hosts],
+                **({"faults": dataclasses.asdict(cfg.faults)}
+                   if cfg.faults is not None else {}),
+                **({"telemetry": dataclasses.asdict(cfg.telemetry)}
+                   if cfg.telemetry is not None else {}),
             },
             indent=2, default=enc,
         ))
@@ -214,7 +218,8 @@ def main(argv=None) -> int:
                                 device=args.device)
     except ValueError as exc:
         # build-time refusals (no card for --device cuda, bad host
-        # placement) keep the clean one-line error contract
+        # placement, unknown fault targets) keep the clean one-line error
+        # contract
         print(f"shadow_tpu_torch: {exc}", file=sys.stderr)
         return 2
     result = controller.run()

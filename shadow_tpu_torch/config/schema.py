@@ -34,6 +34,8 @@ from shadow_tpu_torch.utils.units import parse_bandwidth, parse_size
 SCHEDULER_POLICIES = ("thread_per_core", "thread_per_host", "tpu_batch",
                       "tpu_mesh")
 LOG_LEVELS = ("error", "warning", "info", "debug", "trace")
+FAULT_KINDS = ("link_down", "link_up", "link_degrade", "host_down",
+               "host_up")
 #: congestion-control algorithms (network/transport.py
 #: CONGESTION_CONTROLS keys, duplicated here so config validation does
 #: not import the transport module)
@@ -48,7 +50,7 @@ CONGESTION_CONTROL_NAMES = ("newreno", "cubic")
 MODEL_REGISTRY = ("tgen", "gossip", "tor", "echo", "httpd", "web",
                   "dns", "abr")
 #: the models this package has its own copy of (models/)
-PORTED_MODELS = ("tgen", "gossip", "tor", "echo", "web", "dns")
+PORTED_MODELS = ("tgen", "gossip", "tor", "echo", "web", "dns", "abr")
 
 
 @dataclass
@@ -202,11 +204,67 @@ class ExperimentalOptions:
 
 
 @dataclass
+class FaultEventOptions:
+    """One entry of the ``faults.events`` timeline (shadow_tpu/faults.py)."""
+
+    time: SimTime
+    kind: str  # one of FAULT_KINDS
+    src_nodes: list[int] = field(default_factory=list)  # GML node ids
+    dst_nodes: list[int] = field(default_factory=list)  # empty = all others
+    hosts: list[str] = field(default_factory=list)  # names; trailing * globs
+    latency_factor: float = 1.0  # link_degrade: multiplies path latency
+    loss_add: float = 0.0  # link_degrade: added loss probability
+    bandwidth_scale: float = 1.0  # link_degrade: scales attached-host NICs
+    duration: Optional[SimTime] = None  # auto-heal/restore after this long
+
+
+@dataclass
+class ChurnOptions:
+    """Seeded random up/down cycling for a set of hosts: alternating
+    exponential uptime/downtime draws from the counter-based fault RNG
+    (core/rng.py::fault_rng), materialized once at startup."""
+
+    hosts: list[str]
+    mean_uptime: SimTime
+    mean_downtime: SimTime
+    start_time: SimTime = 0
+
+
+@dataclass
+class FaultsOptions:
+    events: list[FaultEventOptions] = field(default_factory=list)
+    churn: list[ChurnOptions] = field(default_factory=list)
+
+
+@dataclass
+class TelemetryOptions:
+    """The ``telemetry:`` section (shadow_tpu/telemetry/): sim-time
+    samplers + flow records + streaming percentiles, exported as
+    append-only ``metrics.jsonl`` / ``flows.jsonl``. Presence of the
+    section enables collection; sampling cadence is simulated time, so
+    the streams are byte-identical across scheduler policies, data
+    planes, and the Python/C twins. Telemetry is result-transparent
+    (never simulation state), so it is NOT part of the checkpoint config
+    digest — a resume may change it like other volatile keys."""
+
+    #: snapshot per-host/per-NIC state every this much SIM time, at the
+    #: first round boundary past each grid point (the 10s default keeps
+    #: telemetry within its <=5% wall budget on the tgen_1k bench row —
+    #: BENCH_DETAIL telemetry_overhead; dense series want an explicit
+    #: sample_every)
+    sample_every: SimTime = 10_000_000_000  # 10s
+    #: where metrics.jsonl/flows.jsonl land; None = data_directory
+    metrics_dir: Optional[str] = None
+
+
+@dataclass
 class ConfigOptions:
     general: GeneralOptions = field(default_factory=GeneralOptions)
     network: dict = field(default_factory=lambda: {"graph": {"type": "1_gbit_switch"}})
     experimental: ExperimentalOptions = field(default_factory=ExperimentalOptions)
     hosts: list[HostOptions] = field(default_factory=list)
+    faults: Optional[FaultsOptions] = None
+    telemetry: Optional[TelemetryOptions] = None
     #: accepted-but-unimplemented options the user actually set; the
     #: controller logs each (silently ignoring a knob is a correctness trap)
     warnings: list[str] = field(default_factory=list)
@@ -276,6 +334,102 @@ def _parse_host(name: str, h: dict) -> HostOptions:
     _require(isinstance(procs, list), f"host {name!r} processes must be a list")
     opts.processes = [_parse_process(p) for p in procs]
     return opts
+
+
+def _parse_fault_event(e: dict) -> FaultEventOptions:
+    _require(isinstance(e, dict), f"faults.events entry must be a mapping: {e!r}")
+    _require("time" in e and "kind" in e,
+             f"faults.events entry needs 'time' and 'kind': {e!r}")
+    kind = str(e["kind"])
+    _require(kind in FAULT_KINDS,
+             f"faults.events kind must be one of {FAULT_KINDS}, got {kind!r}")
+    ev = FaultEventOptions(time=parse_time(e["time"]), kind=kind)
+    _require(ev.time >= 0, f"faults.events time must be >= 0: {e!r}")
+    ev.src_nodes = [int(n) for n in (e.get("src_nodes") or [])]
+    ev.dst_nodes = [int(n) for n in (e.get("dst_nodes") or [])]
+    ev.hosts = [str(h) for h in (e.get("hosts") or [])]
+    if kind in ("link_down", "link_up", "link_degrade"):
+        _require(len(ev.src_nodes) > 0,
+                 f"faults {kind} needs src_nodes: {e!r}")
+        _require(not ev.hosts, f"faults {kind} takes nodes, not hosts: {e!r}")
+    else:
+        _require(len(ev.hosts) > 0, f"faults {kind} needs hosts: {e!r}")
+        _require(not ev.src_nodes and not ev.dst_nodes,
+                 f"faults {kind} takes hosts, not nodes: {e!r}")
+    if kind == "link_degrade":
+        ev.latency_factor = float(e.get("latency_factor", 1.0))
+        ev.loss_add = float(e.get("loss_add", 0.0))
+        ev.bandwidth_scale = float(e.get("bandwidth_scale", 1.0))
+        _require(1.0 <= ev.latency_factor <= 1e6,
+                 f"latency_factor must be in [1, 1e6]: {e!r}")
+        _require(0.0 <= ev.loss_add <= 1.0,
+                 f"loss_add must be in [0, 1]: {e!r}")
+        _require(0.0 < ev.bandwidth_scale <= 1.0,
+                 f"bandwidth_scale must be in (0, 1]: {e!r}")
+        _require(ev.latency_factor != 1.0 or ev.loss_add != 0.0
+                 or ev.bandwidth_scale != 1.0,
+                 f"link_degrade with no effect: {e!r}")
+    else:
+        for k in ("latency_factor", "loss_add", "bandwidth_scale"):
+            _require(k not in e, f"faults {kind} does not take {k}: {e!r}")
+    if e.get("duration") is not None:
+        _require(kind in ("link_down", "link_degrade", "host_down"),
+                 f"faults {kind} does not take a duration: {e!r}")
+        ev.duration = parse_time(e["duration"])
+        _require(ev.duration > 0, f"faults duration must be > 0: {e!r}")
+    return ev
+
+
+def _parse_churn(c: dict) -> ChurnOptions:
+    _require(isinstance(c, dict), f"faults.churn entry must be a mapping: {c!r}")
+    for k in ("hosts", "mean_uptime", "mean_downtime"):
+        _require(k in c, f"faults.churn entry needs {k!r}: {c!r}")
+    opts = ChurnOptions(
+        hosts=[str(h) for h in (c["hosts"] or [])],
+        mean_uptime=parse_time(c["mean_uptime"]),
+        mean_downtime=parse_time(c["mean_downtime"]),
+        start_time=parse_time(c.get("start_time", 0)),
+    )
+    _require(len(opts.hosts) > 0, f"faults.churn needs hosts: {c!r}")
+    _require(opts.mean_uptime > 0 and opts.mean_downtime > 0,
+             f"faults.churn means must be > 0: {c!r}")
+    _require(opts.start_time >= 0, f"faults.churn start_time must be >= 0: {c!r}")
+    return opts
+
+
+def _parse_faults(doc: dict) -> FaultsOptions:
+    _require(isinstance(doc, dict), "faults must be a mapping")
+    for k in doc:
+        _require(k in ("events", "churn"),
+                 f"unknown faults key {k!r} (want events/churn)")
+    f = FaultsOptions()
+    events = doc.get("events") or []
+    _require(isinstance(events, list), "faults.events must be a list")
+    f.events = [_parse_fault_event(e) for e in events]
+    churn = doc.get("churn") or []
+    _require(isinstance(churn, list), "faults.churn must be a list")
+    f.churn = [_parse_churn(c) for c in churn]
+    _require(f.events or f.churn, "faults section is present but empty")
+    return f
+
+
+def _parse_telemetry(doc) -> TelemetryOptions:
+    """``telemetry:`` — a bare key (None) enables with defaults, which is
+    what the CLI's --sample-every/--metrics-dir overrides rely on."""
+    t = TelemetryOptions()
+    if doc is None:
+        return t
+    _require(isinstance(doc, dict), "telemetry must be a mapping")
+    for k in doc:
+        _require(k in ("sample_every", "metrics_dir"),
+                 f"unknown telemetry key {k!r} (want sample_every/"
+                 f"metrics_dir)")
+    if doc.get("sample_every") is not None:
+        t.sample_every = parse_time(doc["sample_every"])
+        _require(t.sample_every > 0, "telemetry.sample_every must be > 0")
+    if doc.get("metrics_dir") is not None:
+        t.metrics_dir = str(doc["metrics_dir"])
+    return t
 
 
 def parse_config(doc: dict, overrides: Optional[dict] = None) -> ConfigOptions:
@@ -419,10 +573,10 @@ def parse_config(doc: dict, overrides: Optional[dict] = None) -> ConfigOptions:
              "experimental.guest_turn_timeout must be >= 0")
 
     if "telemetry" in doc:  # bare `telemetry:` enables with defaults
-        _refuse("telemetry (the telemetry: section, --sample-every, "
-                "--metrics-dir)")
+        cfg.telemetry = _parse_telemetry(doc["telemetry"])
+
     if doc.get("faults") is not None:  # `faults:` left empty = absent
-        _refuse("fault injection (the faults: section)")
+        cfg.faults = _parse_faults(doc["faults"])
 
     hosts_doc = doc.get("hosts", {}) or {}
     _require(isinstance(hosts_doc, dict), "hosts must be a mapping of name -> options")
@@ -482,8 +636,6 @@ def refuse_unported(cfg: ConfigOptions) -> None:
     if g.sim_shards != 1:
         _refuse("multi-process sharding (general.sim_shards > 1)")
     for h in cfg.hosts:
-        if h.pcap_enabled:
-            _refuse(f"packet capture (host {h.name!r} pcap_enabled)")
         for p in h.processes:
             if not p.path.startswith("pyapp:"):
                 _refuse(f"managed native processes (host {h.name!r} runs "

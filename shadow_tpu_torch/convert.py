@@ -21,6 +21,12 @@ a column snapshot of every stream endpoint (``hid``, ``local_port``,
 ``shadow_tpu.network.devtransport.export_columns`` writes it, into the
 port's snapshot, which ``network.devtransport.adopt_columns`` writes back
 into live endpoints; ``transport_columns_to_arrays`` is the way back.
+
+``telemetry_state_from_arrays`` carries the telemetry collector's state
+(its sample and flow counters, the per-flow-kind latency histograms and
+outcome counts), as the reference collector's ``export_merge_state``
+writes it, into the port's collector, so two collectors can continue from
+the same state and be compared on what they write.
 """
 
 from __future__ import annotations
@@ -129,3 +135,74 @@ def transport_columns_to_arrays(cols: dict) -> dict:
     """A port snapshot (``export_columns``) as plain numpy int64 arrays
     under the reference's column names, in its order."""
     return transport_columns_from_arrays(cols)
+
+
+#: the collector state carried across: its sample and flow counters, the
+#: per-kind latency histograms and the per-kind outcome counts
+TELEMETRY_FIELDS = ("samples", "flows_written", "hist", "flow_counts")
+
+
+def _int(x, what: str) -> int:
+    if isinstance(x, bool) or not isinstance(x, (int, np.integer)):
+        raise ValueError(f"telemetry_state_from_arrays: {what} must be an "
+                         f"integer, got {type(x).__name__}")
+    return int(x)
+
+
+def telemetry_state_from_arrays(d: dict) -> dict:
+    """The port's telemetry collector state from ``d``, the reference
+    collector's exported state (``export_merge_state``): ``samples`` and
+    ``flows_written`` (integers), ``hist`` (flow kind -> a
+    ``LogHistogram.state()`` dict: ``total`` and ``counts``, bucket index
+    -> count, indices as strings or integers) and ``flow_counts`` (flow
+    kind -> ``ok``, ``failed`` and, for kinds that carry a model metric,
+    ``x_sum`` and ``x_n``); Python or numpy integers. Optional:
+    ``next_sample``, the sim time of the next sample. Returns the same
+    fields as the port holds them (histograms as ``LogHistogram``),
+    which ``TelemetryCollector.adopt_merge_state`` installs. Raises
+    ValueError on a missing or unknown field, a non-integer value, a
+    negative count or a histogram whose total is not the sum of its
+    buckets."""
+    from shadow_tpu_torch.telemetry.histogram import LogHistogram
+
+    missing = [k for k in TELEMETRY_FIELDS if k not in d]
+    extra = sorted(set(d) - set(TELEMETRY_FIELDS) - {"next_sample"})
+    if missing or extra:
+        raise ValueError(f"telemetry_state_from_arrays: missing fields "
+                         f"{missing}, unknown fields {extra}")
+    out = {k: _int(d[k], k) for k in ("samples", "flows_written")}
+    if "next_sample" in d:
+        out["next_sample"] = _int(d["next_sample"], "next_sample")
+    hist = {}
+    for kind, st in d["hist"].items():
+        counts = {_int(int(i) if isinstance(i, str) else i,
+                       f"hist[{kind!r}] bucket"):
+                  _int(n, f"hist[{kind!r}] count")
+                  for i, n in st["counts"].items()}
+        total = _int(st["total"], f"hist[{kind!r}] total")
+        if min(counts.values(), default=0) < 0 or min(counts, default=0) < 0:
+            raise ValueError(f"telemetry_state_from_arrays: hist[{kind!r}] "
+                             f"holds a negative bucket or count")
+        if total != sum(counts.values()):
+            raise ValueError(f"telemetry_state_from_arrays: hist[{kind!r}] "
+                             f"total {total} is not the sum of its buckets")
+        h = LogHistogram()
+        h.total = total
+        h.counts = {i: counts[i] for i in sorted(counts)}
+        hist[str(kind)] = h
+    out["hist"] = hist
+    flow_counts = {}
+    for kind, c in d["flow_counts"].items():
+        row = {k: _int(v, f"flow_counts[{kind!r}][{k!r}]")
+               for k, v in c.items()}
+        if not {"ok", "failed"} <= set(row) or not set(row) <= {
+                "ok", "failed", "x_sum", "x_n"}:
+            raise ValueError(f"telemetry_state_from_arrays: flow_counts"
+                             f"[{kind!r}] must hold ok and failed (and "
+                             f"x_sum, x_n), got {sorted(row)}")
+        flow_counts[str(kind)] = row
+    out["flow_counts"] = flow_counts
+    for k in ("samples", "flows_written"):
+        if out[k] < 0:
+            raise ValueError(f"telemetry_state_from_arrays: {k} < 0")
+    return out

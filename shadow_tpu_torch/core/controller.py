@@ -31,9 +31,11 @@ active-host set itself.
 
 ``device`` ("cuda" or "cpu") is where the data-plane kernels run (the
 loss draws under tpu_batch, the mesh programs under tpu_mesh); it is
-checked under every policy. The reference's faults, telemetry, live
-plane, checkpoints, supervision, sharding and managed processes are
-refused at config load (config/schema.py::refuse_unported).
+checked under every policy. Fault injection (faults.py), telemetry
+(telemetry/) and packet capture (utils/pcap.py) run on every plane and
+policy, as in the reference. The reference's live plane, checkpoints,
+supervision, sharding and managed processes are refused at config load
+(config/schema.py::refuse_unported).
 """
 
 from __future__ import annotations
@@ -126,6 +128,13 @@ class Controller:
             host = Host(hid, hopts.name, ip, node, cfg.general.seed, self,
                         cc=hopts.congestion_control)
             host.log_level = hopts.log_level or cfg.general.log_level
+            if hopts.pcap_enabled:
+                from shadow_tpu_torch.utils.pcap import PcapWriter
+
+                d = self.data_dir / "hosts" / hopts.name
+                d.mkdir(parents=True, exist_ok=True)
+                host.pcap = PcapWriter(d / f"{hopts.name}.pcap",
+                                       hopts.pcap_capture_size)
             self.hosts.append(host)
             self._by_name[hopts.name] = hid
             self._by_ip[ip] = hid
@@ -208,6 +217,46 @@ class Controller:
                 if popts.shutdown_time is not None:
                     host.schedule(popts.shutdown_time, proc.shutdown)
 
+        #: fault injection (faults.py) runs on every plane, the C engine
+        #: included: the injector rewrites the effective latency/loss/rate
+        #: matrices and bucket arrays in place, and the C engine holds raw
+        #: pointers into those arrays, so a transition is visible to all
+        #: planes at the next barrier. Crash/reboot drive the C engine's
+        #: teardown hooks (Core.host_crash/host_boot) through Host.
+        self.faults = None
+        faults_cfg = cfg.faults
+        if faults_cfg is not None and (faults_cfg.events or faults_cfg.churn):
+            from shadow_tpu_torch.faults import FaultInjector
+
+            self.engine.faults_active = True
+            for h in self.hosts:
+                h.faults_active = True
+            if self._c_core is not None:
+                # the C engine read the plane's flag at bind, before this:
+                # enable its per-host blackhole/teardown accounting and the
+                # faults-gated stream recovery counters
+                self._c_core.set_faults_active(True)
+            self.faults = FaultInjector(self)
+            self.log.info(
+                f"fault timeline: {len(self.faults.actions)} transitions "
+                f"({len(faults_cfg.events)} configured events, "
+                f"{len(faults_cfg.churn)} churn groups)")
+
+        #: deterministic simulation telemetry (telemetry/): a telemetry:
+        #: section builds the collector; hosts carry a direct reference so
+        #: flow records cost one attribute check when off. The samplers read
+        #: only plane-independent observables, so the streams are the same
+        #: on every plane and with the C engine on or off.
+        self.telemetry = None
+        if cfg.telemetry is not None:
+            from shadow_tpu_torch.telemetry import TelemetryCollector
+
+            self.telemetry = TelemetryCollector(cfg.telemetry)
+            for h in self.hosts:
+                h.telemetry = self.telemetry
+            if self.faults is not None:
+                self.faults.on_apply = self.telemetry.record_fault
+
         self.counters = Counters()
         self.rounds = 0
         self.events = 0
@@ -270,6 +319,10 @@ class Controller:
             # data_directory would concatenate and confuse
             # tools/bisect_divergence.py
             (self.data_dir / _ckpt.DIGEST_FILE).unlink(missing_ok=True)
+        tel = self.telemetry
+        if tel is not None:
+            # a fresh run truncates stale streams and writes the meta record
+            tel.start_fresh(self)
         # graceful shutdown: SIGINT/SIGTERM finish the current round and
         # produce a valid partial summary (main thread only — signals
         # cannot be hooked elsewhere)
@@ -296,7 +349,8 @@ class Controller:
         t0 = _walltime.perf_counter()
         try:
             now = self._round_loop(now, stop, w, next_hb, hb_interval,
-                                   next_prog, prog_step, dig, _ckpt, t0)
+                                   next_prog, prog_step, dig, _ckpt, tel,
+                                   t0)
         finally:
             for s, old in installed.items():
                 _signal.signal(s, old)
@@ -319,7 +373,7 @@ class Controller:
         return self._finalize(min(now, stop))
 
     def _round_loop(self, now, stop, w, next_hb, hb_interval, next_prog,
-                    prog_step, dig, _ckpt, t0) -> SimTime:
+                    prog_step, dig, _ckpt, tel, t0) -> SimTime:
         """The conservative round loop (split from run() so the signal
         try/finally stays readable). Returns the final sim time."""
         import gc as _gc
@@ -332,11 +386,18 @@ class Controller:
         # the skip-ahead decision, the events total and the round grid
         # are the scalar twin's
         devt = getattr(self.engine, "devt", None)
+        faults = self.faults
         while now < stop:
             if self._interrupt is not None:
                 # graceful shutdown: the signal arrived during the last
                 # round; stop at this (consistent) round boundary
                 break
+            if faults is not None:
+                # fault transitions apply at round starts: an action at
+                # time t takes effect at the first boundary >= t — the
+                # same quantization the conservative barrier imposes on
+                # every cross-host effect, so it is policy-independent
+                faults.apply_due(now)
             if dyn:
                 # widen to the smallest latency traffic has actually used
                 # (never narrower than the static conservative window)
@@ -366,6 +427,13 @@ class Controller:
                 # round boundary (flushes in-flight draws first — result-
                 # identical, so digesting runs stay byte-identical)
                 _ckpt.emit_digest(self, round_end)
+            if tel is not None and (tel.dirty
+                                    or round_end >= tel.next_sample):
+                # telemetry: flush this round's flow closes + fault
+                # annotations; take a sample when the sim-time grid says
+                # so (the round grid is policy-independent, so the
+                # streams are too). Idle rounds skip the call entirely.
+                tel.on_round_end(self, round_end)
             if round_end >= next_hb:
                 self._heartbeat(round_end, t0)
                 # grid-snap, not +=: skip-ahead can cross several
@@ -394,7 +462,13 @@ class Controller:
                     else:
                         nq = min((hosts[i].equeue.next_time()
                                   for i in self._active), default=T_NEVER)
-                    return min(nq, self.engine.pending_head())
+                    nq = min(nq, self.engine.pending_head())
+                    if faults is not None:
+                        # a pending fault transition is a wake-up: skip-
+                        # ahead must not jump over it (a reboot creates
+                        # new events)
+                        nq = min(nq, faults.next_time())
+                    return nq
 
                 nt = _next_queued()
                 while self.engine.earliest_outstanding() < nt:
@@ -438,6 +512,10 @@ class Controller:
         )
 
     def _finalize(self, end_time: SimTime) -> dict:
+        if self.telemetry is not None:
+            # flush the final round's flow closes (records already
+            # buffered; reaping adds none) and close the stream handles
+            self.telemetry.finalize(self)
         errors = []
         for p in self.processes:
             err = p.check_final_state()
@@ -462,6 +540,8 @@ class Controller:
         self.data_dir.mkdir(parents=True, exist_ok=True)
         for h in self.hosts:
             h.flush_logs(self.data_dir)
+            if h.pcap is not None:
+                h.pcap.close()
         self.log.flush()
         import resource
 
@@ -493,6 +573,8 @@ class Controller:
                 "events": round(self._events_wall, 4),
                 **{k: round(v, 4)
                    for k, v in self.engine.phase_wall.items()},
+                **({"telemetry": round(self.telemetry.wall, 4)}
+                   if self.telemetry is not None else {}),
             },
             # fused device windows: zero here on a tpu_batch run means the
             # device never served a window — the host twin carried the
@@ -511,6 +593,12 @@ class Controller:
             # which host engine ran: the C engine (csrc/colcore.c) or the
             # Python columnar plane
             "native_colcore": self._c_core is not None,
+            **({"fault_transitions_applied": self.faults.applied}
+               if self.faults is not None else {}),
+            # flow-latency percentiles + sample counts (telemetry/):
+            # deterministic reductions of sim-time state, so not volatile
+            **({"telemetry": self.telemetry.summary()}
+               if self.telemetry is not None else {}),
         }
 
 

@@ -27,6 +27,11 @@ from shadow_tpu_torch.core.time import SimTime, T_NEVER
 #: the inline numpy path, yet both yield the same execution order.
 BAND_NET = 0
 BAND_APP = 1
+#: fault-subsystem band (faults.py): host lifecycle transitions
+#: (process respawn after a reboot) execute before any network arrival at
+#: the same instant, so a rebooted host's listeners exist before the first
+#: same-tick SYN — identically under every scheduler policy.
+BAND_FAULT = -1
 
 
 class EventQueue:
@@ -71,6 +76,21 @@ class EventQueue:
         if handle in self._live:
             self._cancelled.add(handle)
 
+    def clear_band(self, band: int) -> int:
+        """Lazily cancel every pending event in ``band`` (host crash: app
+        timers die with the host, while BAND_NET arrivals stay queued and
+        are discarded at delivery — keeping event counts identical to the
+        columnar plane, whose resolved arrivals live outside the heap).
+        Returns the number of events cancelled."""
+        n = 0
+        for entry in self._heap:
+            seq = entry[3]
+            if (entry[1] == band and seq in self._live
+                    and seq not in self._cancelled):
+                self._cancelled.add(seq)
+                n += 1
+        return n
+
     def next_time(self) -> SimTime:
         """Time of the earliest pending event, or T_NEVER if empty."""
         self._drop_cancelled_head()
@@ -108,6 +128,17 @@ class EventQueue:
                if e[3] not in self._cancelled and e[1] != exclude_band]
         out.sort()
         return out
+
+    def live_count(self, exclude_band: Optional[int] = None) -> int:
+        """Count of pending non-cancelled events outside ``exclude_band``
+        — live_times without materializing the sorted list (the telemetry
+        sampler calls this once per host per sample)."""
+        cancelled = self._cancelled
+        n = 0
+        for e in self._heap:
+            if e[1] != exclude_band and e[3] not in cancelled:
+                n += 1
+        return n
 
     def __len__(self) -> int:
         return len(self._heap) - len(self._cancelled)

@@ -26,3 +26,13 @@ def host_rng(seed: int, host_id: int) -> np.random.Generator:
         np.random.Philox(key=(np.uint64(seed) << np.uint64(16)) ^ np.uint64(host_id))
     )
 
+
+def fault_rng(seed: int, stream: int) -> np.random.Generator:
+    """Counter-based stream for fault-timeline draws (faults.py
+    churn schedules), keyed on (master seed, stream id) in a domain separate
+    from the host streams. Schedules are materialized once at startup from
+    these draws, so they are reproducible and independent of scheduler
+    policy, data plane, and event interleaving."""
+    key = ((np.uint64(seed) << np.uint64(16)) ^ np.uint64(stream)
+           ^ np.uint64(0xFA17 << 48))
+    return np.random.Generator(np.random.Philox(key=key))

@@ -3,17 +3,17 @@
 A Host mirrors the reference's ``Host`` (SURVEY.md §2 "Host"): a simulated
 machine with its own clock view, RNG stream, NIC token-bucket state (held in
 the engine's arrays, indexed by host id), socket namespace, event queue, and
-processes. All Host state is host-local: cross-host interaction happens
-only through the network engine at round boundaries.
+processes. All Host state is host-local: scheduler policies may execute
+different hosts' events on different threads within a round; cross-host
+interaction happens only through the network engine at round boundaries.
 
 A copy of shadow_tpu/host/host.py for both data planes: the columnar
 plane, with its C engine hooks (the engine's stream endpoints and packed
 emission, when network/colplane.py attached it), and the per-unit plane
 of the thread policies (network/engine.py: Unit emission into ``egress``,
-delivery through ``deliver``). Packet capture, the telemetry collector
-(flow records are dropped, as the reference drops them with telemetry
-off), the fault lifecycle (crash/reboot) and checkpoint pickling are not
-ported yet (their config keys are refused at load).
+delivery through ``deliver``); with packet capture, the telemetry
+collector's flow records and the fault lifecycle (crash/reboot). Checkpoint
+pickling is not ported yet (its config key is refused at load).
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from __future__ import annotations
 import hashlib
 from typing import Callable, Optional
 
-from shadow_tpu_torch.core.events import BAND_APP, BAND_NET, EventQueue
+from shadow_tpu_torch.core.events import (
+    BAND_APP, BAND_FAULT, BAND_NET, EventQueue)
 from shadow_tpu_torch.core.rng import host_rng
 from shadow_tpu_torch.core.time import SimTime
 from shadow_tpu_torch.network import unit as U
@@ -64,16 +65,14 @@ class Host:
         #: egress rows are plain tuples; resolved arrival rows for the
         #: current round land in _inbox (see network/colplane.py)
         self.colplane = None
-        #: columnar transport engine (network/devtransport.py) when
-        #: experimental.device_transport is on: ack-dominated rounds defer
-        #: to the barrier and advance as one batched kernel (bit-identical)
-        self.devt = None
-        #: the telemetry collector; always None here (the telemetry:
-        #: section is refused at load), so models skip flow bookkeeping
-        self.telemetry = None
         self.egress_rows: list[tuple] = []
         self._inbox = None
         self.ingress_deferred_rows: list[tuple] = []
+        #: columnar transport engine (network/devtransport.py) when
+        #: experimental.device_transport is on and the plane is the
+        #: Python columnar one; ack-dominated rounds defer to the
+        #: barrier and advance as one batched kernel (bit-identical)
+        self.devt = None
         # hot-path counters kept as plain ints (Counter.__getitem__ per
         # unit measurably drags at 1M+ units); folded in fold_counters()
         self._n_emitted = 0
@@ -81,16 +80,15 @@ class Host:
         self._n_dgrams = 0
         self._n_dgrams_recv = 0
         self._n_events = 0
-        #: fault-injection state the C engine reads and folds into (faults.py
-        #: is not ported: a host is never down, and without the plane's
-        #: faults_active the engine counts nothing torn down or blackholed)
+        #: fault injection (faults.py): crashed-host flag, and
+        #: per-host accounting for units dropped by teardown (arrivals at
+        #: a down host + parked units cleared at crash) and units the
+        #: engine blackholed for this source (cut links / no route)
         self.down = False
+        self.faults_active = False  # set when a faults: section exists
         self._n_teardown = 0
         self._n_blackholed = 0
         self.ingress_deferred: list[Unit] = []  # ingress-bucket backlog
-        #: packet capture (utils/pcap.py is not ported): always None, so
-        #: every host takes the C engine's dispatch when it is attached
-        self.pcap = None
         self.processes: list = []
         # sockets
         self._listeners: dict[int, Callable] = {}  # port -> on_accept
@@ -103,7 +101,15 @@ class Host:
         #: of the whole history every sampled round
         self._log_sha = hashlib.sha256()
         self._ack_eps: dict = {}  # endpoints owing a coalesced barrier ack
+        self.pcap = None  # PcapWriter when hosts.<name>.pcap_enabled
         self.log_level = "info"  # per-host override (hosts.<name>.log_level)
+        #: telemetry (telemetry/): the run's collector when a
+        #: telemetry: section exists, else None (models check this ONCE at
+        #: start, so the off path costs nothing per event). Flow records
+        #: buffer host-locally (_flow_buf) and flush at round ends in
+        #: host-id order — canonical regardless of scheduler policy.
+        self.telemetry = None
+        self._flow_buf: list = []
 
     # -- time & events ----------------------------------------------------
     @property
@@ -133,14 +139,25 @@ class Host:
             self.counters.add("dgrams_received", self._n_dgrams_recv)
         if self._n_events:
             self.counters.add("events", self._n_events)
+        if self._n_teardown:
+            self.counters.add("units_teardown_dropped", self._n_teardown)
+        if self._n_blackholed:
+            self.counters.add("units_blackholed", self._n_blackholed)
+        if self._n_teardown or self._n_blackholed:
+            # per-host observability for fault experiments: the counts land
+            # in this host's own log file beside the merged totals
+            self.log(f"fault accounting: blackholed={self._n_blackholed} "
+                     f"teardown_dropped={self._n_teardown}")
         self._n_emitted = self._n_delivered = self._n_dgrams = 0
         self._n_dgrams_recv = 0
         self._n_events = 0
+        self._n_teardown = self._n_blackholed = 0
 
     def run_events(self, end: SimTime) -> int:
         """Execute all pending events with time < end (one round's worth).
-        Resolved network rows (the inbox) merge with the heap in canonical
-        (time, band, key) order."""
+        Under the columnar plane, resolved network rows (net_rows) merge
+        with the heap in canonical (time, band, key) order — identical
+        execution order to the per-unit plane's heap-only flow."""
         n = 0
         rows = self._inbox
         if rows is None:
@@ -156,8 +173,8 @@ class Host:
             # device transport: the whole round (inbox AND due timers)
             # defers to the barrier, where cohorts of clean acks across
             # hosts advance as ONE batched kernel and everything replays
-            # through this method's exact merge; the event count reports
-            # through DeviceTransport.take_executed
+            # through this method's exact merge discipline — the event
+            # count reports through DeviceTransport.take_executed
             return 0
         eq = self.equeue
         heap = eq._heap
@@ -227,6 +244,12 @@ class Host:
          nfrags, size, payload) = row
         if t > self._now:
             self._now = t
+        if self.down:
+            # crashed host: the arrival is consumed by the dead NIC — no
+            # token charge, no delivery, no response; peers discover the
+            # failure through their own RTO machinery (faults.py)
+            self._n_teardown += 1
+            return
         eng = self.engine
         if t >= eng.bootstrap_end:
             tokens = eng.tokens_down
@@ -246,6 +269,10 @@ class Host:
         if t > self._now:
             self._now = t
         self._n_delivered += 1
+        if self.pcap is not None:
+            self.pcap.capture_fields(
+                kind, aport, bport, nbytes, seq, payload, t,
+                self.controller.hosts[peer].ip, self.ip)
         if kind == U.DGRAM:
             sock = self._udp.get(bport)
             if sock is None:
@@ -277,10 +304,22 @@ class Host:
     def record_flow(self, kind: str, peer, t_open: SimTime,
                     ttfb: Optional[SimTime], nbytes: int, status: str,
                     retx: int = 0, x: Optional[int] = None) -> None:
-        """One application-flow lifecycle record, called at flow close
-        from model code. The telemetry collector that keeps these records
-        is not ported (``telemetry`` is always None), so the record is
-        dropped, exactly as the reference drops it with telemetry off."""
+        """One application-flow lifecycle record (telemetry/collector.py),
+        called at flow close from model code. ``ttfb`` is absolute sim
+        time of the first payload byte (None if none arrived); close time
+        is the host clock now. ``x`` is an optional model-defined integer
+        riding the record (the ABR model stores the segment's selected
+        bitrate there; the summary and metrics_report reduce it to a
+        mean). No-op when telemetry is off."""
+        tel = self.telemetry
+        if tel is None:
+            return
+        buf = self._flow_buf
+        if not buf:
+            tel.note_flow_host(self)
+        buf.append((kind, peer, t_open, self._now,
+                    (ttfb - t_open if ttfb is not None else None),
+                    nbytes, status, retx, x))
 
     def mark_ack(self, ep) -> None:
         """Queue a coalesced barrier ack for this endpoint (transport's
@@ -300,6 +339,9 @@ class Host:
     def emit_unit(self, u: Unit) -> None:
         self.egress.append(u)
         self._n_emitted += 1
+        if self.pcap is not None:
+            ctl = self.controller
+            self.pcap.capture(u, u.t_emit, self.ip, ctl.hosts[u.dst].ip)
 
     def emit_msg(self, kind: int, dst: int, size: int, nbytes: int,
                  payload, seq: int, sport: int, dport: int,
@@ -311,6 +353,10 @@ class Host:
         reference-architecture data path."""
         cp = self.colplane
         if cp is not None:
+            if self.pcap is not None:
+                self.pcap.capture_fields(
+                    kind, sport, dport, nbytes, seq, payload, self._now,
+                    self.ip, self.controller.hosts[dst].ip)
             c = cp._c
             if c is not None:
                 # C engine: packed egress row, no tuple (the C side also
@@ -345,6 +391,8 @@ class Host:
         """A unit cleared the ingress token bucket: dispatch to a socket."""
         self._now = max(self._now, now)
         self._n_delivered += 1
+        if self.pcap is not None:
+            self.pcap.capture(u, now, self.controller.hosts[u.src].ip, self.ip)
         if u.kind == U.DGRAM:
             sock = self._udp.get(u.dst_port)
             if sock is not None:
@@ -410,6 +458,74 @@ class Host:
                         if self._log_lines else ""),
         }
 
+    # -- fault lifecycle (faults.py) ----------------------------------------
+    def crash(self, now: SimTime) -> None:
+        """Host crash: instant power loss at a round start. Sockets and
+        parked ingress units are torn down, application timers die with
+        the host; queued BAND_NET arrivals stay queued and are discarded
+        at delivery (event-count parity with the columnar plane, whose
+        resolved arrivals live outside the heap). Processes are killed
+        without exit status; reboot() respawns fresh instances."""
+        self.down = True
+        core = getattr(self.colplane, "_c", None)
+        if core is not None:
+            # C-side half of the teardown: mark the CHost down (its row
+            # dispatch discards arrivals at the dead NIC, counting them
+            # like dispatch_row does) and drop the C-registered gossip
+            # handlers — a reboot re-registers fresh state. The endpoint
+            # loop below works on C endpoints unchanged: CEp exposes the
+            # same _cancel_ctl/_cancel_rto/state surface.
+            core.host_crash(self.id)
+        self.counters.add("host_crashes", 1)
+        torn = 0
+        for ep in list(self._conns.values()):
+            cancel_ctl = getattr(ep, "_cancel_ctl", None)
+            if cancel_ctl is not None:
+                cancel_ctl()
+                ep.sender._cancel_rto()
+                ep.state = 0  # CLOSED — a lingering reference can't emit
+            torn += 1
+        if torn:
+            self.counters.add("conns_torn_down", torn)
+        self._conns.clear()
+        self._listeners.clear()
+        self._udp.clear()
+        self._ack_eps.clear()
+        parked = len(self.ingress_deferred) + len(self.ingress_deferred_rows)
+        if parked:
+            self._n_teardown += parked
+            self.ingress_deferred.clear()
+            self.ingress_deferred_rows.clear()
+        self.equeue.clear_band(BAND_APP)
+        # also clear BAND_FAULT: churn's minimum-1ns downtime draws can
+        # quantize a reboot and the next crash into the SAME round start,
+        # and the reboot's pending respawn must die with the host too
+        self.equeue.clear_band(BAND_FAULT)
+        for p in self.processes:
+            kill = getattr(p, "kill", None)
+            if kill is not None:
+                kill()
+        self.log(f"{now} host crashed")
+
+    def reboot(self, now: SimTime) -> None:
+        """Host reboot: processes that neither exited nor are running
+        respawn as fresh instances, in BAND_FAULT so listeners exist
+        before any same-instant network arrival."""
+        self.down = False
+        core = getattr(self.colplane, "_c", None)
+        if core is not None:
+            core.host_boot(self.id)
+        self.counters.add("host_boots", 1)
+        self.log(f"{now} host rebooted")
+        for p in self.processes:
+            if p.exit_code is None and not p.running:
+                # a process the crash caught BEFORE its configured start
+                # (its spawn event died with the host) still honors its
+                # start_time; everything else restarts at boot
+                t = now if getattr(p, "spawned", True) \
+                    else max(now, p.opts.start_time)
+                self.schedule(t, p.spawn, band=BAND_FAULT)
+
     # -- sockets ----------------------------------------------------------
     def ephemeral_port(self) -> int:
         p = self._next_ephemeral
@@ -428,9 +544,11 @@ class Host:
                        remote_port: int, initiator: bool) -> StreamEndpoint:
         exp = self.controller.cfg.experimental
         core = getattr(self.colplane, "_c", None)
-        if core is not None:
+        if core is not None and self.pcap is None:
             # C stream endpoint (native/colcore): the exact protocol twin
-            # of StreamEndpoint, bit-identical under the colcore suites
+            # of StreamEndpoint, bit-identical under the cross-plane and
+            # colcore A/B suites; Python remains the oracle (and serves
+            # pcap hosts, whose dispatch stays on the Python path)
             return core.make_endpoint(
                 self.id, local_port, remote_host, remote_port,
                 initiator, exp.socket_send_buffer, exp.socket_recv_buffer,

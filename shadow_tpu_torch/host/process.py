@@ -108,6 +108,7 @@ class PluginProcess:
         self.name = f"{_basename(opts.path)}.{index}"
         self.exit_code: Optional[int] = None
         self.running = False
+        self.spawned = False  # ever spawned (host reboot respects start_time)
         self.app = None
 
     #: spec -> app class; import_module per spawn costs an import-lock
@@ -132,6 +133,7 @@ class PluginProcess:
         api = ProcessAPI(self.host, self)
         self.app = app_cls(api, list(self.opts.args), dict(self.opts.environment))
         self.running = True
+        self.spawned = True
         self.host.counters.add("processes_spawned", 1)
         self.app.start()
 
@@ -181,6 +183,14 @@ class PluginProcess:
                 stop()
             if self.running:  # app didn't exit itself
                 self.finish(0)
+
+    def kill(self) -> None:
+        """Host crash (faults.py): the process dies instantly — no stop()
+        callback, no exit code (it neither exited nor was signaled in the
+        simulated world). A reboot respawns a fresh instance via spawn()."""
+        if self.running:
+            self.running = False
+            self.app = None
 
 
 def _basename(path: str) -> str:

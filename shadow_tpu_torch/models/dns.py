@@ -1,10 +1,9 @@
 """DNS resolution chains: authoritative servers, a caching recursive
 resolver, and the stub client the web workload depends on.
 
-The port of shadow_tpu/models/dns.py, unchanged but for its imports. The
-telemetry collector is not ported: the stub's ``dns.resolve`` flow records
-go to ``Host.record_flow``, which drops them, as the reference does with
-telemetry off.
+The port of shadow_tpu/models/dns.py, unchanged but for its imports: the
+stub's ``dns.resolve`` flow records go to ``Host.record_flow``, as the
+reference's do.
 
 The modern-web family needs name resolution as a
 first-class simulated dependency — page fetch latency in production is

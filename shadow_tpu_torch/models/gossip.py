@@ -1,7 +1,8 @@
 """The port of shadow_tpu/models/gossip.py, unchanged but for its imports.
-The telemetry collector is not ported (``Host.telemetry`` is None), so
-message handling runs in the C engine (``core.gossip_register``) whenever
-the engine runs the host, as the reference's does with telemetry off.
+Message handling runs in the C engine (``core.gossip_register``) whenever
+the engine runs the host with telemetry off and no packet capture; with
+telemetry on, fetch timing lives here and the handlers stay in Python, as
+in the reference.
 
 Bitcoin-like inv/getdata/tx gossip flood (BASELINE.md config 4).
 

@@ -81,7 +81,7 @@ class TGenClient:
     environment TGEN_IDLE_TIMEOUT_SEC=S (default 0 = off): arm the
     transport idle timeout on each connection — a client that is purely
     RECEIVING has no outstanding data, so only this detects a peer that
-    crashed mid-response.
+    crashed mid-response (identical on the Python and C endpoints).
     """
 
     def __init__(self, api, args, env):
@@ -101,6 +101,11 @@ class TGenClient:
         self.failed = 0
         self.total = self.count * len(self.peers)
         self.completion_times = []
+        #: telemetry (telemetry/): one flow record per fetch
+        #: attempt at close. Checked ONCE here so the off path adds no
+        #: per-chunk work (the on_data closures below stay untouched).
+        host = getattr(api, "_host", None)
+        self._tel = getattr(host, "telemetry", None)
 
     def start(self):
         if not self.peers:
@@ -120,9 +125,20 @@ class TGenClient:
     def _start_transfer(self, peer, attempt=0):
         t_start = self.api.now
         conn = self.api.connect(peer, self.port)
+        tel = self._tel
+        first = {"t": None} if tel is not None else None
 
         def on_connected(now):
             conn.send(payload=str(self.size).encode().rjust(8))
+
+        def _ttfb():
+            """Absolute sim time of the first response byte: the Python
+            closure's capture, or the C twin's tgen_t_first (recorded at
+            the same delivery instant — csrc/colcore.c cr_deliver)."""
+            if first is not None and first["t"] is not None:
+                return first["t"]
+            t = getattr(conn, "tgen_t_first", -1)
+            return t if isinstance(t, int) and t >= 0 else None
 
         def finish(now, got):
             elapsed = now - t_start
@@ -132,10 +148,20 @@ class TGenClient:
                 f"transfer-complete peer={peer} bytes={got} "
                 f"elapsed_ms={elapsed // NS_PER_MS}"
             )
+            if tel is not None:
+                self.api._host.record_flow(
+                    "tgen_fetch", peer, t_start, _ttfb(), got, "ok",
+                    retx=int(conn.sender.loss_events))
             conn.close()
             self._next()
 
         def on_error(msg):
+            if tel is not None:
+                self.api._host.record_flow(
+                    "tgen_fetch", peer, t_start, _ttfb(),
+                    int(conn.receiver.bytes_received),
+                    "timeout" if "ETIMEDOUT" in msg else "error",
+                    retx=int(conn.sender.loss_events))
             if "ETIMEDOUT" in msg and attempt < self.retries:
                 self.retried += 1
                 self.api.log(
@@ -152,6 +178,17 @@ class TGenClient:
             # engine; finish fires once per transfer with the same
             # (now, got) the Python closure would compute
             tgen_client(self.size, finish)
+        elif tel is not None:
+            got = {"n": 0}
+
+            def on_data(nbytes, payload, now):
+                if first["t"] is None:
+                    first["t"] = now
+                got["n"] += nbytes
+                if got["n"] >= self.size:
+                    finish(now, got["n"])
+
+            conn.on_data = on_data
         else:
             got = {"n": 0}
 

@@ -1,9 +1,8 @@
 """The port of shadow_tpu/models/tor.py, unchanged but for its imports: the
 relay, exit and client, the C relay data path (``core.relay_new``,
 ``exit_stream``) and the C client sink (``core.tor_client_sink``) when the
-C engine runs the host. The telemetry collector is not ported
-(``Host.telemetry`` is None, ``Host.record_flow`` drops its record), so
-the models record no flows, as the reference's do with telemetry off.
+C engine runs the host; the clients' ``tor_fetch`` flow records go to
+``Host.record_flow``, as the reference's do.
 
 Tor-shaped onion-routing workload (BASELINE.md config #3).
 

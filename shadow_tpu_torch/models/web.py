@@ -1,9 +1,9 @@
 """HTTP/CDN tier: clients -> edge caches -> origin, with hierarchical
 page fan-out and a cache hit-ratio knob.
 
-The port of shadow_tpu/models/web.py, unchanged but for its imports. The
-telemetry collector is not ported (``Host.telemetry`` is None), so the
-models record no flows, as the reference's do with telemetry off.
+The port of shadow_tpu/models/web.py, unchanged but for its imports: its
+flow records (``web.fetch``, ``web.origin``) go to ``Host.record_flow``, as
+the reference's do.
 
 The modern-web workload family's request/response backbone: production
 traffic is not bulk fetches but page hierarchies —

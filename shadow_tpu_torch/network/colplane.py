@@ -47,7 +47,7 @@ batch-level data end-to-end:
   stands down when the C engine is attached, as in the reference.
 
 Not ported yet, and refused at config load rather than run differently:
-fault injection and multi-process sharding.
+multi-process sharding.
 
 Store row layout (tuples; each host's pending list is kept sorted by the
 unique (t, key) prefix):
@@ -148,9 +148,10 @@ class ColumnarPlane(DeviceRoutedPlane):
         self.units_dropped = 0
         self.units_blackholed = 0
         self.bytes_sent = 0
-        #: fault injection is not ported: no filter, no per-host blackhole
-        #: accounting (the C engine reads faults_active at bind)
         self.fault_filter = None
+        #: a faults: config section exists (faults.py): hosts may crash,
+        #: links may cut; enables per-host blackhole accounting (the C
+        #: engine reads it at bind)
         self.faults_active = False
         self.emitters: list = []  # hosts with egress rows this round
         self.ack_hosts: list = []  # hosts owing coalesced barrier acks
@@ -501,6 +502,8 @@ class ColumnarPlane(DeviceRoutedPlane):
             lat = int(graph_lat[sn, dn])
             if lat >= INF_I64:
                 bh += 1
+                if self.faults_active:
+                    self.hosts[src]._n_blackholed += 1
                 continue
             if lat < mul:
                 mul = lat
@@ -589,6 +592,9 @@ class ColumnarPlane(DeviceRoutedPlane):
         keep_rows = rows
         if n_bh:
             self.units_blackholed += n_bh
+            if self.faults_active:
+                for s in src[~reach].tolist():
+                    self.hosts[s]._n_blackholed += 1
             keep = np.flatnonzero(reach)
             kl = keep.tolist()
             keep_rows = [rows[i] for i in kl]

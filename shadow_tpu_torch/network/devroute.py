@@ -345,6 +345,23 @@ class DeviceRoutedPlane:
                 f"be={self.break_even_units()} "
                 f"maxwin={self._max_window_units}")
 
+    # -- telemetry (telemetry/) --------------------------------------------
+    def telemetry_sample(self, t_now: SimTime) -> dict:
+        """Engine-side half of one telemetry sample: run-global counters
+        plus the per-host NIC token-bucket levels, all plane-independent
+        (capped egress availability via fluid.TokenBuckets.levels; the
+        round-quantized ingress tokens are shared state — the C engine
+        mutates the same numpy array). Caller flushes in-flight draws
+        first so every plane sits at the same resolution frontier."""
+        return {
+            "units_sent": self.units_sent,
+            "units_dropped": self.units_dropped,
+            "units_blackholed": self.units_blackholed,
+            "bytes_sent": self.bytes_sent,
+            "bucket_up": self.buckets.levels(t_now).tolist(),
+            "tokens_down": self.tokens_down.tolist(),
+        }
+
     # -- accessors shared by the controller --------------------------------
     def latency_between(self, src_host: int, dst_host: int) -> SimTime:
         p = self.params

@@ -46,9 +46,10 @@ close), never served from the host version instead.
 
 Under the C engine (``experimental.native_colcore``, the default), which
 owns the host loop, this module stands down, as in the reference: the
-Python columnar plane alone runs it. Not ported yet: packet capture and
-fault injection, whose hooks in the reference's intercept and replay are
-left out here because their config keys are refused at load.
+Python columnar plane alone runs it. A pcap host's rounds are never
+deferred (its capture order belongs to the live dispatch), and a row for
+a crashed host is consumed by its dead NIC before any kernel writeback,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -244,6 +245,8 @@ class DeviceTransport:
         """Decide whether to defer this host's round to the barrier.
         Deferral is always result-identical (the whole round replays in
         canonical order); the scan is a pure profitability guess."""
+        if host.pcap is not None:
+            return False  # capture order is owned by the live dispatch
         if not self._engaged:
             # released by the economics: skip even the profitability
             # scan, re-probing the columnar path on a coarse cadence so
@@ -461,6 +464,9 @@ class DeviceTransport:
         t = row[_R_T]
         if t > host._now:
             host._now = t
+        if host.down:
+            host._n_teardown += 1
+            return
         eng = self.plane
         if t >= eng.bootstrap_end:
             tokens = eng.tokens_down

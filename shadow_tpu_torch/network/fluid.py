@@ -166,8 +166,9 @@ class TokenBuckets:
         """Capped available-at-now — THE canonical plane-independent
         bucket observable (the vector path rebases every source each
         barrier while the scalar twin rebases lazily, an outcome-identical
-        representation difference; capping removes it). Read by the
-        determinism sentinel (checkpoint.state_digest)."""
+        representation difference; capping removes it). Shared by the
+        determinism sentinel (checkpoint.state_digest) and the telemetry
+        samplers (telemetry/collector.py)."""
         return np.minimum(self.available(t_now), self.params.cap_up)
 
     def rebase(self, t_now: SimTime) -> None:

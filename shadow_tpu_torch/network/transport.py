@@ -1,7 +1,6 @@
 """Transports for plugin workloads: reliable streams (TCP-like) and datagrams.
 
-A copy of shadow_tpu/network/transport.py, less the fault-injection
-counters (faults are not ported yet).
+A copy of shadow_tpu/network/transport.py.
 
 Re-designs the reference's userspace TCP + UDP socket layer (SURVEY.md §1
 layer 9, §2 "TCP stack") as a *fluid* model suited to batched per-round
@@ -57,6 +56,15 @@ beta 0.7, C = 0.4 — every operation is int64-safe and
 floor-division-free on negatives so the C twin computes the exact same
 windows). Datagram sockets fragment payloads into units and reassemble
 at the receiver; losing any fragment loses the datagram (IP semantics).
+
+Telemetry contract (telemetry/): the sampler aggregates, per
+host connection, ``sender.{snd_nxt, snd_una, cwnd, ssthresh, loss_events,
+retries, rto_backoff, buffered}`` and models read
+``sender.loss_events`` / ``receiver.bytes_received`` at flow close. Every
+field in that set is exposed IDENTICALLY by the C endpoint twin
+(csrc/colcore.c ``CEp`` getters) — extending the sampled set means adding
+the matching C getter, or the telemetry streams stop being byte-identical
+across the Python/C twins (tests/test_torch_telemetry.py).
 """
 
 from __future__ import annotations
@@ -363,11 +371,16 @@ class StreamSender:
         multiplicative decrease + retransmit of every known hole + RTO
         reset."""
         self.loss_events += 1
+        host = self.ep.host
+        if host.faults_active:
+            host.counters.add("stream_fast_retransmits", 1)
         self.in_recovery = True
         self.recover = self.snd_nxt
         self.rtx_done.clear()
         self.cc.on_loss(self)
-        self._retransmit_holes(force_head=True)
+        emitted = self._retransmit_holes(force_head=True)
+        if emitted > 1 and host.faults_active:
+            host.counters.add("stream_sack_retransmits", emitted - 1)
         self._arm_rto(reset=True)
 
     def _exit_recovery(self) -> None:
@@ -400,11 +413,16 @@ class StreamSender:
             # terminal ETIMEDOUT: an established connection whose peer is
             # unreachable (crashed host, unhealed partition) dies here,
             # like TCP's retransmission timeout — the application sees
-            # connection death instead of a silent stall
+            # connection death instead of a silent stall (faults.py)
+            host = self.ep.host
+            if host.faults_active:
+                host.counters.add("stream_timeouts", 1)
             self.ep._reset(
                 "connection timed out (ETIMEDOUT): data retransmission "
                 "retries exhausted")
             return
+        if self.ep.host.faults_active:
+            self.ep.host.counters.add("stream_rto_retransmits", 1)
         # classic RTO response: collapse to slow start, back off, resend the
         # oldest unacked chunk (its ACK, cumulative, repairs everything
         # else). The SACK scoreboard is discarded (RFC 2018 §8 renege
@@ -450,7 +468,10 @@ class StreamSender:
                     # is not repaired — retransmit the NEW oldest segment
                     # (NewReno partial-ack rule) plus any holes the
                     # scoreboard newly exposes, each at most once
-                    self._retransmit_holes(force_head=True)
+                    n = self._retransmit_holes(force_head=True)
+                    if n and self.ep.host.faults_active:
+                        self.ep.host.counters.add(
+                            "stream_sack_retransmits", n)
             self.cc.on_ack(self, newly)
             drained = self.ep.on_drain
             if drained is not None and self.buffered < self.send_buffer:
@@ -465,7 +486,9 @@ class StreamSender:
                 self._enter_recovery()
             elif self.in_recovery and sack is not None:
                 # later dup acks can expose new holes (higher sack_high)
-                self._retransmit_holes()
+                n = self._retransmit_holes()
+                if n and self.ep.host.faults_active:
+                    self.ep.host.counters.add("stream_sack_retransmits", n)
         else:
             self.dup_acks = 0  # anything else breaks the consecutive run
         self.pump()  # pump() fires _on_sender_drained when fully drained
@@ -693,6 +716,8 @@ class StreamEndpoint:
         self._idle_timer = None
         if self.state in (CLOSED, TIME_WAIT):
             return
+        if self.host.faults_active:
+            self.host.counters.add("stream_timeouts", 1)
         self._reset("connection timed out (ETIMEDOUT): idle timeout — no "
                     "traffic from peer")
 
@@ -890,7 +915,7 @@ class DatagramSocket:
         port = self.local_port
         if nfrags == 1:  # the overwhelmingly common case: one row, go
             cp = host.colplane
-            if cp is not None:
+            if cp is not None and host.pcap is None:
                 c = cp._c
                 if c is not None:
                     # C engine: packed egress row

@@ -11,7 +11,9 @@ tpu_mesh at the default tpu_mesh_floor and at 0 (every causal window
 through the mesh exchange). The port runs with its C engine (the
 default) and with the Python columnar plane (``native_colcore: false``);
 the reference runs its Python plane, which needs no build of its engine.
-Unported features are refused by name with exit 2.
+Unported features are refused by name with exit 2; fault injection,
+telemetry, packet capture and the ABR model, which the port runs, run
+echo as the reference does.
 """
 
 import contextlib
@@ -410,24 +412,10 @@ def _with(mutate):
 
 
 REFUSALS = {
-    "abr": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
-        "server"]["processes"][0].update(
-            path="pyapp:shadow_tpu.models.abr:AbrServer"),
-        "workload model 'abr'"),
     "httpd": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
         "server"]["processes"][0].update(
             path="pyapp:shadow_tpu.models.httpd:HttpServer"),
         "workload model 'httpd'"),
-    "faults_thread_per_core": ([], lambda d: d.update(
-        faults={"events": [{"time": "2s", "kind": "host_down",
-                            "hosts": ["server"]}]}), "fault injection"),
-    "faults": (["--scheduler-policy", "tpu_batch"], lambda d: d.update(
-        faults={"events": [{"time": "2s", "kind": "host_down",
-                            "hosts": ["server"]}]}), "fault injection"),
-    "telemetry": (["--scheduler-policy", "tpu_batch"],
-                  lambda d: d.update(telemetry=None), "telemetry"),
-    "sample_every": (["--scheduler-policy", "tpu_batch", "--sample-every",
-                      "1s"], None, "telemetry"),
     "checkpoint": (["--scheduler-policy", "tpu_batch", "--checkpoint-every",
                     "1s"], None, "checkpoint/resume"),
     "resume": (["--scheduler-policy", "tpu_batch", "--resume-from",
@@ -447,8 +435,6 @@ REFUSALS = {
                                   "--device", "cpu", "--set",
                                   "experimental.tpu_mesh_shards=2"], None,
                                  "tpu_mesh_shards=2 exceeds the 1 visible"),
-    "pcap": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
-        "server"].update(pcap_enabled=True), "packet capture"),
     "managed": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
         "server"]["processes"][0].update(path="/bin/true"),
         "managed native processes"),
@@ -475,6 +461,72 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys, case):
     assert rc == 2, err
     assert err.startswith("shadow_tpu_torch: ") and needle in err, err
     assert len(err.strip().splitlines()) == 1, err
+
+
+def _abr_echo(d):
+    """echo's two hosts as an ABR server and a 3-segment session."""
+    d["hosts"]["server"]["processes"][0].update(
+        path="pyapp:shadow_tpu.models.abr:AbrServer")
+    d["hosts"]["client"]["processes"][0].update(
+        path="pyapp:shadow_tpu.models.abr:AbrClient",
+        args=["server", "9000", "3", "2000", "400000", "1000000"])
+
+
+#: a one-second degrade of echo's one graph node, while the echoes run
+_DEGRADE = {"events": [{"time": "2s", "kind": "link_degrade",
+                        "src_nodes": [0], "dst_nodes": [0],
+                        "latency_factor": 2.0, "duration": "1s"}]}
+#: features the port once refused by name: each runs echo, mutated,
+#: through both packages (extra argv, mutation of the document)
+PORTED = {
+    "faults_thread_per_core": ([], lambda d: d.update(faults=_DEGRADE)),
+    "faults": (["--scheduler-policy", "tpu_batch"],
+               lambda d: d.update(faults=_DEGRADE)),
+    "telemetry": (["--scheduler-policy", "tpu_batch"],
+                  lambda d: d.update(telemetry=None)),
+    "sample_every": (["--scheduler-policy", "tpu_batch", "--sample-every",
+                      "1s"], None),
+    "pcap": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
+        "server"].update(pcap_enabled=True)),
+    "abr": (["--scheduler-policy", "tpu_batch"], _abr_echo),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_once_refused_features_identical_to_reference(tmp_path, case):
+    """Fault injection (under a thread policy and tpu_batch), telemetry
+    (the section and --sample-every), packet capture and the ABR model,
+    once refused by name, run echo as the reference does:
+    the same summary, tree (capture files included), state digests and
+    telemetry streams."""
+    extra, mutate = PORTED[case]
+    cfg = EX / "echo.yaml"
+    if mutate is not None:
+        cfg = tmp_path / "cfg.yaml"
+        cfg.write_text(yaml.safe_dump(_with(mutate)))
+    policy = extra[1] if extra else "thread_per_core"
+    argv = [*extra[2:], "--state-digest-every", "5"]
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    ref = _run(ref_cli.main, cfg, ref_dir, argv, policy=policy)
+    port = _run(port_cli.main, cfg, port_dir, argv + ["--device", "cpu"],
+                policy=policy)
+    _assert_identical(ref, port, ref_dir, port_dir)
+    for name in ("metrics.jsonl", "flows.jsonl"):
+        assert (port_dir / name).exists() is (ref_dir / name).exists()
+        if (ref_dir / name).exists():
+            assert ((port_dir / name).read_bytes()
+                    == (ref_dir / name).read_bytes())
+    if case.startswith("faults"):
+        assert port["fault_transitions_applied"] == 2
+    elif case == "pcap":
+        assert (port_dir / "hosts" / "server" / "server.pcap").stat(
+            ).st_size > 24
+    elif case == "abr":
+        assert port["counters"]["abr_segments"] == 3
+    else:
+        # the collector ran: its meta record, and samples at 1 s
+        assert (port_dir / "metrics.jsonl").exists()
+        assert port["telemetry"]["samples"] > 0 or case == "telemetry"
 
 
 def test_fork_verb_is_refused(capsys):
