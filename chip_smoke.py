@@ -140,11 +140,45 @@ Phases, in order; any failure exits non-zero:
              the thread policies. Prints each leg's controller wall,
              sim-s/wall-s, phase_wall with its telemetry share, and
              launches.
-15. apsp path — apsp_device, the port's device-APSP entry point, on the
+15. checkpoint — checkpoint and resume (CKPT_LEGS), each shipped config
+             at full width and full stop time, through the CLI's
+             --checkpoint-every and --resume-from: tgen_1k under tpu_batch
+             as a user runs it and at tpu_device_floor=1 (C engine, a
+             checkpoint every 10 s, resumed from 10 s and 20 s: its last
+             event falls before 40 s), tor_400relay as a user runs it
+             (resumed mid-circuit at 30 s), gossip_churn at floor 1
+             (resumed mid-churn at 20 s), web_cdn with the Python plane's
+             device transport at floor 1 (resumed at 20 s, its telemetry
+             streams continued) and tgen_1k under tpu_mesh at floor 0
+             (resumed at 10 s); the floor-1 checkpoint written on the card
+             and resumed on the CPU, and one written on the CPU and resumed
+             on the card; a supervised tgen_1k at floor 1 that recovers
+             once from an in-process failure (CKPT_CHAOS). Each checkpointing
+             run and each resume gives the reference's results (counts,
+             tree; where pinned the last state digest, metrics.jsonl,
+             flows.jsonl, fault transitions and telemetry block); launch
+             counts reset before, read after: after each boundary
+             draw_flags (floor 1), min_draw waves (the user leg),
+             ack_advance (once a device cohort plus the reattached
+             transport's warm-up) and mesh_exchange (once a window formed
+             after it) must launch. Prints each leg's checkpoint bytes and
+             phase_wall.checkpoint, each resume's load and reattach
+             seconds and its launches after the boundary.
+16. shards  — multi-process sharding (--shards): tgen_1k (full width,
+             60 s, tpu_batch, C engine) at 1, 2 and 4 shards, printing
+             sim-s/wall-s; gossip_churn at 1 and 2 shards with the
+             reference CI's flags (CHURN_SHARD_ARGV: its metrics.jsonl,
+             flows.jsonl and state digest stream pinned too); the
+             supervised chaos leg on 2 shards (SHARD_CHAOS: two worker
+             SIGKILLs and a ring-stall wedge), which must recover 3 times,
+             each restart's mttr_s under 90 s, to the same bytes. The
+             workers launch no kernel (tpu_device_floor -1): every
+             worker's counts and this process's are 0.
+17. apsp path — apsp_device, the port's device-APSP entry point, on the
              card on the three real topologies: equal to the plain version
              and to graph.py's routing tables; launches reset before, read
              after.
-16. timing  — every kernel and its plain version timed on the main paths'
+18. timing  — every kernel and its plain version timed on the main paths'
              own inputs (APSP at G = 4,096): card time per launch or call,
              with the bound for the same work; the draw kernels as the
              plane launches them (on page-locked slots, in place) and on
@@ -162,7 +196,7 @@ Phases, in order; any failure exits non-zero:
              rows, the steps of a cohort's round trip on the host, and the
              cohort size from which the card's round trip beats the numpy
              host version (the floor crossover).
-17. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
+19. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
              plane, at tpu_device_floor=1 under tpu_batch and at
              tpu_mesh_floor=0 under tpu_mesh, and on the C engine at
              tpu_device_floor=1; counts and output tree must
@@ -495,8 +529,12 @@ MESH_BUCKETS = (256, 1024, 4096, 16384)
 MAX_RATE = 16_000_000_000
 
 
+#: the script's start, for the phases' elapsed seconds
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} ({time.perf_counter() - _START:.1f} s in)", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -1492,7 +1530,7 @@ def transport_path(cli, tk, dt, digest, tmp: str) -> tuple:
     return launches, recorded
 
 
-# -- phase 16: kernel times on the main paths' inputs -------------------------
+# -- phase 18: kernel times on the main paths' inputs -------------------------
 
 def lanes_needed(torch, prop, x, key, width: int, early_exit: bool) -> int:
     """Threefry evaluations the kernel needs for these inputs: every lane
@@ -2573,7 +2611,7 @@ def check_apsp_kernels(torch, np, apsp, dev) -> int:
     return err
 
 
-# -- phase 15: the device-APSP entry point ------------------------------------
+# -- phase 17: the device-APSP entry point ------------------------------------
 
 def apsp_path(np, apsp) -> int:
     """apsp_device, the port's device-APSP entry point, on the card for
@@ -2840,8 +2878,8 @@ def policies_path(cli, prop, tk, dt, digest, tmp: str, tgen_user: dict):
 
 def fault_result(summary: dict, data_dir: str, digest) -> dict:
     """A run's results in FAULT_RESULTS' form: counts, output tree, last
-    state digest, the sha256 of metrics.jsonl and flows.jsonl (None where
-    the run wrote none), fault_transitions_applied and the telemetry
+    state digest, the sha256 of metrics.jsonl and flows.jsonl (each None
+    where the run wrote none), fault_transitions_applied and the telemetry
     block (None where the summary has none)."""
     import hashlib
 
@@ -2852,8 +2890,10 @@ def fault_result(summary: dict, data_dir: str, digest) -> dict:
         with open(path, "rb") as f:
             return hashlib.sha256(f.read()).hexdigest()
 
+    state = (last_state_digest(data_dir) if os.path.exists(
+        os.path.join(data_dir, "state_digests.jsonl")) else None)
     return {"counts": {k: summary[k] for k in TGEN1K_COUNTS},
-            "tree": digest(data_dir), "state": last_state_digest(data_dir),
+            "tree": digest(data_dir), "state": state,
             "metrics": sha("metrics.jsonl"), "flows": sha("flows.jsonl"),
             "faults": summary.get("fault_transitions_applied"),
             "telemetry": summary.get("telemetry")}
@@ -2985,7 +3025,432 @@ def faults_path(cli, prop, tk, dt, mesh, digest, tmp: str) -> dict:
     return total
 
 
-# -- phases 7-9, 11-14 and 17: the port's CLI on the card -------------------
+# -- phase 15: checkpoint and resume ------------------------------------------
+
+#: the checkpoint phase: (label, config, policy, extra argv, checkpoint
+#: cadence, the sim seconds whose checkpoints are resumed, the kernel that
+#: must launch after each boundary on the card). Each source run writes
+#: its checkpoints while it runs and must itself give the reference's
+#: results; each resume continues the source's data directory (a copy with
+#: its streams rolled back to the boundary, supervise.rollback_streams, and
+#: its hosts/ tree removed) through the CLI's --resume-from and must give
+#: them again. After the boundary: draw_flags one a window (the C engine's
+#: speculative waves aside); min_draw waves on the user leg, as a fresh
+#: process runs it (the draw plane attached in the source run, so
+#: speculation runs from the boundary on); ack_advance once a device cohort
+#: plus the reattached transport's warm-up (the transport's floor lowered
+#: to 1 in this process); mesh_exchange once a window formed after the
+#: boundary.
+CKPT_LEGS = (
+    ("tgen_1k tpu_batch user", "tgen_1k", "tpu_batch", [], "10s", (10, 20),
+     "min_draw"),
+    ("tgen_1k tpu_batch floor1", "tgen_1k", "tpu_batch", _FLOOR1, "10s",
+     (10, 20), "draw_flags"),
+    ("tor_400relay tpu_batch user", "tor_400relay", "tpu_batch", [], "30s",
+     (30,), None),
+    ("gossip_churn tpu_batch floor1", "gossip_churn", "tpu_batch", _FLOOR1,
+     "20s", (20,), "draw_flags"),
+    ("web_cdn device transport floor1", "web_cdn", "tpu_batch",
+     ["--set", "experimental.device_transport=true",
+      "--set", "experimental.native_colcore=false"], "20s", (20,),
+     "ack_advance"),
+    ("tgen_1k tpu_mesh floor0", "tgen_1k", "tpu_mesh",
+     ["--set", "experimental.tpu_mesh_floor=0"], "10s", (10,),
+     "mesh_exchange"),
+)
+#: the supervised leg's in-process failure. tgen_1k runs 10,238 rounds,
+#: 8,809 of them in its first 20 s of simulated time; its last event falls
+#: before 40 s, so it has checkpoints at 10 s and 20 s of a 10 s cadence
+#: and none at 40 s. Round 9,000 falls after the 20 s checkpoint.
+CKPT_CHAOS = "fail@r9000"
+
+
+def ckpt_want(name: str) -> dict:
+    """The reference's results for a config in fault_result's form (the
+    keys a config has constants for) and the argv that makes the run emit
+    its last state digest."""
+    if name in FAULT_RESULTS:
+        want = FAULT_RESULTS[name]
+        return want, ["--state-digest-every", str(want["counts"]["rounds"])]
+    counts, tree = {"tgen_1k": (TGEN1K_COUNTS, TGEN1K_TREE_DIGEST),
+                    "tor_400relay": (TOR400_COUNTS, TOR400_TREE_DIGEST)}[name]
+    return {"counts": counts, "tree": tree}, []
+
+
+def check_result(summary: dict, data_dir: str, digest, want: dict,
+                 what: str) -> None:
+    """The run's results (fault_result's form) are ``want``'s, key by
+    key, and it has no process errors."""
+    if summary["process_errors"]:
+        fail(f"{what}: process errors {summary['process_errors'][:3]}")
+    got = fault_result(summary, data_dir, digest)
+    for key, v in want.items():
+        if got[key] != v:
+            fail(f"{what}: {key} {got[key]!r} != reference {v!r}")
+
+
+@contextlib.contextmanager
+def resume_timing(ck, ctl_cls, counters):
+    """Time every checkpoint load while the block runs: the whole
+    load_checkpoint call and its _reattach_runtime (the rest is reading
+    and unpickling), with the launch counters as of the load. Wraps, and
+    changes nothing."""
+    loads = []
+    load, reattach = ck.load_checkpoint, ctl_cls._reattach_runtime
+
+    def timed_reattach(self, *a, **k):
+        t = time.perf_counter()
+        reattach(self, *a, **k)
+        loads[-1]["reattach_s"] = time.perf_counter() - t
+
+    def timed_load(*a, **k):
+        loads.append({"launches": counters()})
+        t = time.perf_counter()
+        ctl, at = load(*a, **k)
+        rec = loads[-1]
+        rec["load_s"] = time.perf_counter() - t - rec["reattach_s"]
+        return ctl, at
+
+    ck.load_checkpoint, ctl_cls._reattach_runtime = timed_load, \
+        timed_reattach
+    try:
+        yield loads
+    finally:
+        ck.load_checkpoint, ctl_cls._reattach_runtime = load, reattach
+
+
+def ckpt_files(data_dir: str) -> list:
+    """(sim seconds, path, bytes) of a run's checkpoints, in time order."""
+    out = []
+    for p in sorted(Path(data_dir, "checkpoints").glob("ckpt_t*.ckpt")):
+        t_ns = int(p.name[len("ckpt_t"):].split(".")[0])
+        out.append((t_ns / 1e9, p, p.stat().st_size))
+    return out
+
+
+def resume_copy(sup, load_cfg, src: str, dst: str, path) -> None:
+    """``dst``: ``src`` as it stood at the checkpoint ``path`` — its
+    append-mode streams rolled back to the boundary (the supervisor's
+    rollback), its hosts/ tree and checkpoints removed."""
+    from shadow_tpu_torch import checkpoint as ck
+
+    shutil.copytree(src, dst)
+    shutil.rmtree(os.path.join(dst, "hosts"), ignore_errors=True)
+    shutil.rmtree(os.path.join(dst, "checkpoints"), ignore_errors=True)
+    head = ck.read_header(path)
+    sup.rollback_streams(load_cfg(dst), int(head["rounds"]),
+                         int(head["sim_time_ns"]))
+
+
+def checkpoint_path(cli, prop, tk, dt, mesh, digest, tmp: str,
+                    device: str = "cuda") -> dict:
+    """Checkpoint and resume through the port's CLI at full width and full
+    stop time: CKPT_LEGS, then one resume across devices each way and a
+    supervised run that recovers from an in-process failure. Launch counts
+    are reset just before each run and read just after; on the card every
+    resumed leg must launch its kernels after the boundary (CKPT_LEGS).
+    Prints for each leg the checkpoint files' bytes, phase_wall.checkpoint,
+    each resume's load and reattach seconds and the launches after its
+    boundary. Returns the launches summed over the runs."""
+    from shadow_tpu_torch import checkpoint as ck
+    from shadow_tpu_torch import supervise as sup
+    from shadow_tpu_torch.config import load_config
+    from shadow_tpu_torch.core.controller import Controller
+
+    card = device == "cuda"
+    total = {"draw_flags": 0, "min_draw": 0, "ack_advance": 0,
+             "mesh_exchange": 0}
+    floor0 = dt._DEVICE_FLOOR
+
+    def launches():
+        return {**prop.LAUNCHES, "ack_advance": tk.LAUNCHES["ack_advance"],
+                "mesh_exchange": mesh.LAUNCHES["mesh_exchange"]}
+
+    def reset():
+        gc.collect()
+        prop.reset_launches()
+        tk.reset_launches()
+        mesh.reset_launches()
+
+    def run(label, argv, devt=False):
+        reset()
+        dt._DEVICE_FLOOR = 1 if devt else floor0
+        try:
+            with resume_timing(ck, Controller, launches) as loads:
+                s = run_cli(cli, argv)
+        finally:
+            dt._DEVICE_FLOOR = floor0
+        n = launches()
+        for k in total:
+            total[k] += n[k]
+        return s, n, loads
+
+    def after(label, s, n, rec, kernel):
+        """The launches since the load (the supervisor's restart or the
+        CLI's resume), checked against what the leg must launch."""
+        got = {k: n[k] - rec["launches"][k] for k in n}
+        if not card or kernel is None:
+            return got
+        win = s["device_windows_dispatched"]
+        if kernel == "draw_flags" and not (got["draw_flags"] > 0 and got[
+                "draw_flags"] + got["min_draw"] >= win > 0):
+            fail(f"{label}: {got['draw_flags']} draw_flags after the "
+                 f"boundary for {win} windows")
+        if kernel == "min_draw" and got["min_draw"] <= 0:
+            fail(f"{label}: no speculative min_draw wave after the boundary")
+        if kernel == "ack_advance":
+            dtr = s["device_transport"]
+            if dtr["device_cohorts"] <= 0 or \
+                    got["ack_advance"] != dtr["device_cohorts"] + 1:
+                fail(f"{label}: ack_advance launched {got['ack_advance']} "
+                     f"times after the boundary for "
+                     f"{dtr['device_cohorts']} device cohorts (+ warm-up)")
+        if kernel == "mesh_exchange":
+            # the reattached mesh plane counts the windows it formed
+            formed = s["phase_wall"]["mesh_windows"]
+            if formed <= 0 or got["mesh_exchange"] != formed:
+                fail(f"{label}: mesh_exchange launched "
+                     f"{got['mesh_exchange']} times after the boundary for "
+                     f"{formed} windows")
+        return got
+
+    def cfg_of(name):
+        return lambda d: load_config(str(EXAMPLES / f"{name}.yaml"),
+                                     {"general.data_directory": d})
+
+    sources = {}
+    for label, name, policy, extra, every, resume_s, kernel in CKPT_LEGS:
+        want, dig = ckpt_want(name)
+        src = os.path.join(tmp, "ckpt_" + label.replace(" ", "_"))
+        base = [str(EXAMPLES / f"{name}.yaml"), "--scheduler-policy", policy,
+                *dig, *extra]
+        if label.endswith("user"):
+            prop.DeviceDrawPlane._cache.clear()  # a fresh process
+        devt = "transport" in label
+        s, n, _ = run(label, base + ["--device", device, "--data-directory",
+                                     src, "--checkpoint-every", every], devt)
+        check_result(s, src, digest, want, f"{label} (checkpointing)")
+        files = ckpt_files(src)
+        sources[label] = (base, src, files)
+        print(f"{label}: checkpointing run matches the reference; "
+              f"controller {s['wall_seconds']:.3f} s, phase_wall.checkpoint "
+              f"{s['phase_wall'].get('checkpoint', 0.0):.4f} s for "
+              f"{len(files)} checkpoints of "
+              f"{[b for _, _, b in files]} bytes, launches {json.dumps(n)}",
+              flush=True)
+        for t in resume_s:
+            path = next(p for ts, p, _ in files if ts >= t)
+            d = os.path.join(tmp, f"ckpt_resume_{t}_" + label.replace(" ", "_"))
+            resume_copy(sup, cfg_of(name), src, d, path)
+            s, n, loads = run(label, base + [
+                "--device", device, "--data-directory", d,
+                "--resume-from", str(path)], devt)
+            what = f"{label} resumed at {path.name}"
+            check_result(s, d, digest, want, what)
+            got = after(what, s, n, loads[0], kernel)
+            print(f"{what}: matches the reference; load "
+                  f"{loads[0]['load_s']:.4f} s, reattach "
+                  f"{loads[0]['reattach_s']:.4f} s, controller "
+                  f"{s['wall_seconds']:.3f} s, launches after the boundary "
+                  f"{json.dumps(got)}, windows "
+                  f"{s['device_windows_dispatched']}", flush=True)
+
+    # across devices: the floor-1 checkpoint written on one device resumes
+    # on the other (the device is the resuming invocation's choice)
+    legs = [(f"written on {device}, resumed on cpu",
+             sources["tgen_1k tpu_batch floor1"], "cpu")]
+    base = sources["tgen_1k tpu_batch floor1"][0]
+    if card:
+        src = os.path.join(tmp, "ckpt_tgen_1k_floor1_cpu")
+        s, n, _ = run("cpu source", base + ["--device", "cpu",
+                                            "--data-directory", src,
+                                            "--checkpoint-every", "10s"])
+        check_result(s, src, digest, ckpt_want("tgen_1k")[0],
+                     "tgen_1k floor1 on cpu (checkpointing)")
+        legs.append(("written on cpu, resumed on cuda",
+                     (base, src, ckpt_files(src)), "cuda"))
+    for what, (base, src, files), dev in legs:
+        path = next(p for ts, p, _ in files if ts >= 20)
+        d = os.path.join(tmp, "ckpt_cross_" + dev)
+        resume_copy(sup, cfg_of("tgen_1k"), src, d, path)
+        s, n, loads = run(what, base + ["--device", dev, "--data-directory",
+                                        d, "--resume-from", str(path)])
+        check_result(s, d, digest, ckpt_want("tgen_1k")[0], what)
+        got = after(what, s, n, loads[0], "draw_flags" if dev == "cuda"
+                    else None)
+        if dev == "cpu" and any(n.values()):
+            fail(f"{what}: a cpu resume launched {json.dumps(n)}")
+        print(f"tgen_1k floor1 {what}: matches the reference; load "
+              f"{loads[0]['load_s']:.4f} s, reattach "
+              f"{loads[0]['reattach_s']:.4f} s, launches after the boundary "
+              f"{json.dumps(got)}", flush=True)
+
+    # supervised: an in-process failure, recovered from the newest
+    # checkpoint, the kernels relaunched after the restart
+    d = os.path.join(tmp, "ckpt_supervised")
+    os.environ["SHADOW_TPU_CHAOS"] = CKPT_CHAOS
+    try:
+        s, n, loads = run("supervised", base + [
+            "--device", device, "--data-directory", d,
+            "--checkpoint-every", "10s",
+            "--set", "general.supervise={max_restarts: 1, backoff: 0}"])
+    finally:
+        del os.environ["SHADOW_TPU_CHAOS"]
+    check_result(s, d, digest, ckpt_want("tgen_1k")[0],
+                 f"tgen_1k floor1 supervised {CKPT_CHAOS}")
+    rs = s["supervisor"]["restarts"]
+    if len(rs) != 1 or "ChaosFailure" not in rs[0]["reason"] or \
+            not rs[0]["resume"].endswith(".ckpt") or len(loads) != 1:
+        fail(f"supervised {CKPT_CHAOS}: restarts {rs}")
+    got = after(f"supervised {CKPT_CHAOS}", s, n, loads[0], "draw_flags")
+    print(f"tgen_1k floor1 supervised ({CKPT_CHAOS}): recovered once from "
+          f"{Path(rs[0]['resume']).name} to the reference's results, mttr "
+          f"{rs[0]['mttr_s']} s, load {loads[0]['load_s']:.4f} s, reattach "
+          f"{loads[0]['reattach_s']:.4f} s, launches after the restart "
+          f"{json.dumps(got)}", flush=True)
+    print(f"launches on the checkpoint legs: {json.dumps(total)}", flush=True)
+    return total
+
+
+# -- phase 16: multi-process sharding and the supervised chaos leg ------------
+
+#: examples/gossip_churn.yaml with the multi-shard leg's flags, the
+#: reference's results from
+#:   python -m shadow_tpu examples/gossip_churn.yaml --scheduler-policy \
+#:     tpu_batch --stop-time 40s --state-digest-every 100 --sample-every 5s
+#: ("digests": sha256 of the whole state_digests.jsonl stream; the counts,
+#: tree and fault transitions are FAULT_RESULTS' gossip_churn)
+CHURN_SHARD_ARGV = ["--scheduler-policy", "tpu_batch", "--stop-time", "40s",
+                    "--state-digest-every", "100", "--sample-every", "5s"]
+CHURN_SHARD_RESULTS = {
+    "counts": FAULT_RESULTS["gossip_churn"]["counts"],
+    "tree": FAULT_RESULTS["gossip_churn"]["tree"],
+    "state": "27b8f27d2710db8bb30ab3230c40803e"
+             "087161eca320410baa3739cc4b6db444",
+    "metrics": "b933f30ac5c3d951eddab1878947dc86"
+               "a09e18ce4690cc0de39b374e05e4c8a6",
+    "flows": "f1a6926cda12fbc9f947cf04a4e272d8"
+             "43165cbb8686abf784bbf56633194819",
+    "faults": 117,
+    "telemetry": {"samples": 7, "flows_recorded": 1428, "flows": {
+        "gossip_fetch": {"count": 1427, "ok": 1427, "failed": 0,
+                         "p50_ms": 55.575, "p90_ms": 130.023,
+                         "p99_ms": 159.384, "p99_9_ms": 310.378},
+        "tgen_fetch": {"count": 1, "ok": 1, "failed": 0,
+                       "p50_ms": 22548.578, "p90_ms": 22548.578,
+                       "p99_ms": 22548.578, "p99_9_ms": 22548.578}}},
+}
+CHURN_SHARD_DIGESTS = (
+    "7106759ded618e080244a80d25f9822bcef089ce84bea368149f09452a6a605b")
+#: the supervised chaos leg: two worker SIGKILLs and a ring-stall wedge
+#: (the reference's CI leg), its deadlines and restart budget
+SHARD_CHAOS = "s0:kill@r700,s1:kill@r1400,s0:wedge@r2000"
+SHARD_CHAOS_ENV = {"SHADOW_TPU_CHAOS": SHARD_CHAOS,
+                   "SHADOW_TPU_STALL_FLOOR_S": "3",
+                   "SHADOW_TPU_STALL_MULT": "20"}
+SHARD_CHAOS_ARGV = ["--shards", "2", "--checkpoint-every", "2s", "--set",
+                    "general.supervise={max_restarts: 4, backoff: 0.2}"]
+MTTR_BOUND_S = 90
+
+
+def stream_sha(data_dir: str, name: str) -> str:
+    import hashlib
+
+    with open(os.path.join(data_dir, name), "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def shards_path(cli, prop, tk, mesh, digest, tmp: str,
+                device: str = "cuda") -> dict:
+    """Multi-process sharding through the port's CLI: tgen_1k (full width,
+    60 s, tpu_batch, C engine) at 1, 2 and 4 shards; gossip_churn with
+    the reference CI's multi-shard flags at 1 and 2 shards; the supervised
+    chaos leg (SHARD_CHAOS on 2 shards), which must recover 3 times, each
+    failure named and each restart's mttr_s under MTTR_BOUND_S, and end on
+    the reference's bytes. Every leg gives the reference's results
+    (gossip_churn's metrics.jsonl, flows.jsonl and state digest stream
+    too). The sharded legs launch no kernel: each worker's counts and
+    this process's (reset before, read after) are 0. Prints each leg's
+    sim-s/wall-s, the call's wall (worker start included) and the
+    restarts' mttr_s. Returns the launches summed over the legs."""
+    total = {"draw_flags": 0, "min_draw": 0, "ack_advance": 0,
+             "mesh_exchange": 0}
+
+    def launches():
+        return {**prop.LAUNCHES, "ack_advance": tk.LAUNCHES["ack_advance"],
+                "mesh_exchange": mesh.LAUNCHES["mesh_exchange"]}
+
+    def leg(label, argv, n_shards, env=None):
+        d = os.path.join(tmp, "shards_" + label.replace(" ", "_"))
+        gc.collect()
+        prop.reset_launches()
+        tk.reset_launches()
+        mesh.reset_launches()
+        if label.endswith("user"):
+            prop.DeviceDrawPlane._cache.clear()  # a fresh process
+        os.environ.update(env or {})
+        try:
+            t0 = time.perf_counter()
+            s = run_cli(cli, argv + ["--device", device, "--data-directory",
+                                     d, "--shards", str(n_shards)])
+            wall = time.perf_counter() - t0
+        finally:
+            for k in env or {}:
+                del os.environ[k]
+        n = launches()
+        for k in total:
+            total[k] += n[k]
+        workers = [p["launches"] for p in s.get("shards", {}).get(
+            "per_shard", [])]
+        if n_shards > 1 and (any(n.values()) or any(
+                any(w.values()) for w in workers)
+                or s["device_windows_dispatched"] != 0):
+            fail(f"{label}: a sharded run launched a kernel: parent "
+                 f"{json.dumps(n)}, workers {json.dumps(workers)}")
+        print(f"{label}: {s['sim_sec_per_wall_sec']:.6f} sim-s/wall-s "
+              f"(controller {s['wall_seconds']:.3f} s, call {wall:.3f} s "
+              f"with the workers' start), native_colcore "
+              f"{s.get('native_colcore')}, launches {json.dumps(n)}"
+              + (f", workers' launches {json.dumps(workers)}, per-shard "
+                 f"phase_wall {json.dumps([p['phase_wall'] for p in s['shards']['per_shard']])}"
+                 if n_shards > 1 else ""), flush=True)
+        return s, d
+
+    tgen = [str(EXAMPLES / "tgen_1k.yaml"), "--scheduler-policy", "tpu_batch"]
+    for k in (1, 2, 4):
+        s, d = leg(f"tgen_1k {k} shard{'s' if k > 1 else ''} user", tgen, k)
+        check_run(s, d, digest, TGEN1K_COUNTS, TGEN1K_TREE_DIGEST,
+                  f"tgen_1k at {k} shards")
+    churn = [str(EXAMPLES / "gossip_churn.yaml"), *CHURN_SHARD_ARGV]
+
+    def check_churn(s, d, what):
+        check_result(s, d, digest, CHURN_SHARD_RESULTS, what)
+        if stream_sha(d, "state_digests.jsonl") != CHURN_SHARD_DIGESTS:
+            fail(f"{what}: state_digests.jsonl differs from the reference's")
+
+    for k in (1, 2):
+        s, d = leg(f"gossip_churn {k} shard{'s' if k > 1 else ''}", churn, k)
+        check_churn(s, d, f"gossip_churn at {k} shards")
+    s, d = leg("gossip_churn supervised chaos", churn + SHARD_CHAOS_ARGV[2:],
+               2, SHARD_CHAOS_ENV)
+    check_churn(s, d, f"gossip_churn supervised ({SHARD_CHAOS})")
+    rs = s["supervisor"]["restarts"]
+    reasons = " | ".join(r["reason"] for r in rs)
+    if len(rs) != 3 or "died" not in reasons \
+            or "dead or wedged" not in reasons:
+        fail(f"chaos leg: restarts {rs}")
+    for r in rs:
+        if r["mttr_s"] >= MTTR_BOUND_S or r["resume"] == "scratch":
+            fail(f"chaos leg: restart {r}")
+    print(f"gossip_churn supervised ({SHARD_CHAOS}): recovered "
+          f"{len(rs)} times to the reference's bytes, mttr_s "
+          f"{[r['mttr_s'] for r in rs]}, reasons "
+          f"{[r['reason'][:60] for r in rs]}", flush=True)
+    print(f"launches on the shards legs: {json.dumps(total)}", flush=True)
+    return total
+
+
+# -- phases 7-9, 11-16 and 19: the port's CLI on the card -------------------
 
 def run_cli(cli, argv: list, cut: bool = False) -> dict:
     """Run the port's CLI in this process; returns its JSON summary. A run
@@ -3292,6 +3757,16 @@ def main() -> int:
 
     phase("faults")
     for name, n in faults_path(cli, prop, tk, dt, mesh, output_tree_digest,
+                               tmp).items():
+        launches[name] += n
+
+    phase("checkpoint")
+    for name, n in checkpoint_path(cli, prop, tk, dt, mesh,
+                                   output_tree_digest, tmp).items():
+        launches[name] += n
+
+    phase("shards")
+    for name, n in shards_path(cli, prop, tk, mesh, output_tree_digest,
                                tmp).items():
         launches[name] += n
 

@@ -1,11 +1,14 @@
 """Command-line entry point.
 
-The port of shadow_tpu/cli.py: the same flags and the same config files.
-Flags of features that are not ported yet are still parsed, so that the
-config load refuses them by name (exit 2) rather than argparse rejecting
-an unknown flag. ``--device {cuda,cpu}`` (default cuda) says where the
-data-plane kernels run; ``cuda`` without a visible card is an error, never
-a silent CPU run.
+The port of shadow_tpu/cli.py: the same flags, exit codes and config
+files, with the reference's paths for checkpointed runs
+(``--checkpoint-every``, ``--resume-from``), multi-process sharding
+(``--shards``) and supervision (``--supervise``). Flags of features that
+are not ported yet are still parsed, so that the config load refuses them
+by name (exit 2) rather than argparse rejecting an unknown flag.
+``--device {cuda,cpu}`` (default cuda) says where the data-plane kernels
+run (a resume reattaches them on the resuming invocation's device); ``cuda``
+without a visible card is an error, never a silent CPU run.
 
 Usage:
     python -m shadow_tpu_torch [flags] config.yaml
@@ -175,6 +178,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     args = build_parser().parse_args(argv)
+    from shadow_tpu_torch.checkpoint import CheckpointError
     from shadow_tpu_torch.config import load_config
     from shadow_tpu_torch.core.controller import Controller
 
@@ -209,20 +213,72 @@ def main(argv=None) -> int:
             indent=2, default=enc,
         ))
         return 0
-    if args.resume_from:
-        print("shadow_tpu_torch: checkpoint/resume (--resume-from) is not "
-              "ported to shadow_tpu_torch yet", file=sys.stderr)
-        return 2
-    try:
-        controller = Controller(cfg, mirror_log=not args.quiet,
-                                device=args.device)
-    except ValueError as exc:
-        # build-time refusals (no card for --device cuda, bad host
-        # placement, unknown fault targets) keep the clean one-line error
-        # contract
-        print(f"shadow_tpu_torch: {exc}", file=sys.stderr)
-        return 2
-    result = controller.run()
+    mirror = not args.quiet
+    if cfg.general.supervise is not None:
+        # self-healing path (supervise.py): wraps the sharded or
+        # single-process run in restart-on-failure with checkpoint resume;
+        # the recovered result is byte-identical to an uninterrupted run
+        from shadow_tpu_torch.supervise import SupervisorGaveUp, run_supervised
+
+        try:
+            result = run_supervised(cfg, mirror_log=mirror,
+                                    resume_from=args.resume_from or None,
+                                    device=args.device)
+        except FileNotFoundError as exc:
+            print(f"shadow_tpu_torch: checkpoint not found: {exc}",
+                  file=sys.stderr)
+            return 2
+        except (ValueError, CheckpointError) as exc:
+            print(f"shadow_tpu_torch: {exc}", file=sys.stderr)
+            return 2
+        except SupervisorGaveUp as exc:
+            # restart budget exhausted or unrecoverable failure class; the
+            # structured post-mortem is in <data_dir>/crash_report.json
+            print(f"shadow_tpu_torch: {exc}", file=sys.stderr)
+            return 1
+    elif cfg.general.sim_shards > 1:
+        # multi-process host partitioning (parallel/shards.py): the parent
+        # coordinator replaces the single-process controller; results are
+        # byte-identical at any shard count
+        from shadow_tpu_torch.parallel.shards import run_sharded
+
+        try:
+            result = run_sharded(cfg, mirror_log=mirror,
+                                 resume_from=args.resume_from or None,
+                                 device=args.device)
+        except FileNotFoundError as exc:
+            print(f"shadow_tpu_torch: checkpoint not found: {exc}",
+                  file=sys.stderr)
+            return 2
+        except (ValueError, CheckpointError) as exc:
+            print(f"shadow_tpu_torch: {exc}", file=sys.stderr)
+            return 2
+    elif args.resume_from:
+        from shadow_tpu_torch.checkpoint import load_checkpoint
+
+        try:
+            controller, resume_at = load_checkpoint(
+                args.resume_from, cfg, mirror_log=mirror, device=args.device)
+        except FileNotFoundError:
+            print(f"shadow_tpu_torch: checkpoint not found: "
+                  f"{args.resume_from}", file=sys.stderr)
+            return 2
+        except (ValueError, CheckpointError) as exc:
+            # CheckpointError, and a device this process cannot use
+            print(f"shadow_tpu_torch: {exc}", file=sys.stderr)
+            return 2
+        result = controller.run(resume_at=resume_at)
+    else:
+        try:
+            controller = Controller(cfg, mirror_log=mirror,
+                                    device=args.device)
+        except ValueError as exc:
+            # build-time refusals (no card for --device cuda, bad host
+            # placement, unknown fault targets, checkpoint-unsupported
+            # configs) keep the clean one-line error contract
+            print(f"shadow_tpu_torch: {exc}", file=sys.stderr)
+            return 2
+        result = controller.run()
     if args.json_summary:
         print(json.dumps(result))
     if result.get("exit_reason") == "interrupted":

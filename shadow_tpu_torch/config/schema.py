@@ -626,15 +626,9 @@ def refuse_unported(cfg: ConfigOptions) -> None:
                 "several devices)")
     # under tpu_mesh, tpu_mesh_shards above the visible device count is
     # refused where the device is known (network/devroute.py)
-    if g.checkpoint_every is not None:
-        _refuse("checkpoint/resume (general.checkpoint_every)")
     if g.live_endpoint is not None or g.replay_commands is not None:
         _refuse("the live endpoint (general.live_endpoint / "
                 "general.replay_commands)")
-    if g.supervise is not None:
-        _refuse("supervised runs (--supervise / general.supervise)")
-    if g.sim_shards != 1:
-        _refuse("multi-process sharding (general.sim_shards > 1)")
     for h in cfg.hosts:
         for p in h.processes:
             if not p.path.startswith("pyapp:"):

@@ -33,8 +33,11 @@ active-host set itself.
 loss draws under tpu_batch, the mesh programs under tpu_mesh); it is
 checked under every policy. Fault injection (faults.py), telemetry
 (telemetry/) and packet capture (utils/pcap.py) run on every plane and
-policy, as in the reference. The reference's live plane, checkpoints,
-supervision, sharding and managed processes are refused at config load
+policy, as in the reference; so do checkpoints (checkpoint.py: a snapshot
+at a round boundary, ``run(resume_at=...)`` to continue it, byte-identical
+to the uninterrupted run), the supervisor's in-process chaos hook
+(supervise.py) and the shard-worker subclass (parallel/shards.py). The
+reference's live plane and managed processes are refused at config load
 (config/schema.py::refuse_unported).
 """
 
@@ -79,16 +82,52 @@ VOLATILE_SUMMARY_KEYS = ("wall_seconds", "sim_sec_per_wall_sec",
 
 
 class Controller:
+    #: multi-process sharding (parallel/shards.py): the shard worker
+    #: subclass overrides these INSTANCE attrs before calling __init__;
+    #: the base controller owns every host. owns() gates which hosts get
+    #: processes, scheduler slots, fault lifecycle transitions, telemetry
+    #: columns, and digest fingerprints.
+    shard_id = 0
+    n_shards = 1
+    #: supervision (supervise.py): ``_supervised`` is set by
+    #: run_supervised (an in-process chaos kill then raises instead of
+    #: taking the supervisor down); ``_chaos`` is the env-armed fault
+    #: injector (wall-clock plane, rebuilt by every run())
+    _supervised = False
+    _chaos = None
+
+    def owns(self, hid: int) -> bool:
+        return self.n_shards == 1 or hid % self.n_shards == self.shard_id
+
+    def _sched_hosts(self) -> list:
+        """The hosts this controller's scheduler executes: all of them,
+        or the owned subset on a shard worker (a scheduler policy's
+        host->thread placement cannot change results, so neither can the
+        shard partition — same argument, one level up)."""
+        if self.n_shards == 1:
+            return self.hosts
+        return [h for h in self.hosts if self.owns(h.id)]
+
+    def _log_name(self) -> str:
+        return "shadow.log"
+
     def __init__(self, cfg: ConfigOptions, mirror_log: bool = True,
                  device: str = "cuda") -> None:
         from shadow_tpu_torch.ops import devcfg
 
-        devcfg.select_device(device)  # "cuda" without a card: fail now
+        devcfg.require_device(device)  # "cuda" without a card: fail now
         self.cfg = cfg
+        if cfg.general.checkpoint_every:
+            # fail at build, not at the first checkpoint boundary 40
+            # minutes in (checkpoint.py owns the policy)
+            from shadow_tpu_torch.checkpoint import \
+                validate_config_checkpointable
+
+            validate_config_checkpointable(cfg)
         self.device = device
         self.data_dir = Path(cfg.general.data_directory)
         self.log = SimLogger(cfg.general.log_level,
-                             self.data_dir / "shadow.log",
+                             self.data_dir / self._log_name(),
                              mirror_stderr=mirror_log)
         self.graph = load_graph(cfg.network["graph"])
 
@@ -203,12 +242,16 @@ class Controller:
         attach_dt = getattr(self.engine, "attach_devtransport", None)
         if attach_dt is not None:
             attach_dt(cfg.experimental, device)
-        self.scheduler = make_scheduler(policy, self.hosts,
+        self.scheduler = make_scheduler(policy, self._sched_hosts(),
                                         cfg.general.parallelism)
 
-        # processes: pyapp: plugins run in-process
+        # processes: pyapp: plugins run in-process (sharded workers build
+        # processes only for their OWNED hosts — a non-owned host is pure
+        # topology here, its simulation lives on the owning shard)
         self.processes: list = []
         for host, hopts in zip(self.hosts, cfg.hosts):
+            if not self.owns(host.id):
+                continue
             for i, popts in enumerate(hopts.processes):
                 proc = PluginProcess(host, popts, i)
                 host.processes.append(proc)
@@ -262,15 +305,97 @@ class Controller:
         self.events = 0
         self.wall_seconds = 0.0
         self._events_wall = 0.0  # scheduler.run_round wall (phase timing)
-        #: determinism sentinel (checkpoint.py): digest every N rounds
+        self._ckpt_wall = 0.0  # save_checkpoint wall (phase timing)
+        # checkpoint/restore + determinism sentinel (checkpoint.py)
+        self.ckpt_every: SimTime = cfg.general.checkpoint_every or 0
+        self.ckpt_dir = (Path(cfg.general.checkpoint_dir)
+                         if cfg.general.checkpoint_dir
+                         else self.data_dir / "checkpoints")
         self.digest_every = cfg.general.state_digest_every
         #: set by the SIGINT/SIGTERM handler: the round loop finishes the
-        #: current round and finalizes a valid partial summary instead of
-        #: dying mid-round
+        #: current round, writes a final checkpoint (when enabled), and
+        #: finalizes a valid partial summary instead of dying mid-round
         self._interrupt = None
         self._partial = False
         for w in cfg.warnings:
             self.log.warning(w)
+
+    # -- checkpoint/restore (checkpoint.py) -------------------------------
+    def __getstate__(self):
+        """Snapshot-time state: everything except runtime plumbing. The
+        scheduler (worker threads), the C engine and the chaos injector
+        are rebuilt on restore; all are result-transparent."""
+        d = self.__dict__.copy()
+        d["scheduler"] = None
+        d["_c_core"] = None
+        d.pop("_chaos", None)
+        return d
+
+    def _reattach_runtime(self, mirror_log: bool = True,
+                          device: str = "cuda") -> None:
+        """Rebuild the runtime-only pieces after a checkpoint restore:
+        output location, logger mirroring, scheduler threads, the device
+        data plane on the resume invocation's ``device`` (the draw plane
+        and its slots, the mesh plane, the device transport), and the C
+        engine (honoring the invocation's ``experimental.native_colcore``
+        — a volatile config key). Everything simulation-semantic came back
+        through the pickle; checkpoint-restored C objects (endpoints,
+        gossip states, relays) are bound to the fresh engine via
+        ``checkpoint.finish_colcore_adopt``. The fault injector and the
+        rebuilt engine share the restored arrays (the pickle memo keeps
+        one object per array), so the injector's in-place rewrites reach
+        the C engine's pointers as before."""
+        from shadow_tpu_torch import checkpoint as _ckpt
+        from shadow_tpu_torch.ops import devcfg
+        from shadow_tpu_torch.utils.logging import LEVELS
+
+        devcfg.require_device(device)  # "cuda" without a card: fail now
+        self.device = device
+        cfg = self.cfg
+        self.data_dir = Path(cfg.general.data_directory)
+        self.log.path = self.data_dir / self._log_name()
+        self.log.mirror = mirror_log
+        # log_level is a volatile config key: honor the resume invocation's
+        # value on the main log and on hosts without a per-host override
+        self.log.level = LEVELS[cfg.general.log_level]
+        for h, hopts in zip(self.hosts, cfg.hosts):
+            h.log_level = hopts.log_level or cfg.general.log_level
+        self.ckpt_every = cfg.general.checkpoint_every or 0
+        self.ckpt_dir = (Path(cfg.general.checkpoint_dir)
+                         if cfg.general.checkpoint_dir
+                         else self.data_dir / "checkpoints")
+        self.digest_every = cfg.general.state_digest_every
+        self.scheduler = make_scheduler(
+            cfg.experimental.scheduler_policy, self._sched_hosts(),
+            cfg.general.parallelism)
+        self.engine.reattach_device(cfg.experimental, device)
+        # C engine: rebuild over the restored structures and REWIRE the
+        # activation hooks — the pickled hooks may reference the dead
+        # engine's placeholder (checkpoint._DeadCoreHandle)
+        self._c_core = None
+        attach = getattr(self.engine, "attach_colcore", None)
+        core = attach(cfg.experimental) if attach is not None else None
+        if core is not None:
+            self._c_core = core
+            core.bind_active(self._active)
+            act = core.activate
+            self.engine.activate = act
+            for h in self.hosts:
+                h.equeue.on_first = partial(act, h.id)
+            if self.faults is not None:
+                core.set_faults_active(True)
+        else:
+            if isinstance(self.engine, ColumnarPlane):
+                self.engine.activate = self._active.add
+            for h in self.hosts:
+                h.equeue.on_first = partial(self._active.add, h.id)
+        attach_dt = getattr(self.engine, "attach_devtransport", None)
+        if attach_dt is not None:
+            # after attach_colcore: the transport engine yields to an
+            # attached C engine (experimental.device_transport is volatile
+            # wall-clock policy, like native_colcore)
+            attach_dt(cfg.experimental, device)
+        _ckpt.finish_colcore_adopt(self)
 
     def _on_signal(self, signum, frame) -> None:
         """SIGINT/SIGTERM: request a graceful stop at the next round
@@ -294,43 +419,56 @@ class Controller:
         return hid
 
     # -- main loop --------------------------------------------------------
-    def run(self) -> dict:
-        """Drive the simulation to stop_time and return the run summary."""
+    def run(self, resume_at: SimTime = None) -> dict:
+        """Drive the simulation to stop_time and return the run summary.
+        ``resume_at`` (set by checkpoint.load_checkpoint) re-enters the
+        round loop at a saved round boundary; all loop-carried state
+        (engine, queues, fault cursor, active set, counters) came back
+        through the snapshot, so the continuation is byte-identical to the
+        uninterrupted run."""
         cfg = self.cfg
         stop = cfg.general.stop_time
         w = self.round_ns
-        now: SimTime = 0
+        now: SimTime = resume_at if resume_at is not None else 0
         self.log.info(
-            f"simulation starting: {len(self.hosts)} hosts, "
+            f"simulation {'resuming' if resume_at is not None else 'starting'}"
+            f": {len(self.hosts)} hosts, "
             f"{self.graph.n_nodes} graph nodes, round width {format_time(w)}, "
             f"policy {cfg.experimental.scheduler_policy} on {self.device}, "
             f"stop {format_time(stop)}"
         )
         hb_interval = cfg.general.heartbeat_interval
-        next_hb = hb_interval if hb_interval else T_NEVER
+        next_hb = ((now // hb_interval) + 1) * hb_interval \
+            if hb_interval else T_NEVER
         prog_step = max(stop // 100, 1)
-        next_prog = prog_step if cfg.general.progress else T_NEVER
+        next_prog = now + prog_step if cfg.general.progress else T_NEVER
+        ck_every = self.ckpt_every
         dig = self.digest_every
         _ckpt = None
-        if dig:
+        if ck_every or dig:
             from shadow_tpu_torch import checkpoint as _ckpt
-
-            # a stale sentinel stream from a previous run into this
-            # data_directory would concatenate and confuse
-            # tools/bisect_divergence.py
+        if dig and resume_at is None:
+            # fresh run: a stale sentinel stream from a previous run into
+            # this data_directory would concatenate and confuse
+            # tools/bisect_divergence.py (resumes keep appending — the
+            # continuation of one stream)
             (self.data_dir / _ckpt.DIGEST_FILE).unlink(missing_ok=True)
         tel = self.telemetry
-        if tel is not None:
-            # a fresh run truncates stale streams and writes the meta record
+        if tel is not None and resume_at is None:
+            # same discipline for the telemetry streams: fresh runs
+            # truncate + write the meta record; resumes keep appending
             tel.start_fresh(self)
-        # graceful shutdown: SIGINT/SIGTERM finish the current round and
-        # produce a valid partial summary (main thread only — signals
-        # cannot be hooked elsewhere)
+        next_ckpt = ((now // ck_every) + 1) * ck_every if ck_every \
+            else T_NEVER
+        # graceful shutdown: SIGINT/SIGTERM finish the current round, write
+        # a final checkpoint (when enabled), and produce a valid partial
+        # summary (main thread only — signals cannot be hooked elsewhere)
         import signal as _signal
         import threading as _threading
 
         self._partial = False
-        self._interrupt = None
+        self._interrupt = None  # a resumed final-checkpoint carries the
+        #                         old signal name; this run starts clean
         installed = {}
         if _threading.current_thread() is _threading.main_thread():
             for s in (_signal.SIGINT, _signal.SIGTERM):
@@ -346,11 +484,22 @@ class Controller:
 
         gc_was_enabled = _gc.isenabled()
         _gc.disable()
+        # chaos harness (supervise.py): deterministic-round fault
+        # injection, armed only through the environment — one dict probe
+        # per run when off, one int compare per round when on
+        import os as _os
+
+        self._chaos = None
+        if _os.environ.get("SHADOW_TPU_CHAOS"):
+            from shadow_tpu_torch.supervise import ChaosInjector
+
+            self._chaos = ChaosInjector.from_env(
+                self.data_dir, shard=self.shard_id, in_process=True)
         t0 = _walltime.perf_counter()
         try:
             now = self._round_loop(now, stop, w, next_hb, hb_interval,
-                                   next_prog, prog_step, dig, _ckpt, tel,
-                                   t0)
+                                   next_prog, prog_step, next_ckpt,
+                                   ck_every, dig, _ckpt, tel, t0)
         finally:
             for s, old in installed.items():
                 _signal.signal(s, old)
@@ -362,6 +511,9 @@ class Controller:
                 f"{self._interrupt} received: stopped gracefully at round "
                 f"boundary {format_time(now)} ({self.rounds} rounds); "
                 f"summary is partial")
+            if ck_every:
+                path = _ckpt.save_checkpoint(self, now)
+                self.log.info(f"final checkpoint written: {path}")
         _gc.collect()
         self.engine.flush_all()  # finalize counters for in-flight batches
         if cfg.general.progress:
@@ -373,7 +525,8 @@ class Controller:
         return self._finalize(min(now, stop))
 
     def _round_loop(self, now, stop, w, next_hb, hb_interval, next_prog,
-                    prog_step, dig, _ckpt, tel, t0) -> SimTime:
+                    prog_step, next_ckpt, ck_every, dig, _ckpt, tel,
+                    t0) -> SimTime:
         """The conservative round loop (split from run() so the signal
         try/finally stays readable). Returns the final sim time."""
         import gc as _gc
@@ -388,10 +541,25 @@ class Controller:
         devt = getattr(self.engine, "devt", None)
         faults = self.faults
         while now < stop:
+            if self._chaos is not None:
+                self._chaos.maybe_fire(self.rounds, self)
             if self._interrupt is not None:
                 # graceful shutdown: the signal arrived during the last
                 # round; stop at this (consistent) round boundary
                 break
+            if now >= next_ckpt:
+                t_ck = _walltime.perf_counter()
+                if tel is not None:
+                    tel.sync(self)  # streams complete at the boundary
+                path = _ckpt.save_checkpoint(self, now)
+                self.log.info(
+                    f"checkpoint written: {path} "
+                    f"(sim {format_time(now)}, round {self.rounds})")
+                next_ckpt = ((now // ck_every) + 1) * ck_every
+                # snapshot wall is attributed like any other phase: it is
+                # plane-independent (the pickler walks the same graph fast
+                # plane or slow)
+                self._ckpt_wall += _walltime.perf_counter() - t_ck
             if faults is not None:
                 # fault transitions apply at round starts: an action at
                 # time t takes effect at the first boundary >= t — the
@@ -575,6 +743,8 @@ class Controller:
                    for k, v in self.engine.phase_wall.items()},
                 **({"telemetry": round(self.telemetry.wall, 4)}
                    if self.telemetry is not None else {}),
+                **({"checkpoint": round(self._ckpt_wall, 4)}
+                   if self._ckpt_wall else {}),
             },
             # fused device windows: zero here on a tpu_batch run means the
             # device never served a window — the host twin carried the

@@ -247,12 +247,22 @@ class FaultInjector:
                 self._degrades.remove(a.ref)
                 link_dirty = True
             elif a.kind == "host_down":
+                # multi-process sharding: the fault timeline broadcasts to
+                # every shard (identical actions, identical cursor), but
+                # host lifecycle mutations touch only OWNED hosts — a
+                # non-owned Host object here is pure topology, and its
+                # down flag is never read on this shard (arrivals for it
+                # divert to the owning shard before delivery)
                 for hid in a.host_ids:
+                    if not self.ctl.owns(hid):
+                        continue
                     h = self.ctl.hosts[hid]
                     if not h.down:
                         h.crash(now)
             elif a.kind == "host_up":
                 for hid in a.host_ids:
+                    if not self.ctl.owns(hid):
+                        continue
                     h = self.ctl.hosts[hid]
                     if h.down:
                         h.reboot(now)

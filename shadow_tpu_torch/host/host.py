@@ -12,8 +12,8 @@ plane, with its C engine hooks (the engine's stream endpoints and packed
 emission, when network/colplane.py attached it), and the per-unit plane
 of the thread policies (network/engine.py: Unit emission into ``egress``,
 delivery through ``deliver``); with packet capture, the telemetry
-collector's flow records and the fault lifecycle (crash/reboot). Checkpoint
-pickling is not ported yet (its config key is refused at load).
+collector's flow records, the fault lifecycle (crash/reboot) and the
+checkpoint pickling hooks.
 """
 
 from __future__ import annotations
@@ -457,6 +457,22 @@ class Host:
             "log_sha": (self._log_sha.hexdigest()
                         if self._log_lines else ""),
         }
+
+    # -- checkpoint/restore (checkpoint.py) ---------------------------------
+    def __getstate__(self):
+        d = self.__dict__.copy()
+        del d["_log_sha"]  # hashlib objects cannot pickle; rebuilt below
+        # runtime-only columnar-transport engine (holds the card's ack
+        # slots); reattached by Controller._reattach_runtime on restore
+        d["devt"] = None
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self.devt = None
+        self._log_sha = hashlib.sha256()
+        for ln in self._log_lines:
+            self._log_sha.update(ln.encode() + b"\n")
 
     # -- fault lifecycle (faults.py) ----------------------------------------
     def crash(self, now: SimTime) -> None:

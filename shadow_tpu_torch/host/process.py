@@ -102,6 +102,10 @@ class PluginProcess:
 
     PYAPP_PREFIX = "pyapp:"
 
+    @classmethod
+    def is_plugin_path(cls, path: str) -> bool:
+        return path.startswith(cls.PYAPP_PREFIX)
+
     def __init__(self, host, opts: ProcessOptions, index: int) -> None:
         self.host = host
         self.opts = opts

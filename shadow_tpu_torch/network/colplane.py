@@ -46,8 +46,11 @@ batch-level data end-to-end:
   order (``end_of_round``; wall in ``phase_wall.transport_tick``). It
   stands down when the C engine is attached, as in the reference.
 
-Not ported yet, and refused at config load rather than run differently:
-multi-process sharding.
+Multi-process sharding (parallel/shards.py): ``bind_shard`` diverts the
+rows resolved for hosts another shard owns into per-shard buffers
+(``take_xout``, or the C engine's packed wire blocks,
+``take_xout_packed``), and ``ingest_remote`` takes rows shipped from a
+peer into the pending store.
 
 Store row layout (tuples; each host's pending list is kept sorted by the
 unique (t, key) prefix):
@@ -153,6 +156,12 @@ class ColumnarPlane(DeviceRoutedPlane):
         #: links may cut; enables per-host blackhole accounting (the C
         #: engine reads it at bind)
         self.faults_active = False
+        #: multi-process sharding (parallel/shards.py): resolved rows for
+        #: hosts owned by another shard divert into xout[dst_shard]
+        #: (13-field store rows) instead of the local pending store
+        self.shard_id = 0
+        self.shard_n = 1
+        self.xout = None
         self.emitters: list = []  # hosts with egress rows this round
         self.ack_hosts: list = []  # hosts owing coalesced barrier acks
         self._deferred: set = set()  # hosts with ingress backlog
@@ -208,14 +217,22 @@ class ColumnarPlane(DeviceRoutedPlane):
                 cb._restore_state((b.pos, list(b.rows)))
                 self.pending[i] = cb
         self._c = _colcore.Core(self)
+        if self.shard_n > 1:
+            # the packed send path: the engine drains the diverted rows
+            # as wire blocks (take_xout_packed)
+            self._c.bind_shard(self.shard_id, self.shard_n, None)
         return self._c
 
     def attach_devtransport(self, tpu_options, device: str = "cuda"):
         """Attach the columnar transport engine when
         experimental.device_transport is on and the C engine is not (the
-        controller calls this once the plane is built; colcore already
-        owns the scalar fast path). Every path is bit-identical, so the
-        key is wall-clock policy only. Returns the engine or None."""
+        controller calls this once the plane is built, and again after a
+        checkpoint restore; colcore already owns the scalar fast path).
+        Every path is bit-identical, so the key is wall-clock policy only
+        and a resume may flip it. Returns the engine or None."""
+        for h in self.hosts:
+            h.devt = None
+        self.devt = None
         if not getattr(tpu_options, "device_transport", False):
             return None
         if self._c is not None:
@@ -1066,6 +1083,7 @@ class ColumnarPlane(DeviceRoutedPlane):
         nbytes_total = 0
         sent = 0
         dropped = 0
+        sh_n, sh_id, xout = self.shard_n, self.shard_id, self.xout
         for i, r in enumerate(rows):
             if flags is not None and flags[i]:
                 dropped += 1
@@ -1075,15 +1093,67 @@ class ColumnarPlane(DeviceRoutedPlane):
             t = arrival[i]
             if t < round_end:
                 t = round_end
-            out.append((t, keys[i], r[E_DST], r[E_KIND], src_l[i],
-                        r[E_SPORT], r[E_DPORT], r[E_NBYTES], r[E_SEQ],
-                        r[E_FRAG], r[E_NFRAGS], r[E_SIZE], r[E_PAYLOAD]))
+            row = (t, keys[i], r[E_DST], r[E_KIND], src_l[i],
+                   r[E_SPORT], r[E_DPORT], r[E_NBYTES], r[E_SEQ],
+                   r[E_FRAG], r[E_NFRAGS], r[E_SIZE], r[E_PAYLOAD])
+            if sh_n > 1 and r[E_DST] % sh_n != sh_id:
+                xout[r[E_DST] % sh_n].append(row)
+            else:
+                out.append(row)
         self.units_sent += sent
         self.units_dropped += dropped
         self.bytes_sent += nbytes_total
         if out:
             out.sort(key=_row_tk)
             self.pending.append(StoreBatch(out))
+
+    # -- multi-process sharding (parallel/shards.py) ------------------------
+    def bind_shard(self, shard_id: int, shard_n: int) -> None:
+        """Install the shard filter on this plane (and the C engine when
+        attached): resolved rows for non-owned destinations divert into
+        xout[dst_shard] (or the engine's packed buffers) instead of the
+        local pending store."""
+        self.shard_id = shard_id
+        self.shard_n = shard_n
+        self.xout = [[] for _ in range(shard_n)]
+        if self._c is not None:
+            self._c.bind_shard(shard_id, shard_n, None)
+
+    def take_xout(self) -> list:
+        """Drain the per-shard cross-shard buffers, each sorted by the
+        unique (t, key) prefix. (With the C engine bound, rows live in
+        its packed buffers instead — take_xout_packed is the drain; these
+        Python lists stay empty.)"""
+        out, self.xout = self.xout, [[] for _ in range(self.shard_n)]
+        for rows in out:
+            rows.sort(key=_row_tk)
+        return out
+
+    def take_xout_packed(self, max_bytes: int):
+        """The C engine's send-side packer (parallel/shards.py): drain the
+        diverted cross-shard rows as ready-to-ship wire-format byte
+        blocks — (t, key)-sorted, chunked at ``max_bytes`` — without ever
+        materializing per-row Python tuples. None on the Python plane,
+        whose callers use take_xout() + pack_rows."""
+        if self._c is None:
+            return None
+        return self._c.take_xout_packed(int(max_bytes))
+
+    def ingest_remote(self, rows: list) -> None:
+        """Arrival rows shipped from another shard (already (t, key)
+        sorted): they join the pending store as one more resolved batch —
+        extraction merges them with local batches per destination host in
+        canonical order, exactly like any other overlapping StoreBatch."""
+        if not rows:
+            return
+        if self._c is not None:
+            from shadow_tpu_torch.native import colcore
+
+            cb = colcore().shell("CBatch")
+            cb._restore_state((0, rows))
+            self.pending.append(cb)
+        else:
+            self.pending.append(StoreBatch(rows))
 
 
 class _WindowHandle:

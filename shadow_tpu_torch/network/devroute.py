@@ -204,6 +204,48 @@ class DeviceRoutedPlane:
         self._spec_pending = []
         self.raise_attach_error()
 
+    # -- checkpoint/restore (checkpoint.py) ---------------------------------
+    #: what lives on the card, in page-locked memory or on a thread: the
+    #: draw plane (its DrawSlots and in-flight handles), the mesh plane
+    #: (its ExchangeStages), the attach thread and its error, the C
+    #: engine, the speculative min_draw waves and the device transport
+    #: (its AckSlots). All are rebuilt by reattach_device and the
+    #: controller's _reattach_runtime, and all are result-transparent:
+    #: routing is wall-clock policy.
+    _RUNTIME_KEYS = ("device", "mesh_plane", "_bg_thread", "_bg_error",
+                     "_c", "_spec_pending", "devt")
+
+    def __getstate__(self):
+        d = self.__dict__.copy()
+        for k in self._RUNTIME_KEYS:
+            d.pop(k, None)
+        # flush_all resolved every window before the state walk
+        d["_win_inflight"] = 0
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self.device = None
+        self.mesh_plane = None
+        self._bg_thread = None
+        self._bg_error = None
+        self._c = None
+        self._spec_pending = []
+        # speculation starts cold: the waves are a cache of a pure
+        # function, never simulation state
+        self._spec_on = False
+        self._spec_checked = False
+        self._spec_clamped = False
+        self.devt = None  # reattached by Controller._reattach_runtime
+
+    def reattach_device(self, tpu_options, device: str = "cuda") -> None:
+        """Restore-time twin of __init__'s device hookup, on the resume
+        invocation's device: re-runs attach, calibration and floor state
+        from scratch. Calibration state is not carried across a resume —
+        the adaptive floor cannot change results, only wall time."""
+        self._init_device_routing(self.backend, tpu_options, self.params,
+                                  device)
+
     # -- adaptive floor + window break-even ---------------------------------
     def break_even_units(self) -> int:
         """Units at which one fused window dispatch beats the host twin,

@@ -9,8 +9,7 @@ ops/propagate.py's DeviceDrawPlane, read at their causal deadlines) is
 kept as the reference wrote it; no config reaches it, because the
 controller maps the thread policies to the numpy backend. The
 multi-process shard hooks (``bind_shard``, ``take_xout``,
-``ingest_remote``) are not ported: ``general.sim_shards > 1`` is refused
-at load.
+``ingest_remote``) serve parallel/shards.py's workers.
 
 This replaces the reference's per-packet Router/Relay push model (SURVEY.md
 §3.4) with a batched design: hosts emit units into host-local egress lists
@@ -106,6 +105,13 @@ class NetworkEngine(DeviceRoutedPlane):
         #: may crash, links may cut; enables per-host blackhole accounting
         self.faults_active = False
         self.phase_wall: dict = {}  # per-phase timing lives in colplane
+        #: multi-process sharding (parallel/shards.py): when bound, rows
+        #: resolved here whose destination lives on another shard divert
+        #: into xout[dst_shard] (13-field store rows) instead of the local
+        #: heaps; bind_shard/take_xout/ingest_remote are the whole surface
+        self.shard_id = 0
+        self.shard_n = 1
+        self.xout = None  # list[list[row]] per destination shard
 
         self._deferred: set = set()  # hosts with ingress backlog
         #: dynamic runahead (reference: experimental.use_dynamic_runahead):
@@ -223,8 +229,10 @@ class NetworkEngine(DeviceRoutedPlane):
         # canonical event keys are the unit uids ((src << 32) | per-src
         # seq): a pure function of unit identity, so same-time arrival
         # ordering at a destination is independent of WHERE the unit was
-        # resolved. _ev_key stays a resolved-units counter (the
-        # determinism sentinel hashes it).
+        # resolved — the property that makes multi-process sharding
+        # (parallel/shards.py) byte-identical at any shard count. _ev_key
+        # stays a resolved-units counter (the determinism sentinel hashes
+        # it; per-shard counts sum to the single-process value).
         keys = np.fromiter((u.uid for u in units), dtype=np.int64, count=n)
         self._ev_key += n
 
@@ -296,6 +304,7 @@ class NetworkEngine(DeviceRoutedPlane):
         sent = 0
         nbytes = 0
         dropped_ct = 0
+        sh_n, sh_id, xout = self.shard_n, self.shard_id, self.xout
         for i, u in enumerate(units):
             if drop_l[i]:
                 dropped_ct += 1
@@ -303,12 +312,55 @@ class NetworkEngine(DeviceRoutedPlane):
                 sent += 1
                 nbytes += u.size
                 t_arr = t_arrs[i]
+                if sh_n > 1 and u.dst % sh_n != sh_id:
+                    # cross-shard arrival: the sender resolved everything
+                    # (departure, loss, arrival time, canonical key); the
+                    # owning shard charges ingress + delivers in event
+                    # order — the 13-field columnar store row is the wire
+                    # format (parallel/shards.py packs/ships it)
+                    xout[u.dst % sh_n].append(
+                        (t_arr, key_l[i], u.dst, u.kind, u.src, u.src_port,
+                         u.dst_port, u.nbytes, u.seq, u.frag_idx, u.nfrags,
+                         u.size, u.payload))
+                    continue
                 hosts[u.dst].equeue.push(
                     t_arr, partial(ingress, u, t_arr),
                     band=BAND_NET, key=key_l[i])
         self.units_sent += sent
         self.units_dropped += dropped_ct
         self.bytes_sent += nbytes
+
+    # -- multi-process sharding (parallel/shards.py) ------------------------
+    def bind_shard(self, shard_id: int, shard_n: int) -> None:
+        """Install the shard filter: this engine resolves only its owned
+        hosts' emissions and diverts rows for other shards into xout."""
+        self.shard_id = shard_id
+        self.shard_n = shard_n
+        self.xout = [[] for _ in range(shard_n)]
+
+    def take_xout(self) -> list:
+        """Drain the per-shard cross-shard row buffers, each sorted by the
+        unique (t, key) prefix (the receiving shard's merge order)."""
+        out, self.xout = self.xout, [[] for _ in range(self.shard_n)]
+        for rows in out:
+            rows.sort(key=lambda r: (r[0], r[1]))
+        return out
+
+    def ingest_remote(self, rows: list) -> None:
+        """Arrival rows shipped from another shard (sorted by (t, key)):
+        rebuild the per-unit plane's arrival events. The uid IS the key
+        (canonical-key scheme), so the reconstructed Unit draws nothing
+        and orders exactly as the local plane would have ordered it."""
+        hosts = self.hosts
+        ingress = self.ingress_arrival
+        for (t, key, tgt, kind, peer, aport, bport, nbytes, seq, frag,
+             nfrags, size, payload) in rows:
+            u = Unit(uid=key, src=peer, dst=tgt, size=size, t_emit=0,
+                     kind=kind, src_port=aport, dst_port=bport,
+                     nbytes=nbytes, payload=payload, seq=seq,
+                     frag_idx=frag, nfrags=nfrags)
+            hosts[tgt].equeue.push(t, partial(ingress, u, t),
+                                   band=BAND_NET, key=key)
 
 
 def _round_robin(egress):

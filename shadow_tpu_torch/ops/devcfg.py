@@ -95,13 +95,15 @@ class DeviceUnavailable(ValueError):
     """The caller asked for a device this process cannot use."""
 
 
-def select_device(name: str = "cuda"):
-    """``torch.device`` for ``name`` (``cuda`` or ``cpu``). Raises
-    DeviceUnavailable for ``cuda`` when no card is visible."""
+def require_device(name: str = "cuda") -> None:
+    """Raise DeviceUnavailable unless this process can use ``name``
+    (``cuda`` or ``cpu``), without initialising CUDA: a controller checks
+    its device this way at construction, and a shard worker, which
+    launches nothing, never touches the card."""
     import torch
 
     if name == "cpu":
-        return torch.device("cpu")
+        return
     if name != "cuda":
         raise DeviceUnavailable(
             f"unknown device {name!r} (want cuda or cpu)")
@@ -109,6 +111,16 @@ def select_device(name: str = "cuda"):
         raise DeviceUnavailable(
             "device cuda requested but torch.cuda.is_available() is false; "
             "pass --device cpu to run the plain PyTorch kernels on the CPU")
+
+
+def select_device(name: str = "cuda"):
+    """``torch.device`` for ``name`` (``cuda`` or ``cpu``). Raises
+    DeviceUnavailable for ``cuda`` when no card is visible."""
+    import torch
+
+    require_device(name)
+    if name == "cpu":
+        return torch.device("cpu")
     return torch.device("cuda", torch.cuda.current_device())
 
 

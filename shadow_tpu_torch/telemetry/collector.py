@@ -1,8 +1,8 @@
 """Deterministic simulation telemetry: samplers, flow records, percentiles.
 
-The port of shadow_tpu/telemetry/collector.py for one process: the
-reference's shard-worker branches (multi-process sharding) and the live
-plane's flow snapshots are not ported, as the config load refuses both.
+The port of shadow_tpu/telemetry/collector.py, with its shard-worker
+branches (parallel/shards.py); the live plane's flow snapshots are not
+ported, as the config load refuses the live endpoint.
 
 This is the run-level observability layer the coarse totals (counters,
 heartbeat) cannot provide: "what was fetch p99 during the partition
@@ -197,6 +197,14 @@ class TelemetryCollector:
         #: fixed at serialization time, so write batching cannot change
         #: the stream, only the syscall count)
         self._flow_lines: list = []
+        #: multi-process sharding (parallel/shards.py): (shard_id, N) on
+        #: a worker, else None. A sharded collector never writes
+        #: metrics.jsonl itself: fault records and sample partials queue
+        #: in _out_partials for the worker loop to ship to the parent,
+        #: and flow lines land in a per-shard flows.shard<k>.jsonl the
+        #: parent merges by (round, hid) at run end.
+        self.shard = None
+        self._out_partials: list = []
 
     # -- checkpoint/restore (shadow_tpu/checkpoint.py) ---------------------
     def __getstate__(self):
@@ -226,19 +234,30 @@ class TelemetryCollector:
         if srv is not None:
             srv.publish_stream(name, lines)
 
+    def _flows_name(self) -> str:
+        return (FLOWS_FILE if self.shard is None
+                else f"flows.shard{self.shard[0]}.jsonl")
+
     def sync(self, controller) -> None:
         """Flush buffered flow lines + cached handles to disk (checkpoint
         boundaries, samples, run end): the on-disk streams are complete
         at every graceful stop point."""
         if self._flow_lines:
             lines, self._flow_lines = self._flow_lines, []
-            self._append(controller, FLOWS_FILE, lines)
+            self._append(controller, self._flows_name(), lines)
         for f in self._fh.values():
             f.flush()
 
+    def drain_partials(self) -> list:
+        """Shard worker: pending fault-record lines + sample partials for
+        the parent (in production order)."""
+        out, self._out_partials = self._out_partials, []
+        return out
+
     def export_merge_state(self) -> dict:
         """The mergeable reduction state (bucket histograms + flow
-        counts): what a sweep reducer folds across seeds."""
+        counts): what a shard worker hands the parent at finalize and a
+        sweep reducer folds across seeds."""
         return {"samples": self.samples,
                 "flows_written": self.flows_written,
                 "hist": {k: h.state() for k, h in self.hist.items()},
@@ -275,6 +294,15 @@ class TelemetryCollector:
         run into this directory and write the meta record readers key on
         (resumes append — the continuation of one stream)."""
         d = self._dir(controller)
+        if self.shard is not None:
+            # worker: own only the per-shard flow stream; the parent owns
+            # metrics.jsonl (meta record included — shard 0 ships the
+            # line, its params arrays are identical on every shard)
+            (d / self._flows_name()).unlink(missing_ok=True)
+            if self.shard[0] == 0:
+                self._out_partials.append(
+                    {"kind": "meta", "line": self._meta_line(controller)})
+            return
         (d / METRICS_FILE).unlink(missing_ok=True)
         (d / FLOWS_FILE).unlink(missing_ok=True)
         self._append(controller, METRICS_FILE,
@@ -320,7 +348,17 @@ class TelemetryCollector:
 
     def _flush_faults(self, controller) -> None:
         recs, self._fault_pending = self._fault_pending, []
-        self._append(controller, METRICS_FILE, [_dumps(r) for r in recs])
+        if self.shard is not None:
+            # fault application order is deterministic and identical on
+            # every shard; only shard 0's collector has the on_apply hook
+            # wired, and its records ship to the parent (which writes them
+            # before any same-round sample — the single-process
+            # on_round_end order)
+            self._out_partials.extend(
+                {"kind": "fault", "line": _dumps(r)} for r in recs)
+        else:
+            self._append(controller, METRICS_FILE,
+                         [_dumps(r) for r in recs])
 
     # -- per-round hook (controller round loop) ----------------------------
     def on_round_end(self, controller, round_end) -> None:
@@ -401,6 +439,27 @@ class TelemetryCollector:
         # C-side counter deltas into the Python attrs read below.
         eng.flush_all()
         self.samples += 1
+        if self.shard is not None:
+            # shard worker: gather this shard's slice — owned hosts'
+            # columns + this engine's counter/bucket partials — and ship
+            # it to the parent, which interleaves the per-shard slices
+            # into the byte-exact single-process sample line
+            own = [h for h in controller.hosts if controller.owns(h.id)]
+            ids = [h.id for h in own]
+            levels = eng.buckets.levels(t)
+            self._out_partials.append({
+                "kind": "sample", "t": t, "ids": ids,
+                "cols": host_columns(own),
+                "g": {"units_sent": eng.units_sent,
+                      "units_dropped": eng.units_dropped,
+                      "units_blackholed": eng.units_blackholed,
+                      "bytes_sent": eng.bytes_sent,
+                      "events": controller.events,
+                      "bucket_up": levels[ids].tolist(),
+                      "tokens_down": eng.tokens_down[ids].tolist()},
+            })
+            self.sync(controller)  # flow lines land before the sample
+            return
         g = eng.telemetry_sample(t)
         g["events"] = controller.events
         # column-building stays a tight local-alias loop: the sampler runs

@@ -416,18 +416,10 @@ REFUSALS = {
         "server"]["processes"][0].update(
             path="pyapp:shadow_tpu.models.httpd:HttpServer"),
         "workload model 'httpd'"),
-    "checkpoint": (["--scheduler-policy", "tpu_batch", "--checkpoint-every",
-                    "1s"], None, "checkpoint/resume"),
-    "resume": (["--scheduler-policy", "tpu_batch", "--resume-from",
-                "x.ckpt"], None, "checkpoint/resume"),
     "live": (["--scheduler-policy", "tpu_batch", "--live-endpoint", "auto"],
              None, "live endpoint"),
     "replay": (["--scheduler-policy", "tpu_batch", "--replay-commands",
                 "c.jsonl"], None, "live endpoint"),
-    "supervise": (["--scheduler-policy", "tpu_batch", "--supervise"], None,
-                  "supervised runs"),
-    "shards": (["--scheduler-policy", "tpu_batch", "--shards", "2"], None,
-               "sharding"),
     "mesh_shards": (["--scheduler-policy", "tpu_batch", "--set",
                      "experimental.tpu_mesh_shards=4"], None,
                     "tpu_mesh_shards"),
