@@ -4,8 +4,12 @@
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases "fault filter,fleet"
 
-Phases, in order; any failure exits non-zero:
+With no argument every phase runs; ``--phases`` runs the named ones (of
+PHASES, with the phases whose results they read: NEEDS), after device and
+build; the kernel table needs the timing phase. Phases, in order; any
+failure exits non-zero:
 
 1. device  — a CUDA card is visible; prints its name and power limit.
 2. build   — builds (or loads) the kernel libraries of shadow_tpu_torch/csrc
@@ -103,10 +107,13 @@ Phases, in order; any failure exits non-zero:
              default, and thread_per_host: the per-unit plane, the
              reference's CPU baseline, launching no kernel) and the gossip
              and Tor models, at the shipped host counts (POLICY_LEGS):
-             tgen_1k under both thread policies; gossip_10k and
-             tor_400relay under tpu_batch as a user runs it (C engine), at
-             tpu_device_floor=1 (draw_flags must launch) and under
-             thread_per_core; tor_400relay on the Python plane with the
+             tgen_1k under tpu_batch as a user runs it and under both
+             thread policies; gossip_10k and tor_400relay under tpu_batch
+             as a user runs it (C engine), at tpu_device_floor=1 (full
+             depth; draw_flags must launch) and under thread_per_core. The
+             thread_per_core legs and the user legs their ratios divide by
+             are cut alike: tgen_1k and tor_400relay to 10 s, gossip_10k
+             to 4 s; tor_400relay on the Python plane with the
              device transport at floor 1 (ack_advance must launch once a
              device cohort, plus the warm-up); tgen_100host and
              tor_400relay under thread_per_host. Legs cut short of the
@@ -120,11 +127,12 @@ Phases, in order; any failure exits non-zero:
 14. faults — fault injection, telemetry, packet capture and the ABR
              model (FAULT_LEGS), each shipped config at full width and
              full stop time: abr_1k (1,000 hosts, 45 s) under tpu_batch as
-             a user runs it and at tpu_device_floor=1 and under
-             thread_per_core; web_cdn (316 hosts, 40 s) under tpu_batch as
-             a user runs it and at floor 1, on the Python plane with the
-             device transport at floor 1, under tpu_mesh at
-             tpu_mesh_floor=0 and under thread_per_core; gossip_churn (122
+             a user runs it and at tpu_device_floor=1, and under
+             thread_per_core cut to 8 s; web_cdn (316 hosts, 40 s) under
+             tpu_batch as a user runs it and at floor 1, on the Python
+             plane with the device transport at floor 1, under tpu_mesh at
+             tpu_mesh_floor=0, and under thread_per_core cut to 10 s (the
+             cut legs with their own constants); gossip_churn (122
              hosts, 40 s, 117 fault transitions) under tpu_batch as a user
              runs it, again with the draw plane attached from round 0 (the
              speculative min_draw waves run across the transitions) and at
@@ -174,11 +182,39 @@ Phases, in order; any failure exits non-zero:
              each restart's mttr_s under 90 s, to the same bytes. The
              workers launch no kernel (tpu_device_floor -1): every
              worker's counts and this process's are 0.
-17. apsp path — apsp_device, the port's device-APSP entry point, on the
+17. fault filter — the reference's tests/test_colcore.py case on the
+             card: tgen_100host to 20 s with ``engine.fault_filter``
+             dropping every unit of kind 2 to host 3, through the port's
+             Controller under tpu_batch at tpu_device_floor=1 on the C
+             engine and on the Python plane, and under tpu_mesh at
+             tpu_mesh_floor=0 (FILTER_LEGS). Each gives FILTER_RESULTS:
+             the reference's counts, tree, last state digest and process
+             errors, and as many filter calls and drops; launch counts
+             reset before each leg, read after: draw_flags at floor 1,
+             mesh_exchange once a window at floor 0.
+18. fleet   — fleet mode: the reference CI's fleet smoke (a 3-seed
+             gossip_churn sweep at jobs=2 through ``python -m
+             shadow_tpu_torch.fleet``: every seed's tree and streams the
+             reference's standalone run's, t-based CIs over 3 seeds) and
+             its chaos leg (a wedged member killed by the watchdog and
+             retried to ok); then a full-width tgen_1k sweep (seeds 2-4,
+             jobs=2, C engine) through FleetRunner behind one DrawServer
+             attach on the card, whose members (spawned) create no CUDA
+             context: every tree the reference's, at least one batch
+             served, launch counts reset before and read after equal to
+             the batches served plus the attach's calibration and warm-up;
+             then the server's draw op, which those members never reach
+             (served_draws: 3 members a seed on threads replay phase 8's
+             floor-1 windows under two seeds against fluid.loss_flags,
+             launches = served + the attach's; needs phase 8); then each
+             seed standalone. Prints the attach wall, batches
+             and units served, launches, the sweep's wall against the
+             standalone walls and each member's sim-s/wall-s.
+19. apsp path — apsp_device, the port's device-APSP entry point, on the
              card on the three real topologies: equal to the plain version
              and to graph.py's routing tables; launches reset before, read
              after.
-18. timing  — every kernel and its plain version timed on the main paths'
+20. timing  — every kernel and its plain version timed on the main paths'
              own inputs (APSP at G = 4,096): card time per launch or call,
              with the bound for the same work; the draw kernels as the
              plane launches them (on page-locked slots, in place) and on
@@ -196,7 +232,7 @@ Phases, in order; any failure exits non-zero:
              rows, the steps of a cohort's round trip on the host, and the
              cohort size from which the card's round trip beats the numpy
              host version (the floor crossover).
-19. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
+21. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
              plane, at tpu_device_floor=1 under tpu_batch and at
              tpu_mesh_floor=0 under tpu_mesh, and on the C engine at
              tpu_device_floor=1; counts and output tree must
@@ -315,6 +351,37 @@ TGEN1K_2S_ERRORS = (
 TOR400_2S_ERRORS = (
     600, "bcb1ed3862c35879144c580f73e8140747a2bb530afd043b0ef76dd8f5f8885e")
 
+#: the policies phase's thread_per_core legs, and the tpu_batch legs their
+#: vs_baseline ratios divide by, are cut short of the stop time (the
+#: thread_per_core legs are host-bound Python and took 33-64 s each on the
+#: card's host at full depth): tgen_1k to 10 s (90 % of its events),
+#: gossip_10k to 4 s (30 %; all of them fall before 10 s of its 30 s) and
+#: tor_400relay to 10 s (60 %). The reference's results there, from
+#:   python -m shadow_tpu examples/<config>.yaml --stop-time <cut> \
+#:     --scheduler-policy tpu_batch --state-digest-every <last round>
+TGEN1K_10S_COUNTS = {"rounds": 4490, "events": 199608, "units_sent": 197671,
+                     "units_dropped": 1235, "bytes_sent": 1746386109}
+TGEN1K_10S_TREE_DIGEST = (
+    "e2f58d27b4c4bcfffe398191e79bc4103f10d178f59658c0943ae03a3acebbeb")
+TGEN1K_10S_STATE_DIGEST = (
+    "7e0b3485804f15f53a21c7f477d6a7124830a6b92d2ee0bcc2689d489aa496d7")
+TGEN1K_10S_ERRORS = (
+    233, "89fcb508676a27b699bcfd5fa7ad56334d9c9a5c2180d2149b96f355e8ab1329")
+GOSSIP10K_4S_COUNTS = {"rounds": 1030, "events": 396137, "units_sent": 491339,
+                       "units_dropped": 1664, "bytes_sent": 80778472}
+GOSSIP10K_4S_TREE_DIGEST = (
+    "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855")
+GOSSIP10K_4S_STATE_DIGEST = (
+    "d3a68e522e60297e9b9b2fe7937f8b7a39377797f2ce05635aa0d78e6bdf40ea")
+TOR400_10S_COUNTS = {"rounds": 4383, "events": 155064, "units_sent": 155831,
+                     "units_dropped": 821, "bytes_sent": 757992700}
+TOR400_10S_TREE_DIGEST = (
+    "e44b19b6d304242b5f7ab99020c625b4355c977022c454a91f9a7633980d0dcf")
+TOR400_10S_STATE_DIGEST = (
+    "6698bee218a5df3478d4ca3e99cc008702f53535fa54d66f3f9f85f55d48e895")
+TOR400_10S_ERRORS = (
+    367, "2132981e0e9f1fea622520572fd61b46f6104513924e655ea1df903e8a740b36")
+
 #: the faults phase: the shipped configs with a faults: or telemetry:
 #: section, at full width and full stop time. The reference's results,
 #: identical under every policy, on either plane and with the C engine on
@@ -389,6 +456,49 @@ FAULT_RESULTS = {
                  "490a07190fa35fd32baa08810d1ea873",
         "metrics": None, "flows": None, "faults": 2, "telemetry": None,
     },
+    # the thread_per_core legs, cut short of the stop time (the name after
+    # "@"): host-bound Python, 46 and 24 s at full depth on the card's host
+    "abr_1k@8s": {
+        "counts": {"rounds": 3586, "events": 356421, "units_sent": 351021,
+                   "units_dropped": 2140, "bytes_sent": 2280251959},
+        "tree": "e3b0c44298fc1c149afbf4c8996fb924"
+                "27ae41e4649b934ca495991b7852b855",
+        "state": "5a332683f81b4a1b1cbcc65c08cd24c5"
+                 "de18e0e11b6a9fe1526ee414db7b0e64",
+        "metrics": "e54c5f8caf91b2467d2c19f91424ec67"
+                   "04d12d00112472a98f8299a92811cb65",
+        "flows": "fedb6aeddc5d28f2fbf0f3ef87c5d048"
+                 "866400b015b356af51215e064252e76c",
+        "faults": 0,
+        "telemetry": {"samples": 0, "flows_recorded": 5930, "flows": {
+            "abr.segment": {"count": 5930, "ok": 5930, "failed": 0,
+                            "x_mean": 1423979, "p50_ms": 637.534,
+                            "p90_ms": 1107.296, "p99_ms": 2147.484,
+                            "p99_9_ms": 2952.79}}},
+    },
+    "web_cdn@10s": {
+        "counts": {"rounds": 4392, "events": 53841, "units_sent": 49403,
+                   "units_dropped": 331, "bytes_sent": 212319622},
+        "tree": "f1a76a2d147fe8086565901b0ed0f92f"
+                "dbe0fdafeb2662a1d1908d8243202ba8",
+        "state": "66b5e916c1ff9fe3a5d7fc4a6293768d"
+                 "c8d64b57e7006d56ea1063e261acc000",
+        "metrics": "edfeb7e2dd4571fe5b93ff2e6af01924"
+                   "cc2c015ce24269e8301b847ac56e757f",
+        "flows": "829bc44aca31580cc224b1507c590c57"
+                 "d7513511aa2fce4a754ccc9db94d2f92",
+        "faults": 1,
+        "telemetry": {"samples": 1, "flows_recorded": 3682, "flows": {
+            "dns.resolve": {"count": 718, "ok": 718, "failed": 0,
+                            "p50_ms": 90.178, "p90_ms": 377.487,
+                            "p99_ms": 654.311, "p99_9_ms": 1174.405},
+            "web.fetch": {"count": 2314, "ok": 2314, "failed": 0,
+                          "p50_ms": 461.373, "p90_ms": 1174.405,
+                          "p99_ms": 2415.919, "p99_9_ms": 3623.879},
+            "web.origin": {"count": 650, "ok": 650, "failed": 0,
+                           "p50_ms": 536.871, "p90_ms": 1107.296,
+                           "p99_ms": 1610.613, "p99_9_ms": 2617.246}}},
+    },
 }
 #: examples/echo.yaml with packet capture on both hosts, from
 #:   python -m shadow_tpu examples/echo.yaml --scheduler-policy tpu_batch \
@@ -424,31 +534,46 @@ OPS_PER_LANE = 20 * 3 + 5 * 2 + 1 + 2 + 2
 #: or None for none). A label ending "floor1" must launch draw_flags; one
 #: ending "transport floor1" runs the device transport with every cohort
 #: on the card; a "user" leg runs with no draw plane attached yet, as a
-#: fresh process does; "cut 2s" legs stop early.
+#: fresh process does; "cut <s>" legs stop early. A config's vs_baseline
+#: divides its "user" leg's sim-s/wall-s by its thread_per_core leg's,
+#: both cut alike.
 _DIG_GOSSIP = ["--state-digest-every", str(GOSSIP10K_COUNTS["rounds"])]
 _CUT_2S = ["--stop-time", "2s", "--state-digest-every"]
 _FLOOR1 = ["--set", "experimental.tpu_device_floor=1"]
+
+
+def _cut(stop: str, counts: dict) -> list:
+    return ["--stop-time", stop, "--state-digest-every",
+            str(counts["rounds"])]
+
+
 POLICY_LEGS = (
-    ("tgen_1k thread_per_core", "tgen_1k.yaml", "thread_per_core", [],
-     TGEN1K_COUNTS, TGEN1K_TREE_DIGEST, None, None),
+    ("tgen_1k tpu_batch user cut 10s", "tgen_1k.yaml", "tpu_batch",
+     _cut("10s", TGEN1K_10S_COUNTS), TGEN1K_10S_COUNTS,
+     TGEN1K_10S_TREE_DIGEST, TGEN1K_10S_STATE_DIGEST, TGEN1K_10S_ERRORS),
+    ("tgen_1k thread_per_core cut 10s", "tgen_1k.yaml", "thread_per_core",
+     _cut("10s", TGEN1K_10S_COUNTS), TGEN1K_10S_COUNTS,
+     TGEN1K_10S_TREE_DIGEST, TGEN1K_10S_STATE_DIGEST, TGEN1K_10S_ERRORS),
     ("tgen_1k thread_per_host cut 2s", "tgen_1k.yaml", "thread_per_host",
      _CUT_2S + [str(TGEN1K_2S_COUNTS["rounds"])], TGEN1K_2S_COUNTS,
      TGEN1K_2S_TREE_DIGEST, TGEN1K_2S_STATE_DIGEST, TGEN1K_2S_ERRORS),
-    ("gossip_10k tpu_batch user", "gossip_10k.yaml", "tpu_batch",
-     _DIG_GOSSIP, GOSSIP10K_COUNTS, EMPTY_TREE_DIGEST,
-     GOSSIP10K_STATE_DIGEST, None),
+    ("gossip_10k tpu_batch user cut 4s", "gossip_10k.yaml", "tpu_batch",
+     _cut("4s", GOSSIP10K_4S_COUNTS), GOSSIP10K_4S_COUNTS,
+     GOSSIP10K_4S_TREE_DIGEST, GOSSIP10K_4S_STATE_DIGEST, None),
     ("gossip_10k tpu_batch floor1", "gossip_10k.yaml", "tpu_batch",
      _DIG_GOSSIP + _FLOOR1, GOSSIP10K_COUNTS, EMPTY_TREE_DIGEST,
      GOSSIP10K_STATE_DIGEST, None),
-    ("gossip_10k thread_per_core", "gossip_10k.yaml", "thread_per_core",
-     _DIG_GOSSIP, GOSSIP10K_COUNTS, EMPTY_TREE_DIGEST,
-     GOSSIP10K_STATE_DIGEST, None),
-    ("tor_400relay tpu_batch user", "tor_400relay.yaml", "tpu_batch", [],
-     TOR400_COUNTS, TOR400_TREE_DIGEST, None, None),
+    ("gossip_10k thread_per_core cut 4s", "gossip_10k.yaml",
+     "thread_per_core", _cut("4s", GOSSIP10K_4S_COUNTS), GOSSIP10K_4S_COUNTS,
+     GOSSIP10K_4S_TREE_DIGEST, GOSSIP10K_4S_STATE_DIGEST, None),
+    ("tor_400relay tpu_batch user cut 10s", "tor_400relay.yaml", "tpu_batch",
+     _cut("10s", TOR400_10S_COUNTS), TOR400_10S_COUNTS,
+     TOR400_10S_TREE_DIGEST, TOR400_10S_STATE_DIGEST, TOR400_10S_ERRORS),
     ("tor_400relay tpu_batch floor1", "tor_400relay.yaml", "tpu_batch",
      _FLOOR1, TOR400_COUNTS, TOR400_TREE_DIGEST, None, None),
-    ("tor_400relay thread_per_core", "tor_400relay.yaml", "thread_per_core",
-     [], TOR400_COUNTS, TOR400_TREE_DIGEST, None, None),
+    ("tor_400relay thread_per_core cut 10s", "tor_400relay.yaml",
+     "thread_per_core", _cut("10s", TOR400_10S_COUNTS), TOR400_10S_COUNTS,
+     TOR400_10S_TREE_DIGEST, TOR400_10S_STATE_DIGEST, TOR400_10S_ERRORS),
     ("tor_400relay device transport floor1", "tor_400relay.yaml",
      "tpu_batch", ["--set", "experimental.device_transport=true",
                    "--set", "experimental.native_colcore=false"],
@@ -461,7 +586,8 @@ POLICY_LEGS = (
      TOR400_2S_ERRORS),
 )
 
-#: the faults phase: (label, config, policy, extra argv). A label ending
+#: the faults phase: (label, FAULT_RESULTS key: the config, and after "@"
+#: the stop time of a leg cut short, policy, extra argv). A label ending
 #: "floor1" must launch draw_flags; "transport floor1" runs the device
 #: transport on the Python plane with every cohort on the card (ack_advance
 #: once a device cohort, plus the attach's warm-up); "floor0" sends every
@@ -472,7 +598,7 @@ POLICY_LEGS = (
 FAULT_LEGS = (
     ("abr_1k tpu_batch user", "abr_1k", "tpu_batch", []),
     ("abr_1k tpu_batch floor1", "abr_1k", "tpu_batch", _FLOOR1),
-    ("abr_1k thread_per_core", "abr_1k", "thread_per_core", []),
+    ("abr_1k thread_per_core cut 8s", "abr_1k@8s", "thread_per_core", []),
     ("web_cdn tpu_batch user", "web_cdn", "tpu_batch", []),
     ("web_cdn tpu_batch floor1", "web_cdn", "tpu_batch", _FLOOR1),
     ("web_cdn device transport floor1", "web_cdn", "tpu_batch",
@@ -480,7 +606,8 @@ FAULT_LEGS = (
       "--set", "experimental.native_colcore=false"]),
     ("web_cdn tpu_mesh floor0", "web_cdn", "tpu_mesh",
      ["--set", "experimental.tpu_mesh_floor=0"]),
-    ("web_cdn thread_per_core", "web_cdn", "thread_per_core", []),
+    ("web_cdn thread_per_core cut 10s", "web_cdn@10s", "thread_per_core",
+     []),
     ("gossip_churn tpu_batch user", "gossip_churn", "tpu_batch", []),
     ("gossip_churn tpu_batch cached", "gossip_churn", "tpu_batch", []),
     ("gossip_churn tpu_batch floor1", "gossip_churn", "tpu_batch", _FLOOR1),
@@ -1530,7 +1657,7 @@ def transport_path(cli, tk, dt, digest, tmp: str) -> tuple:
     return launches, recorded
 
 
-# -- phase 18: kernel times on the main paths' inputs -------------------------
+# -- phase 20: kernel times on the main paths' inputs -------------------------
 
 def lanes_needed(torch, prop, x, key, width: int, early_exit: bool) -> int:
     """Threefry evaluations the kernel needs for these inputs: every lane
@@ -2611,7 +2738,7 @@ def check_apsp_kernels(torch, np, apsp, dev) -> int:
     return err
 
 
-# -- phase 17: the device-APSP entry point ------------------------------------
+# -- phase 19: the device-APSP entry point ------------------------------------
 
 def apsp_path(np, apsp) -> int:
     """apsp_device, the port's device-APSP entry point, on the card for
@@ -2792,7 +2919,7 @@ def engine_path(cli, prop, mesh, digest, tmp: str) -> tuple:
 
 # -- phase 13: the thread policies and the gossip and Tor models ------------
 
-def policies_path(cli, prop, tk, dt, digest, tmp: str, tgen_user: dict):
+def policies_path(cli, prop, tk, dt, digest, tmp: str):
     """The thread policies (the per-unit plane, the reference's CPU
     baseline, which launches no kernel) and the gossip and Tor models
     through the port's CLI, at the shipped host counts: POLICY_LEGS, in
@@ -2804,20 +2931,21 @@ def policies_path(cli, prop, tk, dt, digest, tmp: str, tgen_user: dict):
     launch ack_advance once for each, plus once for the attach's warm-up.
     Prints each leg's sim-s/wall-s and phase_wall, the thread pool's
     worker count and, for each config, the reference's vs_baseline: the
-    tpu_batch leg's sim-s/wall-s (C engine, as a user runs it; tgen_1k's
-    from the engine path, ``tgen_user``) over thread_per_core's. Returns
-    the launches summed over the legs."""
+    tpu_batch user leg's sim-s/wall-s (C engine, as a user runs it) over
+    thread_per_core's, the two cut alike. Returns the launches summed
+    over the legs."""
     print(f"thread_per_core workers: os.cpu_count() = {os.cpu_count()}",
           flush=True)
     total = {"draw_flags": 0, "min_draw": 0, "ack_advance": 0}
-    rates = {"tgen_1k": {"tpu_batch": tgen_user["sim_sec_per_wall_sec"]}}
+    rates: dict = {}
     floor0 = dt._DEVICE_FLOOR
     for label, cfg, policy, extra, counts, tree, state, errors in \
             POLICY_LEGS:
         d = os.path.join(tmp, "policies_" + label.replace(" ", "_"))
         argv = [str(EXAMPLES / cfg), "--scheduler-policy", policy,
                 "--device", "cuda", "--data-directory", d, *extra]
-        if label.endswith("user"):
+        user = "user" in label.split()
+        if user:
             # a fresh process has attached no draw plane yet
             prop.DeviceDrawPlane._cache.clear()
         devt = label.endswith("transport floor1")
@@ -2863,9 +2991,9 @@ def policies_path(cli, prop, tk, dt, digest, tmp: str, tgen_user: dict):
                      f"({dtr['device_cohorts']}) plus the attach's warm-up")
         for k in total:
             total[k] += n[k]
-        if label.endswith("user") or policy == "thread_per_core":
+        if user or policy == "thread_per_core":
             rates.setdefault(cfg.split(".")[0], {})[
-                "tpu_batch" if label.endswith("user") else policy] = rate
+                "tpu_batch" if user else policy] = rate
     for name, r in rates.items():
         fast, base = r["tpu_batch"], r["thread_per_core"]
         print(f"vs_baseline {name}: tpu_batch {fast:.6f} / thread_per_core "
@@ -2941,11 +3069,12 @@ def faults_path(cli, prop, tk, dt, mesh, digest, tmp: str) -> dict:
 
     for label, name, policy, extra in FAULT_LEGS:
         want = FAULT_RESULTS[name]
+        config, _, stop = name.partition("@")
         d = os.path.join(tmp, "faults_" + label.replace(" ", "_"))
-        argv = [str(EXAMPLES / f"{name}.yaml"), "--scheduler-policy", policy,
-                "--device", "cuda", "--data-directory", d,
+        argv = [str(EXAMPLES / f"{config}.yaml"), "--scheduler-policy",
+                policy, "--device", "cuda", "--data-directory", d,
                 "--state-digest-every", str(want["counts"]["rounds"]),
-                *extra]
+                *(["--stop-time", stop] if stop else []), *extra]
         if label.endswith("user"):
             # a fresh process has attached no draw plane yet
             prop.DeviceDrawPlane._cache.clear()
@@ -3450,7 +3579,417 @@ def shards_path(cli, prop, tk, mesh, digest, tmp: str,
     return total
 
 
-# -- phases 7-9, 11-16 and 19: the port's CLI on the card -------------------
+# -- phase 17: the columnar plane's fault_filter ------------------------------
+
+#: the reference's tests/test_colcore.py case: tgen_100host to 20 s with a
+#: fault filter that drops every unit of kind 2 to host 3 (a state digest
+#: every 50 rounds). The reference's results (its Python plane), through
+#: shadow_tpu.core.controller.Controller with FILTER_OVERRIDES and
+#: ``engine.fault_filter`` set: counts, tree, last state digest, process
+#: errors (errors_digest; clients still run at 20 s), the filter's calls
+#: and the units it dropped
+FILTER_OVERRIDES = {"general.stop_time": "20s",
+                    "general.state_digest_every": 50}
+FILTER_RESULTS = {
+    "counts": {"rounds": 1183, "events": 28077, "units_sent": 27153,
+               "units_dropped": 718, "bytes_sent": 271088280},
+    "tree": "8e447f8b810a6ef28c591d3ac87214e4"
+            "16cfb355059fbf047890c735a4ed2af4",
+    "state": "24519dea48c38342d3583860326f9226"
+             "940db401e6b44e06d5cc855b056ec603",
+    "errors": (90, "489a99e95895f00fd27fe04e5cf55b86"
+                "50d06d4646abef33e33a9bb7a8a4c2de"),
+    "calls": 27871, "dropped": 630,
+}
+#: the legs: (label, policy, C engine, floor key and value)
+FILTER_LEGS = (
+    ("tpu_batch floor1 (C engine)", "tpu_batch", True,
+     {"experimental.tpu_device_floor": 1}),
+    ("tpu_batch floor1 (Python plane)", "tpu_batch", False,
+     {"experimental.tpu_device_floor": 1}),
+    ("tpu_mesh floor0 (C engine)", "tpu_mesh", True,
+     {"experimental.tpu_mesh_floor": 0}),
+)
+
+
+class DstKindFilter:
+    """The reference test's filter (``u.dst == 3 and u.kind == 2``), with
+    its calls and hits counted."""
+
+    def __init__(self) -> None:
+        self.calls = 0
+        self.dropped = 0
+
+    def __call__(self, u) -> bool:
+        self.calls += 1
+        hit = u.dst == 3 and u.kind == 2
+        self.dropped += hit
+        return hit
+
+
+def fault_filter_path(prop, mesh, digest, tmp: str,
+                      device: str = "cuda") -> dict:
+    """FILTER_LEGS through the port's Controller on ``device`` with the
+    filter set on its columnar plane: each must give FILTER_RESULTS
+    (counts, tree, last state digest, process errors, the filter's calls
+    and drops); launch counts reset before each leg and read after:
+    draw_flags at floor 1, mesh_exchange once a window at floor 0.
+    Returns the launches summed over the legs."""
+    from shadow_tpu_torch.config import load_config
+    from shadow_tpu_torch.core.controller import Controller
+
+    total = {"draw_flags": 0, "min_draw": 0, "mesh_exchange": 0}
+    want = FILTER_RESULTS
+    for label, policy, engine, floor in FILTER_LEGS:
+        d = os.path.join(tmp, "filter_" + label.split()[0] + str(engine))
+        cfg = load_config(str(EXAMPLES / "tgen_100host.yaml"), {
+            **FILTER_OVERRIDES, **floor, "general.data_directory": d,
+            "experimental.scheduler_policy": policy,
+            "experimental.native_colcore": engine})
+        gc.collect()
+        prop.reset_launches()
+        mesh.reset_launches()
+        ctl = Controller(cfg, mirror_log=False, device=device)
+        ctl.engine.fault_filter = f = DstKindFilter()
+        s = ctl.run()
+        n = {**prop.LAUNCHES, "mesh_exchange": mesh.LAUNCHES["mesh_exchange"]}
+        check_run(s, d, digest, want["counts"], want["tree"],
+                  f"fault filter {label}", tuple(want["errors"]))
+        if last_state_digest(d) != want["state"]:
+            fail(f"fault filter {label}: last state digest "
+                 f"{last_state_digest(d)} != reference {want['state']}")
+        if (f.calls, f.dropped) != (want["calls"], want["dropped"]):
+            fail(f"fault filter {label}: the filter ran {f.calls} times and "
+                 f"dropped {f.dropped} units, the reference's "
+                 f"{want['calls']} and {want['dropped']}")
+        if s["native_colcore"] is not engine:
+            fail(f"fault filter {label}: native_colcore {s['native_colcore']}")
+        kernel = "mesh_exchange" if policy == "tpu_mesh" else "draw_flags"
+        if device == "cuda" and n[kernel] <= 0:
+            fail(f"fault filter {label}: {kernel} was never launched")
+        if device == "cuda" and policy == "tpu_mesh" and n[kernel] != s[
+                "phase_wall"]["mesh_windows"]:
+            fail(f"fault filter {label}: mesh_exchange launched "
+                 f"{n[kernel]} times for {s['phase_wall']['mesh_windows']} "
+                 f"windows")
+        print(f"fault filter {label}: counts, tree, last state digest and "
+              f"process errors match the reference; the filter ran "
+              f"{f.calls} times and dropped {f.dropped} units, as the "
+              f"reference's; controller {s['wall_seconds']:.3f} s, "
+              f"launches {json.dumps(n)}, windows "
+              f"{s['device_windows_dispatched']}", flush=True)
+        for k in total:
+            total[k] += n[k]
+    print(f"launches on the fault-filter legs: {json.dumps(total)}",
+          flush=True)
+    return total
+
+
+# -- phase 18: the fleet and its shared draw server ---------------------------
+
+#: the reference CI's fleet smoke (tools/ci.sh): a 3-seed gossip_churn
+#: sweep at jobs=2, pointed at the port. Each seed's tree and streams
+#: (fleet._stream_digests: the sha256 of flows.jsonl and metrics.jsonl)
+#: are the reference's standalone run of that seed, from
+#:   python -m shadow_tpu examples/gossip_churn.yaml --seed <s> \
+#:     --set general.stop_time=25s --sample-every 10s
+FLEET_SMOKE_ARGV = ["sweep", "examples/gossip_churn.yaml", "--seeds", "3",
+                    "--seed-base", "120", "--jobs", "2", "--set",
+                    "general.stop_time=25s", "--quiet", "--json"]
+FLEET_SMOKE_TREES = {
+    120: "c1f0a36df9a2a302c85062904b87750e"
+         "0aeb7509fb936ad08eeafb824f4e3dbb",
+    121: "89c23b274292e5e00f7a578f102becbd"
+         "c5176a6183e406ca3ea72b45d6599fcc",
+    122: "4584e5ba1234a7e52855f8c511077b2e"
+         "5333df4954cc4a253ab9cd638a8ba7c0",
+}
+FLEET_SMOKE_STREAMS = {
+    120: {"flows.jsonl": "542d6ebcea6626d36b7083aace739778"
+          "f751ff16d92cfa0360b5fc7ac63b23e2",
+          "metrics.jsonl": "4919a09276ce675d9e2ca17b5b1f9324"
+          "8d8cc1dfcbfe1a9cd1d0eabf7c8bb344"},
+    121: {"flows.jsonl": "cb2a6320639b033353e5c8c48674a4b8"
+          "6c01ab54456431abbd4f2d1a7c029aa2",
+          "metrics.jsonl": "354616b629264d0d4f729f297c389756"
+          "44f6fc5d9c8e07fe09d8b16db1958d82"},
+    122: {"flows.jsonl": "0df71a0270af02960e5884c168cfe48c"
+          "c0e8f8ec5954fa9d874e71eac25e7e7e",
+          "metrics.jsonl": "14a7b158291c1ac7259ec7501ea3a349"
+          "49a64923b9c8ad493d115d1800ae2ff9"},
+}
+#: its chaos leg: seed 131's worker wedges once; the fleet's watchdog (an
+#: 8 s stall deadline) kills it and the retry runs to ok
+FLEET_CHAOS_ARGV = ["sweep", "examples/gossip_churn.yaml", "--seeds", "2",
+                    "--seed-base", "130", "--jobs", "2", "--set",
+                    "general.stop_time=10s", "--no-device-service",
+                    "--quiet", "--json"]
+FLEET_CHAOS_ENV = {"SHADOW_TPU_FLEET_CHAOS_WEDGE_SEEDS": "131",
+                   "SHADOW_TPU_FLEET_STALL_S": "8"}
+#: the full-width sweep: tgen_1k (1,000 hosts, 60 s) under tpu_batch on the
+#: C engine, seeds 2, 3 and 4 at jobs=2 behind the shared draw server. The
+#: reference's standalone trees (its Python plane), from
+#:   python -m shadow_tpu examples/tgen_1k.yaml --seed <s> \
+#:     --scheduler-policy tpu_batch
+FLEET_TGEN1K_SEEDS = (2, 3, 4)
+FLEET_TGEN1K_TREES = {
+    2: TGEN1K_TREE_DIGEST,
+    3: "de6f228b4680c4679fd830473f527f04"
+       "d1955995ae3bbccf1cf7cb1a76188814",
+    4: "4930a548b8f3e7cbc8a6928362ce0862"
+       "a829458638af7266fe95a7e71fed0702",
+}
+#: the served-draws check: the recorded windows are replayed under the
+#: run's own seed (None) and a seed whose key has a high word, by this
+#: many members a seed, each keeping up to SERVED_INFLIGHT requests in
+#: flight; then the windows' units again in batches of these sizes
+SERVED_SEEDS = (None, (1 << 40) + 7)
+SERVED_MEMBERS = 3
+SERVED_INFLIGHT = 3
+SERVED_BATCHES = (1000, 65536)
+
+
+def served_draws(np, prop, windows, device: str = "cuda") -> dict:
+    """The DrawServer's ``draw`` op on ``device``, which the sweeps do not
+    reach (their members run tpu_batch auto, whose windows stay on the
+    host until the attach publishes, and serve min_draw waves): one
+    DrawServer, and SERVED_MEMBERS FleetDrawClients a seed of
+    SERVED_SEEDS, each on its own thread of this process, all at once.
+    The members replay the main path's recorded floor-1 windows (dealt
+    round robin) and then their units in SERVED_BATCHES batches (buckets
+    1,024 and 65,536), keeping up to SERVED_INFLIGHT requests in flight,
+    so the serving threads reuse the plane's slots concurrently. Every
+    result must equal fluid.loss_flags on the same inputs; every batch
+    must be served once; and on the card the launches, counted from 0
+    before the server is built, must equal the batches served plus the
+    attach's own. These launches check the service and are not the main
+    path's. Returns the server's counts."""
+    import threading
+    from collections import deque
+
+    from shadow_tpu_torch.fleet import FleetDrawClient
+    from shadow_tpu_torch.network.fluid import loss_flags
+
+    _, key, width, _ = windows[0]
+    run_seed = key[0] | key[1] << 32
+    units = np.concatenate([x.cpu()[:4, :n].numpy() for x, _, _, n
+                            in windows], axis=1)
+    spans, at = [], 0
+    for *_, n in windows:
+        spans.append((at, at + n))
+        at += n
+    for size in SERVED_BATCHES:
+        spans += [(a, min(a + size, at)) for a in range(0, at, size)]
+    seeds = [run_seed if s is None else s for s in SERVED_SEEDS]
+    want = {seed: loss_flags(seed, *units) for seed in seeds}
+    errors: list = []
+
+    def member(cl, mine):
+        inflight: deque = deque()
+
+        def check():
+            h, a, b = inflight.popleft()
+            if not (h.read() == want[cl.seed][a:b]).all():
+                errors.append(f"seed {cl.seed}: units {a}:{b} differ "
+                              f"from fluid.loss_flags")
+
+        try:
+            for a, b in mine:
+                inflight.append((cl.dispatch(*units[:, a:b]), a, b))
+                if len(inflight) == SERVED_INFLIGHT:
+                    check()
+            while inflight:
+                check()
+        except Exception as exc:  # noqa: BLE001 — reported, then fail
+            errors.append(f"seed {cl.seed}: {exc!r}")
+        finally:
+            cl.close_client()
+
+    address = prop.draw_service_address()
+    prop.reset_launches()
+    srv = prop.DrawServer(run_seed, 65536, width, address=address,
+                          device=device)
+    t0 = time.perf_counter()
+    try:
+        threads = []
+        for seed in seeds:
+            for k in range(SERVED_MEMBERS):
+                cl = FleetDrawClient.connect(address, seed, 65536, width,
+                                             timeout=300)
+                threads.append(threading.Thread(
+                    target=member, args=(cl, spans[k::SERVED_MEMBERS])))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            fail("served draws: a member did not finish")
+    finally:
+        srv.close()
+        shutil.rmtree(os.path.dirname(address), ignore_errors=True)
+    wall = time.perf_counter() - t0
+    n = dict(prop.LAUNCHES)
+    if errors or srv.errors:
+        fail(f"served draws: {(errors + srv.errors)[:5]}")
+    sent = len(spans) * len(seeds)
+    if srv.served != {"draw_flags": sent, "min_draw": 0} or \
+            srv.served_units != (1 + len(SERVED_BATCHES)) * at * len(seeds):
+        fail(f"served draws: served {srv.served} ({srv.served_units} "
+             f"units), want {sent} draw_flags batches")
+    attach = srv.attach_launches
+    if device == "cuda" and n != {k: srv.served[k] + attach[k] for k in n}:
+        fail(f"served draws: launches {n} != served {srv.served} + the "
+             f"attach's {attach}")
+    print(f"served draws ({len(seeds)} seeds x {SERVED_MEMBERS} members, "
+          f"one DrawServer on {device}): {sent} draw_flags batches "
+          f"({srv.served_units} units; {len(windows)} recorded windows and "
+          f"their units in batches of {SERVED_BATCHES}) in {wall:.3f} s, "
+          f"every result equal to fluid.loss_flags; launches "
+          f"{json.dumps(n)} = served + the attach's {json.dumps(attach)}",
+          flush=True)
+    return {"served": dict(srv.served), "served_units": srv.served_units,
+            "attach_launches": dict(attach), "launches": n, "wall": wall}
+
+
+def fleet_ci_legs(tmp: str, device: str = "cuda") -> dict:
+    """The reference CI's two fleet legs through ``python -m
+    shadow_tpu_torch.fleet`` on ``device``: the smoke (every seed's tree
+    and streams the reference's, t-based CIs over 3 seeds in
+    sweep_summary.json) and the chaos leg (the wedged member killed and
+    retried to ok). Returns {"smoke": summary, "chaos": summary}."""
+    from shadow_tpu_torch.fleet import _stream_digests
+    from shadow_tpu_torch.utils.digest import output_tree_digest
+
+    out = {}
+    for name, argv, env in (("smoke", FLEET_SMOKE_ARGV, {}),
+                            ("chaos", FLEET_CHAOS_ARGV, FLEET_CHAOS_ENV)):
+        d = os.path.join(tmp, f"fleet_{name}")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "shadow_tpu_torch.fleet", *argv,
+             "--sweep-dir", d, "--device", device],
+            capture_output=True, text=True, cwd=str(ROOT), timeout=600,
+            env={**os.environ, **env})
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"fleet {name}: exited {r.returncode}: {r.stderr[-2000:]}")
+        s = json.loads(r.stdout)
+        out[name] = s
+        if s["failed"] or s["exit_reason"] != "completed":
+            fail(f"fleet {name}: failed seeds {s['failed']}")
+        print(f"fleet {name}: {len(s['completed'])} seeds ok in "
+              f"{s['sweep_wall_seconds']} s of sweep ({wall:.3f} s with "
+              f"the interpreter), respawns {s['respawns']}, draw service "
+              f"{json.dumps(s.get('draw_service'))}", flush=True)
+    smoke = out["smoke"]
+    if smoke["completed"] != sorted(FLEET_SMOKE_TREES):
+        fail(f"fleet smoke: completed {smoke['completed']}")
+    for seed, tree in FLEET_SMOKE_TREES.items():
+        sd = Path(tmp) / "fleet_smoke" / f"seed_{seed}"
+        if output_tree_digest(sd) != tree or \
+                _stream_digests(sd) != FLEET_SMOKE_STREAMS[seed]:
+            fail(f"fleet smoke: seed {seed}'s tree or streams differ from "
+                 f"the reference's standalone run")
+    if not smoke["flows"]:
+        fail("fleet smoke: the sweep summary has no flow groups")
+    for kind, row in smoke["flows"].items():
+        ci = row["ci95"]["p50_ms"]
+        if not (ci["n"] == 3 and ci["lo"] <= ci["mean"] <= ci["hi"]):
+            fail(f"fleet smoke: {kind} CI95 {ci}")
+    print(f"fleet smoke: every seed's tree and streams are the reference's "
+          f"standalone run's; {len(smoke['flows'])} flow groups with "
+          f"t-based CI95 over 3 seeds", flush=True)
+    chaos = out["chaos"]
+    if chaos["completed"] != [130, 131] or chaos["respawns"] < 1:
+        fail(f"fleet chaos: completed {chaos['completed']}, respawns "
+             f"{chaos['respawns']}: the wedged member was not retried")
+    print("fleet chaos: the wedged member was detected, killed and retried "
+          "to ok", flush=True)
+    return out
+
+
+def fleet_path(cli, np, prop, digest, tmp: str, windows,
+               device: str = "cuda") -> dict:
+    """Phase 18: the CI's fleet legs (fleet_ci_legs), then the full-width
+    tgen_1k sweep through FleetRunner in this process, on the card: one
+    DrawServer attach (from cold) serves every member's draw windows while
+    the members, spawned (this process's CUDA is up), create no CUDA
+    context (each checks at exit; a breach fails its seed). Every seed's
+    tree must be the reference's; launch counts reset before the sweep and
+    read after must equal the batches served plus the attach's own
+    calibration and warm-up launches, and at least one batch must be
+    served. Then the server's draw op on the main path's recorded
+    ``windows`` (served_draws), and each seed standalone in this process
+    (the draw plane uncached, as in a fresh process), for the walls.
+    Prints the attach wall, the batches and units served, the launches,
+    the sweep's wall against the standalone walls' sum and each member's
+    sim-s/wall-s. Returns the sweep's launches."""
+    from shadow_tpu_torch.fleet import FleetRunner, seed_dir
+
+    fleet_ci_legs(tmp, device)
+    sweep = os.path.join(tmp, "fleet_tgen_1k")
+    over = {"experimental.scheduler_policy": "tpu_batch"}
+    prop.DeviceDrawPlane._cache.clear()  # the server attaches from cold
+    gc.collect()
+    prop.reset_launches()
+    runner = FleetRunner(str(EXAMPLES / "tgen_1k.yaml"),
+                         list(FLEET_TGEN1K_SEEDS), jobs=2, sweep_dir=sweep,
+                         overrides=over, quiet=True, device=device)
+    s = runner.run()
+    n = dict(prop.LAUNCHES)
+    svc = s.get("draw_service")
+    if s["failed"] or s["completed"] != list(FLEET_TGEN1K_SEEDS):
+        fail(f"fleet tgen_1k: failed {s['failed']}")
+    if svc is None or svc["errors"]:
+        fail(f"fleet tgen_1k: draw service {svc}")
+    want = {k: svc["served"][k] + svc["attach_launches"][k] for k in n}
+    if device == "cuda" and n != want:
+        fail(f"fleet tgen_1k: launches {n} != served {svc['served']} + the "
+             f"attach's {svc['attach_launches']}")
+    if device == "cuda" and svc["served_batches"] <= 0:
+        fail("fleet tgen_1k: the draw server served no batch")
+    members = {}
+    for seed, tree in FLEET_TGEN1K_TREES.items():
+        sd = seed_dir(sweep, seed)
+        man = json.loads((sd / "fleet_manifest.json").read_text())
+        if digest(sd) != tree or man["tree_sha256"] != tree:
+            fail(f"fleet tgen_1k: seed {seed}'s tree differs from the "
+                 f"reference's")
+        members[seed] = man
+    served_draws(np, prop, windows, device)
+    solo = {}
+    for seed in FLEET_TGEN1K_SEEDS:
+        d = os.path.join(tmp, f"fleet_solo_{seed}")
+        prop.DeviceDrawPlane._cache.clear()  # as a fresh process
+        gc.collect()
+        t0 = time.perf_counter()
+        r = run_cli(cli, [str(EXAMPLES / "tgen_1k.yaml"), "--seed",
+                          str(seed), "--scheduler-policy", "tpu_batch",
+                          "--device", device, "--data-directory", d])
+        solo[seed] = time.perf_counter() - t0
+        if digest(d) != FLEET_TGEN1K_TREES[seed] or r["process_errors"]:
+            fail(f"fleet tgen_1k: seed {seed} standalone differs from the "
+                 f"reference")
+    solo_ms = {k: round(v, 3) for k, v in solo.items()}
+    member_wall = {k: m["wall_seconds"] for k, m in members.items()}
+    member_rate = {k: round(m["summary"]["sim_seconds"]
+                            / m["loop_wall_seconds"], 3)
+                   for k, m in members.items()}
+    print(f"fleet tgen_1k (3 seeds, jobs=2, C engine, shared draw server): "
+          f"every seed's tree is the reference's; server attach "
+          f"{svc['attach_wall_seconds']} s, served {json.dumps(svc['served'])}"
+          f" batches ({svc['served_units']} units), launches "
+          f"{json.dumps(n)} = served + the attach's "
+          f"{json.dumps(svc['attach_launches'])}; sweep wall "
+          f"{s['sweep_wall_seconds']} s against {sum(solo.values()):.3f} s "
+          f"for the seeds standalone ({json.dumps(solo_ms)}); members' wall "
+          f"(config load + run) {json.dumps(member_wall)} s, sim-s/wall-s "
+          f"{json.dumps(member_rate)}",
+          flush=True)
+    return n
+
+
+# -- phases 7-9, 11-18 and 21: the port's CLI on the card -------------------
 
 def run_cli(cli, argv: list, cut: bool = False) -> dict:
     """Run the port's CLI in this process; returns its JSON summary. A run
@@ -3593,7 +4132,47 @@ def trace_transport(torch, cli, dt, digest, tmp: str) -> None:
              f"launches, not one a cohort")
 
 
-def main() -> int:
+#: every phase after device and build, in order; --phases picks some (and
+#: what they need). The kernel table needs the timing phase.
+PHASES = ("kernels", "mesh kernels", "transport kernels", "apsp kernels",
+          "echo", "main path", "mesh path", "mesh standalone",
+          "transport path", "engine path", "policies", "faults",
+          "checkpoint", "shards", "fault filter", "fleet", "apsp path",
+          "timing", "trace")
+#: phase -> the phases whose results it reads
+NEEDS = {
+    "mesh standalone": ("mesh path",),
+    "fleet": ("main path",),
+    "timing": ("kernels", "mesh kernels", "transport kernels",
+               "apsp kernels", "main path", "mesh path", "mesh standalone",
+               "transport path", "engine path"),
+}
+
+
+def parse_phases(argv) -> list:
+    """The phases to run: all of them with no argument (as the script is
+    run to check the port), else those named by ``--phases a,b,...`` and
+    the phases they need, in PHASES order."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run (default: all): "
+                    + ", ".join(PHASES))
+    names = [n.strip() for n in ap.parse_args(argv).phases.split(",")
+             if n.strip()]
+    unknown = sorted(set(names) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; known: {', '.join(PHASES)}")
+    want = set(names)
+    for name in reversed(PHASES):
+        if name in want:
+            want.update(NEEDS.get(name, ()))
+    return [n for n in PHASES if n in want]
+
+
+def main(argv=None) -> int:
+    run = parse_phases(sys.argv[1:] if argv is None else argv)
     phase("device")
     try:
         import numpy as np
@@ -3616,8 +4195,8 @@ def main() -> int:
         fail(f"{EXAMPLES} is missing (run from a checkout)")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}",
-          flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}; "
+          f"phases: {', '.join(run)}", flush=True)
     dev = torch.device("cuda", 0)
 
     phase("build")
@@ -3649,179 +4228,195 @@ def main() -> int:
           f"{built + (['colcore'] if engine_built else []) or 'none'})",
           flush=True)
 
-    phase("kernels")
-    max_err = check_kernels(torch, np, prop, dev)
-    max_err["threefry2x32"] = check_threefry(torch, np, prng, dev)
-
-    phase("mesh kernels")
-    max_err.update(check_mesh_kernels(torch, np, mesh, dev))
-
-    phase("transport kernels")
-    max_err["ack_advance"] = check_transport_kernels(torch, np, tk, dev)
-
-    phase("apsp kernels")
-    max_err["apsp"] = check_apsp_kernels(torch, np, apsp, dev)
-
+    max_err: dict = {}
+    launches = {name: 0 for name in PLAN}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
 
-    phase("echo")
-    for label, extra in (("Python plane", PY_PLANE), ("C engine", [])):
-        d = os.path.join(tmp, f"echo_{len(extra)}")
-        s = run_cli(cli, [str(EXAMPLES / "echo.yaml"), "--scheduler-policy",
-                          "tpu_batch", "--device", "cuda",
-                          "--data-directory", d, *extra])
-        if s["process_errors"]:
-            fail(f"echo ({label}): process errors {s['process_errors']}")
-        if s["native_colcore"] is not (label == "C engine"):
-            fail(f"echo ({label}): native_colcore {s['native_colcore']}")
-        tree = output_tree_digest(d)
-        if tree != ECHO_TREE_DIGEST:
-            fail(f"echo ({label}) output tree {tree} != reference "
-                 f"{ECHO_TREE_DIGEST}")
-        print(f"echo ({label}): tree digest matches the reference "
-              f"({tree[:16]})", flush=True)
+    def add(counts: dict) -> None:
+        for name, n in counts.items():
+            launches[name] += n
 
-    phase("main path")
-    prop.reset_launches()
-    runs = {}
-    for label, extra in (("floor1", ["--set",
-                                     "experimental.tpu_device_floor=1"]),
-                         ("auto", [])):
-        d = os.path.join(tmp, f"tgen_1k_{label}")
-        argv = [str(EXAMPLES / "tgen_1k.yaml"), "--scheduler-policy",
-                "tpu_batch", "--device", "cuda", "--data-directory", d,
-                *PY_PLANE]
-        t0 = time.perf_counter()
-        if label == "floor1":
-            with recording_draws(prop, "draw_flags") as windows:
+    def do(name: str) -> bool:
+        if name in run:
+            phase(name)
+            return True
+        return False
+
+    if do("kernels"):
+        max_err.update(check_kernels(torch, np, prop, dev))
+        max_err["threefry2x32"] = check_threefry(torch, np, prng, dev)
+
+    if do("mesh kernels"):
+        max_err.update(check_mesh_kernels(torch, np, mesh, dev))
+
+    if do("transport kernels"):
+        max_err["ack_advance"] = check_transport_kernels(torch, np, tk, dev)
+
+    if do("apsp kernels"):
+        max_err["apsp"] = check_apsp_kernels(torch, np, apsp, dev)
+
+    if do("echo"):
+        for label, extra in (("Python plane", PY_PLANE), ("C engine", [])):
+            d = os.path.join(tmp, f"echo_{len(extra)}")
+            s = run_cli(cli, [str(EXAMPLES / "echo.yaml"),
+                              "--scheduler-policy", "tpu_batch", "--device",
+                              "cuda", "--data-directory", d, *extra])
+            if s["process_errors"]:
+                fail(f"echo ({label}): process errors {s['process_errors']}")
+            if s["native_colcore"] is not (label == "C engine"):
+                fail(f"echo ({label}): native_colcore {s['native_colcore']}")
+            tree = output_tree_digest(d)
+            if tree != ECHO_TREE_DIGEST:
+                fail(f"echo ({label}) output tree {tree} != reference "
+                     f"{ECHO_TREE_DIGEST}")
+            print(f"echo ({label}): tree digest matches the reference "
+                  f"({tree[:16]})", flush=True)
+
+    if do("main path"):
+        prop.reset_launches()
+        runs = {}
+        for label, extra in (("floor1", _FLOOR1), ("auto", [])):
+            d = os.path.join(tmp, f"tgen_1k_{label}")
+            argv = [str(EXAMPLES / "tgen_1k.yaml"), "--scheduler-policy",
+                    "tpu_batch", "--device", "cuda", "--data-directory", d,
+                    *PY_PLANE]
+            t0 = time.perf_counter()
+            if label == "floor1":
+                with recording_draws(prop, "draw_flags") as windows:
+                    s = run_cli(cli, argv + extra)
+            else:
                 s = run_cli(cli, argv + extra)
-        else:
-            s = run_cli(cli, argv + extra)
-        wall = time.perf_counter() - t0
-        check_run(s, d, output_tree_digest, TGEN1K_COUNTS,
-                  TGEN1K_TREE_DIGEST, f"tgen_1k ({label})")
-        runs[label] = s
-        dv = s["device"]
-        print(f"tgen_1k ({label}, Python plane): counts and tree match the "
-              f"reference; wall {wall:.3f} s (controller "
-              f"{s['wall_seconds']:.3f} s), "
-              f"{s['sim_sec_per_wall_sec']:.3f} sim-s/wall-s, "
-              f"{dv['windows_dispatched']} windows (largest "
-              f"{dv['max_window_units']} units), {dv['window_units']} "
-              f"window units = "
-              f"{dv['window_units'] / s['units_sent']:.4f} of units_sent, "
-              f"phase_wall {json.dumps(s['phase_wall'])}", flush=True)
-    py_launches = dict(prop.LAUNCHES)
-    print(f"launches on the Python plane's main path: "
-          f"{json.dumps(py_launches)}", flush=True)
-    for name, n in py_launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was never launched on the main path")
-    if py_launches["draw_flags"] < runs["floor1"]["device"][
-            "windows_dispatched"]:
-        fail(f"draw_flags launched {py_launches['draw_flags']} times, fewer "
-             f"than the {runs['floor1']['device']['windows_dispatched']} "
-             f"windows the floor-1 run dispatched")
-    if not windows:
-        fail("the floor-1 run handed draw_flags no window")
-    mix = window_mix(torch, prop, windows)
-    print(f"floor-1 windows: {json.dumps(mix)}", flush=True)
+            wall = time.perf_counter() - t0
+            check_run(s, d, output_tree_digest, TGEN1K_COUNTS,
+                      TGEN1K_TREE_DIGEST, f"tgen_1k ({label})")
+            runs[label] = s
+            dv = s["device"]
+            print(f"tgen_1k ({label}, Python plane): counts and tree match "
+                  f"the reference; wall {wall:.3f} s (controller "
+                  f"{s['wall_seconds']:.3f} s), "
+                  f"{s['sim_sec_per_wall_sec']:.3f} sim-s/wall-s, "
+                  f"{dv['windows_dispatched']} windows (largest "
+                  f"{dv['max_window_units']} units), {dv['window_units']} "
+                  f"window units = "
+                  f"{dv['window_units'] / s['units_sent']:.4f} of "
+                  f"units_sent, phase_wall {json.dumps(s['phase_wall'])}",
+                  flush=True)
+        py_launches = dict(prop.LAUNCHES)
+        print(f"launches on the Python plane's main path: "
+              f"{json.dumps(py_launches)}", flush=True)
+        for name, n in py_launches.items():
+            if n <= 0:
+                fail(f"kernel {name} was never launched on the main path")
+        floor1_windows = runs["floor1"]["device"]["windows_dispatched"]
+        if py_launches["draw_flags"] < floor1_windows:
+            fail(f"draw_flags launched {py_launches['draw_flags']} times, "
+                 f"fewer than the {floor1_windows} windows the floor-1 run "
+                 f"dispatched")
+        if not windows:
+            fail("the floor-1 run handed draw_flags no window")
+        mix = window_mix(torch, prop, windows)
+        print(f"floor-1 windows: {json.dumps(mix)}", flush=True)
 
-    phase("mesh path")
-    mesh_launches, mesh_windows, barriers = mesh_path(
-        cli, mesh, output_tree_digest, tmp)
-    launches = {"mesh_exchange": mesh_launches["mesh_exchange"]}
+    if do("mesh path"):
+        mesh_launches, mesh_windows, barriers = mesh_path(
+            cli, mesh, output_tree_digest, tmp)
+        launches["mesh_exchange"] += mesh_launches["mesh_exchange"]
 
-    phase("mesh standalone")
-    sa = mesh_standalone(torch, np, mesh, barriers, tmp)
-    del barriers
-    for name in ("mesh_round_step", "mesh_scan"):
-        launches[name] = sa["launches"][name]
-        max_err[name] = max(max_err[name], sa["err"][name])
+    if do("mesh standalone"):
+        sa = mesh_standalone(torch, np, mesh, barriers, tmp)
+        del barriers
+        for name in ("mesh_round_step", "mesh_scan"):
+            launches[name] += sa["launches"][name]
+            max_err[name] = max(max_err.get(name, 0), sa["err"][name])
 
-    phase("transport path")
-    launches["ack_advance"], cohorts = transport_path(
-        cli, tk, dt, output_tree_digest, tmp)
+    if do("transport path"):
+        n, cohorts = transport_path(cli, tk, dt, output_tree_digest, tmp)
+        launches["ack_advance"] += n
 
-    phase("engine path")
-    engine, waves, engine_runs = engine_path(cli, prop, mesh,
-                                             output_tree_digest, tmp)
-    for name, n in engine.items():
-        launches[name] = launches.get(name, 0) + n
+    if do("engine path"):
+        engine, waves, _ = engine_path(cli, prop, mesh, output_tree_digest,
+                                       tmp)
+        add(engine)
 
-    phase("policies")
-    for name, n in policies_path(
-            cli, prop, tk, dt, output_tree_digest, tmp,
-            engine_runs["tgen_1k tpu_batch user"]).items():
-        launches[name] += n
+    if do("policies"):
+        add(policies_path(cli, prop, tk, dt, output_tree_digest, tmp))
 
-    phase("faults")
-    for name, n in faults_path(cli, prop, tk, dt, mesh, output_tree_digest,
-                               tmp).items():
-        launches[name] += n
+    if do("faults"):
+        add(faults_path(cli, prop, tk, dt, mesh, output_tree_digest, tmp))
 
-    phase("checkpoint")
-    for name, n in checkpoint_path(cli, prop, tk, dt, mesh,
-                                   output_tree_digest, tmp).items():
-        launches[name] += n
+    if do("checkpoint"):
+        add(checkpoint_path(cli, prop, tk, dt, mesh, output_tree_digest,
+                            tmp))
 
-    phase("shards")
-    for name, n in shards_path(cli, prop, tk, mesh, output_tree_digest,
-                               tmp).items():
-        launches[name] += n
+    if do("shards"):
+        add(shards_path(cli, prop, tk, mesh, output_tree_digest, tmp))
 
-    phase("apsp path")
-    launches["apsp"] = apsp_path(np, apsp)
+    if do("fault filter"):
+        add(fault_filter_path(prop, mesh, output_tree_digest, tmp))
 
-    phase("timing")
-    timing = {"threefry2x32": time_threefry(torch, prop, prng, windows,
-                                            spin_rate(torch))}
-    timing.update(time_kernels(torch, prop, windows, waves))
-    compare_staging(torch, np, prop, windows, waves, dev)
-    # a window of the run's median size
-    dispatch_breakdown(torch, prop,
-                       sorted(windows, key=lambda w: w[3])[len(windows) // 2])
-    del windows, waves
-    timing.update(time_mesh_kernels(torch, np, prop, mesh, mesh_windows,
-                                    sa["rounds"], sa["scans"], sa["ctx"],
-                                    sa["plane"]))
-    del mesh_windows, sa
-    timing["ack_advance"] = time_transport_kernel(torch, np, tk, cohorts, dev)
-    ack_extra = {
-        "staging": compare_ack_staging(torch, np, tk, cohorts, dev),
-        # a cohort of the run's median size
-        "breakdown_us": ack_breakdown(
-            torch, tk, sorted(cohorts, key=lambda c: len(c[0]))[
-                len(cohorts) // 2]),
-        "floor": ack_crossover(torch, np, tk, cohorts, dt._DEVICE_FLOOR)}
-    del cohorts
-    timing["apsp"] = time_apsp(torch, np, apsp, spin_rate(torch), dev)
+    if do("fleet"):
+        add(fleet_path(cli, np, prop, output_tree_digest, tmp, windows))
 
-    phase("trace")
-    trace_run(torch, cli, output_tree_digest, tmp, "tpu_batch")
-    trace_run(torch, cli, output_tree_digest, tmp, "tpu_mesh")
-    trace_run(torch, cli, output_tree_digest, tmp, "tpu_batch", engine=True)
-    trace_transport(torch, cli, dt, output_tree_digest, tmp)
+    if do("apsp path"):
+        launches["apsp"] += apsp_path(np, apsp)
+
+    timing = {}
+    if do("timing"):
+        timing["threefry2x32"] = time_threefry(torch, prop, prng, windows,
+                                               spin_rate(torch))
+        timing.update(time_kernels(torch, prop, windows, waves))
+        compare_staging(torch, np, prop, windows, waves, dev)
+        # a window of the run's median size
+        dispatch_breakdown(torch, prop, sorted(
+            windows, key=lambda w: w[3])[len(windows) // 2])
+        del windows, waves
+        timing.update(time_mesh_kernels(torch, np, prop, mesh, mesh_windows,
+                                        sa["rounds"], sa["scans"],
+                                        sa["ctx"], sa["plane"]))
+        del mesh_windows, sa
+        timing["ack_advance"] = time_transport_kernel(torch, np, tk,
+                                                      cohorts, dev)
+        ack_extra = {
+            "staging": compare_ack_staging(torch, np, tk, cohorts, dev),
+            # a cohort of the run's median size
+            "breakdown_us": ack_breakdown(
+                torch, tk, sorted(cohorts, key=lambda c: len(c[0]))[
+                    len(cohorts) // 2]),
+            "floor": ack_crossover(torch, np, tk, cohorts,
+                                   dt._DEVICE_FLOOR)}
+        del cohorts
+        timing["apsp"] = time_apsp(torch, np, apsp, spin_rate(torch), dev)
+
+    if do("trace"):
+        trace_run(torch, cli, output_tree_digest, tmp, "tpu_batch")
+        trace_run(torch, cli, output_tree_digest, tmp, "tpu_mesh")
+        trace_run(torch, cli, output_tree_digest, tmp, "tpu_batch",
+                  engine=True)
+        trace_transport(torch, cli, dt, output_tree_digest, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
 
     # the device function's launches are those of the kernels that run it
     launches["threefry2x32"] = sum(launches[k] for k in THREEFRY_INSIDE)
-    kernels = []
-    for name, rows in timing.items():
-        head = rows[0]  # the main path's own inputs
-        src, replaces, _ = PLAN[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max_err[name], "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": None,
-            **({"inside": list(THREEFRY_INSIDE)}
-               if name == "threefry2x32" else {}),
-            **(ack_extra if name == "ack_advance" else {}),
-            "shapes": rows})
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    if timing:
+        kernels = []
+        for name, rows in timing.items():
+            head = rows[0]  # the main path's own inputs
+            src, replaces, _ = PLAN[name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": max_err[name], "ms": head["ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"], "library_ms": None,
+                **({"inside": list(THREEFRY_INSIDE)}
+                   if name == "threefry2x32" else {}),
+                **(ack_extra if name == "ack_advance" else {}),
+                "shapes": rows})
+        print(json.dumps({"kernels": kernels}), flush=True)
+    else:
+        print(f"launches of the phases run (no kernel table without the "
+              f"timing phase): {json.dumps(launches)}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -111,10 +111,11 @@ class _Outstanding:
     source host ids."""
 
     __slots__ = ("rows", "src", "arrival", "keys", "uid_lo", "uid_hi",
-                 "npk", "thresh", "round_end", "deadline", "handle")
+                 "npk", "thresh", "forced", "round_end", "deadline",
+                 "handle")
 
     def __init__(self, rows, src, arrival, keys, uid_lo, uid_hi, npk,
-                 thresh, round_end, deadline, handle):
+                 thresh, forced, round_end, deadline, handle):
         self.rows = rows
         self.src = src  # list[int]
         self.arrival = arrival  # list[int]
@@ -123,6 +124,7 @@ class _Outstanding:
         self.uid_hi = uid_hi
         self.npk = npk
         self.thresh = thresh
+        self.forced = forced  # list[bool] | None: fault_filter's drops
         self.round_end = round_end
         self.deadline = deadline
         self.handle = handle
@@ -431,7 +433,8 @@ class ColumnarPlane(DeviceRoutedPlane):
         n = len(rows)
         if n == 0:
             return
-        if n <= SMALL_BARRIER and self.mesh_plane is None:
+        if (n <= SMALL_BARRIER and self.mesh_plane is None
+                and self.fault_filter is None):
             self._barrier_scalar(rows, segs, round_start, round_end, uids_l)
         else:
             self._barrier_vector(rows, segs, round_start, round_end, uids_l)
@@ -555,7 +558,7 @@ class ColumnarPlane(DeviceRoutedPlane):
             (ul >> np.uint64(32)).astype(np.uint32),
             np.array(npk_l, dtype=np.uint32),
             np.array(thresh_l, dtype=np.uint32),
-            round_end,
+            None, round_end,
             max(round_end, min(arrival_l)), None))
 
     # -- vector barrier -----------------------------------------------------
@@ -632,11 +635,24 @@ class ColumnarPlane(DeviceRoutedPlane):
         self._ev_key += n
 
         src_l = src.tolist()
+        forced = None
+        if self.fault_filter is not None:
+            forced = [bool(self.fault_filter(_RowView(r, s, int(u))))
+                      for r, s, u in zip(keep_rows, src_l, uid)]
+            if not any(forced):
+                forced = None
+
         arrival = depart + lat
         arrival_l = arrival.tolist()
 
         live = bool((thresh > 0).any())
-        if use_mesh and live:
+        if use_mesh:
+            if not live and forced is None:
+                # nothing can drop: straight to the store (the collective
+                # would only confirm all-false flags)
+                self._store_resolved(keep_rows, src_l, arrival_l, keys_l,
+                                     None, round_end)
+                return
             # LAZY collective batch: arrivals are known host-side, draws
             # are pure functions of unit identity, so the whole causal
             # window (every barrier until the earliest arrival comes due)
@@ -647,12 +663,12 @@ class ColumnarPlane(DeviceRoutedPlane):
             deadline = max(round_end, int(arrival.min()))
             self.outstanding.append(_Outstanding(
                 keep_rows, src_l, arrival_l, keys_l, None, None, None,
-                None, round_end, deadline,
+                None, forced, round_end, deadline,
                 _MeshLazy(src.astype(np.int64), dst.astype(np.int64),
                           arrival, uid.astype(np.int64), npk,
                           thresh.astype(np.int64))))
             return
-        if not live:
+        if not live and forced is None:
             # nothing can drop: skip draws entirely, straight to the store
             self._store_resolved(keep_rows, src_l, arrival_l, keys_l, None,
                                  round_end)
@@ -668,7 +684,7 @@ class ColumnarPlane(DeviceRoutedPlane):
         deadline = max(round_end, int(arrival.min()))
         self.outstanding.append(_Outstanding(
             keep_rows, src_l, arrival_l, keys_l, uid_lo, uid_hi, npk,
-            thresh, round_end, deadline, None))
+            thresh, forced, round_end, deadline, None))
 
     def _queue_mesh_batch(self, r, round_end: SimTime) -> None:
         """C-barrier mesh hand-off: append the lazy collective batch
@@ -680,7 +696,7 @@ class ColumnarPlane(DeviceRoutedPlane):
         deadline = max(round_end, int(arrival.min()))
         self.outstanding.append(_Outstanding(
             keep_rows, src_l, arrival.tolist(), keys_l, None, None, None,
-            None, round_end, deadline,
+            None, None, round_end, deadline,
             _MeshLazy(src_a.astype(np.int64), dst_a.astype(np.int64),
                       arrival, uid64, npk.astype(np.int64),
                       thresh.astype(np.int64))))
@@ -694,7 +710,7 @@ class ColumnarPlane(DeviceRoutedPlane):
         deadline = max(round_end, int(arrival.min()))
         self.outstanding.append(_Outstanding(
             keep_rows, src_l, arrival.tolist(), keys_l, uid_lo, uid_hi,
-            npk, thresh, round_end, deadline, None))
+            npk, thresh, None, round_end, deadline, None))
 
     # -- fused multi-round device windows -----------------------------------
     def _window_tick(self, round_end: SimTime) -> None:
@@ -1044,6 +1060,12 @@ class ColumnarPlane(DeviceRoutedPlane):
                 self._record_dev_read(_walltime.perf_counter() - r0,
                                       len(b.keys))
                 flags_l = flags.tolist() if flags.any() else None
+            if b.forced is not None:
+                # the fault filter's forced drops join every route's flags
+                if flags_l is None:
+                    flags_l = b.forced
+                else:
+                    flags_l = [a or f for a, f in zip(flags_l, b.forced)]
             self._store_resolved(b.rows, b.src, b.arrival, b.keys, flags_l,
                                  b.round_end)
         self._floor_settle()
@@ -1283,3 +1305,59 @@ def _round_robin_rows(rows):
         keyed.append((r[E_TEMIT], rk, order.setdefault(f, len(order)), i, r))
     keyed.sort(key=lambda t: t[:4])
     return [t[4] for t in keyed], [t[3] for t in keyed]
+
+
+class _RowView:
+    """Unit-shaped view over one egress row: what ``fault_filter`` sees on
+    the columnar plane, the surface of the per-unit plane's ``Unit``."""
+
+    __slots__ = ("_r", "src", "uid")
+
+    def __init__(self, row, src, uid):
+        self._r = row
+        self.src = src
+        self.uid = uid
+
+    @property
+    def kind(self):
+        return self._r[E_KIND]
+
+    @property
+    def t_emit(self):
+        return self._r[E_TEMIT]
+
+    @property
+    def frag_idx(self):
+        return self._r[E_FRAG]
+
+    @property
+    def nfrags(self):
+        return self._r[E_NFRAGS]
+
+    @property
+    def dst(self):
+        return self._r[E_DST]
+
+    @property
+    def size(self):
+        return self._r[E_SIZE]
+
+    @property
+    def src_port(self):
+        return self._r[E_SPORT]
+
+    @property
+    def dst_port(self):
+        return self._r[E_DPORT]
+
+    @property
+    def nbytes(self):
+        return self._r[E_NBYTES]
+
+    @property
+    def seq(self):
+        return self._r[E_SEQ]
+
+    @property
+    def payload(self):
+        return self._r[E_PAYLOAD]

@@ -30,13 +30,21 @@ carries what that routing needs:
   Windows below the floor, and windows that find both slots busy, resolve
   on the host twin: that is the reference's determinism-safe routing, and
   the run summary counts the windows the device served,
-- teardown safety (close() joins the attach thread),
+- fleet members (fleet.py): with the sweep's shared draw service named in
+  ``SHADOW_TPU_DRAW_SERVICE``, auto mode connects a ``FleetDrawClient``
+  to the parent's one attach instead of attaching the card; a service
+  that cannot be reached raises, as a failed attach does,
+- teardown safety (close() joins the attach thread and releases a fleet
+  proxy),
 - the latency/deferred/outstanding accessors the controller polls.
 """
 
 from __future__ import annotations
 
+import os
+
 from shadow_tpu_torch.core.time import SimTime, T_NEVER
+from shadow_tpu_torch.ops.devcfg import DrawServiceError
 
 #: deferred windows in flight at once (double-buffered handles): window
 #: N's device execution overlaps the build of window N+1; a third window
@@ -49,6 +57,8 @@ _BE_ALPHA = 0.25
 #: flap the routing decision every window
 _BE_ENGAGE = 1.25
 _BE_RELEASE = 0.8
+#: a fleet member's draw-service address (the reference's name)
+SERVICE_ENV = "SHADOW_TPU_DRAW_SERVICE"
 
 
 class DeviceRoutedPlane:
@@ -95,6 +105,8 @@ class DeviceRoutedPlane:
         self._spec_units = 0  # rows speculation itself dispatched
         self._bg_thread = None
         self._bg_error = None  # a failed attach, re-raised on the sim thread
+        self._svc_addr = None  # the fleet draw service this plane uses
+        self._svc_abort = False
         self.mesh_plane = None
         if backend == "mesh":
             self._init_mesh(tpu_options, params, device)
@@ -114,6 +126,22 @@ class DeviceRoutedPlane:
                                           device=device)
             self.device_floor = floor
             self._floor_forced = True
+            return
+        svc = os.environ.get(SERVICE_ENV)
+        if svc:
+            # fleet member (fleet.py): route the draw windows to the fleet
+            # parent's ONE shared attach instead of attaching the card.
+            # The proxy connects on the background thread (the parent's
+            # attach may still be warming) and publishes like a device
+            # plane; the run draws on the host twin until it does, as
+            # before any background attach publishes
+            import threading
+
+            self._svc_addr = svc
+            self._bg_thread = threading.Thread(
+                target=self._bg_connect_service, args=(svc, params.seed),
+                daemon=True)
+            self._bg_thread.start()
             return
         # auto mode: kernel build/load, warm-up and floor calibration run
         # on a background thread — except when a previous run of this
@@ -183,23 +211,56 @@ class DeviceRoutedPlane:
         except BaseException as exc:  # noqa: BLE001 — re-raised below
             self._bg_error = exc
 
+    def _bg_connect_service(self, address: str, seed: int) -> None:
+        """Fleet member: connect to the parent's shared draw service and
+        publish the proxy as this run's device plane. A service that
+        cannot be reached, or refuses with its attach's error, fails the
+        run (raise_attach_error): the reference degrades to a local attach
+        and then to the host twin here, the port never does. A run that
+        ends while the reached service is still attaching drew on the host
+        twin throughout, as a standalone run that ends before its
+        background attach publishes."""
+        try:
+            from shadow_tpu_torch.fleet import FleetDrawClient
+
+            proxy = FleetDrawClient.connect(
+                address, seed, self.max_batch, self.max_pkts,
+                abort=lambda: self._svc_abort)
+        except BaseException as exc:  # noqa: BLE001 — re-raised below
+            self._bg_error = (exc if isinstance(exc, DrawServiceError)
+                              else DrawServiceError(
+                                  f"fleet draw service at {address!r}: "
+                                  f"{exc!r}"))
+            return
+        if proxy is not None:
+            self._publish_device(proxy, proxy.dev_s, proxy.np_per_unit)
+
     def raise_attach_error(self) -> None:
-        """Re-raise a failed background attach on the calling thread."""
+        """Re-raise a failed background attach (or fleet draw-service
+        connect, by its own name) on the calling thread."""
         exc = self._bg_error
         if exc is not None:
             self._bg_error = None
+            if isinstance(exc, DrawServiceError):
+                raise exc
             raise RuntimeError(f"device attach failed: {exc}") from exc
 
     def close(self) -> None:
         """Join the background device-attach threads (the draw plane's and
-        the device transport's, if any), drop the C engine (its counters
-        were folded by flush_all) and raise the error an attach hit."""
+        the device transport's, if any), release a fleet draw-service
+        proxy, drop the C engine (its counters were folded by flush_all)
+        and raise the error an attach hit. A service connect still
+        waiting on the parent's attach is aborted, not waited out."""
+        self._svc_abort = True
         t = self._bg_thread
         if t is not None and t.is_alive():
             t.join()
         devt = getattr(self, "devt", None)
         if devt is not None:
             devt.close()
+        d = self.device
+        if d is not None and hasattr(d, "close_client"):
+            d.close_client()
         self._c = None
         self._spec_pending = []
         self.raise_attach_error()

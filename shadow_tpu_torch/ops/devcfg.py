@@ -95,11 +95,21 @@ class DeviceUnavailable(ValueError):
     """The caller asked for a device this process cannot use."""
 
 
+class DrawServiceError(RuntimeError):
+    """The fleet's shared draw service (ops/propagate.py ``DrawServer``)
+    failed a member: its attach or a launch failed, or the member could
+    not reach it or lost its connection. The member raises it and its
+    seed fails; it never draws on the host in the card's place."""
+
+
 def require_device(name: str = "cuda") -> None:
     """Raise DeviceUnavailable unless this process can use ``name``
-    (``cuda`` or ``cpu``), without initialising CUDA: a controller checks
-    its device this way at construction, and a shard worker, which
-    launches nothing, never touches the card."""
+    (``cuda`` or ``cpu``), without initialising CUDA: the cards are
+    counted through NVML (``torch.cuda.device_count``), which unlike
+    ``torch.cuda.is_available`` does not call cuInit. A controller checks
+    its device this way at construction; a shard worker or a served fleet
+    member, which launches nothing, never touches the card; and the fleet
+    parent can still fork its workers afterwards."""
     import torch
 
     if name == "cpu":
@@ -107,7 +117,7 @@ def require_device(name: str = "cuda") -> None:
     if name != "cuda":
         raise DeviceUnavailable(
             f"unknown device {name!r} (want cuda or cpu)")
-    if not torch.cuda.is_available():
+    if torch.cuda.device_count() == 0:
         raise DeviceUnavailable(
             "device cuda requested but torch.cuda.is_available() is false; "
             "pass --device cpu to run the plain PyTorch kernels on the CPU")

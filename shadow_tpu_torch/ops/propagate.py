@@ -46,6 +46,7 @@ Design notes (carried over from the reference):
 
 from __future__ import annotations
 
+import threading
 import time as _walltime  # detlint: ok(wallclock): device attach/calibration wall measures
 
 import numpy as np
@@ -62,6 +63,9 @@ SENTINEL = 0xFFFFFFFF
 #: kernel launches per kernel since the last reset_launches(); only CUDA
 #: launches count (the plain version on a CPU tensor is not a launch)
 LAUNCHES = {"draw_flags": 0, "min_draw": 0}
+#: the fleet's DrawServer launches from one thread per member: the count's
+#: read-modify-write takes this lock so that no launch goes uncounted
+_LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -180,7 +184,8 @@ def _launch_kernel(name: str, packed_ptr: int, p: int, n: int, seed_key,
     code = getattr(lib, f"shadow_{name}")(packed_ptr, p, n, k0, k1, width,
                                           out_ptr, stream)
     devcfg.check_launch(lib, code, name)
-    LAUNCHES[name] += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _wrapper(name: str, packed: torch.Tensor, seed_key, width: int,
@@ -371,7 +376,10 @@ class DeviceDrawPlane:
         ``kernel`` on it; returns the slot, in flight."""
         free = self.slots(kernel, p)
         try:
-            slot = free.pop()  # atomic under the GIL
+            # atomic under the GIL: threads sharing the plane (the fleet's
+            # DrawServer) never take one slot twice, and a slot returns to
+            # the list only once its handle is read or dropped
+            slot = free.pop()
         except IndexError:
             slot = DrawSlot(kernel, p, self.device)
         n = cols[0].shape[0]
@@ -476,3 +484,238 @@ class DeviceDrawPlane:
         loss_flags(self.seed, lo, hi, npk, th)
         np_per_unit = (_walltime.perf_counter() - t0) / n_probe
         return dev_s, np_per_unit
+
+
+# -- the fleet's shared draw service ------------------------------------------
+
+#: authkey for the fleet draw-service socket (local AF_UNIX only; the
+#: socket path lives in a mode-0700 directory — the key is a protocol
+#: sanity check, not the access control)
+DRAW_SERVICE_AUTHKEY = b"shadow-tpu-draw-service-v1"
+
+
+def draw_service_address() -> str:
+    """A fresh AF_UNIX path for a ``DrawServer``, in a new directory only
+    this user can enter (0700). The server unlinks the socket when it
+    closes; whoever asked for the path removes its directory
+    (``shutil.rmtree(os.path.dirname(address))``)."""
+    import os
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="stpt_draw_")
+    os.chmod(d, 0o700)
+    return os.path.join(d, "sock")
+
+
+class DrawServer:
+    """The fleet parent's shared draw plane: ONE attach
+    (DeviceDrawPlane.attach_cached — kernel load, calibration and warm-up
+    paid once, one CUDA context) serving every member simulation's draw
+    windows over an AF_UNIX socket (fleet.py owns the member-side proxy).
+    The kernels take the threefry key as data, so M members with M seeds
+    share the one plane.
+
+    Protocol (multiprocessing.connection, one serving thread per member):
+      member -> ("hello", seed)
+      server -> ("ok", dev_s, np_per_unit, SPEC_BUCKET, max_batch)
+               | ("error", None, message)        # the attach failed
+      member -> ("draw", rid, seed, lo, hi, npk, th)
+               | ("min", rid, seed, lo, hi, npk, min_bucket) | ("bye",)
+      server -> (rid, result_array)              # FIFO per member
+               | ("error", rid, message)         # a launch or read failed
+
+    Every serving thread launches on the device's default stream (torch's
+    current stream is per thread, and no thread here sets one), so all
+    members' launches queue on the card in one order; each DrawSlot's
+    event marks its own. The slots are handed out under the GIL (see
+    DeviceDrawPlane._launch) and the launch counts under a lock.
+
+    Unlike the reference's, a failure is never hidden: a failed attach or
+    launch is sent to the member, which raises it (its seed fails and the
+    fleet's retry budget reruns it), and is kept in ``errors`` for the
+    sweep's summary; the member never falls back to the host twin."""
+
+    def __init__(self, seed: int, max_batch: int = 65536,
+                 max_pkts: int = MAX_PKTS, *, address: str,
+                 device: str = "cuda") -> None:
+        from multiprocessing.connection import Listener
+
+        self.address = address  # see draw_service_address
+        # the listener accepts at once while the attach runs on a sibling
+        # thread: a member's hello waits (polling its own abort) for the
+        # plane to publish, and runs the host twin meanwhile, as a
+        # standalone run does before its background attach publishes
+        self._listener = Listener(address, family="AF_UNIX", backlog=64,
+                                  authkey=DRAW_SERVICE_AUTHKEY)
+        self._attach_args = (int(seed), int(max_batch), int(max_pkts),
+                             str(device))
+        self.plane = None
+        self.dev_s = 0.0
+        self.np_per_unit = 0.0
+        self.attach_wall = 0.0
+        #: launches the attach itself made (calibration and warm-up)
+        self.attach_launches = {k: 0 for k in LAUNCHES}
+        #: batches served per kernel, and their units
+        self.served = {k: 0 for k in LAUNCHES}
+        self.served_units = 0
+        #: every failure sent to a member (attach, launch or read)
+        self.errors: list = []
+        self._attach_error = None
+        self._lock = threading.Lock()
+        self._closing = False
+        self._ready = threading.Event()
+        self._members: list = []  # the serving threads
+        self._attach_thread = threading.Thread(
+            target=self._attach, name="draw-server-attach", daemon=True)
+        self._attach_thread.start()
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, name="draw-server-accept",
+            daemon=True)
+        self._accept_thread.start()
+
+    @property
+    def served_batches(self) -> int:
+        return sum(self.served.values())
+
+    def _error(self, what: str, exc: BaseException) -> str:
+        msg = f"fleet draw service: {what} failed: {exc!r}"
+        with self._lock:
+            self.errors.append(msg)
+        return msg
+
+    def _attach(self) -> None:
+        t0 = _walltime.perf_counter()
+        before = dict(LAUNCHES)
+        try:
+            hit = DeviceDrawPlane.attach_cached(
+                *self._attach_args, should_abort=lambda: self._closing)
+        except Exception as exc:  # noqa: BLE001 — sent to every member
+            self._attach_error = self._error("attach", exc)
+            self._ready.set()
+            return
+        if hit is None:  # close() raced the attach
+            self._ready.set()
+            return
+        self.plane, self.dev_s, self.np_per_unit = hit
+        self.attach_wall = _walltime.perf_counter() - t0
+        # nothing is served before _ready is set: these are the attach's
+        self.attach_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        self._ready.set()
+
+    def _accept_loop(self) -> None:
+        while not self._closing:
+            try:
+                conn = self._listener.accept()
+            except (OSError, EOFError):
+                # the listener closed, or one connection's handshake broke
+                # off (close()'s wake-up among them)
+                if self._closing:
+                    break
+                continue
+            except Exception:  # noqa: BLE001 — one member's handshake
+                continue
+            t = threading.Thread(target=self._serve, args=(conn,),
+                                 name="draw-server-member", daemon=True)
+            self._members.append(t)
+            t.start()
+
+    def _serve(self, conn) -> None:
+        """Serve one member connection: dispatch each request on the
+        shared plane at once, answer in FIFO order. The blocking read at
+        the bottom happens only when no new request waits in the pipe —
+        the member that sent it is either blocked on exactly this
+        response or still running its rounds, so serving the oldest
+        handle first is always progress. Once the server closes, the
+        thread answers what is already in the pipe and ends."""
+        from collections import deque
+
+        pending: deque = deque()
+        try:
+            msg = conn.recv()
+            if not (isinstance(msg, tuple) and msg and msg[0] == "hello"):
+                return
+            while not self._ready.wait(0.25):
+                if self._closing:
+                    return
+            plane = self.plane
+            if plane is None:
+                conn.send(("error", None, self._attach_error
+                           or "fleet draw service: closed during attach"))
+                return
+            if plane.device.type == "cuda":
+                torch.cuda.set_device(plane.device)
+            conn.send(("ok", self.dev_s, self.np_per_unit,
+                       plane.SPEC_BUCKET, plane.max_batch))
+            while True:
+                if pending and pending[0][1].is_ready():
+                    if not self._answer(conn, *pending.popleft()):
+                        return
+                    continue
+                if conn.poll(0.001 if pending else 0.25):
+                    msg = conn.recv()
+                    op = msg[0]
+                    if op == "bye":
+                        break
+                    rid, seed, lo, hi, npk, arg = msg[1:7]
+                    try:
+                        if op == "draw":
+                            h = plane.dispatch(lo, hi, npk, arg, seed=seed)
+                        else:  # "min"
+                            h = plane.dispatch_min(lo, hi, npk,
+                                                   min_bucket=arg, seed=seed)
+                    except Exception as exc:  # noqa: BLE001 — to the member
+                        conn.send(("error", rid, self._error("launch", exc)))
+                        return
+                    pending.append((rid, h))
+                    with self._lock:
+                        self.served["draw_flags" if op == "draw"
+                                    else "min_draw"] += 1
+                        self.served_units += len(lo)
+                elif pending:
+                    if not self._answer(conn, *pending.popleft()):
+                        return
+                elif self._closing:
+                    return
+        except (EOFError, OSError):
+            pass  # the member exited or lost its connection
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _answer(self, conn, rid: int, h) -> bool:
+        """Send request ``rid``'s result, or its failure (then False)."""
+        try:
+            out = h.read()
+        except Exception as exc:  # noqa: BLE001 — to the member
+            conn.send(("error", rid, self._error("read", exc)))
+            return False
+        conn.send((rid, out))
+        return True
+
+    def close(self) -> None:
+        import socket
+
+        self._closing = True
+        # closing the listener does not wake a thread blocked in accept():
+        # poke it with a bare connection (no handshake, which would wait
+        # forever on an accept loop that has already seen _closing)
+        try:
+            with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+                s.settimeout(1.0)
+                s.connect(self.address)
+        except OSError:
+            pass
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+        self._accept_thread.join(timeout=2)
+        # every request already sent is served and counted before close
+        # returns (a member that is still connected loses its connection)
+        for t in self._members:
+            t.join(timeout=30)
+        # attach_cached polls _closing between its phases, so this wait is
+        # bounded by one of them
+        self._attach_thread.join(timeout=120)

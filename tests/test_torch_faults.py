@@ -355,15 +355,17 @@ def _cli_run(main, cfg, data_dir, argv):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("config", ["abr_1k", "gossip_churn",
-                                    "partition_heal", "web_cdn"])
+@pytest.mark.parametrize("config", ["abr_1k", "abr_1k@8s", "gossip_churn",
+                                    "partition_heal", "web_cdn",
+                                    "web_cdn@10s"])
 def test_fault_configs_give_chip_smoke_constants(tmp_path, monkeypatch,
                                                  config):
     """The reference, as a user runs it under tpu_batch, gives
-    chip_smoke.py's FAULT_RESULTS for ``config``; then every leg of
-    FAULT_LEGS for it gives them in the port on the CPU (the transport
-    leg with every cohort on the device path, the cached leg after the
-    user leg in one process)."""
+    chip_smoke.py's FAULT_RESULTS for ``config`` (a name with "@" is the
+    config cut at that stop time); then every leg of FAULT_LEGS for it
+    gives them in the port on the CPU (the transport leg with every cohort
+    on the device path, the cached leg after the user leg in one
+    process)."""
     from shadow_tpu import cli as ref_cli
     from shadow_tpu.fleet import output_tree_digest as ref_tree_digest
     from shadow_tpu_torch import cli as port_cli
@@ -373,8 +375,10 @@ def test_fault_configs_give_chip_smoke_constants(tmp_path, monkeypatch,
 
     cs = _chip_smoke()
     want = cs.FAULT_RESULTS[config]
-    dig = ["--state-digest-every", str(want["counts"]["rounds"])]
-    cfg = EX / f"{config}.yaml"
+    name, _, stop = config.partition("@")
+    dig = ["--state-digest-every", str(want["counts"]["rounds"]),
+           *(["--stop-time", stop] if stop else [])]
+    cfg = EX / f"{name}.yaml"
     ref = _cli_run(ref_cli.main, cfg, tmp_path / "ref",
                    ["--scheduler-policy", "tpu_batch", *dig])
     assert cs.fault_result(ref, str(tmp_path / "ref"),

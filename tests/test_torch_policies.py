@@ -280,3 +280,35 @@ def test_web_cdn_100k_thread_per_core_gives_chip_smoke_constants(tmp_path):
     assert {k: port[k] for k in COUNTS} == cs.WEB500_COUNTS
     assert output_tree_digest(tmp_path) == cs.WEB500_TREE_DIGEST
     assert cs.last_state_digest(tmp_path) == cs.WEB500_STATE_DIGEST
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("label", [
+    leg[0] for leg in _chip_smoke().POLICY_LEGS if " cut " in leg[0]])
+def test_policy_cut_legs_give_chip_smoke_constants(tmp_path, label):
+    """chip_smoke.py's policies legs cut short of their stop time: the
+    reference at the same cut gives the leg's constants (counts, tree,
+    last state digest, process errors), and so does the port under the
+    leg's policy on the CPU."""
+    cs = _chip_smoke()
+    leg = next(x for x in cs.POLICY_LEGS if x[0] == label)
+    _, cfg, policy, extra, counts, tree, state, errors = leg
+
+    def go(main, d, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main([str(EX / cfg), "--data-directory", str(d),
+                  "--json-summary", "--quiet", *argv])
+        s = json.loads(buf.getvalue().strip().splitlines()[-1])
+        assert cs.errors_digest(s["process_errors"]) == (
+            errors or cs.errors_digest([]))
+        assert {k: s[k] for k in counts} == counts
+        assert cs.last_state_digest(d) == state
+        return s
+
+    go(ref_cli.main, tmp_path / "ref",
+       ["--scheduler-policy", "tpu_batch", *extra])
+    assert ref_tree_digest(tmp_path / "ref") == tree
+    go(port_cli.main, tmp_path / "port",
+       ["--scheduler-policy", policy, "--device", "cpu", *extra])
+    assert output_tree_digest(tmp_path / "port") == tree
