@@ -97,7 +97,7 @@ failure exits non-zero:
              tpu_batch as a user runs it, again with the draw plane attached
              before round 0 (speculation runs from the start) and at
              tpu_device_floor=1; under tpu_mesh at floor 0 and at the
-             default floor; web_cdn_100k at full width to 1,500 ms. Each
+             default floor; web_cdn_100k at full width to 1,000 ms. Each
              gives the reference's counts, tree (and web_cdn_100k's last
              state digest) and reports native_colcore; launch counts are
              reset before each leg and read after: min_draw launches for
@@ -112,8 +112,8 @@ failure exits non-zero:
              as a user runs it (C engine), at tpu_device_floor=1 (full
              depth; draw_flags must launch) and under thread_per_core. The
              thread_per_core legs and the user legs their ratios divide by
-             are cut alike: tgen_1k and tor_400relay to 10 s, gossip_10k
-             to 4 s; tor_400relay on the Python plane with the
+             are cut alike: tgen_1k to 5 s, tor_400relay to 7 s,
+             gossip_10k to 4 s; tor_400relay on the Python plane with the
              device transport at floor 1 (ack_advance must launch once a
              device cohort, plus the warm-up); tgen_100host and
              tor_400relay under thread_per_host. Legs cut short of the
@@ -210,11 +210,48 @@ failure exits non-zero:
              seed standalone. Prints the attach wall, batches
              and units served, launches, the sweep's wall against the
              standalone walls and each member's sim-s/wall-s.
-19. apsp path — apsp_device, the port's device-APSP entry point, on the
+19. live    — the live operations plane: tgen_1k at full width on the C
+             engine under tpu_batch at tpu_device_floor=1 with
+             --live-endpoint, a follower on ``python -m
+             shadow_tpu_torch.live tail`` in a subprocess and a timing
+             follower on a thread; once the first heartbeat (2 s of sim
+             time) reaches it, pause, a 5 s link_degrade, resume and
+             checkpoint_now are sent: every ack, fault_transitions_applied
+             >= 2, draw_flags launched once a window, the follower saw
+             hello, hb, command, stream, flows_snapshot, checkpoint and
+             end. The run's commands.jsonl replayed at floor 1, under
+             tpu_batch auto with the draw plane attached before round 0
+             (speculative min_draw waves in flight when the degrade lands)
+             and under tpu_mesh at tpu_mesh_floor=0: each run's tree, state
+             digests, metrics, flows and sim-visible commands are the live
+             run's; ``live jump`` on the card to the first recorded digest
+             after the checkpoint reproduces it. tgen_1k as a user runs it
+             with an endpoint and a follower and without: the reference's
+             tree either way. Then the reference CI's live-ops leg
+             (gossip_churn, 25 s) through the port's CLI: a link_down by
+             ``live send``, >= 3 heartbeats, a sample, the applied command
+             and the end record at the follower, the replay identical.
+             Prints send-to-ack and ack-to-applied wall, the jump's wall
+             and the user pair's sim-s/wall-s.
+20. fork    — checkpoint-forked what-if trees: the reference CI's fork leg
+             through ``python -m shadow_tpu_torch fork`` (gossip_churn to
+             25 s, forked at 10 s into baseline and lossy, restored, and
+             seed9, cold) and ``fleet report --compare``: the baseline is
+             the trunk byte for byte, tools/bisect_divergence.py agrees on
+             it and names lossy's first divergent round after the fork at
+             t >= 15 s; then a tgen_1k fork (C engine, tpu_batch auto,
+             forked at 30 s into baseline, a link_degrade at 31 s and seed
+             3) at jobs=2 behind one DrawServer attach: the baseline is the
+             trunk, seed 3 the reference's tree, no member created a CUDA
+             context, launches reset before and read after equal the
+             batches served plus the attach's. Prints the served min_draw
+             batches, the fork's wall against the trunk's remainder
+             resumed alone, and the branches' walls.
+21. apsp path — apsp_device, the port's device-APSP entry point, on the
              card on the three real topologies: equal to the plain version
              and to graph.py's routing tables; launches reset before, read
              after.
-20. timing  — every kernel and its plain version timed on the main paths'
+22. timing  — every kernel and its plain version timed on the main paths'
              own inputs (APSP at G = 4,096): card time per launch or call,
              with the bound for the same work; the draw kernels as the
              plane launches them (on page-locked slots, in place) and on
@@ -232,7 +269,7 @@ failure exits non-zero:
              rows, the steps of a cohort's round trip on the host, and the
              cohort size from which the card's round trip beats the numpy
              host version (the floor crossover).
-21. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
+23. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
              plane, at tpu_device_floor=1 under tpu_batch and at
              tpu_mesh_floor=0 under tpu_mesh, and on the C engine at
              tpu_device_floor=1; counts and output tree must
@@ -265,6 +302,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -300,12 +338,15 @@ WEB500_TREE_DIGEST = (
     "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855")
 WEB500_STATE_DIGEST = (
     "416f6aa8ac3fe4127ff0ef5e1cfab4f87698e06abe94d93d8fd64935b03fcd64")
-WEB1500_COUNTS = {"rounds": 562, "events": 2344677, "units_sent": 2382834,
-                  "units_dropped": 0, "bytes_sent": 8755431092}
-WEB1500_TREE_DIGEST = (
-    "f2363262ec4fc7d2d00dde59c3265e6bcc33ff032f7048a7eef451375834367c")
-WEB1500_STATE_DIGEST = (
-    "f5098e07dbac31757bdcd2d44740b4bd263f60ef9166f94e75a37f0b96642ab3")
+#: the C engine's web_cdn_100k leg, to 1,000 ms (312 rounds, 672,701
+#: events); 1,500 ms before the live and fork phases joined the script,
+#: which then passed 1,050 s on a slow host
+WEB1000_COUNTS = {"rounds": 312, "events": 672701, "units_sent": 685683,
+                  "units_dropped": 0, "bytes_sent": 2229790460}
+WEB1000_TREE_DIGEST = (
+    "23fb03b5b7bcaca3255def06fd72eef37633416e466d843248c45ac145e13211")
+WEB1000_STATE_DIGEST = (
+    "c5f0b66490482902899ed80cd515e56ba322793ac303e4afee212db65d002b4b")
 #: the digest of an empty hosts/ tree (no host wrote a log)
 EMPTY_TREE_DIGEST = (
     "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855")
@@ -354,33 +395,36 @@ TOR400_2S_ERRORS = (
 #: the policies phase's thread_per_core legs, and the tpu_batch legs their
 #: vs_baseline ratios divide by, are cut short of the stop time (the
 #: thread_per_core legs are host-bound Python and took 33-64 s each on the
-#: card's host at full depth): tgen_1k to 10 s (90 % of its events),
-#: gossip_10k to 4 s (30 %; all of them fall before 10 s of its 30 s) and
-#: tor_400relay to 10 s (60 %). The reference's results there, from
+#: card's host at full depth): tgen_1k to 5 s (34 % of its events),
+#: gossip_10k to 4 s (30 %; all of them fall before 10 s of its 30 s, and
+#: only 5 % before 3 s) and tor_400relay to 7 s (25 %). tgen_1k and
+#: tor_400relay were cut to 10 s before the live and fork phases joined
+#: the script, which passed 1,050 s on a slow host. The reference's
+#: results there, from
 #:   python -m shadow_tpu examples/<config>.yaml --stop-time <cut> \
 #:     --scheduler-policy tpu_batch --state-digest-every <last round>
-TGEN1K_10S_COUNTS = {"rounds": 4490, "events": 199608, "units_sent": 197671,
-                     "units_dropped": 1235, "bytes_sent": 1746386109}
-TGEN1K_10S_TREE_DIGEST = (
-    "e2f58d27b4c4bcfffe398191e79bc4103f10d178f59658c0943ae03a3acebbeb")
-TGEN1K_10S_STATE_DIGEST = (
-    "7e0b3485804f15f53a21c7f477d6a7124830a6b92d2ee0bcc2689d489aa496d7")
-TGEN1K_10S_ERRORS = (
-    233, "89fcb508676a27b699bcfd5fa7ad56334d9c9a5c2180d2149b96f355e8ab1329")
+TGEN1K_5S_COUNTS = {"rounds": 1990, "events": 75065, "units_sent": 76517,
+                    "units_dropped": 425, "bytes_sent": 676370056}
+TGEN1K_5S_TREE_DIGEST = (
+    "7be8edeb358c5123f7b2cc4c20fdc2b00c3be2ad7a56309ee67c59ead1de93e2")
+TGEN1K_5S_STATE_DIGEST = (
+    "c6256d1e36ccd66371e1dfde531c9dea4ee27e05f8d92b9ee8e7aeb2e80320fc")
+TGEN1K_5S_ERRORS = (
+    848, "47eb6d82e58bdf3f7c8a05b64ef8fefa8fba3128584bce1b843c8a89e292c12c")
 GOSSIP10K_4S_COUNTS = {"rounds": 1030, "events": 396137, "units_sent": 491339,
                        "units_dropped": 1664, "bytes_sent": 80778472}
 GOSSIP10K_4S_TREE_DIGEST = (
     "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855")
 GOSSIP10K_4S_STATE_DIGEST = (
     "d3a68e522e60297e9b9b2fe7937f8b7a39377797f2ce05635aa0d78e6bdf40ea")
-TOR400_10S_COUNTS = {"rounds": 4383, "events": 155064, "units_sent": 155831,
-                     "units_dropped": 821, "bytes_sent": 757992700}
-TOR400_10S_TREE_DIGEST = (
-    "e44b19b6d304242b5f7ab99020c625b4355c977022c454a91f9a7633980d0dcf")
-TOR400_10S_STATE_DIGEST = (
-    "6698bee218a5df3478d4ca3e99cc008702f53535fa54d66f3f9f85f55d48e895")
-TOR400_10S_ERRORS = (
-    367, "2132981e0e9f1fea622520572fd61b46f6104513924e655ea1df903e8a740b36")
+TOR400_7S_COUNTS = {"rounds": 2883, "events": 68979, "units_sent": 70479,
+                    "units_dropped": 336, "bytes_sent": 325810607}
+TOR400_7S_TREE_DIGEST = (
+    "d9e721fd6cb33df3ad7bf682c92a7e25c73b0c2d4b7aa281e447a85b0daddb31")
+TOR400_7S_STATE_DIGEST = (
+    "6a0de3b599697bd26a1f431dff7c148466c485578f36a28281d6c4f66abf608f")
+TOR400_7S_ERRORS = (
+    541, "a8dee4b7614d6014b0849798fee1e4410adaa686c65236390feca5a34df38183")
 
 #: the faults phase: the shipped configs with a faults: or telemetry:
 #: section, at full width and full stop time. The reference's results,
@@ -548,12 +592,12 @@ def _cut(stop: str, counts: dict) -> list:
 
 
 POLICY_LEGS = (
-    ("tgen_1k tpu_batch user cut 10s", "tgen_1k.yaml", "tpu_batch",
-     _cut("10s", TGEN1K_10S_COUNTS), TGEN1K_10S_COUNTS,
-     TGEN1K_10S_TREE_DIGEST, TGEN1K_10S_STATE_DIGEST, TGEN1K_10S_ERRORS),
-    ("tgen_1k thread_per_core cut 10s", "tgen_1k.yaml", "thread_per_core",
-     _cut("10s", TGEN1K_10S_COUNTS), TGEN1K_10S_COUNTS,
-     TGEN1K_10S_TREE_DIGEST, TGEN1K_10S_STATE_DIGEST, TGEN1K_10S_ERRORS),
+    ("tgen_1k tpu_batch user cut 5s", "tgen_1k.yaml", "tpu_batch",
+     _cut("5s", TGEN1K_5S_COUNTS), TGEN1K_5S_COUNTS,
+     TGEN1K_5S_TREE_DIGEST, TGEN1K_5S_STATE_DIGEST, TGEN1K_5S_ERRORS),
+    ("tgen_1k thread_per_core cut 5s", "tgen_1k.yaml", "thread_per_core",
+     _cut("5s", TGEN1K_5S_COUNTS), TGEN1K_5S_COUNTS,
+     TGEN1K_5S_TREE_DIGEST, TGEN1K_5S_STATE_DIGEST, TGEN1K_5S_ERRORS),
     ("tgen_1k thread_per_host cut 2s", "tgen_1k.yaml", "thread_per_host",
      _CUT_2S + [str(TGEN1K_2S_COUNTS["rounds"])], TGEN1K_2S_COUNTS,
      TGEN1K_2S_TREE_DIGEST, TGEN1K_2S_STATE_DIGEST, TGEN1K_2S_ERRORS),
@@ -566,14 +610,14 @@ POLICY_LEGS = (
     ("gossip_10k thread_per_core cut 4s", "gossip_10k.yaml",
      "thread_per_core", _cut("4s", GOSSIP10K_4S_COUNTS), GOSSIP10K_4S_COUNTS,
      GOSSIP10K_4S_TREE_DIGEST, GOSSIP10K_4S_STATE_DIGEST, None),
-    ("tor_400relay tpu_batch user cut 10s", "tor_400relay.yaml", "tpu_batch",
-     _cut("10s", TOR400_10S_COUNTS), TOR400_10S_COUNTS,
-     TOR400_10S_TREE_DIGEST, TOR400_10S_STATE_DIGEST, TOR400_10S_ERRORS),
+    ("tor_400relay tpu_batch user cut 7s", "tor_400relay.yaml", "tpu_batch",
+     _cut("7s", TOR400_7S_COUNTS), TOR400_7S_COUNTS,
+     TOR400_7S_TREE_DIGEST, TOR400_7S_STATE_DIGEST, TOR400_7S_ERRORS),
     ("tor_400relay tpu_batch floor1", "tor_400relay.yaml", "tpu_batch",
      _FLOOR1, TOR400_COUNTS, TOR400_TREE_DIGEST, None, None),
-    ("tor_400relay thread_per_core cut 10s", "tor_400relay.yaml",
-     "thread_per_core", _cut("10s", TOR400_10S_COUNTS), TOR400_10S_COUNTS,
-     TOR400_10S_TREE_DIGEST, TOR400_10S_STATE_DIGEST, TOR400_10S_ERRORS),
+    ("tor_400relay thread_per_core cut 7s", "tor_400relay.yaml",
+     "thread_per_core", _cut("7s", TOR400_7S_COUNTS), TOR400_7S_COUNTS,
+     TOR400_7S_TREE_DIGEST, TOR400_7S_STATE_DIGEST, TOR400_7S_ERRORS),
     ("tor_400relay device transport floor1", "tor_400relay.yaml",
      "tpu_batch", ["--set", "experimental.device_transport=true",
                    "--set", "experimental.native_colcore=false"],
@@ -1657,7 +1701,7 @@ def transport_path(cli, tk, dt, digest, tmp: str) -> tuple:
     return launches, recorded
 
 
-# -- phase 20: kernel times on the main paths' inputs -------------------------
+# -- phase 22: kernel times on the main paths' inputs -------------------------
 
 def lanes_needed(torch, prop, x, key, width: int, early_exit: bool) -> int:
     """Threefry evaluations the kernel needs for these inputs: every lane
@@ -2738,7 +2782,7 @@ def check_apsp_kernels(torch, np, apsp, dev) -> int:
     return err
 
 
-# -- phase 19: the device-APSP entry point ------------------------------------
+# -- phase 21: the device-APSP entry point ------------------------------------
 
 def apsp_path(np, apsp) -> int:
     """apsp_device, the port's device-APSP entry point, on the card for
@@ -2832,7 +2876,7 @@ def engine_path(cli, prop, mesh, digest, tmp: str) -> tuple:
     with the plane attached before round 0 (a second auto run in one
     process finds it cached: speculation runs from the start), and at
     tpu_device_floor=1; under tpu_mesh at tpu_mesh_floor=0 and at the
-    default floor; web_cdn_100k at full width to 1,500 ms as a user runs
+    default floor; web_cdn_100k at full width to 1,000 ms as a user runs
     it. Launch counts are reset just before each leg and read just after.
     Each leg must give the reference's counts and tree (and, for
     web_cdn_100k, last state digest), report that the engine ran, and
@@ -2855,10 +2899,10 @@ def engine_path(cli, prop, mesh, digest, tmp: str) -> tuple:
          TGEN1K_TREE_DIGEST, None),
         ("tgen_1k tpu_mesh default", tgen, "tpu_mesh", [], TGEN1K_COUNTS,
          TGEN1K_TREE_DIGEST, None),
-        ("web_cdn_100k user 1500ms", str(EXAMPLES / "web_cdn_100k.yaml"),
-         "tpu_batch", ["--stop-time", "1500ms", "--state-digest-every",
-                       str(WEB1500_COUNTS["rounds"])], WEB1500_COUNTS,
-         WEB1500_TREE_DIGEST, WEB1500_STATE_DIGEST),
+        ("web_cdn_100k user 1000ms", str(EXAMPLES / "web_cdn_100k.yaml"),
+         "tpu_batch", ["--stop-time", "1000ms", "--state-digest-every",
+                       str(WEB1000_COUNTS["rounds"])], WEB1000_COUNTS,
+         WEB1000_TREE_DIGEST, WEB1000_STATE_DIGEST),
     )
     total = {k: 0 for k in ("draw_flags", "min_draw", "mesh_exchange")}
     summaries, waves = {}, []
@@ -3989,7 +4033,596 @@ def fleet_path(cli, np, prop, digest, tmp: str, windows,
     return n
 
 
-# -- phases 7-9, 11-18 and 21: the port's CLI on the card -------------------
+# -- phase 19: the live operations plane ---------------------------------------
+
+#: the live leg's commands, sent once the run's first heartbeat (2 s of sim
+#: time) reached the follower: the pause holds the round loop at a boundary
+#: while the degrade (5 s on eight of tgen_1k's 32 graph nodes towards eight
+#: others) and the resume land on it; checkpoint_now lands on the next one
+LIVE_DEGRADE = {"cmd": "link_degrade", "src_nodes": list(range(8)),
+                "dst_nodes": list(range(8, 16)), "latency_factor": 2.0,
+                "loss_add": 0.02, "bandwidth_scale": 0.5, "duration": "5s"}
+LIVE_CMDS = ({"cmd": "pause"}, LIVE_DEGRADE, {"cmd": "resume"},
+             {"cmd": "checkpoint_now"})
+#: the live leg's streams: a digest every 500 rounds, samples every 5 s,
+#: heartbeats every 2 s
+LIVE_STREAMS = ["--state-digest-every", "500", "--sample-every", "5s",
+                "--set", "general.heartbeat_interval=2s"]
+#: what the live leg's follower must see
+LIVE_KINDS = {"hello", "hb", "command", "stream", "flows_snapshot",
+              "checkpoint", "end"}
+#: the reference CI's live-ops leg (tools/ci.sh): gossip_churn, 25 s
+LIVE_CI_ARGV = ["--quiet", "--json-summary", "--scheduler-policy",
+                "tpu_batch", "--set", "general.stop_time=25s",
+                "--state-digest-every", "100", "--sample-every", "5s"]
+LIVE_CI_LINK_DOWN = ('{"cmd":"link_down","src_nodes":[0],"dst_nodes":[1],'
+                     '"duration":"3s"}')
+#: the files two runs must share byte for byte (and hosts/)
+RUN_STREAMS = ("state_digests.jsonl", "metrics.jsonl", "flows.jsonl")
+
+
+def live_yaml(tmp: str) -> str:
+    """tgen_1k.yaml with the live leg's policy in its experimental section
+    (tpu_batch, tpu_device_floor 1), so that ``live jump`` restores its
+    checkpoint under the same config."""
+    import yaml
+
+    doc = yaml.safe_load((EXAMPLES / "tgen_1k.yaml").read_text())
+    doc["experimental"] = {"scheduler_policy": "tpu_batch",
+                           "tpu_device_floor": 1}
+    path = os.path.join(tmp, "tgen_1k_live.yaml")
+    Path(path).write_text(yaml.safe_dump(doc))
+    return path
+
+
+def short_socket(tmp_root: str = "/tmp") -> str:
+    """A socket path well inside the AF_UNIX limit."""
+    return os.path.join(tempfile.mkdtemp(dir=tmp_root, prefix="stl"),
+                        "live.sock")
+
+
+def tail_process(sock: str, out_path: str):
+    """``python -m shadow_tpu_torch.live tail`` on ``sock``, writing to a
+    file (a pipe nobody drains would stall the follower)."""
+    fh = open(out_path, "w")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "shadow_tpu_torch.live", "tail", sock,
+         "--timeout", "300"], stdout=fh, stderr=subprocess.PIPE, text=True,
+        cwd=str(ROOT))
+    fh.close()
+    return p
+
+
+def records_of(path: str) -> list:
+    return [json.loads(ln) for ln in Path(path).read_text().splitlines()
+            if ln.strip()]
+
+
+def sim_commands(path) -> list:
+    """A command log's sim-visible lines (replay skips wall_only ones)."""
+    p = Path(path)
+    if not p.exists():
+        return []
+    return [ln for ln in p.read_text().splitlines()
+            if not json.loads(ln).get("wall_only")]
+
+
+def same_run(digest, a: str, b: str, what: str) -> None:
+    """Two runs' trees, state digests, metrics, flows and sim-visible
+    commands are the same bytes."""
+    if digest(a) != digest(b):
+        fail(f"{what}: output tree differs")
+    for name in RUN_STREAMS:
+        pa, pb = Path(a) / name, Path(b) / name
+        if pa.exists() != pb.exists() or (
+                pa.exists() and pa.read_bytes() != pb.read_bytes()):
+            fail(f"{what}: {name} differs")
+    if sim_commands(Path(a) / "commands.jsonl") != \
+            sim_commands(Path(b) / "commands.jsonl"):
+        fail(f"{what}: the sim-visible command log differs")
+
+
+def live_leg(cli, prop, mesh, digest, tmp: str, device: str) -> dict:
+    """The live tgen_1k leg: C engine, tpu_batch at tpu_device_floor 1, a
+    follower on ``live tail`` in a subprocess and a timing follower on a
+    thread; LIVE_CMDS sent mid-run. Returns what the later steps read."""
+    from shadow_tpu_torch import live as lv
+
+    cfg = live_yaml(tmp)
+    d = os.path.join(tmp, "live_tgen_1k")
+    sock = short_socket()
+    tail_path = os.path.join(tmp, "live_tail.jsonl")
+    tail = tail_process(sock, tail_path)
+    stamped, acks = [], []
+
+    def follow():
+        for rec in lv.stream_records(sock, timeout=300):
+            stamped.append((time.monotonic(), rec))
+
+    def drive():
+        for _ in range(30000):  # the first heartbeat: 2 s of sim time
+            if any(r["type"] == "hb" for _t, r in list(stamped)):
+                break
+            time.sleep(0.01)
+        for c in LIVE_CMDS:
+            t0 = time.monotonic()
+            ack = lv.send_command(sock, c, timeout=120)
+            acks.append((t0, time.monotonic(), ack))
+
+    threads = [threading.Thread(target=follow, daemon=True),
+               threading.Thread(target=drive, daemon=True)]
+    for t in threads:
+        t.start()
+    prop.reset_launches()
+    mesh.reset_launches()
+    t0 = time.perf_counter()
+    s = run_cli(cli, [cfg, "--device", device, "--data-directory", d,
+                      "--live-endpoint", sock, *LIVE_STREAMS])
+    wall = time.perf_counter() - t0
+    n = {**prop.LAUNCHES, "mesh_exchange": mesh.LAUNCHES["mesh_exchange"]}
+    for t in threads:
+        t.join(timeout=120)
+    try:
+        tail.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        tail.kill()
+        fail("live: the tail follower did not end with the run")
+    if tail.returncode != 0:
+        fail(f"live: the tail follower exited {tail.returncode}: "
+             f"{tail.stderr.read()[-2000:]}")
+    shutil.rmtree(os.path.dirname(sock), ignore_errors=True)
+    if [a[2].get("type") for a in acks] != ["ack"] * len(LIVE_CMDS):
+        fail(f"live: acks {[a[2] for a in acks]}")
+    if s.get("fault_transitions_applied", 0) < 2:
+        fail(f"live: fault_transitions_applied "
+             f"{s.get('fault_transitions_applied')} < 2")
+    if s["native_colcore"] is not True:
+        fail("live: the C engine did not run")
+    windows = s["device"]["windows_dispatched"]
+    if device == "cuda" and (windows <= 0 or n["draw_flags"] != windows):
+        fail(f"live: draw_flags launched {n['draw_flags']} times for "
+             f"{windows} windows")
+    recs = records_of(tail_path)
+    kinds = {r["type"] for r in recs}
+    if not LIVE_KINDS <= kinds or recs[-1]["type"] != "end":
+        fail(f"live: the follower saw {sorted(kinds)}, not "
+             f"{sorted(LIVE_KINDS)} ending in end")
+    log = [json.loads(ln) for ln in
+           Path(d, "commands.jsonl").read_text().splitlines()]
+    if [r["cmd"]["cmd"] for r in log] != [c["cmd"] for c in LIVE_CMDS]:
+        fail(f"live: command log {log}")
+    ck = [r for r in recs if r["type"] == "checkpoint"]
+    if len(ck) != 1 or not Path(ck[0]["path"]).is_file():
+        fail(f"live: checkpoint records {ck}")
+    # send -> ack, and ack -> the record of the command applied at its
+    # boundary (the timing follower's arrival clock)
+    applied = {r["seq"]: t for t, r in stamped if r["type"] == "command"}
+    send_ack = [round((a[1] - a[0]) * 1e3, 3) for a in acks]
+    ack_applied = [round((applied[r["seq"]] - a[1]) * 1e3, 3)
+                   for a, r in zip(acks, log) if r["seq"] in applied]
+    print(f"live tgen_1k (C engine, tpu_batch floor 1, endpoint + 2 "
+          f"followers): wall {wall:.3f} s (controller "
+          f"{s['wall_seconds']:.3f} s, paused time included), "
+          f"{s['sim_sec_per_wall_sec']:.6f} sim-s/wall-s; commands applied "
+          f"at t={[r['t'] for r in log]} (rounds "
+          f"{[r['round'] for r in log]}); fault transitions "
+          f"{s['fault_transitions_applied']}; draw_flags {n['draw_flags']} "
+          f"= windows {windows}; send->ack ms {send_ack}; ack->applied ms "
+          f"{ack_applied}; the follower saw {len(recs)} records of "
+          f"{sorted(kinds)}; checkpoint {ck[0]['path']} at round "
+          f"{ck[0]['round']}", flush=True)
+    return {"cfg": cfg, "dir": d, "summary": s, "launches": n,
+            "ckpt": ck[0]}
+
+
+def live_replays(cli, prop, mesh, digest, tmp: str, device: str,
+                 live: dict) -> dict:
+    """The live leg's commands.jsonl replayed on ``device`` at floor 1 (the
+    same policy), under tpu_batch auto with the draw plane attached before
+    round 0 (speculative min_draw waves in flight when the degrade lands)
+    and under tpu_mesh at tpu_mesh_floor 0: each run's trees and streams
+    must be the live run's. Returns the launches summed."""
+    from shadow_tpu_torch.config import load_config
+
+    log = os.path.join(live["dir"], "commands.jsonl")
+    c = load_config(live["cfg"])
+    total = {k: 0 for k in ("draw_flags", "min_draw", "mesh_exchange")}
+    for label, extra in (
+            ("floor1", []),
+            ("auto cached", ["--set", "experimental.tpu_device_floor=0"]),
+            ("tpu_mesh floor0", ["--scheduler-policy", "tpu_mesh", "--set",
+                                 "experimental.tpu_mesh_floor=0"])):
+        d = os.path.join(tmp, "live_replay_" + label.replace(" ", "_"))
+        if label == "auto cached":
+            prop.DeviceDrawPlane.attach_cached(
+                c.general.seed, c.experimental.tpu_max_batch,
+                c.experimental.unit_mtus, device)
+        gc.collect()
+        prop.reset_launches()
+        mesh.reset_launches()
+        t0 = time.perf_counter()
+        s = run_cli(cli, [live["cfg"], "--device", device,
+                          "--data-directory", d, "--replay-commands", log,
+                          *LIVE_STREAMS, *extra])
+        wall = time.perf_counter() - t0
+        n = {**prop.LAUNCHES, "mesh_exchange": mesh.LAUNCHES["mesh_exchange"]}
+        same_run(digest, d, live["dir"], f"live replay ({label})")
+        if s["fault_transitions_applied"] != \
+                live["summary"]["fault_transitions_applied"]:
+            fail(f"live replay ({label}): fault transitions differ")
+        if device == "cuda":
+            if label == "floor1" and \
+                    n["draw_flags"] != s["device"]["windows_dispatched"]:
+                fail(f"live replay (floor1): draw_flags {n['draw_flags']}")
+            if label == "auto cached" and n["min_draw"] <= 0:
+                fail("live replay (auto cached): no speculative min_draw "
+                     "wave was in flight")
+            if label == "tpu_mesh floor0":
+                formed = s["phase_wall"]["mesh_windows"]
+                if formed <= 0 or n["mesh_exchange"] != formed:
+                    fail(f"live replay (tpu_mesh floor0): mesh_exchange "
+                         f"{n['mesh_exchange']} for {formed} windows")
+        for k in total:
+            total[k] += n[k]
+        print(f"live replay ({label}): trees, state digests, metrics, "
+              f"flows and sim-visible commands are the live run's; wall "
+              f"{wall:.3f} s, {s['sim_sec_per_wall_sec']:.6f} sim-s/wall-s,"
+              f" launches {json.dumps(n)}", flush=True)
+    return total
+
+
+def live_jump(prop, mesh, tmp: str, device: str, live: dict) -> dict:
+    """``live jump`` on ``device`` to the first recorded digest round after
+    the checkpoint_now boundary: restore plus re-execution must reproduce
+    the recorded digest."""
+    from shadow_tpu_torch import live as lv
+
+    digs = [json.loads(ln) for ln in Path(
+        live["dir"], "state_digests.jsonl").read_text().splitlines()]
+    after = [r["round"] for r in digs if r["round"] > live["ckpt"]["round"]]
+    if not after:
+        fail("live jump: no recorded digest after the checkpoint")
+    out = []
+    prop.reset_launches()
+    mesh.reset_launches()
+    t0 = time.perf_counter()
+    rc = lv.jump(live["dir"], after[0], live["cfg"], out=out.append,
+                 inspect_dir=os.path.join(tmp, "live_jump"), device=device)
+    wall = time.perf_counter() - t0
+    n = {**prop.LAUNCHES, "mesh_exchange": mesh.LAUNCHES["mesh_exchange"]}
+    if rc != 0 or not any("[MATCH]" in ln for ln in out) or \
+            not any("restored" in ln for ln in out):
+        fail("live jump: " + " | ".join(out[:4]))
+    print(f"live jump to round {after[0]} (checkpoint at round "
+          f"{live['ckpt']['round']}): the recorded digest matches; wall "
+          f"{wall:.3f} s (restore + re-execution), launches {json.dumps(n)}",
+          flush=True)
+    return n
+
+
+def live_user_pair(cli, prop, digest, tmp: str, device: str) -> None:
+    """tgen_1k as a user runs it (C engine, tpu_batch auto, the draw plane
+    uncached as in a fresh process) without an endpoint and with one and a
+    follower: the same tree (the reference's) either way."""
+    rates = {}
+    for label in ("without", "with"):
+        d = os.path.join(tmp, f"live_user_{label}")
+        extra, tail, sock = [], None, None
+        if label == "with":
+            sock = short_socket()
+            tail = tail_process(sock, os.path.join(tmp, "user_tail.jsonl"))
+            extra = ["--live-endpoint", sock]
+        prop.DeviceDrawPlane._cache.clear()
+        gc.collect()
+        s = run_cli(cli, [str(EXAMPLES / "tgen_1k.yaml"),
+                          "--scheduler-policy", "tpu_batch", "--device",
+                          device, "--data-directory", d, *extra])
+        if tail is not None:
+            tail.wait(timeout=120)
+            shutil.rmtree(os.path.dirname(sock), ignore_errors=True)
+        check_run(s, d, digest, TGEN1K_COUNTS, TGEN1K_TREE_DIGEST,
+                  f"live user ({label} endpoint)")
+        rates[label] = (s["wall_seconds"], s["sim_sec_per_wall_sec"])
+    print(f"tgen_1k user (C engine): controller wall / sim-s/wall-s "
+          f"without an endpoint {rates['without'][0]:.3f} s / "
+          f"{rates['without'][1]:.6f}, with an endpoint and a follower "
+          f"{rates['with'][0]:.3f} s / {rates['with'][1]:.6f}; the same "
+          f"tree (the reference's)", flush=True)
+
+
+def live_ci_leg(cli, digest, tmp: str, device: str) -> None:
+    """The reference CI's live-ops leg (tools/ci.sh) through the port's
+    CLI on ``device`` (the runs in this process, the follower and the
+    sender as the CI's own processes): a follower on ``live tail``,
+    gossip_churn (25 s, tpu_batch) with an endpoint, a link_down through
+    ``live send`` once the follower is attached, then a replay of its
+    commands.jsonl: the same hashes (hosts/, commands, flows, metrics,
+    digests), three heartbeats or more, a sample, the applied command and
+    the end record at the follower."""
+    run, rep = os.path.join(tmp, "ci_live"), os.path.join(tmp, "ci_replay")
+    sock = short_socket()
+    tail_path = os.path.join(tmp, "ci_live_tail.jsonl")
+    tail = tail_process(sock, tail_path)
+    sent = {}
+
+    def send():
+        for _ in range(30000):  # the follower's hello: it is attached
+            if Path(tail_path).read_text().strip():
+                break
+            time.sleep(0.01)
+        sent["r"] = subprocess.run(
+            [sys.executable, "-m", "shadow_tpu_torch.live", "send", sock,
+             LIVE_CI_LINK_DOWN, "--timeout", "300"], capture_output=True,
+            text=True, cwd=str(ROOT), timeout=600)
+
+    sender = threading.Thread(target=send, daemon=True)
+    sender.start()
+    # at 25 s gossip members may end with process errors (exit 1), as in
+    # the CI, which takes the hashes as its gate
+    live = run_cli(cli, ["examples/gossip_churn.yaml", "--data-directory",
+                         run, "--device", device, "--live-endpoint", sock,
+                         "--set", "general.heartbeat_interval=2s",
+                         *LIVE_CI_ARGV], cut=True)
+    sender.join(timeout=600)
+    tail.wait(timeout=120)
+    shutil.rmtree(os.path.dirname(sock), ignore_errors=True)
+    r = sent.get("r")
+    if r is None or r.returncode != 0 or \
+            json.loads(r.stdout).get("type") != "ack":
+        fail(f"live CI leg: send {r and (r.returncode, r.stdout, r.stderr)}")
+    replay = run_cli(cli, ["examples/gossip_churn.yaml", "--data-directory",
+                           rep, "--device", device, "--replay-commands",
+                           os.path.join(run, "commands.jsonl"),
+                           *LIVE_CI_ARGV], cut=True)
+    same_run(digest, rep, run, "live CI leg replay")
+    if Path(rep, "commands.jsonl").read_bytes() != \
+            Path(run, "commands.jsonl").read_bytes() or \
+            replay["process_errors"] != live["process_errors"]:
+        fail("live CI leg: the replay's commands.jsonl or errors differ")
+    recs = records_of(tail_path)
+    hbs = sum(rec["type"] == "hb" for rec in recs)
+    samples = sum(rec["type"] == "stream" and '"kind":"sample"' in rec["line"]
+                  for rec in recs)
+    applied = any(rec["type"] == "command"
+                  and rec["cmd"]["cmd"] == "link_down" for rec in recs)
+    if hbs < 3 or not samples or not applied or recs[-1]["type"] != "end":
+        fail(f"live CI leg: follower saw {hbs} heartbeats, {samples} "
+             f"samples, link_down applied {applied}, last "
+             f"{recs[-1]['type'] if recs else None}")
+    if live["exit_reason"] != "completed" or \
+            live.get("fault_transitions_applied", 0) < 2 or \
+            replay["exit_reason"] != "completed":
+        fail(f"live CI leg: exit {live['exit_reason']}, transitions "
+             f"{live.get('fault_transitions_applied')}")
+    print(f"live CI leg (gossip_churn 25 s): {hbs} heartbeats and "
+          f"{samples} samples followed, link_down acked and applied, the "
+          f"replay byte-identical (hosts/, commands, flows, metrics, "
+          f"digests)", flush=True)
+
+
+def live_path(cli, prop, mesh, digest, tmp: str,
+              device: str = "cuda") -> dict:
+    """Phase 19, the live operations plane on ``device``: live_leg,
+    live_replays, live_jump, live_user_pair, live_ci_leg. Returns the
+    launches of its legs summed."""
+    total = {k: 0 for k in ("draw_flags", "min_draw", "mesh_exchange")}
+    live = live_leg(cli, prop, mesh, digest, tmp, device)
+    for part in (live["launches"],
+                 live_replays(cli, prop, mesh, digest, tmp, device, live),
+                 live_jump(prop, mesh, tmp, device, live)):
+        for k in total:
+            total[k] += part[k]
+    live_user_pair(cli, prop, digest, tmp, device)
+    live_ci_leg(cli, digest, tmp, device)
+    return total
+
+
+# -- phase 20: checkpoint-forked what-if trees --------------------------------
+
+#: the reference CI's fork leg (tools/ci.sh): gossip_churn to 25 s, a
+#: checkpoint every 10 s, the 10 s one forked into three branches
+FORK_CI_SETS = ["--set", "general.stop_time=25s", "--set",
+                "general.checkpoint_every=10s", "--set",
+                "general.state_digest_every=100", "--set",
+                "telemetry.sample_every=5s"]
+FORK_CI_SCRIPT = {"cmd": {"cmd": "link_degrade", "src_nodes": [0],
+                          "dst_nodes": [1], "latency_factor": 3.0,
+                          "loss_add": 0.05, "bandwidth_scale": 0.5,
+                          "duration": "3000000000 ns"},
+                  "round": 0, "seq": 1, "t": 15000000000}
+#: the tgen_1k fork: the trunk (C engine, tpu_batch auto, 60 s) with a
+#: checkpoint every 30 s; baseline, a link_degrade at 31 s and seed 3.
+#: tgen_1k's last flow closes at 32.19 s and the run then skips to its end,
+#: so a command at 40 s would meet no round boundary and never apply
+FORK_TGEN_OVER = {"experimental.scheduler_policy": "tpu_batch",
+                  "general.checkpoint_every": "30s",
+                  "general.state_digest_every": 500,
+                  "telemetry.sample_every": "10s"}
+FORK_TGEN_BRANCHES = [
+    {"name": "baseline"},
+    {"name": "degrade", "commands": [
+        {"t": "31s", "cmd": "link_degrade", "src_nodes": list(range(8)),
+         "dst_nodes": list(range(8, 16)), "latency_factor": 2.0,
+         "loss_add": 0.02, "bandwidth_scale": 0.5, "duration": "5s"}]},
+    {"name": "seed3", "seed": 3},
+]
+
+
+def fork_ci_leg(cli, digest, tmp: str, device: str) -> None:
+    """The reference CI's fork leg through ``python -m shadow_tpu_torch
+    fork`` and ``fleet report --compare`` on ``device``."""
+    import yaml
+
+    from shadow_tpu_torch import checkpoint as ckpt
+    from shadow_tpu_torch import forks
+    from shadow_tpu_torch.fleet import _stream_digests
+    from shadow_tpu_torch.fleet import main as fleet_main
+
+    trunk, fork_dir = os.path.join(tmp, "ci_trunk"), os.path.join(
+        tmp, "ci_fork")
+    run_cli(cli, ["examples/gossip_churn.yaml", "--data-directory", trunk,
+                  "--device", device, *FORK_CI_SETS], cut=True)
+    ck = sorted(Path(trunk, "checkpoints").glob("ckpt_*.ckpt"))[0]
+    script = Path(tmp, "ci_fork_cmds.jsonl")
+    script.write_text(json.dumps(FORK_CI_SCRIPT) + "\n")
+    branches = Path(tmp, "ci_fork_branches.yaml")
+    branches.write_text(yaml.safe_dump({"branches": [
+        {"name": "baseline"},
+        {"name": "lossy", "command_script": str(script)},
+        {"name": "seed9", "seed": 9}]}))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "shadow_tpu_torch", "fork",
+         "examples/gossip_churn.yaml", "--from", str(ck), "--branches",
+         str(branches), "--fork-dir", fork_dir, "--jobs", "3", "--quiet",
+         "--device", device, *FORK_CI_SETS], capture_output=True,
+        text=True, cwd=str(ROOT), timeout=900)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0 or "Δp50" not in r.stdout or \
+            "CI95" not in r.stdout:
+        fail(f"fork CI leg: exited {r.returncode}: {r.stderr[-2000:]}")
+    outs = {}
+    for flag in ("--json", "--compare"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fleet_main(["report", fork_dir, flag])
+        if rc != 0:
+            fail(f"fork CI leg: fleet report {flag} exited {rc}")
+        outs[flag] = buf.getvalue()
+    if "Δp50" not in outs["--compare"] or "CI95" not in outs["--compare"]:
+        fail("fork CI leg: fleet report --compare has no Δp50 and CI95")
+    s = json.loads(outs["--json"])
+    b = s["branches"]
+    seed9 = json.loads(Path(forks.branch_dir(fork_dir, "seed9"),
+                            forks.FORK_MANIFEST).read_text())
+    if s["completed"] != ["baseline", "lossy", "seed9"] or \
+            b["baseline"]["mode"] != "restore" or \
+            b["lossy"]["mode"] != "restore" or \
+            b["seed9"]["mode"] != "cold" or \
+            "seed" not in seed9["cold_reason"] or not s["trunk_flows"]:
+        fail(f"fork CI leg: summary {json.dumps(s)[:1500]}")
+    base = forks.branch_dir(fork_dir, "baseline")
+    if digest(base) != digest(trunk) or \
+            _stream_digests(base) != _stream_digests(trunk):
+        fail("fork CI leg: the baseline branch is not the trunk")
+    tool = str(ROOT / "tools" / "bisect_divergence.py")
+    same = subprocess.run([sys.executable, tool, "--a", trunk, "--b",
+                           str(base)], capture_output=True, text=True,
+                          timeout=300)
+    div = subprocess.run([sys.executable, tool, "--json", "--a", trunk,
+                          "--b", str(forks.branch_dir(fork_dir, "lossy"))],
+                         capture_output=True, text=True, timeout=300)
+    if same.returncode != 0 or div.returncode != 1:
+        fail(f"fork CI leg: bisect exited {same.returncode} and "
+             f"{div.returncode}")
+    d = json.loads(div.stdout)
+    rounds = ckpt.read_header(ck)["rounds"]
+    if d["kind"] != "digest" or d["round"] <= rounds or \
+            d["t"] < 15_000_000_000:
+        fail(f"fork CI leg: bisect {d} (fork round {rounds})")
+    print(f"fork CI leg (gossip_churn): baseline and lossy restored, seed9 "
+          f"cold; baseline byte-identical to the trunk; lossy first "
+          f"diverges at round {d['round']} (t={d['t']} ns, fork round "
+          f"{rounds}); fork wall {s['fork_wall_seconds']} s ({wall:.3f} s "
+          f"with the interpreter), draw service "
+          f"{json.dumps(s.get('draw_service', {}).get('served'))}",
+          flush=True)
+
+
+def fork_tgen_leg(cli, prop, digest, tmp: str, device: str) -> dict:
+    """The tgen_1k fork behind one DrawServer: FORK_TGEN_BRANCHES at
+    jobs=2 through FleetRunner in this process (the members spawned, none
+    creating a CUDA context: a breach fails its branch). The baseline must
+    be the trunk, seed 3 the reference's standalone tree; the server's
+    launches equal the batches it served plus its attach's. Then the
+    trunk's remainder resumed standalone, for the walls. Returns the
+    launches."""
+    from shadow_tpu_torch import forks
+    from shadow_tpu_torch.fleet import FleetRunner, _stream_digests
+
+    cfg = str(EXAMPLES / "tgen_1k.yaml")
+    trunk = os.path.join(tmp, "fork_trunk")
+    sets = []
+    for k, v in FORK_TGEN_OVER.items():
+        sets += ["--set", f"{k}={v}"]
+    prop.DeviceDrawPlane._cache.clear()
+    t0 = time.perf_counter()
+    s = run_cli(cli, [cfg, "--device", device, "--data-directory", trunk,
+                      *sets])
+    trunk_wall = time.perf_counter() - t0
+    check_run(s, trunk, digest, TGEN1K_COUNTS, TGEN1K_TREE_DIGEST,
+              "fork trunk (tgen_1k)")
+    # the first boundary at or past 30 s (the round grid skips idle time)
+    cks = sorted(Path(trunk, "checkpoints").glob("ckpt_t*.ckpt"))
+    if not cks:
+        fail("fork trunk: no checkpoint at 30 s")
+    ck = cks[0]
+    fork_dir = os.path.join(tmp, "fork_tgen_1k")
+    plan = forks.plan_fork(cfg, ck, FORK_TGEN_BRANCHES, fork_dir,
+                           overrides=dict(FORK_TGEN_OVER))
+    prop.DeviceDrawPlane._cache.clear()  # the server attaches from cold
+    gc.collect()
+    prop.reset_launches()
+    fs = FleetRunner(cfg, plan["order"], jobs=2, sweep_dir=fork_dir,
+                     overrides=dict(FORK_TGEN_OVER), fork=plan, quiet=True,
+                     device=device).run()
+    n = dict(prop.LAUNCHES)
+    svc = fs.get("draw_service")
+    if fs["failed"] or sorted(fs["completed"]) != sorted(plan["order"]):
+        fail(f"fork tgen_1k: failed {fs['failed']}")
+    if svc is None or svc["errors"]:
+        fail(f"fork tgen_1k: draw service {svc}")
+    want = {k: svc["served"][k] + svc["attach_launches"][k] for k in n}
+    if device == "cuda" and n != want:
+        fail(f"fork tgen_1k: launches {n} != served {svc['served']} + the "
+             f"attach's {svc['attach_launches']}")
+    man = {b: json.loads(Path(forks.branch_dir(fork_dir, b),
+                              forks.FORK_MANIFEST).read_text())
+           for b in plan["order"]}
+    base = forks.branch_dir(fork_dir, "baseline")
+    if man["baseline"]["mode"] != "restore" or digest(base) != \
+            TGEN1K_TREE_DIGEST or _stream_digests(base) != \
+            _stream_digests(trunk):
+        fail("fork tgen_1k: the baseline branch is not the trunk")
+    if man["seed3"]["mode"] != "cold" or \
+            man["seed3"]["tree_sha256"] != FLEET_TGEN1K_TREES[3]:
+        fail("fork tgen_1k: seed 3 is not the reference's standalone run")
+    if man["degrade"]["mode"] != "restore" or \
+            "commands.jsonl" not in man["degrade"]["streams_sha256"]:
+        fail(f"fork tgen_1k: degrade branch {man['degrade']}")
+    prop.DeviceDrawPlane._cache.clear()  # as a fresh process
+    gc.collect()
+    t0 = time.perf_counter()
+    run_cli(cli, [cfg, "--device", device, "--data-directory",
+                  os.path.join(tmp, "fork_trunk_rest"), "--resume-from",
+                  str(ck), *sets])
+    rest_wall = time.perf_counter() - t0
+    walls = {b: m["wall_seconds"] for b, m in man.items()}
+    degrade = ("the trunk's" if man["degrade"]["tree_sha256"]
+               == TGEN1K_TREE_DIGEST else "diverged")
+    print(f"fork tgen_1k (C engine, tpu_batch auto, jobs=2, one "
+          f"DrawServer): baseline byte-identical to the trunk, seed3 the "
+          f"reference's tree, degrade's tree {degrade}; served {json.dumps(svc['served'])} batches "
+          f"({svc['served_units']} units; min_draw batches served: "
+          f"{svc['served'].get('min_draw', 0)}), launches {json.dumps(n)} "
+          f"= served + the attach's {json.dumps(svc['attach_launches'])}; "
+          f"no member created a CUDA context; fork wall "
+          f"{fs['fork_wall_seconds']} s against {rest_wall:.3f} s for the "
+          f"trunk's remainder resumed standalone (trunk {trunk_wall:.3f} s "
+          f"whole); branch walls {json.dumps(walls)} (restore baseline and "
+          f"degrade, cold seed3)", flush=True)
+    return n
+
+
+def fork_path(cli, prop, digest, tmp: str, device: str = "cuda") -> dict:
+    """Phase 20, checkpoint-forked what-if trees on ``device``: the CI's
+    fork leg (fork_ci_leg) and the tgen_1k fork behind one DrawServer
+    (fork_tgen_leg). Returns the launches."""
+    fork_ci_leg(cli, digest, tmp, device)
+    return fork_tgen_leg(cli, prop, digest, tmp, device)
+
+
+# -- phases 7-9, 11-20 and 23: the port's CLI on the card -------------------
 
 def run_cli(cli, argv: list, cut: bool = False) -> dict:
     """Run the port's CLI in this process; returns its JSON summary. A run
@@ -4137,8 +4770,8 @@ def trace_transport(torch, cli, dt, digest, tmp: str) -> None:
 PHASES = ("kernels", "mesh kernels", "transport kernels", "apsp kernels",
           "echo", "main path", "mesh path", "mesh standalone",
           "transport path", "engine path", "policies", "faults",
-          "checkpoint", "shards", "fault filter", "fleet", "apsp path",
-          "timing", "trace")
+          "checkpoint", "shards", "fault filter", "fleet", "live", "fork",
+          "apsp path", "timing", "trace")
 #: phase -> the phases whose results it reads
 NEEDS = {
     "mesh standalone": ("mesh path",),
@@ -4356,6 +4989,12 @@ def main(argv=None) -> int:
 
     if do("fleet"):
         add(fleet_path(cli, np, prop, output_tree_digest, tmp, windows))
+
+    if do("live"):
+        add(live_path(cli, prop, mesh, output_tree_digest, tmp))
+
+    if do("fork"):
+        add(fork_path(cli, prop, output_tree_digest, tmp))
 
     if do("apsp path"):
         launches["apsp"] += apsp_path(np, apsp)

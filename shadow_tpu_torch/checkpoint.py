@@ -232,11 +232,14 @@ def _forbidden() -> tuple:
     torch classes are imported only by a run that checkpoints."""
     import torch
 
+    from shadow_tpu_torch.live import LiveServer, _LiveClient
     from shadow_tpu_torch.ops.propagate import (DrawHandle, DrawSlot,
                                                 MinDrawHandle)
     from shadow_tpu_torch.ops.transport_kernels import AckSlot, AckSlots
 
     return (
+        (LiveServer, "live endpoint server (LiveServer)"),
+        (_LiveClient, "live endpoint client (_LiveClient)"),
         (threading.Thread, "thread"),
         (io.IOBase, "open file"),
         (socket.socket, "socket"),

@@ -3,9 +3,10 @@
 The port of shadow_tpu/cli.py: the same flags, exit codes and config
 files, with the reference's paths for checkpointed runs
 (``--checkpoint-every``, ``--resume-from``), multi-process sharding
-(``--shards``) and supervision (``--supervise``). Flags of features that
-are not ported yet are still parsed, so that the config load refuses them
-by name (exit 2) rather than argparse rejecting an unknown flag.
+(``--shards``), supervision (``--supervise``), the live operations plane
+(``--live-endpoint``, ``--replay-commands``: live.py) and the ``fork``
+verb (forks.py). Features that are not ported yet (managed processes) are
+refused by name at config load (exit 2).
 ``--device {cuda,cpu}`` (default cuda) says where the data-plane kernels
 run (a resume reattaches them on the resuming invocation's device); ``cuda``
 without a visible card is an error, never a silent CPU run.
@@ -173,10 +174,13 @@ def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "fork":
-        print("shadow_tpu_torch: the fork verb (checkpoint-forked what-if "
-              "trees) is not ported to shadow_tpu_torch yet",
-              file=sys.stderr)
-        return 2
+        # the fork verb: `python -m shadow_tpu_torch fork cfg.yaml --from
+        # CKPT --branches branches.yaml` — checkpoint-forked what-if trees
+        # (forks.py; also `python -m shadow_tpu_torch.fleet sweep
+        # --fork-from`)
+        from shadow_tpu_torch.forks import main as _fork_main
+
+        return _fork_main(argv[1:])
     args = build_parser().parse_args(argv)
     from shadow_tpu_torch.checkpoint import CheckpointError
     from shadow_tpu_torch.config import load_config

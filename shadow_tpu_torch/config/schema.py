@@ -626,9 +626,6 @@ def refuse_unported(cfg: ConfigOptions) -> None:
                 "several devices)")
     # under tpu_mesh, tpu_mesh_shards above the visible device count is
     # refused where the device is known (network/devroute.py)
-    if g.live_endpoint is not None or g.replay_commands is not None:
-        _refuse("the live endpoint (general.live_endpoint / "
-                "general.replay_commands)")
     for h in cfg.hosts:
         for p in h.processes:
             if not p.path.startswith("pyapp:"):

@@ -36,8 +36,11 @@ checked under every policy. Fault injection (faults.py), telemetry
 policy, as in the reference; so do checkpoints (checkpoint.py: a snapshot
 at a round boundary, ``run(resume_at=...)`` to continue it, byte-identical
 to the uninterrupted run), the supervisor's in-process chaos hook
-(supervise.py) and the shard-worker subclass (parallel/shards.py). The
-reference's live plane and managed processes are refused at config load
+(supervise.py), the shard-worker subclass (parallel/shards.py) and the
+live operations plane (live.py: an endpoint streaming heartbeats and
+records, runtime commands applied at round boundaries and logged to
+commands.jsonl, their replay, and the time-travel ``jump``'s stop hook).
+Managed processes are refused at config load
 (config/schema.py::refuse_unported).
 """
 
@@ -95,6 +98,18 @@ class Controller:
     #: injector (wall-clock plane, rebuilt by every run())
     _supervised = False
     _chaos = None
+    #: live operations plane (live.py). ``live`` (the endpoint server)
+    #: and ``on_stop_round`` (the time-travel inspector hook) are
+    #: runtime-only and nulled by __getstate__; the replay cursor is
+    #: rebuilt by _init_live from the resuming invocation's config.
+    live = None
+    stop_after_round = None
+    on_stop_round = None
+    _ckpt_now = False
+    _live_paused = False
+    _live_seq = 0
+    _replay_cmds = ()
+    _replay_idx = 0
 
     def owns(self, hid: int) -> bool:
         return self.n_shards == 1 or hid % self.n_shards == self.shard_id
@@ -317,18 +332,54 @@ class Controller:
         #: finalizes a valid partial summary instead of dying mid-round
         self._interrupt = None
         self._partial = False
+        self._init_live()
         for w in cfg.warnings:
             self.log.warning(w)
+
+    def _init_live(self) -> None:
+        """Build the live operations plane (live.py): load the replay
+        command log and bind the endpoint. Both config keys are volatile —
+        the plane is pure wall-clock; commands touch sim state only through
+        the recorded commands.jsonl. Shard workers never bind: the parent
+        owns the socket and feeds commands through the shard-0 marker path
+        so all workers apply them at the same round."""
+        from shadow_tpu_torch import live as _live
+
+        gen = self.cfg.general
+        self._replay_cmds = ()
+        self._replay_idx = 0
+        if gen.replay_commands:
+            self._replay_cmds = tuple(
+                _live.load_command_log(gen.replay_commands))
+            self.log.info(
+                f"replaying {len(self._replay_cmds)} recorded command(s) "
+                f"from {gen.replay_commands}")
+        self.live = None
+        if gen.live_endpoint and self.n_shards == 1:
+            self.live = _live.LiveServer(
+                _live.resolve_endpoint(gen.live_endpoint, self.data_dir),
+                log=self.log)
+
+    def _close_live(self) -> None:
+        if self.live is not None:
+            self.live.close()  # idempotent and bounded
 
     # -- checkpoint/restore (checkpoint.py) -------------------------------
     def __getstate__(self):
         """Snapshot-time state: everything except runtime plumbing. The
-        scheduler (worker threads), the C engine and the chaos injector
-        are rebuilt on restore; all are result-transparent."""
+        scheduler (worker threads), the C engine, the chaos injector and
+        the live plane (its server, the inspector hook, the replay cursor:
+        rebuilt by _init_live from the resuming invocation's volatile
+        keys) are rebuilt on restore; all are result-transparent."""
         d = self.__dict__.copy()
         d["scheduler"] = None
         d["_c_core"] = None
         d.pop("_chaos", None)
+        d["live"] = None
+        d["on_stop_round"] = None
+        d["_live_paused"] = False
+        d["_replay_cmds"] = ()
+        d["_replay_idx"] = 0
         return d
 
     def _reattach_runtime(self, mirror_log: bool = True,
@@ -365,6 +416,7 @@ class Controller:
                          if cfg.general.checkpoint_dir
                          else self.data_dir / "checkpoints")
         self.digest_every = cfg.general.state_digest_every
+        self._init_live()
         self.scheduler = make_scheduler(
             cfg.experimental.scheduler_policy, self._sched_hosts(),
             cfg.general.parallelism)
@@ -445,8 +497,26 @@ class Controller:
         ck_every = self.ckpt_every
         dig = self.digest_every
         _ckpt = None
-        if ck_every or dig:
+        if ck_every or dig or self.live is not None or self._replay_cmds:
+            # the live plane needs the checkpoint module for the
+            # checkpoint_now command even when grid checkpointing is off
             from shadow_tpu_torch import checkpoint as _ckpt
+        if (self.live is not None or cfg.general.replay_commands) \
+                and resume_at is None:
+            # fresh run: a stale command log would concatenate with this
+            # run's records and break replay (resumes keep appending — the
+            # continuation of one log, as the digests do)
+            from shadow_tpu_torch import live as _live
+
+            _live.command_log_path(self.data_dir).unlink(missing_ok=True)
+        if resume_at is not None and self._replay_cmds:
+            # commands at or before the snapshot boundary are already in
+            # the restored state (the command hook runs before the
+            # checkpoint write at a shared boundary): skip them without
+            # re-applying or re-logging
+            while (self._replay_idx < len(self._replay_cmds)
+                   and self._replay_cmds[self._replay_idx]["t"] <= resume_at):
+                self._replay_idx += 1
         if dig and resume_at is None:
             # fresh run: a stale sentinel stream from a previous run into
             # this data_directory would concatenate and confuse
@@ -500,6 +570,9 @@ class Controller:
             now = self._round_loop(now, stop, w, next_hb, hb_interval,
                                    next_prog, prog_step, next_ckpt,
                                    ck_every, dig, _ckpt, tel, t0)
+        except BaseException:
+            self._close_live()  # followers see the socket close
+            raise
         finally:
             for s, old in installed.items():
                 _signal.signal(s, old)
@@ -514,6 +587,10 @@ class Controller:
             if ck_every:
                 path = _ckpt.save_checkpoint(self, now)
                 self.log.info(f"final checkpoint written: {path}")
+                if self.live is not None:
+                    self.live.publish({"type": "checkpoint",
+                                       "path": str(path), "t": now,
+                                       "round": self.rounds})
         _gc.collect()
         self.engine.flush_all()  # finalize counters for in-flight batches
         if cfg.general.progress:
@@ -522,7 +599,17 @@ class Controller:
             print(file=_sys.stderr)  # end the \r status line
         self.wall_seconds = _walltime.perf_counter() - t0
         self.scheduler.shutdown()
-        return self._finalize(min(now, stop))
+        try:
+            result = self._finalize(min(now, stop))
+        except BaseException:
+            self._close_live()
+            raise
+        if self.live is not None:
+            self.live.publish({"type": "end",
+                               "exit_reason": result["exit_reason"],
+                               "rounds": self.rounds, "t": min(now, stop)})
+            self.live.close()
+        return result
 
     def _round_loop(self, now, stop, w, next_hb, hb_interval, next_prog,
                     prog_step, next_ckpt, ck_every, dig, _ckpt, tel,
@@ -543,11 +630,21 @@ class Controller:
         while now < stop:
             if self._chaos is not None:
                 self._chaos.maybe_fire(self.rounds, self)
+            if self.live is not None \
+                    or self._replay_idx < len(self._replay_cmds):
+                # live operations command plane (live.py): due replayed
+                # commands, then live client commands, all quantized to
+                # THIS boundary and logged — before the interrupt check (a
+                # stop command IS the interrupt) and before the checkpoint
+                # write (so a same-boundary snapshot already holds the
+                # commands' effects)
+                faults = self._live_boundary(now, faults)
             if self._interrupt is not None:
                 # graceful shutdown: the signal arrived during the last
                 # round; stop at this (consistent) round boundary
                 break
-            if now >= next_ckpt:
+            if now >= next_ckpt or self._ckpt_now:
+                self._ckpt_now = False
                 t_ck = _walltime.perf_counter()
                 if tel is not None:
                     tel.sync(self)  # streams complete at the boundary
@@ -555,7 +652,15 @@ class Controller:
                 self.log.info(
                     f"checkpoint written: {path} "
                     f"(sim {format_time(now)}, round {self.rounds})")
-                next_ckpt = ((now // ck_every) + 1) * ck_every
+                if self.live is not None:
+                    # the checkpoint_now ack confirms receipt, not effect:
+                    # this post-save record is how a live client learns
+                    # the PATH, e.g. to fork it (forks.py)
+                    self.live.publish({"type": "checkpoint",
+                                       "path": str(path), "t": now,
+                                       "round": self.rounds})
+                if ck_every:
+                    next_ckpt = ((now // ck_every) + 1) * ck_every
                 # snapshot wall is attributed like any other phase: it is
                 # plane-independent (the pickler walks the same graph fast
                 # plane or slow)
@@ -602,6 +707,15 @@ class Controller:
                 # so (the round grid is policy-independent, so the
                 # streams are too). Idle rounds skip the call entirely.
                 tel.on_round_end(self, round_end)
+            if (self.stop_after_round is not None
+                    and self.rounds >= self.stop_after_round):
+                # time-travel inspection (live.py jump): halt AT this
+                # boundary — digest and telemetry for the round are already
+                # emitted — and hand the inspector the controller
+                if self.on_stop_round is not None:
+                    self.on_stop_round(self, round_end)
+                now = round_end
+                break
             if round_end >= next_hb:
                 self._heartbeat(round_end, t0)
                 # grid-snap, not +=: skip-ahead can cross several
@@ -653,6 +767,99 @@ class Controller:
                 now = round_end
         return now
 
+    def _live_boundary(self, now: SimTime, faults):
+        """Drain the command plane at the round boundary ``now``: due
+        replayed commands first, then live client commands. Every
+        sim-visible command applies HERE with sim timestamp ``now`` and is
+        appended to commands.jsonl, so an interactively driven run and its
+        replay-from-log execute identical fault timelines — wall time only
+        decides WHICH boundary a live command lands on, and that choice is
+        recorded. Returns the (possibly just-created) fault injector."""
+        from shadow_tpu_torch import live as _live
+
+        lines: list = []
+        replay = self._replay_cmds
+        while self._replay_idx < len(replay) \
+                and replay[self._replay_idx]["t"] <= now:
+            rec = replay[self._replay_idx]
+            self._replay_idx += 1
+            if rec.get("wall_only"):
+                continue  # pause/resume never touched sim state
+            faults = self._apply_cmd(rec["cmd"], now, rec["seq"], lines,
+                                     faults, replayed=True)
+        srv = self.live
+        if srv is not None:
+            batch = srv.poll_commands()
+            while batch or self._live_paused:
+                if not batch:
+                    # paused: wall-block at this boundary, sim state
+                    # untouched (draws in flight stay in their slots, the
+                    # attach thread runs on); commands arriving meanwhile
+                    # still apply at THIS boundary
+                    if self._interrupt is not None:
+                        break
+                    batch = srv.poll_commands(timeout=0.25)
+                    continue
+                norm = batch.pop(0)
+                self._live_seq += 1
+                faults = self._apply_cmd(norm, now, self._live_seq, lines,
+                                         faults, replayed=False)
+        if lines:
+            _live.append_command_lines(self.data_dir, lines)
+        return faults
+
+    def _apply_cmd(self, norm, now: SimTime, seq: int, lines: list,
+                   faults, replayed: bool):
+        """Apply one normalized command at the boundary ``now``, log it,
+        and publish it to live followers. A command this topology cannot
+        honor is refused whole (logged as a warning, never half-applied,
+        never recorded)."""
+        from shadow_tpu_torch import live as _live
+
+        kind = norm["cmd"]
+        was_paused = self._live_paused
+        wall_only = kind in ("pause", "resume")
+        applied = True
+        if kind == "pause":
+            self._live_paused = True
+            applied = not was_paused
+        elif kind == "resume":
+            self._live_paused = False
+            applied = was_paused
+        elif kind == "stop":
+            self._live_paused = False
+            self._interrupt = "live_stop"
+        elif kind == "checkpoint_now":
+            try:
+                from shadow_tpu_torch.checkpoint import \
+                    validate_config_checkpointable
+                validate_config_checkpointable(self.cfg)
+                self._ckpt_now = True
+            except ValueError as exc:
+                self.log.warning(f"live checkpoint_now refused: {exc}")
+                applied = False
+        else:
+            try:
+                faults = _live.apply_command(self, norm, now)
+            except ValueError as exc:
+                # resolution failure against THIS topology (unknown node
+                # or host): refuse, never half-apply
+                self.log.warning(f"live command {kind!r} refused: {exc}")
+                applied = False
+        if applied:
+            lines.append(_live.format_command_record(
+                norm, seq, self.rounds, now, wall_only=wall_only))
+            self.log.info(
+                f"live command {kind!r} applied at round {self.rounds} "
+                f"(t={format_time(now)}, seq {seq}"
+                f"{', replayed' if replayed else ''})")
+            if self.live is not None:
+                self.live.publish({"type": "command", "cmd": norm,
+                                   "round": self.rounds, "seq": seq,
+                                   "t": now, "replayed": replayed,
+                                   "paused": self._live_paused})
+        return faults
+
     def _progress(self, sim_now: SimTime, stop: SimTime, t0: float) -> None:
         """Terminal status line (reference: the status bar, SURVEY.md §2)."""
         import sys as _sys
@@ -671,6 +878,26 @@ class Controller:
         # the device-window routing decision rides the heartbeat so a
         # silently clamped/starved device is visible mid-run
         note = self.engine.heartbeat_note
+        if self.live is not None:
+            # sim-keyed heartbeat record: cadence and ordering are pure
+            # sim time (shard-mergeable); wall cost and the device note
+            # ride INSIDE the record and never feed back into the sim
+            self.live.publish({
+                "type": "hb", "t": sim_now, "round": self.rounds,
+                "events": self.events,
+                "units_sent": self.engine.units_sent,
+                "units_dropped": self.engine.units_dropped,
+                "shards": 1,
+                "dev": note(),
+                "wall": {
+                    "seconds": round(wall, 3), "rate": round(rate, 3),
+                    "phase": {
+                        "events": round(self._events_wall, 4),
+                        **{k: round(v, 4)
+                           for k, v in self.engine.phase_wall.items()},
+                    },
+                },
+            })
         self.log.info(
             f"heartbeat: sim {format_time(sim_now)} wall {wall:.1f}s "
             f"({rate:.2f} sim-sec/wall-sec) rounds {self.rounds} "

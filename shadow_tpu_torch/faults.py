@@ -44,9 +44,9 @@ core's explicit teardown hooks (Core.host_crash/host_boot) through
 Host.crash/reboot. Determinism across policies AND across the C/Python
 twins under churn is asserted by tests/test_faults.py.
 
-The port of shadow_tpu/faults.py, less the live plane's runtime insertion
-(the live endpoint is refused at config load). The port's C engine is the
-reference's, so it holds the same raw pointers, and the device paths read
+The port of shadow_tpu/faults.py, with the live plane's runtime insertion
+(``insert_runtime``, fed by live.py's command path). The port's C engine is
+the reference's, so it holds the same raw pointers, and the device paths read
 the rewritten thresholds where the reference's do: the draw plane gathers
 ``drop_thresh`` per window at the barrier, the mesh exchange takes each
 unit's threshold from the same gather (its round tables, copied to the
@@ -133,8 +133,10 @@ def build_timeline(cfg: ConfigOptions, graph, by_name: dict,
     so the timeline is identical under every policy and data plane.
     """
     actions: list[FaultAction] = []
-    events = cfg.faults.events
-    churn = cfg.faults.churn
+    # cfg.faults is None when the injector exists only for runtime live
+    # commands (live.ensure_fault_injector): empty config timeline.
+    events = cfg.faults.events if cfg.faults is not None else []
+    churn = cfg.faults.churn if cfg.faults is not None else []
     for ev in events:
         a = FaultAction(t=ev.time, kind=ev.kind,
                         latency_factor=ev.latency_factor,
@@ -219,6 +221,19 @@ class FaultInjector:
         """Time of the next unapplied action (a skip-ahead wake-up)."""
         return self.actions[self.idx].t if self.idx < len(self.actions) \
             else T_NEVER
+
+    def insert_runtime(self, acts: list[FaultAction]) -> None:
+        """Insert live-command actions (live.materialize_command) into the
+        unapplied tail, keeping it t-sorted.  A runtime action lands AFTER
+        existing actions with the same t (command application is ordered
+        after the config timeline at a shared boundary), and never before
+        ``idx`` — an action due now is picked up by the ``apply_due`` call
+        at this same boundary."""
+        for a in acts:
+            i = len(self.actions)
+            while i > self.idx and self.actions[i - 1].t > a.t:
+                i -= 1
+            self.actions.insert(i, a)
 
     def apply_due(self, now: SimTime) -> None:
         """Apply every action with t <= now. Called by the controller at

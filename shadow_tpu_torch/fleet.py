@@ -51,10 +51,16 @@ percentiles and per-seed percentiles with t-based 95 % confidence
 intervals per flow group (seeds are the independent unit). Its statistics
 equal the reference's for the same arguments.
 
-Not ported yet, refused by name with exit 2: fork mode (``--fork-from``,
-``--branches``, ``--trunk-dir``, ``report`` of a fork directory or with
-``--compare``: forks.py) and the sweep's live endpoint
-(``--live-endpoint``: live.py).
+**Fork mode** (``sweep --fork-from CKPT --branches FILE``, or
+``python -m shadow_tpu_torch fork``): a validated fork plan (forks.py)
+turns the fleet into a fork orchestrator — the "seeds" are branch names
+and every worker runs branches of ONE trunk checkpoint behind the same
+shared draw service; ``report`` of a fork directory re-reduces it, and
+``--compare`` renders only the comparison against the trunk.
+
+**The sweep's live endpoint** (``--live-endpoint``, live.py) is status
+only: it streams per-seed (or per-branch) lifecycle records and refuses
+every command by name. Members never bind one.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ import sys
 import time as _walltime  # detlint: ok(wallclock): worker admission, RSS polling, sweep wall report
 from pathlib import Path
 
+from shadow_tpu_torch.forks import FORK_MANIFEST, FORK_SUMMARY
 from shadow_tpu_torch.network.devroute import SERVICE_ENV
 from shadow_tpu_torch.ops.devcfg import DrawServiceError
 from shadow_tpu_torch.utils.digest import output_tree_digest
@@ -97,10 +104,6 @@ CHAOS_WEDGE_ENV = "SHADOW_TPU_FLEET_CHAOS_WEDGE_SEEDS"
 #: derived, max(supervise.stall_deadline_s(completed-seed wall EMA), 60)
 #: once a seed has completed; before that members may run arbitrarily long
 FLEET_STALL_ENV = "SHADOW_TPU_FLEET_STALL_S"
-#: the fork mode's files (forks.py, not ported): a report of such a
-#: directory is refused by name
-FORK_MANIFEST = "fork_manifest.json"
-FORK_SUMMARY = "fork_summary.json"
 
 
 # -- the member-side draw proxy ----------------------------------------------
@@ -304,7 +307,11 @@ class FleetDrawClient:
 # -- per-seed execution (worker side) -----------------------------------------
 
 def seed_dir(sweep_dir, seed) -> Path:
-    """The seed's directory under the sweep."""
+    """A task's directory under the sweep: a seed's (an int) or a fork
+    branch's (its name, a str: forks.branch_dir); the dispatch, watchdog
+    and retry machinery treat both as opaque keys."""
+    if isinstance(seed, str):
+        return Path(sweep_dir) / f"branch_{seed}"
     return Path(sweep_dir) / f"seed_{int(seed)}"
 
 
@@ -471,6 +478,11 @@ def _run_one_seed(config_path: str, overrides: dict, sweep_dir,
 
 def _write_failed_manifest(sweep_dir, seed, error: str,
                            tb: str = "") -> dict:
+    if isinstance(seed, str):  # a fork branch failed, not a sweep seed
+        from shadow_tpu_torch import forks as _forks
+
+        return _forks.write_failed_branch_manifest(sweep_dir, seed,
+                                                   error, tb)
     d = seed_dir(sweep_dir, seed)
     d.mkdir(parents=True, exist_ok=True)
     man = {
@@ -486,9 +498,11 @@ def _write_failed_manifest(sweep_dir, seed, error: str,
 
 def _fleet_worker_main(conn, config_path: str, overrides: dict,
                        sweep_dir: str, worker_idx: int, service_addr,
-                       pin: bool, device: str = "cuda") -> None:
-    """Worker process entry: run seeds one after another as they arrive.
-    One interpreter for many seeds is the amortization lever."""
+                       pin: bool, device: str = "cuda",
+                       fork: dict = None) -> None:
+    """Worker process entry: run seeds (or, given a fork plan, branches)
+    one after another as they arrive. One interpreter for many seeds is
+    the amortization lever."""
     import gc as _gc
     import signal as _signal
     import traceback
@@ -520,10 +534,15 @@ def _fleet_worker_main(conn, config_path: str, overrides: dict,
             break
         if msg[0] == "exit":
             break
-        seed = int(msg[1])
+        seed = str(msg[1]) if fork is not None else int(msg[1])
         try:
-            man = _run_one_seed(config_path, overrides, sweep_dir, seed,
-                                device)
+            if fork is not None:
+                from shadow_tpu_torch import forks as _forks
+
+                man = _forks.run_branch(fork, seed, device)
+            else:
+                man = _run_one_seed(config_path, overrides, sweep_dir,
+                                    seed, device)
             conn.send(("done", seed, man))
         except BaseException as exc:
             tb = traceback.format_exc()
@@ -585,9 +604,22 @@ class FleetRunner:
                  max_rss_mb: int = None, pin_cores: bool = True,
                  device_service: bool = True, quiet: bool = False,
                  retries: int = 1, member_max_rss_mb: int = 0,
-                 device: str = "cuda") -> None:
+                 device: str = "cuda", live_endpoint: str = None,
+                 fork: dict = None) -> None:
         self.config_path = str(config_path)
-        self.seeds = [int(s) for s in seeds]
+        #: a validated fork plan (forks.plan_fork) turns the fleet into a
+        #: fork orchestrator: ``seeds`` become branch names and every
+        #: worker runs branches of ONE trunk checkpoint
+        self.fork = fork
+        if fork is not None:
+            self.seeds = [str(s) for s in seeds]
+            if resume:
+                raise ValueError(
+                    "a fork cannot --resume: branches are planned from "
+                    "the trunk checkpoint each time — just re-run the "
+                    "fork (completed branch directories are rebuilt)")
+        else:
+            self.seeds = [int(s) for s in seeds]
         if not self.seeds:
             raise ValueError("a sweep needs at least one seed")
         if len(set(self.seeds)) != len(self.seeds):
@@ -618,6 +650,57 @@ class FleetRunner:
         self._inflight_t: dict = {}  # worker idx -> dispatch monotonic
         self._seed_wall_ema = 0.0  # completed-seed wall EMA (stall basis)
         self._interrupted = False
+        #: the sweep's live endpoint (live.py): STATUS ONLY — lifecycle
+        #: records for dashboards; every command is refused by name (a
+        #: sweep is a batch of independent replayable runs, and mutating
+        #: one seed mid-sweep would fork its identity). Its path is checked
+        #: here; it binds in run() once the workers exist, so that they
+        #: can still fork from a parent with no other thread.
+        self.live = None
+        self._live_address = None
+        if live_endpoint:
+            from shadow_tpu_torch import live as _live
+
+            self._live_address = _live.resolve_endpoint(live_endpoint,
+                                                        self.sweep_dir)
+            if len(self._live_address.encode()) > _live._MAX_SOCKET_PATH:
+                raise ValueError(
+                    f"live endpoint path exceeds the AF_UNIX limit "
+                    f"(~{_live._MAX_SOCKET_PATH} bytes): "
+                    f"{self._live_address!r}")
+
+    def _bind_live(self) -> None:
+        from shadow_tpu_torch import live as _live
+
+        self.live = _live.LiveServer(
+            self._live_address,
+            refuse=lambda norm: (
+                f"sweep endpoint is status-only: {norm['cmd']!r} "
+                f"would fork one seed's identity mid-sweep — attach "
+                f"to a single run's live_endpoint instead"))
+
+    def _publish(self, rec: dict) -> None:
+        if self.live is None:
+            return
+        if self.fork is not None and isinstance(rec.get("seed"), str):
+            # forked sweeps stream per-BRANCH progress: the same
+            # lifecycle records, branch-keyed (branch_dispatched/...)
+            rec = dict(rec)
+            rec["branch"] = rec.pop("seed")
+            if isinstance(rec.get("type"), str):
+                rec["type"] = rec["type"].replace("seed_", "branch_")
+        self.live.publish(rec)
+
+    def _base_config(self):
+        """The configuration every member shares the plane shape of: the
+        first seed's, or for a fork the trunk's (the fork's overrides)."""
+        if self.fork is not None:
+            from shadow_tpu_torch.config import load_config
+
+            return load_config(self.config_path,
+                               dict(self.fork["overrides"]), cache_doc=True)
+        return _member_config(self.config_path, self.overrides,
+                              self.sweep_dir, self.seeds[0])
 
     def _log(self, msg: str) -> None:
         if not self.quiet:
@@ -671,7 +754,7 @@ class FleetRunner:
             target=_fleet_worker_main,
             args=(child_conn, self.config_path, self.overrides,
                   str(self.sweep_dir), idx, self._service_addr,
-                  self.pin_cores, self.device),
+                  self.pin_cores, self.device, self.fork),
             name=f"shadow-fleet-{idx}", daemon=True)
         p.start()
         child_conn.close()
@@ -693,9 +776,9 @@ class FleetRunner:
         devcfg.require_device(self.device)
         self.sweep_dir.mkdir(parents=True, exist_ok=True)
         # validate the config up front: a typo fails the sweep at once,
-        # not once per worker
-        cfg0 = _member_config(self.config_path, self.overrides,
-                              self.sweep_dir, self.seeds[0])
+        # not once per worker (a fork plan was validated end to end by
+        # forks.plan_fork)
+        cfg0 = self._base_config()
         failed: dict = {}
         skipped: list = []
         pending = list(self.seeds)
@@ -717,6 +800,8 @@ class FleetRunner:
         import shadow_tpu_torch.checkpoint  # noqa: F401
         import shadow_tpu_torch.core.controller  # noqa: F401
         import shadow_tpu_torch.faults  # noqa: F401
+        import shadow_tpu_torch.forks  # noqa: F401
+        import shadow_tpu_torch.live  # noqa: F401
         import shadow_tpu_torch.models.echo  # noqa: F401
         import shadow_tpu_torch.models.gossip  # noqa: F401
         import shadow_tpu_torch.models.tgen  # noqa: F401
@@ -737,6 +822,9 @@ class FleetRunner:
                     p, conn = self._spawn_worker(k)
                     self._procs.append(p)
                     self._conns.append(conn)
+            if self._live_address is not None:
+                self._bind_live()  # after the workers: they could fork
+            if pending:
                 if self._service_addr is not None:
                     from shadow_tpu_torch.ops.propagate import DrawServer
 
@@ -763,6 +851,10 @@ class FleetRunner:
                         failed[seed] = "interrupted"
                     self._inflight.clear()
                     self._inflight_t.clear()
+        except BaseException:
+            if self.live is not None:
+                self.live.close()  # followers see the sweep's end
+            raise
         finally:
             for conn in self._conns:
                 if conn is not None:
@@ -791,6 +883,30 @@ class FleetRunner:
             "attach_launches": dict(srv.attach_launches),
             "errors": list(srv.errors),
         }} if srv is not None else {})
+        if self.fork is not None:
+            from shadow_tpu_torch import forks as _forks
+
+            fork_doc = {
+                "config": self.config_path,
+                "jobs": self.jobs,
+                "branches_planned": self.seeds,
+                "trunk_checkpoint": self.fork["ckpt"],
+                "trunk_dir": self.fork["trunk_dir"],
+                "failed": {str(s): failed[s] for s in sorted(failed)},
+                "fork_wall_seconds": round(wall, 3),
+                "exit_reason": ("interrupted" if self._interrupted
+                                else "completed"),
+                "retries": self.retries,
+                "respawns": self._respawns,
+                **service_doc,
+            }
+            summary = _forks.reduce_fork(self.sweep_dir, extra=fork_doc)
+            n_ok = len(summary["completed"])
+            self._log(f"fork done: {n_ok}/{len(self.seeds)} branch(es) "
+                      f"ok, {len(failed)} failed, wall {wall:.1f}s -> "
+                      f"{self.sweep_dir / _forks.FORK_SUMMARY}")
+            self._end_live(n_ok, failed, wall)
+            return summary
         sweep_doc = {
             "config": self.config_path,
             "jobs": self.jobs,
@@ -809,7 +925,15 @@ class FleetRunner:
         self._log(f"sweep done: {n_ok}/{len(self.seeds)} seeds ok, "
                   f"{len(failed)} failed, wall {wall:.1f}s -> "
                   f"{self.sweep_dir / SWEEP_SUMMARY}")
+        self._end_live(n_ok, failed, wall)
         return summary
+
+    def _end_live(self, n_ok: int, failed: dict, wall: float) -> None:
+        if self.live is not None:
+            self._publish({"type": "end", "ok": n_ok,
+                           "failed": len(failed),
+                           "wall_seconds": round(wall, 1)})
+            self.live.close()
 
     def _dispatch_loop(self, pending: list, failed: dict) -> None:
         from multiprocessing.connection import wait as _mpwait
@@ -844,6 +968,9 @@ class FleetRunner:
                 self._log(f"seed {seed} -> worker {k} "
                           f"({len(pending)} queued, "
                           f"{len(self._inflight)} resident)")
+                self._publish({"type": "seed_dispatched", "seed": seed,
+                               "worker": k, "queued": len(pending),
+                               "resident": len(self._inflight)})
             live = [c for c in self._conns if c is not None]
             if not live:
                 break
@@ -874,6 +1001,10 @@ class FleetRunner:
                     self._log(f"seed {seed} ok "
                               f"({man['wall_seconds']}s wall, "
                               f"{man['events']} events)")
+                    self._publish({"type": "seed_done", "seed": seed,
+                                   "wall_seconds": man["wall_seconds"],
+                                   "events": man["events"],
+                                   "rounds": man["rounds"]})
                 elif op == "failed":
                     _, seed, err, _tb = msg
                     self._seed_failed(seed, err, pending, failed)
@@ -889,11 +1020,15 @@ class FleetRunner:
             self._log(f"seed {seed} attempt {attempts} failed: {err} — "
                       f"retrying ({left} retr{'y' if left == 1 else 'ies'}"
                       f" left)")
+            self._publish({"type": "seed_retry", "seed": seed,
+                           "attempt": attempts, "error": err})
             pending.append(seed)
             return
         failed[seed] = err
         self._log(f"seed {seed} FAILED after {attempts} attempt(s): "
                   f"{err} — sweep continues")
+        self._publish({"type": "seed_failed", "seed": seed, "error": err,
+                       "attempts": attempts})
 
     def _member_deadline_s(self):
         """Wall seconds an in-flight member may run before it counts as
@@ -952,7 +1087,7 @@ class FleetRunner:
                     try:
                         _sup.write_crash_report(
                             d, "member_rss_ceiling",
-                            extra={"seed": int(seed),
+                            extra={"seed": seed,
                                    "rss_mb": round(rss, 1),
                                    "ceiling_mb": self.member_max_rss_mb})
                     except OSError:
@@ -1233,33 +1368,43 @@ def build_parser() -> argparse.ArgumentParser:
                     help="do not auto-enable telemetry (no flow "
                     "percentiles or CIs in the sweep summary)")
     ps.add_argument("--live-endpoint", metavar="PATH",
-                    help="not ported yet (live.py): refused")
+                    help="bind a STATUS-ONLY AF_UNIX endpoint streaming "
+                    "per-seed lifecycle records (dispatched/done/failed); "
+                    "runtime commands are refused — 'auto' = "
+                    "<sweep-dir>/live.sock")
     ps.add_argument("--quiet", action="store_true",
                     help="no progress lines on stderr")
     ps.add_argument("--json", action="store_true",
                     help="print the sweep summary as one JSON line on "
                     "stdout instead of the report")
     ps.add_argument("--fork-from", metavar="CKPT", default=None,
-                    help="not ported yet (forks.py): refused")
+                    help="fork mode (forks.py): restore this trunk "
+                    "checkpoint into every worker and run the --branches "
+                    "divergence specs instead of seeds")
     ps.add_argument("--branches", metavar="FILE", default=None,
-                    help="not ported yet (forks.py): refused")
+                    help="branches.yaml for --fork-from: the per-branch "
+                    "divergence specs")
     ps.add_argument("--trunk-dir", metavar="DIR", default=None,
-                    help="not ported yet (forks.py): refused")
+                    help="the trunk run directory for --fork-from "
+                    "(default: derived from the checkpoint path's "
+                    "<trunk>/checkpoints/ layout)")
     ps.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the members' kernels run and the shared "
                     "draw service attaches (default cuda; cpu runs the "
                     "plain PyTorch versions)")
-    pr = sub.add_parser("report", help="re-reduce + render a sweep "
-                        "directory")
+    pr = sub.add_parser("report", help="re-reduce + render a sweep (or "
+                        "fork) directory")
     pr.add_argument("sweep_dir")
     pr.add_argument("--json", action="store_true",
                     help="print the summary JSON instead of the report")
     pr.add_argument("--compare", action="store_true",
-                    help="not ported yet (forks.py): refused")
+                    help="fork directories: render only the comparative "
+                    "table (per-group percentile deltas vs the trunk "
+                    "with CI95)")
     return p
 
 
-def _sweep_overrides(args) -> dict:
+def _sweep_overrides(args, fork: bool = False) -> dict:
     import yaml as _yaml
 
     over: dict = {}
@@ -1272,6 +1417,11 @@ def _sweep_overrides(args) -> dict:
             raise SystemExit(2)
         k, v = item.split("=", 1)
         over[k] = _yaml.safe_load(v)
+    if fork:
+        # a fork inherits the trunk's telemetry settings verbatim:
+        # auto-enabling here would re-cadence streams the trunk already
+        # started (forks.plan_fork refuses telemetry overlays by name)
+        return over
     if not args.no_telemetry and not any(
             k.startswith("telemetry") for k in over):
         # a sweep is for cross-seed percentiles: enable telemetry (at its
@@ -1291,46 +1441,70 @@ def _is_fork_dir(d) -> bool:
             or any(sorted(d.glob("branch_*/" + FORK_MANIFEST))))
 
 
-def _refuse(feature: str) -> int:
-    print(f"fleet: {feature} is not ported to shadow_tpu_torch yet",
-          file=sys.stderr)
-    return 2
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "report":
-        if args.compare or _is_fork_dir(args.sweep_dir):
-            return _refuse("fork mode (report of a fork directory, "
-                           "--compare: forks.py)")
+        if _is_fork_dir(args.sweep_dir):
+            from shadow_tpu_torch import forks as _forks
+
+            summary = _forks.reduce_fork(args.sweep_dir)
+            print(json.dumps(summary) if args.json
+                  else _forks.render_compare(summary) if args.compare
+                  else _forks.render_fork_report(summary))
+            return 0 if not summary["failed"] else 1
+        if args.compare:
+            print(f"fleet: {args.sweep_dir} is a seed sweep, not a fork "
+                  f"— --compare diffs fork branches against their trunk",
+                  file=sys.stderr)
+            return 2
         summary = reduce_sweep(args.sweep_dir)
         print(json.dumps(summary) if args.json
               else render_report(summary))
         return 0 if not summary["failed"] else 1
+    fork_plan = None
     if args.fork_from or args.branches or args.trunk_dir:
-        return _refuse("fork mode (--fork-from, --branches, --trunk-dir: "
-                       "forks.py)")
-    if args.live_endpoint:
-        return _refuse("the sweep's live endpoint (--live-endpoint: "
-                       "live.py)")
+        if not (args.fork_from and args.branches):
+            print("fleet: --fork-from and --branches go together (a fork "
+                  "needs both the trunk checkpoint and the divergence "
+                  "specs; --trunk-dir only names the trunk of such a fork)",
+                  file=sys.stderr)
+            return 2
+        if args.resume:
+            print("fleet: a fork cannot --resume — just re-run it",
+                  file=sys.stderr)
+            return 2
     try:
-        over = _sweep_overrides(args)
-        if args.seed_base is not None:
-            base = int(args.seed_base)
-        else:
-            from shadow_tpu_torch.config.schema import load_yaml_doc
+        over = _sweep_overrides(args, fork=bool(args.fork_from))
+        if args.fork_from:
+            from shadow_tpu_torch import forks as _forks
 
-            doc = load_yaml_doc(args.config, cache=True)
-            base = int(((doc or {}).get("general") or {}).get("seed", 1))
-        seeds = [base + i for i in range(int(args.seeds))]
-        sweep_dir = args.sweep_dir or (Path(args.config).stem + ".sweep")
+            sweep_dir = (args.sweep_dir
+                         or (Path(args.config).stem + ".fork"))
+            branches = _forks.load_branches(args.branches)
+            fork_plan = _forks.plan_fork(
+                args.config, args.fork_from, branches, sweep_dir,
+                overrides=over, trunk_dir=args.trunk_dir)
+            seeds = fork_plan["order"]
+        else:
+            if args.seed_base is not None:
+                base = int(args.seed_base)
+            else:
+                from shadow_tpu_torch.config.schema import load_yaml_doc
+
+                doc = load_yaml_doc(args.config, cache=True)
+                base = int(((doc or {}).get("general") or {})
+                           .get("seed", 1))
+            seeds = [base + i for i in range(int(args.seeds))]
+            sweep_dir = (args.sweep_dir
+                         or (Path(args.config).stem + ".sweep"))
         runner = FleetRunner(
             args.config, seeds, args.jobs, sweep_dir, overrides=over,
             resume=args.resume, max_rss_mb=args.max_rss_mb,
             pin_cores=not args.no_pin,
             device_service=not args.no_device_service, quiet=args.quiet,
             retries=args.retries,
-            member_max_rss_mb=args.member_max_rss_mb, device=args.device)
+            member_max_rss_mb=args.member_max_rss_mb, device=args.device,
+            live_endpoint=args.live_endpoint, fork=fork_plan)
         summary = runner.run()
     except FileNotFoundError as exc:
         print(f"fleet: config file not found: "
@@ -1339,7 +1513,14 @@ def main(argv=None) -> int:
     except (ValueError, OSError) as exc:
         print(f"fleet: {exc}", file=sys.stderr)
         return 2
-    print(json.dumps(summary) if args.json else render_report(summary))
+    if fork_plan is not None:
+        from shadow_tpu_torch import forks as _forks
+
+        print(json.dumps(summary) if args.json
+              else _forks.render_fork_report(summary))
+    else:
+        print(json.dumps(summary) if args.json
+              else render_report(summary))
     if summary.get("exit_reason") == "interrupted":
         return 130  # conventional SIGINT status; the summary above is a
         # valid partial artifact and --resume finishes the sweep

@@ -1,7 +1,10 @@
 """Multi-process host partitioning with conservative cross-shard windows.
 
-The port of shadow_tpu/parallel/shards.py, less the reference's live
-plane (its endpoint and command replay are refused at config load). The
+The port of shadow_tpu/parallel/shards.py, with the reference's live
+plane: the parent owns the endpoint, live commands ride shard 0's round
+marker so every worker applies them at the same boundary, and the parent
+writes commands.jsonl from shard 0's lines; replayed logs apply on every
+worker alike; pause and resume are refused by name. The
 workers launch no kernel, by the reference's own design: each sets
 ``tpu_device_floor = -1`` (and the device transport off — both wall-clock
 policy, result-identical), builds its controller with the invocation's
@@ -443,6 +446,13 @@ class _ShardWorker:
         #: will re-emit (double delivery on resume).
         self._pending_rows: list = []
         self._stop_req = False  # parent asked for a graceful stop
+        #: live operations plane (live.py): commands arrive on the parent
+        #: pipe (shard 0 only), ride shard 0's NEXT round marker so every
+        #: worker holds the identical list, and apply at the following
+        #: round boundary — the same round everywhere
+        self._pending_cmds: list = []  # from the parent pipe (shard 0)
+        self._marker_cmds: list = []   # from shard 0's marker, due next top
+        self._cmd_stop = False         # a live `stop` command ended the run
 
     # -- lifecycle ---------------------------------------------------------
     def serve(self, resume_at=None) -> None:
@@ -460,6 +470,13 @@ class _ShardWorker:
         tel = ctl.telemetry
         if tel is not None and resume_at is None:
             tel.start_fresh(ctl)
+        if resume_at is not None and ctl._replay_cmds:
+            # commands at boundaries <= resume_at were applied BEFORE the
+            # checkpoint snapshot (boundary order: commands, then
+            # checkpoint) — their effects are in the restored state
+            while (ctl._replay_idx < len(ctl._replay_cmds)
+                   and ctl._replay_cmds[ctl._replay_idx]["t"] <= resume_at):
+                ctl._replay_idx += 1
         gc_was_enabled = _gc.isenabled()
         _gc.disable()
         self.conn.send(("ready", {
@@ -537,9 +554,20 @@ class _ShardWorker:
             # so every edge <= ctl.rounds is fully drained or stashed)
             self._drain_rings()
             self._ingest_ready(ctl.rounds)
-            if ck_every and now >= next_ckpt:
+            if self._marker_cmds or ctl._replay_idx < len(ctl._replay_cmds):
+                # round-boundary command application (live.py contract):
+                # marker-delivered live commands and due replay-log
+                # entries — identical inputs on every worker, so the
+                # fault timeline mutates identically everywhere
+                faults = self._apply_boundary_cmds(now, faults)
+                if self._cmd_stop:
+                    interrupted = True
+                    break
+            if (ck_every and now >= next_ckpt) or ctl._ckpt_now:
+                ctl._ckpt_now = False
                 self._checkpoint(now)
-                next_ckpt = ((now // ck_every) + 1) * ck_every
+                if ck_every:
+                    next_ckpt = ((now // ck_every) + 1) * ck_every
             if faults is not None:
                 faults.apply_due(now)
             if dyn:
@@ -625,6 +653,12 @@ class _ShardWorker:
                 "mul": eng.min_used_latency,
                 "stop": self._stop_req,
             }
+            if self.k == 0 and self._pending_cmds:
+                # live commands ride shard 0's marker: every worker reads
+                # the SAME list at the same round and applies it at the
+                # next boundary (the parent only ever feeds shard 0)
+                stats["cmds"] = self._pending_cmds
+                self._pending_cmds = []
             for j in self.rings_out:
                 self._write_block(j, b"M" + marshal.dumps(
                     (ctl.rounds, self.k, stats)))
@@ -664,6 +698,12 @@ class _ShardWorker:
             t2 = _walltime.perf_counter()
             peers = self._wait_markers(ctl.rounds)
             self._sync_wall += _walltime.perf_counter() - t2
+            s0 = stats if self.k == 0 else peers[0]
+            cmds = s0.get("cmds")
+            if cmds:
+                # due at the NEXT loop top — after `now` advances, so the
+                # command's recorded t is the boundary it applies at
+                self._marker_cmds.extend(cmds)
             allm = list(peers.values())
             allm.append(stats)
             for pm2 in allm:
@@ -700,15 +740,50 @@ class _ShardWorker:
             self._checkpoint(now)
         self.conn.send(("done", {
             "now": now, "rounds": ctl.rounds, "events": ctl.events,
-            "interrupted": interrupted}))
+            "interrupted": interrupted,
+            **({"stop_reason": "live_stop"} if self._cmd_stop else {})}))
+
+    def _apply_boundary_cmds(self, now: int, faults):
+        """Apply round-boundary commands exactly like the single-process
+        Controller._live_boundary: due replay-log entries first, then
+        live commands that arrived through shard 0's round marker (the
+        identical list on every worker, so every shard applies them at
+        the same boundary with the same seq). Only shard 0 ships the
+        canonical commands.jsonl lines to the parent — the single
+        writer."""
+        ctl = self.ctl
+        lines: list = []
+        replay = ctl._replay_cmds
+        while ctl._replay_idx < len(replay) \
+                and replay[ctl._replay_idx]["t"] <= now:
+            rec = replay[ctl._replay_idx]
+            ctl._replay_idx += 1
+            if rec.get("wall_only"):
+                continue  # pause/resume never touched sim state
+            faults = ctl._apply_cmd(rec["cmd"], now, rec["seq"], lines,
+                                    faults, replayed=True)
+        for norm in self._marker_cmds:
+            ctl._live_seq += 1
+            faults = ctl._apply_cmd(norm, now, ctl._live_seq, lines,
+                                    faults, replayed=False)
+        self._marker_cmds = []
+        if ctl._interrupt == "live_stop":
+            self._cmd_stop = True
+            ctl._interrupt = None  # the parent owns the summary's signal
+        if lines and self.k == 0:
+            self.conn.send(("cmdlog", lines))
+        return faults
 
     def _poll_parent(self) -> None:
-        """Drain the parent pipe without blocking: a stop request, or the
-        parent's abort after another worker failed."""
+        """Drain the parent pipe without blocking: a stop request, a live
+        command (shard 0: it rides the next marker), or the parent's abort
+        after another worker failed."""
         while self.conn.poll(0):
             pm = self.conn.recv()
             if pm[0] == "stop":
                 self._stop_req = True
+            elif pm[0] == "cmd":
+                self._pending_cmds.append(pm[1])
             elif pm[0] == "abort":
                 raise _PeerDied("parent aborted the run")
 
@@ -1050,6 +1125,30 @@ class ShardedRun:
                          if cfg.general.checkpoint_dir
                          else self.data_dir / "checkpoints")
         self._metrics_fh = None
+        # live operations plane (live.py): the PARENT owns the socket —
+        # workers never bind. Commands are forwarded to shard 0 and ride
+        # its round marker so every worker applies them at the same
+        # boundary; shard 0 ships the canonical commands.jsonl lines back
+        # and the parent is the single writer.
+        self.live = None
+        if cfg.general.live_endpoint:
+            from shadow_tpu_torch import live as _live
+
+            self.live = _live.LiveServer(
+                _live.resolve_endpoint(cfg.general.live_endpoint,
+                                       self.data_dir),
+                log=self.log, refuse=self._refuse_cmd)
+
+    @staticmethod
+    def _refuse_cmd(norm):
+        if norm["cmd"] in ("pause", "resume"):
+            # free-running workers synchronize peer to peer; the parent
+            # cannot wall-block them at a shared boundary without a
+            # round-gating channel the design deliberately lacks
+            return (f"{norm['cmd']!r} is single-process only: sharded "
+                    f"workers free-run and cannot wall-block at a "
+                    f"shared round boundary")
+        return None
 
     # -- resume ------------------------------------------------------------
     def _prepare_resume(self, resume_from) -> None:
@@ -1158,6 +1257,8 @@ class ShardedRun:
             conn.send(msg)
 
     def _teardown(self) -> None:
+        if getattr(self, "live", None) is not None:
+            self.live.close()  # idempotent; covers the error paths
         for p in getattr(self, "_procs", []):
             if p.is_alive():
                 p.terminate()
@@ -1181,6 +1282,10 @@ class ShardedRun:
             d.mkdir(parents=True, exist_ok=True)
             self._metrics_fh = open(d / METRICS_FILE, "a")
         self._metrics_fh.write("\n".join(lines) + "\n")
+        if self.live is not None:
+            # tee the merged stream to live followers (the wall-clock
+            # plane: record ordering equals file ordering)
+            self.live.publish_stream(METRICS_FILE, lines)
 
     def _handle_tel_partials(self, parts_by_shard: list,
                              rounds: int) -> None:
@@ -1326,6 +1431,13 @@ class ShardedRun:
             (self.data_dir / _ckpt.DIGEST_FILE).unlink(missing_ok=True)
             for p in sorted(self.data_dir.glob("state_digests.shard*.jsonl")):
                 p.unlink()
+        if (self.live is not None or cfg.general.replay_commands) \
+                and self.resume_at is None:
+            # fresh run: commands.jsonl is an output artifact (replay
+            # reads from wherever general.replay_commands points)
+            from shadow_tpu_torch import live as _live
+
+            _live.command_log_path(self.data_dir).unlink(missing_ok=True)
         tel = cfg.telemetry
         if tel is not None and self.resume_at is None:
             # fresh run: truncate stale streams BEFORE the ready
@@ -1413,6 +1525,10 @@ class ShardedRun:
                         if done[k] is None and not stop_sent[k]:
                             self._conns[k].send(("stop",))
                             stop_sent[k] = True
+                if self.live is not None and done[0] is None \
+                        and not stop_sent[0]:
+                    for norm in self.live.poll_commands():
+                        self._conns[0].send(("cmd", norm))
                 ready = _mpwait(self._conns, timeout=0.25)
                 for conn in ready:
                     k = self._conns.index(conn)
@@ -1452,6 +1568,17 @@ class ShardedRun:
                             self._write_manifest(
                                 [slot[1][i] for i in range(self.n)],
                                 t, _r)
+                    elif op == "cmdlog":
+                        # shard 0 applied round-boundary commands: the
+                        # parent is the single commands.jsonl writer and
+                        # the live broadcaster
+                        from shadow_tpu_torch import live as _live
+
+                        _live.append_command_lines(self.data_dir, msg[1])
+                        if self.live is not None:
+                            for ln in msg[1]:
+                                self.live.publish(
+                                    {"type": "command", **json.loads(ln)})
                     elif op == "early_end":
                         self.log.info(
                             f"no further events at "
@@ -1477,6 +1604,10 @@ class ShardedRun:
         self.rounds = done[0]["rounds"]
         self.events = sum(d["events"] for d in done)
         self._partial = done[0]["interrupted"]
+        if self._partial and self._interrupt is None:
+            # a live `stop` command ended the run inside the workers;
+            # surface it as the summary's interrupt_signal
+            self._interrupt = done[0].get("stop_reason")
         if self._partial:
             self.log.warning(
                 f"{self._interrupt or 'stop'} received: stopped "
@@ -1486,7 +1617,13 @@ class ShardedRun:
         self._broadcast(("finalize", end_time))
         finals = [self._recv(k)[1] for k in range(self.n)]
         wall = _walltime.perf_counter() - t0
-        return self._summary(finals, end_time, wall)
+        result = self._summary(finals, end_time, wall)
+        if self.live is not None:
+            self.live.publish({"type": "end",
+                               "exit_reason": result["exit_reason"],
+                               "rounds": self.rounds, "t": end_time})
+            self.live.close()
+        return result
 
     def _note_round(self, k: int, rnd: int) -> None:
         if rnd > self._last_seen[k]:
@@ -1517,6 +1654,28 @@ class ShardedRun:
         ev = sum(s["events"] for s in stats.values())
         sent = sum(s["units_sent"] for s in stats.values())
         drop = sum(s["units_dropped"] for s in stats.values())
+        if self.live is not None:
+            # merged heartbeat (the single-process record's shape) plus one
+            # shard_status per worker with its wall-phase and device-note
+            # detail — followers see per-shard skew live
+            self.live.publish({
+                "type": "hb", "t": t, "round": rnd,
+                "events": ev, "units_sent": sent, "units_dropped": drop,
+                "shards": self.n,
+                "wall": {"seconds": round(wall, 3),
+                         "rate": round(rate, 3)},
+            })
+            for k in sorted(stats):
+                s = stats[k]
+                self.live.publish({
+                    "type": "shard_status", "shard": k, "t": t,
+                    "round": rnd, "events": s["events"],
+                    "units_sent": s["units_sent"],
+                    "units_dropped": s["units_dropped"],
+                    **({"dev": s["dev"]} if "dev" in s else {}),
+                    **({"phase_wall": s["phase_wall"]}
+                       if "phase_wall" in s else {}),
+                })
         self.log.info(
             f"heartbeat: sim {format_time(t)} wall {wall:.1f}s "
             f"({rate:.2f} sim-sec/wall-sec) rounds {rnd} events {ev} "

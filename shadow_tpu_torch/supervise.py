@@ -364,9 +364,9 @@ def _filter_jsonl(path: Path, keep) -> None:
 def stream_prefix_keep(ckpt_rounds: int, t0_ns: int) -> dict:
     """Per-stream keep predicates for truncating output streams at a
     checkpoint boundary (round ``ckpt_rounds``, sim time ``t0_ns``) so a
-    resumed run's appends continue them byte-identically (the reference's
-    fork runner, not ported yet, shares these rules with the supervisor's
-    in-place rollback).
+    resumed run's appends continue them byte-identically. Shared by the
+    supervisor's in-place rollback and the fork runner's prefix copy
+    (forks.py) — one set of rules, two consumers.
 
     The rules mirror the round-boundary order (commands -> checkpoint ->
     fault transitions -> round -> digest/telemetry):
@@ -546,6 +546,13 @@ def run_supervised(cfg, mirror_log: bool = True, resume_from=None,
                     resume_at = None
                 runner._supervised = True
                 runner.t_first_ready = _walltime.monotonic()
+            if restarts and getattr(runner, "live", None) is not None:
+                # live followers learn of the recovery: the failure, the
+                # attempt and the checkpoint resumed from
+                rec = {k: v for k, v in restarts[-1].items()
+                       if not k.startswith("_")}
+                runner.live.publish(
+                    {"type": "supervisor", "event": "restart", **rec})
             result = (runner.run() if sharded
                       else runner.run(resume_at=resume_at))
             _note_mttr(restarts, runner)

@@ -1,8 +1,8 @@
 """Deterministic simulation telemetry: samplers, flow records, percentiles.
 
 The port of shadow_tpu/telemetry/collector.py, with its shard-worker
-branches (parallel/shards.py); the live plane's flow snapshots are not
-ported, as the config load refuses the live endpoint.
+branches (parallel/shards.py) and the live plane's records (live.py): the
+stream tee of every line written and a ``flows_snapshot`` at each sample.
 
 This is the run-level observability layer the coarse totals (counters,
 heartbeat) cannot provide: "what was fetch p99 during the partition
@@ -226,7 +226,7 @@ class TelemetryCollector:
         if f is None:
             f = self._fh[name] = open(self._dir(controller) / name, "a")
         f.write("\n".join(lines) + "\n")
-        # live-operations tee (shadow_tpu/live.py): followers receive the
+        # live operations tee (live.py): followers receive the
         # artifact lines verbatim as they are written. Wall-clock plane
         # only — publish never blocks and drops on slow readers, so the
         # on-disk streams stay the source of truth
@@ -469,6 +469,14 @@ class TelemetryCollector:
                                   controller.rounds, t)
         self.sync(controller)  # flows land before the sample's write
         self._append(controller, METRICS_FILE, [line])
+        srv = getattr(controller, "live", None)
+        if srv is not None:
+            # flow-group percentile snapshot at the sample grid point:
+            # the same reduction as the end-of-run summary, so a follower
+            # watches the distributions converge live
+            srv.publish({"type": "flows_snapshot", "t": t,
+                         "round": controller.rounds,
+                         "flows": self.summary()["flows"]})
 
     # -- end of run --------------------------------------------------------
     def finalize(self, controller) -> None:

@@ -416,10 +416,14 @@ REFUSALS = {
         "server"]["processes"][0].update(
             path="pyapp:shadow_tpu.models.httpd:HttpServer"),
         "workload model 'httpd'"),
-    "live": (["--scheduler-policy", "tpu_batch", "--live-endpoint", "auto"],
-             None, "live endpoint"),
-    "replay": (["--scheduler-policy", "tpu_batch", "--replay-commands",
-                "c.jsonl"], None, "live endpoint"),
+    # the live plane is ported: what it refuses by name is a socket path
+    # past the AF_UNIX limit and a replay log that is not a command log
+    "live": (["--scheduler-policy", "tpu_batch", "--device", "cpu",
+              "--live-endpoint", "/tmp/" + "x" * 120 + "/live.sock"],
+             None, "exceeds the AF_UNIX limit"),
+    "replay": (["--scheduler-policy", "tpu_batch", "--device", "cpu",
+                "--replay-commands", str(EX / "echo.yaml")], None,
+               "bad command record"),
     "mesh_shards": (["--scheduler-policy", "tpu_batch", "--set",
                      "experimental.tpu_mesh_shards=4"], None,
                     "tpu_mesh_shards"),
@@ -521,6 +525,16 @@ def test_once_refused_features_identical_to_reference(tmp_path, case):
         assert port["telemetry"]["samples"] > 0 or case == "telemetry"
 
 
-def test_fork_verb_is_refused(capsys):
-    assert port_cli.main(["fork", "examples/echo.yaml"]) == 2
-    assert "fork verb" in capsys.readouterr().err
+def test_fork_verb_is_refused(tmp_path, capsys):
+    """The fork verb runs (forks.py); what it refuses by name is a trunk
+    checkpoint of the reference package."""
+    ref = tmp_path / "ref.ckpt"
+    ref.write_text(json.dumps({"format": "shadow_tpu-checkpoint",
+                               "version": 5}) + "\n")
+    branches = tmp_path / "b.yaml"
+    branches.write_text("branches:\n  - name: b\n")
+    assert port_cli.main(["fork", "examples/echo.yaml", "--from", str(ref),
+                          "--branches", str(branches), "--fork-dir",
+                          str(tmp_path / "f"), "--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert err.startswith("fork: ") and "shadow_tpu-checkpoint" in err

@@ -625,19 +625,33 @@ def test_interrupt_leaves_a_partial_summary(tmp_path):
     (["sweep", "c.yaml", "--fork-from", "x.ckpt"], "--fork-from"),
     (["sweep", "c.yaml", "--branches", "b.yaml"], "--branches"),
     (["sweep", "c.yaml", "--trunk-dir", "t"], "--trunk-dir"),
-    (["sweep", "c.yaml", "--live-endpoint", "auto"], "--live-endpoint"),
+    (["sweep", "CHURN", "--live-endpoint",
+      "/tmp/" + "x" * 120 + "/live.sock"], "--live-endpoint"),
     (["report", "SWEEP", "--compare"], "--compare"),
     (["report", "FORK"], "report of a fork directory"),
 ])
 def test_unported_flags_refused_by_name(tmp_path, capsys, argv, feature):
+    """Fork mode and the sweep's live endpoint are ported; what the fleet
+    CLI still refuses by name (exit 2) is their misuse: half a fork's
+    flags, a socket path past the AF_UNIX limit, --compare of a seed
+    sweep. A fork directory's report renders (exit 0)."""
     fork = tmp_path / "fork"
     (fork / "branch_a").mkdir(parents=True)
     (fork / "branch_a" / fleet.FORK_MANIFEST).write_text("{}")
     argv = [str(fork) if a == "FORK" else str(tmp_path) if a == "SWEEP"
-            else a for a in argv]
-    assert fleet.main(argv) == 2
-    err = capsys.readouterr().err
-    assert feature in err and "not ported to shadow_tpu_torch" in err
+            else str(CHURN_YAML) if a == "CHURN" else a for a in argv]
+    rc = fleet.main(argv)
+    out, err = capsys.readouterr()
+    if feature == "report of a fork directory":
+        assert rc == 0, err
+        assert out.startswith("fork: 0 branch(es), 0 ok, 0 failed")
+        return
+    assert rc == 2
+    want = {"--live-endpoint": "exceeds the AF_UNIX limit",
+            "--compare": "is a seed sweep, not a fork"}.get(
+                feature, "--fork-from and --branches go together")
+    assert err.startswith("fleet: ") and want in err, err
+    assert feature in err or feature == "--live-endpoint"
 
 
 def test_cuda_sweep_without_a_card_exits_2(tmp_path, capsys, monkeypatch):
