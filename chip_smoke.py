@@ -97,7 +97,7 @@ failure exits non-zero:
              tpu_batch as a user runs it, again with the draw plane attached
              before round 0 (speculation runs from the start) and at
              tpu_device_floor=1; under tpu_mesh at floor 0 and at the
-             default floor; web_cdn_100k at full width to 1,000 ms. Each
+             default floor; web_cdn_100k at full width to 500 ms. Each
              gives the reference's counts, tree (and web_cdn_100k's last
              state digest) and reports native_colcore; launch counts are
              reset before each leg and read after: min_draw launches for
@@ -113,7 +113,7 @@ failure exits non-zero:
              depth; draw_flags must launch) and under thread_per_core. The
              thread_per_core legs and the user legs their ratios divide by
              are cut alike: tgen_1k to 5 s, tor_400relay to 7 s,
-             gossip_10k to 4 s; tor_400relay on the Python plane with the
+             gossip_10k to 3.5 s; tor_400relay on the Python plane with the
              device transport at floor 1 (ack_advance must launch once a
              device cohort, plus the warm-up); tgen_100host and
              tor_400relay under thread_per_host. Legs cut short of the
@@ -128,7 +128,7 @@ failure exits non-zero:
              model (FAULT_LEGS), each shipped config at full width and
              full stop time: abr_1k (1,000 hosts, 45 s) under tpu_batch as
              a user runs it and at tpu_device_floor=1, and under
-             thread_per_core cut to 8 s; web_cdn (316 hosts, 40 s) under
+             thread_per_core cut to 4 s; web_cdn (316 hosts, 40 s) under
              tpu_batch as a user runs it and at floor 1, on the Python
              plane with the device transport at floor 1, under tpu_mesh at
              tpu_mesh_floor=0, and under thread_per_core cut to 10 s (the
@@ -247,11 +247,36 @@ failure exits non-zero:
              batches served plus the attach's. Prints the served min_draw
              batches, the fork's wall against the trunk's remainder
              resumed alone, and the branches' walls.
-21. apsp path — apsp_device, the port's device-APSP entry point, on the
+21. managed — real binaries under the port's CLI (native/managed.py, the
+             shim built from csrc/shim/shim.c): the guests tgen_srv,
+             tgen_cli, ring_probe and sleep_clock built by native/Makefile's
+             targets of those names. Where the machine lacks a kernel
+             feature the guests need (memfd, process_vm_readv, seccomp
+             RET_TRAP) it prints ``managed: not run: kernel capabilities
+             missing: ...`` and is skipped; else every leg must pass.
+             managed_smoke with the shim's fast plane on and off and under
+             thread_per_core: equal summaries (less shim_fast_*), hosts
+             trees (less *.clock) and state digests, a majority of the fast
+             leg's syscalls in-shim, none of the slow leg's ring reads,
+             ring_probe's bytes=300000 and eof=1; managed_lossy
+             (packet_loss 0.01 on edge 0-1) at tpu_device_floor=1 on the C
+             engine and the Python plane, at the auto floor and under
+             tpu_mesh at tpu_mesh_floor=0: equal runs, the reference's
+             counts and guests' stdout (MANAGED_RESULTS), draw_flags
+             launched once a window and mesh_exchange once a mesh window,
+             the C-engine run's windows held against the plain version;
+             fifty_lossy (50 processes, 4 MB, floor 1): the reference's
+             results, launches = windows; managed_smoke checkpointed every
+             500 ms (re-execution snapshots) and resumed from the first:
+             equal to the uninterrupted run; proctree.yaml and bench.py's
+             real_curl_1k with every transfer validated (not run without
+             /usr/bin/curl). Prints sim-s/wall-s, controller wall,
+             phase_wall and the syscalls completed in-shim.
+22. apsp path — apsp_device, the port's device-APSP entry point, on the
              card on the three real topologies: equal to the plain version
              and to graph.py's routing tables; launches reset before, read
              after.
-22. timing  — every kernel and its plain version timed on the main paths'
+23. timing  — every kernel and its plain version timed on the main paths'
              own inputs (APSP at G = 4,096): card time per launch or call,
              with the bound for the same work; the draw kernels as the
              plane launches them (on page-locked slots, in place) and on
@@ -269,7 +294,7 @@ failure exits non-zero:
              rows, the steps of a cohort's round trip on the host, and the
              cohort size from which the card's round trip beats the numpy
              host version (the floor crossover).
-23. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
+24. trace  — examples/tgen_100host.yaml under torch.profiler on the Python
              plane, at tpu_device_floor=1 under tpu_batch and at
              tpu_mesh_floor=0 under tpu_mesh, and on the C engine at
              tpu_device_floor=1; counts and output tree must
@@ -297,6 +322,7 @@ import gc
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -338,15 +364,6 @@ WEB500_TREE_DIGEST = (
     "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855")
 WEB500_STATE_DIGEST = (
     "416f6aa8ac3fe4127ff0ef5e1cfab4f87698e06abe94d93d8fd64935b03fcd64")
-#: the C engine's web_cdn_100k leg, to 1,000 ms (312 rounds, 672,701
-#: events); 1,500 ms before the live and fork phases joined the script,
-#: which then passed 1,050 s on a slow host
-WEB1000_COUNTS = {"rounds": 312, "events": 672701, "units_sent": 685683,
-                  "units_dropped": 0, "bytes_sent": 2229790460}
-WEB1000_TREE_DIGEST = (
-    "23fb03b5b7bcaca3255def06fd72eef37633416e466d843248c45ac145e13211")
-WEB1000_STATE_DIGEST = (
-    "c5f0b66490482902899ed80cd515e56ba322793ac303e4afee212db65d002b4b")
 #: the digest of an empty hosts/ tree (no host wrote a log)
 EMPTY_TREE_DIGEST = (
     "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855")
@@ -396,11 +413,12 @@ TOR400_2S_ERRORS = (
 #: vs_baseline ratios divide by, are cut short of the stop time (the
 #: thread_per_core legs are host-bound Python and took 33-64 s each on the
 #: card's host at full depth): tgen_1k to 5 s (34 % of its events),
-#: gossip_10k to 4 s (30 %; all of them fall before 10 s of its 30 s, and
+#: gossip_10k to 3.5 s (8 %; all of them fall before 10 s of its 30 s, and
 #: only 5 % before 3 s) and tor_400relay to 7 s (25 %). tgen_1k and
 #: tor_400relay were cut to 10 s before the live and fork phases joined
-#: the script, which passed 1,050 s on a slow host. The reference's
-#: results there, from
+#: the script, which passed 1,050 s on a slow host; gossip_10k was cut
+#: from 4 s when the managed phase joined it. The reference's results
+#: there, from
 #:   python -m shadow_tpu examples/<config>.yaml --stop-time <cut> \
 #:     --scheduler-policy tpu_batch --state-digest-every <last round>
 TGEN1K_5S_COUNTS = {"rounds": 1990, "events": 75065, "units_sent": 76517,
@@ -411,12 +429,12 @@ TGEN1K_5S_STATE_DIGEST = (
     "c6256d1e36ccd66371e1dfde531c9dea4ee27e05f8d92b9ee8e7aeb2e80320fc")
 TGEN1K_5S_ERRORS = (
     848, "47eb6d82e58bdf3f7c8a05b64ef8fefa8fba3128584bce1b843c8a89e292c12c")
-GOSSIP10K_4S_COUNTS = {"rounds": 1030, "events": 396137, "units_sent": 491339,
-                       "units_dropped": 1664, "bytes_sent": 80778472}
-GOSSIP10K_4S_TREE_DIGEST = (
-    "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855")
-GOSSIP10K_4S_STATE_DIGEST = (
-    "d3a68e522e60297e9b9b2fe7937f8b7a39377797f2ce05635aa0d78e6bdf40ea")
+GOSSIP10K_35S_COUNTS = {"rounds": 780, "events": 107896,
+                        "units_sent": 170486, "units_dropped": 555,
+                        "bytes_sent": 26268976}
+GOSSIP10K_35S_TREE_DIGEST = EMPTY_TREE_DIGEST
+GOSSIP10K_35S_STATE_DIGEST = (
+    "390da8093484f0b57b697c6d324e6a79a7ee8ed4293796594396a6eb172ad46d")
 TOR400_7S_COUNTS = {"rounds": 2883, "events": 68979, "units_sent": 70479,
                     "units_dropped": 336, "bytes_sent": 325810607}
 TOR400_7S_TREE_DIGEST = (
@@ -502,23 +520,24 @@ FAULT_RESULTS = {
     },
     # the thread_per_core legs, cut short of the stop time (the name after
     # "@"): host-bound Python, 46 and 24 s at full depth on the card's host
-    "abr_1k@8s": {
-        "counts": {"rounds": 3586, "events": 356421, "units_sent": 351021,
-                   "units_dropped": 2140, "bytes_sent": 2280251959},
+    # (abr_1k was cut to 8 s until the managed phase joined the script)
+    "abr_1k@4s": {
+        "counts": {"rounds": 1586, "events": 100954, "units_sent": 100594,
+                   "units_dropped": 771, "bytes_sent": 647730137},
         "tree": "e3b0c44298fc1c149afbf4c8996fb924"
                 "27ae41e4649b934ca495991b7852b855",
-        "state": "5a332683f81b4a1b1cbcc65c08cd24c5"
-                 "de18e0e11b6a9fe1526ee414db7b0e64",
+        "state": "62e2845dc1a61affb3e53c91523ebd27"
+                 "c5336a97834561382b478ebd7a4ed1fa",
         "metrics": "e54c5f8caf91b2467d2c19f91424ec67"
                    "04d12d00112472a98f8299a92811cb65",
-        "flows": "fedb6aeddc5d28f2fbf0f3ef87c5d048"
-                 "866400b015b356af51215e064252e76c",
+        "flows": "68bb564b6a5b5b10bfa1bf51e13b852d"
+                 "f8ef4e25fa23e89d35f2d0f8029e208e",
         "faults": 0,
-        "telemetry": {"samples": 0, "flows_recorded": 5930, "flows": {
-            "abr.segment": {"count": 5930, "ok": 5930, "failed": 0,
-                            "x_mean": 1423979, "p50_ms": 637.534,
-                            "p90_ms": 1107.296, "p99_ms": 2147.484,
-                            "p99_9_ms": 2952.79}}},
+        "telemetry": {"samples": 0, "flows_recorded": 1703, "flows": {
+            "abr.segment": {"count": 1703, "ok": 1703, "failed": 0,
+                            "x_mean": 1285437, "p50_ms": 570.425,
+                            "p90_ms": 939.524, "p99_ms": 1912.603,
+                            "p99_9_ms": 2080.375}}},
     },
     "web_cdn@10s": {
         "counts": {"rounds": 4392, "events": 53841, "units_sent": 49403,
@@ -601,15 +620,16 @@ POLICY_LEGS = (
     ("tgen_1k thread_per_host cut 2s", "tgen_1k.yaml", "thread_per_host",
      _CUT_2S + [str(TGEN1K_2S_COUNTS["rounds"])], TGEN1K_2S_COUNTS,
      TGEN1K_2S_TREE_DIGEST, TGEN1K_2S_STATE_DIGEST, TGEN1K_2S_ERRORS),
-    ("gossip_10k tpu_batch user cut 4s", "gossip_10k.yaml", "tpu_batch",
-     _cut("4s", GOSSIP10K_4S_COUNTS), GOSSIP10K_4S_COUNTS,
-     GOSSIP10K_4S_TREE_DIGEST, GOSSIP10K_4S_STATE_DIGEST, None),
+    ("gossip_10k tpu_batch user cut 3.5s", "gossip_10k.yaml", "tpu_batch",
+     _cut("3500ms", GOSSIP10K_35S_COUNTS), GOSSIP10K_35S_COUNTS,
+     GOSSIP10K_35S_TREE_DIGEST, GOSSIP10K_35S_STATE_DIGEST, None),
     ("gossip_10k tpu_batch floor1", "gossip_10k.yaml", "tpu_batch",
      _DIG_GOSSIP + _FLOOR1, GOSSIP10K_COUNTS, EMPTY_TREE_DIGEST,
      GOSSIP10K_STATE_DIGEST, None),
-    ("gossip_10k thread_per_core cut 4s", "gossip_10k.yaml",
-     "thread_per_core", _cut("4s", GOSSIP10K_4S_COUNTS), GOSSIP10K_4S_COUNTS,
-     GOSSIP10K_4S_TREE_DIGEST, GOSSIP10K_4S_STATE_DIGEST, None),
+    ("gossip_10k thread_per_core cut 3.5s", "gossip_10k.yaml",
+     "thread_per_core", _cut("3500ms", GOSSIP10K_35S_COUNTS),
+     GOSSIP10K_35S_COUNTS, GOSSIP10K_35S_TREE_DIGEST,
+     GOSSIP10K_35S_STATE_DIGEST, None),
     ("tor_400relay tpu_batch user cut 7s", "tor_400relay.yaml", "tpu_batch",
      _cut("7s", TOR400_7S_COUNTS), TOR400_7S_COUNTS,
      TOR400_7S_TREE_DIGEST, TOR400_7S_STATE_DIGEST, TOR400_7S_ERRORS),
@@ -642,7 +662,7 @@ POLICY_LEGS = (
 FAULT_LEGS = (
     ("abr_1k tpu_batch user", "abr_1k", "tpu_batch", []),
     ("abr_1k tpu_batch floor1", "abr_1k", "tpu_batch", _FLOOR1),
-    ("abr_1k thread_per_core cut 8s", "abr_1k@8s", "thread_per_core", []),
+    ("abr_1k thread_per_core cut 4s", "abr_1k@4s", "thread_per_core", []),
     ("web_cdn tpu_batch user", "web_cdn", "tpu_batch", []),
     ("web_cdn tpu_batch floor1", "web_cdn", "tpu_batch", _FLOOR1),
     ("web_cdn device transport floor1", "web_cdn", "tpu_batch",
@@ -1701,7 +1721,7 @@ def transport_path(cli, tk, dt, digest, tmp: str) -> tuple:
     return launches, recorded
 
 
-# -- phase 22: kernel times on the main paths' inputs -------------------------
+# -- phase 23: kernel times on the main paths' inputs -------------------------
 
 def lanes_needed(torch, prop, x, key, width: int, early_exit: bool) -> int:
     """Threefry evaluations the kernel needs for these inputs: every lane
@@ -2782,7 +2802,7 @@ def check_apsp_kernels(torch, np, apsp, dev) -> int:
     return err
 
 
-# -- phase 21: the device-APSP entry point ------------------------------------
+# -- phase 22: the device-APSP entry point ------------------------------------
 
 def apsp_path(np, apsp) -> int:
     """apsp_device, the port's device-APSP entry point, on the card for
@@ -2876,9 +2896,10 @@ def engine_path(cli, prop, mesh, digest, tmp: str) -> tuple:
     with the plane attached before round 0 (a second auto run in one
     process finds it cached: speculation runs from the start), and at
     tpu_device_floor=1; under tpu_mesh at tpu_mesh_floor=0 and at the
-    default floor; web_cdn_100k at full width to 1,000 ms as a user runs
-    it. Launch counts are reset just before each leg and read just after.
-    Each leg must give the reference's counts and tree (and, for
+    default floor; web_cdn_100k at full width to 500 ms as a user runs
+    it (1,000 ms until the managed phase joined the script). Launch
+    counts are reset just before each leg and read just after. Each leg
+    must give the reference's counts and tree (and, for
     web_cdn_100k, last state digest), report that the engine ran, and
     launch what its path launches: min_draw beyond its warm-up on the
     cached leg, draw_flags on the floor-1 leg, mesh_exchange once per
@@ -2899,10 +2920,10 @@ def engine_path(cli, prop, mesh, digest, tmp: str) -> tuple:
          TGEN1K_TREE_DIGEST, None),
         ("tgen_1k tpu_mesh default", tgen, "tpu_mesh", [], TGEN1K_COUNTS,
          TGEN1K_TREE_DIGEST, None),
-        ("web_cdn_100k user 1000ms", str(EXAMPLES / "web_cdn_100k.yaml"),
-         "tpu_batch", ["--stop-time", "1000ms", "--state-digest-every",
-                       str(WEB1000_COUNTS["rounds"])], WEB1000_COUNTS,
-         WEB1000_TREE_DIGEST, WEB1000_STATE_DIGEST),
+        ("web_cdn_100k user 500ms", str(EXAMPLES / "web_cdn_100k.yaml"),
+         "tpu_batch", ["--stop-time", "500ms", "--state-digest-every",
+                       str(WEB500_COUNTS["rounds"])], WEB500_COUNTS,
+         WEB500_TREE_DIGEST, WEB500_STATE_DIGEST),
     )
     total = {k: 0 for k in ("draw_flags", "min_draw", "mesh_exchange")}
     summaries, waves = {}, []
@@ -4330,15 +4351,44 @@ def live_user_pair(cli, prop, digest, tmp: str, device: str) -> None:
           f"tree (the reference's)", flush=True)
 
 
+@contextlib.contextmanager
+def held_for_first_command(timeout: float = 300.0):
+    """Runs started inside hold at their first round boundary until a
+    live command has arrived (``LiveServer.poll_commands`` with a
+    timeout, as a paused run waits). gossip_churn's 25 s take well under
+    a second of wall on the C engine, less than a ``live send`` process
+    needs to start, so without the hold the run may end before the
+    command lands. The hold is wall time only: the command applies at
+    the boundary the run records in commands.jsonl, which the replay
+    repeats."""
+    from shadow_tpu_torch import live as lv
+
+    poll = lv.LiveServer.poll_commands
+    first = [True]
+
+    def poll_held(self, timeout_=0.0):
+        if first[0]:
+            first[0] = False
+            return poll(self, timeout=timeout)
+        return poll(self, timeout_)
+
+    lv.LiveServer.poll_commands = poll_held
+    try:
+        yield
+    finally:
+        lv.LiveServer.poll_commands = poll
+
+
 def live_ci_leg(cli, digest, tmp: str, device: str) -> None:
     """The reference CI's live-ops leg (tools/ci.sh) through the port's
     CLI on ``device`` (the runs in this process, the follower and the
     sender as the CI's own processes): a follower on ``live tail``,
-    gossip_churn (25 s, tpu_batch) with an endpoint, a link_down through
-    ``live send`` once the follower is attached, then a replay of its
-    commands.jsonl: the same hashes (hosts/, commands, flows, metrics,
-    digests), three heartbeats or more, a sample, the applied command and
-    the end record at the follower."""
+    gossip_churn (25 s, tpu_batch) with an endpoint, held at its first
+    boundary until a link_down sent through ``live send`` once the
+    follower is attached has arrived, then a replay of its commands.jsonl:
+    the same hashes (hosts/, commands, flows, metrics, digests), three
+    heartbeats or more, a sample, the applied command and the end record
+    at the follower."""
     run, rep = os.path.join(tmp, "ci_live"), os.path.join(tmp, "ci_replay")
     sock = short_socket()
     tail_path = os.path.join(tmp, "ci_live_tail.jsonl")
@@ -4359,10 +4409,12 @@ def live_ci_leg(cli, digest, tmp: str, device: str) -> None:
     sender.start()
     # at 25 s gossip members may end with process errors (exit 1), as in
     # the CI, which takes the hashes as its gate
-    live = run_cli(cli, ["examples/gossip_churn.yaml", "--data-directory",
-                         run, "--device", device, "--live-endpoint", sock,
-                         "--set", "general.heartbeat_interval=2s",
-                         *LIVE_CI_ARGV], cut=True)
+    with held_for_first_command():
+        live = run_cli(cli, ["examples/gossip_churn.yaml",
+                             "--data-directory", run, "--device", device,
+                             "--live-endpoint", sock, "--set",
+                             "general.heartbeat_interval=2s", *LIVE_CI_ARGV],
+                       cut=True)
     sender.join(timeout=600)
     tail.wait(timeout=120)
     shutil.rmtree(os.path.dirname(sock), ignore_errors=True)
@@ -4370,6 +4422,9 @@ def live_ci_leg(cli, digest, tmp: str, device: str) -> None:
     if r is None or r.returncode != 0 or \
             json.loads(r.stdout).get("type") != "ack":
         fail(f"live CI leg: send {r and (r.returncode, r.stdout, r.stderr)}")
+    if not Path(run, "commands.jsonl").is_file():
+        fail("live CI leg: the acked link_down was never applied (no "
+             "commands.jsonl)")
     replay = run_cli(cli, ["examples/gossip_churn.yaml", "--data-directory",
                            rep, "--device", device, "--replay-commands",
                            os.path.join(run, "commands.jsonl"),
@@ -4622,7 +4677,532 @@ def fork_path(cli, prop, digest, tmp: str, device: str = "cuda") -> dict:
     return fork_tgen_leg(cli, prop, digest, tmp, device)
 
 
-# -- phases 7-9, 11-20 and 23: the port's CLI on the card -------------------
+# -- phase 21: managed processes ----------------------------------------------
+
+#: the guest programs the managed phase runs, built by native/Makefile's
+#: targets of these names (never its ``all``, which builds the
+#: reference's C engine into shadow_tpu/)
+MANAGED_GUESTS = ("tgen_srv", "tgen_cli", "ring_probe", "sleep_clock")
+#: edge 0-1 of managed_smoke and fifty_lossy, and the same with loss: the
+#: lossy documents send the guests' packets through the draw plane
+_EDGE01 = 'edge [ source 0 target 1 latency "20 ms" ]'
+_EDGE01_LOSSY = 'edge [ source 0 target 1 latency "20 ms" packet_loss 0.01 ]'
+#: the reference's results on the managed documents (``python -m
+#: shadow_tpu <doc> --scheduler-policy tpu_batch``, the guests' stdout
+#: hashed by guest_stdout_digest; identical under tpu_mesh, at every floor
+#: and with the shim's fast plane on or off). Not ``syscalls``: the count
+#: of a guest's syscalls depends on the machine's libc.
+MANAGED_RESULTS = {
+    "managed_smoke": {
+        "counts": {"rounds": 46, "events": 44, "units_sent": 41,
+                   "units_dropped": 0, "bytes_sent": 301648},
+        "stdout": "9265bbeef1c2a3c8d40003dd7bf3a970"
+                  "e7cc2bf2cdddf553db5c7ae174a04778"},
+    "managed_lossy": {
+        "counts": {"rounds": 46, "events": 44, "units_sent": 41,
+                   "units_dropped": 0, "bytes_sent": 301648},
+        "stdout": "9265bbeef1c2a3c8d40003dd7bf3a970"
+                  "e7cc2bf2cdddf553db5c7ae174a04778"},
+    "fifty_lossy": {
+        "counts": {"rounds": 842, "events": 920, "units_sent": 806,
+                   "units_dropped": 27, "bytes_sent": 4082560},
+        "stdout": "b59066083f1e38bfb8a598e0efddfde8"
+                  "b84155db10c550fca75af52be21cbc2a"},
+}
+#: the port's draw windows on the lossy documents at tpu_device_floor 1
+#: with no state digest (its forced floor never moves; the reference's,
+#: 21 and 207 on an unloaded host, backs off after slow window reads)
+MANAGED_FLOOR1_WINDOWS = {"managed_lossy": 21, "fifty_lossy": 207}
+#: real_curl_1k (bench.py): 50 CPython http.server hosts, 200 distro curl
+#: clients, 5 fetches of 50 kB each, 60 s on a 64-node random graph
+CURL_1K = {"servers": 50, "clients": 200, "fetches": 5, "bytes": 50_000}
+CURL = Path("/usr/bin/curl")
+
+
+def managed_doc(name: str, build) -> dict:
+    """A managed document, its guests from ``build``: managed_smoke
+    (examples/managed_smoke.yaml), managed_lossy (the same with
+    packet_loss 0.01 on edge 0-1), fifty_lossy (the reference's 50-process
+    scale config of tests/test_native_shim.py, 10 tgen_srv x 4 connections
+    and 40 tgen_cli x 100 kB, with the same loss on edge 0-1) and proctree
+    (examples/proctree.yaml: httpd, curl, a shell pipeline)."""
+    import yaml
+
+    build = Path(build)
+    if name in ("managed_smoke", "managed_lossy"):
+        text = (EXAMPLES / "managed_smoke.yaml").read_text().replace(
+            "path: native/build/", f"path: {build}/")
+        if name == "managed_lossy":
+            text = text.replace(_EDGE01, _EDGE01_LOSSY)
+        return yaml.safe_load(text)
+    if name == "proctree":
+        # The example names its helper binaries by an absolute path
+        # ending in native/build/; point that prefix at this build.
+        text = re.sub(r"/\S*?/native/build/", lambda _m: f"{build}/",
+                      (EXAMPLES / "proctree.yaml").read_text())
+        return yaml.safe_load(text)
+    if name != "fifty_lossy":
+        raise ValueError(f"unknown managed document {name!r}")
+    hosts = {}
+    for i in range(10):
+        hosts[f"srv{i}"] = {
+            "network_node_id": 0, "ip_addr": f"11.0.0.{i + 1}",
+            "processes": [{"path": str(build / "tgen_srv"),
+                           "args": ["8080", "4"],
+                           "expected_final_state": {"exited": 0}}]}
+    for i in range(40):
+        hosts[f"cli{i}"] = {
+            "network_node_id": 1,
+            "processes": [{"path": str(build / "tgen_cli"),
+                           "args": [f"11.0.0.{(i % 10) + 1}", "8080",
+                                    "100000"],
+                           "start_time": f"{1000 + i * 37} ms",
+                           "expected_final_state": {"exited": 0}}]}
+    return {
+        "general": {"stop_time": "30s", "seed": 11},
+        "network": {"graph": {"type": "gml", "inline": f"""graph [
+  directed 0
+  node [ id 0 host_bandwidth_up "1 Gbit" host_bandwidth_down "1 Gbit" ]
+  node [ id 1 host_bandwidth_up "1 Gbit" host_bandwidth_down "1 Gbit" ]
+  edge [ source 0 target 1 latency "20 ms" packet_loss 0.01 ]
+  edge [ source 0 target 0 latency "2 ms" ]
+  edge [ source 1 target 1 latency "2 ms" ]
+]"""}},
+        "hosts": hosts,
+    }
+
+
+def curl_1k_doc(docroot) -> dict:
+    """bench.py's real_curl_1k document (CURL_1K), its body in
+    ``docroot``: the same graph (tools/gen_benchmarks.random_gml from seed
+    17), hosts, start times and seed."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from gen_benchmarks import random_gml
+
+    n_servers, n_clients = CURL_1K["servers"], CURL_1K["clients"]
+    rng = np.random.default_rng(17)
+    g = 64
+    gml = random_gml(rng, g, min_lat_ms=5, max_lat_ms=60, max_loss=0.0,
+                     bw_choices=("50 Mbit", "100 Mbit", "1 Gbit"))
+    Path(docroot).mkdir(parents=True, exist_ok=True)
+    (Path(docroot) / "data.bin").write_bytes(b"x" * CURL_1K["bytes"])
+    hosts = {}
+    for i in range(n_servers):
+        hosts[f"web{i}"] = {
+            "network_node_id": int(rng.integers(0, g)),
+            "ip_addr": f"12.0.0.{i + 1}",
+            "processes": [{
+                "path": sys.executable,
+                "args": ["-u", "-m", "http.server", "--directory",
+                         str(docroot), "--bind", "0.0.0.0", "8080"],
+                "expected_final_state": "running"}]}
+    for i in range(n_clients):
+        urls = [f"http://12.0.0.{(i + k) % n_servers + 1}:8080/data.bin"
+                for k in range(CURL_1K["fetches"])]
+        hosts[f"cli{i}"] = {
+            "network_node_id": int(rng.integers(0, g)),
+            "processes": [{
+                "path": str(CURL),
+                "args": (["-s", "-o", "/dev/null", "-w",
+                          "code=%{http_code} bytes=%{size_download}\\n"]
+                         + urls),
+                "start_time": f"{2000 + i * 97} ms",
+                "expected_final_state": {"exited": 0}}]}
+    return {"general": {"stop_time": "60s", "seed": 23},
+            "network": {"graph": {"type": "gml", "inline": gml}},
+            "hosts": hosts}
+
+
+def build_guests(build=None) -> Path:
+    """Build MANAGED_GUESTS with native/Makefile (into native/build/, or
+    ``build``); returns the directory. Raises with make's output."""
+    out = Path(build if build is not None else ROOT / "native" / "build")
+    # BUILD spelled as the targets are: make matches a target by its name
+    cmd = ["make", "-C", str(ROOT / "native"), f"BUILD={out}"]
+    r = subprocess.run(cmd + [str(out / g) for g in MANAGED_GUESTS],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"building the guests failed: {' '.join(cmd)}\n"
+                           f"{r.stdout}{r.stderr}")
+    return out
+
+
+def write_doc(doc: dict, path) -> str:
+    """Write ``doc`` as YAML in its own key order (the hosts' order is
+    their ids'), returning the path."""
+    import yaml
+
+    Path(path).write_text(yaml.safe_dump(doc, sort_keys=False))
+    return str(path)
+
+
+def hosts_digest(data_dir, suffix: str = None) -> str:
+    """sha256 over the hosts/ tree (relative path and content, sorted),
+    less the guests' ``*.clock`` pages (the shim's live scratch page, as
+    the reference's tools/ci.sh leaves them out); only the files ending in
+    ``suffix`` when given."""
+    import hashlib
+
+    base = Path(data_dir)
+    h = hashlib.sha256()
+    for p in sorted((base / "hosts").rglob("*")):
+        if not p.is_file() or p.name.endswith(".clock"):
+            continue
+        if suffix is not None and not p.name.endswith(suffix):
+            continue
+        h.update(str(p.relative_to(base)).encode() + b"\0")
+        h.update(hashlib.sha256(p.read_bytes()).digest())
+    return h.hexdigest()
+
+
+def guest_stdout_digest(data_dir) -> str:
+    """The guests' stdout, as hosts_digest hashes it."""
+    return hosts_digest(data_dir, ".stdout")
+
+
+def managed_stable(summary: dict, volatile) -> dict:
+    """A managed run's summary less wall-clock telemetry and the
+    ``shim_fast_*`` counters (where a syscall completed, which the shim's
+    fast plane decides, not what the simulation did)."""
+    out = {k: v for k, v in summary.items() if k not in volatile}
+    out["counters"] = {k: v for k, v in summary["counters"].items()
+                       if not k.startswith("shim_fast_")}
+    return out
+
+
+@contextlib.contextmanager
+def shim_fast_plane(on: bool):
+    """Switch the shim's fast plane for the runs in the block
+    (SHADOW_TPU_SHIM_FASTPATH, which native/managed.py reads at import)."""
+    from shadow_tpu_torch.native import managed
+
+    was = managed._FASTPATH_ON
+    managed._FASTPATH_ON = on
+    try:
+        yield
+    finally:
+        managed._FASTPATH_ON = was
+
+
+def managed_run(cli, doc_path: str, d: str, device: str, extra=()) -> dict:
+    s = run_cli(cli, [doc_path, "--device", device, "--data-directory", d,
+                      *extra])
+    if s["process_errors"]:
+        fail(f"managed {doc_path} {list(extra)}: process errors "
+             f"{s['process_errors'][:3]}")
+    return s
+
+
+def managed_identity(a: dict, b: dict, da: str, db: str, what: str,
+                     volatile) -> None:
+    """Two managed runs gave the same summary (less volatile keys and
+    shim_fast_*), hosts tree (less *.clock) and state digest stream."""
+    if managed_stable(a, volatile) != managed_stable(b, volatile):
+        fail(f"{what}: summaries differ: "
+             f"{managed_stable(a, volatile)} != {managed_stable(b, volatile)}")
+    if hosts_digest(da) != hosts_digest(db):
+        fail(f"{what}: hosts trees differ")
+    sa, sb = (Path(x, "state_digests.jsonl") for x in (da, db))
+    if sa.exists() != sb.exists() or (
+            sa.exists() and sa.read_bytes() != sb.read_bytes()):
+        fail(f"{what}: state digest streams differ")
+
+
+def check_managed_result(s: dict, d: str, name: str) -> None:
+    want = MANAGED_RESULTS[name]
+    got = {k: s[k] for k in want["counts"]}
+    if got != want["counts"]:
+        fail(f"{name}: counts {got} != reference {want['counts']}")
+    if guest_stdout_digest(d) != want["stdout"]:
+        fail(f"{name}: the guests' stdout {guest_stdout_digest(d)} != "
+             f"reference {want['stdout']}")
+
+
+def check_windows_against_plain(torch, prop, windows) -> int:
+    """The draws of recorded floor-1 windows: draw_flags on the card
+    against its plain version on the same inputs, bit for bit. Returns the
+    largest absolute error."""
+    err = 0
+    for x, key, width, n in windows:
+        got = prop.draw_flags(x, key, width, n)
+        want = prop.draw_flags_plain(x.cpu(), key, width, n)
+        err = max(err, abs_err(torch, got.cpu(), want))
+    return err
+
+
+def managed_path(cli, prop, mesh, tmp: str, device: str = "cuda",
+                 curl: bool = True) -> tuple:
+    """Phase 21: real binaries under the port's CLI on ``device``. Returns
+    (launches, the largest error of the recorded windows' draws), or
+    (None, None) where the machine lacks a kernel feature the guests need
+    (printed by name). ``curl``: run real_curl_1k too."""
+    import torch
+
+    from shadow_tpu_torch import native
+    from shadow_tpu_torch.core.controller import VOLATILE_SUMMARY_KEYS as vol
+    from shadow_tpu_torch.native import managed
+
+    missing = managed.missing_kernel_features()
+    if missing:
+        print(f"managed: not run: kernel capabilities missing: "
+              f"{', '.join(missing)}", flush=True)
+        return None, None
+    t0 = time.perf_counter()
+    build = build_guests()
+    shim = native.shim_lib()
+    print(f"managed: guests {list(MANAGED_GUESTS)} and the shim ({shim.name}"
+          f") ready in {time.perf_counter() - t0:.2f} s; fds 932-995 free "
+          f"in this process: {managed_fds_free()}", flush=True)
+    docs = {n: write_doc(managed_doc(n, build),
+                         os.path.join(tmp, f"{n}.yaml"))
+            for n in ("managed_smoke", "managed_lossy", "fifty_lossy",
+                      "proctree")}
+    total = {"draw_flags": 0, "min_draw": 0, "mesh_exchange": 0}
+    tb = ["--scheduler-policy", "tpu_batch"]
+
+    def counted(fn):
+        gc.collect()
+        prop.reset_launches()
+        mesh.reset_launches()
+        out = fn()
+        n = {**prop.LAUNCHES, "mesh_exchange": mesh.LAUNCHES["mesh_exchange"]}
+        for k in total:
+            total[k] += n[k]
+        return out, n
+
+    # leg 1: managed_smoke with the fast plane on and off, and under
+    # thread_per_core
+    runs = {}
+    for label, on, pol in (("fast", True, "tpu_batch"),
+                           ("slow", False, "tpu_batch"),
+                           ("thread_per_core", True, "thread_per_core")):
+        d = os.path.join(tmp, f"msmoke_{label}")
+        with shim_fast_plane(on):
+            runs[label] = (managed_run(
+                cli, docs["managed_smoke"], d, device,
+                ["--scheduler-policy", pol, "--state-digest-every", "5"]), d)
+    (fast, df), (slow, ds), (tpc, dt) = (runs[k] for k in (
+        "fast", "slow", "thread_per_core"))
+    managed_identity(fast, slow, df, ds, "managed_smoke fast/slow", vol)
+    managed_identity(fast, tpc, df, dt, "managed_smoke tpu_batch/"
+                     "thread_per_core", vol)
+    c = fast["counters"]
+    if not c.get("shim_fast_syscalls", 0) * 2 > c["syscalls"]:
+        fail(f"managed_smoke: {c.get('shim_fast_syscalls', 0)} of "
+             f"{c['syscalls']} syscalls in-shim on the fast leg")
+    if slow["counters"].get("shim_fast_ring_read", 0) != 0:
+        fail(f"managed_smoke: the slow leg read {slow['counters']} in-shim")
+    out = Path(df, "hosts", "client", "ring_probe.0.stdout").read_text()
+    if "bytes=300000" not in out or "eof=1" not in out:
+        fail(f"managed_smoke: ring_probe printed {out!r}")
+    check_managed_result(fast, df, "managed_smoke")
+    print(f"managed_smoke: fast plane on = off = thread_per_core (summary "
+          f"less shim_fast_*, hosts tree less *.clock, state digests); "
+          f"{c['shim_fast_syscalls']}/{c['syscalls']} syscalls in-shim on "
+          f"the fast leg; ring_probe {out.strip()!r}; controller "
+          f"{fast['wall_seconds']:.3f} s fast, {slow['wall_seconds']:.3f} s "
+          f"slow", flush=True)
+
+    # leg 2: managed_lossy on both engines at floor 1, auto, tpu_mesh
+    lossy = {}
+    windows = []
+    for label, extra in (
+            ("tpu_batch floor 1 C engine", tb + _FLOOR1),
+            ("tpu_batch floor 1 Python plane", tb + _FLOOR1 + PY_PLANE),
+            ("tpu_batch auto", tb),
+            ("tpu_mesh floor 0", ["--scheduler-policy", "tpu_mesh", "--set",
+                                  "experimental.tpu_mesh_floor=0"])):
+        d = os.path.join(tmp, "mlossy_" + label.replace(" ", "_"))
+        argv = extra  # no state digest: its flushes would split windows
+        if label.endswith("C engine") and device == "cuda":
+            with recording_draws(prop, "draw_flags") as windows:
+                s, n = counted(lambda: managed_run(
+                    cli, docs["managed_lossy"], d, device, argv))
+        else:
+            s, n = counted(lambda: managed_run(
+                cli, docs["managed_lossy"], d, device, argv))
+        check_managed_result(s, d, "managed_lossy")
+        lossy[label] = (s, d)
+        if device == "cuda" and "floor 1" in label and not (
+                n["draw_flags"] == s["device_windows_dispatched"] > 0):
+            fail(f"managed_lossy {label}: draw_flags launched "
+                 f"{n['draw_flags']} times for "
+                 f"{s['device_windows_dispatched']} windows")
+        if device == "cuda" and "tpu_mesh" in label and not (
+                n["mesh_exchange"] == s["phase_wall"]["mesh_windows"] > 0):
+            fail(f"managed_lossy {label}: mesh_exchange launched "
+                 f"{n['mesh_exchange']} times for "
+                 f"{s['phase_wall']['mesh_windows']} windows")
+        if "floor 1" in label and s["device_windows_dispatched"] != \
+                MANAGED_FLOOR1_WINDOWS["managed_lossy"]:
+            fail(f"managed_lossy {label}: {s['device_windows_dispatched']} "
+                 f"windows, not {MANAGED_FLOOR1_WINDOWS['managed_lossy']}")
+        print(f"managed_lossy ({label}): counts and guests' stdout match "
+              f"the reference; windows {s['device_windows_dispatched']}, "
+              f"mesh windows {s['phase_wall'].get('mesh_windows', 0)}, "
+              f"launches {json.dumps(n)}, controller "
+              f"{s['wall_seconds']:.3f} s, "
+              f"{s['sim_sec_per_wall_sec']:.3f} sim-s/wall-s", flush=True)
+    (s0, d0), *rest = lossy.values()
+    for (s1, d1), label in zip(rest, list(lossy)[1:]):
+        managed_identity(s0, s1, d0, d1, f"managed_lossy {label}", vol)
+    err = None
+    if device == "cuda":
+        if not windows:
+            fail("managed_lossy: the floor-1 run handed draw_flags no window")
+        err = check_windows_against_plain(torch, prop, windows)
+        if err:
+            fail(f"managed_lossy: draw_flags differs from its plain version "
+                 f"by {err} on the run's windows")
+        print(f"managed_lossy: the {len(windows)} floor-1 windows' draws "
+              f"equal the plain version's (max abs err 0)", flush=True)
+
+    # leg 3: fifty_lossy, 50 real processes at floor 1
+    d = os.path.join(tmp, "fifty_lossy")
+    t0 = time.perf_counter()
+    s, n = counted(lambda: managed_run(cli, docs["fifty_lossy"], d, device,
+                                       tb + _FLOOR1))
+    wall = time.perf_counter() - t0
+    check_managed_result(s, d, "fifty_lossy")
+    if s["device_windows_dispatched"] != MANAGED_FLOOR1_WINDOWS[
+            "fifty_lossy"]:
+        fail(f"fifty_lossy: {s['device_windows_dispatched']} windows, not "
+             f"{MANAGED_FLOOR1_WINDOWS['fifty_lossy']}")
+    if device == "cuda" and not (
+            n["draw_flags"] == s["device_windows_dispatched"] > 0):
+        fail(f"fifty_lossy: draw_flags launched {n['draw_flags']} times for "
+             f"{s['device_windows_dispatched']} windows")
+    c = s["counters"]
+    print(f"fifty_lossy (50 processes, tpu_batch floor 1): counts and "
+          f"guests' stdout match the reference; windows "
+          f"{s['device_windows_dispatched']}, launches {json.dumps(n)}; "
+          f"{s['sim_sec_per_wall_sec']:.3f} sim-s/wall-s, controller "
+          f"{s['wall_seconds']:.3f} s of {wall:.3f} s; syscalls "
+          f"{c['syscalls']} ({c.get('shim_fast_syscalls', 0)} in-shim); "
+          f"phase_wall {json.dumps(s['phase_wall'])}", flush=True)
+
+    # the observation journal's cost: fifty_lossy again with every guest
+    # journaled (SHADOW_TPU_GUEST_JOURNAL=1; off by default without a
+    # checkpoint cadence), the same results
+    dj = os.path.join(tmp, "fifty_lossy_journal")
+    os.environ["SHADOW_TPU_GUEST_JOURNAL"] = "1"
+    try:
+        sj, _ = counted(lambda: managed_run(cli, docs["fifty_lossy"], dj,
+                                            device, tb + _FLOOR1))
+    finally:
+        del os.environ["SHADOW_TPU_GUEST_JOURNAL"]
+    managed_identity(s, sj, d, dj, "fifty_lossy journaled", vol)
+    if not list(Path(dj, "guest_oplogs").glob("*.jsonl")):
+        fail("fifty_lossy journaled: no guest journal written")
+    print(f"fifty_lossy with every guest journaled: the same results; "
+          f"controller {sj['wall_seconds']:.3f} s against "
+          f"{s['wall_seconds']:.3f} s without", flush=True)
+
+    # leg 4: a re-execution checkpoint of managed_smoke, resumed
+    ck_runs = {}
+    ck_dir = os.path.join(tmp, "mckpt_src")
+    for label, extra in (("full", []), ("src", ["--checkpoint-every",
+                                                "500ms"])):
+        dd = os.path.join(tmp, f"mckpt_{label}")
+        ck_runs[label] = (managed_run(
+            cli, docs["managed_smoke"], dd, device,
+            tb + ["--state-digest-every", "5", *extra]), dd)
+    cks = sorted(Path(ck_dir, "checkpoints").glob("ckpt_*.ckpt"))
+    if not cks:
+        fail("managed checkpoint: the source run wrote no checkpoint")
+    header = json.loads(cks[0].read_text().splitlines()[0])
+    payload = json.loads(cks[0].read_text().splitlines()[1])
+    from shadow_tpu_torch import checkpoint as _ckpt
+
+    if (header.get("mode"), header.get("managed"), header.get("format"),
+            header.get("version")) != ("reexec", True, _ckpt.FORMAT,
+                                       _ckpt.VERSION) or not payload.get(
+                                           "cursors"):
+        fail(f"managed checkpoint: header {header}, cursors "
+             f"{payload.get('cursors')}")
+    (sf, dfull) = ck_runs["full"]
+    managed_identity(sf, ck_runs["src"][0], dfull, ck_runs["src"][1],
+                     "managed checkpoint: the checkpointing run", vol)
+    walls = []
+    for i, ck in enumerate(cks):
+        dd = os.path.join(tmp, f"mckpt_resume{i}")
+        t0 = time.perf_counter()
+        s = managed_run(cli, docs["managed_smoke"], dd, device,
+                        tb + ["--state-digest-every", "5", "--resume-from",
+                              str(ck)])
+        walls.append(round(time.perf_counter() - t0, 3))
+        managed_identity(sf, s, dfull, dd, f"managed checkpoint: the "
+                         f"resume from {ck.name}", vol)
+    print(f"managed checkpoint: {len(cks)} re-execution snapshots "
+          f"(format {header['format']} version {header['version']}, "
+          f"{len(payload['cursors'])} guest cursors in the first); each "
+          f"resume equals the uninterrupted run (summary, hosts tree, "
+          f"state digests), walls {walls} s", flush=True)
+
+    # leg 5: proctree and real_curl_1k
+    if not CURL.exists():
+        print("managed proctree: not run: no /usr/bin/curl", flush=True)
+        print("managed real_curl_1k: not run: no /usr/bin/curl", flush=True)
+        return total, err
+    d = os.path.join(tmp, "proctree")
+    s = managed_run(cli, docs["proctree"], d, device, tb)
+    got = Path(d, "hosts", "curlbox", "curl.0.stdout").read_text()
+    sh = Path(d, "hosts", "shellbox", "sh.0.stdout").read_text()
+    if "code=200 bytes=250000" not in got or "pipeline-done" not in sh:
+        fail(f"proctree: curl printed {got!r}, the shell {sh!r}")
+    c = s["counters"]
+    print(f"proctree: curl {got.strip()!r}, the pipeline done; "
+          f"{s['sim_sec_per_wall_sec']:.3f} sim-s/wall-s, syscalls "
+          f"{c['syscalls']} ({c.get('shim_fast_syscalls', 0)} in-shim)",
+          flush=True)
+    if not curl:
+        return total, err
+    d = os.path.join(tmp, "real_curl_1k")
+    doc = write_doc(curl_1k_doc(os.path.join(tmp, "curl_docroot")),
+                    os.path.join(tmp, "real_curl_1k.yaml"))
+    t0 = time.perf_counter()
+    s, n = counted(lambda: managed_run(cli, doc, d, device, tb))
+    wall = time.perf_counter() - t0
+    want = f"code=200 bytes={CURL_1K['bytes']}"
+    ok = sum(Path(d, "hosts", f"cli{i}", "curl.0.stdout").read_text().count(
+        want) for i in range(CURL_1K["clients"]))
+    if ok != CURL_1K["clients"] * CURL_1K["fetches"]:
+        fail(f"real_curl_1k: {ok} of "
+             f"{CURL_1K['clients'] * CURL_1K['fetches']} transfers "
+             f"validated")
+    c = s["counters"]
+    print(f"real_curl_1k ({CURL_1K['servers']} http.server x "
+          f"{CURL_1K['clients']} curl x {CURL_1K['fetches']} fetches): all "
+          f"{ok} transfers code 200 with {CURL_1K['bytes']} bytes; "
+          f"{s['sim_sec_per_wall_sec']:.3f} sim-s/wall-s, controller "
+          f"{s['wall_seconds']:.3f} s of {wall:.3f} s; syscalls "
+          f"{c['syscalls']}, {c.get('shim_fast_syscalls', 0)} in-shim; "
+          f"launches {json.dumps(n)}; phase_wall "
+          f"{json.dumps(s['phase_wall'])}", flush=True)
+    return total, err
+
+
+def managed_fds_free() -> bool:
+    """The shim's fixed channel fds (932-995) are not held by anything in
+    this process (the CUDA context included), but for the reserved 995."""
+    from shadow_tpu_torch.native import managed
+
+    held = []
+    for fd in range(managed.IPC_LOW, managed.SHIM_IPC_FD):
+        try:
+            os.fstat(fd)
+            held.append(fd)
+        except OSError:
+            pass
+    if held:
+        fail(f"managed: fds {held} of the shim's channel window are held "
+             f"in the simulator process")
+    return True
+
+
+# -- phases 7-9, 11-21 and 24: the port's CLI on the card -------------------
 
 def run_cli(cli, argv: list, cut: bool = False) -> dict:
     """Run the port's CLI in this process; returns its JSON summary. A run
@@ -4771,7 +5351,7 @@ PHASES = ("kernels", "mesh kernels", "transport kernels", "apsp kernels",
           "echo", "main path", "mesh path", "mesh standalone",
           "transport path", "engine path", "policies", "faults",
           "checkpoint", "shards", "fault filter", "fleet", "live", "fork",
-          "apsp path", "timing", "trace")
+          "managed", "apsp path", "timing", "trace")
 #: phase -> the phases whose results it reads
 NEEDS = {
     "mesh standalone": ("mesh path",),
@@ -4995,6 +5575,12 @@ def main(argv=None) -> int:
 
     if do("fork"):
         add(fork_path(cli, prop, output_tree_digest, tmp))
+
+    if do("managed"):
+        n, err = managed_path(cli, prop, mesh, tmp)
+        if n is not None:
+            add(n)
+            max_err["draw_flags"] = max(max_err.get("draw_flags", 0), err)
 
     if do("apsp path"):
         launches["apsp"] += apsp_path(np, apsp)

@@ -1,9 +1,8 @@
 """Checkpoint/restore with byte-identical resume + the determinism sentinel.
 
-The port of shadow_tpu/checkpoint.py, less the reference's managed
-re-execution snapshots (managed processes are refused at config load).
-Any run can be snapshotted at a round boundary and resumed so that the
-continuation is byte-identical to the uninterrupted run — and to the
+The port of shadow_tpu/checkpoint.py, its managed re-execution snapshots
+included. Any run can be snapshotted at a round boundary and resumed so
+that the continuation is byte-identical to the uninterrupted run — and to the
 reference's — and any run can emit a canonical per-round state digest
 stream equal to the reference's (``tools/bisect_divergence.py --a REF
 --b PORT`` names the first round where two streams part).
@@ -45,7 +44,16 @@ The file's ``format`` names this package: the reference refuses a port
 checkpoint and the port refuses the reference's (their class paths
 differ).
 
-SECURITY: a checkpoint is a pickle — loading one executes code. Treat
+A config with managed (real-binary) processes cannot be pickled — its
+guests are live OS processes — so it snapshots by re-execution instead
+(``mode: "reexec"``): a JSON header and a JSON payload holding the state
+digest at the boundary, every guest's observation-journal cursor and the
+live commands applied so far. The restore rebuilds the controller from
+the config and re-runs the deterministic prefix from round 0; at the
+snapshot's boundary it verifies the digest and the cursors, and fails by
+name where they differ.
+
+SECURITY: a pickled checkpoint is a pickle — loading one executes code. Treat
 checkpoint files like the simulation configs that produced them: trusted
 local artifacts, never untrusted input.
 
@@ -77,10 +85,17 @@ from pathlib import Path
 import numpy as np
 
 FORMAT = "shadow_tpu_torch-checkpoint"
-#: the port's own format, version 1: the reference's version-5 pickle
+#: the port's own format. Version 1: the reference's version-5 pickle
 #: payload (C-engine state, SACK/congestion-control sender fields, sorted
-#: scoreboards) under this package's class paths; no re-execution mode
-VERSION = 1
+#: scoreboards) under this package's class paths. Version 2: managed
+#: (real-binary) configs checkpoint as re-execution snapshots (header
+#: ``mode: "reexec"`` + a JSON payload of state digest, per-guest journal
+#: cursors and applied live commands — no pickle); pickled payloads are
+#: unchanged. No version-1 build could save a managed run, so a
+#: managed-marked header below 2 is refused by name.
+VERSION = 2
+#: the first version that can describe a managed run
+REEXEC_VERSION = 2
 #: config keys that may legitimately differ between the checkpointing run
 #: and the resuming invocation (run-location, snapshot policy, and the
 #: data-plane implementation toggles — never simulation semantics:
@@ -340,7 +355,7 @@ def config_digest(cfg) -> str:
 
 def config_has_managed(cfg) -> bool:
     """True when any configured process is a real managed executable (not
-    ``pyapp:``)."""
+    ``pyapp:``) — such configs checkpoint as re-execution snapshots."""
     from shadow_tpu_torch.host.process import PluginProcess
 
     return any(not PluginProcess.is_plugin_path(popts.path)
@@ -375,6 +390,12 @@ def save_checkpoint(controller, now: int) -> Path:
     path = checkpoint_path(
         ckpt_dir, now,
         shard=controller.shard_id if n_shards > 1 else None)
+    if config_has_managed(controller.cfg):
+        if n_shards > 1:
+            raise CheckpointError(
+                "managed re-execution checkpoints are single-process only "
+                "(sim_shards=1); sharded managed runs cannot checkpoint")
+        return _save_reexec(controller, now, path)
     # C-engine fingerprint: when the engine is attached the payload
     # carries C-exported state, and resuming it on another engine build
     # must fail fast by name instead of diverging silently
@@ -411,6 +432,51 @@ def save_checkpoint(controller, now: int) -> Path:
     return path
 
 
+def _save_reexec(controller, now: int, path: Path) -> Path:
+    """Write a re-execution snapshot (format version 2) for a managed
+    config: a JSON header + JSON payload (no pickle). The payload pins everything the
+    restore must reproduce and verify — the round cursor, the canonical
+    state digest at this boundary, each guest's journal cursor, and the
+    live commands applied so far (embedded so the restore re-applies them
+    at the same boundaries without needing the original run directory)."""
+    g, hosts = state_digest(controller, now)
+    commands = []
+    cmd_log = Path(controller.data_dir) / "commands.jsonl"
+    if cmd_log.is_file():
+        from shadow_tpu_torch.live import load_command_log
+
+        commands = [r for r in load_command_log(cmd_log) if r["t"] <= now]
+    header = {
+        "format": FORMAT,
+        "version": VERSION,
+        "mode": "reexec",
+        "managed": True,
+        "python": list(sys.version_info[:2]),
+        "sim_time_ns": now,
+        "rounds": controller.rounds,
+        "events": controller.events,
+        "config_digest": config_digest(controller.cfg),
+        "colcore": None,  # no exported C state rides a reexec snapshot
+        "sim_shards": 1,
+    }
+    payload = {
+        "digest": g,
+        "hosts": hosts,
+        "cursors": controller.guest_journal_cursors(),
+        "commands": commands,
+    }
+    tmp = path.with_suffix(".tmp")
+    try:
+        with open(tmp, "wb") as f:
+            f.write(json.dumps(header, sort_keys=True).encode() + b"\n")
+            f.write(json.dumps(payload, sort_keys=True).encode() + b"\n")
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
+    os.replace(tmp, path)
+    return path
+
+
 def read_header(path) -> dict:
     with open(path, "rb") as f:
         line = f.readline()
@@ -439,10 +505,23 @@ def load_checkpoint(path, cfg=None, mirror_log: bool = True,
     resume invocation's: the data-plane kernels reattach there.
     """
     header = read_header(path)
+    if header.get("managed") and int(header.get("version") or 0) \
+            < REEXEC_VERSION:
+        # can only be a hand-rolled or corrupted artifact: every build
+        # that could save a managed checkpoint wrote version 2
+        # re-execution cursors. Name the real requirement instead of the
+        # generic version complaint.
+        raise CheckpointError(
+            f"{path}: managed guests require checkpoint format version "
+            f"{REEXEC_VERSION} (deterministic re-execution cursors); this "
+            f"file claims version {header.get('version')} — re-checkpoint "
+            f"the run with a current build")
     if header.get("version") != VERSION:
         raise CheckpointError(
             f"{path}: checkpoint version {header.get('version')} != "
             f"supported {VERSION}")
+    if header.get("mode") == "reexec":
+        return _load_reexec(path, header, cfg, mirror_log, device)
     if tuple(header.get("python", ())) != tuple(sys.version_info[:2]):
         raise CheckpointError(
             f"{path}: written by Python "
@@ -527,6 +606,74 @@ def load_checkpoint(path, cfg=None, mirror_log: bool = True,
         f"resumed from {path}: sim time {now} ns, round {controller.rounds}, "
         f"{controller.events} events, device {device}")
     return controller, now
+
+
+def _load_reexec(path, header, cfg, mirror_log: bool, device: str):
+    """Restore a managed re-execution snapshot: rebuild the controller
+    from the config and hand back ``(controller, None)`` — the caller's
+    ``run(resume_at=None)`` then re-executes the deterministic prefix from
+    round 0. The snapshot's round cursor, state digest, and per-guest
+    journal cursors are armed on the controller and verified when the
+    round loop reaches the recorded boundary (divergence fails by name);
+    the run keeps going from there, byte-identical to the uninterrupted
+    run. Live commands recorded up to the boundary ride the snapshot and
+    are re-applied at their original boundaries via the replay plane. The
+    rebuilt controller attaches its kernels on the resuming invocation's
+    ``device``."""
+    if cfg is None:
+        raise CheckpointError(
+            f"{path}: a managed re-execution snapshot rebuilds the "
+            f"simulation from its config — pass the config to "
+            f"load_checkpoint (the CLI's --resume-from does)")
+    if int(getattr(cfg.general, "sim_shards", 1)) != 1:
+        raise CheckpointError(
+            f"{path}: managed re-execution snapshots resume at "
+            f"sim_shards=1 only")
+    want, got = header["config_digest"], config_digest(cfg)
+    if want != got:
+        raise CheckpointError(
+            f"{path}: config mismatch — the checkpoint was written "
+            f"under a different simulation config (digest {want[:12]} "
+            f"vs {got[:12]}). Resume with the original config; only "
+            f"data_directory / checkpoint / digest / logging keys may "
+            f"differ.")
+    with open(path, "rb") as f:
+        f.readline()
+        try:
+            payload = json.loads(f.readline())
+        except ValueError as exc:
+            raise CheckpointError(
+                f"{path}: corrupt re-execution snapshot payload") from exc
+    commands = payload.get("commands") or []
+    if commands and not cfg.general.replay_commands:
+        # the resume invocation has no command log of its own: replay the
+        # embedded records so runtime faults land on the same boundaries
+        ddir = Path(cfg.general.data_directory)
+        ddir.mkdir(parents=True, exist_ok=True)
+        replay = ddir / "reexec_commands.jsonl"
+        with open(replay, "w") as f:
+            for rec in commands:
+                f.write(json.dumps(rec, sort_keys=True) + "\n")
+        cfg.general.replay_commands = str(replay)
+    from shadow_tpu_torch.core.controller import Controller
+
+    controller = Controller(cfg, mirror_log=mirror_log, device=device)
+    if payload.get("cursors") and controller.guest_journal_dir is None:
+        # the resume invocation may not itself checkpoint, but cursor
+        # verification needs the re-executed guests journaled
+        controller.guest_journal_dir = controller.data_dir / "guest_oplogs"
+    controller._reexec_verify = {
+        "path": str(path),
+        "t": int(header["sim_time_ns"]),
+        "rounds": int(header["rounds"]),
+        "digest": payload["digest"],
+        "cursors": payload.get("cursors") or {},
+    }
+    controller.log.info(
+        f"restoring {path} by deterministic re-execution: re-running "
+        f"rounds 0..{header['rounds']} (sim {header['sim_time_ns']} ns), "
+        f"digest-verified at the snapshot boundary")
+    return controller, None
 
 
 def _apply_telemetry_resume(controller, want, now: int) -> None:
@@ -727,17 +874,19 @@ def emit_digest(controller, sim_now: int) -> None:
 def validate_config_checkpointable(cfg) -> None:
     """THE checkpointability policy, single source of truth — pure config
     inspection, so it can fail at build time before anything is
-    constructed. Refused: pcap hosts (captures stream to disk mid-run),
-    and managed (real-binary) processes, whose re-execution snapshots are
-    not ported (config load refuses them first)."""
+    constructed. Refused: pcap hosts (captures stream to disk mid-run).
+    Managed (real-binary) configs are checkpointable as re-execution
+    snapshots, not pickles (format version 2), but only at
+    sim_shards=1."""
     for hopts in cfg.hosts:
         if hopts.pcap_enabled:
             raise ValueError(
                 f"checkpoint_every is unsupported with pcap capture: host "
                 f"{hopts.name!r} has pcap_enabled (captures stream to disk "
                 f"mid-run); disable one of the two")
-    if config_has_managed(cfg):
+    if config_has_managed(cfg) \
+            and int(getattr(cfg.general, "sim_shards", 1)) != 1:
         raise ValueError(
-            "checkpoint_every with managed native processes is not ported "
-            "to shadow_tpu_torch yet (the reference's re-execution "
-            "snapshots)")
+            "checkpoint_every with managed native processes requires "
+            "sim_shards=1: a re-execution snapshot re-runs the whole "
+            "simulation prefix in one process")

@@ -5,8 +5,11 @@ files, with the reference's paths for checkpointed runs
 (``--checkpoint-every``, ``--resume-from``), multi-process sharding
 (``--shards``), supervision (``--supervise``), the live operations plane
 (``--live-endpoint``, ``--replay-commands``: live.py) and the ``fork``
-verb (forks.py). Features that are not ported yet (managed processes) are
-refused by name at config load (exit 2).
+verb (forks.py). A process path that is not ``pyapp:`` runs a real binary
+as a managed process (native/managed.py); a managed run checkpoints as a
+re-execution snapshot, and ``--shards`` above 1 refuses it by name, as the
+reference does. Features that are not ported are refused by name at
+config load (exit 2).
 ``--device {cuda,cpu}`` (default cuda) says where the data-plane kernels
 run (a resume reattaches them on the resuming invocation's device); ``cuda``
 without a visible card is an error, never a silent CPU run.
@@ -279,7 +282,8 @@ def main(argv=None) -> int:
         except ValueError as exc:
             # build-time refusals (no card for --device cuda, bad host
             # placement, unknown fault targets, checkpoint-unsupported
-            # configs) keep the clean one-line error contract
+            # configs, missing executables) keep the clean one-line error
+            # contract
             print(f"shadow_tpu_torch: {exc}", file=sys.stderr)
             return 2
         result = controller.run()

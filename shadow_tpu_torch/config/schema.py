@@ -49,8 +49,6 @@ CONGESTION_CONTROL_NAMES = ("newreno", "cubic")
 #: namespace still load dynamically (user workloads stay free).
 MODEL_REGISTRY = ("tgen", "gossip", "tor", "echo", "httpd", "web",
                   "dns", "abr")
-#: the models this package has its own copy of (models/)
-PORTED_MODELS = ("tgen", "gossip", "tor", "echo", "web", "dns", "abr")
 
 
 @dataclass
@@ -620,23 +618,13 @@ def refuse_unported(cfg: ConfigOptions) -> None:
     this package cannot run yet. The reference runs them; running them
     differently here would break the port's promise of identical
     results."""
-    g, e = cfg.general, cfg.experimental
+    e = cfg.experimental
     if e.scheduler_policy == "tpu_batch" and e.tpu_mesh_shards > 1:
         _refuse("experimental.tpu_mesh_shards > 1 (draws sharded over "
                 "several devices)")
     # under tpu_mesh, tpu_mesh_shards above the visible device count is
-    # refused where the device is known (network/devroute.py)
-    for h in cfg.hosts:
-        for p in h.processes:
-            if not p.path.startswith("pyapp:"):
-                _refuse(f"managed native processes (host {h.name!r} runs "
-                        f"{p.path!r}; only pyapp: processes are ported)")
-            if p.path.startswith("pyapp:shadow_tpu.models."):
-                model = p.path.split(":")[1].removeprefix(
-                    "shadow_tpu.models.")
-                if model not in PORTED_MODELS:
-                    _refuse(f"workload model {model!r} (host {h.name!r}; "
-                            f"ported: {', '.join(PORTED_MODELS)})")
+    # refused where the device is known (network/devroute.py). Every
+    # model of MODEL_REGISTRY has its copy in models/.
 
 
 #: composed-YAML memo for load_yaml_doc(cache=True): a fleet worker runs

@@ -40,8 +40,10 @@ to the uninterrupted run), the supervisor's in-process chaos hook
 live operations plane (live.py: an endpoint streaming heartbeats and
 records, runtime commands applied at round boundaries and logged to
 commands.jsonl, their replay, and the time-travel ``jump``'s stop hook).
-Managed processes are refused at config load
-(config/schema.py::refuse_unported).
+Any process path that is not ``pyapp:`` is a real executable run as a
+managed process under the preload shim (native/managed.py), with its
+observation journal armed for re-execution checkpoints and its stalls
+escalated to the supervisor.
 """
 
 from __future__ import annotations
@@ -94,9 +96,13 @@ class Controller:
     n_shards = 1
     #: supervision (supervise.py): ``_supervised`` is set by
     #: run_supervised (an in-process chaos kill then raises instead of
-    #: taking the supervisor down); ``_chaos`` is the env-armed fault
-    #: injector (wall-clock plane, rebuilt by every run())
+    #: taking the supervisor down, and a managed guest's watchdog stall
+    #: escalates as GuestStallError via ``_stall_escalate`` at the next
+    #: boundary instead of the unsupervised host_down conversion);
+    #: ``_chaos`` is the env-armed fault injector (wall-clock plane,
+    #: rebuilt by every run())
     _supervised = False
+    _stall_escalate = None
     _chaos = None
     #: live operations plane (live.py). ``live`` (the endpoint server)
     #: and ``on_stop_round`` (the time-travel inspector hook) are
@@ -260,15 +266,34 @@ class Controller:
         self.scheduler = make_scheduler(policy, self._sched_hosts(),
                                         cfg.general.parallelism)
 
-        # processes: pyapp: plugins run in-process (sharded workers build
-        # processes only for their OWNED hosts — a non-owned host is pure
-        # topology here, its simulation lives on the owning shard)
+        # processes: pyapp: plugins run in-process; any other path is a real
+        # executable run under the native preload shim (SURVEY.md §7 phase 4)
+        # (sharded workers build processes only for their OWNED hosts — a
+        # non-owned host is pure topology here, its simulation lives on
+        # the owning shard)
         self.processes: list = []
         for host, hopts in zip(self.hosts, cfg.hosts):
             if not self.owns(host.id):
                 continue
             for i, popts in enumerate(hopts.processes):
-                proc = PluginProcess(host, popts, i)
+                if PluginProcess.is_plugin_path(popts.path):
+                    proc = PluginProcess(host, popts, i)
+                else:
+                    from shadow_tpu_torch.native.managed import (
+                        ManagedProcess, _shim_lib)
+
+                    # fail fast at build time, not inside a scheduler
+                    # event; _shim_lib builds the shim at first use and
+                    # raises with the compiler's output
+                    if not Path(popts.path).is_file():
+                        raise ValueError(
+                            f"host {hopts.name!r}: managed executable "
+                            f"{popts.path!r} does not exist")
+                    if not _shim_lib().exists():
+                        raise ValueError(
+                            f"native shim {_shim_lib()} missing "
+                            f"(SHADOW_SHIM_LIB names no file)")
+                    proc = ManagedProcess(host, popts, i)
                 host.processes.append(proc)
                 self.processes.append(proc)
                 host.schedule(popts.start_time, proc.spawn)
@@ -327,6 +352,25 @@ class Controller:
                          if cfg.general.checkpoint_dir
                          else self.data_dir / "checkpoints")
         self.digest_every = cfg.general.state_digest_every
+        #: managed re-execution snapshots (checkpoint format version 2):
+        #: arm the per-guest observation journal whenever this run could
+        #: write a snapshot (grid cadence, or live checkpoint_now via the
+        #: endpoint) so every snapshot carries verifiable guest cursors.
+        #: The journal is a pure side-plane recorder — it never feeds sim
+        #: state — so SHADOW_TPU_GUEST_JOURNAL=1/0 may force it on or off
+        #: without touching results.
+        self._reexec_verify = None
+        self.guest_journal_dir = None
+        self._has_managed = any(
+            not PluginProcess.is_plugin_path(p.path)
+            for h in cfg.hosts for p in h.processes)
+        if self._has_managed:
+            import os as _os
+
+            jr = _os.environ.get("SHADOW_TPU_GUEST_JOURNAL")  # detlint: ok(envread): side-plane artifact toggle
+            if jr != "0" and (jr == "1" or self.ckpt_every
+                              or cfg.general.live_endpoint):
+                self.guest_journal_dir = self.data_dir / "guest_oplogs"
         #: set by the SIGINT/SIGTERM handler: the round loop finishes the
         #: current round, writes a final checkpoint (when enabled), and
         #: finalizes a valid partial summary instead of dying mid-round
@@ -449,6 +493,83 @@ class Controller:
             attach_dt(cfg.experimental, device)
         _ckpt.finish_colcore_adopt(self)
 
+    # -- managed re-execution restore (checkpoint format version 2) -------
+    def guest_journal_cursors(self) -> dict:
+        """Per-guest observation-journal cursors for a re-execution
+        snapshot: ``{"host/proc": {"n": entries, "sha": running-hash}}``.
+        Empty when journaling is off (no managed guests, or neither a
+        checkpoint cadence nor a live endpoint armed the journal)."""
+        out = {}
+        for p in self.processes:
+            j = getattr(p, "_journal", None)
+            if j is not None:
+                out[f"{p.host.name}/{p.name}"] = j.cursor()
+        return out
+
+    def note_guest_pid(self, proc) -> None:
+        """Side-plane registry of live guest OS pids
+        (``<data_dir>/guest_pids.jsonl``, one record per spawn/exec/fork).
+        Never part of the determinism surface — fleet's ``--resume`` reads
+        a dead run's registry to reap stale guests before re-running the
+        seed (the pid is verified against the record's clock-page path in
+        /proc/<pid>/environ first, so pid reuse cannot kill a stranger)."""
+        import json as _json
+
+        pid = proc.proc.pid if proc.proc is not None else proc.real_pid
+        if pid is None:
+            return
+        # fork children borrow the parent's clock page; their environ
+        # still carries the parent's SHADOW_TIME_SHM, so identity checks
+        # use the nearest ancestor's page path
+        shm, p = proc._time_path, proc
+        while shm is None and getattr(p, "parent_proc", None) is not None:
+            p = p.parent_proc
+            shm = p._time_path
+        rec = {"pid": int(pid), "host": proc.host.name, "proc": proc.name,
+               "shm": str(shm) if shm else None}
+        self.data_dir.mkdir(parents=True, exist_ok=True)
+        with open(self.data_dir / "guest_pids.jsonl", "a") as f:
+            f.write(_json.dumps(rec, sort_keys=True) + "\n")
+
+    def _verify_reexec(self, now: SimTime) -> None:
+        """The deterministic re-execution of a restored managed run has
+        reached the snapshot boundary: verify the recomputed state digest
+        and every guest's journal cursor against the checkpoint record.
+        Any mismatch means the prefix did NOT reproduce the checkpointed
+        run — fail by name instead of continuing a silently different
+        simulation."""
+        info, self._reexec_verify = self._reexec_verify, None
+        from shadow_tpu_torch.checkpoint import CheckpointError, state_digest
+
+        if now != info["t"] or self.rounds != info["rounds"]:
+            raise CheckpointError(
+                f"re-execution diverged from {info['path']}: expected "
+                f"round {info['rounds']} at sim {info['t']} ns, but the "
+                f"round grid reached sim {now} ns at round {self.rounds} "
+                f"— this environment does not reproduce the checkpointed "
+                f"run")
+        g, _hosts = state_digest(self, now)
+        if g != info["digest"]:
+            raise CheckpointError(
+                f"re-execution diverged from {info['path']}: state digest "
+                f"at round {self.rounds} is {g[:16]}, checkpoint recorded "
+                f"{info['digest'][:16]} — bisect with "
+                f"tools/bisect_divergence.py against the original "
+                f"state_digests.jsonl")
+        want = info.get("cursors") or {}
+        cur = self.guest_journal_cursors()
+        if want and cur != want:
+            bad = sorted(k for k in set(want) | set(cur)
+                         if want.get(k) != cur.get(k))
+            raise CheckpointError(
+                f"re-execution diverged from {info['path']}: guest "
+                f"journal cursor mismatch for {bad} — the re-executed "
+                f"guests did not observe the recorded syscall stream")
+        self.log.info(
+            f"re-execution reached the snapshot boundary (round "
+            f"{self.rounds}, sim {format_time(now)}): state digest and "
+            f"{len(want)} guest journal cursor(s) verified; continuing")
+
     def _on_signal(self, signum, frame) -> None:
         """SIGINT/SIGTERM: request a graceful stop at the next round
         boundary. A second signal aborts immediately (the operator means
@@ -523,6 +644,17 @@ class Controller:
             # tools/bisect_divergence.py (resumes keep appending — the
             # continuation of one stream)
             (self.data_dir / _ckpt.DIGEST_FILE).unlink(missing_ok=True)
+        if resume_at is None and self._has_managed:
+            # fresh-run discipline for the managed side planes: stale
+            # guest journals or a dead run's pid registry must not
+            # concatenate with this run's records (a re-execution restore
+            # is a fresh run here — its artifacts regenerate 0..end, which
+            # is exactly what makes them comparable to the originals)
+            (self.data_dir / "guest_pids.jsonl").unlink(missing_ok=True)
+            if self.guest_journal_dir is not None:
+                import shutil as _shutil
+
+                _shutil.rmtree(self.guest_journal_dir, ignore_errors=True)
         tel = self.telemetry
         if tel is not None and resume_at is None:
             # same discipline for the telemetry streams: fresh runs
@@ -630,6 +762,15 @@ class Controller:
         while now < stop:
             if self._chaos is not None:
                 self._chaos.maybe_fire(self.rounds, self)
+            if self._stall_escalate is not None:
+                # a managed guest stalled past its watchdog deadline
+                # under supervision: surface it at this boundary (before
+                # anything is emitted for the next round) so the
+                # supervisor can tear down and recover by re-execution
+                from shadow_tpu_torch.supervise import GuestStallError
+
+                msg, self._stall_escalate = self._stall_escalate, None
+                raise GuestStallError(msg)
             if self.live is not None \
                     or self._replay_idx < len(self._replay_cmds):
                 # live operations command plane (live.py): due replayed
@@ -643,6 +784,14 @@ class Controller:
                 # graceful shutdown: the signal arrived during the last
                 # round; stop at this (consistent) round boundary
                 break
+            if self._reexec_verify is not None \
+                    and now >= self._reexec_verify["t"]:
+                # managed re-execution restore: the deterministic prefix
+                # has reached the snapshot boundary — verify digest +
+                # guest cursors HERE, exactly where the original run
+                # wrote the snapshot (after the boundary's commands,
+                # before fault transitions apply)
+                self._verify_reexec(now)
             if now >= next_ckpt or self._ckpt_now:
                 self._ckpt_now = False
                 t_ck = _walltime.perf_counter()
@@ -917,7 +1066,16 @@ class Controller:
             if err is not None:
                 errors.append(err)
                 self.log.error(err)
-        for h in self.hosts:
+        for p in self.processes:  # reference §3.5: kill remaining managed
+            reap = getattr(p, "reap", None)
+            if reap is not None:
+                reap()
+            j = getattr(p, "_journal", None)
+            if j is not None:
+                # crash-killed guests that were never rebooted still hold
+                # an open journal stream; flush + close it here
+                j.close()
+        for h in self.hosts:  # merge AFTER reaping so its counters land
             h.fold_counters()
             self.counters.merge(h.counters)
         self.engine.close()  # join the device-attach thread before teardown

@@ -346,10 +346,13 @@ def _member_config(config_path: str, overrides: dict, sweep_dir,
 
 def _reap_stale_guests(d) -> int:
     """SIGKILL real-binary guests leaked by an interrupted managed member
-    run (their pids in the seed directory's ``guest_pids.jsonl``), each
-    verified against its recorded shm path in ``/proc/<pid>/environ``
-    first, since pids get recycled. The port refuses managed configs at
-    load, so today no member writes the file."""
+    run. A worker that died mid-run (SIGKILL, OOM) never reaped the
+    executables it spawned; their pids live in the seed directory's
+    ``guest_pids.jsonl`` side plane (Controller.note_guest_pid). Pids get
+    recycled on a busy box, so each one is verified against the recorded
+    clock-page path via ``/proc/<pid>/environ`` before the kill: only a
+    process that still carries OUR shm path in its environment is one of
+    ours."""
     import signal
 
     p = Path(d) / "guest_pids.jsonl"

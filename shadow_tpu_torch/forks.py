@@ -3,8 +3,9 @@
 The port of shadow_tpu/forks.py. Its manifests, plan and summary carry this
 package's own format names (``shadow_tpu_torch-fork-branch``, ``-fork-plan``,
 ``-fork-summary``); a checkpoint of the reference package
-(``shadow_tpu-checkpoint``) is refused by that name, and so is a managed
-trunk (managed processes are not ported). Branches run on the fork's device
+(``shadow_tpu-checkpoint``) is refused by that name. A managed trunk (a
+re-execution snapshot, checkpoint format version 2) forks by re-running
+its prefix in every branch. Branches run on the fork's device
 (``--device``, default cuda); behind the fleet's shared DrawServer a
 restored branch reattaches its draw plane to the service, never to the
 card, as a served seed does.
@@ -30,9 +31,11 @@ continues them bit-exactly (the checkpoint contract), and (c) the merged
 replay log — trunk command history at or before the fork point plus the
 branch's injected commands strictly after it — re-applies through the
 round loop's replay plane, which skips the prefix on resume and logs the
-suffix identically to a cold replay. Cold branches (seed, faults or
-congestion-control divergence) run from scratch by construction and their
-manifests say so by name.
+suffix identically to a cold replay. For a managed (reexec) trunk the
+prefix re-executes once per branch from round 0 with digest + guest
+cursor verification at the fork boundary, so the branch IS a cold run.
+Cold branches (seed, faults or congestion-control divergence) run from
+scratch by construction and their manifests say so by name.
 
 Every branch directory carries ``fork_manifest.json``: the trunk
 checkpoint digest, the divergence spec, the mode (restore/cold, with the
@@ -246,12 +249,13 @@ def plan_fork(config_path, ckpt_path, branches: list, fork_dir,
             f"pickle names the reference's classes; re-checkpoint the trunk "
             f"with shadow_tpu_torch (--checkpoint-every)")
     header = _ckpt.read_header(ckpt)  # CheckpointError on non-checkpoints
-    if header.get("managed") or header.get("mode") == "reexec":
-        raise ForkError(
-            f"{ckpt}: a managed trunk (real-binary guests, re-execution "
-            f"snapshot) cannot be forked — managed processes are not "
-            f"ported to shadow_tpu_torch")
     ver = int(header.get("version") or 0)
+    if header.get("managed") and ver < _ckpt.REEXEC_VERSION:
+        raise ForkError(
+            f"{ckpt}: managed guests require checkpoint format version "
+            f"{_ckpt.REEXEC_VERSION} (deterministic re-execution cursors); "
+            f"this file claims version {ver} — re-checkpoint the trunk "
+            f"with a current build before forking")
     if ver != _ckpt.VERSION:
         raise ForkError(
             f"{ckpt}: cannot fork a version-{ver} checkpoint — forking "
@@ -259,6 +263,7 @@ def plan_fork(config_path, ckpt_path, branches: list, fork_dir,
             f"with a current build)")
     fork_t = int(header["sim_time_ns"])
     fork_rounds = int(header["rounds"])
+    reexec = header.get("mode") == "reexec"
 
     # fork-level overrides apply to EVERY branch — including telemetry
     # flags, which must reproduce the trunk invocation's (the same way
@@ -288,9 +293,21 @@ def plan_fork(config_path, ckpt_path, branches: list, fork_dir,
     trunk_dir = Path(trunk_dir) if trunk_dir is not None else None
 
     # the trunk's command history: every branch inherits it (<= fork
-    # point), as recorded in the run directory's commands.jsonl
+    # point); a reexec snapshot embeds it, a pickle trunk recorded it in
+    # the run directory's commands.jsonl
     trunk_cmds = []
-    if trunk_dir is not None and (trunk_dir / "commands.jsonl").is_file():
+    if reexec:
+        with open(ckpt, "rb") as f:
+            f.readline()
+            try:
+                payload = json.loads(f.readline())
+            except ValueError as exc:
+                raise ForkError(
+                    f"{ckpt}: corrupt re-execution snapshot payload "
+                    f"({exc})")
+        trunk_cmds = [r for r in (payload.get("commands") or ())
+                      if int(r["t"]) <= fork_t]
+    elif trunk_dir is not None and (trunk_dir / "commands.jsonl").is_file():
         trunk_cmds = [r for r in
                       _live.load_command_log(trunk_dir / "commands.jsonl")
                       if int(r["t"]) <= fork_t]
@@ -322,7 +339,7 @@ def plan_fork(config_path, ckpt_path, branches: list, fork_dir,
         for i, rec in enumerate(injected):
             rec["seq"] = next_seq + i
         mode = "cold" if cold_reason else "restore"
-        if mode == "restore" and trunk_dir is None:
+        if mode == "restore" and not reexec and trunk_dir is None:
             raise ForkError(
                 f"branch {name!r} restores the trunk checkpoint, which "
                 f"needs the trunk run directory (stream prefixes + "
@@ -354,6 +371,7 @@ def plan_fork(config_path, ckpt_path, branches: list, fork_dir,
         "config_digest": want,
         "ckpt_t": fork_t,
         "ckpt_rounds": fork_rounds,
+        "reexec": bool(reexec),
         "trunk_dir": str(trunk_dir) if trunk_dir is not None else None,
         "seed": int(base_cfg.general.seed),
         "branches": plans,
@@ -462,7 +480,8 @@ def run_branch(fork: dict, name: str, device: str = "cuda") -> dict:
         over["general.replay_commands"] = str(rp)
     cfg = load_config(fork["config"], over, cache_doc=True)
     if plan["mode"] == "restore":
-        _copy_prefix_streams(fork, d)
+        if not fork["reexec"]:
+            _copy_prefix_streams(fork, d)
         ctl, resume_at = _ckpt.load_checkpoint(fork["ckpt"], cfg,
                                                mirror_log=False,
                                                device=device)

@@ -446,7 +446,13 @@ class Host:
             "events": self._n_events,
             "teardown": self._n_teardown,
             "blackholed": self._n_blackholed,
-            "counters": dict(self.counters.c),
+            # shim_fast_* class counters are censuses of WHERE managed
+            # syscalls completed (in-shim vs worker) — mode-dependent by
+            # design (SHADOW_TPU_SHIM_FASTPATH A/B), so the digest must
+            # not see them; the "syscalls" total itself stays invariant
+            # (the shim fold adds in-shim completions to it)
+            "counters": {k: v for k, v in self.counters.c.items()
+                         if not k.startswith("shim_fast_")},
             "rng": self.rng.bit_generator.state,
             "timers": self.equeue.live_times(exclude_band=BAND_NET),
             "conns": conns,

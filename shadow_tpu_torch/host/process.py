@@ -1,9 +1,10 @@
 """Plugin processes: Python workloads running inside the simulation.
 
 A workload is a Python class driven by simulated callbacks, declared in
-config as ``path: pyapp:<module>:<Class>``. Real executables (the
-reference's managed processes) are not ported and are refused at config
-load.
+config as ``path: pyapp:<module>:<Class>``. Any other path is a real,
+unmodified Linux executable run as a managed process under the preload
+shim (native/managed.py); both share ``ProcessLifecycle``'s exit
+accounting and expected_final_state check.
 
 Configs are shared with the reference package, so a path into
 ``shadow_tpu.models`` loads the port's own copy of that model from
@@ -97,7 +98,48 @@ def plugin_module(mod_name: str) -> str:
     return mod_name
 
 
-class PluginProcess:
+class ProcessLifecycle:
+    """Shared exit accounting + expected_final_state validation for both
+    plugin processes and native managed processes (native/managed.py)."""
+
+    def finish(self, code: int) -> None:
+        self.running = False
+        if self.exit_code is None:
+            self.exit_code = code
+            self.host.counters.add("processes_exited", 1)
+
+    def check_final_state(self) -> Optional[str]:
+        """Validate expected_final_state at sim end; returns an error or None."""
+        exp = self.opts.expected_final_state
+        if exp is None:
+            return None
+        if exp == "running":
+            if not self.running:
+                return (f"{self.host.name}/{self.name}: expected running, "
+                        f"exited {self.exit_code}")
+            return None
+        if isinstance(exp, dict) and "exited" in exp:
+            want = int(exp["exited"])
+            if self.running:
+                return f"{self.host.name}/{self.name}: expected exit {want}, still running"
+            if self.exit_code != want:
+                return (f"{self.host.name}/{self.name}: expected exit {want}, "
+                        f"got {self.exit_code}")
+            return None
+        if isinstance(exp, dict) and "signaled" in exp:
+            # managed processes record signal deaths as -signum
+            want = -int(exp["signaled"])
+            if self.running:
+                return (f"{self.host.name}/{self.name}: expected signal "
+                        f"{-want}, still running")
+            if self.exit_code != want:
+                return (f"{self.host.name}/{self.name}: expected signal "
+                        f"{-want}, got exit code {self.exit_code}")
+            return None
+        return f"{self.host.name}/{self.name}: unrecognized expected_final_state {exp!r}"
+
+
+class PluginProcess(ProcessLifecycle):
     """Lifecycle wrapper for one configured plugin-process instance."""
 
     PYAPP_PREFIX = "pyapp:"
@@ -140,44 +182,6 @@ class PluginProcess:
         self.spawned = True
         self.host.counters.add("processes_spawned", 1)
         self.app.start()
-
-    def finish(self, code: int) -> None:
-        self.running = False
-        if self.exit_code is None:
-            self.exit_code = code
-            self.host.counters.add("processes_exited", 1)
-
-    def check_final_state(self) -> Optional[str]:
-        """Validate expected_final_state at sim end; returns an error or None."""
-        exp = self.opts.expected_final_state
-        if exp is None:
-            return None
-        if exp == "running":
-            if not self.running:
-                return (f"{self.host.name}/{self.name}: expected running, "
-                        f"exited {self.exit_code}")
-            return None
-        if isinstance(exp, dict) and "exited" in exp:
-            want = int(exp["exited"])
-            if self.running:
-                return f"{self.host.name}/{self.name}: expected exit {want}, still running"
-            if self.exit_code != want:
-                return (f"{self.host.name}/{self.name}: expected exit {want}, "
-                        f"got {self.exit_code}")
-            return None
-        if isinstance(exp, dict) and "signaled" in exp:
-            # signal deaths record as -signum (managed processes in the
-            # reference); a plugin never dies by signal, so this reports
-            # the same mismatch the reference reports for it
-            want = -int(exp["signaled"])
-            if self.running:
-                return (f"{self.host.name}/{self.name}: expected signal "
-                        f"{-want}, still running")
-            if self.exit_code != want:
-                return (f"{self.host.name}/{self.name}: expected signal "
-                        f"{-want}, got exit code {self.exit_code}")
-            return None
-        return f"{self.host.name}/{self.name}: unrecognized expected_final_state {exp!r}"
 
     def shutdown(self) -> None:
         """The configured shutdown_time fired (graceful stop request)."""

@@ -1,13 +1,11 @@
 """Supervised self-healing runs: liveness, automatic recovery, chaos.
 
-The port of shadow_tpu/supervise.py. The reference's fleet members and
-managed guests are not ported (their configs are refused at load), so
-here the participants are the shard workers of parallel/shards.py and the
-single-process controller; the guest-facing pieces keep only their
-interface (the chaos kind ``guest_wedge`` parses and, with no guest to
-wedge, fails by name; ``_reap_guests`` reaps nothing). A shard
-worker can be SIGKILLed or wedge mid-run; this module turns such a
-failure into a *named, bounded, recoverable* event, three layers:
+The port of shadow_tpu/supervise.py. The participants are the shard
+workers of parallel/shards.py, the single-process controller and its
+managed guests (native/managed.py; fleet.py has its own member policy). A
+shard worker can be SIGKILLed or wedge mid-run, a guest can stall
+in-shim; this module turns such a failure into a *named, bounded,
+recoverable* event, three layers:
 
 **Liveness.** Every shard worker stamps a monotone progress word — its
 round counter plus a wall stamp — into a per-run ``ProgressPage``
@@ -20,7 +18,8 @@ hanging every survivor.
 **Recovery.** ``run_supervised`` wraps a run (single-process or sharded)
 with a bounded restart budget (``general.supervise: {max_restarts,
 backoff}`` / ``--supervise``): on a recoverable failure it tears the run
-down coherently (workers are terminated by the plane's own error path),
+down coherently (workers are terminated by the plane's own error path;
+managed guests are reaped through the ``guest_pids.jsonl`` registry),
 rolls the append-mode output streams back to the newest complete
 checkpoint boundary, and resumes from that checkpoint — producing final
 trees/flows/digests byte-identical to an uninterrupted run. With no
@@ -31,8 +30,8 @@ digest cursor, rlimit/RSS snapshot) and raises ``SupervisorGaveUp`` — a
 named exit, never a hang and never a bare traceback from the CLI.
 
 **Chaos.** ``SHADOW_TPU_CHAOS="kill@r500,s1:wedge@r900,..."`` (and
-``tools/chaos.py``) injects worker SIGKILLs, ring-stall wedges and named
-failures at deterministic rounds. Every event
+``tools/chaos.py``) injects worker SIGKILLs, ring-stall wedges, named
+failures and managed-guest hangs at deterministic rounds. Every event
 fires at most once per data directory (an O_EXCL marker file under
 ``<data_dir>/chaos/``), so the recovered attempt sails past the
 injection point and the run converges — which is what lets CI *prove*
@@ -88,6 +87,13 @@ _SHARD_MANIFEST_FORMAT = "shadow_tpu_torch-shard-manifest"
 
 class ChaosFailure(RuntimeError):
     """An injected in-process failure (chaos ``fail@rN``)."""
+
+
+class GuestStallError(RuntimeError):
+    """A managed guest stalled past its watchdog deadline while the run
+    is supervised: escalated to the supervisor for checkpoint recovery
+    instead of the unsupervised host_down conversion (native/managed.py
+    _watchdog_fire)."""
 
 
 class SupervisorGaveUp(RuntimeError):
@@ -188,9 +194,9 @@ def parse_chaos(spec: str) -> list:
 
     Kinds: ``kill`` (SIGKILL the worker process), ``wedge`` (stop
     draining/stamping forever — a ring-stall), ``fail`` (raise
-    ChaosFailure), ``guest_wedge`` (the reference SIGSTOPs its newest
-    managed guest; the port has none and raises ChaosFailure). Shard
-    defaults to 0 (also the single-process controller's id)."""
+    ChaosFailure), ``guest_wedge`` (SIGSTOP the newest managed guest so
+    the guest watchdog path fires). Shard defaults to 0 (also the
+    single-process controller's id)."""
     events = []
     for item in str(spec).split(","):
         item = item.strip()
@@ -290,9 +296,36 @@ class ChaosInjector:
             while True:
                 _walltime.sleep(3600)
         if kind == "guest_wedge":
-            raise ChaosFailure(
-                f"chaos guest_wedge@r{ev['round']}: no managed guest to "
-                f"wedge (managed processes are not ported)")
+            pid = _newest_guest_pid(
+                controller.data_dir if controller is not None
+                else self.dir.parent)
+            if pid is None:
+                raise ChaosFailure(
+                    f"chaos guest_wedge@r{ev['round']}: no live guest pid "
+                    f"in guest_pids.jsonl to wedge")
+            try:
+                os.kill(pid, signal.SIGSTOP)
+            except (ProcessLookupError, PermissionError) as exc:
+                raise ChaosFailure(
+                    f"chaos guest_wedge@r{ev['round']}: SIGSTOP {pid} "
+                    f"failed ({exc})") from exc
+
+
+def _newest_guest_pid(data_dir):
+    p = Path(data_dir) / "guest_pids.jsonl"
+    try:
+        lines = p.read_text().splitlines()
+    except OSError:
+        return None
+    for line in reversed(lines):
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            continue
+        pid = rec.get("pid")
+        if pid and Path(f"/proc/{pid}").is_dir():
+            return int(pid)
+    return None
 
 
 # -- checkpoint discovery + stream rollback ------------------------------------
@@ -327,15 +360,16 @@ def find_restart_checkpoint(cfg):
 
 
 def _restart_boundary(resume_path):
-    """(rounds, sim_time_ns) of a restart checkpoint."""
+    """(rounds, sim_time_ns, managed) of a restart checkpoint."""
     from shadow_tpu_torch import checkpoint as _ckpt
 
     p = Path(resume_path)
     if p.name.endswith(_SHARD_MANIFEST_SUFFIX):
         doc = json.loads(p.read_text())
-        return int(doc["rounds"]), int(doc["sim_time_ns"])
+        return int(doc["rounds"]), int(doc["sim_time_ns"]), False
     header = _ckpt.read_header(p)
-    return int(header["rounds"]), int(header["sim_time_ns"])
+    return (int(header["rounds"]), int(header["sim_time_ns"]),
+            bool(header.get("managed")))
 
 
 def _filter_jsonl(path: Path, keep) -> None:
@@ -489,15 +523,16 @@ def supervise_options(cfg) -> dict:
 
 
 def _reap_guests(data_dir) -> int:
-    """Reap managed guest processes left behind by a dead attempt. The
-    reference walks the fleet's guest_pids.jsonl registry here; managed
-    processes are not ported (config load refuses them), so no attempt of
-    the port ever leaves a guest behind and there is nothing to reap."""
-    return 0
+    """Reap managed guest processes left behind by a dead attempt —
+    the fleet's pid-reuse-safe registry walk (guest_pids.jsonl +
+    /proc/<pid>/environ identity check)."""
+    from shadow_tpu_torch.fleet import _reap_stale_guests
+
+    return _reap_stale_guests(Path(data_dir))
 
 
 def _is_recoverable(exc, sharded: bool) -> bool:
-    if isinstance(exc, ChaosFailure):
+    if isinstance(exc, (ChaosFailure, GuestStallError)):
         return True
     if sharded:
         from shadow_tpu_torch.parallel.shards import _PeerDied, _ShardError
@@ -590,8 +625,11 @@ def run_supervised(cfg, mirror_log: bool = True, resume_from=None,
                     f"{why} — {reason} (report: {path})") from exc
             resume = find_restart_checkpoint(cfg)
             if resume is not None:
-                rounds, t0 = _restart_boundary(resume)
-                rollback_streams(cfg, rounds, t0)
+                rounds, t0, managed = _restart_boundary(resume)
+                if not managed:
+                    # a managed re-execution restore regenerates every
+                    # stream fresh from round 0: nothing to roll back
+                    rollback_streams(cfg, rounds, t0)
                 where = f"checkpoint {resume} (round {rounds})"
             else:
                 where = "scratch (no complete checkpoint)"

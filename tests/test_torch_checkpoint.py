@@ -45,6 +45,7 @@ from shadow_tpu_torch.ops.devcfg import DeviceUnavailable
 from shadow_tpu_torch.utils.digest import output_tree_digest
 from tests.test_checkpoint import BASE, FAULTS
 from tests.test_torch_e2e import _assert_identical, _run as _cli_run, _stable
+from tests.test_torch_managed import ipc_slots  # noqa: F401 (a fixture)
 
 DIGEST_EVERY = 50
 #: the port's legs: policy, C engine, extra overrides, and the device
@@ -277,17 +278,39 @@ def test_load_refuses_another_engine_build(tmp_path):
 
 
 def test_checkpoint_rejects_pcap_and_managed(tmp_path):
+    """pcap is refused; managed configs checkpoint (as re-execution
+    snapshots) but only single-process: the sharded combination is refused
+    up front, by both packages."""
     cfg = _cfg(tmp_path / "pc", **{"general.checkpoint_every": "1s",
                                    "hosts.server.pcap_enabled": True})
     with pytest.raises(ValueError, match="pcap"):
         Controller(cfg, mirror_log=False, device="cpu")
     d = _doc()
     d["hosts"]["server"]["processes"][0]["path"] = "/bin/sh"
-    ref = ref_parse_config(d, {"general.checkpoint_every": "1s"})
-    with pytest.raises(ValueError, match="managed native processes"):
-        ckpt.validate_config_checkpointable(ref)
-    with pytest.raises(ValueError, match="managed native processes"):
-        parse_config(d, {"general.checkpoint_every": "1s"})
+    ckpt.validate_config_checkpointable(
+        parse_config(d, {"general.checkpoint_every": "1s"}))
+    over = {"general.checkpoint_every": "1s", "general.sim_shards": 2}
+    ref = ref_parse_config(d, over)
+    with pytest.raises(ValueError, match="sim_shards=1") as want:
+        ref_ckpt.validate_config_checkpointable(ref)
+    with pytest.raises(ValueError, match="sim_shards=1") as got:
+        ckpt.validate_config_checkpointable(parse_config(d, over))
+    assert str(got.value) == str(want.value)
+
+
+def test_load_refuses_managed_header_below_reexec_version(tmp_path):
+    """A managed-marked header below the port's re-execution version (2)
+    cannot describe a managed run (version 1 refused managed configs at
+    save): refused naming the version it needs, before the generic
+    version gate."""
+    old = tmp_path / "old_managed.ckpt"
+    header = {"format": ckpt.FORMAT, "version": 1, "managed": True,
+              "mode": "reexec", "python": list(sys.version_info[:2]),
+              "config_digest": "x", "sim_time_ns": 0}
+    old.write_bytes(json.dumps(header).encode() + b"\n")
+    with pytest.raises(ckpt.CheckpointError, match="format version 2"):
+        ckpt.load_checkpoint(old)
+    assert ckpt.VERSION == ckpt.REEXEC_VERSION == 2
 
 
 # -- graceful shutdown -----------------------------------------------------------
@@ -442,3 +465,154 @@ def test_chip_smoke_checkpoint_phase(tmp_path):
     _chip_smoke().checkpoint_path(port_cli, prop, tk, dt, mesh,
                                   output_tree_digest, str(tmp_path),
                                   device="cpu")
+
+
+# -- managed processes: re-execution snapshots ---------------------------
+
+def _managed(tmp_path):
+    """managed_smoke (chip_smoke.py's document, its guests built into
+    ``tmp_path``); None where the kernel features are missing."""
+    from shadow_tpu_torch.native.managed import missing_kernel_features
+    from tests.test_torch_e2e import _chip_smoke
+
+    if missing_kernel_features():
+        pytest.skip(f"kernel features missing: {missing_kernel_features()}")
+    cs = _chip_smoke()
+    return cs, cs.write_doc(cs.managed_doc(
+        "managed_smoke", cs.build_guests(tmp_path / "guests")),
+        tmp_path / "managed.yaml")
+
+
+def _mrun(cfg, d, *extra, rc=0):
+    """A managed run through the port's CLI (tpu_batch, a state digest
+    every 5 rounds)."""
+    from tests.test_torch_managed import run_port
+
+    return run_port(cfg, d, ["--state-digest-every", "5", *extra], rc=rc)
+
+
+@pytest.mark.parametrize("fast", [True, False], ids=["fast_on", "fast_off"])
+def test_managed_reexec_checkpoint_resume_identity(tmp_path, monkeypatch,
+                                                   ipc_slots, fast):
+    """The reference's re-execution property on both sides of the shim's
+    fast plane: a snapshot taken mid-transfer resumes by re-execution into
+    the uninterrupted run's tree, summary and digest stream, and into the
+    reference's; the boundary is digest- and cursor-verified."""
+    from shadow_tpu.native import managed as ref_managed
+    from shadow_tpu_torch.native import managed as port_managed
+    from tests.test_torch_managed import build_ref_shim, run_ref
+
+    monkeypatch.setattr(port_managed, "_FASTPATH_ON", fast)
+    monkeypatch.setattr(ref_managed, "_FASTPATH_ON", fast)
+    cs, cfg = _managed(tmp_path)
+    full = _mrun(cfg, tmp_path / "full")
+    src = _mrun(cfg, tmp_path / "src", "--checkpoint-every", "500ms")
+    vol = VOLATILE_SUMMARY_KEYS
+    assert src["process_errors"] == full["process_errors"] == []
+    assert cs.managed_stable(src, vol) == cs.managed_stable(full, vol)
+    assert cs.hosts_digest(tmp_path / "src") == cs.hosts_digest(
+        tmp_path / "full")
+    paths = _checkpoints(tmp_path / "src")
+    hdr = ckpt.read_header(paths[0])
+    assert (hdr["mode"], hdr["managed"], hdr["format"], hdr["version"]) == (
+        "reexec", True, ckpt.FORMAT, 2)
+    payload = json.loads(paths[0].read_text().splitlines()[1])
+    assert payload["cursors"]
+    assert list((tmp_path / "src" / "guest_oplogs").glob("*.jsonl"))
+    res = _mrun(cfg, tmp_path / "res", "--resume-from", str(paths[0]))
+    assert cs.managed_stable(res, vol) == cs.managed_stable(full, vol)
+    assert cs.hosts_digest(tmp_path / "res") == cs.hosts_digest(
+        tmp_path / "full")
+    assert ((tmp_path / "res" / ckpt.DIGEST_FILE).read_bytes()
+            == (tmp_path / "full" / ckpt.DIGEST_FILE).read_bytes())
+    # and the reference's checkpointing run of the same document
+    ref = run_ref(cfg, tmp_path / "ref", build_ref_shim(tmp_path),
+                  ["--state-digest-every", "5", "--checkpoint-every",
+                   "500ms"])
+    assert cs.managed_stable(full, vol) == cs.managed_stable(
+        ref, REF_VOLATILE)
+    assert cs.hosts_digest(tmp_path / "ref") == cs.hosts_digest(
+        tmp_path / "full")
+    assert ((tmp_path / "ref" / ckpt.DIGEST_FILE).read_bytes()
+            == (tmp_path / "full" / ckpt.DIGEST_FILE).read_bytes())
+    assert len(_checkpoints(tmp_path / "ref")) == len(paths)
+
+
+def test_managed_reexec_detects_divergence(tmp_path, ipc_slots):
+    """A snapshot resumed under a different observation stream fails at
+    the boundary, by name: a tampered state digest, then a tampered guest
+    cursor."""
+    _, cfg = _managed(tmp_path)
+    _mrun(cfg, tmp_path / "src", "--checkpoint-every", "500ms")
+    p = _checkpoints(tmp_path / "src")[0]
+    header, payload = p.read_text().splitlines()[:2]
+    for what, needle in (("digest", "state digest"), ("cursors",
+                                                      "cursor mismatch")):
+        doc = json.loads(payload)
+        if what == "digest":
+            doc["digest"] = "0" * len(doc["digest"])
+        else:
+            key = sorted(doc["cursors"])[0]
+            doc["cursors"][key] = {"n": 0, "sha": "0" * 64}
+        tampered = tmp_path / f"tampered_{what}.ckpt"
+        tampered.write_text(header + "\n" + json.dumps(doc) + "\n")
+        cfgo = parse_config(yaml.safe_load(Path(cfg).read_text()), {
+            "general.data_directory": str(tmp_path / f"res_{what}"),
+            "experimental.scheduler_policy": "tpu_batch"})
+        ctl, resume_at = ckpt.load_checkpoint(tampered, cfgo,
+                                              mirror_log=False, device="cpu")
+        assert resume_at is None
+        try:
+            with pytest.raises(ckpt.CheckpointError,
+                               match=f"diverged.*{needle}"):
+                ctl.run(resume_at=resume_at)
+        finally:
+            # the abort skips _finalize: reap the real guests here
+            for proc in ctl.processes:
+                proc.kill()
+            ctl.scheduler.shutdown()
+
+
+def test_managed_host_down_respawns_and_resumes(tmp_path, ipc_slots):
+    """A replayed host_down on the managed client mid-transfer SIGKILLs
+    the real guest and host_up respawns it (the fresh ring_probe then
+    finds its server gone: both guests still run at the stop time, the
+    same process errors in both packages); the run is the reference's,
+    and a snapshot taken after the fault embeds the command, so its
+    resume replays the crash and respawn into the same run."""
+    from tests.test_torch_managed import build_ref_shim, run_ref
+
+    cs, cfg = _managed(tmp_path)
+    cmds = tmp_path / "cmds.jsonl"
+    cmds.write_text(json.dumps(
+        {"cmd": {"cmd": "host_down", "hosts": ["client"],
+                 "duration": "300000000 ns"},
+         "round": 0, "seq": 0, "t": 1_200_000_000}) + "\n")
+    # the Python plane: the reference's C engine counts one
+    # units_emitted fewer than its Python plane after this crash (the
+    # port's two engines repeat each: ROADMAP queue C)
+    rc = ["--replay-commands", str(cmds), "--set",
+          "experimental.native_colcore=false"]
+    a = _mrun(cfg, tmp_path / "a", *rc, rc=1)
+    assert len(a["process_errors"]) == 2
+    assert a["counters"]["host_crashes"] == 1
+    assert a["counters"]["host_boots"] == 1
+    assert a["counters"]["processes_spawned"] == 3
+    ref = run_ref(cfg, tmp_path / "ref", build_ref_shim(tmp_path),
+                  ["--state-digest-every", "5", *rc], rc=1)
+    vol = VOLATILE_SUMMARY_KEYS
+    assert cs.managed_stable(a, vol) == cs.managed_stable(ref, REF_VOLATILE)
+    assert cs.hosts_digest(tmp_path / "a") == cs.hosts_digest(
+        tmp_path / "ref")
+    assert ((tmp_path / "a" / ckpt.DIGEST_FILE).read_bytes()
+            == (tmp_path / "ref" / ckpt.DIGEST_FILE).read_bytes())
+    _mrun(cfg, tmp_path / "src", "--checkpoint-every", "500ms", *rc, rc=1)
+    late = _checkpoints(tmp_path / "src")[-1]
+    assert json.loads(late.read_text().splitlines()[1])["commands"]
+    res = _mrun(cfg, tmp_path / "res", "--resume-from", str(late), *rc[2:],
+                rc=1)
+    assert cs.managed_stable(res, vol) == cs.managed_stable(a, vol)
+    assert cs.hosts_digest(tmp_path / "res") == cs.hosts_digest(
+        tmp_path / "a")
+    assert ((tmp_path / "res" / ckpt.DIGEST_FILE).read_bytes()
+            == (tmp_path / "a" / ckpt.DIGEST_FILE).read_bytes())

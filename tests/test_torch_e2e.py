@@ -12,8 +12,8 @@ through the mesh exchange). The port runs with its C engine (the
 default) and with the Python columnar plane (``native_colcore: false``);
 the reference runs its Python plane, which needs no build of its engine.
 Unported features are refused by name with exit 2; fault injection,
-telemetry, packet capture and the ABR model, which the port runs, run
-echo as the reference does.
+telemetry, packet capture, the ABR and httpd models and managed
+processes, which the port runs, run echo as the reference does.
 """
 
 import contextlib
@@ -412,10 +412,6 @@ def _with(mutate):
 
 
 REFUSALS = {
-    "httpd": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
-        "server"]["processes"][0].update(
-            path="pyapp:shadow_tpu.models.httpd:HttpServer"),
-        "workload model 'httpd'"),
     # the live plane is ported: what it refuses by name is a socket path
     # past the AF_UNIX limit and a replay log that is not a command log
     "live": (["--scheduler-policy", "tpu_batch", "--device", "cpu",
@@ -431,9 +427,6 @@ REFUSALS = {
                                   "--device", "cpu", "--set",
                                   "experimental.tpu_mesh_shards=2"], None,
                                  "tpu_mesh_shards=2 exceeds the 1 visible"),
-    "managed": (["--scheduler-policy", "tpu_batch"], lambda d: d["hosts"][
-        "server"]["processes"][0].update(path="/bin/true"),
-        "managed native processes"),
     "no_card": (["--scheduler-policy", "tpu_batch", "--device", "cuda"],
                 None, "torch.cuda.is_available() is false"),
 }
@@ -523,6 +516,52 @@ def test_once_refused_features_identical_to_reference(tmp_path, case):
         # the collector ran: its meta record, and samples at 1 s
         assert (port_dir / "metrics.jsonl").exists()
         assert port["telemetry"]["samples"] > 0 or case == "telemetry"
+
+
+#: echo with its server replaced as the port once refused by name: the
+#: httpd model, and a real binary (/bin/true, a managed process)
+ONCE_REFUSED_SERVERS = {
+    "httpd": "pyapp:shadow_tpu.models.httpd:HttpServer",
+    "managed": "/bin/true",
+}
+
+
+@pytest.mark.parametrize("case", sorted(ONCE_REFUSED_SERVERS))
+def test_once_refused_servers_identical_to_reference(tmp_path, case):
+    """The httpd model and managed processes, once refused by name, run
+    echo with that server as the reference does: the echo client gets no
+    reply from either, so both packages exit 1 with the same process
+    error, tree and state digests."""
+    from tests.test_torch_managed import _free_both_slots
+
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(yaml.safe_dump(_with(lambda d: d["hosts"]["server"][
+        "processes"][0].update(path=ONCE_REFUSED_SERVERS[case]))))
+    out = {}
+    try:
+        for main, mine, argv in ((ref_cli.main, "ref", REF_PLANE),
+                                 (port_cli.main, "port",
+                                  ["--device", "cpu"])):
+            # both packages pin the shim's fd 995 and refuse a held one
+            _free_both_slots()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = main([str(cfg), "--scheduler-policy", "tpu_batch",
+                           "--data-directory", str(tmp_path / mine),
+                           "--json-summary", "--quiet",
+                           "--state-digest-every", "5", *argv])
+            assert rc == 1
+            out[mine] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    finally:
+        _free_both_slots()
+    ref, port = out["ref"], out["port"]
+    assert port["process_errors"] == ref["process_errors"] == [
+        "client/echoclient.0: expected exit 0, still running"]
+    assert _stable(port, VOLATILE_SUMMARY_KEYS) == _stable(ref, REF_VOLATILE)
+    assert output_tree_digest(tmp_path / "port") == ref_tree_digest(
+        tmp_path / "ref")
+    assert (tmp_path / "port" / "state_digests.jsonl").read_text() == (
+        tmp_path / "ref" / "state_digests.jsonl").read_text()
 
 
 def test_fork_verb_is_refused(tmp_path, capsys):

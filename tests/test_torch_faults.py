@@ -355,7 +355,7 @@ def _cli_run(main, cfg, data_dir, argv):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("config", ["abr_1k", "abr_1k@8s", "gossip_churn",
+@pytest.mark.parametrize("config", ["abr_1k", "abr_1k@4s", "gossip_churn",
                                     "partition_heal", "web_cdn",
                                     "web_cdn@10s"])
 def test_fault_configs_give_chip_smoke_constants(tmp_path, monkeypatch,

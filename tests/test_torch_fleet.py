@@ -725,3 +725,74 @@ def test_chip_smoke_tgen1k_trees_pinned(tmp_path):
                       "tpu_batch", "--set", "experimental.native_colcore="
                       "false"])
         assert ref_fleet.output_tree_digest(d) == want, s
+
+
+# -- a managed sweep ----------------------------------------------------------
+
+def test_managed_sweep_and_partial_run_resume(tmp_path):
+    """A 2-seed sweep of real binaries (managed_smoke) through both
+    packages' fleet CLIs: every seed's hosts tree (less *.clock) and
+    state digest stream is the reference's. Then --resume treats a seed
+    left mid-run by a dead worker (status "running", a stale guest in its
+    guest_pids.jsonl) as failed: the stale guest is reaped (its clock-page
+    path found in its environment) and the seed re-runs to ok."""
+    from shadow_tpu_torch.native.managed import missing_kernel_features
+    from tests.test_torch_e2e import _chip_smoke
+    from tests.test_torch_managed import build_ref_shim
+
+    if missing_kernel_features():
+        pytest.skip(f"kernel features missing: {missing_kernel_features()}")
+    cs = _chip_smoke()
+    guests = cs.build_guests(tmp_path / "g")
+    cfg = cs.write_doc(cs.managed_doc("managed_smoke", guests),
+                       tmp_path / "m.yaml")
+    common = ["--seeds", "2", "--seed-base", "11", "--jobs", "2",
+              "--quiet", "--json", "--set", "general.state_digest_every=10"]
+    port_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
+    out = _cli("shadow_tpu_torch.fleet", ["sweep", cfg, "--sweep-dir",
+                                          str(port_dir), "--device", "cpu",
+                                          *common])
+    assert out.returncode == 0, out.stderr
+    s1 = json.loads(out.stdout)
+    ref = _cli("shadow_tpu.fleet", ["sweep", cfg, "--sweep-dir",
+                                    str(ref_dir), *common],
+               env={**os.environ, "JAX_PLATFORMS": "cpu",
+                    "SHADOW_SHIM_LIB": str(build_ref_shim(guests)
+                                           / "libshadow_shim.so")})
+    assert ref.returncode == 0, ref.stderr
+    assert s1["completed"] == json.loads(ref.stdout)["completed"] == [11, 12]
+    for s in (11, 12):
+        man = _manifest(port_dir, s)
+        assert man["status"] == "ok" and man["process_errors"] == []
+        d, rd = fleet.seed_dir(port_dir, s), ref_fleet.seed_dir(ref_dir, s)
+        assert cs.hosts_digest(d) == cs.hosts_digest(rd)
+        assert ((d / "state_digests.jsonl").read_bytes()
+                == (rd / "state_digests.jsonl").read_bytes())
+    # the state a SIGKILLed worker leaves behind
+    d = fleet.seed_dir(port_dir, 12)
+    man = _manifest(port_dir, 12)
+    (d / fleet.SEED_MANIFEST).write_text(json.dumps(
+        {"format": man["format"], "seed": 12, "status": "running",
+         "config_digest": man["config_digest"]}))
+    shm = str(d / "hosts" / "server" / "tgen_srv.0.clock")
+    stale = subprocess.Popen(["sleep", "300"], env={"SHADOW_TIME_SHM": shm})
+    try:
+        (d / "guest_pids.jsonl").write_text(json.dumps(
+            {"pid": stale.pid, "host": "server", "proc": "tgen_srv.0",
+             "shm": shm}) + "\n")
+        out = _cli("shadow_tpu_torch.fleet", ["sweep", cfg, "--sweep-dir",
+                                              str(port_dir), "--device",
+                                              "cpu", "--resume", *common])
+        assert out.returncode == 0, out.stderr
+        s2 = json.loads(out.stdout)
+        assert s2["skipped_resume"] == [11]
+        assert s2["completed"] == [11, 12]
+        assert stale.wait(timeout=10) == -9, "stale guest not reaped"
+    finally:
+        if stale.poll() is None:
+            stale.kill()
+            stale.wait()
+    man = _manifest(port_dir, 12)
+    assert man["status"] == "ok" and man["process_errors"] == []
+    assert cs.hosts_digest(d) == cs.hosts_digest(
+        ref_fleet.seed_dir(ref_dir, 12))

@@ -20,8 +20,11 @@ cpu``, tolerance 0:
   ``tools/bisect_divergence.py`` names a command branch's first divergent
   round after the fork point;
 - refusals by name: a non-volatile overlay, a config-digest mismatch, a
-  reference checkpoint, a managed trunk, a command at or before the fork
-  point, bad branch specs, ``--resume``.
+  reference checkpoint, a managed header below the re-execution version, a
+  command at or before the fork point, bad branch specs, ``--resume``;
+- a fork of a managed trunk (real binaries, a re-execution snapshot): its
+  branches equal the reference's fork of its own trunk and their cold
+  twins.
 
 The runs are CLI processes, a few at once: the fork (its workers fork from
 a parent with no other thread), and beside it the cold twins.
@@ -95,11 +98,11 @@ def _run_cmd(pkg: str, d, over: dict) -> list:
     return argv + (["--device", "cpu"] if pkg == "shadow_tpu_torch" else [])
 
 
-def _run_all(cmds: list, jobs: int) -> list:
+def _run_all(cmds: list, jobs: int, env: dict = None) -> list:
     """Run the commands, ``jobs`` at once; their CompletedProcess-like
     (returncode, stdout, stderr) in order. A simulation may end with
     process errors at this cut (exit 1): the bytes are the gate."""
-    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    env = {**(env or os.environ), "JAX_PLATFORMS": "cpu"}
     out = [None] * len(cmds)
     running = []
     pending = list(enumerate(cmds))
@@ -333,11 +336,16 @@ def test_refuses_reference_checkpoint(forked, tmp_path):
 
 
 def test_refuses_managed_trunk(forked, tmp_path):
+    """A managed trunk forks (re-execution), but a managed header below
+    the port's re-execution version cannot describe one: refused by name,
+    before the generic version gate."""
     fake = tmp_path / "managed.ckpt"
     hdr = dict(ckpt.read_header(forked["ckpt"]), managed=True,
-               mode="reexec")
+               mode="reexec", version=1)
     fake.write_bytes((json.dumps(hdr) + "\n").encode())
-    with pytest.raises(forks.ForkError, match="managed trunk"):
+    with pytest.raises(forks.ForkError,
+                       match="managed guests require checkpoint format "
+                             "version 2"):
         _plan(forked, [{"name": "b"}], ck=fake)
 
 
@@ -405,3 +413,95 @@ def test_chip_smoke_fork_phase(tmp_path):
 
     _chip_smoke().fork_path(port_cli, prop, output_tree_digest,
                             str(tmp_path), device="cpu")
+
+
+# -- a managed trunk -----------------------------------------------------
+
+#: managed_smoke forked at its 1 s snapshot (mid-transfer): the restore
+#: baseline, a link_degrade after the fork point, and a seed (cold)
+MANAGED_BRANCHES = [
+    {"name": "baseline"},
+    {"name": "degrade", "commands": [
+        {"t": "1.2s", "cmd": "link_degrade", "src_nodes": [0],
+         "dst_nodes": [1], "latency_factor": 2.0, "duration": "1s"}]},
+    {"name": "seed5", "seed": 5},
+]
+MANAGED_COMMON = {"general.checkpoint_every": "500ms",
+                  "general.state_digest_every": 5,
+                  "experimental.scheduler_policy": "tpu_batch"}
+
+
+def test_fork_of_a_managed_trunk(tmp_path):
+    """A re-execution trunk forks: each branch re-runs the prefix from
+    round 0 (its digest and guest cursors verified at the fork point).
+    Every branch's hosts tree (less *.clock) and state digests equal the
+    reference's fork of its own managed trunk, and its cold twin: the
+    trunk (baseline), a cold replay of the merged log (degrade), a cold
+    start at the seed (seed5)."""
+    from shadow_tpu_torch.native.managed import missing_kernel_features
+    from tests.test_torch_e2e import _chip_smoke
+    from tests.test_torch_managed import build_ref_shim
+
+    if missing_kernel_features():
+        pytest.skip(f"kernel features missing: {missing_kernel_features()}")
+    cs = _chip_smoke()
+    guests = cs.build_guests(tmp_path / "g")
+    ref_env = {"SHADOW_SHIM_LIB": str(build_ref_shim(guests)
+                                      / "libshadow_shim.so")}
+    cfg = cs.write_doc(cs.managed_doc("managed_smoke", guests),
+                       tmp_path / "m.yaml")
+
+    def run(pkg, d, over):
+        argv = [sys.executable, "-m", pkg, cfg, "--data-directory", str(d),
+                "--quiet", "--json-summary", *_sets(over)]
+        return argv + (["--device", "cpu"] if pkg == "shadow_tpu_torch"
+                       else ["--set", "experimental.native_colcore=false"])
+
+    env = {**os.environ, **ref_env}
+    trunks = {"port": tmp_path / "trunk", "ref": tmp_path / "ref_trunk"}
+    _run_all([run("shadow_tpu_torch", trunks["port"], MANAGED_COMMON),
+              run("shadow_tpu", trunks["ref"], MANAGED_COMMON)], jobs=2,
+             env=env)
+    name = f"ckpt_t{1_000_000_000:020d}.ckpt"
+    hdr = ckpt.read_header(trunks["port"] / "checkpoints" / name)
+    assert hdr["mode"] == "reexec" and hdr["managed"] is True
+    bfile = _branches_yaml(tmp_path, MANAGED_BRANCHES)
+    plan = forks.plan_fork(cfg, trunks["port"] / "checkpoints" / name,
+                           MANAGED_BRANCHES, tmp_path / "plan",
+                           overrides=dict(MANAGED_COMMON))
+    assert plan["reexec"] is True
+    rp = tmp_path / "replay_degrade.jsonl"
+    rp.write_text("".join(forks._dumps(r) + "\n"
+                          for r in plan["branches"]["degrade"]["replay"]))
+    forkd = {"port": tmp_path / "fork", "ref": tmp_path / "ref_fork"}
+    fork_cmds = [
+        [sys.executable, "-m", pkg, "fork", cfg, "--from",
+         str(trunks[tag] / "checkpoints" / name), "--branches", str(bfile),
+         "--fork-dir", str(forkd[tag]), "--jobs", "2", "--quiet", "--json",
+         *_sets(MANAGED_COMMON),
+         *(["--device", "cpu"] if tag == "port" else [])]
+        for pkg, tag in (("shadow_tpu_torch", "port"), ("shadow_tpu", "ref"))]
+    twins = {"degrade": tmp_path / "twin_degrade",
+             "seed5": tmp_path / "twin_seed5"}
+    res = _run_all(fork_cmds + [
+        run("shadow_tpu_torch", twins["degrade"],
+            {**MANAGED_COMMON, "general.replay_commands": str(rp)}),
+        run("shadow_tpu_torch", twins["seed5"],
+            {**MANAGED_COMMON, "general.seed": 5})], jobs=4, env=env)
+    for rc, so, se in res[:2]:
+        assert rc == 0, se
+        assert sorted(json.loads(so)["completed"]) == [
+            "baseline", "degrade", "seed5"]
+    twins["baseline"] = trunks["port"]
+    for b in ("baseline", "degrade", "seed5"):
+        man = json.loads((forks.branch_dir(forkd["port"], b)
+                          / forks.FORK_MANIFEST).read_text())
+        assert man["status"] == "ok" and man["process_errors"] == []
+        assert man["mode"] == ("cold" if b == "seed5" else "restore"), b
+        dirs = [forks.branch_dir(forkd["port"], b),
+                ref_forks.branch_dir(forkd["ref"], b), twins[b]]
+        assert len({cs.hosts_digest(d) for d in dirs}) == 1, b
+        assert len({(d / "state_digests.jsonl").read_bytes()
+                    for d in dirs}) == 1, b
+    assert cs.hosts_digest(twins["degrade"]) != cs.hosts_digest(
+        trunks["port"])

@@ -172,3 +172,55 @@ def test_port_runs_device_transport_with_jax_and_reference_blocked(tmp_path):
     summary = json.loads(r.stdout.strip().splitlines()[-1])
     assert summary["process_errors"] == []
     assert summary["device_transport"]["cohorts"] > 0
+
+
+def test_scan_covers_the_managed_slice():
+    """The managed-process modules (the shim's loader, the syscall
+    dispatcher, the virtual file surface, guest memory, the machine
+    identity) and the httpd model are among the files scanned above."""
+    names = {str(f.relative_to(ROOT)) for f in FILES}
+    assert {"shadow_tpu_torch/native/__init__.py",
+            "shadow_tpu_torch/native/managed.py",
+            "shadow_tpu_torch/native/vfs.py",
+            "shadow_tpu_torch/native/memory.py",
+            "shadow_tpu_torch/native/identity.py",
+            "shadow_tpu_torch/models/httpd.py"} <= names
+
+
+def test_port_runs_managed_with_jax_and_reference_blocked(tmp_path):
+    """Real binaries (managed_smoke's tgen_srv and ring_probe) under the
+    port's CLI with a re-execution checkpoint and a resume from it, the
+    shim built from the port's copy: nothing of jax or the reference is
+    imported."""
+    from shadow_tpu_torch.native.managed import missing_kernel_features
+    from tests.test_torch_e2e import _chip_smoke
+
+    if missing_kernel_features():
+        pytest.skip(f"kernel features missing: {missing_kernel_features()}")
+    cs = _chip_smoke()
+    cfg = cs.write_doc(cs.managed_doc(
+        "managed_smoke", cs.build_guests(tmp_path / "guests")),
+        tmp_path / "m.yaml")
+    src, res = tmp_path / "src", tmp_path / "res"
+    code = (
+        "import sys, glob\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['shadow_tpu'] = None\n"
+        "from shadow_tpu_torch.cli import main\n"
+        f"rc = main([{cfg!r}, '--scheduler-policy', 'tpu_batch', "
+        f"'--device', 'cpu', '--checkpoint-every', '500ms', "
+        f"'--data-directory', {str(src)!r}, '--quiet'])\n"
+        f"ck = sorted(glob.glob({str(src / 'checkpoints' / '*.ckpt')!r}))\n"
+        f"rc = rc or main([{cfg!r}, '--scheduler-policy', 'tpu_batch', "
+        f"'--device', 'cpu', '--resume-from', ck[0], '--data-directory', "
+        f"{str(res)!r}, '--quiet'])\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'shadow_tpu.'))"
+        " for m, v in sys.modules.items() if v is not None), 'leak'\n"
+        "assert 'shadow_tpu_torch.native.managed' in sys.modules\n"
+        "sys.exit(rc)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    out = (res / "hosts" / "client" / "ring_probe.0.stdout").read_text()
+    assert "bytes=300000" in out
+    assert cs.hosts_digest(src) == cs.hosts_digest(res)

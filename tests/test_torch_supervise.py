@@ -35,6 +35,7 @@ from shadow_tpu_torch import supervise as sup
 from shadow_tpu_torch.config.schema import parse_config
 from shadow_tpu_torch.core.controller import VOLATILE_SUMMARY_KEYS
 from shadow_tpu_torch.utils.digest import output_tree_digest
+from tests.test_torch_managed import ipc_slots  # noqa: F401 (a fixture)
 
 ROOT = Path(__file__).resolve().parent.parent
 CHURN_YAML = ROOT / "examples" / "gossip_churn.yaml"
@@ -320,3 +321,53 @@ def test_cli_supervise_gives_up_with_exit_1(tmp_path, monkeypatch, capsys):
                    "--data-directory", str(tmp_path / "run")])
     err = capsys.readouterr().err
     assert rc == 1 and "supervisor gave up" in err, err
+
+
+# -- chaos identity: managed guests -------------------------------------
+
+def test_supervised_managed_guest_wedge_identity(tmp_path, monkeypatch,
+                                                ipc_slots):
+    """A managed run surviving one injected guest wedge (the newest guest
+    SIGSTOPped, its watchdog stall escalated to the supervisor as
+    GuestStallError, the run re-executed from scratch) equals the clean
+    run and the reference's byte for byte: tree, state digests, summary
+    (less shim_fast_*). The wedged guest is named, and the recovered run
+    counts no unsupervised watchdog kill."""
+    from shadow_tpu_torch.native.managed import missing_kernel_features
+    from tests.test_torch_e2e import _chip_smoke
+    from tests.test_torch_managed import build_ref_shim, run_port, run_ref
+
+    if missing_kernel_features():
+        pytest.skip(f"kernel features missing: {missing_kernel_features()}")
+    monkeypatch.delenv(sup.CHAOS_ENV, raising=False)
+    cs = _chip_smoke()
+    doc = cs.managed_doc("managed_smoke", cs.build_guests(tmp_path / "g"))
+    cfg = cs.write_doc(doc, tmp_path / "m.yaml")
+    dig = ["--state-digest-every", "5"]
+    clean = run_port(cfg, tmp_path / "clean", dig)
+    ref = run_ref(cfg, tmp_path / "ref", build_ref_shim(tmp_path / "g"), dig)
+    monkeypatch.setenv(sup.CHAOS_ENV, "guest_wedge@r25")
+    over = {"general.data_directory": str(tmp_path / "chaos"),
+            "general.state_digest_every": 5,
+            "experimental.scheduler_policy": "tpu_batch",
+            "experimental.guest_turn_timeout": 1,
+            "general.supervise": {"max_restarts": 2, "backoff": 0.1}}
+    from tests.test_torch_managed import _free_both_slots
+
+    _free_both_slots()
+    res = sup.run_supervised(parse_config(doc, over), mirror_log=False,
+                             device="cpu")
+    assert res["process_errors"] == []
+    vol = VOLATILE_SUMMARY_KEYS
+    for d, s, v in ((tmp_path / "clean", clean, vol),
+                    (tmp_path / "ref", ref, REF_VOLATILE)):
+        assert cs.hosts_digest(tmp_path / "chaos") == cs.hosts_digest(d)
+        assert ((tmp_path / "chaos" / "state_digests.jsonl").read_bytes()
+                == (d / "state_digests.jsonl").read_bytes())
+        assert cs.managed_stable(res, vol) == cs.managed_stable(s, v)
+    svr = res["supervisor"]
+    assert len(svr["restarts"]) == 1
+    r = svr["restarts"][0]
+    assert "GuestStallError" in r["reason"] and "ring_probe" in r["reason"]
+    assert r["mttr_s"] < DETECT_BOUND_S
+    assert res["counters"].get("guest_watchdog_kills", 0) == 0
