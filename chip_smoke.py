@@ -307,6 +307,25 @@ failure exits non-zero:
              name (a
              profiler that cannot trace the card is reported; the run's
              own failures are not caught).
+25. multi device — the multi-device layout (one shard, or one draw
+             piece, per device entry; ``--device`` lists): the per-entry
+             kernels (mesh_send and mesh_recv with the copies between
+             entries, mesh_rounds_entry and mesh_reduce) against their
+             plain versions bit for bit at N in {2, 4, 8} entries of card
+             0, MeshDataPlane and DeviceDrawPlane over entries against CPU
+             planes; tgen_1k on the C engine over cuda:0 x 4 under tpu_mesh
+             at tpu_mesh_floor=0 and under tpu_batch at tpu_mesh_shards=4
+             and tpu_device_floor=1, each with the counts, tree and state
+             digest stream of phase 9's and phase 8's one-entry floor-0 and
+             floor-1 runs (which write digests every 500 rounds); launch
+             counts reset before each leg and read after: every entry
+             launched, mesh_send and mesh_recv at least once a window a
+             shard and no mesh_exchange, draw_flags once a window a piece;
+             the standalone round API over four entries on phase 9's
+             barriers against CPU entries; the per-entry launches by entry;
+             where two cards are visible the same legs over cuda:0,cuda:1,
+             else a line saying that leg did not run (not a failure); then
+             the four per-entry kernels timed on those runs' inputs.
 
 Prints a JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. The reference constants come from
@@ -702,6 +721,16 @@ PLAN = {
                     ("ack_advance_kernel",)),
     "apsp": ("shadow_tpu_torch/csrc/apsp.cu", "shadow_tpu/ops/apsp.py:30",
              ("apsp_square_kernel",)),
+    "mesh_send": ("shadow_tpu_torch/csrc/mesh.cu",
+                  "shadow_tpu/parallel/mesh.py:222", ("mesh_send_kernel",)),
+    "mesh_recv": ("shadow_tpu_torch/csrc/mesh.cu",
+                  "shadow_tpu/parallel/mesh.py:222", ("mesh_recv_kernel",)),
+    "mesh_rounds_entry": ("shadow_tpu_torch/csrc/mesh.cu",
+                          "shadow_tpu/parallel/mesh.py:202",
+                          ("mesh_rounds_kernel",)),
+    "mesh_reduce": ("shadow_tpu_torch/csrc/mesh.cu",
+                    "shadow_tpu/parallel/mesh.py:202",
+                    ("mesh_reduce_kernel",)),
 }
 #: the Python columnar plane: the earlier legs' engine, written out now
 #: that the C engine is the default
@@ -709,7 +738,8 @@ PY_PLANE = ["--set", "experimental.native_colcore=false"]
 #: the kernels whose bodies run the threefry2x32 device function: its
 #: launches on the main paths are theirs
 THREEFRY_INSIDE = ("draw_flags", "min_draw", "mesh_exchange",
-                   "mesh_round_step", "mesh_scan")
+                   "mesh_round_step", "mesh_scan", "mesh_send",
+                   "mesh_rounds_entry")
 #: integer operations of one threefry2x32 evaluation whose counters vary
 #: from call to call: 20 rounds x (add, rotate, xor), 5 key injections x 2
 #: adds, the two initial adds
@@ -1471,7 +1501,7 @@ def mesh_path(cli, mesh, digest, tmp: str, device: str = "cuda") -> tuple:
         d = os.path.join(tmp, f"tgen_1k_mesh_{label}")
         argv = [str(EXAMPLES / "tgen_1k.yaml"), "--scheduler-policy",
                 "tpu_mesh", "--device", device, "--data-directory", d,
-                *PY_PLANE]
+                *PY_PLANE, *MD_DIGEST]
         t0 = time.perf_counter()
         s = run_cli(cli, argv + extra)
         wall = time.perf_counter() - t0
@@ -1500,7 +1530,8 @@ def mesh_path(cli, mesh, digest, tmp: str, device: str = "cuda") -> tuple:
         s = run_cli(cli, [str(EXAMPLES / "tgen_1k.yaml"),
                           "--scheduler-policy", "tpu_mesh", "--device",
                           device, "--data-directory", d, "--set",
-                          "experimental.tpu_mesh_floor=0", *PY_PLANE])
+                          "experimental.tpu_mesh_floor=0", *PY_PLANE,
+                          *MD_DIGEST])
     check_run(s, d, digest, TGEN1K_COUNTS, TGEN1K_TREE_DIGEST,
               "tgen_1k tpu_mesh (floor0, recorded)")
     pw = s["phase_wall"]
@@ -5347,14 +5378,489 @@ def trace_transport(torch, cli, dt, digest, tmp: str) -> None:
 
 #: every phase after device and build, in order; --phases picks some (and
 #: what they need). The kernel table needs the timing phase.
+# -- phase 25: the multi-device layout ----------------------------------------
+
+#: entries the per-entry kernel sweep runs on (all entries of cuda:0)
+ENTRY_COUNTS = (2, 4, 8)
+#: the multi-entry legs' device list: four entries of card 0
+FOUR_ENTRIES = ",".join(["cuda:0"] * 4)
+#: state digest cadence of the one-entry runs (phases main path and mesh
+#: path) and of the multi-entry legs that hold their streams
+MD_DIGEST = ["--state-digest-every", "500"]
+
+
+def masked_send(torch, send):
+    """A mesh_send result with the rows past each destination's count
+    zeroed (the kernel leaves them unwritten; send_plain zeroes them)."""
+    m = send.shape[1] - 1
+    keep = torch.arange(m, device=send.device)[None] < send[:, m, 0:1]
+    out = send.clone()
+    out[:, :m][~keep] = 0
+    return out
+
+
+def check_entry_kernels(torch, np, mesh, prop, dev) -> dict:
+    """The per-entry kernels against their plain versions on ``dev``, bit
+    for bit, over N in ENTRY_COUNTS entries: mesh_send on every source
+    shard (its counted rows and trailers), the copies (mesh.gather on the
+    card), mesh_recv on every destination and the composed tables against
+    exchange_rounds_plain, on mixed and destination-skewed windows at m =
+    256 and a mixed one at 1,024, w at the smallest bucket, at m and at all
+    N m slots, the two seeds in turn; mesh_rounds_entry on every shard
+    (C = 64 over K = 8 and C = 2,048 over one round with tables in shared
+    memory, C = 257 at 20,000 hosts in device memory) and mesh_reduce of
+    the gathered partials against their plain versions; then MeshDataPlane
+    over 2 and 8 entries of the card (exchange_rounds over windows whose
+    bucket grows and shrinks, round_step, scan_rounds) and DeviceDrawPlane
+    split over four entries against CPU planes. Returns the largest
+    absolute error per kernel (the tolerance is 0)."""
+    from shadow_tpu_torch.network.fluid import NetParams
+
+    rng = np.random.default_rng(20261019)
+    seeds = (2, (1 << 32) + 0xDEADBEEF)
+    err = dict.fromkeys(("mesh_send", "mesh_recv", "mesh_rounds_entry",
+                         "mesh_reduce"), 0)
+    n_cmp = 0
+    for n in ENTRY_COUNTS:
+        for i, (m, skew) in enumerate(((256, False), (256, True),
+                                       (1024, False))):
+            xd = torch.from_numpy(exchange_inputs(np, rng, n, m,
+                                                  skew)).to(dev)
+            seed = seeds[i % 2]
+            sends = []
+            for s in range(n):
+                got = mesh.mesh_send(xd, s, seed, 10)
+                want = mesh.send_plain(xd, s, seed, 10)
+                err["mesh_send"] = max(err["mesh_send"], same(
+                    torch, (masked_send(torch, got),), (want,),
+                    f"mesh_send n={n} m={m} s={s} skew={skew}"))
+                sends.append(got)
+            for w in sorted({MESH_BUCKETS[0], m, n * m}):
+                rows = []
+                for t in range(n):
+                    g = torch.empty((n, m + 1, 4), dtype=torch.int64,
+                                    device=dev)
+                    mesh.gather(g, sends, t * (m + 1) * 32, (m + 1) * 32)
+                    got = mesh.mesh_recv(g, t, w)
+                    err["mesh_recv"] = max(err["mesh_recv"], same(
+                        torch, got, mesh.recv_plain(g, w),
+                        f"mesh_recv n={n} m={m} t={t} w={w}"))
+                    rows.append(got[0])
+                same(torch, (torch.stack(rows),),
+                     (mesh.exchange_rounds_plain(xd, seed, 10, w)[0],),
+                     f"the per-entry exchange n={n} m={m} w={w}")
+                n_cmp += 2 * n + 1
+    for n in ENTRY_COUNTS:
+        for h, cks in ((1000, ((64, 8), (2048, 1))), (20000, ((257, 1),))):
+            tabs, hs = round_tables(np, rng, n, h, 32)
+            tables = tuple(torch.from_numpy(np.asarray(t, np.int64)).to(dev)
+                           for t in tabs)
+            t0 = 40 * 10 ** 9
+            for c, k in cks:
+                state = torch.from_numpy(round_state(np, rng, tabs, n, hs,
+                                                     t0)).to(dev)
+                units = torch.from_numpy(np.stack([round_units(
+                    np, rng, n, hs, c, t0 + j * 2_000_000)
+                    for j in range(k)])).to(dev)
+                t_nows = torch.arange(k, device=dev) * 2_000_000 + t0
+                seed = seeds[k == 8]
+                parts = []
+                for s in range(n):
+                    st = state[:, s:s + 1].contiguous()
+                    u = units[:, :, s:s + 1].contiguous()
+                    got = mesh.mesh_rounds_entry(st, u, tables, t_nows, s,
+                                                 n, seed, 10)
+                    err["mesh_rounds_entry"] = max(
+                        err["mesh_rounds_entry"], same(
+                            torch, got, mesh.rounds_entry_plain(
+                                st, u, tables, t_nows, s, n, seed, 10),
+                            f"mesh_rounds_entry n={n} hosts={h} c={c} "
+                            f"k={k} s={s}"))
+                    parts.append(got[2])
+                got = mesh.mesh_reduce(torch.stack(parts))
+                err["mesh_reduce"] = max(err["mesh_reduce"], same(
+                    torch, got, mesh.reduce_plain(torch.stack(parts)),
+                    f"mesh_reduce n={n} k={k}"))
+                n_cmp += n + 1
+    h, g = 1000, 32
+    params = NetParams.build(
+        host_node=rng.integers(0, g, h).astype(np.int32),
+        rate_up=rng.integers(2_000_000, 50_000_000, h),
+        rate_down=rng.integers(2_000_000, 50_000_000, h),
+        latency_ns=rng.integers(1_000_000, 60_000_000, (g, g)),
+        reliability=np.full((g, g), 0.97, np.float32),
+        seed=(1 << 32) + 7, round_ns=2_000_000)
+    cpu = torch.device("cpu")
+    for n in (2, 8):
+        card = mesh.MeshDataPlane(params, n_shards=n, units_per_shard=512,
+                                  devices=(dev,) * n)
+        host = mesh.MeshDataPlane(params, n_shards=n, units_per_shard=512,
+                                  devices=(cpu,) * n)
+        for total in STAGED_WINDOWS if n == 2 else (700, 30, 3000, 40):
+            win = (rng.integers(0, h, total), rng.integers(0, h, total),
+                   rng.integers(0, 1 << 40, total),
+                   rng.integers(0, 1 << 58, total),
+                   rng.integers(1, 11, total),
+                   rng.choice(np.array([0, 1, 16106, 1 << 24]), total))
+            got, want = card.exchange_rounds(*win), host.exchange_rounds(*win)
+            if len(got) != len(want) or not all(
+                    np.array_equal(a, b) for a, b in zip(got, want)):
+                fail(f"MeshDataPlane over {n} entries: the window of {total}"
+                     f" differs from the CPU entries'")
+            n_cmp += 1
+        t = 10 ** 9
+        for k in (1, 3, 40):
+            chunks = []
+            for _ in range(k):
+                src = np.sort(rng.integers(0, h, 60))
+                chunks.append((card.shard_units_np(
+                    src, rng.integers(0, h, 60), rng.integers(60, 15000, 60),
+                    t + np.sort(rng.integers(0, 2_000_000, 60)),
+                    rng.integers(0, 1 << 50, 60)), t))
+                t += 2_000_000
+            if k == 1:
+                got = [card.round_step(chunks[0][0], chunks[0][1])]
+                want = [host.round_step(chunks[0][0], chunks[0][1])]
+                same_step = all(np.array_equal(np.asarray(a), np.asarray(b))
+                                for a, b in zip(got[0], want[0]))
+            else:
+                got, want = card.scan_rounds(chunks), host.scan_rounds(chunks)
+                same_step = all(np.array_equal(a, b)
+                                for a, b in zip(got, want))
+            if not same_step or not torch.equal(card.state, host.state):
+                fail(f"MeshDataPlane over {n} entries: {k} rounds differ "
+                     f"from the CPU entries'")
+            n_cmp += 1
+    seed = (1 << 32) + 77
+    card = prop.DeviceDrawPlane(seed, 65536, device=FOUR_ENTRIES, n_shards=4)
+    host = prop.DeviceDrawPlane(seed, 65536, device="cpu")
+    for n in (1, 7, 8, 33, 4096, 65536):
+        b = sweep_inputs(rng, n, 4)
+        if not np.array_equal(card.dispatch(*b).read(),
+                              host.dispatch(*b).read()):
+            fail(f"DeviceDrawPlane over four entries: flags differ at n={n}")
+        for mb in (0, card.SPEC_BUCKET):
+            if not np.array_equal(
+                    card.dispatch_min(*b[:3], min_bucket=mb).read(),
+                    host.dispatch_min(*b[:3], min_bucket=mb).read()):
+                fail(f"DeviceDrawPlane over four entries: min_draw differs "
+                     f"at n={n}")
+        n_cmp += 3
+    print(f"{n_cmp} per-entry kernel/plain and plane comparisons over "
+          f"{ENTRY_COUNTS} entries of {dev}, all bit-identical; launches "
+          f"{json.dumps(dict(mesh.LAUNCHES))}", flush=True)
+    return err
+
+
+@contextlib.contextmanager
+def recording_entry_windows(mesh, every: int = 180):
+    """Keep every ``every``-th window MeshDataPlane exchanges over its
+    entries while the block runs: a copy of the packed (6, N, m) units,
+    seed, width and w (a host copy, so no launch count moves)."""
+    kept, seen = [], [0]
+    fn = mesh.MeshDataPlane._exchange_entries
+
+    def record(self, st, w):
+        if seen[0] % every == 0:
+            kept.append((st.units.copy(), self._seed, self._max_pkts, w))
+        seen[0] += 1
+        return fn(self, st, w)
+
+    mesh.MeshDataPlane._exchange_entries = record
+    try:
+        yield kept
+    finally:
+        mesh.MeshDataPlane._exchange_entries = fn
+
+
+def multi_device_legs(cli, mesh, prop, digest, tmp: str, devices: str,
+                      one_entry: dict, label: str) -> dict:
+    """tgen_1k on the C engine under tpu_mesh at tpu_mesh_floor 0 (shards:
+    one per entry of ``devices``) and under tpu_batch at tpu_device_floor 1
+    with tpu_mesh_shards = the entries: each must have the counts, tree
+    and state digest stream of the one-entry run named in ``one_entry``.
+    Launch counts reset before each leg and read after: every entry must
+    have launched, the per-entry exchange twice a window a shard (send and
+    receive) and nothing of the one-device exchange; the draws once a
+    window a piece. Returns the launches and the recorded windows."""
+    n = len(devices.split(","))
+    out = {}
+    for policy, extra in (
+            ("tpu_mesh", ["--set", "experimental.tpu_mesh_floor=0"]),
+            ("tpu_batch", ["--set", f"experimental.tpu_mesh_shards={n}",
+                           "--set", "experimental.tpu_device_floor=1"])):
+        d = os.path.join(tmp, f"md_{label}_{policy}")
+        argv = [str(EXAMPLES / "tgen_1k.yaml"), "--scheduler-policy",
+                policy, "--device", devices, "--data-directory", d,
+                *MD_DIGEST, *extra]
+        mesh.reset_launches()
+        prop.reset_launches()
+        t0 = time.perf_counter()
+        if policy == "tpu_mesh":
+            with recording_entry_windows(mesh) as windows:
+                s = run_cli(cli, argv)
+            out["windows"] = windows
+        else:
+            s = run_cli(cli, argv)
+        wall = time.perf_counter() - t0
+        what = f"tgen_1k {policy} over {devices} ({label})"
+        check_run(s, d, digest, TGEN1K_COUNTS, TGEN1K_TREE_DIGEST, what)
+        want = open(os.path.join(one_entry[policy],
+                                 "state_digests.jsonl")).read()
+        if open(os.path.join(d, "state_digests.jsonl")).read() != want:
+            fail(f"{what}: state digest stream differs from the one-entry "
+                 f"run's ({one_entry[policy]})")
+        if not s["native_colcore"]:
+            fail(f"{what}: the C engine did not run")
+        if policy == "tpu_mesh":
+            formed = s["phase_wall"]["mesh_windows"]
+            counts = {k: mesh.LAUNCHES[k] for k in ("mesh_send", "mesh_recv",
+                                                    "mesh_exchange")}
+            entries = dict(mesh.ENTRY_LAUNCHES)
+            if (formed <= 0 or counts["mesh_exchange"]
+                    or counts["mesh_send"] < n * formed
+                    or counts["mesh_recv"] < n * formed):
+                fail(f"{what}: launches {counts} for {formed} windows over "
+                     f"{n} entries")
+            out["mesh"] = counts
+        else:
+            formed = s["device"]["windows_dispatched"]
+            counts = dict(prop.LAUNCHES)
+            entries = dict(prop.ENTRY_LAUNCHES)
+            if formed <= 0 or counts["draw_flags"] < n * formed:
+                fail(f"{what}: launches {counts} for {formed} windows split "
+                     f"over {n} entries")
+            out["draws"] = counts
+        if sorted(entries) != list(range(n)) or min(entries.values()) <= 0:
+            fail(f"{what}: launches by entry {entries}, want every one of "
+                 f"{n}")
+        print(f"{what}: counts, tree and digest stream match the one-entry "
+              f"run; wall {wall:.3f} s (controller {s['wall_seconds']:.3f} "
+              f"s), {s['sim_sec_per_wall_sec']:.3f} sim-s/wall-s, {formed} "
+              f"windows; launches {json.dumps(counts)}, by entry "
+              f"{json.dumps(entries)}; phase_wall "
+              f"{json.dumps(s['phase_wall'])}", flush=True)
+    return out
+
+
+def entry_standalone(torch, np, mesh, barriers, tmp: str, devices: str,
+                     steps: int = 16, groups: int = 4) -> dict:
+    """The standalone round API over the entries of ``devices`` at tgen_1k's
+    size (its params, one shard an entry): the floor-0 run's first
+    ``steps`` barriers through round_step, then ``groups`` runs of 32
+    through scan_rounds (K = 32), in order, the state carried, against the
+    same plane over CPU entries (the plain halves). Returns the launches
+    and the per-entry calls (for timing)."""
+    from shadow_tpu_torch.config import load_config
+    from shadow_tpu_torch.core.controller import Controller
+    from shadow_tpu_torch.ops import devcfg
+
+    entries = devcfg.select_devices(devices)
+    cfg = load_config(str(EXAMPLES / "tgen_1k.yaml"), {
+        "experimental.scheduler_policy": "tpu_mesh",
+        "experimental.tpu_mesh_shards": len(entries),
+        "general.data_directory": os.path.join(tmp, "md_standalone")})
+    ctrl = Controller(cfg, mirror_log=False, device=devices)
+    card = ctrl.engine.mesh_plane
+    host = mesh.MeshDataPlane(card.params, n_shards=card.n_shards,
+                              units_per_shard=card.units_per_shard,
+                              devices=(torch.device("cpu"),) * card.n_shards,
+                              max_pkts=card._max_pkts)
+    calls, reduces = [], []
+    rounds_entry, reduce = mesh.mesh_rounds_entry, mesh.mesh_reduce
+
+    def keep_rounds(state, units_k, tables, t_now_k, s, n, seed, mp,
+                    stream=None):
+        if state.device.type == "cuda":
+            calls.append((state, units_k, tables, t_now_k, s, n, seed, mp))
+        return rounds_entry(state, units_k, tables, t_now_k, s, n, seed, mp,
+                            stream)
+
+    def keep_reduce(partials, stream=None):
+        if partials.device.type == "cuda":
+            reduces.append(partials)
+        return reduce(partials, stream)
+
+    mesh.reset_launches()
+    mesh.mesh_rounds_entry, mesh.mesh_reduce = keep_rounds, keep_reduce
+    try:
+        i = 0
+        for j in range(steps + groups):
+            if j < steps:
+                t_now, *cols = barriers[i]
+                units = card.shard_units_np(*cols)
+                got = card.round_step(units, t_now)
+                want = host.round_step(units, t_now)
+                ok = all(np.array_equal(np.asarray(a), np.asarray(b))
+                         for a, b in zip(got, want))
+                i += 1
+            else:
+                part = [(card.shard_units_np(*cols), t) for t, *cols in
+                        barriers[i:i + card.SCAN_KMAX]]
+                got, want = card.scan_rounds(part), host.scan_rounds(part)
+                ok = all(np.array_equal(a, b) for a, b in zip(got, want))
+                i += len(part)
+            if not ok or not torch.equal(card.state, host.state):
+                fail(f"the standalone round API over {devices} differs from "
+                     f"the CPU entries' at barrier {i}")
+    finally:
+        mesh.mesh_rounds_entry, mesh.mesh_reduce = rounds_entry, reduce
+    launches = {k: mesh.LAUNCHES[k] for k in ("mesh_rounds_entry",
+                                              "mesh_reduce")}
+    print(f"standalone round API over {devices}: {steps} round_steps and "
+          f"{groups} K=32 scans on the first {i} barriers, equal to the CPU "
+          f"entries' (state included); launches {json.dumps(launches)}, by "
+          f"entry {json.dumps(dict(mesh.ENTRY_LAUNCHES))}", flush=True)
+    if min(launches.values()) <= 0:
+        fail(f"the standalone round API over {devices} launched "
+             f"{launches}")
+    return {"launches": launches, "calls": calls, "reduces": reduces}
+
+
+def send_work(torch, prop, units, s: int, seed: int, width: int) -> tuple:
+    """(bytes, operations) of one mesh_send call: the valid column of the
+    shard's m slots, the other five fields of its valid units, its counted
+    rows and N trailer rows written once; 75 per threefry lane its valid
+    units need."""
+    n, m = units.shape[1:]
+    u = units[:, s]
+    ok = u[5] != 0
+    n_ok = int(ok.sum())
+    lanes = torch.clamp(u[3][ok], max=width) & 0xFFFFFFFF
+    return (m * 8 + 5 * 8 * n_ok + 32 * (n_ok + n),
+            OPS_PER_LANE * mesh_lanes(torch, prop, u[2][ok], lanes,
+                                      u[4][ok] & 0xFFFFFFFF, seed, width))
+
+
+def round_entry_work(torch, prop, state, units_k, tables, t_now_k, s: int,
+                     n: int, seed: int, width: int) -> tuple:
+    """(bytes, operations) of one mesh_rounds_entry call (shard s of n, K
+    rounds), counted as round_work counts the whole mesh's: the shard's
+    state, rate and cap read once and its state written once; its slots'
+    src_l column and the other fields of its units in use; the distinct
+    table entries its routed units gather; its (N, K, C, 4) rows and K
+    partials written once; 75 per threefry lane its routed units need."""
+    host_node, _lat, thresh = tables[:3]
+    k, _, _, c = units_k.shape
+    hs = state.shape[2]
+    h_pad = host_node.shape[0]
+    src_l, dst_g, size, _te, uid, rok = units_k[:, :, 0].unbind(1)
+    used = src_l < hs
+    route = used & (rok != 0)
+    src_g = (torch.clamp(src_l, max=hs - 1) * n + s)[route]
+    dst_g = torch.clamp(dst_g[route], max=h_pad - 1)
+    sn, dn = host_node[src_g], host_node[dst_g]
+    g = thresh.shape[0]
+    nbytes = (2 * state.numel() + 2 * hs) * 8 + k * c * 8 \
+        + 5 * 8 * int(used.sum()) \
+        + 8 * int(torch.unique(torch.cat([src_g, dst_g])).numel()) \
+        + 16 * int(torch.unique(sn * g + dn).numel()) \
+        + k * (n * c * 32 + 24)
+    npk = torch.clamp(-((-size) // 1500), min=1, max=width)
+    return nbytes, OPS_PER_LANE * mesh_lanes(
+        torch, prop, uid[route], npk[route], thresh[sn, dn] & 0xFFFFFFFF,
+        seed, width)
+
+
+def time_entry_kernels(torch, np, prop, mesh, windows, sa, rate) -> dict:
+    """The per-entry kernels timed on the multi-entry runs' own inputs:
+    mesh_send on every shard of the tpu_mesh leg's recorded windows (on
+    device memory) and mesh_recv on the gathered blocks they give,
+    mesh_rounds_entry and mesh_reduce on the standalone calls over the
+    entries; each beside its plain version and its bound."""
+    out = {}
+    dev = torch.device("cuda", 0)
+    sends, recvs, swork, rwork = [], [], [], []
+    for u, seed, mp, w in windows:
+        x = torch.from_numpy(u).to(dev)
+        n, m = x.shape[1:]
+        blocks = []
+        for s in range(n):
+            sends.append((x, s, seed, mp))
+            swork.append(send_work(torch, prop, x, s, seed, mp))
+            blocks.append(mesh.mesh_send(x, s, seed, mp))
+        for t in range(n):
+            g = torch.empty((n, m + 1, 4), dtype=torch.int64, device=dev)
+            mesh.gather(g, blocks, t * (m + 1) * 32, (m + 1) * 32)
+            torch.cuda.synchronize()
+            rows = int(g[:, m, 0].sum())
+            recvs.append((g, t, w))
+            rwork.append((n * 16 + rows * 32 + w * 32 + 8, 0))
+    shape = sorted({tuple(x[0].shape) for x in sends})
+    out["mesh_send"] = [measure_mesh(
+        torch, "mesh_send", [lambda a=a: mesh.mesh_send(*a) for a in sends],
+        [lambda a=a: mesh.send_plain(*a) for a in sends[:64]],
+        sum(b for b, _ in swork) / len(sends),
+        sum(o for _, o in swork) / len(sends), rate,
+        f"{len(sends)} shard sends of {len(windows)} run windows, units "
+        f"{shape}")]
+    out["mesh_recv"] = [measure_mesh(
+        torch, "mesh_recv", [lambda a=a: mesh.mesh_recv(*a) for a in recvs],
+        [lambda a=a: mesh.recv_plain(a[0], a[2]) for a in recvs[:64]],
+        sum(b for b, _ in rwork) / len(recvs), 0, rate,
+        f"{len(recvs)} destinations of {len(windows)} run windows")]
+    calls = sa["calls"]
+    work = [round_entry_work(torch, prop, *c) for c in calls]
+    ks = sorted({c[1].shape[0] for c in calls})
+    out["mesh_rounds_entry"] = [measure_mesh(
+        torch, "mesh_rounds_entry",
+        [lambda c=c: mesh.mesh_rounds_entry(*c) for c in calls],
+        [lambda c=c: mesh.rounds_entry_plain(*c) for c in calls[:16]],
+        sum(b for b, _ in work) / len(calls),
+        sum(o for _, o in work) / len(calls), rate,
+        f"{len(calls)} shard calls of the standalone API, K in {ks}")]
+    red = sa["reduces"]
+    out["mesh_reduce"] = [measure_mesh(
+        torch, "mesh_reduce", [lambda p=p: mesh.mesh_reduce(p) for p in red],
+        [lambda p=p: mesh.reduce_plain(p) for p in red],
+        sum(p.numel() * 8 + p.shape[1] * 24 for p in red) / len(red), 0,
+        rate, f"{len(red)} reductions, N={red[0].shape[0]}")]
+    return out
+
+
+def multi_device_path(cli, torch, np, prop, mesh, digest, tmp: str,
+                      one_entry: dict, barriers) -> dict:
+    """Phase ``multi device``: the per-entry kernels against their plain
+    versions; tgen_1k over four entries of card 0 under tpu_mesh and
+    tpu_batch against the one-entry runs; the standalone round API over
+    four entries; the distinct-card leg where the machine has two cards.
+    Returns the launches, errors and the inputs kept for timing."""
+    dev = torch.device("cuda", 0)
+    err = check_entry_kernels(torch, np, mesh, prop, dev)
+    legs = multi_device_legs(cli, mesh, prop, digest, tmp, FOUR_ENTRIES,
+                             one_entry, "one card")
+    sa = entry_standalone(torch, np, mesh, barriers, tmp, FOUR_ENTRIES)
+    k = torch.cuda.device_count()
+    if k >= 2:
+        two = "cuda:0,cuda:1"
+        print(f"multi device: the distinct-card leg runs over {two} "
+              f"({k} cards visible; peer access 0->1: "
+              f"{torch.cuda.can_device_access_peer(0, 1)})", flush=True)
+        multi_device_legs(cli, mesh, prop, digest, tmp, two, one_entry,
+                          "two cards")
+    else:
+        print(f"multi device: the distinct-card leg did not run: "
+              f"torch.cuda.device_count() = {k} (not a failure; it runs "
+              f"where two cards are visible)", flush=True)
+    launches = {"mesh_send": legs["mesh"]["mesh_send"],
+                "mesh_recv": legs["mesh"]["mesh_recv"],
+                **sa["launches"]}
+    print(f"per-entry launches on the multi-entry paths: "
+          f"{json.dumps(launches)}; draw_flags split over four entries "
+          f"{legs['draws']['draw_flags']}", flush=True)
+    return {"err": err, "launches": launches, "windows": legs["windows"],
+            "sa": sa, "draw_flags": legs["draws"]["draw_flags"]}
+
+
 PHASES = ("kernels", "mesh kernels", "transport kernels", "apsp kernels",
           "echo", "main path", "mesh path", "mesh standalone",
           "transport path", "engine path", "policies", "faults",
           "checkpoint", "shards", "fault filter", "fleet", "live", "fork",
-          "managed", "apsp path", "timing", "trace")
+          "managed", "apsp path", "timing", "trace", "multi device")
 #: phase -> the phases whose results it reads
 NEEDS = {
     "mesh standalone": ("mesh path",),
+    "multi device": ("main path", "mesh path"),
     "fleet": ("main path",),
     "timing": ("kernels", "mesh kernels", "transport kernels",
                "apsp kernels", "main path", "mesh path", "mesh standalone",
@@ -5492,7 +5998,7 @@ def main(argv=None) -> int:
             d = os.path.join(tmp, f"tgen_1k_{label}")
             argv = [str(EXAMPLES / "tgen_1k.yaml"), "--scheduler-policy",
                     "tpu_batch", "--device", "cuda", "--data-directory", d,
-                    *PY_PLANE]
+                    *PY_PLANE, *MD_DIGEST]
             t0 = time.perf_counter()
             if label == "floor1":
                 with recording_draws(prop, "draw_flags") as windows:
@@ -5537,7 +6043,8 @@ def main(argv=None) -> int:
 
     if do("mesh standalone"):
         sa = mesh_standalone(torch, np, mesh, barriers, tmp)
-        del barriers
+        if "multi device" not in run:
+            del barriers
         for name in ("mesh_round_step", "mesh_scan"):
             launches[name] += sa["launches"][name]
             max_err[name] = max(max_err.get(name, 0), sa["err"][name])
@@ -5618,6 +6125,22 @@ def main(argv=None) -> int:
         trace_run(torch, cli, output_tree_digest, tmp, "tpu_batch",
                   engine=True)
         trace_transport(torch, cli, dt, output_tree_digest, tmp)
+
+    if do("multi device"):
+        md = multi_device_path(
+            cli, torch, np, prop, mesh, output_tree_digest, tmp,
+            {"tpu_batch": os.path.join(tmp, "tgen_1k_floor1"),
+             "tpu_mesh": os.path.join(tmp, "tgen_1k_mesh_floor0")},
+            barriers)
+        del barriers
+        add(md["launches"])
+        launches["draw_flags"] += md["draw_flags"]
+        for name, e in md["err"].items():
+            max_err[name] = max(max_err.get(name, 0), e)
+        timing.update(time_entry_kernels(torch, np, prop, mesh,
+                                         md["windows"], md["sa"],
+                                         spin_rate(torch)))
+        del md
     shutil.rmtree(tmp, ignore_errors=True)
 
     # the device function's launches are those of the kernels that run it

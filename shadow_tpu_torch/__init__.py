@@ -7,9 +7,8 @@ loss draws) runs as hand-written CUDA kernels on an NVIDIA GPU
 (``shadow_tpu_torch/csrc``), launched through PyTorch's stream and memory.
 
 This package never imports ``jax`` nor anything of ``shadow_tpu``: what it
-needs of the reference it keeps as its own copy. Features whose modules are
-not ported yet are refused by name at config load
-(``config/schema.py::refuse_unported``), never run differently.
+needs of the reference it keeps as its own copy. It runs every config the
+reference runs, on one card or over several device entries (``--device``).
 """
 
 __version__ = "0.1.0"

@@ -8,11 +8,12 @@ files, with the reference's paths for checkpointed runs
 verb (forks.py). A process path that is not ``pyapp:`` runs a real binary
 as a managed process (native/managed.py); a managed run checkpoints as a
 re-execution snapshot, and ``--shards`` above 1 refuses it by name, as the
-reference does. Features that are not ported are refused by name at
-config load (exit 2).
-``--device {cuda,cpu}`` (default cuda) says where the data-plane kernels
-run (a resume reattaches them on the resuming invocation's device); ``cuda``
-without a visible card is an error, never a silent CPU run.
+reference does. Every config the reference runs, the port runs.
+``--device`` (default cuda) says where the data-plane kernels run: ``cuda``
+(every visible card), ``cpu``, or a comma list of device entries
+(ops/devcfg.py ``select_devices``); a resume reattaches them on the
+resuming invocation's entries. A card that is not visible is an error,
+never a silent CPU run.
 
 Usage:
     python -m shadow_tpu_torch [flags] config.yaml
@@ -108,13 +109,18 @@ def build_parser() -> argparse.ArgumentParser:
         "--set general.supervise.max_restarts / .backoff",
     )
     p.add_argument(
-        "--device", choices=("cuda", "cpu"), default="cuda",
+        "--device", default="cuda", metavar="DEVICE",
         help="where the data-plane kernels run (default cuda): the "
-        "loss-draw kernels under tpu_batch, the mesh kernels "
-        "(mesh_exchange, mesh_round_step, mesh_scan) under tpu_mesh; cpu "
-        "runs their plain PyTorch versions. The thread policies "
-        "(thread_per_core, the default, and thread_per_host) are the "
-        "reference's CPU baseline and launch no kernel",
+        "loss-draw kernels under tpu_batch, the mesh kernels under "
+        "tpu_mesh. cuda is every visible card, cpu runs the plain PyTorch "
+        "versions, and a comma list names the device entries in shard "
+        "order, an entry repeated at will (cuda:0,cuda:1; "
+        "cuda:0,cuda:0,cuda:0,cuda:0; cpu,cpu,cpu,cpu): tpu_mesh puts "
+        "shard i on entry i, tpu_batch splits each draw batch over "
+        "experimental.tpu_mesh_shards entries (0: all). Single-device "
+        "work runs on entry 0. The thread policies (thread_per_core, the "
+        "default, and thread_per_host) are the reference's CPU baseline "
+        "and launch no kernel",
     )
     p.add_argument(
         "--set",

@@ -7,10 +7,8 @@ sections; every option overridable from the CLI. The new backend slots in as
 ``thread_per_core`` / ``thread_per_host`` policies (BASELINE.json north_star).
 
 The port of shadow_tpu/config/schema.py: it reads every config the
-reference reads, with the same keys, defaults and validation, and then
-refuses by name every feature whose modules are not ported yet
-(``refuse_unported``) — a refused config exits 2 with the feature named,
-never runs differently.
+reference reads, with the same keys, defaults and validation, and runs
+every one of them.
 
 Extensions over the reference schema (documented, all optional):
 - ``hosts.<name>.quantity``: stamp out N numbered copies of a host template
@@ -604,27 +602,7 @@ def parse_config(doc: dict, overrides: Optional[dict] = None) -> ConfigOptions:
                 cfg.hosts.append(ho)
     names = [h.name for h in cfg.hosts]
     _require(len(set(names)) == len(names), "duplicate host names after expansion")
-    refuse_unported(cfg)
     return cfg
-
-
-def _refuse(feature: str) -> None:
-    raise ValueError(f"config error: {feature} is not ported to "
-                     f"shadow_tpu_torch yet")
-
-
-def refuse_unported(cfg: ConfigOptions) -> None:
-    """Refuse, by name, every feature of a valid reference config that
-    this package cannot run yet. The reference runs them; running them
-    differently here would break the port's promise of identical
-    results."""
-    e = cfg.experimental
-    if e.scheduler_policy == "tpu_batch" and e.tpu_mesh_shards > 1:
-        _refuse("experimental.tpu_mesh_shards > 1 (draws sharded over "
-                "several devices)")
-    # under tpu_mesh, tpu_mesh_shards above the visible device count is
-    # refused where the device is known (network/devroute.py). Every
-    # model of MODEL_REGISTRY has its copy in models/.
 
 
 #: composed-YAML memo for load_yaml_doc(cache=True): a fleet worker runs

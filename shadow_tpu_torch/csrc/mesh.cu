@@ -1,5 +1,5 @@
 // Mesh data-plane kernels: the sharded round of the tpu_mesh policy, with
-// N shards of hosts held on one card.
+// N shards of hosts held on one card, or one shard on each device entry.
 //
 // Replaces the three jax.jit shard_map programs of
 // shadow_tpu/parallel/mesh.py:
@@ -80,9 +80,7 @@
 // - N <= kClusterMax (16, a non-portable cluster size the H100 launches):
 //   one cluster launch. Above it (up to kMaxShards), the kernels run as
 //   two launches: mesh_send_kernel then mesh_recv_kernel for the exchange,
-//   the round kernel then mesh_reduce_kernel for the rounds. The
-//   send/receive pair is also the seam where a multi-card slice puts an
-//   NCCL all_to_all.
+//   the round kernel then mesh_reduce_kernel for the rounds.
 // - Exchange send rows: in each source block's shared memory when
 //   N * m * 32 bytes <= kDynSmemMax, else in a device-memory table inside
 //   the same launch.
@@ -90,6 +88,24 @@
 //   round_smem_bytes() <= kDynSmemMax (tgen_1k: 117,632 bytes), else read
 //   from device memory (the prefetch buffers stay in shared memory either
 //   way).
+//
+// One shard on each device entry (parallel/mesh.py MeshDataPlane with a
+// devices tuple; the reference puts shard i on devices[i] of a jax Mesh).
+// The same kernels run one block a launch, the shard index an argument:
+// shadow_mesh_send runs mesh_send_kernel for source shard s, writing its
+// rows as N blocks of m + 1 rows (destination d's block ends in a row
+// [count, local minimum, 0, 0]); shadow_mesh_gather makes the N^2 copies
+// of those blocks (the all_to_all: peer copies between cards, which CUDA
+// stages through host memory where two cards cannot reach each other);
+// shadow_mesh_recv runs mesh_recv_kernel for destination t on the gathered
+// blocks. shadow_mesh_rounds_entry runs mesh_rounds_kernel<false> for
+// shard s with its (3, 1, hs) state, writing a destination's rows of all K
+// rounds as one block (no step of a round reads what it received, so the
+// copies follow the K-round launch); shadow_mesh_reduce runs
+// mesh_reduce_kernel on every entry's partials gathered on entry 0. Each
+// launches on the calling thread's current device, which the caller makes
+// the stream's card. cudaFuncSetAttribute applies to the current device
+// only, so prepared<> prepares a kernel once per device.
 //
 // Bit identity. All math is integer, held to the plain PyTorch versions in
 // shadow_tpu_torch/parallel/mesh.py with tolerance 0:
@@ -121,6 +137,7 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <mutex>
 
 #include "threefry.cuh"
 
@@ -134,6 +151,8 @@ typedef unsigned long long u64;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxShards = 32;
+// devices a process may launch the round kernels on (prepared<>)
+constexpr int kMaxDevices = 64;
 // blocks in one cluster: 8 is portable; 16 needs the non-portable attribute
 // (parallel/mesh.py CLUSTER_MAX)
 constexpr int kClusterMax = 16;
@@ -410,18 +429,19 @@ __device__ bool tile_draws(uint32_t lo, uint32_t hi, uint32_t lanes,
 
 // -- mesh_exchange -----------------------------------------------------------
 
-// units: (6, n, m) int64 rows [dst_g, t_arr, uid, npkts, thresh, valid].
-// Source shard s's send phase: draws each valid unit's flag and writes its
-// row [dst_g // n, t_arr, uid, dropped | valid << 1] to rows[(d * m + rank)
-// * 4] (send[s, d, rank]); leaves the count of units sent to destination d
-// in sc->carry[d] and returns the earliest t_arr of its valid units (kInf if
-// none) to every thread. Only the tiles up to the last valid slot run.
-__device__ i64 send_phase(const i64* __restrict__ units, int s, int n, int m,
-                          uint32_t k0, uint32_t k1, uint32_t width, i64* rows,
-                          RankScratch* sc, DrawScratch* dr, i64* warp_tot,
-                          int* red_i) {
-  const i64 plane = static_cast<i64>(n) * m;
-  const i64* u_ok = units + 5 * plane + static_cast<i64>(s) * m;
+// units: one source shard's m slots of the (6, n, m) int64 rows [dst_g,
+// t_arr, uid, npkts, thresh, valid], field f of slot i at units[f * plane
+// + i]. The shard's send phase: draws each valid unit's flag and writes its
+// row [dst_g // n, t_arr, uid, dropped | valid << 1] to rows[(d * stride +
+// rank) * 4] (destination d's block of stride rows); leaves the count of
+// units sent to destination d in sc->carry[d] and returns the earliest t_arr
+// of its valid units (kInf if none) to every thread. Only the tiles up to
+// the last valid slot run.
+__device__ i64 send_phase(const i64* __restrict__ units, i64 plane, int n,
+                          int m, int stride, uint32_t k0, uint32_t k1,
+                          uint32_t width, i64* rows, RankScratch* sc,
+                          DrawScratch* dr, i64* warp_tot, int* red_i) {
+  const i64* u_ok = units + 5 * plane;
   int last = -1;
   for (int i = threadIdx.x; i < m; i += kThreads)
     if (u_ok[i] != 0) last = i;
@@ -435,7 +455,7 @@ __device__ i64 send_phase(const i64* __restrict__ units, int s, int n, int m,
     i64 dst = 0, t_arr = 0, uid = 0;
     uint32_t lanes = 0, th = 0;
     if (active && u_ok[i] != 0) {
-      const i64 at = static_cast<i64>(s) * m + i;
+      const i64 at = i;
       dst = units[at];
       t_arr = units[plane + at];
       uid = units[2 * plane + at];
@@ -453,28 +473,28 @@ __device__ i64 send_phase(const i64* __restrict__ units, int s, int n, int m,
     const i64 flags = (dropped ? 1 : 0) | 2;
     const int rank = tile_rank(ds, active, n, sc, p - base <= 32);
     if (ds < n)
-      put_row(rows + (static_cast<i64>(ds) * m + rank) * 4, floordiv(dst, n),
-              t_arr, uid, flags);
+      put_row(rows + (static_cast<i64>(ds) * stride + rank) * 4,
+              floordiv(dst, n), t_arr, uid, flags);
   }
   i64 total;
   block_scan(my_min, OpMin(), kInf, warp_tot, &total);
   return total;
 }
 
-// Destination shard i's receive phase: the rows sent to it, in (source
-// shard, slot) order, into recv[i] (w rows: the first w of them, then zero
-// rows). off[j] = rows from sources before j, off[n] = all of them;
-// source(j) = the base of source j's (n, m, 4) send rows.
+// One destination shard's receive phase: the rows sent to it, in (source
+// shard, slot) order, into its w rows of recv (the first w of them, then
+// zero rows). off[j] = rows from sources before j, off[n] = all of them;
+// source(j) = the first of the rows source j sent to this destination.
 template <typename Source>
-__device__ void recv_phase(int i, int n, int m, int w, const int* off,
-                           Source source, i64* __restrict__ recv) {
+__device__ void recv_phase(int n, int w, const int* off, Source source,
+                           i64* __restrict__ recv) {
   const int total = off[n];
   for (int r = threadIdx.x; r < w; r += kThreads) {
-    i64* out = recv + (static_cast<i64>(i) * w + r) * 4;
+    i64* out = recv + static_cast<i64>(r) * 4;
     if (r < total) {
       int j = 0;
       while (off[j + 1] <= r) ++j;
-      copy_row(out, source(j) + (static_cast<i64>(i) * m + (r - off[j])) * 4);
+      copy_row(out, source(j) + static_cast<i64>(r - off[j]) * 4);
     } else {
       put_row(out, 0, 0, 0, 0);
     }
@@ -503,8 +523,9 @@ mesh_exchange_kernel(const i64* __restrict__ units, int n, int m, int w,
   cg::cluster_group cluster = cg::this_cluster();
   const int s = blockIdx.x;  // the grid is one cluster
   i64* rows = kSmemRows ? dyn : send + static_cast<i64>(s) * n * m * 4;
-  const i64 mn = send_phase(units, s, n, m, k0, k1, width, rows, &sc, &dr,
-                            warp_tot, red_i);
+  const i64 mn = send_phase(units + static_cast<i64>(s) * m,
+                            static_cast<i64>(n) * m, n, m, m, k0, k1, width,
+                            rows, &sc, &dr, warp_tot, red_i);
   if (threadIdx.x == 0) local_min = mn;
   if (!kSmemRows) __threadfence();
   cluster.sync();
@@ -525,79 +546,112 @@ mesh_exchange_kernel(const i64* __restrict__ units, int n, int m, int w,
     }
   }
   __syncthreads();
-  recv_phase(s, n, m, w, off,
+  recv_phase(n, w, off,
              [&](int j) -> const i64* {
-               return kSmemRows ? cluster.map_shared_rank(dyn, j)
-                                : send + static_cast<i64>(j) * n * m * 4;
+               return (kSmemRows ? cluster.map_shared_rank(dyn, j)
+                                 : send + static_cast<i64>(j) * n * m * 4) +
+                      static_cast<i64>(s) * m * 4;
              },
-             recv);
+             recv + static_cast<i64>(s) * w * 4);
   cluster.sync();  // a block's shared memory outlives every read of it
 }
 
-// N > kClusterMax: the send phase as a launch of its own, its rows in
-// send[s] and its counts and minimum in device memory ...
+// The send phase as a launch of its own: block b is source shard s0 + b,
+// its m slots at units + (s0 + b) * m (fields `plane` apart), its rows
+// into send + b * n * stride * 4, a block of stride rows a destination.
+// N > kClusterMax (the pair, stride == m): every shard, its counts into
+// counts[b * n + d] and its minimum into local_min[b]. One shard on its own
+// device entry (stride == m + 1, counts and local_min null): row m of
+// destination d's block is [count, local minimum, 0, 0], so the one copy of
+// that block to entry d moves d's rows, their count and the minimum.
 __global__ void __launch_bounds__(kThreads)
-mesh_send_kernel(const i64* __restrict__ units, int n, int m, uint32_t k0,
-                 uint32_t k1, uint32_t width, i64* __restrict__ send,
-                 int* __restrict__ counts, i64* __restrict__ local_min) {
+mesh_send_kernel(const i64* __restrict__ units, i64 plane, int s0, int n,
+                 int m, int stride, uint32_t k0, uint32_t k1, uint32_t width,
+                 i64* __restrict__ send, int* __restrict__ counts,
+                 i64* __restrict__ local_min) {
   __shared__ RankScratch sc;
   __shared__ DrawScratch dr;
   __shared__ i64 warp_tot[kWarps];
   __shared__ int red_i[kWarps];
-  const int s = blockIdx.x;
-  const i64 mn = send_phase(units, s, n, m, k0, k1, width,
-                            send + static_cast<i64>(s) * n * m * 4, &sc, &dr,
+  const int b = blockIdx.x;
+  i64* rows = send + static_cast<i64>(b) * n * stride * 4;
+  const i64 mn = send_phase(units + static_cast<i64>(s0 + b) * m, plane, n,
+                            m, stride, k0, k1, width, rows, &sc, &dr,
                             warp_tot, red_i);
-  if (threadIdx.x < n) counts[s * n + threadIdx.x] = sc.carry[threadIdx.x];
-  if (threadIdx.x == 0) local_min[s] = mn;
+  if (counts != nullptr) {
+    if (threadIdx.x < n) counts[b * n + threadIdx.x] = sc.carry[threadIdx.x];
+    if (threadIdx.x == 0) local_min[b] = mn;
+  } else if (threadIdx.x < n) {
+    put_row(rows + (static_cast<i64>(threadIdx.x) * stride + m) * 4,
+            sc.carry[threadIdx.x], mn, 0, 0);
+  }
 }
 
-// ... then the receive phase (block 0 also writes g_min = min(local_min)).
+// ... then the receive phase: block b is destination shard t = t0 + b, its
+// w rows into recv + b * w * 4. Source j's rows for t start at send + j *
+// jstride + t * tstride. The pair: send (n, n, m, 4) (jstride n * m * 4,
+// tstride m * 4), counts (n, n) and local_min (n,). One destination on its
+// own entry: send is the gathered (n, m + 1, 4) of the sources' blocks for
+// it (jstride (m + 1) * 4, tstride 0; counts and local_min null), each
+// source's count and minimum in its block's row m. Block 0 writes g_min,
+// the minimum over every source, where g_min is not null.
 __global__ void __launch_bounds__(kThreads)
-mesh_recv_kernel(const i64* __restrict__ send, const int* __restrict__ counts,
-                 const i64* __restrict__ local_min, int n, int m, int w,
-                 i64* __restrict__ recv, i64* __restrict__ g_min) {
+mesh_recv_kernel(const i64* __restrict__ send, i64 jstride, i64 tstride,
+                 const int* __restrict__ counts,
+                 const i64* __restrict__ local_min, int t0, int n, int m,
+                 int w, i64* __restrict__ recv, i64* __restrict__ g_min) {
   __shared__ int off[kMaxShards + 1];
-  const int i = blockIdx.x;
+  const int b = blockIdx.x;
+  const int t = t0 + b;
+  const i64* base = send + static_cast<i64>(t) * tstride;
   if (threadIdx.x == 0) {
     int run = 0;
+    i64 g = kInf;
     for (int j = 0; j < n; ++j) {
+      const i64* trailer = base + static_cast<i64>(j) * jstride + m * 4;
       off[j] = run;
-      run += counts[j * n + i];
+      run += counts != nullptr ? counts[j * n + t]
+                               : static_cast<int>(trailer[0]);
+      const i64 v = local_min != nullptr ? local_min[j] : trailer[1];
+      g = v < g ? v : g;
     }
     off[n] = run;
-    if (i == 0) {
-      i64 g = kInf;
-      for (int j = 0; j < n; ++j) g = local_min[j] < g ? local_min[j] : g;
-      *g_min = g;
-    }
+    if (b == 0 && g_min != nullptr) *g_min = g;
   }
   __syncthreads();
-  recv_phase(i, n, m, w, off,
+  recv_phase(n, w, off,
              [&](int j) -> const i64* {
-               return send + static_cast<i64>(j) * n * m * 4;
+               return base + static_cast<i64>(j) * jstride;
              },
-             recv);
+             recv + static_cast<i64>(b) * w * 4);
 }
 
 // -- mesh_round_step and mesh_scan -------------------------------------------
 
+// The launch's blocks are shards s0 .. s0 + rows - 1 of n: block b holds
+// row b of the state, the units and the partials. One cluster launch holds
+// every shard (s0 = 0, rows = n); a shard on its own device entry is one
+// block (s0 = its index, rows = 1).
 struct RoundArgs {
-  const i64* state_in;  // (3, n, hs) [t_base, tokens, debt]
-  i64* state_out;       // (3, n, hs), the state after the last round
+  const i64* state_in;  // (3, rows, hs) [t_base, tokens, debt]
+  i64* state_out;       // (3, rows, hs), the state after the last round
   const i64* host_node;  // (h_pad,)
   const i64* lat;        // (g, g)
   const i64* thresh;     // (g, g)
   const i64* rate;       // (h_pad,)
   const i64* cap;        // (h_pad,)
-  const i64* units;      // (k, 6, n, c)
+  const i64* units;      // (k, 6, rows, c)
   const i64* t_now_k;    // (k,), or null: one round at t_now
   i64 t_now;
-  i64* received;  // (k, n, n, c, 4)
-  i64* partials;  // (k, n, 3) [sent, dropped, min t_arr] per shard
+  // round j's rows from block b to destination d: received + j * r_step +
+  // d * r_dst + b * c * 4 (one cluster launch: (k, n, n, c, 4); one entry:
+  // (n, k, c, 4), a destination's rows of every round in one block)
+  i64* received;
+  i64 r_step, r_dst;
+  i64* partials;  // (k, rows, 3) [sent, dropped, min t_arr] per shard
   i64* g_min;     // (k,)
   i64* counters;  // (k, 2) [sent, dropped]
-  int k, n, hs, c, h_pad, g;
+  int k, n, s0, rows, hs, c, h_pad, g;
   int win, tile;  // prefetched slots: src_l up to win, the rest up to tile
   int resident;   // tables and state in shared memory
   uint32_t k0, k1, width;
@@ -672,13 +726,14 @@ __device__ __forceinline__ void add_debt(const View& v, int resident, i64 sl,
                  : "memory");
 }
 
-// Round j of shard s = blockIdx.x. Units are src-sorted within each shard,
-// padding (src_l >= hs) last. Writes the counted rows of received[j, d, s]
-// for every destination d (the rest of the table was zeroed before the
-// launch) and partials[j, s].
+// Round j of shard s = s0 + b, b = blockIdx.x. Units are src-sorted within
+// each shard, padding (src_l >= hs) last. Writes the counted rows of round
+// j from s to every destination d (the rest of the table was zeroed before
+// the launch) and partials[j, b].
 __device__ void round_body(const RoundArgs& a, const View& v, const Cols& u,
                            int j, RoundScratch* rs) {
-  const int s = blockIdx.x;
+  const int b = blockIdx.x;
+  const int s = a.s0 + b;
   const int n = a.n, hs = a.hs, c = a.c;
   const i64 t_now = a.t_now_k ? a.t_now_k[j] : a.t_now;
   // lazy saturation rebase at the barrier (fluid.TokenBuckets.rebase), and
@@ -703,7 +758,7 @@ __device__ void round_body(const RoundArgs& a, const View& v, const Cols& u,
     rs->carry[1] = kNegInf;
   }
   const int p = block_max(last, rs->red_i) + 1;
-  i64* rcv = a.received + static_cast<i64>(j) * n * n * c * 4;
+  i64* rcv = a.received + j * a.r_step + static_cast<i64>(b) * c * 4;
   i64 sent = 0, dropped_ct = 0, my_min = kInf;
   for (int base = 0; base < p; base += kThreads) {
     const int i = base + threadIdx.x;
@@ -772,7 +827,7 @@ __device__ void round_body(const RoundArgs& a, const View& v, const Cols& u,
     }
     const int rank = tile_rank(ds, active, n, &rs->sc, one_warp);
     if (ds < n)
-      put_row(rcv + ((static_cast<i64>(ds) * n + s) * c + rank) * 4,
+      put_row(rcv + ds * a.r_dst + static_cast<i64>(rank) * 4,
               floordiv(dst_g, n), t_arr, uid, flags);
     if (threadIdx.x == 0) {
       rs->carry[0] = wadd(rs->carry[0], tile_sum);
@@ -792,7 +847,7 @@ __device__ void round_body(const RoundArgs& a, const View& v, const Cols& u,
   }
   block_sum_sum_min(&sent, &dropped_ct, &my_min, rs->red);
   if (threadIdx.x == 0) {
-    i64* part = a.partials + (static_cast<i64>(j) * n + s) * 3;
+    i64* part = a.partials + (static_cast<i64>(j) * a.rows + b) * 3;
     part[0] = sent;
     part[1] = dropped_ct;
     part[2] = my_min;
@@ -800,15 +855,18 @@ __device__ void round_body(const RoundArgs& a, const View& v, const Cols& u,
   __syncthreads();  // state, scratch and carries are reused by the next round
 }
 
-// partials (k, n, 3) of rounds [j0, k) -> g_min and counters, one round a
-// thread of the calling threads.
+// n shards' partials of rounds [j0, k) -> g_min and counters, one round a
+// thread of the calling threads: round j of shard s at partials + (j * js +
+// s * ss) * 3 ((k, n, 3): js = n, ss = 1; gathered from n entries, (n, k,
+// 3): js = 1, ss = k).
 __device__ void reduce_rounds(const i64* __restrict__ partials, int n, int k,
-                              int j0, int stride, i64* __restrict__ g_min,
+                              i64 js, i64 ss, int j0, int stride,
+                              i64* __restrict__ g_min,
                               i64* __restrict__ counters) {
   for (int j = j0; j < k; j += stride) {
     i64 sent = 0, dropped = 0, g = kInf;
     for (int s = 0; s < n; ++s) {
-      const i64* p = partials + (static_cast<i64>(j) * n + s) * 3;
+      const i64* p = partials + (j * js + s * ss) * 3;
       sent = wadd(sent, p[0]);
       dropped = wadd(dropped, p[1]);
       g = p[2] < g ? p[2] : g;
@@ -819,19 +877,21 @@ __device__ void reduce_rounds(const i64* __restrict__ partials, int n, int k,
   }
 }
 
-// K rounds (K = 1 for mesh_round_step) in one launch, block s = shard s,
-// its bucket state carried from round to round in shared memory (resident)
-// or in state_out. kCluster: the n blocks are one cluster and block 0
-// reduces every round's partials after the last round; otherwise
-// mesh_reduce_kernel does, as a second launch.
+// K rounds (K = 1 for mesh_round_step) in one launch, block b = shard s0 +
+// b, its bucket state carried from round to round in shared memory
+// (resident) or in state_out. kCluster: the n blocks are one cluster and
+// block 0 reduces every round's partials after the last round; otherwise
+// mesh_reduce_kernel does, as a second launch (after the partials of
+// every entry are gathered, when each shard is a launch of its own).
 template <bool kCluster>
 __global__ void __launch_bounds__(kThreads) mesh_rounds_kernel(RoundArgs a) {
   extern __shared__ __align__(16) i64 dyn[];
   __shared__ RoundScratch rs;
-  const int s = blockIdx.x;
+  const int b = blockIdx.x;
+  const int s = a.s0 + b;
   const int n = a.n, hs = a.hs, gg = a.g * a.g;
-  const i64 sh = static_cast<i64>(s) * hs;
-  const i64 st_plane = static_cast<i64>(n) * hs;
+  const i64 sh = static_cast<i64>(b) * hs;
+  const i64 st_plane = static_cast<i64>(a.rows) * hs;
   View v;
   i64* bufs;
   if (a.resident) {
@@ -881,10 +941,10 @@ __global__ void __launch_bounds__(kThreads) mesh_rounds_kernel(RoundArgs a) {
     v.lat = a.lat;
     v.thresh = a.thresh;
   }
-  const i64 plane = static_cast<i64>(n) * a.c;
+  const i64 plane = static_cast<i64>(a.rows) * a.c;
   const int bsz = a.win + 5 * a.tile;
   const int k = a.k > 0 ? a.k : 1;
-  const i64* u0 = a.units + static_cast<i64>(s) * a.c;
+  const i64* u0 = a.units + static_cast<i64>(b) * a.c;
   prefetch_round(u0, bufs, plane, a.win, a.tile);
   cp_async_commit();
   for (int j = 0; j < k; ++j) {
@@ -908,17 +968,19 @@ __global__ void __launch_bounds__(kThreads) mesh_rounds_kernel(RoundArgs a) {
   if constexpr (kCluster) {
     __threadfence();
     cg::this_cluster().sync();
-    if (s == 0)
-      reduce_rounds(a.partials, n, k, threadIdx.x, kThreads, a.g_min,
+    if (b == 0)
+      reduce_rounds(a.partials, n, k, n, 1, threadIdx.x, kThreads, a.g_min,
                     a.counters);
   }
 }
 
-// N > kClusterMax: partials (k, n, 3) -> g_min (k,) and counters (k, 2)
+// Partials -> g_min (k,) and counters (k, 2): N > kClusterMax (partials
+// (k, n, 3)), or every entry's (steps, 3) gathered on entry 0 ((n, k, 3)).
 __global__ void mesh_reduce_kernel(const i64* __restrict__ partials, int n,
-                                   int k, i64* __restrict__ g_min,
+                                   int k, i64 js, i64 ss,
+                                   i64* __restrict__ g_min,
                                    i64* __restrict__ counters) {
-  reduce_rounds(partials, n, k, blockIdx.x * blockDim.x + threadIdx.x,
+  reduce_rounds(partials, n, k, js, ss, blockIdx.x * blockDim.x + threadIdx.x,
                 gridDim.x * blockDim.x, g_min, counters);
 }
 
@@ -947,10 +1009,20 @@ cudaError_t prepare(Kernel kernel, bool cluster) {
   return e;
 }
 
+// cudaFuncSetAttribute applies to the current device only: prepare each
+// kernel once on each device that launches it.
 template <auto Kernel>
 cudaError_t prepared(bool cluster) {
-  static const cudaError_t e = prepare(Kernel, cluster);
-  return e;
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t result[kMaxDevices];
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev, cluster] {
+    result[dev] = prepare(Kernel, cluster);
+  });
+  return result[dev];
 }
 
 // Launch Kernel with n blocks of kThreads as one cluster of n blocks.
@@ -983,6 +1055,51 @@ bool misaligned(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
 }
 
+// The round kernel's arguments for shards s0 .. s0 + rows - 1 of n
+// (g_min and counters left null: only the cluster launch and
+// mesh_reduce_kernel write them).
+RoundArgs round_args(const void* state_in, void* state_out, int n, int s0,
+                     int rows, int hs, const void* units, int c, int k,
+                     long long t_now, const void* t_now_k,
+                     const void* host_node, int h_pad, const void* lat,
+                     const void* thresh, int g, const void* rate,
+                     const void* cap, uint32_t k0, uint32_t k1, int width,
+                     int resident, void* received, i64 r_step, i64 r_dst,
+                     void* partials) {
+  RoundArgs a;
+  a.state_in = static_cast<const i64*>(state_in);
+  a.state_out = static_cast<i64*>(state_out);
+  a.host_node = static_cast<const i64*>(host_node);
+  a.lat = static_cast<const i64*>(lat);
+  a.thresh = static_cast<const i64*>(thresh);
+  a.rate = static_cast<const i64*>(rate);
+  a.cap = static_cast<const i64*>(cap);
+  a.units = static_cast<const i64*>(units);
+  a.t_now_k = static_cast<const i64*>(t_now_k);
+  a.t_now = t_now;
+  a.received = static_cast<i64*>(received);
+  a.r_step = r_step;
+  a.r_dst = r_dst;
+  a.partials = static_cast<i64*>(partials);
+  a.g_min = nullptr;
+  a.counters = nullptr;
+  a.k = k;
+  a.n = n;
+  a.s0 = s0;
+  a.rows = rows;
+  a.hs = hs;
+  a.c = c;
+  a.h_pad = h_pad;
+  a.g = g;
+  a.win = c < kSrcWin ? c : kSrcWin;
+  a.tile = c < kThreads ? c : kThreads;
+  a.resident = resident != 0;
+  a.k0 = k0;
+  a.k1 = k1;
+  a.width = static_cast<uint32_t>(width);
+  return a;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1011,13 +1128,15 @@ int shadow_mesh_exchange(void* units, int n, int m, int w, uint32_t k0,
   i64* gm = static_cast<i64*>(g_min);
   if (path == kPathPair) {
     mesh_send_kernel<<<n, kThreads, 0, st>>>(
-        u, n, m, k0, k1, static_cast<uint32_t>(width), snd,
-        static_cast<int*>(counts), static_cast<i64*>(local_min));
+        u, static_cast<i64>(n) * m, 0, n, m, m, k0, k1,
+        static_cast<uint32_t>(width), snd, static_cast<int*>(counts),
+        static_cast<i64*>(local_min));
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     mesh_recv_kernel<<<n, kThreads, 0, st>>>(
-        snd, static_cast<const int*>(counts),
-        static_cast<const i64*>(local_min), n, m, w, rcv, gm);
+        snd, static_cast<i64>(n) * m * 4, static_cast<i64>(m) * 4,
+        static_cast<const int*>(counts), static_cast<const i64*>(local_min),
+        0, n, m, w, rcv, gm);
     e = cudaGetLastError();
   } else if (path == kPathClusterGlobal) {
     e = launch_cluster<mesh_exchange_kernel<false>>(
@@ -1058,36 +1177,16 @@ int shadow_mesh_rounds(const void* state_in, void* state_out, int n, int hs,
       (k == 0) != (t_now_k == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  RoundArgs a;
-  a.state_in = static_cast<const i64*>(state_in);
-  a.state_out = static_cast<i64*>(state_out);
-  a.host_node = static_cast<const i64*>(host_node);
-  a.lat = static_cast<const i64*>(lat);
-  a.thresh = static_cast<const i64*>(thresh);
-  a.rate = static_cast<const i64*>(rate);
-  a.cap = static_cast<const i64*>(cap);
-  a.units = static_cast<const i64*>(units);
-  a.t_now_k = static_cast<const i64*>(t_now_k);
-  a.t_now = t_now;
-  a.received = static_cast<i64*>(received);
-  a.partials = static_cast<i64*>(partials);
+  const int steps = k == 0 ? 1 : k;
+  RoundArgs a = round_args(state_in, state_out, n, 0, n, hs, units, c, k,
+                           t_now, t_now_k, host_node, h_pad, lat, thresh, g,
+                           rate, cap, k0, k1, width, resident, received,
+                           static_cast<i64>(n) * n * c * 4,
+                           static_cast<i64>(n) * c * 4, partials);
   a.g_min = static_cast<i64*>(g_min);
   a.counters = static_cast<i64*>(counters);
-  a.k = k;
-  a.n = n;
-  a.hs = hs;
-  a.c = c;
-  a.h_pad = h_pad;
-  a.g = g;
-  a.win = c < kSrcWin ? c : kSrcWin;
-  a.tile = c < kThreads ? c : kThreads;
-  a.resident = resident != 0;
-  a.k0 = k0;
-  a.k1 = k1;
-  a.width = static_cast<uint32_t>(width);
   // the rows past each destination's count are zero: one memset over the
   // card, where one block a shard would write them row by row
-  const int steps = k == 0 ? 1 : k;
   cudaError_t e = cudaMemsetAsync(
       received, 0, 32LL * steps * n * n * c, st);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1100,8 +1199,113 @@ int shadow_mesh_rounds(const void* state_in, void* state_out, int n, int hs,
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   mesh_reduce_kernel<<<(steps + 127) / 128, 128, 0, st>>>(
-      a.partials, n, steps, a.g_min, a.counters);
+      a.partials, n, steps, n, 1, a.g_min, a.counters);
   return static_cast<int>(cudaGetLastError());
+}
+
+// -- one shard on its own device entry --------------------------------------
+// Each entry point launches on the calling thread's current device, which
+// must be the stream's.
+
+// Source shard s of n: its m slots of units (6, n, m) (field f of slot i of
+// shard s at units[f * plane + s * m + i]; plane = n * m for the plane's
+// staged window) -> send (n, m + 1, 4): destination d's rows in block d,
+// [count, local minimum, 0, 0] in its row m.
+int shadow_mesh_send(const void* units, long long plane, int s, int n, int m,
+                     uint32_t k0, uint32_t k1, int width, void* send,
+                     void* stream) {
+  if (bad_shape(n, m, width) || s < 0 || s >= n ||
+      plane < static_cast<long long>(n) * m || misaligned(send))
+    return static_cast<int>(cudaErrorInvalidValue);
+  mesh_send_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const i64*>(units), plane, s, n, m, m + 1, k0, k1,
+      static_cast<uint32_t>(width), static_cast<i64*>(send), nullptr,
+      nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Destination shard t of n: gathered (n, m + 1, 4), source j's block for t
+// at [j] (mesh_send's layout) -> recv (w, 4), its first w rows in (source,
+// slot) order then zero rows, and g_min (1,), the minimum over the sources.
+int shadow_mesh_recv(const void* gathered, int t, int n, int m, int w,
+                     void* recv, void* g_min, void* stream) {
+  if (bad_shape(n, m, 1) || t < 0 || t >= n || w < 1 || w > n * m ||
+      misaligned(recv) || misaligned(gathered))
+    return static_cast<int>(cudaErrorInvalidValue);
+  mesh_recv_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const i64*>(gathered), static_cast<i64>(m + 1) * 4, 0,
+      nullptr, nullptr, t, n, m, w, static_cast<i64*>(recv),
+      static_cast<i64*>(g_min));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shard s of n, k >= 1 rounds (units (k, 6, 1, c) at t_now_k (k,)):
+// state_in (3, 1, hs) -> state_out; received (n, k, c, 4), destination d's
+// rows of every round in block d; partials (k, 3) [sent, dropped, min
+// t_arr]. The tables are whole (replicated on every entry); resident as
+// shadow_mesh_rounds.
+int shadow_mesh_rounds_entry(const void* state_in, void* state_out, int s,
+                             int n, int hs, const void* units, int c, int k,
+                             const void* t_now_k,
+                             const void* host_node, int h_pad,
+                             const void* lat, const void* thresh, int g,
+                             const void* rate, const void* cap, uint32_t k0,
+                             uint32_t k1, int width, int resident,
+                             void* received, void* partials, void* stream) {
+  const i64 smem = round_smem_bytes(hs, c, h_pad, g, resident != 0);
+  if (bad_shape(n, c, width) || s < 0 || s >= n || hs < 1 || k < 1 ||
+      g < 1 || h_pad != n * hs || smem > kDynSmemMax ||
+      misaligned(received) || t_now_k == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const RoundArgs a = round_args(
+      state_in, state_out, n, s, 1, hs, units, c, k, 0, t_now_k, host_node,
+      h_pad, lat, thresh, g, rate, cap, k0, k1, width, resident, received,
+      static_cast<i64>(c) * 4, static_cast<i64>(k) * c * 4, partials);
+  cudaError_t e = cudaMemsetAsync(received, 0, 32LL * n * k * c, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = prepared<mesh_rounds_kernel<false>>(false);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  mesh_rounds_kernel<false><<<1, kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Every entry's partials gathered on one entry, (n, k, 3) -> g_min (k,) and
+// counters (k, 2).
+int shadow_mesh_reduce(const void* partials, int n, int k, void* g_min,
+                       void* counters, void* stream) {
+  if (n < 1 || n > kMaxShards || k < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  mesh_reduce_kernel<<<(k + 127) / 128, 128, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const i64*>(partials), n, k, 1, k,
+      static_cast<i64*>(g_min), static_cast<i64*>(counters));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The copies between entries: dst + j * bytes <- srcs[j] + offset for the
+// n sources, on stream (the destination entry's), src_devs[j] and dst_dev
+// the cards that hold them. A copy between two cards is a peer copy, which
+// CUDA stages through host memory where the cards cannot reach each
+// other.
+int shadow_mesh_gather(void* dst, int dst_dev, void* const* srcs,
+                       const int* src_devs, int n, long long bytes,
+                       long long offset, void* stream) {
+  if (n < 1 || bytes < 0 || offset < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  char* to = static_cast<char*>(dst);
+  for (int j = 0; j < n; ++j) {
+    const char* from = static_cast<const char*>(srcs[j]) + offset;
+    const cudaError_t e =
+        src_devs[j] == dst_dev
+            ? cudaMemcpyAsync(to + j * bytes, from, bytes,
+                              cudaMemcpyDeviceToDevice, st)
+            : cudaMemcpyPeerAsync(to + j * bytes, dst_dev, from,
+                                  src_devs[j], bytes, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 const char* shadow_cuda_error_string(int code) {

@@ -833,7 +833,8 @@ class FleetRunner:
 
                     self._server = DrawServer(
                         cfg0.general.seed, e.tpu_max_batch, e.unit_mtus,
-                        address=self._service_addr, device=self.device)
+                        address=self._service_addr, device=self.device,
+                        n_shards=e.tpu_mesh_shards)
                 try:
                     self._dispatch_loop(pending, failed)
                 except KeyboardInterrupt:
@@ -1391,10 +1392,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the trunk run directory for --fork-from "
                     "(default: derived from the checkpoint path's "
                     "<trunk>/checkpoints/ layout)")
-    ps.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+    ps.add_argument("--device", default="cuda", metavar="DEVICE",
                     help="where the members' kernels run and the shared "
-                    "draw service attaches (default cuda; cpu runs the "
-                    "plain PyTorch versions)")
+                    "draw service attaches: cuda (default), cpu (the plain "
+                    "PyTorch versions), or a comma list of entries such as "
+                    "cuda:0,cuda:1")
     pr = sub.add_parser("report", help="re-reduce + render a sweep (or "
                         "fork) directory")
     pr.add_argument("sweep_dir")

@@ -843,10 +843,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--live-endpoint", metavar="PATH",
                    help="bind a STATUS-ONLY endpoint streaming per-branch "
                    "lifecycle records; 'auto' = <fork-dir>/live.sock")
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+    p.add_argument("--device", default="cuda", metavar="DEVICE",
                    help="where the branches' kernels run and the shared "
-                   "draw service attaches (default cuda; cpu runs the "
-                   "plain PyTorch versions)")
+                   "draw service attaches: cuda (default), cpu (the plain "
+                   "PyTorch versions), or a comma list of entries such as "
+                   "cuda:0,cuda:1")
     p.add_argument("--quiet", action="store_true",
                    help="no progress lines on stderr")
     p.add_argument("--json", action="store_true",

@@ -830,9 +830,11 @@ def main(argv=None) -> int:
     j.add_argument("--hosts", default=None,
                    help="comma-separated host names to dump "
                         "(default: from bisect, else first 8)")
-    j.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="where the inspection run's kernels run (default "
-                        "cuda; the checkpoint reattaches them there)")
+    j.add_argument("--device", default="cuda", metavar="DEVICE",
+                   help="where the inspection run's kernels run: cuda "
+                        "(default), cpu, or a comma list of entries such "
+                        "as cuda:0,cuda:0; the checkpoint reattaches them "
+                        "there")
 
     s = sub.add_parser("send", help="send one command, print the ack")
     s.add_argument("endpoint", help="socket path or run directory")

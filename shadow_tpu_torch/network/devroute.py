@@ -112,6 +112,9 @@ class DeviceRoutedPlane:
             self._init_mesh(tpu_options, params, device)
         if backend != "tpu":
             return  # the mesh and thread policies dispatch no draw window
+        #: draw batches split over this many device entries (0 = all)
+        self._draw_shards = int(
+            getattr(tpu_options, "tpu_mesh_shards", 0) or 0)
         floor = int(getattr(tpu_options, "tpu_device_floor", 0) or 0)
         if floor < 0:
             # device draws disabled: the numpy twin serves every batch
@@ -123,7 +126,8 @@ class DeviceRoutedPlane:
 
             self.device = DeviceDrawPlane(params.seed, self.max_batch,
                                           max_pkts=self.max_pkts,
-                                          device=device)
+                                          device=device,
+                                          n_shards=self._draw_shards)
             self.device_floor = floor
             self._floor_forced = True
             return
@@ -155,7 +159,8 @@ class DeviceRoutedPlane:
         import sys
 
         mod = sys.modules.get("shadow_tpu_torch.ops.propagate")
-        key = (int(params.seed), self.max_batch, self.max_pkts, device)
+        key = (int(params.seed), self.max_batch, self.max_pkts, device,
+               self._draw_shards)
         hit = (mod.DeviceDrawPlane._cache.get(key)
                if mod is not None else None)
         if hit is not None:
@@ -171,27 +176,32 @@ class DeviceRoutedPlane:
     def _init_mesh(self, tpu_options, params, device: str) -> None:
         """scheduler_policy: tpu_mesh — each causal window's loss draws,
         arrival exchange and lookahead minimum run as one sharded program
-        (parallel/mesh.py), hosts sharded over N shards held on the one
-        device. Bit-identical to the host planes, so the policy cannot
-        change results."""
+        (parallel/mesh.py), hosts sharded over N shards, one a device entry
+        of ``device`` (devcfg.select_devices): N = tpu_mesh_shards or every
+        entry, and more shards than entries are refused, as the reference
+        refuses more shards than devices. One entry holds its one shard in
+        the one-device layout. Bit-identical to the host planes, so the
+        policy cannot change results."""
         from shadow_tpu_torch.ops import devcfg
         from shadow_tpu_torch.parallel.mesh import MeshDataPlane
 
-        visible = devcfg.visible_devices(devcfg.select_device(device))
+        entries = devcfg.select_devices(device)
         n_shards = int(getattr(tpu_options, "tpu_mesh_shards", 0) or 0)
-        if n_shards > visible:
+        if n_shards > len(entries):
             raise ValueError(
                 f"config error: experimental.tpu_mesh_shards={n_shards} "
-                f"exceeds the {visible} visible {device} device(s) "
-                f"(tpu_mesh over several cards is not ported to "
-                f"shadow_tpu_torch yet)")
-        n = n_shards or visible
+                f"exceeds the {len(entries)} device "
+                f"entr{'y' if len(entries) == 1 else 'ies'} of --device "
+                f"{device} (tpu_mesh puts one shard on each entry; name "
+                f"more, e.g. --device {','.join([str(entries[0])] * n_shards)})")
+        n = n_shards or len(entries)
         # per-shard slot width of the standalone round API: tracks
         # realistic per-barrier chunk sizes, not max_batch
         ups = max(256, min(2048, 4096 // n))
         self.mesh_plane = MeshDataPlane(
             params, n_shards=n, units_per_shard=ups,
-            max_pkts=self.max_pkts, device=device)
+            devices=entries if n > 1 else None, max_pkts=self.max_pkts,
+            device=device)
 
     def _publish_device(self, plane, dev_s: float,
                         np_per_unit: float) -> None:
@@ -207,7 +217,8 @@ class DeviceRoutedPlane:
             from shadow_tpu_torch.ops.propagate import DeviceDrawPlane
 
             self._publish_device(*DeviceDrawPlane.attach_cached(
-                seed, self.max_batch, self.max_pkts, device))
+                seed, self.max_batch, self.max_pkts, device,
+                n_shards=self._draw_shards))
         except BaseException as exc:  # noqa: BLE001 — re-raised below
             self._bg_error = exc
 

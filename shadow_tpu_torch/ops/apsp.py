@@ -141,9 +141,10 @@ def squarings(lat: torch.Tensor, rel: torch.Tensor, steps: int,
             range(min(steps, 2))]
     for s in range(steps):
         dst = bufs[s % 2]
-        code = lib.shadow_apsp_square(
-            src[0].data_ptr(), src[1].data_ptr(), g,
-            dst[0].data_ptr(), dst[1].data_ptr(), stream)
+        with devcfg.current(lat.device):  # the stream's card, as CUDA needs
+            code = lib.shadow_apsp_square(
+                src[0].data_ptr(), src[1].data_ptr(), g,
+                dst[0].data_ptr(), dst[1].data_ptr(), stream)
         devcfg.check_launch(lib, code, "apsp")
         LAUNCHES["apsp"] += 1
         src = dst

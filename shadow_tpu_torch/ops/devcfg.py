@@ -2,9 +2,14 @@
 
 Replaces shadow_tpu/ops/jaxcfg.py. Two jobs:
 
-- ``select_device(name)``: turn ``--device cuda|cpu`` into a
-  ``torch.device``. Asking for ``cuda`` where PyTorch sees no card is an
-  error, never a silent CPU run.
+- ``select_devices(spec)``: turn ``--device`` into the tuple of device
+  entries the sharded planes place their shards on, in shard order:
+  ``cuda`` (every visible card, in index order), ``cpu`` (one CPU entry),
+  or a comma list naming each entry (``cuda:0,cuda:1``,
+  ``cuda:0,cuda:0,cuda:0,cuda:0``, ``cpu,cpu,cpu,cpu``; an entry may
+  repeat). ``select_device(spec)`` is entry 0, where single-device work
+  runs. Asking for a card PyTorch does not see is an error, never a
+  silent CPU run.
 - ``kernel_lib(stem)``: the ctypes handle of ``csrc/<stem>.cu`` built for
   Hopper (``sm_90a``) into a shared library with a plain C interface;
   ``device_pointer(t, stem)`` the card's address of a page-locked buffer
@@ -68,6 +73,29 @@ _SIGNATURES = {
             ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p]),
+        "shadow_mesh_send": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p]),
+        "shadow_mesh_recv": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]),
+        "shadow_mesh_rounds_entry": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
+            ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]),
+        "shadow_mesh_reduce": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]),
+        "shadow_mesh_gather": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_void_p]),
         "shadow_device_pointer": _DEVICE_POINTER,
         "shadow_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
@@ -102,46 +130,92 @@ class DrawServiceError(RuntimeError):
     seed fails; it never draws on the host in the card's place."""
 
 
-def require_device(name: str = "cuda") -> None:
-    """Raise DeviceUnavailable unless this process can use ``name``
-    (``cuda`` or ``cpu``), without initialising CUDA: the cards are
-    counted through NVML (``torch.cuda.device_count``), which unlike
-    ``torch.cuda.is_available`` does not call cuInit. A controller checks
-    its device this way at construction; a shard worker or a served fleet
-    member, which launches nothing, never touches the card; and the fleet
-    parent can still fork its workers afterwards."""
+def select_devices(spec: str = "cuda") -> tuple:
+    """The device entries ``spec`` names, as a tuple of ``torch.device``s
+    with explicit indices, in shard order: ``cuda`` is every card PyTorch
+    sees (``cuda:0`` .. ``cuda:k-1``), ``cpu`` one CPU entry, and a comma
+    list (``cuda:0,cuda:1``, ``cpu,cpu``, an entry repeated or alone) its
+    entries as written. Raises DeviceUnavailable for a card that is not
+    visible, a list that mixes ``cpu`` and ``cuda`` entries, an entry
+    without a card index, or anything else. Counts the cards through NVML
+    (``torch.cuda.device_count``), which unlike ``torch.cuda.is_available``
+    does not call cuInit, so a process that only checks its device can
+    still fork workers afterwards."""
     import torch
 
-    if name == "cpu":
-        return
-    if name != "cuda":
+    spec = str(spec).strip()
+    if spec == "cpu":
+        return (torch.device("cpu"),)
+    if spec == "cuda":
+        k = torch.cuda.device_count()
+        if k == 0:
+            raise DeviceUnavailable(
+                "device cuda requested but torch.cuda.is_available() is "
+                "false; pass --device cpu to run the plain PyTorch kernels "
+                "on the CPU")
+        return tuple(torch.device("cuda", i) for i in range(k))
+    items = [x.strip() for x in spec.split(",")]
+    out = []
+    for item in items:
+        m = re.fullmatch(r"cuda:(\d+)", item)
+        if item == "cpu":
+            out.append(torch.device("cpu"))
+        elif m:
+            out.append(torch.device("cuda", int(m.group(1))))
+        else:
+            raise DeviceUnavailable(
+                f"unknown device entry {item!r} in --device {spec!r} (want "
+                f"cuda, cpu, or a comma list of cpu or cuda:<index> "
+                f"entries)")
+    kinds = {d.type for d in out}
+    if len(kinds) > 1:
         raise DeviceUnavailable(
-            f"unknown device {name!r} (want cuda or cpu)")
-    if torch.cuda.device_count() == 0:
-        raise DeviceUnavailable(
-            "device cuda requested but torch.cuda.is_available() is false; "
-            "pass --device cpu to run the plain PyTorch kernels on the CPU")
+            f"--device {spec!r} mixes cpu and cuda entries; a list names "
+            f"either CPU entries or cards")
+    if "cuda" in kinds:
+        k = torch.cuda.device_count()
+        bad = sorted({d.index for d in out if d.index >= k})
+        if bad:
+            raise DeviceUnavailable(
+                f"--device {spec!r} names card index "
+                f"{', '.join(map(str, bad))} but {k} card(s) are visible"
+                + ("" if k else " (torch.cuda.is_available() is false; "
+                   "pass --device cpu to run the plain PyTorch kernels on "
+                   "the CPU)"))
+    return tuple(out)
 
 
-def select_device(name: str = "cuda"):
-    """``torch.device`` for ``name`` (``cuda`` or ``cpu``). Raises
-    DeviceUnavailable for ``cuda`` when no card is visible."""
+def require_device(spec: str = "cuda") -> None:
+    """Raise DeviceUnavailable unless this process can use every entry of
+    ``spec`` (see select_devices), without initialising CUDA. A controller
+    checks its device this way at construction; a shard worker or a served
+    fleet member, which launches nothing, never touches the card; and the
+    fleet parent can still fork its workers afterwards."""
+    select_devices(spec)
+
+
+def select_device(spec: str = "cuda"):
+    """Entry 0 of ``spec`` (see select_devices): where single-device work
+    (the transport's ack_advance, APSP, a one-entry plane) runs."""
+    return select_devices(spec)[0]
+
+
+def visible_devices(spec: str) -> int:
+    """How many device entries ``spec`` names (see select_devices)."""
+    return len(select_devices(spec))
+
+
+def current(dev):
+    """A context in which ``dev`` is the current card (the raw CUDA calls
+    of csrc/*.cu launch on the calling thread's current device, whatever
+    the stream's); nothing for a CPU entry."""
+    import contextlib
+
     import torch
 
-    require_device(name)
-    if name == "cpu":
-        return torch.device("cpu")
-    return torch.device("cuda", torch.cuda.current_device())
-
-
-def visible_devices(device) -> int:
-    """How many devices of ``device``'s type this process can use: the
-    CUDA cards PyTorch sees, or 1 for the CPU."""
-    import torch
-
-    if torch.device(device).type == "cuda":
-        return torch.cuda.device_count()
-    return 1
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 def nvcc_path() -> str:

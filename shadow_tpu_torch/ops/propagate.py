@@ -63,6 +63,9 @@ SENTINEL = 0xFFFFFFFF
 #: kernel launches per kernel since the last reset_launches(); only CUDA
 #: launches count (the plain version on a CPU tensor is not a launch)
 LAUNCHES = {"draw_flags": 0, "min_draw": 0}
+#: DeviceDrawPlane's launches by device entry index since the last
+#: reset_launches(): a batch split over n entries launches once on each
+ENTRY_LAUNCHES: dict = {}
 #: the fleet's DrawServer launches from one thread per member: the count's
 #: read-modify-write takes this lock so that no launch goes uncounted
 _LAUNCH_LOCK = threading.Lock()
@@ -71,6 +74,7 @@ _LAUNCH_LOCK = threading.Lock()
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    ENTRY_LAUNCHES.clear()
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -98,15 +102,11 @@ def _lane_draws(lo: torch.Tensor, hi: torch.Tensor, lanes: torch.Tensor,
 
 def _packed_draws(packed: torch.Tensor, seed_key, width: int,
                   n: int | None = None):
-    """_lane_draws of a (rows, P) uint32 batch [uid_lo, uid_hi, npkts, ...]
-    whose first ``n`` units (all by default) are real: (P, width) draws and
-    lane mask (no lane of a unit past n counts)."""
-    rows = packed.to(torch.int64)
-    lanes = rows[2]
-    if n is not None and n < rows.shape[1]:
-        real = torch.arange(rows.shape[1], device=rows.device) < n
-        lanes = torch.where(real, lanes, torch.zeros_like(lanes))
-    return _lane_draws(rows[0], rows[1], lanes, seed_key, width)
+    """_lane_draws of the first ``n`` units (all by default) of a (rows, P)
+    uint32 batch [uid_lo, uid_hi, npkts, ...]: (n, width) draws and lane
+    mask."""
+    rows = packed[:, :n].to(torch.int64)
+    return _lane_draws(rows[0], rows[1], rows[2], seed_key, width)
 
 
 def packbits_little(flags: torch.Tensor) -> torch.Tensor:
@@ -120,19 +120,30 @@ def draw_flags_plain(packed: torch.Tensor, seed_key, width: int = MAX_PKTS,
     """Plain version of the draw_flags kernel (and of the reference's
     _draw_kernel): a unit drops iff some lane p < min(npkts, width) has
     its 24-bit draw below the unit's threshold; units past ``n`` never
-    drop."""
-    draws, valid = _packed_draws(packed, seed_key, width, n)
-    thresh = packed[3].to(torch.int64)[:, None]
-    return packbits_little(((draws < thresh) & valid).any(dim=1))
+    drop (and draw nothing)."""
+    p = packed.shape[1]
+    n = p if n is None else n
+    flags = torch.zeros(p, dtype=torch.bool, device=packed.device)
+    if n:
+        draws, valid = _packed_draws(packed, seed_key, width, n)
+        thresh = packed[3, :n].to(torch.int64)[:, None]
+        flags[:n] = ((draws < thresh) & valid).any(dim=1)
+    return packbits_little(flags)
 
 
 def min_draw_plain(packed: torch.Tensor, seed_key, width: int = MAX_PKTS,
                    n: int | None = None) -> torch.Tensor:
     """Plain version of the min_draw kernel (and of the reference's
-    _min_draw_kernel); units past ``n`` read SENTINEL."""
-    draws, valid = _packed_draws(packed, seed_key, width, n)
-    m = torch.where(valid, draws, torch.full_like(draws, SENTINEL))
-    return m.min(dim=1).values.to(torch.uint32)
+    _min_draw_kernel); units past ``n`` read SENTINEL (and draw
+    nothing)."""
+    p = packed.shape[1]
+    n = p if n is None else n
+    out = torch.full((p,), SENTINEL, dtype=torch.int64, device=packed.device)
+    if n:
+        draws, valid = _packed_draws(packed, seed_key, width, n)
+        m = torch.where(valid, draws, torch.full_like(draws, SENTINEL))
+        out[:n] = m.min(dim=1).values
+    return out.to(torch.uint32)
 
 
 # -- wrappers -----------------------------------------------------------------
@@ -176,9 +187,11 @@ _KERNELS = {
 
 
 def _launch_kernel(name: str, packed_ptr: int, p: int, n: int, seed_key,
-                   width: int, out_ptr: int, stream: int) -> None:
+                   width: int, out_ptr: int, stream: int,
+                   entry: int = None) -> None:
     """Launch ``name`` (csrc/draw.cu) on the card addresses of its (rows,
-    P) input and its output, and count the launch, or raise."""
+    P) input and its output (the stream's card must be current), and count
+    the launch (under ``entry`` too, for a plane's), or raise."""
     lib = devcfg.kernel_lib("draw")
     k0, k1 = _key_words(seed_key)
     code = getattr(lib, f"shadow_{name}")(packed_ptr, p, n, k0, k1, width,
@@ -186,6 +199,8 @@ def _launch_kernel(name: str, packed_ptr: int, p: int, n: int, seed_key,
     devcfg.check_launch(lib, code, name)
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
+        if entry is not None:
+            ENTRY_LAUNCHES[entry] = ENTRY_LAUNCHES.get(entry, 0) + 1
 
 
 def _wrapper(name: str, packed: torch.Tensor, seed_key, width: int,
@@ -196,9 +211,10 @@ def _wrapper(name: str, packed: torch.Tensor, seed_key, width: int,
         return plain(packed, seed_key, width, n)
     p = packed.shape[1]
     out = torch.empty(out_len(p), dtype=dtype, device=packed.device)
-    _launch_kernel(name, packed.data_ptr(), p, n, seed_key, width,
-                   out.data_ptr(),
-                   torch.cuda.current_stream(packed.device).cuda_stream)
+    with devcfg.current(packed.device):
+        _launch_kernel(name, packed.data_ptr(), p, n, seed_key, width,
+                       out.data_ptr(),
+                       torch.cuda.current_stream(packed.device).cuda_stream)
     return out
 
 
@@ -224,20 +240,22 @@ def min_draw(packed: torch.Tensor, seed_key, width: int = MAX_PKTS,
 # -- page-locked slots and deferred-readback handles --------------------------
 
 class DrawSlot:
-    """The buffers of one dispatch of ``kernel`` at bucket ``p``, made once
-    and reused: the packed (rows, P) input (``inp``, a numpy view) and the
-    output (``out``), in page-locked host memory on a card (plain host
-    memory on the CPU), and one CUDA event. The kernel reads the input and
-    writes the output in place through their device addresses, so a
-    dispatch queues no copy and allocates nothing."""
+    """The buffers of one dispatch of ``kernel`` at bucket ``p`` on device
+    entry ``entry`` (``device``), made once and reused: the packed (rows,
+    P) input (``inp``, a numpy view) and the output (``out``), in
+    page-locked host memory on a card (plain host memory on the CPU), and
+    one CUDA event. The kernel reads the input and writes the output in
+    place through their device addresses, so a dispatch queues no copy and
+    allocates nothing."""
 
-    __slots__ = ("kernel", "p", "host_in", "host_out", "inp", "out",
-                 "event", "_ptrs")
+    __slots__ = ("kernel", "p", "device", "entry", "host_in", "host_out",
+                 "inp", "out", "event", "_ptrs")
 
-    def __init__(self, kernel: str, p: int, device) -> None:
+    def __init__(self, kernel: str, p: int, device, entry: int = 0) -> None:
         rows, dtype, out_len, _ = _KERNELS[kernel]
         cuda = device.type == "cuda"
         self.kernel, self.p = kernel, p
+        self.device, self.entry = device, entry
         self.host_in = torch.zeros((rows, p), dtype=torch.uint32,
                                    pin_memory=cuda)
         self.host_out = torch.zeros(out_len(p), dtype=dtype,
@@ -245,61 +263,75 @@ class DrawSlot:
         self.inp = self.host_in.numpy()
         self.out = self.host_out.numpy()
         self.event = torch.cuda.Event() if cuda else None
-        self._ptrs = ((devcfg.device_pointer(self.host_in, "draw"),
-                       devcfg.device_pointer(self.host_out, "draw"))
-                      if cuda else None)
+        self._ptrs = None
+        if cuda:
+            with devcfg.current(device):
+                self._ptrs = (devcfg.device_pointer(self.host_in, "draw"),
+                              devcfg.device_pointer(self.host_out, "draw"))
 
     def launch(self, n: int, seed_key, width: int, stream) -> None:
         """Run the kernel on the first ``n`` units of ``inp`` into ``out``:
-        on a card queued on ``stream`` with the event recorded after it, on
-        the CPU the plain version at once."""
+        on a card queued on ``stream`` (the slot's card's) with the event
+        recorded after it, on the CPU the plain version at once."""
         if self.event is None:
             self.host_out.copy_(_wrapper(self.kernel, self.host_in,
                                          seed_key, width, n))
             return
-        _launch_kernel(self.kernel, self._ptrs[0], self.p, n, seed_key,
-                       width, self._ptrs[1], stream.cuda_stream)
-        self.event.record(stream)
+        with devcfg.current(self.device):
+            _launch_kernel(self.kernel, self._ptrs[0], self.p, n, seed_key,
+                           width, self._ptrs[1], stream.cuda_stream,
+                           self.entry)
+            self.event.record(stream)
 
 
 class _SlotHandle:
-    """An in-flight dispatch on a DrawSlot. read() waits for the kernel,
-    copies the result out of the slot and gives the slot back to its
-    plane; a handle dropped unread gives it back once the kernel is done."""
+    """An in-flight dispatch on a DrawSlot, or on a tuple of them (a batch
+    split over device entries: piece i, ``piece`` units, on entry i's
+    slot). read() waits for the kernels, copies the result out of the
+    slots (in entry order) and gives the slots back to their plane; a
+    handle dropped unread gives them back once the kernels are done."""
 
-    __slots__ = ("_plane", "_slot", "_n", "_result")
+    __slots__ = ("_plane", "_slot", "_n", "_piece", "_result")
 
-    def __init__(self, plane, slot: DrawSlot, n: int) -> None:
+    def __init__(self, plane, slot, n: int, piece: int = 0) -> None:
         self._plane = plane
         self._slot = slot
         self._n = n
+        self._piece = piece
         self._result = None
 
-    def _copy_out(self, out: np.ndarray) -> np.ndarray:
+    def _slots(self) -> tuple:
+        slot = self._slot
+        return slot if isinstance(slot, tuple) else (slot,)
+
+    def _copy_out(self, outs: list) -> np.ndarray:
         raise NotImplementedError
 
     def read(self) -> np.ndarray:
         if self._result is None:
-            slot = self._slot
-            if slot.event is not None:
-                slot.event.synchronize()
-            self._result = self._copy_out(slot.out)
+            slots = self._slots()
+            for slot in slots:
+                if slot.event is not None:
+                    slot.event.synchronize()
+            self._result = self._copy_out([slot.out for slot in slots])
             self._slot = None
-            self._plane._give(slot)
+            for slot in slots:
+                self._plane._give(slot)
         return self._result
 
     def is_ready(self) -> bool:
         """True when the device result has landed host-side — read() will
         not stall."""
-        slot = self._slot
-        return slot is None or slot.event is None or slot.event.query()
+        return self._slot is None or all(
+            slot.event is None or slot.event.query()
+            for slot in self._slots())
 
     def __del__(self) -> None:
-        slot = self._slot
-        if slot is not None:
-            if slot.event is not None:
-                slot.event.synchronize()  # the kernel may still write it
-            self._plane._give(slot)
+        if self._slot is not None:
+            for slot in self._slots():
+                if slot.event is not None:
+                    slot.event.synchronize()  # the kernel may still write it
+                self._plane._give(slot)
 
 
 class DrawHandle(_SlotHandle):
@@ -307,10 +339,11 @@ class DrawHandle(_SlotHandle):
 
     __slots__ = ()
 
-    def _copy_out(self, out: np.ndarray) -> np.ndarray:
+    def _copy_out(self, outs: list) -> np.ndarray:
         n = self._n
-        return np.unpackbits(out[:(n + 7) // 8],
-                             bitorder="little")[:n].astype(bool)
+        bits = (outs[0][:(n + 7) // 8] if len(outs) == 1 else
+                np.concatenate([o[:self._piece // 8] for o in outs]))
+        return np.unpackbits(bits, bitorder="little")[:n].astype(bool)
 
 
 class MinDrawHandle(_SlotHandle):
@@ -320,15 +353,25 @@ class MinDrawHandle(_SlotHandle):
 
     __slots__ = ()
 
-    def _copy_out(self, out: np.ndarray) -> np.ndarray:
-        return out[:self._n].copy()
+    def _copy_out(self, outs: list) -> np.ndarray:
+        if len(outs) == 1:
+            return outs[0][:self._n].copy()
+        return np.concatenate([o[:self._piece] for o in outs])[:self._n]
 
 
 class DeviceDrawPlane:
     """Dispatches loss-draw batches to the card (or, for ``device="cpu"``,
     to the plain PyTorch versions on the CPU).
 
-    Each (kernel, bucket) keeps a list of free DrawSlots. A dispatch takes
+    ``n_shards`` > 1 (experimental.tpu_mesh_shards; 0 = every entry of
+    ``device``, clamped to them as the reference clamps to its devices)
+    splits each batch along the unit axis over that many device entries
+    (devcfg.select_devices): the batch pads to a multiple of 8 n, so each
+    piece's bit-packed flags start on a byte, and piece i runs on entry
+    i's own slots; the handle reads the pieces in order. The kernels are
+    elementwise along the unit axis, so the split changes no value.
+
+    Each (kernel, bucket, entry) keeps a list of free DrawSlots. A dispatch takes
     one (making another when all are in flight: up to
     network.devroute.WINDOW_SLOTS windows, the chunks of an oversized
     batch and the speculative waves can be in flight at once), fills the
@@ -346,13 +389,20 @@ class DeviceDrawPlane:
     SPEC_BUCKET = 16384
 
     def __init__(self, seed: int, max_batch: int = 65536,
-                 max_pkts: int = MAX_PKTS, device: str = "cuda") -> None:
-        self.device = devcfg.select_device(device)
+                 max_pkts: int = MAX_PKTS, device: str = "cuda",
+                 n_shards: int = 0) -> None:
+        entries = devcfg.select_devices(device)
+        n = n_shards if n_shards > 0 else len(entries)
+        #: the entries the batches split over, in piece order
+        self.entries = entries[:min(n, len(entries))]
+        self.n_shards = len(self.entries)
+        self.device = self.entries[0]
         self.seed = int(seed)
         self.max_batch = int(max_batch)
         self.max_pkts = int(max_pkts)  # kernel packet-lane width
         self._cuda = self.device.type == "cuda"
-        self._free: dict = {}  # (kernel, P) -> [DrawSlot] not in flight
+        #: (kernel, P, entry) -> [DrawSlot] not in flight
+        self._free: dict = {}
         if self._cuda:
             devcfg.kernel_lib("draw")  # build or load now, not mid-round
 
@@ -364,32 +414,49 @@ class DeviceDrawPlane:
         return np.array([s & 0xFFFFFFFF, (s >> 32) & 0xFFFFFFFF],
                         dtype=np.uint32)
 
-    def slots(self, kernel: str, p: int) -> list:
-        """The free slots of bucket ``p`` of ``kernel``."""
-        return self._free.setdefault((kernel, p), [])
+    def slots(self, kernel: str, p: int, entry: int = 0) -> list:
+        """The free slots of bucket ``p`` of ``kernel`` on ``entry``."""
+        return self._free.setdefault((kernel, p, entry), [])
 
     def _give(self, slot: DrawSlot) -> None:
-        self.slots(slot.kernel, slot.p).append(slot)
+        self.slots(slot.kernel, slot.p, slot.entry).append(slot)
 
-    def _launch(self, kernel: str, cols, p: int, seed) -> DrawSlot:
-        """Fill a free slot of bucket ``p`` with ``cols`` and run
-        ``kernel`` on it; returns the slot, in flight."""
-        free = self.slots(kernel, p)
+    def _launch(self, kernel: str, cols, p: int, seed,
+                entry: int = 0) -> DrawSlot:
+        """Fill a free slot of bucket ``p`` on ``entry`` with ``cols`` and
+        run ``kernel`` on it; returns the slot, in flight."""
+        free = self.slots(kernel, p, entry)
         try:
             # atomic under the GIL: threads sharing the plane (the fleet's
             # DrawServer) never take one slot twice, and a slot returns to
             # the list only once its handle is read or dropped
             slot = free.pop()
         except IndexError:
-            slot = DrawSlot(kernel, p, self.device)
+            slot = DrawSlot(kernel, p, self.entries[entry], entry)
         n = cols[0].shape[0]
         a = slot.inp
         for r, col in enumerate(cols):
             a[r, :n] = col
         slot.launch(n, self._seed_key(seed), self.max_pkts,
-                    torch.cuda.current_stream(self.device)
+                    torch.cuda.current_stream(slot.device)
                     if self._cuda else None)
         return slot
+
+    def _launch_all(self, kernel: str, cols, p: int, seed) -> tuple:
+        """Run ``kernel`` on a batch padded to bucket ``p``: (the slot, 0)
+        on one entry; split over n entries, (the n slots, the units a
+        piece): the batch pads to a multiple of 8 n and piece i, its units
+        [i * piece, (i + 1) * piece), runs on entry i in a slot of that
+        width rounded up to the kernels' 32."""
+        k = self.n_shards
+        if k == 1:
+            return self._launch(kernel, cols, p, seed), 0
+        q = 8 * k
+        piece = -(-max(p, q) // q) * q // k
+        return tuple(
+            self._launch(kernel, [c[i * piece:(i + 1) * piece] for c in cols],
+                         -(-piece // 32) * 32, seed, i)
+            for i in range(k)), piece
 
     def dispatch(self, uid_lo: np.ndarray, uid_hi: np.ndarray,
                  npkts: np.ndarray, thresh: np.ndarray,
@@ -399,9 +466,9 @@ class DeviceDrawPlane:
         batch."""
         n = uid_lo.shape[0]
         p = _bucket(n, self.max_batch)
-        slot = self._launch("draw_flags", (uid_lo, uid_hi, npkts, thresh),
-                            p, seed)
-        return DrawHandle(self, slot, n)
+        slot, piece = self._launch_all(
+            "draw_flags", (uid_lo, uid_hi, npkts, thresh), p, seed)
+        return DrawHandle(self, slot, n, piece)
 
     def dispatch_min(self, uid_lo: np.ndarray, uid_hi: np.ndarray,
                      npkts: np.ndarray, min_bucket: int = 0,
@@ -410,14 +477,17 @@ class DeviceDrawPlane:
         padded shape; ``seed`` overrides the plane's seed."""
         n = uid_lo.shape[0]
         p = max(_bucket(n, self.max_batch), min_bucket)
-        slot = self._launch("min_draw", (uid_lo, uid_hi, npkts), p, seed)
-        return MinDrawHandle(self, slot, n)
+        slot, piece = self._launch_all("min_draw", (uid_lo, uid_hi, npkts),
+                                       p, seed)
+        return MinDrawHandle(self, slot, n, piece)
 
-    _cache: dict = {}  # (seed, max_batch, max_pkts, device) -> entry
+    #: (seed, max_batch, max_pkts, device, n_shards) -> entry
+    _cache: dict = {}
 
     @classmethod
     def attach_cached(cls, seed: int, max_batch: int, max_pkts: int,
-                      device: str = "cuda", should_abort=None):
+                      device: str = "cuda", should_abort=None,
+                      n_shards: int = 0):
         """Process-wide attach cache: (plane, dev_s, np_per_unit) for this
         parameter tuple, building + calibrating on first use, so a process
         that runs many short Controllers pays the kernel load, warm-up and
@@ -427,12 +497,14 @@ class DeviceDrawPlane:
         ``should_abort`` (callable -> bool) is polled between the attach
         phases; when it fires, the partial attach is discarded (nothing
         cached) and None is returned."""
-        key = (int(seed), int(max_batch), int(max_pkts), str(device))
+        key = (int(seed), int(max_batch), int(max_pkts), str(device),
+               int(n_shards))
         hit = cls._cache.get(key)
         if hit is None:
             if should_abort is not None and should_abort():
                 return None
-            plane = cls(seed, max_batch, max_pkts=max_pkts, device=device)
+            plane = cls(seed, max_batch, max_pkts=max_pkts, device=device,
+                        n_shards=n_shards)
             if should_abort is not None and should_abort():
                 return None
             dev_s, np_per_unit = plane.calibrate()
@@ -537,7 +609,7 @@ class DrawServer:
 
     def __init__(self, seed: int, max_batch: int = 65536,
                  max_pkts: int = MAX_PKTS, *, address: str,
-                 device: str = "cuda") -> None:
+                 device: str = "cuda", n_shards: int = 0) -> None:
         from multiprocessing.connection import Listener
 
         self.address = address  # see draw_service_address
@@ -549,6 +621,9 @@ class DrawServer:
                                   authkey=DRAW_SERVICE_AUTHKEY)
         self._attach_args = (int(seed), int(max_batch), int(max_pkts),
                              str(device))
+        #: experimental.tpu_mesh_shards: the plane splits its batches over
+        #: that many of ``device``'s entries (0 = all of them)
+        self._n_shards = int(n_shards)
         self.plane = None
         self.dev_s = 0.0
         self.np_per_unit = 0.0
@@ -588,7 +663,8 @@ class DrawServer:
         before = dict(LAUNCHES)
         try:
             hit = DeviceDrawPlane.attach_cached(
-                *self._attach_args, should_abort=lambda: self._closing)
+                *self._attach_args, should_abort=lambda: self._closing,
+                n_shards=self._n_shards)
         except Exception as exc:  # noqa: BLE001 — sent to every member
             self._attach_error = self._error("attach", exc)
             self._ready.set()
@@ -643,6 +719,7 @@ class DrawServer:
                            or "fleet draw service: closed during attach"))
                 return
             if plane.device.type == "cuda":
+                # the pieces' launches make their own entry's card current
                 torch.cuda.set_device(plane.device)
             conn.send(("ok", self.dev_s, self.np_per_unit,
                        plane.SPEC_BUCKET, plane.max_batch))

@@ -231,7 +231,9 @@ def _launch(in_ptr: int, p: int, n: int, out_ptr: int, stream) -> None:
     """Queue ack_advance_kernel on the first ``n`` of ``p`` columns; the
     one place a launch is counted."""
     lib = devcfg.kernel_lib("transport")
-    code = lib.shadow_ack_advance(in_ptr, p, n, out_ptr, stream.cuda_stream)
+    with devcfg.current(stream.device):  # the stream's card, as CUDA needs
+        code = lib.shadow_ack_advance(in_ptr, p, n, out_ptr,
+                                      stream.cuda_stream)
     devcfg.check_launch(lib, code, "ack_advance")
     LAUNCHES["ack_advance"] += 1
 

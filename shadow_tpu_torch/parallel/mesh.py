@@ -23,24 +23,35 @@ programs, one per granularity, each a hand-written CUDA kernel
    window's deferrable rest — draws + arrival exchange + barrier minimum —
    runs as one program, however many rounds the window spans.
 
-N shards on one device. PyTorch has no virtual devices, so the plane holds
-all N shards' bucket state as (N, Hs) tensors on its one ``torch.device``
-and the reference's ``lax.all_to_all`` becomes the in-device exchange
-``received[i] = send[:, i]``. The kernels run one block per shard.
+Two layouts (MeshDataPlane). The one-device layout holds all N shards'
+bucket state as (N, Hs) tensors on one ``torch.device``, and the
+reference's ``lax.all_to_all`` becomes the in-device exchange
+``received[i] = send[:, i]``; the kernels run one block per shard. The
+multi-device layout puts shard i on device entry i (devcfg.select_devices:
+``--device cuda:0,cuda:1``, or one card named several times): each entry
+runs the send half of the exchange (``mesh_send``) or the rounds of its
+shard (``mesh_rounds_entry``), the all_to_all becomes N^2 copies of blocks
+between entries (``gather``: peer copies, staged through the host where
+two cards cannot reach each other), and each entry runs the receive half
+(``mesh_recv``); the barrier minimum and the counters are reduced on entry
+0 (``mesh_reduce``). No step of a round reads what it received, so a K-round
+launch an entry is followed by one set of copies of all K tables.
 
-Launch paths, chosen by shape alone (``exchange_path``, ``round_path``;
-csrc/mesh.cu says why): up to CLUSTER_MAX shards a call is ONE launch of
-the N blocks as a thread block cluster; above it the exchange runs as a
-send launch and a receive launch (the seam where a multi-card slice puts an
-NCCL all_to_all) and the rounds as a round launch and a reduce launch. The
+Launch paths of the one-device layout, chosen by shape alone
+(``exchange_path``, ``round_path``; csrc/mesh.cu says why): up to
+CLUSTER_MAX shards a call is ONE launch of the N blocks as a thread block
+cluster; above it the exchange runs as a send launch and a receive launch
+and the rounds as a round launch and a reduce launch. The
 exchange keeps its send rows in shared memory where N * m * 32 bytes fit
 SMEM_MAX; the rounds keep their tables and bucket state in shared memory
 where ``round_smem_bytes`` fits it. ``PATHS`` counts the launches of each.
 
 Each wrapper checks dtypes, shapes, contiguity and device, runs the plain
 version for CPU tensors and, for CUDA tensors, launches its kernel on the
-current stream or raises: there is no fallback. ``LAUNCHES`` counts the
-kernel launches per wrapper (plain runs are not launches).
+current stream or raises: there is no fallback, and no quiet merge of
+entries into one launch. ``LAUNCHES`` counts the kernel launches per
+wrapper (plain runs are not launches), ``ENTRY_LAUNCHES`` the per-entry
+wrappers' by entry.
 
 Determinism: all math is integer (int64 times, uint32 hashes); the exchange
 only permutes rows and every value is a pure function of unit identity, so
@@ -50,6 +61,7 @@ holds the plain versions to the reference's programs with tolerance 0).
 
 from __future__ import annotations
 
+import ctypes
 import time as _walltime  # detlint: ok(wallclock): per-window wall attribution
 
 import numpy as np
@@ -80,7 +92,13 @@ _M32 = 0xFFFFFFFF
 
 #: kernel launches per wrapper since the last reset_launches(); only CUDA
 #: launches count (the plain version on a CPU tensor is not a launch)
-LAUNCHES = {"mesh_exchange": 0, "mesh_round_step": 0, "mesh_scan": 0}
+LAUNCHES = {"mesh_exchange": 0, "mesh_round_step": 0, "mesh_scan": 0,
+            "mesh_send": 0, "mesh_recv": 0, "mesh_rounds_entry": 0,
+            "mesh_reduce": 0}
+#: launches of the per-entry wrappers (mesh_send, mesh_recv,
+#: mesh_rounds_entry, mesh_reduce) by device entry index since the last
+#: reset_launches(): each shard's on its own entry, the reduction's on 0
+ENTRY_LAUNCHES: dict = {}
 #: wrapper calls per launch path since the last reset_launches(): the
 #: exchange's three paths, and the rounds' launch shape (cluster or pair)
 #: and where their tables live (shared or device memory)
@@ -95,6 +113,7 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, PATHS):
         for k in counts:
             counts[k] = 0
+    ENTRY_LAUNCHES.clear()
 
 
 def exchange_path(n: int, m: int) -> str:
@@ -202,26 +221,22 @@ def exchange_rounds_plain(units: torch.Tensor, seed: int, max_pkts: int,
     return recv, g_min
 
 
-def round_step_plain(state: torch.Tensor, units: torch.Tensor, tables,
-                     t_now: int, seed: int, max_pkts: int):
-    """Plain version of mesh_round_step (and of the reference's
-    _round_step). ``state``: (3, N, Hs) int64 [t_base, tokens, debt];
-    ``units``: (6, N, C) int64 rows [src_l, dst_g, size, t_emit, uid, rok],
-    src-sorted within each shard with padding (src_l == Hs) last;
-    ``tables``: (host_node (H_pad,), latency_ns (G, G), drop_thresh (G, G),
-    rate (H_pad,), cap (H_pad,)), all int64. ``rok`` marks routable units:
-    blackholed ones still charge their source bucket but produce no
-    arrival row. Returns (received (N, N, C, 4) — received[i, j, c] = the
-    c-th arrival shard j routed to shard i —, the new state, g_min (1,),
-    counters (2,) [sent, dropped])."""
+def _round_rows(state: torch.Tensor, units: torch.Tensor, tables,
+                t_now: int, seed: int, max_pkts: int, n: int,
+                shards: torch.Tensor):
+    """One round of shards ``shards`` (R,) of n, row b of ``state`` (3, R,
+    Hs) and ``units`` (6, R, C) being shard shards[b]'s. Returns (received
+    (n, R, C, 4): [d, b] the rows shard shards[b] routed to shard d, in
+    slot order, zero rows after them; the new state; partials (R, 3)
+    [sent, dropped, earliest t_arr of a routed unit])."""
     t_base, tokens, debt = state
     src_l, dst_g, size, t_emit, uid, rok = units
-    host_node, lat_ns, thresh, rate_all, cap_all = tables
-    n, hs = t_base.shape
+    r, hs = t_base.shape
     c = src_l.shape[1]
+    host_node, lat_ns, thresh, rate_all, cap_all = tables
     h_pad, g = host_node.shape[0], lat_ns.shape[0]
     dev = state.device
-    me = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+    me = shards.to(dev)[:, None]
     my_global = torch.arange(hs, dtype=torch.int64, device=dev)[None] * n + me
     rate, cap = rate_all[my_global], cap_all[my_global]
 
@@ -236,7 +251,7 @@ def round_step_plain(state: torch.Tensor, units: torch.Tensor, tables,
     valid = src_l < hs
     size_m = torch.where(valid, size, 0)
     csum = size_m.cumsum(dim=1)
-    prev = torch.cat([torch.full((n, 1), -1, dtype=torch.int64, device=dev),
+    prev = torch.cat([torch.full((r, 1), -1, dtype=torch.int64, device=dev),
                       src_l[:, :-1]], dim=1)
     seg_base = torch.cummax(torch.where(src_l != prev, csum - size_m, 0),
                             dim=1).values
@@ -268,12 +283,34 @@ def round_step_plain(state: torch.Tensor, units: torch.Tensor, tables,
     rank = _rank(ds, n)
     flags = dropped.long() | (route.long() << 1)
     payload = torch.stack([dst_g // n, t_arr, uid, flags], dim=-1)
-    received = torch.zeros((n + 1, n, c, 4), dtype=torch.int64, device=dev)
-    received[ds, me.expand(n, c), rank] = payload
-    g_min = torch.where(route, t_arr, INF).min().reshape(1)
-    counters = torch.stack([(route & ~dropped).sum(), dropped.sum()])
-    return (received[:n], torch.stack([t_base, tokens, debt]), g_min,
-            counters)
+    received = torch.zeros((n + 1, r, c, 4), dtype=torch.int64, device=dev)
+    rows = torch.arange(r, device=dev)[:, None].expand(r, c)
+    received[ds, rows, rank] = payload
+    partials = torch.stack([(route & ~dropped).sum(dim=1),
+                            dropped.sum(dim=1),
+                            torch.where(route, t_arr, INF).min(dim=1).values],
+                           dim=1)
+    return received[:n], torch.stack([t_base, tokens, debt]), partials
+
+
+def round_step_plain(state: torch.Tensor, units: torch.Tensor, tables,
+                     t_now: int, seed: int, max_pkts: int):
+    """Plain version of mesh_round_step (and of the reference's
+    _round_step). ``state``: (3, N, Hs) int64 [t_base, tokens, debt];
+    ``units``: (6, N, C) int64 rows [src_l, dst_g, size, t_emit, uid, rok],
+    src-sorted within each shard with padding (src_l == Hs) last;
+    ``tables``: (host_node (H_pad,), latency_ns (G, G), drop_thresh (G, G),
+    rate (H_pad,), cap (H_pad,)), all int64. ``rok`` marks routable units:
+    blackholed ones still charge their source bucket but produce no
+    arrival row. Returns (received (N, N, C, 4) — received[i, j, c] = the
+    c-th arrival shard j routed to shard i —, the new state, g_min (1,),
+    counters (2,) [sent, dropped])."""
+    n = state.shape[1]
+    received, state, partials = _round_rows(
+        state, units, tables, t_now, seed, max_pkts, n,
+        torch.arange(n, dtype=torch.int64))
+    g_min, counters = reduce_plain(partials[:, None])
+    return received, state, g_min, counters[0]
 
 
 def scan_rounds_plain(state: torch.Tensor, units_k: torch.Tensor, tables,
@@ -290,6 +327,83 @@ def scan_rounds_plain(state: torch.Tensor, units_k: torch.Tensor, tables,
         gmin.append(g)
         ct.append(cn)
     return torch.stack(recv), state, torch.cat(gmin), torch.stack(ct)
+
+
+# -- plain versions of the per-entry halves ---------------------------------
+# One shard on its own device entry: the send half of exchange_rounds_plain
+# on the source's entry, the receive half on the destination's after the
+# copies between entries; the rounds of one shard, then the reduction of
+# every entry's partials on entry 0. Composed over every shard they give
+# the whole-mesh versions above.
+
+def send_plain(units: torch.Tensor, s: int, seed: int,
+               max_pkts: int) -> torch.Tensor:
+    """Plain version of mesh_send: source shard s's half of
+    exchange_rounds_plain. ``units``: (6, N, m) int64 (only column block s
+    is read). Returns (N, m + 1, 4) int64: block d holds the rows shard s
+    sends to shard d in slot order, then zero rows, and in its row m
+    [count, s's earliest valid t_arr (INF if none), 0, 0]."""
+    dst, t_arr, uid, npk, th, valid_in = units[:, s]
+    n, m = units.shape[1:]
+    dev = units.device
+    valid = valid_in != 0
+    # the draws of the valid slots only: a window fills few of its m
+    ok = valid.nonzero()[:, 0]
+    dropped = torch.zeros(m, dtype=torch.bool, device=dev)
+    if ok.numel():
+        dropped[ok] = _drops(uid[ok],
+                             torch.clamp(npk[ok], max=max_pkts) & _M32,
+                             th[ok] & _M32, seed, max_pkts)
+    ds = torch.where(valid, dst % n, n)
+    rank = _rank(ds[None], n)[0]
+    flags = dropped.long() | (valid.long() << 1)
+    send = torch.zeros((n + 1, m + 1, 4), dtype=torch.int64, device=dev)
+    send[ds, rank] = torch.stack([dst // n, t_arr, uid, flags], dim=-1)
+    send[:, m, 0] = torch.bincount(ds, minlength=n + 1)
+    send[:, m, 1] = torch.where(valid, t_arr, INF).min()
+    return send[:n]
+
+
+def recv_plain(gathered: torch.Tensor, w: int):
+    """Plain version of mesh_recv: a destination's half of
+    exchange_rounds_plain. ``gathered``: (N, m + 1, 4) int64, source j's
+    block for this destination at [j] (send_plain's layout). Returns (recv
+    (w, 4): the first w of the sent rows in (source, slot) order, then zero
+    rows; g_min (1,): the earliest of the sources' minima)."""
+    m = gathered.shape[1] - 1
+    counts = gathered[:, m, 0]
+    keep = torch.arange(m, device=gathered.device)[None] < counts[:, None]
+    rows = gathered[:, :m][keep][:w]
+    recv = torch.zeros((w, 4), dtype=torch.int64, device=gathered.device)
+    recv[:rows.shape[0]] = rows
+    return recv, gathered[:, m, 1].min().reshape(1)
+
+
+def rounds_entry_plain(state: torch.Tensor, units_k: torch.Tensor, tables,
+                       t_now_k: torch.Tensor, s: int, n: int, seed: int,
+                       max_pkts: int):
+    """Plain version of mesh_rounds_entry: shard s of n alone, K rounds.
+    ``state``: (3, 1, Hs); ``units_k``: (K, 6, 1, C); ``t_now_k``: (K,);
+    ``tables`` whole, as round_step_plain's. Returns (received (N, K, C,
+    4): [d, j] the rows shard s routed to shard d in round j; the state
+    after the last round; partials (K, 3) [sent, dropped, earliest t_arr of
+    a routed unit])."""
+    recv, part = [], []
+    shard = torch.tensor([s], dtype=torch.int64)
+    for j in range(units_k.shape[0]):
+        r, state, p = _round_rows(state, units_k[j], tables,
+                                  int(t_now_k[j]), seed, max_pkts, n, shard)
+        recv.append(r[:, 0])
+        part.append(p[0])
+    return torch.stack(recv, dim=1), state, torch.stack(part)
+
+
+def reduce_plain(partials: torch.Tensor):
+    """Plain version of mesh_reduce: every shard's partials (N, K, 3) ->
+    (g_min (K,), counters (K, 2) [sent, dropped])."""
+    return (partials[..., 2].min(dim=0).values,
+            torch.stack([partials[..., 0].sum(dim=0),
+                         partials[..., 1].sum(dim=0)], dim=-1))
 
 
 # -- wrappers -----------------------------------------------------------------
@@ -362,15 +476,16 @@ def exchange_scratch(n: int, m: int, path: str, device) -> tuple:
 
 def _exchange_launch(units_ptr: int, n: int, m: int, w: int, seed: int,
                      max_pkts: int, path: str, scratch: tuple,
-                     recv_ptr: int, g_min_ptr: int, stream: int) -> None:
+                     recv_ptr: int, g_min_ptr: int, dev, stream: int) -> None:
     """Launch mesh_exchange on ``path`` (csrc/mesh.cu shadow_mesh_exchange)
-    and count it, or raise."""
+    on ``dev``'s ``stream`` and count it, or raise."""
     lib = devcfg.kernel_lib("mesh")
-    code = lib.shadow_mesh_exchange(
-        units_ptr, n, m, w, seed & _M32, (seed >> 32) & _M32, max_pkts,
-        _EXCHANGE_PATHS.index(path),
-        *(None if t is None else t.data_ptr() for t in scratch), recv_ptr,
-        g_min_ptr, stream)
+    with devcfg.current(dev):
+        code = lib.shadow_mesh_exchange(
+            units_ptr, n, m, w, seed & _M32, (seed >> 32) & _M32, max_pkts,
+            _EXCHANGE_PATHS.index(path),
+            *(None if t is None else t.data_ptr() for t in scratch),
+            recv_ptr, g_min_ptr, stream)
     devcfg.check_launch(lib, code, "mesh_exchange")
     LAUNCHES["mesh_exchange"] += 1
     PATHS[f"exchange_{path}"] += 1
@@ -398,7 +513,7 @@ def mesh_exchange(units: torch.Tensor, seed: int, max_pkts: int, w: int):
     g_min = torch.empty(1, dtype=torch.int64, device=dev)
     _exchange_launch(units.data_ptr(), n, m, w, seed, max_pkts, path,
                      exchange_scratch(n, m, path, dev), recv.data_ptr(),
-                     g_min.data_ptr(),
+                     g_min.data_ptr(), dev,
                      torch.cuda.current_stream(dev).cuda_stream)
     return recv, g_min
 
@@ -423,14 +538,15 @@ def _launch_rounds(what, state, units, tables, k, t_now, t_now_k, seed,
     g_min = aux[steps * 3 * n:steps * (3 * n + 1)]
     counters = aux[steps * (3 * n + 1):].view(steps, 2)
     host_node, lat, thresh, rate, cap = tables
-    code = lib.shadow_mesh_rounds(
-        state.data_ptr(), state_out.data_ptr(), n, hs, units.data_ptr(), c,
-        k, t_now, None if t_now_k is None else t_now_k.data_ptr(),
-        host_node.data_ptr(), n * hs, lat.data_ptr(), thresh.data_ptr(), g,
-        rate.data_ptr(), cap.data_ptr(), seed & _M32, (seed >> 32) & _M32,
-        max_pkts, int(cluster), int(resident), received.data_ptr(),
-        partials.data_ptr(), g_min.data_ptr(), counters.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with devcfg.current(dev):
+        code = lib.shadow_mesh_rounds(
+            state.data_ptr(), state_out.data_ptr(), n, hs, units.data_ptr(),
+            c, k, t_now, None if t_now_k is None else t_now_k.data_ptr(),
+            host_node.data_ptr(), n * hs, lat.data_ptr(), thresh.data_ptr(),
+            g, rate.data_ptr(), cap.data_ptr(), seed & _M32,
+            (seed >> 32) & _M32, max_pkts, int(cluster), int(resident),
+            received.data_ptr(), partials.data_ptr(), g_min.data_ptr(),
+            counters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     devcfg.check_launch(lib, code, what)
     LAUNCHES[what] += 1
     PATHS["rounds_cluster" if cluster else "rounds_pair"] += 1
@@ -477,6 +593,191 @@ def mesh_scan(state: torch.Tensor, units_k: torch.Tensor, tables,
                           max_pkts)
 
 
+# -- the per-entry wrappers ---------------------------------------------------
+# One shard a device entry: each wrapper launches on the given stream (the
+# tensor's device's current stream by default) with that card current, as
+# the raw CUDA calls need, and counts the launch under its entry.
+
+def _count(name: str, entry: int) -> None:
+    LAUNCHES[name] += 1
+    ENTRY_LAUNCHES[entry] = ENTRY_LAUNCHES.get(entry, 0) + 1
+
+
+def _stream_of(dev, stream):
+    return (torch.cuda.current_stream(dev) if stream is None
+            else stream).cuda_stream
+
+
+def send_launch(units_ptr: int, plane: int, s: int, n: int, m: int,
+                seed: int, max_pkts: int, send_ptr: int, dev,
+                stream) -> None:
+    """Launch mesh_send (csrc/mesh.cu shadow_mesh_send) for source shard s
+    on ``dev``'s ``stream``: its slots at the card address ``units_ptr``
+    (fields ``plane`` apart), its (N, m + 1, 4) rows to ``send_ptr``."""
+    lib = devcfg.kernel_lib("mesh")
+    with devcfg.current(dev):
+        code = lib.shadow_mesh_send(units_ptr, plane, s, n, m, seed & _M32,
+                                    (seed >> 32) & _M32, max_pkts, send_ptr,
+                                    _stream_of(dev, stream))
+    devcfg.check_launch(lib, code, "mesh_send")
+    _count("mesh_send", s)
+
+
+def recv_launch(gathered_ptr: int, t: int, n: int, m: int, w: int,
+                recv_ptr: int, g_min_ptr: int, dev, stream) -> None:
+    """Launch mesh_recv (csrc/mesh.cu shadow_mesh_recv) for destination
+    shard t on ``dev``'s ``stream``."""
+    lib = devcfg.kernel_lib("mesh")
+    with devcfg.current(dev):
+        code = lib.shadow_mesh_recv(gathered_ptr, t, n, m, w, recv_ptr,
+                                    g_min_ptr, _stream_of(dev, stream))
+    devcfg.check_launch(lib, code, "mesh_recv")
+    _count("mesh_recv", t)
+
+
+def gather(dst: torch.Tensor, srcs, offset: int, nbytes: int,
+           stream=None) -> None:
+    """The copies between entries: block j of ``dst`` (``nbytes`` each)
+    gets ``nbytes`` of ``srcs[j]`` from byte ``offset``. CUDA: one peer or
+    device copy a source on ``dst``'s stream (csrc/mesh.cu
+    shadow_mesh_gather; the caller orders the stream after the sources'
+    writes). CPU: tensor copies."""
+    n = len(srcs)
+    if dst.device.type == "cpu":
+        flat = dst.view(torch.uint8).reshape(n, nbytes)
+        for j, src in enumerate(srcs):
+            flat[j].copy_(src.reshape(-1).view(torch.uint8)[
+                offset:offset + nbytes])
+        return
+    lib = devcfg.kernel_lib("mesh")
+    ptrs = (ctypes.c_void_p * n)(*[x.data_ptr() for x in srcs])
+    devs = (ctypes.c_int * n)(*[x.device.index for x in srcs])
+    with devcfg.current(dst.device):
+        code = lib.shadow_mesh_gather(dst.data_ptr(), dst.device.index, ptrs,
+                                      devs, n, nbytes, offset,
+                                      _stream_of(dst.device, stream))
+    devcfg.check_launch(lib, code, "mesh gather")
+
+
+def mesh_send(units: torch.Tensor, s: int, seed: int, max_pkts: int,
+              stream=None) -> torch.Tensor:
+    """Source shard s's half of one window's exchange: (6, N, m) int64 ->
+    (N, m + 1, 4) int64, destination d's block of rows with its count and
+    s's minimum in row m; see send_plain (rows past a count are left
+    unwritten on a card). CPU tensor: the plain version. CUDA tensor: the
+    kernel, or an exception."""
+    what = "mesh_send"
+    _check(units, 3, what, "units")
+    if units.shape[0] != 6:
+        raise ValueError(f"{what}: units must be (6, N, m)")
+    n, m = units.shape[1:]
+    _check_common(n, m, max_pkts, what)
+    if not 0 <= s < n:
+        raise ValueError(f"{what}: shard {s} of {n}")
+    if units.device.type == "cpu":
+        return send_plain(units, s, seed, max_pkts)
+    send = torch.empty((n, m + 1, 4), dtype=torch.int64, device=units.device)
+    send_launch(units.data_ptr(), n * m, s, n, m, seed, max_pkts,
+                send.data_ptr(), units.device, stream)
+    return send
+
+
+def mesh_recv(gathered: torch.Tensor, t: int, w: int, stream=None):
+    """Destination shard t's half of one window's exchange: the gathered
+    (N, m + 1, 4) blocks -> (recv (w, 4), g_min (1,)); see recv_plain. CPU
+    tensor: the plain version. CUDA tensor: the kernel, or an
+    exception."""
+    what = "mesh_recv"
+    _check(gathered, 3, what, "gathered")
+    n, m1, four = gathered.shape
+    if four != 4 or m1 < 2:
+        raise ValueError(f"{what}: gathered must be (N, m + 1, 4)")
+    _check_common(n, m1 - 1, 1, what)
+    if not 0 <= t < n or not 1 <= w <= n * (m1 - 1):
+        raise ValueError(f"{what}: shard {t} of {n}, w {w}")
+    if gathered.device.type == "cpu":
+        return recv_plain(gathered, w)
+    out = torch.empty(4 * w + 1, dtype=torch.int64, device=gathered.device)
+    recv_launch(gathered.data_ptr(), t, n, m1 - 1, w, out.data_ptr(),
+                out.data_ptr() + 32 * w, gathered.device, stream)
+    return out[:4 * w].view(w, 4), out[4 * w:]
+
+
+def mesh_rounds_entry(state: torch.Tensor, units_k: torch.Tensor, tables,
+                      t_now_k: torch.Tensor, s: int, n: int, seed: int,
+                      max_pkts: int, stream=None):
+    """Shard s of n alone, K rounds; arguments and results as
+    rounds_entry_plain. CPU tensors: the plain version. CUDA tensors: the
+    kernel (tables and state in shared memory where they fit), or an
+    exception."""
+    what = "mesh_rounds_entry"
+    _check(units_k, 4, what, "units_k")
+    _check(state, 3, what, "state")
+    if state.shape[:2] != (3, 1) or units_k.shape[1:3] != (6, 1):
+        raise ValueError(f"{what}: state must be (3, 1, Hs) and units_k "
+                         f"(K, 6, 1, C)")
+    if len(tables) != 5:
+        raise ValueError(f"{what}: tables must be (host_node, latency_ns, "
+                         f"drop_thresh, rate, cap)")
+    hs, c, k = state.shape[2], units_k.shape[-1], units_k.shape[0]
+    _check_common(n, c, max_pkts, what)
+    if not 0 <= s < n:
+        raise ValueError(f"{what}: shard {s} of {n}")
+    _check(t_now_k, 1, what, "t_now_k")
+    if k < 1 or t_now_k.shape != (k,):
+        raise ValueError(f"{what}: t_now_k must be ({k},)")
+    dev = state.device
+    for t in (units_k, t_now_k, *tables):
+        if t.device != dev:
+            raise ValueError(f"{what}: every tensor must be on {dev}")
+    g = tables[1].shape[0]
+    if tables[0].shape != (n * hs,):
+        raise ValueError(f"{what}: host tables must be ({n * hs},)")
+    if dev.type == "cpu":
+        return rounds_entry_plain(state, units_k, tables, t_now_k, s, n,
+                                  seed, max_pkts)
+    resident = round_smem_bytes(hs, c, n * hs, g, True) <= SMEM_MAX
+    state_out = torch.empty_like(state)
+    received = torch.empty((n, k, c, 4), dtype=torch.int64, device=dev)
+    partials = torch.empty((k, 3), dtype=torch.int64, device=dev)
+    host_node, lat, thresh, rate, cap = tables
+    lib = devcfg.kernel_lib("mesh")
+    with devcfg.current(dev):
+        code = lib.shadow_mesh_rounds_entry(
+            state.data_ptr(), state_out.data_ptr(), s, n, hs,
+            units_k.data_ptr(), c, k, t_now_k.data_ptr(),
+            host_node.data_ptr(), n * hs, lat.data_ptr(), thresh.data_ptr(),
+            g, rate.data_ptr(), cap.data_ptr(), seed & _M32,
+            (seed >> 32) & _M32, max_pkts, int(resident),
+            received.data_ptr(), partials.data_ptr(), _stream_of(dev, stream))
+    devcfg.check_launch(lib, code, what)
+    _count(what, s)
+    return received, state_out, partials
+
+
+def mesh_reduce(partials: torch.Tensor, stream=None):
+    """Every entry's partials gathered on one, (N, K, 3) int64 -> (g_min
+    (K,), counters (K, 2)); see reduce_plain. CPU tensor: the plain
+    version. CUDA tensor: the kernel, or an exception."""
+    what = "mesh_reduce"
+    _check(partials, 3, what, "partials")
+    n, k, three = partials.shape
+    if three != 3 or not 1 <= n <= MAX_SHARDS or k < 1:
+        raise ValueError(f"{what}: partials must be (N, K, 3)")
+    if partials.device.type == "cpu":
+        return reduce_plain(partials)
+    dev = partials.device
+    out = torch.empty(3 * k, dtype=torch.int64, device=dev)
+    lib = devcfg.kernel_lib("mesh")
+    with devcfg.current(dev):
+        code = lib.shadow_mesh_reduce(partials.data_ptr(), n, k,
+                                      out.data_ptr(), out.data_ptr() + 8 * k,
+                                      _stream_of(dev, stream))
+    devcfg.check_launch(lib, code, what)
+    _count(what, 0)
+    return out[:k], out[k:].view(k, 2)
+
+
 # -- the plane ----------------------------------------------------------------
 
 class ExchangeStage:
@@ -504,16 +805,19 @@ class ExchangeStage:
                                     pin_memory=True)
         self.out = self.host_out.numpy()
         self.event = torch.cuda.Event()
-        out = devcfg.device_pointer(self.host_out, "mesh")
-        self._ptrs = (devcfg.device_pointer(self.host_in, "mesh"), out,
-                      out + 8 * 4 * n * w)
+        with devcfg.current(device):
+            out = devcfg.device_pointer(self.host_out, "mesh")
+            self._ptrs = (devcfg.device_pointer(self.host_in, "mesh"), out,
+                          out + 8 * 4 * n * w)
+        self.device = device
 
     def launch(self, seed: int, max_pkts: int, stream) -> None:
         """Queue mesh_exchange on ``units`` into ``out`` on ``stream``."""
         n, m, w = self.shape
         units, recv, g_min = self._ptrs
         _exchange_launch(units, n, m, w, seed, max_pkts, self.path,
-                         self.scratch, recv, g_min, stream.cuda_stream)
+                         self.scratch, recv, g_min, self.device,
+                         stream.cuda_stream)
 
     def dispatch(self, seed: int, max_pkts: int, stream) -> None:
         """Run mesh_exchange on ``units`` into ``out`` on ``stream`` and
@@ -523,14 +827,69 @@ class ExchangeStage:
         self.event.synchronize()
 
 
+class EntryStage:
+    """One device entry's buffers of exchange bucket (N, m, w), made once
+    and kept for the plane's life: its send rows (N, m + 1, 4), the
+    gathered blocks sent to it (N, m + 1, 4) and, on a card, its output
+    (its w rows then g_min) in page-locked host memory, which its receive
+    launch writes in place, and two CUDA events (its send done, its window
+    done)."""
+
+    def __init__(self, dev, n: int, m: int, w: int) -> None:
+        self.dev = dev
+        self.send = torch.empty((n, m + 1, 4), dtype=torch.int64, device=dev)
+        self.gathered = torch.empty((n, m + 1, 4), dtype=torch.int64,
+                                    device=dev)
+        if dev.type != "cuda":
+            return
+        self.host_out = torch.empty(4 * w + 1, dtype=torch.int64,
+                                    pin_memory=True)
+        self.out = self.host_out.numpy()
+        with devcfg.current(dev):
+            self.out_ptr = devcfg.device_pointer(self.host_out, "mesh")
+        self.sent = torch.cuda.Event()
+        self.done = torch.cuda.Event()
+
+
+class EntryWindow:
+    """The buffers of exchange bucket (N, m, w) over device entries: the
+    packed (6, N, m) units in host memory (``units``, a numpy view;
+    page-locked when the entries are cards, and every entry's send reads
+    its own column block in place) and one EntryStage an entry."""
+
+    def __init__(self, entries: tuple, n: int, m: int, w: int) -> None:
+        self.shape = (n, m, w)
+        cuda = entries[0].type == "cuda"
+        self.host_in = torch.zeros((6, n, m), dtype=torch.int64,
+                                   pin_memory=cuda)
+        self.units = self.host_in.numpy()
+        if cuda:
+            with devcfg.current(entries[0]):
+                self.in_ptr = devcfg.device_pointer(self.host_in, "mesh")
+        self.entries = [EntryStage(d, n, m, w) for d in entries]
+
+
 class MeshDataPlane:
-    """Host-sharded data plane over N shards on one device.
+    """Host-sharded data plane over N shards.
 
     Usage: build with NetParams, feed per-round unit batches with
     ``round_step``, fuse K rounds per launch with ``scan_rounds``, or
     resolve a causal window's units with ``exchange_rounds`` (the tpu_mesh
-    policy). The bucket state lives on the plane's device as the (3, N, Hs)
-    tensor ``state`` ([t_base, tokens, debt]; row i = shard i's hosts).
+    policy). The bucket state is the (3, N, Hs) ``state`` ([t_base,
+    tokens, debt]; row i = shard i's hosts).
+
+    Two layouts, the reference's signature for both. ``devices=None``: every
+    shard on the one device ``device`` names (its entry 0), each call one
+    launch of the N shard blocks (mesh_exchange, mesh_round_step,
+    mesh_scan). A ``devices`` tuple (entries of devcfg.select_devices; an
+    entry may repeat): shard i on ``devices[i]``, N = n_shards or every
+    entry, and more shards than entries raise, as the reference does. Each
+    entry holds the tables, its shard's state (3, 1, Hs), its own stream
+    and its EntryStages; a call runs the send half (or the rounds) on every
+    entry, then the copies between entries, then the receive half on every
+    entry (the rounds' reduction on entry 0). Entries that name the same
+    card stay separate entries: nothing merges them. CPU entries run the
+    plain halves and copy tensors, the same split.
     """
 
     #: fused-launch cap: scan_rounds pads each group of round chunks to K in
@@ -542,10 +901,19 @@ class MeshDataPlane:
     EXCHANGE_BUCKETS = (256, 1024, 4096, 16384)
 
     def __init__(self, params: NetParams, n_shards: int | None = None,
-                 units_per_shard: int = 1024, max_pkts: int = MAX_PKTS,
-                 device: str = "cuda") -> None:
-        self.device = devcfg.select_device(device)
-        n = n_shards or devcfg.visible_devices(self.device)
+                 units_per_shard: int = 1024, devices=None,
+                 max_pkts: int = MAX_PKTS, device: str = "cuda") -> None:
+        if devices is None:
+            self.device = devcfg.select_device(device)
+            n = n_shards or devcfg.visible_devices(device)
+            self.entries = None
+        else:
+            entries = tuple(devices)
+            n = n_shards or len(entries)
+            if n > len(entries):
+                raise ValueError(f"{n} shards > {len(entries)} devices")
+            self.entries = entries[:n]
+            self.device = self.entries[0]
         if not 1 <= n <= MAX_SHARDS:
             raise ValueError(f"{n} shards (want 1..{MAX_SHARDS})")
         #: exchange buffers by (N, m, w): at most 16 shapes (the buckets)
@@ -569,9 +937,8 @@ class MeshDataPlane:
         cap[:h] = params.cap_up
         node = np.zeros(self.h_pad, dtype=np.int64)
         node[:h] = params.host_node
-        self._tables = tuple(
-            torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(
-                self.device)
+        tables = tuple(
+            torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))
             for a in (node, params.latency_ns, params.drop_thresh, rate,
                       cap))
 
@@ -582,13 +949,33 @@ class MeshDataPlane:
                 arr[i, : row.shape[0]] = row
             return arr
 
-        self.state = torch.from_numpy(np.stack([
+        state = torch.from_numpy(np.stack([
             shard_state(np.zeros(h, dtype=np.int64)),
             shard_state(params.cap_up),
-            shard_state(np.zeros(h, dtype=np.int64))])).to(self.device)
+            shard_state(np.zeros(h, dtype=np.int64))]))
         self._pad_chunk = None  # cached all-invalid packed chunk
+        if self.entries is None:
+            self._tables = tuple(t.to(self.device) for t in tables)
+            self._state = state.to(self.device)
+        else:
+            #: per entry: the tables (replicated), its shard's state
+            #: (3, 1, Hs) and its stream
+            self._tables = [tuple(t.to(d) for t in tables)
+                            for d in self.entries]
+            self._states = [state[:, i:i + 1].clone().to(d)
+                            for i, d in enumerate(self.entries)]
+            self._streams = [torch.cuda.Stream(d) if d.type == "cuda"
+                             else None for d in self.entries]
         if self._cuda:
             devcfg.kernel_lib("mesh")  # build or load now, not mid-round
+
+    @property
+    def state(self) -> torch.Tensor:
+        """The (3, N, Hs) bucket state: on the plane's device, or gathered
+        from the entries onto the CPU."""
+        if self.entries is None:
+            return self._state
+        return torch.cat([st.cpu() for st in self._states], dim=1)
 
     @property
     def t_base(self) -> torch.Tensor:
@@ -609,7 +996,84 @@ class MeshDataPlane:
         if tuple(state.shape) != want or state.dtype != torch.int64:
             raise ValueError(f"state must be int64 {want}, got "
                              f"{state.dtype} {tuple(state.shape)}")
-        self.state = state.to(self.device).clone()
+        if self.entries is None:
+            self._state = state.to(self.device).clone()
+        else:
+            self._states = [state[:, i:i + 1].to(d).clone()
+                            for i, d in enumerate(self.entries)]
+
+    def _stream(self, i: int):
+        """A context running on entry i's card and stream (nothing on the
+        CPU)."""
+        import contextlib
+
+        st = self._streams[i]
+        return (torch.cuda.stream(st) if st is not None
+                else contextlib.nullcontext())
+
+    def _rounds(self, arrs: np.ndarray, t_nows: np.ndarray, single: bool):
+        """K rounds of (K, 6, N, C) int64 units at ``t_nows`` (K,), the
+        state carried: (received (K, N, N, C, 4), g_min (K,), counters
+        (K, 2)) as numpy. One device: one mesh_round_step (``single``) or
+        mesh_scan launch. Entries: mesh_rounds_entry on every entry, the
+        copies of each destination's rows and of the partials (onto entry
+        0), mesh_reduce on entry 0."""
+        if self.entries is None:
+            units = torch.from_numpy(arrs).to(self.device)
+            if single:
+                recv, self._state, g_min, counters = mesh_round_step(
+                    self._state, units[0], self._tables, int(t_nows[0]),
+                    self._seed, self._max_pkts)
+                recv, g_min, counters = recv[None], g_min, counters[None]
+            else:
+                recv, self._state, g_min, counters = mesh_scan(
+                    self._state, units, self._tables,
+                    torch.from_numpy(t_nows).to(self.device), self._seed,
+                    self._max_pkts)
+            return (recv.cpu().numpy(), g_min.cpu().numpy(),
+                    counters.cpu().numpy())
+        n, k, c = self.n_shards, arrs.shape[0], arrs.shape[-1]
+        outs, events = [], []
+        for s, dev in enumerate(self.entries):
+            with devcfg.current(dev), self._stream(s):
+                u = torch.from_numpy(np.ascontiguousarray(
+                    arrs[:, :, s:s + 1])).to(dev)
+                tk = torch.from_numpy(t_nows).to(dev)
+                rec, self._states[s], part = mesh_rounds_entry(
+                    self._states[s], u, self._tables[s], tk, s, n,
+                    self._seed, self._max_pkts)
+                outs.append((rec, part, u, tk))
+                events.append(self._record(s))
+        gathered = []
+        for t, dev in enumerate(self.entries):
+            with devcfg.current(dev), self._stream(t):
+                self._wait(t, events)
+                g = torch.empty((n, k, c, 4), dtype=torch.int64, device=dev)
+                gather(g, [o[0] for o in outs], t * k * c * 32, k * c * 32)
+                if t == 0:
+                    parts = torch.empty((n, k, 3), dtype=torch.int64,
+                                        device=dev)
+                    gather(parts, [o[1] for o in outs], 0, k * 24)
+                    g_min, counters = mesh_reduce(parts)
+                gathered.append(g.cpu())
+        recv = torch.stack(gathered).permute(2, 0, 1, 3, 4)
+        return (recv.numpy(), g_min.cpu().numpy(), counters.cpu().numpy())
+
+    def _record(self, i: int):
+        """An event after entry i's work queued so far (None on the CPU)."""
+        st = self._streams[i]
+        if st is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(st)
+        return ev
+
+    def _wait(self, i: int, events) -> None:
+        """Entry i's stream waits for every entry's event."""
+        st = self._streams[i]
+        if st is not None:
+            for ev in events:
+                st.wait_event(ev)
 
     def scan_rounds(self, chunks):
         """Fused execution of a backlog of round chunks.
@@ -617,8 +1081,9 @@ class MeshDataPlane:
         ``chunks``: list of ((src,dst,size,t_emit,uid,rok) packed numpy
         (N, C) arrays from shard_units_np, t_now) in simulation order.
         Pads each group to K in (1, 8, SCAN_KMAX) with invalid units and
-        runs ONE mesh_scan per group. Returns the list of materialized
-        exchange tables ((N, N, C, 4) numpy) aligned with ``chunks``."""
+        runs ONE mesh_scan per group (on entries, one mesh_rounds_entry
+        an entry). Returns the list of materialized exchange tables
+        ((N, N, C, 4) numpy) aligned with ``chunks``."""
         out = []
         i = 0
         n = len(chunks)
@@ -634,22 +1099,56 @@ class MeshDataPlane:
                             + [np.stack(self._pad_chunk)] * pads)
             t_nows = np.array([p[1] for p in part] + [t_last] * pads,
                               dtype=np.int64)
-            recv_k, self.state, _gmin, _ct = mesh_scan(
-                self.state, torch.from_numpy(arrs).to(self.device),
-                self._tables, torch.from_numpy(t_nows).to(self.device),
-                self._seed, self._max_pkts)
-            recv = recv_k.cpu().numpy()
+            recv, _gmin, _ct = self._rounds(arrs, t_nows, False)
             out.extend(recv[j] for j in range(k))
             i += k
         return out
 
-    def stage(self, m: int, w: int) -> ExchangeStage:
-        """The buffers of bucket (N, m, w), made on first use."""
+    def stage(self, m: int, w: int):
+        """The buffers of bucket (N, m, w), made on first use: an
+        ExchangeStage on one device, an EntryWindow over entries."""
         key = (self.n_shards, m, w)
         st = self._stages.get(key)
         if st is None:
-            st = self._stages[key] = ExchangeStage(*key, self.device)
+            st = self._stages[key] = (
+                ExchangeStage(*key, self.device) if self.entries is None
+                else EntryWindow(self.entries, *key))
         return st
+
+    def _exchange_entries(self, st, w: int) -> np.ndarray:
+        """One slice's exchange over the entries: each entry's send half of
+        its shard, the copies of each destination's blocks to it, each
+        entry's receive half; the (N * w, 4) table, destinations in order.
+        On a card every launch reads or writes page-locked memory in place
+        and the host waits once a window, on every entry's done event."""
+        n, m, _ = st.shape
+        es = st.entries
+        seed, mp = self._seed, self._max_pkts
+        if not self._cuda:
+            for s, e in enumerate(es):
+                e.send.copy_(mesh_send(st.host_in, s, seed, mp))
+            rows = []
+            for t, e in enumerate(es):
+                gather(e.gathered, [x.send for x in es], t * (m + 1) * 32,
+                       (m + 1) * 32)
+                rows.append(mesh_recv(e.gathered, t, w)[0])
+            return torch.cat(rows).numpy()
+        for s, e in enumerate(es):
+            send_launch(st.in_ptr, n * m, s, n, m, seed, mp,
+                        e.send.data_ptr(), e.dev, self._streams[s])
+            e.sent.record(self._streams[s])
+        for t, e in enumerate(es):
+            stream = self._streams[t]
+            with devcfg.current(e.dev):
+                self._wait(t, [x.sent for x in es])
+                gather(e.gathered, [x.send for x in es], t * (m + 1) * 32,
+                       (m + 1) * 32, stream)
+            recv_launch(e.gathered.data_ptr(), t, n, m, w, e.out_ptr,
+                        e.out_ptr + 32 * w, e.dev, stream)
+            e.done.record(stream)
+        for e in es:
+            e.done.synchronize()
+        return np.concatenate([e.out[:4 * w] for e in es]).reshape(-1, 4)
 
     def exchange_rounds(self, src, dst, t_arr, uid, npk, th):
         """Resolve a causal window's units: draws + arrival exchange in as
@@ -660,12 +1159,12 @@ class MeshDataPlane:
         tables are the caller's own.
 
         Each slice is packed straight into its bucket's page-locked buffer
-        (ExchangeStage), exchanged on the card and waited for on one CUDA
-        event; one slice is in flight at a time, so a buffer is never
+        (ExchangeStage), exchanged on the card and waited for on CUDA
+        events; one slice is in flight at a time, so a buffer is never
         rewritten while the card reads it. Every slice rewrites the valid
         column of every slot: units left in a buffer by a larger window are
-        invalid slots, which the kernel skips and the plain version
-        discards."""
+        invalid slots, which the kernels skip and the plain versions
+        discard."""
         n = self.n_shards
         out = []
         total = len(src)
@@ -706,7 +1205,11 @@ class MeshDataPlane:
                                                       np.int64)[order]
                 packed[5, shs, rank] = 1
             t1 = _walltime.perf_counter()
-            if self._cuda:
+            if self.entries is not None:
+                table = self._exchange_entries(st, w)
+                t2 = _walltime.perf_counter()
+                out.append(table)
+            elif self._cuda:
                 # block on the exchange, as the reference does: the launch
                 # lands in dispatch, copying the table out of the
                 # page-locked buffer in readback
@@ -729,7 +1232,7 @@ class MeshDataPlane:
 
     def shard_units(self, src, dst, size, t_emit, uid, rok=None):
         """shard_units_np as one (6, N, C) int64 tensor on the plane's
-        device (per-round API)."""
+        device (entry 0's on entries; per-round API)."""
         return torch.from_numpy(np.stack(self.shard_units_np(
             src, dst, size, t_emit, uid, rok))).to(self.device)
 
@@ -770,10 +1273,8 @@ class MeshDataPlane:
         shard_units_np's six arrays). Returns (received, g_min, counters)
         with ``received`` materialized — received[i, j, c] = the c-th
         arrival shard j routed to shard i (see F_* field order)."""
-        if not isinstance(units, torch.Tensor):
-            units = torch.from_numpy(np.stack(units))
-        received, self.state, g_min, counters = mesh_round_step(
-            self.state, units.to(self.device), self._tables, int(t_now),
-            self._seed, self._max_pkts)
-        return (received.cpu().numpy(), int(g_min[0]),
-                counters.cpu().numpy())
+        if isinstance(units, torch.Tensor):
+            units = units.cpu().numpy()
+        received, g_min, counters = self._rounds(
+            np.stack(units)[None], np.array([t_now], dtype=np.int64), True)
+        return received[0], int(g_min[0]), counters[0]

@@ -323,3 +323,84 @@ def test_threefry_alone_matches_plain_on_card(dev):
                                                    xi[1]))
         assert torch.equal(prng.threefry2x32_device(x, key).to(torch.int64),
                            want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_entry_kernels_match_plain_on_card(dev, n):
+    """The per-entry kernels on N entries of one card: mesh_send on every
+    shard (its counted rows and trailers), the copies, mesh_recv on every
+    destination, mesh_rounds_entry on every shard and mesh_reduce of the
+    partials, each against its plain version."""
+    cs = _smoke()
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(cs.exchange_inputs(np, rng, n, 256, False))
+    seed = SEEDS[1]
+    sends = []
+    for s in range(n):
+        got = mesh.mesh_send(x.to(dev), s, seed, 10)
+        assert torch.equal(cs.masked_send(torch, got).cpu(),
+                           mesh.send_plain(x, s, seed, 10))
+        sends.append(got)
+    for t in range(n):
+        g = torch.empty((n, 257, 4), dtype=torch.int64, device=dev)
+        mesh.gather(g, sends, t * 257 * 32, 257 * 32)
+        r, gm = mesh.mesh_recv(g, t, 512)
+        want = mesh.recv_plain(g.cpu(), 512)
+        assert torch.equal(r.cpu(), want[0]) and torch.equal(gm.cpu(),
+                                                             want[1])
+    tabs, hs = cs.round_tables(np, rng, n)
+    tables = tuple(torch.from_numpy(np.asarray(t, np.int64)) for t in tabs)
+    state = torch.from_numpy(cs.round_state(np, rng, tabs, n, hs, 10 ** 10))
+    units = torch.from_numpy(np.stack([cs.round_units(
+        np, rng, n, hs, 300, 10 ** 10 + j * 2_000_000) for j in range(8)]))
+    t_nows = torch.arange(8) * 2_000_000 + 10 ** 10
+    parts = []
+    for s in range(n):
+        st = state[:, s:s + 1].contiguous()
+        u = units[:, :, s:s + 1].contiguous()
+        got = mesh.mesh_rounds_entry(
+            st.to(dev), u.to(dev), tuple(t.to(dev) for t in tables),
+            t_nows.to(dev), s, n, seed, 10)
+        want = mesh.rounds_entry_plain(st, u, tables, t_nows, s, n, seed, 10)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        parts.append(got[2])
+    got = mesh.mesh_reduce(torch.stack(parts))
+    want = mesh.reduce_plain(torch.stack(parts).cpu())
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_planes_over_card_entries_match_cpu_entries(dev):
+    """MeshDataPlane and DeviceDrawPlane over four entries of one card
+    against the same planes over four CPU entries."""
+    rng = np.random.default_rng(9)
+    card = MeshDataPlane(_params(), n_shards=4,
+                         devices=(torch.device("cuda", 0),) * 4)
+    host = MeshDataPlane(_params(), n_shards=4,
+                         devices=(torch.device("cpu"),) * 4)
+    for total in (700, 30, 5000, 1, 20000, 200):
+        win = (rng.integers(0, 13, total), rng.integers(0, 13, total),
+               rng.integers(0, 1 << 40, total),
+               rng.integers(0, 1 << 58, total), rng.integers(1, 11, total),
+               rng.choice(np.array([0, 1, 16106, 1 << 24]), total))
+        for a, b in zip(card.exchange_rounds(*win),
+                        host.exchange_rounds(*win)):
+            np.testing.assert_array_equal(a, b)
+    chunks = [(card.shard_units_np(*_batch(rng, 13, 40, t * 2_000_000)),
+               t * 2_000_000) for t in range(9)]
+    for a, b in zip(card.scan_rounds(chunks), host.scan_rounds(chunks)):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(card.state, host.state)
+    split = prop.DeviceDrawPlane(SEEDS[1], 65536,
+                                 device=",".join(["cuda:0"] * 4), n_shards=4)
+    one = prop.DeviceDrawPlane(SEEDS[1], 65536, device="cpu")
+    for k in (1, 7, 33, 4096):
+        cols = [rng.integers(0, 1 << 32, k, dtype=np.uint64).astype(
+            np.uint32) for _ in range(3)]
+        cols[2] %= 12
+        th = np.full(k, 1 << 20, np.uint32)
+        np.testing.assert_array_equal(split.dispatch(*cols, th).read(),
+                                      one.dispatch(*cols, th).read())
+        np.testing.assert_array_equal(split.dispatch_min(*cols).read(),
+                                      one.dispatch_min(*cols).read())

@@ -420,13 +420,11 @@ REFUSALS = {
     "replay": (["--scheduler-policy", "tpu_batch", "--device", "cpu",
                 "--replay-commands", str(EX / "echo.yaml")], None,
                "bad command record"),
-    "mesh_shards": (["--scheduler-policy", "tpu_batch", "--set",
-                     "experimental.tpu_mesh_shards=4"], None,
-                    "tpu_mesh_shards"),
     "mesh_shards_over_devices": (["--scheduler-policy", "tpu_mesh",
                                   "--device", "cpu", "--set",
                                   "experimental.tpu_mesh_shards=2"], None,
-                                 "tpu_mesh_shards=2 exceeds the 1 visible"),
+                                 "tpu_mesh_shards=2 exceeds the 1 device "
+                                 "entry of --device cpu"),
     "no_card": (["--scheduler-policy", "tpu_batch", "--device", "cuda"],
                 None, "torch.cuda.is_available() is false"),
 }

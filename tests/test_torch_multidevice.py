@@ -1,0 +1,438 @@
+"""The multi-device layout of the port against the reference's.
+
+The reference is one controller over ``jax.devices()``: under tpu_mesh it
+puts shard i of its mesh data plane on device i and moves rows with
+``lax.all_to_all``; under tpu_batch ``DeviceDrawPlane(n_shards=n)`` splits
+each draw batch along the unit axis over n devices. tests/conftest.py gives
+it 8 virtual CPU devices. The port names its device entries with
+``--device`` (``cpu,cpu,cpu,cpu`` here; ``cuda:0,cuda:0`` or
+``cuda:0,cuda:1`` on cards): MeshDataPlane(devices=...) holds one shard an
+entry and exchanges rows by copies between entries, DeviceDrawPlane splits
+each batch over n entries. On CPU entries the per-entry halves run as
+plain PyTorch (send, copies, receive; rounds, copies, reduction), the same
+split the card runs. The tolerance is zero throughout: every value is
+integer and the exchange only moves rows.
+"""
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from shadow_tpu.config import parse_config as ref_parse_config
+from shadow_tpu.core.controller import Controller as RefController
+from shadow_tpu.fleet import output_tree_digest as ref_tree_digest
+from shadow_tpu.ops.propagate import DeviceDrawPlane as RefDrawPlane
+from shadow_tpu.parallel.mesh import MeshDataPlane as RefPlane
+from shadow_tpu_torch import checkpoint as ckpt
+from shadow_tpu_torch import cli as port_cli
+from shadow_tpu_torch.config import parse_config
+from shadow_tpu_torch.core.controller import Controller
+from shadow_tpu_torch.ops import devcfg
+from shadow_tpu_torch.ops import propagate as prop
+from shadow_tpu_torch.parallel import mesh
+from shadow_tpu_torch.parallel.mesh import MeshDataPlane
+from shadow_tpu_torch.utils.digest import output_tree_digest
+from tests.test_checkpoint import BASE
+from tests.test_multichip import INCAST
+from tests.test_torch_e2e import EX, _assert_identical, _run
+from tests.test_torch_mesh import (assert_same_state, make_params,
+                                   port_params, random_batch, window)
+
+CPU = torch.device("cpu")
+
+
+def entries(n: int) -> tuple:
+    return (CPU,) * n
+
+
+def four_cpu() -> str:
+    return ",".join(["cpu"] * 4)
+
+
+# -- device entries (ops/devcfg.py) -------------------------------------------
+
+@pytest.mark.parametrize("spec, want", [
+    ("cpu", 1), ("cpu,cpu,cpu,cpu", 4), (" cpu , cpu ", 2)])
+def test_select_devices_names_the_entries(spec, want):
+    got = devcfg.select_devices(spec)
+    assert got == (CPU,) * want
+    assert devcfg.visible_devices(spec) == want
+    assert devcfg.select_device(spec) == CPU
+    devcfg.require_device(spec)
+
+
+@pytest.mark.parametrize("spec, needle", [
+    ("cpu,cuda:0", "mixes cpu and cuda entries"),
+    ("cuda:7", "names card index 7"),
+    ("cuda:0,cuda", "unknown device entry 'cuda'"),
+    ("gpu", "unknown device entry 'gpu'"),
+    ("cpu,,cpu", "unknown device entry ''")])
+def test_select_devices_refuses_by_name(spec, needle):
+    if spec == "cuda:7" and torch.cuda.device_count() > 7:
+        pytest.skip("this machine has an eighth card")
+    with pytest.raises(devcfg.DeviceUnavailable, match=needle):
+        devcfg.select_devices(spec)
+
+
+# -- the per-entry halves compose to the whole-mesh plain versions ------------
+
+@pytest.mark.parametrize("n, m, w", [(1, 256, 256), (2, 256, 300),
+                                     (4, 1024, 256), (8, 256, 2048)])
+def test_send_recv_halves_compose_to_the_exchange(n, m, w):
+    rng = np.random.default_rng(n * m)
+    u = np.zeros((6, n, m), np.int64)
+    u[0] = rng.integers(0, 1000, (n, m)) * (n if w == 300 else 1)
+    u[1] = rng.integers(0, 1 << 40, (n, m))
+    u[2] = rng.integers(0, 1 << 58, (n, m))
+    u[3] = rng.integers(-1, 13, (n, m))
+    u[4] = rng.choice(np.array([0, 1, 16106, 1 << 24]), (n, m))
+    u[5] = rng.random((n, m)) < 0.75
+    units = torch.from_numpy(u)
+    seed = (1 << 32) + 5
+    sends = [mesh.mesh_send(units, s, seed, 10) for s in range(n)]
+    for s, sd in enumerate(sends):
+        assert sd.shape == (n, m + 1, 4)
+        assert int(sd[:, m, 0].sum()) == int((u[5, s] != 0).sum())
+    got, mins = [], []
+    for t in range(n):
+        g = torch.empty((n, m + 1, 4), dtype=torch.int64)
+        mesh.gather(g, sends, t * (m + 1) * 32, (m + 1) * 32)
+        r, gm = mesh.mesh_recv(g, t, w)
+        got.append(r)
+        mins.append(gm)
+    want, g_min = mesh.exchange_rounds_plain(units, seed, 10, w)
+    assert torch.equal(torch.stack(got), want)
+    assert all(torch.equal(x, g_min) for x in mins)
+    assert not any(mesh.ENTRY_LAUNCHES.values())
+
+
+@pytest.mark.parametrize("n, k", [(1, 1), (2, 1), (2, 8), (8, 3)])
+def test_round_halves_compose_to_the_scan(n, k):
+    rng = np.random.default_rng(7 + n + k)
+    port = MeshDataPlane(port_params(make_params(37)), n_shards=n,
+                         units_per_shard=64, device="cpu")
+    h = 37
+    state = port.state
+    units = torch.from_numpy(np.stack([np.stack(port.shard_units_np(
+        *random_batch(rng, h, 40, j * 2_000_000, 1000 * j)))
+        for j in range(k)]))
+    t_nows = torch.arange(k) * 2_000_000
+    want = mesh.scan_rounds_plain(state, units, port._tables, t_nows,
+                                  port._seed, 10)
+    recv, parts, states = [], [], []
+    for s in range(n):
+        r, st, p = mesh.mesh_rounds_entry(
+            state[:, s:s + 1].contiguous(), units[:, :, s:s + 1].contiguous(),
+            port._tables, t_nows, s, n, port._seed, 10)
+        recv.append(r)
+        parts.append(p)
+        states.append(st)
+    g_min, counters = mesh.mesh_reduce(torch.stack(parts))
+    assert torch.equal(torch.stack(recv).permute(2, 1, 0, 3, 4), want[0])
+    assert torch.equal(torch.cat(states, dim=1), want[1])
+    assert torch.equal(g_min, want[2]) and torch.equal(counters, want[3])
+
+
+# -- (a) the exchange over entries --------------------------------------------
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_exchange_over_entries_matches_the_reference(n):
+    """exchange_rounds over n CPU entries against the reference's plane on
+    n of conftest's devices: mixed windows, an incast (every unit to one
+    destination shard), and windows whose bucket grows and shrinks (the
+    entries' stages reused at a smaller window after a larger one, two
+    slices past 16,384 units)."""
+    h = 41
+    ref = RefPlane(make_params(h), n_shards=n, units_per_shard=128)
+    port = MeshDataPlane(port_params(make_params(h)), n_shards=n,
+                         units_per_shard=128, devices=entries(n))
+    assert port.entries == entries(n)
+    rng = np.random.default_rng(n)
+    for total, case in ((700, "mixed"), (30, "incast"), (5000, "mixed"),
+                        (200, "incast"), (20000, "mixed"), (1, "mixed"),
+                        (40, "mixed")):
+        win = window(rng, h, total, case)
+        want = ref.exchange_rounds(*win)
+        got = port.exchange_rounds(*win)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, np.asarray(b))
+    assert port.phase["windows"] == ref.phase["windows"]
+
+
+def test_shards_above_the_entries_raise_as_the_reference():
+    p = port_params(make_params(13))
+    with pytest.raises(ValueError, match="4 shards > 2 devices"):
+        MeshDataPlane(p, n_shards=4, devices=entries(2))
+    plane = MeshDataPlane(p, n_shards=2, devices=entries(4))
+    assert plane.entries == entries(2) and plane.n_shards == 2
+
+
+# -- (b) the rounds over entries ----------------------------------------------
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_rounds_over_entries_match_the_reference(n):
+    """round_step and scan_rounds (K = 1 and 8, and a backlog past
+    SCAN_KMAX) over n CPU entries against the reference's plane, the bucket
+    state compared after every call."""
+    h = 37
+    ref = RefPlane(make_params(h, fast_hosts=(0, 5)), n_shards=n,
+                   units_per_shard=128)
+    port = MeshDataPlane(port_params(make_params(h, fast_hosts=(0, 5))),
+                         n_shards=n, units_per_shard=128, devices=entries(n))
+    rng = np.random.default_rng(100 + n)
+    t = 0
+    for step in range(3):
+        batch = random_batch(rng, h, int(rng.integers(0, 90)), t, 7000 * step)
+        rr, rg, rc = ref.round_step(ref.shard_units(*batch), t)
+        pr, pg, pc = port.round_step(port.shard_units_np(*batch), t)
+        np.testing.assert_array_equal(pr, np.asarray(rr))
+        assert pg == int(rg)
+        np.testing.assert_array_equal(pc, np.asarray(rc))
+        assert_same_state(ref, port)
+        t += 2_000_000
+    for k in (1, 8, 40):
+        chunks = []
+        for j in range(k):
+            batch = random_batch(rng, h, int(rng.integers(0, 60)), t,
+                                 10 ** 6 + 1000 * j)
+            chunks.append((port.shard_units_np(*batch), t))
+            t += 2_000_000
+        want = ref.scan_rounds(chunks)
+        got = port.scan_rounds(chunks)
+        assert len(got) == len(want) == k
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, np.asarray(b))
+        assert_same_state(ref, port)
+
+
+# -- (c) the draws split over entries -----------------------------------------
+
+@pytest.mark.parametrize("size", [1, 7, 8, 33, 4096])
+def test_draws_split_over_entries_match_the_reference(size):
+    """DeviceDrawPlane(n_shards=4) over four CPU entries against the
+    reference's over four devices: the flags (at several thresholds) and
+    the speculative min-draws, also at the pinned SPEC_BUCKET."""
+    seed = (1 << 33) + 12345
+    ref = RefDrawPlane(seed, 65536, n_shards=4, max_pkts=10)
+    port = prop.DeviceDrawPlane(seed, 65536, max_pkts=10,
+                                device=four_cpu(), n_shards=4)
+    assert port.n_shards == 4 and port.entries == entries(4)
+    rng = np.random.default_rng(size)
+    lo = rng.integers(0, 1 << 32, size, dtype=np.uint64).astype(np.uint32)
+    hi = rng.integers(0, 1 << 32, size, dtype=np.uint64).astype(np.uint32)
+    npk = rng.integers(0, 14, size).astype(np.uint32)
+    th = rng.choice(np.array([0, 1, 1 << 10, 1 << 18, 1 << 24],
+                             dtype=np.uint32), size)
+    np.testing.assert_array_equal(port.dispatch(lo, hi, npk, th).read(),
+                                  ref.dispatch(lo, hi, npk, th).read())
+    np.testing.assert_array_equal(port.dispatch_min(lo, hi, npk).read(),
+                                  ref.dispatch_min(lo, hi, npk).read())
+    spec = port.SPEC_BUCKET
+    np.testing.assert_array_equal(
+        port.dispatch_min(lo, hi, npk, min_bucket=spec, seed=9).read(),
+        ref.dispatch_min(lo, hi, npk, min_bucket=spec, seed=9).read())
+    # each piece took a slot of its own entry and gave it back
+    assert {k[2] for k in port._free} == {0, 1, 2, 3}
+    assert not prop.ENTRY_LAUNCHES
+
+
+def test_draw_split_clamps_to_the_entries_and_reuses_slots():
+    """n_shards above the entries clamps (the reference clamps to its
+    devices); a smaller batch after a larger one reuses each entry's slot
+    and reads no stale unit; handles read out of order."""
+    one = prop.DeviceDrawPlane(3, 65536, device="cpu", n_shards=4)
+    assert one.n_shards == 1
+    split = prop.DeviceDrawPlane(3, 65536, device="cpu,cpu,cpu", n_shards=0)
+    assert split.n_shards == 3
+    rng = np.random.default_rng(5)
+    batches = []
+    for n in (5000, 300, 7, 5000):
+        cols = [rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
+            np.uint32) for _ in range(3)]
+        cols[2] = (cols[2] % 12).astype(np.uint32)
+        th = np.full(n, 1 << 20, np.uint32)
+        batches.append((*cols, th))
+    handles = [split.dispatch(*b) for b in batches]
+    for b, h in reversed(list(zip(batches, handles))):
+        np.testing.assert_array_equal(h.read(), one.dispatch(*b).read())
+    # the two 5,000-unit batches: one slot an entry at that width
+    assert all(len(v) <= 2 for v in split._free.values())
+
+
+# -- (d) tpu_mesh end to end --------------------------------------------------
+
+def test_tgen_100host_tpu_mesh_over_four_entries(tmp_path):
+    """tgen_100host (to 20 s) under tpu_mesh at tpu_mesh_floor 0 (every
+    causal window through the exchange), four shards on four CPU entries,
+    against the reference's four shards on four devices: summary, tree,
+    digest stream."""
+    extra = ["--set", "experimental.tpu_mesh_shards=4", "--set",
+             "experimental.tpu_mesh_floor=0", "--set",
+             "experimental.native_colcore=false", "--state-digest-every",
+             "50", "--stop-time", "20s"]
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    from shadow_tpu import cli as ref_cli
+
+    ref = _run(ref_cli.main, EX / "tgen_100host.yaml", ref_dir, extra,
+               policy="tpu_mesh")
+    port = _run(port_cli.main, EX / "tgen_100host.yaml", port_dir,
+                extra + ["--device", four_cpu()], policy="tpu_mesh")
+    _assert_identical(ref, port, ref_dir, port_dir)
+    assert port["phase_wall"]["mesh_windows"] > 0
+
+
+def _incast(tmp_path, pkg, policy, device=None, **extra):
+    ov = {"experimental.scheduler_policy": policy,
+          "general.data_directory": str(tmp_path / f"{pkg}_{policy}"),
+          "general.state_digest_every": 10,
+          "experimental.native_colcore": False, **extra}
+    if pkg == "ref":
+        cfg = ref_parse_config(yaml.safe_load(INCAST), ov)
+        return RefController(cfg, mirror_log=False).run(), ov
+    cfg = parse_config(yaml.safe_load(INCAST), ov)
+    return Controller(cfg, mirror_log=False, device=device).run(), ov
+
+
+def test_incast_over_four_entries(tmp_path):
+    """The reference's destination-skewed incast (48 sources, one sink)
+    at tpu_mesh_floor 0 over four entries, against the reference's four
+    devices and its per-unit plane."""
+    keys = ("events", "units_sent", "units_dropped", "bytes_sent",
+            "counters")
+    over = {"experimental.tpu_mesh_floor": 0,
+            "experimental.tpu_mesh_shards": 4}
+    ref, rov = _incast(tmp_path, "ref", "tpu_mesh", **over)
+    base, _ = _incast(tmp_path, "ref", "thread_per_core")
+    port, pov = _incast(tmp_path, "port", "tpu_mesh", four_cpu(), **over)
+    assert {k: port[k] for k in keys} == {k: ref[k] for k in keys} \
+        == {k: base[k] for k in keys}
+    assert ref["units_dropped"] > 0
+    assert port["phase_wall"]["mesh_windows"] > 0
+    rd, pd = rov["general.data_directory"], pov["general.data_directory"]
+    assert output_tree_digest(pd) == ref_tree_digest(rd)
+    assert open(f"{pd}/state_digests.jsonl").read() == open(
+        f"{rd}/state_digests.jsonl").read()
+
+
+# -- (e) tpu_batch end to end -------------------------------------------------
+
+@pytest.mark.parametrize("config, device", [
+    ("echo.yaml", "cpu,cpu,cpu,cpu"), ("echo.yaml", "cpu"),
+    ("tgen_100host.yaml", "cpu,cpu,cpu,cpu")])
+def test_tpu_batch_draws_over_entries(tmp_path, config, device):
+    """tpu_batch at tpu_mesh_shards 4 and tpu_device_floor 1 (every draw
+    window through the plane): each window split over four entries, or on
+    the one entry of ``--device cpu`` (the reference's clamp), against the
+    reference's four devices. tgen_100host runs to 20 s; its lossy links
+    send windows through the plane (echo's lossless one sends none)."""
+    from shadow_tpu import cli as ref_cli
+
+    extra = ["--set", "experimental.tpu_mesh_shards=4", "--set",
+             "experimental.tpu_device_floor=1", "--set",
+             "experimental.native_colcore=false", "--state-digest-every",
+             "5" if config == "echo.yaml" else "50"]
+    if config != "echo.yaml":
+        extra += ["--stop-time", "20s"]
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    ref = _run(ref_cli.main, EX / config, ref_dir, extra)
+    port = _run(port_cli.main, EX / config, port_dir,
+                extra + ["--device", device])
+    _assert_identical(ref, port, ref_dir, port_dir)
+    if config != "echo.yaml":
+        assert port["device"]["windows_dispatched"] > 0
+
+
+# -- (f) checkpoint at four entries, resume at one ----------------------------
+
+#: the checkpoint legs' overrides: every draw window through the plane
+#: (tpu_batch) or every causal window through the exchange (tpu_mesh)
+CKPT_OVER = {"experimental.native_colcore": False,
+             "experimental.tpu_device_floor": 1,
+             "experimental.tpu_mesh_floor": 0,
+             "experimental.tpu_mesh_shards": 4,
+             "general.state_digest_every": 50}
+
+
+@pytest.fixture(scope="module")
+def ckpt_ref(tmp_path_factory):
+    """The reference's uninterrupted run of the checkpoint tests' lossy
+    two-host tgen document (tests/test_checkpoint.py BASE) under tpu_batch
+    over four devices; its results are every policy's."""
+    d = tmp_path_factory.mktemp("ckpt_ref")
+    cfg = ref_parse_config(yaml.safe_load(BASE), dict(CKPT_OVER, **{
+        "experimental.scheduler_policy": "tpu_batch",
+        "general.data_directory": str(d)}))
+    return RefController(cfg, mirror_log=False).run(), d
+
+
+@pytest.mark.parametrize("policy", ["tpu_batch", "tpu_mesh"])
+def test_checkpoint_at_four_entries_resumes_at_one(tmp_path, ckpt_ref,
+                                                    policy):
+    """BASE checkpointed every 10 s over four entries resumes from its first
+    checkpoint on ``--device cpu`` (one entry: tpu_batch's split clamps to
+    it; tpu_mesh, at its auto shard count here, runs one shard) to the
+    bytes of the uninterrupted reference; the checkpoint carries no device
+    state."""
+    ref, ref_dir = ckpt_ref
+    over = dict(CKPT_OVER, **{"experimental.scheduler_policy": policy})
+    if policy == "tpu_mesh":
+        over["experimental.tpu_mesh_shards"] = 0
+    doc = yaml.safe_load(BASE)
+    src = tmp_path / "src"
+    ctl = Controller(parse_config(doc, dict(over, **{
+        "general.data_directory": str(src),
+        "general.checkpoint_every": "10s"})), mirror_log=False,
+        device=four_cpu())
+    if policy == "tpu_mesh":
+        assert ctl.engine.mesh_plane.entries == entries(4)
+    else:
+        assert ctl.engine.device.n_shards == 4
+    whole = ctl.run()
+    want = (ref_dir / "state_digests.jsonl").read_text().splitlines()
+    assert (src / "state_digests.jsonl").read_text().splitlines() == want
+    assert output_tree_digest(src) == ref_tree_digest(ref_dir)
+    paths = sorted((src / "checkpoints").glob("*.ckpt"))
+    assert len(paths) >= 2
+    res_dir = tmp_path / "res"
+    res_ctl, at = ckpt.load_checkpoint(
+        str(paths[0]), parse_config(doc, dict(over, **{
+            "general.data_directory": str(res_dir)})),
+        mirror_log=False, device="cpu")
+    if policy == "tpu_mesh":
+        assert res_ctl.engine.mesh_plane.entries is None
+        assert res_ctl.engine.mesh_plane.n_shards == 1
+    else:
+        assert res_ctl.engine.device.n_shards == 1
+    res = res_ctl.run(resume_at=at)
+    for k in ("rounds", "events", "units_sent", "units_dropped",
+              "bytes_sent", "counters"):
+        assert res[k] == ref[k] == whole[k], k
+    assert ref["units_dropped"] > 0
+    assert output_tree_digest(res_dir) == ref_tree_digest(ref_dir)
+    got = (res_dir / "state_digests.jsonl").read_text().splitlines()
+    assert got and got == want[-len(got):]
+
+
+# -- (g) refusals by name -----------------------------------------------------
+
+@pytest.mark.parametrize("extra, needle", [
+    (["--scheduler-policy", "tpu_mesh", "--device", "cpu,cpu", "--set",
+      "experimental.tpu_mesh_shards=4"],
+     "tpu_mesh_shards=4 exceeds the 2 device entries of --device cpu,cpu"),
+    (["--scheduler-policy", "tpu_batch", "--device", "cpu,cuda:0"],
+     "mixes cpu and cuda entries"),
+    (["--scheduler-policy", "tpu_mesh", "--device", "cuda:0,cuda:9"],
+     "9 but"),
+    (["--scheduler-policy", "tpu_batch", "--device", "cuda0"],
+     "unknown device entry 'cuda0'")])
+def test_device_lists_are_refused_by_name(tmp_path, capsys, extra, needle):
+    if torch.cuda.device_count() > 9:
+        pytest.skip("this machine has a tenth card")
+    rc = port_cli.main([str(EX / "echo.yaml"), "--data-directory",
+                        str(tmp_path / "d"), "--quiet", *extra])
+    err = capsys.readouterr().err
+    assert rc == 2, err
+    assert err.startswith("shadow_tpu_torch: ") and needle in err, err
+    assert len(err.strip().splitlines()) == 1, err
