@@ -116,11 +116,14 @@ failure exits non-zero:
              gossip_10k to 3.5 s; tor_400relay on the Python plane with the
              device transport at floor 1 (ack_advance must launch once a
              device cohort, plus the warm-up); tgen_100host and
-             tor_400relay under thread_per_host. Legs cut short of the
-             config's stop time say so in their label and carry their own
-             reference constants. Each gives the reference's counts, tree
-             (and last state digest where named); launch counts reset
-             before each leg and read after. Prints each leg's sim-s/wall-s
+             tor_400relay under thread_per_host. The thread_per_host legs
+             (no card, one OS thread a host) run one after another in a
+             second process started first, beside the others. Legs cut
+             short of the config's stop time say so in their label and
+             carry their own reference constants. Each gives the
+             reference's counts, tree (and last state digest where named);
+             launch counts reset before each leg and read after (the
+             second process reads its own). Prints each leg's sim-s/wall-s
              and phase_wall, the thread pool's worker count, and for each
              config the reference's vs_baseline: tpu_batch over
              thread_per_core, in sim-s/wall-s.
@@ -138,7 +141,9 @@ failure exits non-zero:
              speculative min_draw waves run across the transitions) and at
              floor 1, and under thread_per_host; partition_heal under
              tpu_batch as a user runs it; then echo with packet capture on
-             both hosts on the C engine. Each gives the reference's
+             both hosts on the C engine. The three thread-policy legs run
+             one after another in a second process started first, beside
+             the others. Each gives the reference's
              counts, tree, last state digest, metrics.jsonl and flows.jsonl
              (sha256), fault transitions and telemetry block, and echo its
              .pcap files byte for byte; launch counts reset before each
@@ -309,23 +314,30 @@ failure exits non-zero:
              own failures are not caught).
 25. multi device — the multi-device layout (one shard, or one draw
              piece, per device entry; ``--device`` lists): the per-entry
-             kernels (mesh_send and mesh_recv with the copies between
-             entries, mesh_rounds_entry and mesh_reduce) against their
-             plain versions bit for bit at N in {2, 4, 8} entries of card
-             0, MeshDataPlane and DeviceDrawPlane over entries against CPU
-             planes; tgen_1k on the C engine over cuda:0 x 4 under tpu_mesh
-             at tpu_mesh_floor=0 and under tpu_batch at tpu_mesh_shards=4
-             and tpu_device_floor=1, each with the counts, tree and state
-             digest stream of phase 9's and phase 8's one-entry floor-0 and
-             floor-1 runs (which write digests every 500 rounds); launch
-             counts reset before each leg and read after: every entry
-             launched, mesh_send and mesh_recv at least once a window a
-             shard and no mesh_exchange, draw_flags once a window a piece;
-             the standalone round API over four entries on phase 9's
-             barriers against CPU entries; the per-entry launches by entry;
-             where two cards are visible the same legs over cuda:0,cuda:1,
-             else a line saying that leg did not run (not a failure); then
-             the four per-entry kernels timed on those runs' inputs.
+             kernels (mesh_exchange_entry on the local route and on the
+             host route forced through its plan, at N in {2, 4, 8} and
+             once at 17 entries, the cooperative launch; then one window
+             kept over several windows on each route, rising epochs and
+             fresh units, as the plane drives it; mesh_rounds_entry and
+             mesh_reduce) against their plain versions bit for bit on
+             entries of card 0; a source that never publishes ends in the
+             raised timeout; MeshDataPlane and DeviceDrawPlane over entries
+             against CPU planes; tgen_1k on the C engine over cuda:0 x 4
+             under tpu_mesh at tpu_mesh_floor=0 and under tpu_batch at
+             tpu_mesh_shards=4 and tpu_device_floor=1, each with the
+             counts, tree and state digest stream of phase 9's and phase
+             8's one-entry floor-0 and floor-1 runs (which write digests
+             every 500 rounds), the tpu_mesh leg followed by its twin on
+             the one entry cuda:0 with the same engine, floor and digests
+             (the same streams; both walls side by side); launch counts
+             reset before each leg and read after: mesh_exchange_entry
+             once a window a card, every entry's block once a window, no
+             mesh_exchange; draw_flags once a window a piece; the
+             standalone round API over four entries on phase 9's barriers
+             against CPU entries; where two cards are visible the same
+             legs over cuda:0,cuda:1 with the route of each pair, else a
+             line saying that leg did not run (not a failure); then the
+             three per-entry kernels timed on those runs' inputs.
 
 Prints a JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. The reference constants come from
@@ -721,10 +733,9 @@ PLAN = {
                     ("ack_advance_kernel",)),
     "apsp": ("shadow_tpu_torch/csrc/apsp.cu", "shadow_tpu/ops/apsp.py:30",
              ("apsp_square_kernel",)),
-    "mesh_send": ("shadow_tpu_torch/csrc/mesh.cu",
-                  "shadow_tpu/parallel/mesh.py:222", ("mesh_send_kernel",)),
-    "mesh_recv": ("shadow_tpu_torch/csrc/mesh.cu",
-                  "shadow_tpu/parallel/mesh.py:222", ("mesh_recv_kernel",)),
+    "mesh_exchange_entry": ("shadow_tpu_torch/csrc/mesh.cu",
+                            "shadow_tpu/parallel/mesh.py:222",
+                            ("mesh_exchange_entry_kernel",)),
     "mesh_rounds_entry": ("shadow_tpu_torch/csrc/mesh.cu",
                           "shadow_tpu/parallel/mesh.py:202",
                           ("mesh_rounds_kernel",)),
@@ -738,7 +749,7 @@ PY_PLANE = ["--set", "experimental.native_colcore=false"]
 #: the kernels whose bodies run the threefry2x32 device function: its
 #: launches on the main paths are theirs
 THREEFRY_INSIDE = ("draw_flags", "min_draw", "mesh_exchange",
-                   "mesh_round_step", "mesh_scan", "mesh_send",
+                   "mesh_round_step", "mesh_scan", "mesh_exchange_entry",
                    "mesh_rounds_entry")
 #: integer operations of one threefry2x32 evaluation whose counters vary
 #: from call to call: 20 rounds x (add, rotate, xor), 5 key injections x 2
@@ -3015,14 +3026,76 @@ def engine_path(cli, prop, mesh, digest, tmp: str) -> tuple:
 
 # -- phase 13: the thread policies and the gossip and Tor models ------------
 
+#: thread-policy legs in a process of their own, one after another: for
+#: each (output file, argv), the port's CLI with the launch counts reset,
+#: then the file holds its stdout (the summary last) and a line with its
+#: exit code, wall and the launch counts it read (thread policies must
+#: launch nothing)
+_LEG_CHILD = """import contextlib, gc, io, json, sys, time
+from shadow_tpu_torch import cli
+from shadow_tpu_torch.ops import propagate as prop
+from shadow_tpu_torch.ops import transport_kernels as tk
+from shadow_tpu_torch.parallel import mesh
+for out, argv in json.loads(sys.argv[1]):
+    gc.collect()
+    prop.reset_launches()
+    tk.reset_launches()
+    mesh.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["--json-summary", "--quiet"])
+    wall = time.perf_counter() - t0
+    n = {**prop.LAUNCHES, "ack_advance": tk.LAUNCHES["ack_advance"],
+         "mesh_exchange": mesh.LAUNCHES["mesh_exchange"]}
+    with open(out, "w") as f:
+        f.write(buf.getvalue().rstrip("\\n") + "\\n" + json.dumps(
+            {"rc": rc, "wall": wall, "launches": n}) + "\\n")
+"""
+
+
+def start_apart(argvs: list, tmp: str, tag: str):
+    """Run the port's CLI on each argv of ``argvs`` one after another in
+    a second process (_LEG_CHILD), leg i's output into ``tmp``/``tag``i;
+    returns the process. The caller waits for it or kills it."""
+    spec = [[os.path.join(tmp, f"{tag}{i}.out"), argv]
+            for i, argv in enumerate(argvs)]
+    return subprocess.Popen([sys.executable, "-c", _LEG_CHILD,
+                             json.dumps(spec)], cwd=str(ROOT))
+
+
+def wait_apart(child, what: str) -> None:
+    """Wait for start_apart's process; fails unless it exited 0."""
+    t0 = time.perf_counter()
+    if child.wait() != 0:
+        fail(f"the {what}' process exited {child.returncode}")
+    print(f"{what} in their own process: waited "
+          f"{time.perf_counter() - t0:.3f} s for it after the other legs",
+          flush=True)
+
+
+def read_apart(tmp: str, tag: str, i: int, label: str,
+               cut: bool = False) -> tuple:
+    """Leg i of start_apart's process: (summary, wall, launches); fails
+    on an exit code other than 0 (or 1 for a leg ``cut`` short)."""
+    lines = Path(tmp, f"{tag}{i}.out").read_text().splitlines()
+    got = json.loads(lines[-1])
+    if got["rc"] not in ((0, 1) if cut else (0,)):
+        fail(f"{label}: shadow_tpu_torch exited {got['rc']}")
+    return json.loads(lines[-2]), got["wall"], got["launches"]
+
+
 def policies_path(cli, prop, tk, dt, digest, tmp: str):
     """The thread policies (the per-unit plane, the reference's CPU
     baseline, which launches no kernel) and the gossip and Tor models
-    through the port's CLI, at the shipped host counts: POLICY_LEGS, in
-    order. Launch counts are reset just before each leg and read just
-    after. Each leg must give the reference's counts and tree (and, where
-    it names one, the last state digest); the thread-policy legs must
-    launch nothing and the tpu_batch legs at floor 1 must launch
+    through the port's CLI, at the shipped host counts: POLICY_LEGS. The
+    thread_per_host legs (host-bound: one OS thread a host, no card) run
+    one after another in a second process started first, beside the other
+    legs, which run here in order; their walls are not solo walls. Launch
+    counts are reset just before each leg and read just after (the second
+    process's own). Each leg must give the reference's counts and tree
+    (and, where it names one, the last state digest); the thread-policy
+    legs must launch nothing and the tpu_batch legs at floor 1 must launch
     draw_flags; the device-transport leg must send cohorts to the card and
     launch ack_advance once for each, plus once for the attach's warm-up.
     Prints each leg's sim-s/wall-s and phase_wall, the thread pool's
@@ -3035,67 +3108,98 @@ def policies_path(cli, prop, tk, dt, digest, tmp: str):
     total = {"draw_flags": 0, "min_draw": 0, "ack_advance": 0}
     rates: dict = {}
     floor0 = dt._DEVICE_FLOOR
-    for label, cfg, policy, extra, counts, tree, state, errors in \
-            POLICY_LEGS:
+
+    def leg_argv(label, cfg, policy, extra):
         d = os.path.join(tmp, "policies_" + label.replace(" ", "_"))
-        argv = [str(EXAMPLES / cfg), "--scheduler-policy", policy,
-                "--device", "cuda", "--data-directory", d, *extra]
-        user = "user" in label.split()
-        if user:
-            # a fresh process has attached no draw plane yet
-            prop.DeviceDrawPlane._cache.clear()
-        devt = label.endswith("transport floor1")
-        gc.collect()  # the previous leg's hosts, outside this leg's wall
-        prop.reset_launches()
-        tk.reset_launches()
-        dt._DEVICE_FLOOR = 1 if devt else floor0
-        try:
-            t0 = time.perf_counter()
-            s = run_cli(cli, argv, cut=errors is not None)
-            wall = time.perf_counter() - t0
-        finally:
-            dt._DEVICE_FLOOR = floor0
-        n = {**prop.LAUNCHES, "ack_advance": tk.LAUNCHES["ack_advance"]}
-        check_run(s, d, digest, counts, tree, label, errors)
-        if state is not None and last_state_digest(d) != state:
-            fail(f"{label}: last state digest {last_state_digest(d)} != "
-                 f"reference {state}")
-        rate = s["sim_sec_per_wall_sec"]
-        print(f"{label}: counts, tree{' and state digest' if state else ''}"
-              f" match the reference; wall {wall:.3f} s (controller "
-              f"{s['wall_seconds']:.3f} s), {rate:.6f} sim-s/wall-s, "
-              f"native_colcore {s['native_colcore']}, launches "
-              f"{json.dumps(n)}, windows {s['device_windows_dispatched']}, "
-              f"phase_wall {json.dumps(s['phase_wall'])}"
-              + (f", device_transport {json.dumps(s['device_transport'])}"
-                 if devt else ""), flush=True)
-        if policy.startswith("thread"):
-            if any(n.values()) or s["native_colcore"]:
-                fail(f"{label}: a thread policy ran the C engine or "
-                     f"launched a kernel ({json.dumps(n)})")
-        elif not devt and s.get("native_colcore") is not True:
-            fail(f"{label}: the C engine did not run")
-        if label.endswith("floor1") and not devt and n["draw_flags"] <= 0:
-            fail(f"{label}: draw_flags was never launched at floor 1")
-        if devt:
-            dtr = s["device_transport"]
-            if dtr["device_cohorts"] <= 0:
-                fail(f"{label}: no cohort went to the card at floor 1")
-            if n["ack_advance"] != dtr["device_cohorts"] + 1:
-                fail(f"{label}: ack_advance launched {n['ack_advance']} "
-                     f"times, not once per device cohort "
-                     f"({dtr['device_cohorts']}) plus the attach's warm-up")
-        for k in total:
-            total[k] += n[k]
-        if user or policy == "thread_per_core":
-            rates.setdefault(cfg.split(".")[0], {})[
-                "tpu_batch" if user else policy] = rate
+        return d, [str(EXAMPLES / cfg), "--scheduler-policy", policy,
+                   "--device", "cuda", "--data-directory", d, *extra]
+
+    apart = [leg for leg in POLICY_LEGS if leg[2] == "thread_per_host"]
+    child = start_apart([leg_argv(*leg[:4])[1] for leg in apart], tmp,
+                        "policies_apart")
+    try:
+        for leg in POLICY_LEGS:
+            if leg in apart:
+                continue
+            label, cfg, policy, extra = leg[:4]
+            d, argv = leg_argv(label, cfg, policy, extra)
+            user = "user" in label.split()
+            if user:
+                # a fresh process has attached no draw plane yet
+                prop.DeviceDrawPlane._cache.clear()
+            devt = label.endswith("transport floor1")
+            gc.collect()  # the previous leg's hosts, outside this wall
+            prop.reset_launches()
+            tk.reset_launches()
+            dt._DEVICE_FLOOR = 1 if devt else floor0
+            try:
+                t0 = time.perf_counter()
+                s = run_cli(cli, argv, cut=leg[7] is not None)
+                wall = time.perf_counter() - t0
+            finally:
+                dt._DEVICE_FLOOR = floor0
+            n = {**prop.LAUNCHES, "ack_advance": tk.LAUNCHES["ack_advance"]}
+            policy_leg(leg, d, s, wall, n, digest, total, rates)
+        wait_apart(child, "thread_per_host legs")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    for i, leg in enumerate(apart):
+        s, wall, n = read_apart(tmp, "policies_apart", i, leg[0],
+                                leg[7] is not None)
+        policy_leg(leg, leg_argv(*leg[:4])[0], s, wall, n, digest, total,
+                   rates)
     for name, r in rates.items():
         fast, base = r["tpu_batch"], r["thread_per_core"]
         print(f"vs_baseline {name}: tpu_batch {fast:.6f} / thread_per_core "
               f"{base:.6f} sim-s/wall-s = {fast / base:.4f}", flush=True)
     print(f"launches on the policies legs: {json.dumps(total)}", flush=True)
     return total
+
+
+def policy_leg(leg, d: str, s: dict, wall: float, n: dict, digest,
+               total: dict, rates: dict) -> None:
+    """Hold one POLICY_LEGS run (summary ``s``, output ``d``, launches
+    ``n``) to the reference and print it; adds its launches to ``total``
+    and its rate to ``rates``."""
+    label, cfg, policy, _extra, counts, tree, state, errors = leg
+    devt = label.endswith("transport floor1")
+    user = "user" in label.split()
+    check_run(s, d, digest, counts, tree, label, errors)
+    if state is not None and last_state_digest(d) != state:
+        fail(f"{label}: last state digest {last_state_digest(d)} != "
+             f"reference {state}")
+    rate = s["sim_sec_per_wall_sec"]
+    print(f"{label}: counts, tree{' and state digest' if state else ''}"
+          f" match the reference; wall {wall:.3f} s (controller "
+          f"{s['wall_seconds']:.3f} s), {rate:.6f} sim-s/wall-s, "
+          f"native_colcore {s['native_colcore']}, launches "
+          f"{json.dumps(n)}, windows {s['device_windows_dispatched']}, "
+          f"phase_wall {json.dumps(s['phase_wall'])}"
+          + (f", device_transport {json.dumps(s['device_transport'])}"
+             if devt else ""), flush=True)
+    if policy.startswith("thread"):
+        if any(n.values()) or s["native_colcore"]:
+            fail(f"{label}: a thread policy ran the C engine or "
+                 f"launched a kernel ({json.dumps(n)})")
+    elif not devt and s.get("native_colcore") is not True:
+        fail(f"{label}: the C engine did not run")
+    if label.endswith("floor1") and not devt and n["draw_flags"] <= 0:
+        fail(f"{label}: draw_flags was never launched at floor 1")
+    if devt:
+        dtr = s["device_transport"]
+        if dtr["device_cohorts"] <= 0:
+            fail(f"{label}: no cohort went to the card at floor 1")
+        if n["ack_advance"] != dtr["device_cohorts"] + 1:
+            fail(f"{label}: ack_advance launched {n['ack_advance']} "
+                 f"times, not once per device cohort "
+                 f"({dtr['device_cohorts']}) plus the attach's warm-up")
+    for k in total:
+        total[k] += n[k]
+    if user or policy == "thread_per_core":
+        rates.setdefault(cfg.split(".")[0], {})[
+            "tpu_batch" if user else policy] = rate
 
 
 # -- phase 14: fault injection, telemetry, packet capture and ABR -----------
@@ -3135,11 +3239,69 @@ def pcap_result(data_dir: str, digest) -> tuple:
     return digest(data_dir), out
 
 
+def fault_leg(leg, d: str, s: dict, n: dict, digest, total: dict) -> None:
+    """Hold one FAULT_LEGS run (summary ``s``, output ``d``, launches
+    ``n``) to FAULT_RESULTS and print it; adds its launches to
+    ``total``."""
+    label, name, policy, _extra = leg
+    want = FAULT_RESULTS[name]
+    devt = label.endswith("transport floor1")
+    if s["process_errors"]:
+        fail(f"{label}: process errors {s['process_errors'][:3]}")
+    got = fault_result(s, d, digest)
+    for key, v in want.items():
+        if got[key] != v:
+            fail(f"{label}: {key} {got[key]!r} != reference {v!r}")
+    pw = s["phase_wall"]
+    tel = pw.get("telemetry")
+    print(f"{label}: counts, tree, state digest, metrics.jsonl, "
+          f"flows.jsonl, {got['faults']} fault transitions and the "
+          f"telemetry block match the reference; controller "
+          f"{s['wall_seconds']:.3f} s, {s['sim_sec_per_wall_sec']:.6f} "
+          f"sim-s/wall-s, native_colcore {s['native_colcore']}, "
+          f"launches {json.dumps(n)}, windows "
+          f"{s['device_windows_dispatched']}, phase_wall "
+          f"{json.dumps(pw)}"
+          + ("" if tel is None else
+             f", telemetry {tel / s['wall_seconds']:.6f} of the "
+             f"controller wall")
+          + (f", device_transport {json.dumps(s['device_transport'])}"
+             if devt else ""), flush=True)
+    if policy.startswith("thread"):
+        if any(n.values()) or s["native_colcore"]:
+            fail(f"{label}: a thread policy ran the C engine or "
+                 f"launched a kernel ({json.dumps(n)})")
+    elif s["native_colcore"] is devt:
+        fail(f"{label}: native_colcore {s['native_colcore']}")
+    if label.endswith("floor1") and not devt and n["draw_flags"] <= 0:
+        fail(f"{label}: draw_flags was never launched at floor 1")
+    if label.endswith("cached") and n["min_draw"] <= 0:
+        fail(f"{label}: no speculative min_draw wave was launched")
+    if devt:
+        dtr = s["device_transport"]
+        if dtr["device_cohorts"] <= 0:
+            fail(f"{label}: no cohort went to the card at floor 1")
+        if n["ack_advance"] != dtr["device_cohorts"] + 1:
+            fail(f"{label}: ack_advance launched {n['ack_advance']} "
+                 f"times, not once per device cohort "
+                 f"({dtr['device_cohorts']}) plus the attach's warm-up")
+    if label.endswith("floor0"):
+        formed = pw["mesh_windows"]
+        if formed <= 0 or n["mesh_exchange"] != formed:
+            fail(f"{label}: mesh_exchange launched "
+                 f"{n['mesh_exchange']} times for {formed} windows")
+    for k in total:
+        total[k] += n[k]
+
+
 def faults_path(cli, prop, tk, dt, mesh, digest, tmp: str) -> dict:
     """The shipped fault and telemetry configs through the port's CLI, at
-    full width and full stop time: FAULT_LEGS in order, then echo with
-    packet capture on both hosts under tpu_batch on the C engine. Launch
-    counts are reset just before each leg and read just after. Each leg
+    full width and full stop time: FAULT_LEGS, then echo with packet
+    capture on both hosts under tpu_batch on the C engine. The
+    thread-policy legs (host-bound, no card) run one after another in a
+    second process started first, beside the other legs, which run here
+    in order. Launch counts are reset just before each leg and read just
+    after (the second process's own). Each leg
     must give the reference's counts, tree, last state digest,
     metrics.jsonl, flows.jsonl, fault transitions and telemetry block
     (FAULT_RESULTS), the echo leg its .pcap files byte for byte; the
@@ -3163,71 +3325,43 @@ def faults_path(cli, prop, tk, dt, mesh, digest, tmp: str) -> dict:
         tk.reset_launches()
         mesh.reset_launches()
 
-    for label, name, policy, extra in FAULT_LEGS:
-        want = FAULT_RESULTS[name]
+    def leg_argv(label, name, policy, extra):
         config, _, stop = name.partition("@")
         d = os.path.join(tmp, "faults_" + label.replace(" ", "_"))
-        argv = [str(EXAMPLES / f"{config}.yaml"), "--scheduler-policy",
-                policy, "--device", "cuda", "--data-directory", d,
-                "--state-digest-every", str(want["counts"]["rounds"]),
-                *(["--stop-time", stop] if stop else []), *extra]
-        if label.endswith("user"):
-            # a fresh process has attached no draw plane yet
-            prop.DeviceDrawPlane._cache.clear()
-        devt = label.endswith("transport floor1")
-        reset()
-        dt._DEVICE_FLOOR = 1 if devt else floor0
-        try:
-            s = run_cli(cli, argv)
-        finally:
-            dt._DEVICE_FLOOR = floor0
-        n = launches()
-        if s["process_errors"]:
-            fail(f"{label}: process errors {s['process_errors'][:3]}")
-        got = fault_result(s, d, digest)
-        for key, v in want.items():
-            if got[key] != v:
-                fail(f"{label}: {key} {got[key]!r} != reference {v!r}")
-        pw = s["phase_wall"]
-        tel = pw.get("telemetry")
-        print(f"{label}: counts, tree, state digest, metrics.jsonl, "
-              f"flows.jsonl, {got['faults']} fault transitions and the "
-              f"telemetry block match the reference; controller "
-              f"{s['wall_seconds']:.3f} s, {s['sim_sec_per_wall_sec']:.6f} "
-              f"sim-s/wall-s, native_colcore {s['native_colcore']}, "
-              f"launches {json.dumps(n)}, windows "
-              f"{s['device_windows_dispatched']}, phase_wall "
-              f"{json.dumps(pw)}"
-              + ("" if tel is None else
-                 f", telemetry {tel / s['wall_seconds']:.6f} of the "
-                 f"controller wall")
-              + (f", device_transport {json.dumps(s['device_transport'])}"
-                 if devt else ""), flush=True)
-        if policy.startswith("thread"):
-            if any(n.values()) or s["native_colcore"]:
-                fail(f"{label}: a thread policy ran the C engine or "
-                     f"launched a kernel ({json.dumps(n)})")
-        elif s["native_colcore"] is devt:
-            fail(f"{label}: native_colcore {s['native_colcore']}")
-        if label.endswith("floor1") and not devt and n["draw_flags"] <= 0:
-            fail(f"{label}: draw_flags was never launched at floor 1")
-        if label.endswith("cached") and n["min_draw"] <= 0:
-            fail(f"{label}: no speculative min_draw wave was launched")
-        if devt:
-            dtr = s["device_transport"]
-            if dtr["device_cohorts"] <= 0:
-                fail(f"{label}: no cohort went to the card at floor 1")
-            if n["ack_advance"] != dtr["device_cohorts"] + 1:
-                fail(f"{label}: ack_advance launched {n['ack_advance']} "
-                     f"times, not once per device cohort "
-                     f"({dtr['device_cohorts']}) plus the attach's warm-up")
-        if label.endswith("floor0"):
-            formed = pw["mesh_windows"]
-            if formed <= 0 or n["mesh_exchange"] != formed:
-                fail(f"{label}: mesh_exchange launched "
-                     f"{n['mesh_exchange']} times for {formed} windows")
-        for k in total:
-            total[k] += n[k]
+        return d, [str(EXAMPLES / f"{config}.yaml"), "--scheduler-policy",
+                   policy, "--device", "cuda", "--data-directory", d,
+                   "--state-digest-every",
+                   str(FAULT_RESULTS[name]["counts"]["rounds"]),
+                   *(["--stop-time", stop] if stop else []), *extra]
+
+    apart = [leg for leg in FAULT_LEGS if leg[2].startswith("thread")]
+    child = start_apart([leg_argv(*leg)[1] for leg in apart], tmp,
+                        "faults_apart")
+    try:
+        for leg in FAULT_LEGS:
+            if leg in apart:
+                continue
+            label = leg[0]
+            d, argv = leg_argv(*leg)
+            if label.endswith("user"):
+                # a fresh process has attached no draw plane yet
+                prop.DeviceDrawPlane._cache.clear()
+            devt = label.endswith("transport floor1")
+            reset()
+            dt._DEVICE_FLOOR = 1 if devt else floor0
+            try:
+                s = run_cli(cli, argv)
+            finally:
+                dt._DEVICE_FLOOR = floor0
+            fault_leg(leg, d, s, launches(), digest, total)
+        wait_apart(child, "thread-policy fault legs")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    for i, leg in enumerate(apart):
+        s, _wall, n = read_apart(tmp, "faults_apart", i, leg[0])
+        fault_leg(leg, leg_argv(*leg)[0], s, n, digest, total)
 
     d = os.path.join(tmp, "faults_echo_pcap")
     reset()
@@ -5389,67 +5523,119 @@ FOUR_ENTRIES = ",".join(["cuda:0"] * 4)
 MD_DIGEST = ["--state-digest-every", "500"]
 
 
-def masked_send(torch, send):
-    """A mesh_send result with the rows past each destination's count
-    zeroed (the kernel leaves them unwritten; send_plain zeroes them)."""
-    m = send.shape[1] - 1
-    keep = torch.arange(m, device=send.device)[None] < send[:, m, 0:1]
-    out = send.clone()
-    out[:, :m][~keep] = 0
-    return out
+#: entries of the sweep's one cooperative launch (past mesh.CLUSTER_MAX)
+ENTRY_COOPERATIVE = 17
+#: the timeout check's limit: long past a window, short for the script
+ENTRY_TIMEOUT_CHECK_NS = 50_000_000
+#: windows driven through one kept EntryWindow a route (flags never reset)
+ENTRY_EPOCHS = 6
+
+
+def check_entry_exchange(torch, np, mesh, dev, rng, seeds) -> tuple:
+    """mesh_exchange_entry against its plain version on ``dev``, bit for
+    bit: N in ENTRY_COUNTS entries of the card on mixed and
+    destination-skewed windows at m = 256 and a mixed one at 1,024, and N =
+    ENTRY_COOPERATIVE (one cooperative launch) on a mixed window at 256;
+    every w of {the smallest bucket, m, N m}, the two seeds in turn; each
+    once on the local route and once with every pair forced through host
+    memory by the plan. The plain version is held to exchange_rounds_plain
+    too. Then, at N in ENTRY_COUNTS and on each route, one EntryWindow
+    kept through ENTRY_EPOCHS windows as the plane drives it: epochs 1, 2,
+    ..., fresh units each window (mixed and skewed in turn), the inboxes
+    and flags reused and never reset; every window against the plain
+    version. Then a window whose plan launches only two of four entries: the
+    two blocks wait for sources that never publish and the wrapper must
+    raise mesh.ExchangeTimeout naming source 2 and epoch 1, within a
+    second. Returns (largest absolute error, comparisons)."""
+    err, n_cmp = 0, 0
+    access = torch.cuda.can_device_access_peer
+    cases = [(n, m, skew) for n in ENTRY_COUNTS
+             for m, skew in ((256, False), (256, True), (1024, False))]
+    cases.append((ENTRY_COOPERATIVE, 256, False))
+    for i, (n, m, skew) in enumerate(cases):
+        x = torch.from_numpy(exchange_inputs(np, rng, n, m, skew)).to(dev)
+        seed = seeds[i % 2]
+        entries = (dev,) * n
+        plans = [mesh.entry_plan(entries, access, h) for h in (False, True)]
+        for w in sorted({MESH_BUCKETS[0], m, n * m}):
+            want = mesh.exchange_entry_plain(x, seed, 10, w)
+            whole = mesh.exchange_rounds_plain(x, seed, 10, w)
+            same(torch, (want[0], want[1]),
+                 (whole[0], whole[1].expand(n)),
+                 f"exchange_entry_plain n={n} m={m} w={w}")
+            for plan in plans:
+                mesh.reset_launches()
+                got = mesh.mesh_exchange_entry(x, seed, 10, w, plan=plan)
+                err = max(err, same(
+                    torch, got, want,
+                    f"mesh_exchange_entry n={n} m={m} w={w} skew={skew} "
+                    f"route={plan.routes[0][-1]}"))
+                if (mesh.LAUNCHES["mesh_exchange_entry"] != 1
+                        or mesh.ENTRY_LAUNCHES != dict.fromkeys(range(n), 1)):
+                    fail(f"mesh_exchange_entry n={n}: launches "
+                         f"{dict(mesh.LAUNCHES)}, blocks "
+                         f"{mesh.ENTRY_LAUNCHES} (want one launch, one "
+                         f"block an entry)")
+                n_cmp += 2
+    stream = [torch.cuda.current_stream(dev)]
+    for n in ENTRY_COUNTS:
+        for host_only in (False, True):
+            plan = mesh.entry_plan((dev,) * n, access, host_only)
+            st = mesh.EntryWindow((dev,) * n, n, 256, 256, plan)
+            for epoch in range(1, ENTRY_EPOCHS + 1):
+                u = exchange_inputs(np, rng, n, 256, epoch % 2 == 0)
+                seed = seeds[epoch % 2]
+                st.units[:] = u
+                st.launch(seed, 10, epoch, stream)
+                st.finish(epoch, stream)
+                got = (torch.from_numpy(np.stack(
+                    [e.out[:4 * 256] for e in st.stages])).view(n, 256, 4),
+                       torch.from_numpy(np.array(
+                           [e.out[4 * 256] for e in st.stages])))
+                err = max(err, same(
+                    torch, got, mesh.exchange_entry_plain(
+                        torch.from_numpy(u), seed, 10, 256),
+                    f"kept EntryWindow n={n} route={plan.routes[0][-1]} "
+                    f"epoch={epoch}"))
+                n_cmp += 1
+    x = torch.from_numpy(exchange_inputs(np, rng, 4, 256, False)).to(dev)
+    full = mesh.entry_plan((dev,) * 4, access)
+    half = mesh.EntryPlan(((dev.index, (0, 1)),), full.routes)
+    t0 = time.perf_counter()
+    try:
+        mesh.mesh_exchange_entry(x, seeds[0], 10, 256, plan=half,
+                                 timeout_ns=ENTRY_TIMEOUT_CHECK_NS)
+    except mesh.ExchangeTimeout as exc:
+        took = time.perf_counter() - t0
+        if "source 2's rows of window epoch 1" not in str(exc) or took > 1:
+            fail(f"the timeout check raised after {took:.3f} s: {exc}")
+        print(f"a source that never publishes: raised after {took:.3f} s "
+              f"(limit {ENTRY_TIMEOUT_CHECK_NS} ns): {exc}", flush=True)
+    else:
+        fail("mesh_exchange_entry returned though two of its four sources "
+             "never published")
+    return err, n_cmp
 
 
 def check_entry_kernels(torch, np, mesh, prop, dev) -> dict:
     """The per-entry kernels against their plain versions on ``dev``, bit
-    for bit, over N in ENTRY_COUNTS entries: mesh_send on every source
-    shard (its counted rows and trailers), the copies (mesh.gather on the
-    card), mesh_recv on every destination and the composed tables against
-    exchange_rounds_plain, on mixed and destination-skewed windows at m =
-    256 and a mixed one at 1,024, w at the smallest bucket, at m and at all
-    N m slots, the two seeds in turn; mesh_rounds_entry on every shard
-    (C = 64 over K = 8 and C = 2,048 over one round with tables in shared
-    memory, C = 257 at 20,000 hosts in device memory) and mesh_reduce of
-    the gathered partials against their plain versions; then MeshDataPlane
-    over 2 and 8 entries of the card (exchange_rounds over windows whose
-    bucket grows and shrinks, round_step, scan_rounds) and DeviceDrawPlane
-    split over four entries against CPU planes. Returns the largest
-    absolute error per kernel (the tolerance is 0)."""
+    for bit: mesh_exchange_entry (check_entry_exchange);
+    mesh_rounds_entry on every shard over N in ENTRY_COUNTS entries (C = 64
+    over K = 8 and C = 2,048 over one round with tables in shared memory,
+    C = 257 at 20,000 hosts in device memory) and mesh_reduce of the
+    gathered partials; then MeshDataPlane over 2 and 8 entries of the card
+    (exchange_rounds over windows whose bucket grows and shrinks,
+    round_step, scan_rounds) and DeviceDrawPlane split over four entries
+    against CPU planes. Returns the largest absolute error per kernel (the
+    tolerance is 0)."""
     from shadow_tpu_torch.network.fluid import NetParams
 
     rng = np.random.default_rng(20261019)
     seeds = (2, (1 << 32) + 0xDEADBEEF)
-    err = dict.fromkeys(("mesh_send", "mesh_recv", "mesh_rounds_entry",
+    err = dict.fromkeys(("mesh_exchange_entry", "mesh_rounds_entry",
                          "mesh_reduce"), 0)
-    n_cmp = 0
-    for n in ENTRY_COUNTS:
-        for i, (m, skew) in enumerate(((256, False), (256, True),
-                                       (1024, False))):
-            xd = torch.from_numpy(exchange_inputs(np, rng, n, m,
-                                                  skew)).to(dev)
-            seed = seeds[i % 2]
-            sends = []
-            for s in range(n):
-                got = mesh.mesh_send(xd, s, seed, 10)
-                want = mesh.send_plain(xd, s, seed, 10)
-                err["mesh_send"] = max(err["mesh_send"], same(
-                    torch, (masked_send(torch, got),), (want,),
-                    f"mesh_send n={n} m={m} s={s} skew={skew}"))
-                sends.append(got)
-            for w in sorted({MESH_BUCKETS[0], m, n * m}):
-                rows = []
-                for t in range(n):
-                    g = torch.empty((n, m + 1, 4), dtype=torch.int64,
-                                    device=dev)
-                    mesh.gather(g, sends, t * (m + 1) * 32, (m + 1) * 32)
-                    got = mesh.mesh_recv(g, t, w)
-                    err["mesh_recv"] = max(err["mesh_recv"], same(
-                        torch, got, mesh.recv_plain(g, w),
-                        f"mesh_recv n={n} m={m} t={t} w={w}"))
-                    rows.append(got[0])
-                same(torch, (torch.stack(rows),),
-                     (mesh.exchange_rounds_plain(xd, seed, 10, w)[0],),
-                     f"the per-entry exchange n={n} m={m} w={w}")
-                n_cmp += 2 * n + 1
+    err["mesh_exchange_entry"], n_cmp = check_entry_exchange(
+        torch, np, mesh, dev, rng, seeds)
     for n in ENTRY_COUNTS:
         for h, cks in ((1000, ((64, 8), (2048, 1))), (20000, ((257, 1),))):
             tabs, hs = round_tables(np, rng, n, h, 32)
@@ -5574,16 +5760,23 @@ def recording_entry_windows(mesh, every: int = 180):
 
 
 def multi_device_legs(cli, mesh, prop, digest, tmp: str, devices: str,
-                      one_entry: dict, label: str) -> dict:
+                      one_entry: dict, label: str, twin: bool = False) -> dict:
     """tgen_1k on the C engine under tpu_mesh at tpu_mesh_floor 0 (shards:
     one per entry of ``devices``) and under tpu_batch at tpu_device_floor 1
     with tpu_mesh_shards = the entries: each must have the counts, tree
     and state digest stream of the one-entry run named in ``one_entry``.
-    Launch counts reset before each leg and read after: every entry must
-    have launched, the per-entry exchange twice a window a shard (send and
-    receive) and nothing of the one-device exchange; the draws once a
-    window a piece. Returns the launches and the recorded windows."""
+    Launch counts reset before each leg and read after: under tpu_mesh
+    mesh_exchange_entry once a window a card, every entry's block once a
+    window and no other mesh kernel; under tpu_batch every entry launched,
+    the draws once a window a piece. ``twin``: the tpu_mesh leg is
+    followed by the same command on the one entry ``cuda:0`` (the same
+    engine, floor and digests), which must give the same streams, and the
+    two legs' walls are printed side by side. Returns the launches and the
+    recorded windows."""
+    from shadow_tpu_torch.ops import devcfg
+
     n = len(devices.split(","))
+    cards = len({d.index for d in devcfg.select_devices(devices)})
     out = {}
     for policy, extra in (
             ("tpu_mesh", ["--set", "experimental.tpu_mesh_floor=0"]),
@@ -5614,15 +5807,20 @@ def multi_device_legs(cli, mesh, prop, digest, tmp: str, devices: str,
             fail(f"{what}: the C engine did not run")
         if policy == "tpu_mesh":
             formed = s["phase_wall"]["mesh_windows"]
-            counts = {k: mesh.LAUNCHES[k] for k in ("mesh_send", "mesh_recv",
-                                                    "mesh_exchange")}
+            counts = {k: v for k, v in mesh.LAUNCHES.items() if v}
             entries = dict(mesh.ENTRY_LAUNCHES)
-            if (formed <= 0 or counts["mesh_exchange"]
-                    or counts["mesh_send"] < n * formed
-                    or counts["mesh_recv"] < n * formed):
-                fail(f"{what}: launches {counts} for {formed} windows over "
-                     f"{n} entries")
+            if (formed <= 0
+                    or counts != {"mesh_exchange_entry": cards * formed}
+                    or entries != dict.fromkeys(range(n), formed)):
+                fail(f"{what}: launches {counts}, blocks by entry {entries} "
+                     f"for {formed} windows over {n} entries on {cards} "
+                     f"card(s) (want mesh_exchange_entry once a window a "
+                     f"card, every entry's block once a window, nothing "
+                     f"else)")
             out["mesh"] = counts
+            print(f"{what}: mesh_dispatch "
+                  f"{s['phase_wall']['mesh_dispatch'] / formed * 1e3:.6f} "
+                  f"ms a window", flush=True)
         else:
             formed = s["device"]["windows_dispatched"]
             counts = dict(prop.LAUNCHES)
@@ -5640,7 +5838,40 @@ def multi_device_legs(cli, mesh, prop, digest, tmp: str, devices: str,
               f"windows; launches {json.dumps(counts)}, by entry "
               f"{json.dumps(entries)}; phase_wall "
               f"{json.dumps(s['phase_wall'])}", flush=True)
+        if twin and policy == "tpu_mesh":
+            one_leg(cli, digest, argv, d, s, what)
     return out
+
+
+def one_leg(cli, digest, argv: list, d: str, s: dict, what: str) -> None:
+    """The multi-entry leg ``argv`` (its summary ``s``, its data directory
+    ``d``) run again on the one entry cuda:0: the same counts, tree and
+    digest stream, and both legs' controller wall, sim-s/wall-s and host
+    dispatch ms a window."""
+    d1 = d + "_one"
+    argv1 = list(argv)
+    argv1[argv1.index("--device") + 1] = "cuda:0"
+    argv1[argv1.index("--data-directory") + 1] = d1
+    s1 = run_cli(cli, argv1)
+    check_run(s1, d1, digest, TGEN1K_COUNTS, TGEN1K_TREE_DIGEST,
+              f"{what}, one entry")
+    if (open(os.path.join(d1, "state_digests.jsonl")).read()
+            != open(os.path.join(d, "state_digests.jsonl")).read()):
+        fail(f"{what}: the one-entry twin's digest stream differs")
+
+    def per_window(x):
+        pw = x["phase_wall"]
+        if pw.get("mesh_windows"):
+            return pw["mesh_dispatch"] / pw["mesh_windows"] * 1e3
+        return pw["window_dispatch"] / x["device"]["windows_dispatched"] * 1e3
+
+    print(f"{what} against one entry (cuda:0, same flags): controller "
+          f"{s['wall_seconds']:.3f} s vs {s1['wall_seconds']:.3f} s "
+          f"({s['wall_seconds'] / s1['wall_seconds']:.3f}x), "
+          f"{s['sim_sec_per_wall_sec']:.3f} vs "
+          f"{s1['sim_sec_per_wall_sec']:.3f} sim-s/wall-s, dispatch "
+          f"{per_window(s):.6f} vs {per_window(s1):.6f} ms a window; one "
+          f"entry's phase_wall {json.dumps(s1['phase_wall'])}", flush=True)
 
 
 def entry_standalone(torch, np, mesh, barriers, tmp: str, devices: str,
@@ -5717,19 +5948,13 @@ def entry_standalone(torch, np, mesh, barriers, tmp: str, devices: str,
     return {"launches": launches, "calls": calls, "reduces": reduces}
 
 
-def send_work(torch, prop, units, s: int, seed: int, width: int) -> tuple:
-    """(bytes, operations) of one mesh_send call: the valid column of the
-    shard's m slots, the other five fields of its valid units, its counted
-    rows and N trailer rows written once; 75 per threefry lane its valid
-    units need."""
-    n, m = units.shape[1:]
-    u = units[:, s]
-    ok = u[5] != 0
-    n_ok = int(ok.sum())
-    lanes = torch.clamp(u[3][ok], max=width) & 0xFFFFFFFF
-    return (m * 8 + 5 * 8 * n_ok + 32 * (n_ok + n),
-            OPS_PER_LANE * mesh_lanes(torch, prop, u[2][ok], lanes,
-                                      u[4][ok] & 0xFFFFFFFF, seed, width))
+def entry_work(torch, prop, units, seed: int, width: int, w: int) -> tuple:
+    """(bytes, operations) of one mesh_exchange_entry window, counted as
+    exchange_work counts the one-device exchange, with one g_min an entry:
+    the inboxes and flags are the kernel's own traffic between its
+    blocks, not inputs or outputs."""
+    nbytes, ops = exchange_work(torch, prop, units, seed, width, w)
+    return nbytes + 8 * (units.shape[1] - 1), ops
 
 
 def round_entry_work(torch, prop, state, units_k, tables, t_now_k, s: int,
@@ -5764,41 +5989,38 @@ def round_entry_work(torch, prop, state, units_k, tables, t_now_k, s: int,
 
 def time_entry_kernels(torch, np, prop, mesh, windows, sa, rate) -> dict:
     """The per-entry kernels timed on the multi-entry runs' own inputs:
-    mesh_send on every shard of the tpu_mesh leg's recorded windows (on
-    device memory) and mesh_recv on the gathered blocks they give,
-    mesh_rounds_entry and mesh_reduce on the standalone calls over the
-    entries; each beside its plain version and its bound."""
+    mesh_exchange_entry on the tpu_mesh leg's recorded windows, launched as
+    the plane launches it (each window in an EntryWindow over its N
+    entries of card 0, read and written in place in page-locked memory,
+    one launch a window, a fresh epoch each), mesh_rounds_entry and
+    mesh_reduce on the standalone calls over the entries; each beside its
+    plain version and its bound."""
+    import itertools
+
     out = {}
     dev = torch.device("cuda", 0)
-    sends, recvs, swork, rwork = [], [], [], []
+    epochs = itertools.count(1)
+    stages, plain, work = [], [], []
     for u, seed, mp, w in windows:
+        n, m = u.shape[1:]
+        st = mesh.EntryWindow((dev,) * n, n, m, w)
+        st.units[:] = u
+        stages.append((st, seed, mp))
         x = torch.from_numpy(u).to(dev)
-        n, m = x.shape[1:]
-        blocks = []
-        for s in range(n):
-            sends.append((x, s, seed, mp))
-            swork.append(send_work(torch, prop, x, s, seed, mp))
-            blocks.append(mesh.mesh_send(x, s, seed, mp))
-        for t in range(n):
-            g = torch.empty((n, m + 1, 4), dtype=torch.int64, device=dev)
-            mesh.gather(g, blocks, t * (m + 1) * 32, (m + 1) * 32)
-            torch.cuda.synchronize()
-            rows = int(g[:, m, 0].sum())
-            recvs.append((g, t, w))
-            rwork.append((n * 16 + rows * 32 + w * 32 + 8, 0))
-    shape = sorted({tuple(x[0].shape) for x in sends})
-    out["mesh_send"] = [measure_mesh(
-        torch, "mesh_send", [lambda a=a: mesh.mesh_send(*a) for a in sends],
-        [lambda a=a: mesh.send_plain(*a) for a in sends[:64]],
-        sum(b for b, _ in swork) / len(sends),
-        sum(o for _, o in swork) / len(sends), rate,
-        f"{len(sends)} shard sends of {len(windows)} run windows, units "
-        f"{shape}")]
-    out["mesh_recv"] = [measure_mesh(
-        torch, "mesh_recv", [lambda a=a: mesh.mesh_recv(*a) for a in recvs],
-        [lambda a=a: mesh.recv_plain(a[0], a[2]) for a in recvs[:64]],
-        sum(b for b, _ in rwork) / len(recvs), 0, rate,
-        f"{len(recvs)} destinations of {len(windows)} run windows")]
+        plain.append((x, seed, mp, w))
+        work.append(entry_work(torch, prop, x, seed, mp, w))
+
+    def launch(st, seed, mp):
+        st.launch(seed, mp, next(epochs), [torch.cuda.current_stream(dev)])
+
+    shape = sorted({tuple(x[0].shape[1:]) for x in plain})
+    out["mesh_exchange_entry"] = [measure_mesh(
+        torch, "mesh_exchange_entry",
+        [lambda a=a: launch(*a) for a in stages],
+        [lambda a=a: mesh.exchange_entry_plain(*a) for a in plain[:8]],
+        sum(b for b, _ in work) / len(work),
+        sum(o for _, o in work) / len(work), rate,
+        f"{len(stages)} run windows, (N, m) {shape}, one launch a window")]
     calls = sa["calls"]
     work = [round_entry_work(torch, prop, *c) for c in calls]
     ks = sorted({c[1].shape[0] for c in calls})
@@ -5825,25 +6047,30 @@ def multi_device_path(cli, torch, np, prop, mesh, digest, tmp: str,
     tpu_batch against the one-entry runs; the standalone round API over
     four entries; the distinct-card leg where the machine has two cards.
     Returns the launches, errors and the inputs kept for timing."""
+    from shadow_tpu_torch.ops import devcfg
+
     dev = torch.device("cuda", 0)
     err = check_entry_kernels(torch, np, mesh, prop, dev)
     legs = multi_device_legs(cli, mesh, prop, digest, tmp, FOUR_ENTRIES,
-                             one_entry, "one card")
+                             one_entry, "one card", twin=True)
     sa = entry_standalone(torch, np, mesh, barriers, tmp, FOUR_ENTRIES)
     k = torch.cuda.device_count()
     if k >= 2:
         two = "cuda:0,cuda:1"
-        print(f"multi device: the distinct-card leg runs over {two} "
-              f"({k} cards visible; peer access 0->1: "
-              f"{torch.cuda.can_device_access_peer(0, 1)})", flush=True)
+        plan = mesh.entry_plan(devcfg.select_devices(two),
+                               torch.cuda.can_device_access_peer)
+        routes = {f"{i}->{d}": r for i, row in enumerate(plan.routes)
+                  for d, r in enumerate(row)}
+        print(f"multi device: the distinct-card leg runs over {two} ({k} "
+              f"cards visible); mesh_exchange_entry's route of each (source, "
+              f"destination) pair: {json.dumps(routes)}", flush=True)
         multi_device_legs(cli, mesh, prop, digest, tmp, two, one_entry,
                           "two cards")
     else:
         print(f"multi device: the distinct-card leg did not run: "
               f"torch.cuda.device_count() = {k} (not a failure; it runs "
               f"where two cards are visible)", flush=True)
-    launches = {"mesh_send": legs["mesh"]["mesh_send"],
-                "mesh_recv": legs["mesh"]["mesh_recv"],
+    launches = {"mesh_exchange_entry": legs["mesh"]["mesh_exchange_entry"],
                 **sa["launches"]}
     print(f"per-entry launches on the multi-entry paths: "
           f"{json.dumps(launches)}; draw_flags split over four entries "

@@ -14,6 +14,8 @@
 //   mesh_scan       <- _scan_rounds (mesh.py:202, jit :364): K rounds in one
 //                      persistent launch, the bucket state carried across
 //                      them
+//   mesh_exchange_entry <- _exchange_rounds over a mesh of several devices:
+//                      one shard a device entry, one launch a card (below)
 //
 // The shard axis. JAX runs one program per device of a mesh and moves the
 // exchange table with lax.all_to_all. Here one block owns one source shard
@@ -79,8 +81,8 @@
 // shape alone and counts each path; a refused launch raises there):
 // - N <= kClusterMax (16, a non-portable cluster size the H100 launches):
 //   one cluster launch. Above it (up to kMaxShards), the kernels run as
-//   two launches: mesh_send_kernel then mesh_recv_kernel for the exchange,
-//   the round kernel then mesh_reduce_kernel for the rounds.
+//   two launches: mesh_send_kernel then mesh_recv_kernel for the exchange
+//   (the pair), the round kernel then mesh_reduce_kernel for the rounds.
 // - Exchange send rows: in each source block's shared memory when
 //   N * m * 32 bytes <= kDynSmemMax, else in a device-memory table inside
 //   the same launch.
@@ -90,22 +92,40 @@
 //   way).
 //
 // One shard on each device entry (parallel/mesh.py MeshDataPlane with a
-// devices tuple; the reference puts shard i on devices[i] of a jax Mesh).
-// The same kernels run one block a launch, the shard index an argument:
-// shadow_mesh_send runs mesh_send_kernel for source shard s, writing its
-// rows as N blocks of m + 1 rows (destination d's block ends in a row
-// [count, local minimum, 0, 0]); shadow_mesh_gather makes the N^2 copies
-// of those blocks (the all_to_all: peer copies between cards, which CUDA
-// stages through host memory where two cards cannot reach each other);
-// shadow_mesh_recv runs mesh_recv_kernel for destination t on the gathered
-// blocks. shadow_mesh_rounds_entry runs mesh_rounds_kernel<false> for
-// shard s with its (3, 1, hs) state, writing a destination's rows of all K
-// rounds as one block (no step of a round reads what it received, so the
-// copies follow the K-round launch); shadow_mesh_reduce runs
+// devices tuple; the reference puts shard i on devices[i] of a jax Mesh
+// and moves the exchange table with lax.all_to_all inside one program).
+// mesh_exchange_entry_kernel does a window's whole exchange in ONE launch
+// a card, one block for each entry the card holds (shadow_mesh_exchange_
+// entry). Block s runs the send phase of shard s and stores destination
+// d's rows, then a trailer row [count, local minimum, 0, 0], straight into
+// entry d's inbox (N, m + 1, 4) at slot s: on the same card (local), on
+// another card over NVLink (peer; the plane enables peer access once per
+// ordered pair of cards), or in page-locked host memory that both cards
+// map (host, where a card cannot reach the other). After a system fence
+// and a block barrier it publishes the window's epoch into flag [d][s] of
+// every destination with a system-scope release store; then it waits
+// with acquire loads until its own N flags hold the epoch and runs the
+// receive phase from its inbox into its entry's page-locked output. The
+// epoch counts the plane's windows from 1 and the flags start at 0, so no
+// flag is ever reset and a stale one never matches. The wait is bounded
+// by %globaltimer: a block whose source never publishes writes a status
+// naming the source and the epoch and returns, and the wrapper raises
+// after its one sync. The blocks of one card wait on each other, so they
+// are one launch that the card runs all at once: a cluster up to
+// kClusterMax blocks, a cooperative launch above it. What bounded the
+// first per-entry design (a send launch, N^2 copies and a receive launch
+// an entry, about 50 host calls around 6 us of card work a window at N =
+// 4) was the host; here a window is one launch, one event and one sync a
+// card. Launches on distinct cards depend only on each other's stores,
+// never on stream order.
+// shadow_mesh_rounds_entry runs mesh_rounds_kernel<false> for shard s with
+// its (3, 1, hs) state, writing a destination's rows of all K rounds as
+// one block (no step of a round reads what it received, so the copies,
+// shadow_mesh_gather, follow the K-round launch); shadow_mesh_reduce runs
 // mesh_reduce_kernel on every entry's partials gathered on entry 0. Each
-// launches on the calling thread's current device, which the caller makes
-// the stream's card. cudaFuncSetAttribute applies to the current device
-// only, so prepared<> prepares a kernel once per device.
+// entry point launches on the calling thread's current device, which the
+// caller makes the stream's card. cudaFuncSetAttribute applies to the
+// current device only, so prepared<> prepares a kernel once per device.
 //
 // Bit identity. All math is integer, held to the plain PyTorch versions in
 // shadow_tpu_torch/parallel/mesh.py with tolerance 0:
@@ -171,6 +191,11 @@ constexpr i64 kNegInf = LLONG_MIN;
 constexpr int kPathPair = 0;
 constexpr int kPathClusterGlobal = 1;
 constexpr int kPathClusterSmem = 2;
+
+// an entry's status after mesh_exchange_entry (parallel/mesh.py STATUS_*;
+// the host writes kStatusPending before each launch)
+constexpr i64 kStatusOk = 0;
+constexpr i64 kStatusLate = 1;
 
 // -- integer helpers with the reference's semantics --------------------------
 
@@ -242,6 +267,24 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// System-scope acquire load and release store: the flags between the
+// blocks of mesh_exchange_entry, on this card, another card or in mapped
+// host memory.
+__device__ __forceinline__ i64 load_acquire_sys(const i64* p) {
+  i64 v;
+  asm volatile("ld.acquire.sys.b64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void store_release_sys(i64* p, i64 v) {
+  asm volatile("st.release.sys.b64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
+}
+// nanoseconds of the card's global timer
+__device__ __forceinline__ u64 global_ns() {
+  u64 t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
 }
 
 // a 32-byte table row as two 16-byte stores (rows are 32-byte aligned)
@@ -432,15 +475,16 @@ __device__ bool tile_draws(uint32_t lo, uint32_t hi, uint32_t lanes,
 // units: one source shard's m slots of the (6, n, m) int64 rows [dst_g,
 // t_arr, uid, npkts, thresh, valid], field f of slot i at units[f * plane
 // + i]. The shard's send phase: draws each valid unit's flag and writes its
-// row [dst_g // n, t_arr, uid, dropped | valid << 1] to rows[(d * stride +
-// rank) * 4] (destination d's block of stride rows); leaves the count of
-// units sent to destination d in sc->carry[d] and returns the earliest t_arr
-// of its valid units (kInf if none) to every thread. Only the tiles up to
-// the last valid slot run.
+// row [dst_g // n, t_arr, uid, dropped | valid << 1] to row `rank` of
+// sink(d), destination d's rows; leaves the count of units sent to
+// destination d in sc->carry[d] and returns the earliest t_arr of its valid
+// units (kInf if none) to every thread. Only the tiles up to the last valid
+// slot run.
+template <typename Sink>
 __device__ i64 send_phase(const i64* __restrict__ units, i64 plane, int n,
-                          int m, int stride, uint32_t k0, uint32_t k1,
-                          uint32_t width, i64* rows, RankScratch* sc,
-                          DrawScratch* dr, i64* warp_tot, int* red_i) {
+                          int m, uint32_t k0, uint32_t k1, uint32_t width,
+                          Sink sink, RankScratch* sc, DrawScratch* dr,
+                          i64* warp_tot, int* red_i) {
   const i64* u_ok = units + 5 * plane;
   int last = -1;
   for (int i = threadIdx.x; i < m; i += kThreads)
@@ -473,8 +517,8 @@ __device__ i64 send_phase(const i64* __restrict__ units, i64 plane, int n,
     const i64 flags = (dropped ? 1 : 0) | 2;
     const int rank = tile_rank(ds, active, n, sc, p - base <= 32);
     if (ds < n)
-      put_row(rows + (static_cast<i64>(ds) * stride + rank) * 4,
-              floordiv(dst, n), t_arr, uid, flags);
+      put_row(sink(ds) + static_cast<i64>(rank) * 4, floordiv(dst, n), t_arr,
+              uid, flags);
   }
   i64 total;
   block_scan(my_min, OpMin(), kInf, warp_tot, &total);
@@ -523,9 +567,10 @@ mesh_exchange_kernel(const i64* __restrict__ units, int n, int m, int w,
   cg::cluster_group cluster = cg::this_cluster();
   const int s = blockIdx.x;  // the grid is one cluster
   i64* rows = kSmemRows ? dyn : send + static_cast<i64>(s) * n * m * 4;
-  const i64 mn = send_phase(units + static_cast<i64>(s) * m,
-                            static_cast<i64>(n) * m, n, m, m, k0, k1, width,
-                            rows, &sc, &dr, warp_tot, red_i);
+  const i64 mn = send_phase(
+      units + static_cast<i64>(s) * m, static_cast<i64>(n) * m, n, m, k0, k1,
+      width, [=](int d) { return rows + static_cast<i64>(d) * m * 4; }, &sc,
+      &dr, warp_tot, red_i);
   if (threadIdx.x == 0) local_min = mn;
   if (!kSmemRows) __threadfence();
   cluster.sync();
@@ -556,74 +601,159 @@ mesh_exchange_kernel(const i64* __restrict__ units, int n, int m, int w,
   cluster.sync();  // a block's shared memory outlives every read of it
 }
 
-// The send phase as a launch of its own: block b is source shard s0 + b,
-// its m slots at units + (s0 + b) * m (fields `plane` apart), its rows
-// into send + b * n * stride * 4, a block of stride rows a destination.
-// N > kClusterMax (the pair, stride == m): every shard, its counts into
-// counts[b * n + d] and its minimum into local_min[b]. One shard on its own
-// device entry (stride == m + 1, counts and local_min null): row m of
-// destination d's block is [count, local minimum, 0, 0], so the one copy of
-// that block to entry d moves d's rows, their count and the minimum.
+// N > kClusterMax, the pair. The send phase as a launch of its own: block
+// s is source shard s, its m slots at units + s * m (fields `plane`
+// apart), its rows into send + s * n * m * 4 (a block of m rows a
+// destination), its counts into counts[s * n + d] and its minimum into
+// local_min[s].
 __global__ void __launch_bounds__(kThreads)
-mesh_send_kernel(const i64* __restrict__ units, i64 plane, int s0, int n,
-                 int m, int stride, uint32_t k0, uint32_t k1, uint32_t width,
+mesh_send_kernel(const i64* __restrict__ units, i64 plane, int n, int m,
+                 uint32_t k0, uint32_t k1, uint32_t width,
                  i64* __restrict__ send, int* __restrict__ counts,
                  i64* __restrict__ local_min) {
   __shared__ RankScratch sc;
   __shared__ DrawScratch dr;
   __shared__ i64 warp_tot[kWarps];
   __shared__ int red_i[kWarps];
-  const int b = blockIdx.x;
-  i64* rows = send + static_cast<i64>(b) * n * stride * 4;
-  const i64 mn = send_phase(units + static_cast<i64>(s0 + b) * m, plane, n,
-                            m, stride, k0, k1, width, rows, &sc, &dr,
-                            warp_tot, red_i);
-  if (counts != nullptr) {
-    if (threadIdx.x < n) counts[b * n + threadIdx.x] = sc.carry[threadIdx.x];
-    if (threadIdx.x == 0) local_min[b] = mn;
-  } else if (threadIdx.x < n) {
-    put_row(rows + (static_cast<i64>(threadIdx.x) * stride + m) * 4,
-            sc.carry[threadIdx.x], mn, 0, 0);
-  }
+  const int s = blockIdx.x;
+  i64* rows = send + static_cast<i64>(s) * n * m * 4;
+  const i64 mn = send_phase(
+      units + static_cast<i64>(s) * m, plane, n, m, k0, k1, width,
+      [=](int d) { return rows + static_cast<i64>(d) * m * 4; }, &sc, &dr,
+      warp_tot, red_i);
+  if (threadIdx.x < n) counts[s * n + threadIdx.x] = sc.carry[threadIdx.x];
+  if (threadIdx.x == 0) local_min[s] = mn;
 }
 
-// ... then the receive phase: block b is destination shard t = t0 + b, its
-// w rows into recv + b * w * 4. Source j's rows for t start at send + j *
-// jstride + t * tstride. The pair: send (n, n, m, 4) (jstride n * m * 4,
-// tstride m * 4), counts (n, n) and local_min (n,). One destination on its
-// own entry: send is the gathered (n, m + 1, 4) of the sources' blocks for
-// it (jstride (m + 1) * 4, tstride 0; counts and local_min null), each
-// source's count and minimum in its block's row m. Block 0 writes g_min,
-// the minimum over every source, where g_min is not null.
+// ... then the receive phase: block t is destination shard t, its w rows
+// into recv + t * w * 4, source j's rows for it at send + (j * n + t) * m
+// * 4. Block 0 writes g_min, the minimum over every source.
 __global__ void __launch_bounds__(kThreads)
-mesh_recv_kernel(const i64* __restrict__ send, i64 jstride, i64 tstride,
-                 const int* __restrict__ counts,
-                 const i64* __restrict__ local_min, int t0, int n, int m,
-                 int w, i64* __restrict__ recv, i64* __restrict__ g_min) {
+mesh_recv_kernel(const i64* __restrict__ send, const int* __restrict__ counts,
+                 const i64* __restrict__ local_min, int n, int m, int w,
+                 i64* __restrict__ recv, i64* __restrict__ g_min) {
   __shared__ int off[kMaxShards + 1];
-  const int b = blockIdx.x;
-  const int t = t0 + b;
-  const i64* base = send + static_cast<i64>(t) * tstride;
+  const int t = blockIdx.x;
   if (threadIdx.x == 0) {
     int run = 0;
     i64 g = kInf;
     for (int j = 0; j < n; ++j) {
-      const i64* trailer = base + static_cast<i64>(j) * jstride + m * 4;
       off[j] = run;
-      run += counts != nullptr ? counts[j * n + t]
-                               : static_cast<int>(trailer[0]);
-      const i64 v = local_min != nullptr ? local_min[j] : trailer[1];
-      g = v < g ? v : g;
+      run += counts[j * n + t];
+      g = local_min[j] < g ? local_min[j] : g;
     }
     off[n] = run;
-    if (b == 0 && g_min != nullptr) *g_min = g;
+    if (t == 0) *g_min = g;
   }
   __syncthreads();
   recv_phase(n, w, off,
              [&](int j) -> const i64* {
-               return base + static_cast<i64>(j) * jstride;
+               return send + (static_cast<i64>(j) * n + t) * m * 4;
              },
-             recv + static_cast<i64>(b) * w * 4);
+             recv + static_cast<i64>(t) * w * 4);
+}
+
+// -- mesh_exchange_entry -----------------------------------------------------
+
+// One block of a mesh_exchange_entry launch, in device memory on the
+// launch's card (parallel/mesh.py EntryWindow builds it once a bucket;
+// every address is a card address, of device or mapped host memory).
+struct EntryBlock {
+  i64 shard;                   // the entry's shard s
+  i64 slot[kMaxShards];        // destination d's inbox block for source s
+  i64 flag[kMaxShards];        // destination d's flag for source s
+  i64 inbox[kMaxShards];       // the entry's own inbox block from source j
+  i64 own_flag[kMaxShards];    // the entry's own flag for source j
+  i64 out;                     // its (w, 4) rows, then g_min
+  i64 status;                  // [code, late source, epoch, flag seen]
+  i64 pad;
+};
+constexpr int kEntryBlockWords = 4 * kMaxShards + 4;
+static_assert(sizeof(EntryBlock) == 8 * kEntryBlockWords,
+              "EntryBlock is parallel/mesh.py ENTRY_BLOCK_WORDS int64 words");
+
+// Block b is the entry table[b].shard of n: its send phase stores
+// destination d's rows and trailer [count, local minimum, 0, 0] (row m)
+// into slot[d], publishes `epoch` into flag[d], waits for its own n flags
+// to hold `epoch` (at most timeout_ns, else it writes status [kStatusLate,
+// source, epoch, flag seen] and returns), then runs the receive phase from
+// its inbox blocks into out (rows in (source, slot) order, zero rows, then
+// g_min, the minimum over every source's trailer) and writes kStatusOk.
+__global__ void __launch_bounds__(kThreads)
+mesh_exchange_entry_kernel(const i64* __restrict__ units, i64 plane, int n,
+                           int m, int w, uint32_t k0, uint32_t k1,
+                           uint32_t width, i64 epoch, i64 timeout_ns,
+                           const EntryBlock* __restrict__ table) {
+  __shared__ RankScratch sc;
+  __shared__ DrawScratch dr;
+  __shared__ i64 warp_tot[kWarps];
+  __shared__ int red_i[kWarps];
+  __shared__ i64* slot[kMaxShards];
+  __shared__ const i64* inbox[kMaxShards];
+  __shared__ i64 seen[kMaxShards];
+  __shared__ int off[kMaxShards + 1];
+  __shared__ int late;  // the first source whose flag never came, else n
+  const EntryBlock* e = table + blockIdx.x;
+  const int s = static_cast<int>(e->shard);
+  if (threadIdx.x < n) {
+    slot[threadIdx.x] = reinterpret_cast<i64*>(e->slot[threadIdx.x]);
+    inbox[threadIdx.x] = reinterpret_cast<const i64*>(e->inbox[threadIdx.x]);
+  }
+  if (threadIdx.x == 0) late = n;
+  __syncthreads();
+  const i64 mn = send_phase(units + static_cast<i64>(s) * m, plane, n, m, k0,
+                            k1, width, [&](int d) { return slot[d]; }, &sc,
+                            &dr, warp_tot, red_i);
+  if (threadIdx.x < n)
+    put_row(slot[threadIdx.x] + static_cast<i64>(m) * 4,
+            sc.carry[threadIdx.x], mn, 0, 0);
+  // every row and trailer of this block reaches every destination before
+  // any flag says so
+  __threadfence_system();
+  __syncthreads();
+  if (threadIdx.x < n) {
+    store_release_sys(reinterpret_cast<i64*>(e->flag[threadIdx.x]), epoch);
+    const i64* f = reinterpret_cast<const i64*>(e->own_flag[threadIdx.x]);
+    const u64 t0 = global_ns();
+    i64 v;
+    while ((v = load_acquire_sys(f)) != epoch) {
+      if (global_ns() - t0 > static_cast<u64>(timeout_ns)) {
+        atomicMin(&late, static_cast<int>(threadIdx.x));
+        break;
+      }
+      __nanosleep(64);
+    }
+    seen[threadIdx.x] = v;
+  }
+  // the acquires above, then this barrier, order every source's rows
+  // before the reads below
+  __syncthreads();
+  i64* status = reinterpret_cast<i64*>(e->status);
+  i64* out = reinterpret_cast<i64*>(e->out);
+  if (late < n) {
+    if (threadIdx.x == 0) {
+      status[1] = late;
+      status[2] = epoch;
+      status[3] = seen[late];
+      status[0] = kStatusLate;
+    }
+    return;
+  }
+  if (threadIdx.x == 0) {
+    int run = 0;
+    i64 g = kInf;
+    for (int j = 0; j < n; ++j) {
+      const i64* trailer = inbox[j] + static_cast<i64>(m) * 4;
+      off[j] = run;
+      run += static_cast<int>(trailer[0]);
+      g = trailer[1] < g ? trailer[1] : g;
+    }
+    off[n] = run;
+    out[static_cast<i64>(w) * 4] = g;
+  }
+  __syncthreads();
+  recv_phase(n, w, off, [&](int j) { return inbox[j]; }, out);
+  if (threadIdx.x == 0) status[0] = kStatusOk;
 }
 
 // -- mesh_round_step and mesh_scan -------------------------------------------
@@ -1025,10 +1155,12 @@ cudaError_t prepared(bool cluster) {
   return result[dev];
 }
 
-// Launch Kernel with n blocks of kThreads as one cluster of n blocks.
+// Launch Kernel with n blocks of kThreads that run all at once: one
+// cluster of n blocks (n <= kClusterMax), or, with `cooperative`, one
+// cooperative launch (every block resident, or the launch fails).
 template <auto Kernel, typename... Args>
-cudaError_t launch_cluster(int n, size_t smem, cudaStream_t st,
-                           Args... args) {
+cudaError_t launch_together(int n, size_t smem, cudaStream_t st,
+                            bool cooperative, Args... args) {
   cudaError_t e = prepared<Kernel>(true);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
@@ -1037,10 +1169,15 @@ cudaError_t launch_cluster(int n, size_t smem, cudaStream_t st,
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  if (cooperative) {
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+  } else {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+  }
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, Kernel, args...);
@@ -1128,23 +1265,22 @@ int shadow_mesh_exchange(void* units, int n, int m, int w, uint32_t k0,
   i64* gm = static_cast<i64*>(g_min);
   if (path == kPathPair) {
     mesh_send_kernel<<<n, kThreads, 0, st>>>(
-        u, static_cast<i64>(n) * m, 0, n, m, m, k0, k1,
+        u, static_cast<i64>(n) * m, n, m, k0, k1,
         static_cast<uint32_t>(width), snd, static_cast<int*>(counts),
         static_cast<i64*>(local_min));
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     mesh_recv_kernel<<<n, kThreads, 0, st>>>(
-        snd, static_cast<i64>(n) * m * 4, static_cast<i64>(m) * 4,
-        static_cast<const int*>(counts), static_cast<const i64*>(local_min),
-        0, n, m, w, rcv, gm);
+        snd, static_cast<const int*>(counts),
+        static_cast<const i64*>(local_min), n, m, w, rcv, gm);
     e = cudaGetLastError();
   } else if (path == kPathClusterGlobal) {
-    e = launch_cluster<mesh_exchange_kernel<false>>(
-        n, 0, st, u, n, m, w, k0, k1, static_cast<uint32_t>(width), snd, rcv,
-        gm);
+    e = launch_together<mesh_exchange_kernel<false>>(
+        n, 0, st, false, u, n, m, w, k0, k1, static_cast<uint32_t>(width),
+        snd, rcv, gm);
   } else {
-    e = launch_cluster<mesh_exchange_kernel<true>>(
-        n, static_cast<size_t>(rows_bytes), st, u, n, m, w, k0, k1,
+    e = launch_together<mesh_exchange_kernel<true>>(
+        n, static_cast<size_t>(rows_bytes), st, false, u, n, m, w, k0, k1,
         static_cast<uint32_t>(width), snd, rcv, gm);
   }
   return static_cast<int>(e);
@@ -1191,8 +1327,8 @@ int shadow_mesh_rounds(const void* state_in, void* state_out, int n, int hs,
       received, 0, 32LL * steps * n * n * c, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (cluster)
-    return static_cast<int>(launch_cluster<mesh_rounds_kernel<true>>(
-        n, static_cast<size_t>(smem), st, a));
+    return static_cast<int>(launch_together<mesh_rounds_kernel<true>>(
+        n, static_cast<size_t>(smem), st, false, a));
   e = prepared<mesh_rounds_kernel<false>>(false);
   if (e != cudaSuccess) return static_cast<int>(e);
   mesh_rounds_kernel<false><<<n, kThreads, smem, st>>>(a);
@@ -1207,36 +1343,42 @@ int shadow_mesh_rounds(const void* state_in, void* state_out, int n, int hs,
 // Each entry point launches on the calling thread's current device, which
 // must be the stream's.
 
-// Source shard s of n: its m slots of units (6, n, m) (field f of slot i of
-// shard s at units[f * plane + s * m + i]; plane = n * m for the plane's
-// staged window) -> send (n, m + 1, 4): destination d's rows in block d,
-// [count, local minimum, 0, 0] in its row m.
-int shadow_mesh_send(const void* units, long long plane, int s, int n, int m,
-                     uint32_t k0, uint32_t k1, int width, void* send,
-                     void* stream) {
-  if (bad_shape(n, m, width) || s < 0 || s >= n ||
-      plane < static_cast<long long>(n) * m || misaligned(send))
+// One window's exchange over the device entries, for the `blocks` entries
+// this card holds: table (blocks EntryBlocks in this card's memory) names
+// each block's shard, inbox slots, flags, output and status. units (6, n,
+// m), field f of shard s's slot i at units[f * plane + s * m + i], is read
+// in place (the plane's page-locked window). One launch of the blocks
+// that runs them all at once: a cluster up to kClusterMax, else
+// cooperative. epoch >= 1 is the window's; a block waits at most
+// timeout_ns for each source's flag.
+int shadow_mesh_exchange_entry(const void* units, long long plane, int n,
+                               int m, int w, uint32_t k0, uint32_t k1,
+                               int width, long long epoch,
+                               long long timeout_ns, const void* table,
+                               int blocks, void* stream) {
+  if (bad_shape(n, m, width) || w < 1 || w > n * m ||
+      plane < static_cast<long long>(n) * m || blocks < 1 || blocks > n ||
+      epoch < 1 || timeout_ns < 1 || table == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  mesh_send_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const i64*>(units), plane, s, n, m, m + 1, k0, k1,
-      static_cast<uint32_t>(width), static_cast<i64*>(send), nullptr,
-      nullptr);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_together<mesh_exchange_entry_kernel>(
+          blocks, 0, static_cast<cudaStream_t>(stream),
+          blocks > kClusterMax, static_cast<const i64*>(units),
+          static_cast<i64>(plane), n, m, w, k0, k1,
+          static_cast<uint32_t>(width), static_cast<i64>(epoch),
+          static_cast<i64>(timeout_ns),
+          static_cast<const EntryBlock*>(table)));
 }
 
-// Destination shard t of n: gathered (n, m + 1, 4), source j's block for t
-// at [j] (mesh_send's layout) -> recv (w, 4), its first w rows in (source,
-// slot) order then zero rows, and g_min (1,), the minimum over the sources.
-int shadow_mesh_recv(const void* gathered, int t, int n, int m, int w,
-                     void* recv, void* g_min, void* stream) {
-  if (bad_shape(n, m, 1) || t < 0 || t >= n || w < 1 || w > n * m ||
-      misaligned(recv) || misaligned(gathered))
-    return static_cast<int>(cudaErrorInvalidValue);
-  mesh_recv_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const i64*>(gathered), static_cast<i64>(m + 1) * 4, 0,
-      nullptr, nullptr, t, n, m, w, static_cast<i64*>(recv),
-      static_cast<i64*>(g_min));
-  return static_cast<int>(cudaGetLastError());
+// Let the current device reach `peer`'s memory (the peer route of
+// mesh_exchange_entry); access already enabled counts as success.
+int shadow_mesh_enable_peer(int peer) {
+  cudaError_t e = cudaDeviceEnablePeerAccess(peer, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear the error it recorded
+    e = cudaSuccess;
+  }
+  return static_cast<int>(e);
 }
 
 // Shard s of n, k >= 1 rounds (units (k, 6, 1, c) at t_now_k (k,)):

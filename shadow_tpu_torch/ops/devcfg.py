@@ -73,14 +73,12 @@ _SIGNATURES = {
             ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p]),
-        "shadow_mesh_send": (ctypes.c_int, [
+        "shadow_mesh_exchange_entry": (ctypes.c_int, [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p]),
-        "shadow_mesh_recv": (ctypes.c_int, [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p]),
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p]),
+        "shadow_mesh_enable_peer": (ctypes.c_int, [ctypes.c_int]),
         "shadow_mesh_rounds_entry": (ctypes.c_int, [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,

@@ -28,14 +28,17 @@ bucket state as (N, Hs) tensors on one ``torch.device``, and the
 reference's ``lax.all_to_all`` becomes the in-device exchange
 ``received[i] = send[:, i]``; the kernels run one block per shard. The
 multi-device layout puts shard i on device entry i (devcfg.select_devices:
-``--device cuda:0,cuda:1``, or one card named several times): each entry
-runs the send half of the exchange (``mesh_send``) or the rounds of its
-shard (``mesh_rounds_entry``), the all_to_all becomes N^2 copies of blocks
-between entries (``gather``: peer copies, staged through the host where
-two cards cannot reach each other), and each entry runs the receive half
-(``mesh_recv``); the barrier minimum and the counters are reduced on entry
-0 (``mesh_reduce``). No step of a round reads what it received, so a K-round
-launch an entry is followed by one set of copies of all K tables.
+``--device cuda:0,cuda:1``, or one card named several times). A window's
+exchange is ``mesh_exchange_entry``: one launch a card, one block an entry
+it holds, each block storing its rows straight into every destination's
+inbox (on its card, on a peer card over NVLink, or in mapped host memory:
+``entry_plan`` gives each pair's route) and waiting on the other blocks'
+release/acquire flags before it receives. The standalone rounds run each
+shard's rounds on its entry (``mesh_rounds_entry``), copy each
+destination's rows between entries (``gather``) and reduce the barrier
+minimum and the counters on entry 0 (``mesh_reduce``); no step of a round
+reads what it received, so a K-round launch an entry is followed by one
+set of copies of all K tables.
 
 Launch paths of the one-device layout, chosen by shape alone
 (``exchange_path``, ``round_path``; csrc/mesh.cu says why): up to
@@ -63,6 +66,7 @@ from __future__ import annotations
 
 import ctypes
 import time as _walltime  # detlint: ok(wallclock): per-window wall attribution
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -93,11 +97,11 @@ _M32 = 0xFFFFFFFF
 #: kernel launches per wrapper since the last reset_launches(); only CUDA
 #: launches count (the plain version on a CPU tensor is not a launch)
 LAUNCHES = {"mesh_exchange": 0, "mesh_round_step": 0, "mesh_scan": 0,
-            "mesh_send": 0, "mesh_recv": 0, "mesh_rounds_entry": 0,
+            "mesh_exchange_entry": 0, "mesh_rounds_entry": 0,
             "mesh_reduce": 0}
-#: launches of the per-entry wrappers (mesh_send, mesh_recv,
-#: mesh_rounds_entry, mesh_reduce) by device entry index since the last
-#: reset_launches(): each shard's on its own entry, the reduction's on 0
+#: the per-entry kernels' blocks by device entry index since the last
+#: reset_launches(): mesh_exchange_entry's block of every entry its launch
+#: holds, mesh_rounds_entry's of its shard, mesh_reduce's on entry 0
 ENTRY_LAUNCHES: dict = {}
 #: wrapper calls per launch path since the last reset_launches(): the
 #: exchange's three paths, and the rounds' launch shape (cluster or pair)
@@ -107,6 +111,17 @@ PATHS = {"exchange_cluster_smem": 0, "exchange_cluster_global": 0,
          "rounds_smem": 0, "rounds_global": 0}
 #: exchange_path's names, in csrc/mesh.cu's numbering of the paths
 _EXCHANGE_PATHS = ("pair", "cluster_global", "cluster_smem")
+#: int64 words of one block's table in mesh_exchange_entry (csrc/mesh.cu
+#: EntryBlock: shard, 4 x MAX_SHARDS addresses, output, status, pad)
+ENTRY_BLOCK_WORDS = 4 * MAX_SHARDS + 4
+#: an entry's status words [code, late source, epoch, flag seen]: code
+#: STATUS_PENDING (written by the host before a launch), STATUS_OK or
+#: STATUS_LATE (a source's flag never came)
+STATUS_PENDING, STATUS_OK, STATUS_LATE = -1, 0, 1
+#: how long a block of mesh_exchange_entry waits for a source's flag: far
+#: past a window's microseconds, so only a source that never publishes
+#: (a launch that never ran, a lost card) reaches it
+ENTRY_TIMEOUT_NS = 10 * NS_PER_SEC
 
 
 def reset_launches() -> None:
@@ -331,18 +346,18 @@ def scan_rounds_plain(state: torch.Tensor, units_k: torch.Tensor, tables,
 
 # -- plain versions of the per-entry halves ---------------------------------
 # One shard on its own device entry: the send half of exchange_rounds_plain
-# on the source's entry, the receive half on the destination's after the
-# copies between entries; the rounds of one shard, then the reduction of
-# every entry's partials on entry 0. Composed over every shard they give
-# the whole-mesh versions above.
+# on the source's entry, the receive half on the destination's from the
+# blocks every source stored into its inbox; the rounds of one shard, then
+# the reduction of every entry's partials on entry 0. Composed over every
+# shard they give the whole-mesh versions above.
 
 def send_plain(units: torch.Tensor, s: int, seed: int,
                max_pkts: int) -> torch.Tensor:
-    """Plain version of mesh_send: source shard s's half of
-    exchange_rounds_plain. ``units``: (6, N, m) int64 (only column block s
-    is read). Returns (N, m + 1, 4) int64: block d holds the rows shard s
-    sends to shard d in slot order, then zero rows, and in its row m
-    [count, s's earliest valid t_arr (INF if none), 0, 0]."""
+    """Source shard s's half of exchange_rounds_plain (mesh_exchange_entry's
+    send phase). ``units``: (6, N, m) int64 (only column block s is read).
+    Returns (N, m + 1, 4) int64: block d holds the rows shard s sends to
+    shard d in slot order, then zero rows, and in its row m [count, s's
+    earliest valid t_arr (INF if none), 0, 0]."""
     dst, t_arr, uid, npk, th, valid_in = units[:, s]
     n, m = units.shape[1:]
     dev = units.device
@@ -365,11 +380,11 @@ def send_plain(units: torch.Tensor, s: int, seed: int,
 
 
 def recv_plain(gathered: torch.Tensor, w: int):
-    """Plain version of mesh_recv: a destination's half of
-    exchange_rounds_plain. ``gathered``: (N, m + 1, 4) int64, source j's
-    block for this destination at [j] (send_plain's layout). Returns (recv
-    (w, 4): the first w of the sent rows in (source, slot) order, then zero
-    rows; g_min (1,): the earliest of the sources' minima)."""
+    """A destination's half of exchange_rounds_plain (mesh_exchange_entry's
+    receive phase). ``gathered``: (N, m + 1, 4) int64, the destination's
+    inbox: source j's block for it at [j] (send_plain's layout). Returns
+    (recv (w, 4): the first w of the sent rows in (source, slot) order,
+    then zero rows; g_min (1,): the earliest of the sources' minima)."""
     m = gathered.shape[1] - 1
     counts = gathered[:, m, 0]
     keep = torch.arange(m, device=gathered.device)[None] < counts[:, None]
@@ -377,6 +392,21 @@ def recv_plain(gathered: torch.Tensor, w: int):
     recv = torch.zeros((w, 4), dtype=torch.int64, device=gathered.device)
     recv[:rows.shape[0]] = rows
     return recv, gathered[:, m, 1].min().reshape(1)
+
+
+def exchange_entry_plain(units: torch.Tensor, seed: int, max_pkts: int,
+                         w: int):
+    """Plain version of mesh_exchange_entry: every source shard's send half
+    (send_plain), each destination d's inbox (N, m + 1, 4) made of block d
+    of every source's rows in source order (the kernel's stores), and each
+    destination's receive half (recv_plain). ``units``: (6, N, m) int64.
+    Returns (recv (N, w, 4), g_min (N,)): entry d's rows and the barrier
+    minimum as entry d computes it (every entry's is the same)."""
+    n = units.shape[1]
+    sends = torch.stack([send_plain(units, s, seed, max_pkts)
+                         for s in range(n)])
+    recv, g_min = zip(*(recv_plain(sends[:, d], w) for d in range(n)))
+    return torch.stack(recv), torch.cat(g_min)
 
 
 def rounds_entry_plain(state: torch.Tensor, units_k: torch.Tensor, tables,
@@ -608,38 +638,11 @@ def _stream_of(dev, stream):
             else stream).cuda_stream
 
 
-def send_launch(units_ptr: int, plane: int, s: int, n: int, m: int,
-                seed: int, max_pkts: int, send_ptr: int, dev,
-                stream) -> None:
-    """Launch mesh_send (csrc/mesh.cu shadow_mesh_send) for source shard s
-    on ``dev``'s ``stream``: its slots at the card address ``units_ptr``
-    (fields ``plane`` apart), its (N, m + 1, 4) rows to ``send_ptr``."""
-    lib = devcfg.kernel_lib("mesh")
-    with devcfg.current(dev):
-        code = lib.shadow_mesh_send(units_ptr, plane, s, n, m, seed & _M32,
-                                    (seed >> 32) & _M32, max_pkts, send_ptr,
-                                    _stream_of(dev, stream))
-    devcfg.check_launch(lib, code, "mesh_send")
-    _count("mesh_send", s)
-
-
-def recv_launch(gathered_ptr: int, t: int, n: int, m: int, w: int,
-                recv_ptr: int, g_min_ptr: int, dev, stream) -> None:
-    """Launch mesh_recv (csrc/mesh.cu shadow_mesh_recv) for destination
-    shard t on ``dev``'s ``stream``."""
-    lib = devcfg.kernel_lib("mesh")
-    with devcfg.current(dev):
-        code = lib.shadow_mesh_recv(gathered_ptr, t, n, m, w, recv_ptr,
-                                    g_min_ptr, _stream_of(dev, stream))
-    devcfg.check_launch(lib, code, "mesh_recv")
-    _count("mesh_recv", t)
-
-
 def gather(dst: torch.Tensor, srcs, offset: int, nbytes: int,
            stream=None) -> None:
-    """The copies between entries: block j of ``dst`` (``nbytes`` each)
-    gets ``nbytes`` of ``srcs[j]`` from byte ``offset``. CUDA: one peer or
-    device copy a source on ``dst``'s stream (csrc/mesh.cu
+    """The standalone rounds' copies between entries: block j of ``dst``
+    (``nbytes`` each) gets ``nbytes`` of ``srcs[j]`` from byte ``offset``.
+    CUDA: one peer or device copy a source on ``dst``'s stream (csrc/mesh.cu
     shadow_mesh_gather; the caller orders the stream after the sources'
     writes). CPU: tensor copies."""
     n = len(srcs)
@@ -659,48 +662,121 @@ def gather(dst: torch.Tensor, srcs, offset: int, nbytes: int,
     devcfg.check_launch(lib, code, "mesh gather")
 
 
-def mesh_send(units: torch.Tensor, s: int, seed: int, max_pkts: int,
-              stream=None) -> torch.Tensor:
-    """Source shard s's half of one window's exchange: (6, N, m) int64 ->
-    (N, m + 1, 4) int64, destination d's block of rows with its count and
-    s's minimum in row m; see send_plain (rows past a count are left
-    unwritten on a card). CPU tensor: the plain version. CUDA tensor: the
-    kernel, or an exception."""
-    what = "mesh_send"
+class EntryPlan(NamedTuple):
+    """How mesh_exchange_entry runs over a tuple of card entries (see
+    entry_plan)."""
+
+    #: ((card index, (shard, ...)), ...): one launch a card, its entries'
+    #: shards in order, the cards in the order of their first entry; the
+    #: kernel runs a group as one cluster up to CLUSTER_MAX blocks, above it
+    #: as one cooperative launch
+    groups: tuple
+    #: routes[i][d]: how source shard i's rows reach destination shard d's
+    #: inbox: ``local`` (on the source's own card), ``peer`` (on a card the
+    #: source reaches over NVLink) or ``host`` (in page-locked host memory
+    #: both cards map)
+    routes: tuple
+
+
+def entry_plan(entries, can_access, host_only: bool = False) -> EntryPlan:
+    """The launches and routes of mesh_exchange_entry over ``entries`` (card
+    entries in shard order; one card may repeat). ``can_access(a, b)``:
+    whether card a can store into card b's memory
+    (torch.cuda.can_device_access_peer). A pair on one card is ``local``,
+    a pair of cards with access ``peer``, any other pair ``host``.
+    ``host_only`` routes every pair through host memory, the same card
+    included (the card check runs that route on one card)."""
+    entries = tuple(entries)
+    if not 1 <= len(entries) <= MAX_SHARDS:
+        raise ValueError(f"mesh_exchange_entry: {len(entries)} entries, "
+                         f"want 1..{MAX_SHARDS}")
+    if any(d.type != "cuda" or d.index is None for d in entries):
+        raise ValueError(f"mesh_exchange_entry: every entry must be a card "
+                         f"with its index, got {entries}")
+    cards = [d.index for d in entries]
+    groups: dict = {}
+    for s, c in enumerate(cards):
+        groups.setdefault(c, []).append(s)
+    routes = tuple(tuple(
+        "host" if host_only else "local" if a == b
+        else "peer" if can_access(a, b) else "host" for b in cards)
+        for a in cards)
+    return EntryPlan(tuple((c, tuple(v)) for c, v in groups.items()),
+                     routes)
+
+
+#: ordered pairs of cards (source, destination) whose peer access is on
+_PEER_ON: set = set()
+
+
+def enable_peer(src: int, dst: int) -> None:
+    """Let card ``src`` store into card ``dst``'s memory, once per ordered
+    pair (csrc/mesh.cu shadow_mesh_enable_peer), or raise."""
+    if (src, dst) in _PEER_ON:
+        return
+    lib = devcfg.kernel_lib("mesh")
+    with devcfg.current(torch.device("cuda", src)):
+        code = lib.shadow_mesh_enable_peer(dst)
+    devcfg.check_launch(lib, code, f"peer access cuda:{src} -> cuda:{dst}")
+    _PEER_ON.add((src, dst))
+
+
+class ExchangeTimeout(RuntimeError):
+    """A block of mesh_exchange_entry waited past its limit for a source's
+    rows: a source never published (its launch did not run, or its card
+    was lost). The window is not retried and never falls back."""
+
+
+def check_entry_status(status, epoch: int,
+                       timeout_ns: int = ENTRY_TIMEOUT_NS) -> None:
+    """Raise unless every entry's status words (N, 4) [code, late source,
+    epoch, flag seen] say its block received window ``epoch``:
+    ExchangeTimeout naming the entry, the source it waited for and the
+    epoch; RuntimeError for a block that did not run."""
+    rows = np.asarray(status, dtype=np.int64).reshape(-1, 4).tolist()
+    for t, (code, src, ep, seen) in enumerate(rows):
+        if code == STATUS_LATE:
+            raise ExchangeTimeout(
+                f"mesh_exchange_entry: entry {t} waited {timeout_ns} ns for "
+                f"source {src}'s rows of window epoch {ep} (its flag held "
+                f"{seen})")
+    for t, (code, *_rest) in enumerate(rows):
+        if code != STATUS_OK:
+            raise RuntimeError(
+                f"mesh_exchange_entry: entry {t}'s block did not run for "
+                f"window epoch {epoch} (status {code})")
+
+
+def mesh_exchange_entry(units: torch.Tensor, seed: int, max_pkts: int,
+                        w: int, plan: EntryPlan = None,
+                        timeout_ns: int = ENTRY_TIMEOUT_NS):
+    """One causal window's exchange with one shard a device entry: (6, N,
+    m) int64 -> (recv (N, w, 4), g_min (N,)), entry t's rows and barrier
+    minimum at [t]; see exchange_entry_plain. CPU tensor: the plain
+    version. CUDA tensor: ``units`` is staged into a fresh EntryWindow over
+    N entries of its card and mesh_exchange_entry runs once as ``plan``
+    (default entry_plan's) launches it, on the card's current stream, then
+    the one sync; the results are on ``units``' device. Raises
+    ExchangeTimeout when a source never publishes within ``timeout_ns``."""
+    what = "mesh_exchange_entry"
     _check(units, 3, what, "units")
     if units.shape[0] != 6:
         raise ValueError(f"{what}: units must be (6, N, m)")
     n, m = units.shape[1:]
     _check_common(n, m, max_pkts, what)
-    if not 0 <= s < n:
-        raise ValueError(f"{what}: shard {s} of {n}")
+    if not 1 <= w <= n * m:
+        raise ValueError(f"{what}: w must be in [1, {n * m}], got {w}")
     if units.device.type == "cpu":
-        return send_plain(units, s, seed, max_pkts)
-    send = torch.empty((n, m + 1, 4), dtype=torch.int64, device=units.device)
-    send_launch(units.data_ptr(), n * m, s, n, m, seed, max_pkts,
-                send.data_ptr(), units.device, stream)
-    return send
-
-
-def mesh_recv(gathered: torch.Tensor, t: int, w: int, stream=None):
-    """Destination shard t's half of one window's exchange: the gathered
-    (N, m + 1, 4) blocks -> (recv (w, 4), g_min (1,)); see recv_plain. CPU
-    tensor: the plain version. CUDA tensor: the kernel, or an
-    exception."""
-    what = "mesh_recv"
-    _check(gathered, 3, what, "gathered")
-    n, m1, four = gathered.shape
-    if four != 4 or m1 < 2:
-        raise ValueError(f"{what}: gathered must be (N, m + 1, 4)")
-    _check_common(n, m1 - 1, 1, what)
-    if not 0 <= t < n or not 1 <= w <= n * (m1 - 1):
-        raise ValueError(f"{what}: shard {t} of {n}, w {w}")
-    if gathered.device.type == "cpu":
-        return recv_plain(gathered, w)
-    out = torch.empty(4 * w + 1, dtype=torch.int64, device=gathered.device)
-    recv_launch(gathered.data_ptr(), t, n, m1 - 1, w, out.data_ptr(),
-                out.data_ptr() + 32 * w, gathered.device, stream)
-    return out[:4 * w].view(w, 4), out[4 * w:]
+        return exchange_entry_plain(units, seed, max_pkts, w)
+    st = EntryWindow((units.device,) * n, n, m, w, plan)
+    st.host_in.copy_(units)
+    streams = [torch.cuda.current_stream(torch.device("cuda", card))
+               for card, _ in st.plan.groups]
+    st.launch(seed, max_pkts, 1, streams, timeout_ns)
+    st.finish(1, streams, timeout_ns)
+    recv = torch.from_numpy(np.stack([e.out[:4 * w] for e in st.stages]))
+    g_min = torch.from_numpy(np.array([e.out[4 * w] for e in st.stages]))
+    return recv.view(n, w, 4).to(units.device), g_min.to(units.device)
 
 
 def mesh_rounds_entry(state: torch.Tensor, units_k: torch.Tensor, tables,
@@ -828,45 +904,133 @@ class ExchangeStage:
 
 
 class EntryStage:
-    """One device entry's buffers of exchange bucket (N, m, w), made once
-    and kept for the plane's life: its send rows (N, m + 1, 4), the
-    gathered blocks sent to it (N, m + 1, 4) and, on a card, its output
-    (its w rows then g_min) in page-locked host memory, which its receive
-    launch writes in place, and two CUDA events (its send done, its window
-    done)."""
+    """One card entry's buffers of exchange bucket (N, m, w), made once and
+    kept for the plane's life: its inbox (N, m + 1, 4), source j's block at
+    [j], and its N flags on its card; the same in page-locked host memory
+    when some source reaches it only through the host (``host``); and its
+    output in page-locked host memory, which its block writes in place: its
+    w rows, g_min, then its status words [code, late source, epoch, flag
+    seen]. The flags start at 0 and are never reset (epochs start at 1)."""
 
-    def __init__(self, dev, n: int, m: int, w: int) -> None:
+    def __init__(self, dev, n: int, m: int, w: int, host: bool) -> None:
         self.dev = dev
-        self.send = torch.empty((n, m + 1, 4), dtype=torch.int64, device=dev)
-        self.gathered = torch.empty((n, m + 1, 4), dtype=torch.int64,
-                                    device=dev)
-        if dev.type != "cuda":
-            return
-        self.host_out = torch.empty(4 * w + 1, dtype=torch.int64,
+        self.m = m
+        self.inbox = torch.empty((n, m + 1, 4), dtype=torch.int64, device=dev)
+        self.flags = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.host_out = torch.empty(4 * w + 5, dtype=torch.int64,
                                     pin_memory=True)
         self.out = self.host_out.numpy()
+        self.status = self.out[4 * w + 1:]
         with devcfg.current(dev):
             self.out_ptr = devcfg.device_pointer(self.host_out, "mesh")
-        self.sent = torch.cuda.Event()
-        self.done = torch.cuda.Event()
+            if host:
+                self.host_inbox = torch.empty((n, m + 1, 4),
+                                              dtype=torch.int64,
+                                              pin_memory=True)
+                self.host_flags = torch.zeros(n, dtype=torch.int64,
+                                              pin_memory=True)
+                self.host_ptrs = tuple(devcfg.device_pointer(t, "mesh") for t
+                                       in (self.host_inbox, self.host_flags))
+
+    def slot(self, j: int, route: str) -> tuple:
+        """The card addresses of source j's inbox block and flag here, on
+        ``route``."""
+        inbox, flags = (self.host_ptrs if route == "host" else
+                        (self.inbox.data_ptr(), self.flags.data_ptr()))
+        return inbox + j * (self.m + 1) * 32, flags + 8 * j
 
 
 class EntryWindow:
     """The buffers of exchange bucket (N, m, w) over device entries: the
     packed (6, N, m) units in host memory (``units``, a numpy view;
-    page-locked when the entries are cards, and every entry's send reads
-    its own column block in place) and one EntryStage an entry."""
+    page-locked when the entries are cards, where every block reads its
+    shard's slots in place) and, on cards, one EntryStage an entry, each
+    launch group's block table on its card (csrc/mesh.cu EntryBlock) and
+    one CUDA event a group. ``plan`` (entry_plan's by default) may launch
+    fewer than every shard: the others' blocks then never publish."""
 
-    def __init__(self, entries: tuple, n: int, m: int, w: int) -> None:
+    def __init__(self, entries: tuple, n: int, m: int, w: int,
+                 plan: EntryPlan = None) -> None:
         self.shape = (n, m, w)
         cuda = entries[0].type == "cuda"
         self.host_in = torch.zeros((6, n, m), dtype=torch.int64,
                                    pin_memory=cuda)
         self.units = self.host_in.numpy()
-        if cuda:
-            with devcfg.current(entries[0]):
-                self.in_ptr = devcfg.device_pointer(self.host_in, "mesh")
-        self.entries = [EntryStage(d, n, m, w) for d in entries]
+        if not cuda:
+            return
+        if plan is None:
+            plan = entry_plan(entries, torch.cuda.can_device_access_peer)
+        routes = plan.routes
+        if len(routes) != n or any(len(r) != n for r in routes) or any(
+                entries[s].index != card for card, shards in plan.groups
+                for s in shards):
+            raise ValueError(f"mesh_exchange_entry: the plan {plan} does not "
+                             f"fit {n} entries {entries}")
+        self.plan = plan
+        for i in range(n):
+            for d in range(n):
+                if routes[i][d] == "peer":
+                    enable_peer(entries[i].index, entries[d].index)
+        with devcfg.current(entries[0]):
+            self.in_ptr = devcfg.device_pointer(self.host_in, "mesh")
+        self.stages = [EntryStage(dev, n, m, w,
+                                  any(routes[j][t] == "host"
+                                      for j in range(n)))
+                       for t, dev in enumerate(entries)]
+        self.tables = []
+        k = MAX_SHARDS
+        for card, shards in plan.groups:
+            tab = np.zeros((len(shards), ENTRY_BLOCK_WORDS), dtype=np.int64)
+            for b, s in enumerate(shards):
+                tab[b, 0] = s
+                for d in range(n):
+                    tab[b, [1 + d, 1 + k + d]] = self.stages[d].slot(
+                        s, routes[s][d])
+                    tab[b, [1 + 2 * k + d, 1 + 3 * k + d]] = \
+                        self.stages[s].slot(d, routes[d][s])
+                tab[b, 1 + 4 * k] = self.stages[s].out_ptr
+                tab[b, 2 + 4 * k] = self.stages[s].out_ptr + 8 * (4 * w + 1)
+            self.tables.append(torch.from_numpy(tab).to(
+                torch.device("cuda", card)))
+        self.events = [torch.cuda.Event() for _ in plan.groups]
+        for card, _ in plan.groups:
+            # the zeroed flags and the tables land before any launch
+            torch.cuda.synchronize(card)
+
+    def launch(self, seed: int, max_pkts: int, epoch: int, streams,
+               timeout_ns: int = ENTRY_TIMEOUT_NS) -> None:
+        """Queue mesh_exchange_entry on ``units`` for window ``epoch`` (a
+        value no flag of this window holds yet), one launch a group of the
+        plan on its stream of ``streams``, and count it; every entry's
+        status reads STATUS_PENDING until its block ends."""
+        n, m, w = self.shape
+        lib = devcfg.kernel_lib("mesh")
+        for e in self.stages:
+            e.status[0] = STATUS_PENDING
+        for (_card, shards), tab, stream in zip(self.plan.groups, self.tables,
+                                                streams):
+            with devcfg.current(tab.device):
+                code = lib.shadow_mesh_exchange_entry(
+                    self.in_ptr, n * m, n, m, w, seed & _M32,
+                    (seed >> 32) & _M32, max_pkts, epoch, timeout_ns,
+                    tab.data_ptr(), len(shards), stream.cuda_stream)
+            devcfg.check_launch(lib, code, "mesh_exchange_entry")
+            LAUNCHES["mesh_exchange_entry"] += 1
+            for s in shards:
+                ENTRY_LAUNCHES[s] = ENTRY_LAUNCHES.get(s, 0) + 1
+
+    def finish(self, epoch: int, streams,
+               timeout_ns: int = ENTRY_TIMEOUT_NS) -> None:
+        """Wait for the launches of window ``epoch`` (one event a group on
+        its stream of ``streams``), then check every entry's status (see
+        check_entry_status)."""
+        for ev, stream in zip(self.events, streams):
+            ev.record(stream)
+        for ev in self.events:
+            ev.synchronize()
+        if any(e.status[0] != STATUS_OK for e in self.stages):
+            check_entry_status(np.stack([e.status for e in self.stages]),
+                               epoch, timeout_ns)
 
 
 class MeshDataPlane:
@@ -885,11 +1049,13 @@ class MeshDataPlane:
     entry may repeat): shard i on ``devices[i]``, N = n_shards or every
     entry, and more shards than entries raise, as the reference does. Each
     entry holds the tables, its shard's state (3, 1, Hs), its own stream
-    and its EntryStages; a call runs the send half (or the rounds) on every
-    entry, then the copies between entries, then the receive half on every
-    entry (the rounds' reduction on entry 0). Entries that name the same
-    card stay separate entries: nothing merges them. CPU entries run the
-    plain halves and copy tensors, the same split.
+    and its EntryStages. A window is one mesh_exchange_entry launch a card
+    (the plan, entry_plan's, built once: each card's entries and each
+    pair's route), one event and one sync a card. The rounds run on every
+    entry, then the copies between entries, then the reduction on entry 0.
+    Entries that name the same card stay separate entries, each with its
+    own block, inbox and flags: nothing merges them. CPU entries run the
+    plain versions, the same halves.
     """
 
     #: fused-launch cap: scan_rounds pads each group of round chunks to K in
@@ -968,6 +1134,14 @@ class MeshDataPlane:
                              else None for d in self.entries]
         if self._cuda:
             devcfg.kernel_lib("mesh")  # build or load now, not mid-round
+            if self.entries is not None:
+                #: mesh_exchange_entry's launch groups and routes, a stream
+                #: a group (its first entry's) and the last window's epoch
+                self._plan = entry_plan(self.entries,
+                                        torch.cuda.can_device_access_peer)
+                self._group_streams = [self._streams[shards[0]]
+                                       for _, shards in self._plan.groups]
+                self._epoch = 0
 
     @property
     def state(self) -> torch.Tensor:
@@ -1112,43 +1286,26 @@ class MeshDataPlane:
         if st is None:
             st = self._stages[key] = (
                 ExchangeStage(*key, self.device) if self.entries is None
-                else EntryWindow(self.entries, *key))
+                else EntryWindow(self.entries, *key,
+                                 self._plan if self._cuda else None))
         return st
 
     def _exchange_entries(self, st, w: int) -> np.ndarray:
-        """One slice's exchange over the entries: each entry's send half of
-        its shard, the copies of each destination's blocks to it, each
-        entry's receive half; the (N * w, 4) table, destinations in order.
-        On a card every launch reads or writes page-locked memory in place
-        and the host waits once a window, on every entry's done event."""
-        n, m, _ = st.shape
-        es = st.entries
-        seed, mp = self._seed, self._max_pkts
+        """One slice's exchange over the entries; the (N * w, 4) table,
+        destinations in order. On cards: one mesh_exchange_entry launch a
+        card for the next epoch, reading the page-locked window and writing
+        each entry's page-locked output in place, one event a card and one
+        sync. On CPU entries: the plain version."""
         if not self._cuda:
-            for s, e in enumerate(es):
-                e.send.copy_(mesh_send(st.host_in, s, seed, mp))
-            rows = []
-            for t, e in enumerate(es):
-                gather(e.gathered, [x.send for x in es], t * (m + 1) * 32,
-                       (m + 1) * 32)
-                rows.append(mesh_recv(e.gathered, t, w)[0])
-            return torch.cat(rows).numpy()
-        for s, e in enumerate(es):
-            send_launch(st.in_ptr, n * m, s, n, m, seed, mp,
-                        e.send.data_ptr(), e.dev, self._streams[s])
-            e.sent.record(self._streams[s])
-        for t, e in enumerate(es):
-            stream = self._streams[t]
-            with devcfg.current(e.dev):
-                self._wait(t, [x.sent for x in es])
-                gather(e.gathered, [x.send for x in es], t * (m + 1) * 32,
-                       (m + 1) * 32, stream)
-            recv_launch(e.gathered.data_ptr(), t, n, m, w, e.out_ptr,
-                        e.out_ptr + 32 * w, e.dev, stream)
-            e.done.record(stream)
-        for e in es:
-            e.done.synchronize()
-        return np.concatenate([e.out[:4 * w] for e in es]).reshape(-1, 4)
+            recv, _ = mesh_exchange_entry(st.host_in, self._seed,
+                                          self._max_pkts, w)
+            return recv.reshape(-1, 4).numpy()
+        self._epoch += 1
+        st.launch(self._seed, self._max_pkts, self._epoch,
+                  self._group_streams)
+        st.finish(self._epoch, self._group_streams)
+        return np.concatenate([e.out[:4 * w] for e in st.stages]).reshape(
+            -1, 4)
 
     def exchange_rounds(self, src, dst, t_arr, uid, npk, th):
         """Resolve a causal window's units: draws + arrival exchange in as

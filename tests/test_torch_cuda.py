@@ -328,27 +328,39 @@ def test_threefry_alone_matches_plain_on_card(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4, 8])
 def test_entry_kernels_match_plain_on_card(dev, n):
-    """The per-entry kernels on N entries of one card: mesh_send on every
-    shard (its counted rows and trailers), the copies, mesh_recv on every
-    destination, mesh_rounds_entry on every shard and mesh_reduce of the
-    partials, each against its plain version."""
+    """The per-entry kernels on N entries of one card: mesh_exchange_entry
+    (one launch, on the local route and on the host route forced through
+    its plan, then one EntryWindow kept through three epochs on each),
+    mesh_rounds_entry on every shard and mesh_reduce of the partials, each
+    against its plain version."""
     cs = _smoke()
     rng = np.random.default_rng(n)
     x = torch.from_numpy(cs.exchange_inputs(np, rng, n, 256, False))
     seed = SEEDS[1]
-    sends = []
-    for s in range(n):
-        got = mesh.mesh_send(x.to(dev), s, seed, 10)
-        assert torch.equal(cs.masked_send(torch, got).cpu(),
-                           mesh.send_plain(x, s, seed, 10))
-        sends.append(got)
-    for t in range(n):
-        g = torch.empty((n, 257, 4), dtype=torch.int64, device=dev)
-        mesh.gather(g, sends, t * 257 * 32, 257 * 32)
-        r, gm = mesh.mesh_recv(g, t, 512)
-        want = mesh.recv_plain(g.cpu(), 512)
-        assert torch.equal(r.cpu(), want[0]) and torch.equal(gm.cpu(),
-                                                             want[1])
+    want = mesh.exchange_entry_plain(x, seed, 10, 512)
+    entries = (torch.device("cuda", 0),) * n
+    for host_only in (False, True):
+        plan = mesh.entry_plan(entries, torch.cuda.can_device_access_peer,
+                               host_only)
+        mesh.reset_launches()
+        got = mesh.mesh_exchange_entry(x.to(dev), seed, 10, 512,
+                                       plan=plan)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        assert mesh.LAUNCHES["mesh_exchange_entry"] == 1
+        assert mesh.ENTRY_LAUNCHES == dict.fromkeys(range(n), 1)
+        # one window kept through rising epochs, as the plane drives it
+        st = mesh.EntryWindow(entries, n, 256, 512, plan)
+        stream = [torch.cuda.current_stream(dev)]
+        for epoch in range(1, 4):
+            u = cs.exchange_inputs(np, rng, n, 256, epoch == 2)
+            st.units[:] = u
+            st.launch(seed, 10, epoch, stream)
+            st.finish(epoch, stream)
+            rows, g_min = mesh.exchange_entry_plain(torch.from_numpy(u),
+                                                    seed, 10, 512)
+            for t, e in enumerate(st.stages):
+                assert np.array_equal(e.out[:4 * 512], rows[t].reshape(-1))
+                assert e.out[4 * 512] == g_min[t]
     tabs, hs = cs.round_tables(np, rng, n)
     tables = tuple(torch.from_numpy(np.asarray(t, np.int64)) for t in tabs)
     state = torch.from_numpy(cs.round_state(np, rng, tabs, n, hs, 10 ** 10))

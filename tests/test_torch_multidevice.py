@@ -7,11 +7,14 @@ each draw batch along the unit axis over n devices. tests/conftest.py gives
 it 8 virtual CPU devices. The port names its device entries with
 ``--device`` (``cpu,cpu,cpu,cpu`` here; ``cuda:0,cuda:0`` or
 ``cuda:0,cuda:1`` on cards): MeshDataPlane(devices=...) holds one shard an
-entry and exchanges rows by copies between entries, DeviceDrawPlane splits
-each batch over n entries. On CPU entries the per-entry halves run as
-plain PyTorch (send, copies, receive; rounds, copies, reduction), the same
-split the card runs. The tolerance is zero throughout: every value is
-integer and the exchange only moves rows.
+entry and exchanges a window's rows with one mesh_exchange_entry launch a
+card (each block storing into every destination's inbox), DeviceDrawPlane
+splits each batch over n entries. On CPU entries the per-entry halves run
+as plain PyTorch (send into the inboxes, receive; rounds, copies,
+reduction), the same split the card runs; entry_plan's launches and
+routes are pure and tested with a fake peer-access table. The tolerance
+is zero throughout: every value is integer and the exchange only moves
+rows.
 """
 
 import numpy as np
@@ -80,6 +83,10 @@ def test_select_devices_refuses_by_name(spec, needle):
 @pytest.mark.parametrize("n, m, w", [(1, 256, 256), (2, 256, 300),
                                      (4, 1024, 256), (8, 256, 2048)])
 def test_send_recv_halves_compose_to_the_exchange(n, m, w):
+    """mesh_exchange_entry's plain version (every source's send half stored
+    into every destination's inbox, then each destination's receive half)
+    against the whole-mesh exchange_rounds_plain; on a CPU tensor the
+    wrapper is the plain version and launches nothing."""
     rng = np.random.default_rng(n * m)
     u = np.zeros((6, n, m), np.int64)
     u[0] = rng.integers(0, 1000, (n, m)) * (n if w == 300 else 1)
@@ -90,21 +97,114 @@ def test_send_recv_halves_compose_to_the_exchange(n, m, w):
     u[5] = rng.random((n, m)) < 0.75
     units = torch.from_numpy(u)
     seed = (1 << 32) + 5
-    sends = [mesh.mesh_send(units, s, seed, 10) for s in range(n)]
-    for s, sd in enumerate(sends):
+    for s in range(n):
+        sd = mesh.send_plain(units, s, seed, 10)
         assert sd.shape == (n, m + 1, 4)
         assert int(sd[:, m, 0].sum()) == int((u[5, s] != 0).sum())
-    got, mins = [], []
-    for t in range(n):
-        g = torch.empty((n, m + 1, 4), dtype=torch.int64)
-        mesh.gather(g, sends, t * (m + 1) * 32, (m + 1) * 32)
-        r, gm = mesh.mesh_recv(g, t, w)
-        got.append(r)
-        mins.append(gm)
     want, g_min = mesh.exchange_rounds_plain(units, seed, 10, w)
-    assert torch.equal(torch.stack(got), want)
-    assert all(torch.equal(x, g_min) for x in mins)
-    assert not any(mesh.ENTRY_LAUNCHES.values())
+    mesh.reset_launches()
+    for fn in (mesh.exchange_entry_plain, mesh.mesh_exchange_entry):
+        got, mins = fn(units, seed, 10, w)
+        assert torch.equal(got, want)
+        assert torch.equal(mins, g_min.expand(n))
+    assert not any(mesh.LAUNCHES.values()) and not mesh.ENTRY_LAUNCHES
+
+
+def _cards(*idx):
+    return tuple(torch.device("cuda", i) for i in idx)
+
+
+def _peer(a, b):
+    return True
+
+
+def _islands(a, b):
+    """Two NVLink islands of four cards: peers within, host across."""
+    return a // 4 == b // 4
+
+
+@pytest.mark.parametrize("cards, access, groups", [
+    ((0, 0, 0, 0), _peer, ((0, (0, 1, 2, 3)),)),
+    ((0, 1), _peer, ((0, (0,)), (1, (1,)))),
+    ((0, 1), lambda a, b: False, ((0, (0,)), (1, (1,)))),
+    ((0, 0, 1, 1), _peer, ((0, (0, 1)), (1, (2, 3)))),
+    (tuple(range(8)), _islands, tuple((i, (i,)) for i in range(8))),
+    ((0,) * 17, _peer, ((0, tuple(range(17))),)),
+    ((1, 0, 1), _peer, ((1, (0, 2)), (0, (1,))))],
+    ids=["one_card_x4", "two_cards_peer", "two_cards_host",
+         "two_cards_x2", "eight_cards", "cooperative_17", "interleaved"])
+def test_entry_plan_groups_and_routes(cards, access, groups):
+    """entry_plan with a fake can_access: one launch a card, its entries
+    in shard order, the cards in the order of their first entry (17
+    entries on one card are one group past CLUSTER_MAX: the kernel's
+    cooperative launch); local within a card, peer where the source's
+    card reaches the destination's, host otherwise; ``host_only`` routes
+    every pair through the host with the same launches."""
+    plan = mesh.entry_plan(_cards(*cards), access)
+    assert plan.groups == groups
+    for i, a in enumerate(cards):
+        for d, b in enumerate(cards):
+            want = ("local" if a == b else "peer" if access(a, b)
+                    else "host")
+            assert plan.routes[i][d] == want
+    host = mesh.entry_plan(_cards(*cards), access, host_only=True)
+    assert host.groups == groups
+    assert {r for row in host.routes for r in row} == {"host"}
+
+
+def test_entry_plan_asks_access_per_ordered_pair():
+    asked = []
+
+    def one_way(a, b):
+        asked.append((a, b))
+        return a < b
+
+    plan = mesh.entry_plan(_cards(0, 1, 0), one_way)
+    assert plan.routes == (("local", "peer", "local"),
+                           ("host", "local", "host"),
+                           ("local", "peer", "local"))
+    assert set(asked) == {(0, 1), (1, 0)}
+
+
+@pytest.mark.parametrize("entries, needle", [
+    ((CPU,) * 2, "every entry must be a card"),
+    ((torch.device("cuda"),), "every entry must be a card"),
+    (_cards(*[0] * 33), "33 entries"),
+    ((), "0 entries"),
+    ((torch.device("cuda", 0), CPU), "every entry must be a card")])
+def test_entry_plan_refusals(entries, needle):
+    with pytest.raises(ValueError, match=needle):
+        mesh.entry_plan(entries, _peer)
+
+
+def test_entry_status_names_the_late_source_and_epoch():
+    """The status words a block writes (here set by hand): all OK passes;
+    a late source raises ExchangeTimeout naming the entry, the source and
+    the epoch, ahead of a block that did not run; a block that did not run
+    (its status still pending) raises on its own."""
+    ok = np.zeros((4, 4), np.int64)
+    mesh.check_entry_status(ok, 7)
+    late = ok.copy()
+    late[3] = [mesh.STATUS_PENDING, 0, 0, 0]
+    late[2] = [mesh.STATUS_LATE, 1, 7, 6]
+    with pytest.raises(mesh.ExchangeTimeout,
+                       match=r"entry 2 waited 20000000 ns for source 1's "
+                             r"rows of window epoch 7 \(its flag held 6\)"):
+        mesh.check_entry_status(late, 7, 20_000_000)
+    late[2] = 0
+    with pytest.raises(RuntimeError,
+                       match=r"entry 3's block did not run for window epoch "
+                             r"7 \(status -1\)"):
+        mesh.check_entry_status(late, 7)
+
+
+@pytest.mark.parametrize("w, kwargs, err", [
+    (0, {}, "w must be in"), (513, {}, "w must be in"),
+    (8, {"max_pkts": 65}, "max_pkts")])
+def test_exchange_entry_wrapper_refusals(w, kwargs, err):
+    units = torch.zeros((6, 2, 256), dtype=torch.int64)
+    with pytest.raises(ValueError, match=err):
+        mesh.mesh_exchange_entry(units, 3, kwargs.get("max_pkts", 10), w)
 
 
 @pytest.mark.parametrize("n, k", [(1, 1), (2, 1), (2, 8), (8, 3)])
