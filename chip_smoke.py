@@ -742,6 +742,12 @@ PLAN = {
     "mesh_reduce": ("shadow_tpu_torch/csrc/mesh.cu",
                     "shadow_tpu/parallel/mesh.py:202",
                     ("mesh_reduce_kernel",)),
+    "draw_flags_entry": ("shadow_tpu_torch/csrc/draw.cu",
+                         "shadow_tpu/ops/propagate.py:85",
+                         ("draw_flags_entry_kernel",)),
+    "min_draw_entry": ("shadow_tpu_torch/csrc/draw.cu",
+                       "shadow_tpu/ops/propagate.py:58",
+                       ("min_draw_entry_kernel",)),
 }
 #: the Python columnar plane: the earlier legs' engine, written out now
 #: that the C engine is the default
@@ -750,7 +756,7 @@ PY_PLANE = ["--set", "experimental.native_colcore=false"]
 #: launches on the main paths are theirs
 THREEFRY_INSIDE = ("draw_flags", "min_draw", "mesh_exchange",
                    "mesh_round_step", "mesh_scan", "mesh_exchange_entry",
-                   "mesh_rounds_entry")
+                   "mesh_rounds_entry", "draw_flags_entry", "min_draw_entry")
 #: integer operations of one threefry2x32 evaluation whose counters vary
 #: from call to call: 20 rounds x (add, rotate, xor), 5 key injections x 2
 #: adds, the two initial adds
@@ -1364,29 +1370,32 @@ def check_staged(np, rng, plane_cls, n: int) -> int:
 # -- phase 8: the main path, with its draw windows kept -----------------------
 
 @contextlib.contextmanager
-def recording_draws(prop, kernel: str):
+def recording_draws(prop, kernel: str, slot_cls=None):
     """Keep every batch DeviceDrawPlane hands ``kernel`` (draw_flags: the
     windows; min_draw: the speculative waves) while the block runs, as
     (packed (rows, P) on the card with the units past the real ones
-    zeroed, key, width, real units n). The launch is wrapped, so its count
-    is untouched; the batch is copied on the host during the run and moved
-    to the card after it."""
+    zeroed, key, width, real units n): batches on one entry (DrawSlot), or
+    with ``slot_cls`` prop.SplitSlot the batches split over entries (P the
+    whole padded batch). The launch is wrapped, so its count is untouched;
+    the batch is copied on the host during the run and moved to the card
+    after it."""
     import torch
 
+    cls = slot_cls or prop.DrawSlot
     kept, records = [], []
-    launch = prop.DrawSlot.launch
+    launch = cls.launch
 
-    def record(slot, n, seed_key, width, stream):
+    def record(slot, n, seed_key, width, *stream):
         if slot.kernel == kernel:
-            kept.append((slot.inp[:, :n].copy(), slot.p,
+            kept.append((slot.inp[:, :n].copy(), slot.inp.shape[1],
                          tuple(int(k) for k in seed_key), int(width), n))
-        return launch(slot, n, seed_key, width, stream)
+        return launch(slot, n, seed_key, width, *stream)
 
-    prop.DrawSlot.launch = record
+    cls.launch = record
     try:
         yield records
     finally:
-        prop.DrawSlot.launch = launch
+        cls.launch = launch
         for a, p, key, width, n in kept:
             x = torch.zeros((a.shape[0], p), dtype=torch.uint32)
             x[:, :n] = torch.from_numpy(a)
@@ -2735,6 +2744,81 @@ def dispatch_breakdown(torch, prop, window, n: int = 200) -> dict:
     return out
 
 
+def split_dispatch_breakdown(torch, prop, window, k: int = 4,
+                             n: int = 200) -> dict:
+    """Host wall microseconds of each step of a window's dispatch and read
+    split over k entries of card 0, as dispatch_breakdown times the one
+    entry's: n dispatches of ``window`` ((packed (4, P) on the card, key,
+    width, real units)), each read before the next, through the steps of
+    DeviceDrawPlane._launch, SplitSlot.launch and the handle's read with a
+    clock read between steps; then the split plane's and a one-entry
+    plane's dispatch and round trip on the same window, in turns."""
+    w, key, width, units = window
+    x = w[:, :units].cpu().numpy()
+    seed = (key[1] << 32) | key[0]
+    plane = prop.DeviceDrawPlane(seed, 65536, max_pkts=width,
+                                 device=",".join(["cuda:0"] * k),
+                                 n_shards=k)
+    one = prop.DeviceDrawPlane(seed, 65536, max_pkts=width, device="cuda:0")
+    plane.dispatch(*x).read()  # the bucket's slots
+    one.dispatch(*x).read()
+    names = ("bucket", "take_slot", "fill", "seed_key", "table",
+             "current_stream", "launch", "event_record", "handle", "wait",
+             "read")
+    out = dict.fromkeys(names, 0.0)
+    clock = time.perf_counter
+    for _ in range(n):
+        t = [clock()]
+        p = prop._bucket(units, plane.max_batch)
+        t.append(clock())
+        slot = plane.slots("draw_flags", p).pop()
+        t.append(clock())
+        for r in range(4):
+            slot.inp[r, :units] = x[r]
+        t.append(clock())
+        seed_key = plane._seed_key(None)
+        t.append(clock())
+        dev, ix, table, table_ptr, cols, in_ptr, event = slot._launches[0]
+        for j, col in enumerate(cols):
+            table[j, 1] = min(max(units - col, 0), slot.piece)
+        t.append(clock())
+        stream = torch.cuda.current_stream(dev)
+        t.append(clock())
+        prop._launch_entry_kernel("draw_flags_entry", in_ptr,
+                                  slot.inp.shape[1], table_ptr, len(ix),
+                                  slot.region, seed_key, width,
+                                  stream.cuda_stream, ix)
+        t.append(clock())
+        event.record(stream)
+        t.append(clock())
+        h = prop.DrawHandle(plane, slot, units)
+        t.append(clock())
+        slot.wait()
+        t.append(clock())
+        h.read()
+        t.append(clock())
+        for name, a, b in zip(names, t, t[1:]):
+            out[name] += b - a
+    for label, pl in (("split", plane), ("one", one), ("one", one),
+                      ("split", plane)):
+        for name in ("dispatch", "round_trip"):
+            total = 0.0
+            for _ in range(n):
+                t0 = clock()
+                h = pl.dispatch(*x)
+                t1 = clock()
+                h.read()
+                total += t1 - t0 if name == "dispatch" else clock() - t0
+            key_ = f"{label}_{name}"
+            out[key_] = out.get(key_, 0.0) + total / 2
+    out = {k_: v / n * 1e6 for k_, v in out.items()}
+    print(f"  split dispatch host us at P={w.shape[1]} ({units} units, "
+          f"{k} entries of cuda:0) against one entry: "
+          f"{json.dumps({k_: round(v, 2) for k_, v in out.items()})}",
+          flush=True)
+    return out
+
+
 # -- phase 6: the APSP kernel against its plain version -----------------------
 
 #: reliabilities of apsp_case's edges: ordinary losses, values whose
@@ -4067,7 +4151,8 @@ def served_draws(np, prop, windows, device: str = "cuda") -> dict:
         fail(f"served draws: served {srv.served} ({srv.served_units} "
              f"units), want {sent} draw_flags batches")
     attach = srv.attach_launches
-    if device == "cuda" and n != {k: srv.served[k] + attach[k] for k in n}:
+    if device == "cuda" and n != {k: srv.served.get(k, 0) + attach[k]
+                                  for k in n}:
         fail(f"served draws: launches {n} != served {srv.served} + the "
              f"attach's {attach}")
     print(f"served draws ({len(seeds)} seeds x {SERVED_MEMBERS} members, "
@@ -4172,7 +4257,8 @@ def fleet_path(cli, np, prop, digest, tmp: str, windows,
         fail(f"fleet tgen_1k: failed {s['failed']}")
     if svc is None or svc["errors"]:
         fail(f"fleet tgen_1k: draw service {svc}")
-    want = {k: svc["served"][k] + svc["attach_launches"][k] for k in n}
+    want = {k: svc["served"].get(k, 0) + svc["attach_launches"][k]
+            for k in n}
     if device == "cuda" and n != want:
         fail(f"fleet tgen_1k: launches {n} != served {svc['served']} + the "
              f"attach's {svc['attach_launches']}")
@@ -4792,7 +4878,8 @@ def fork_tgen_leg(cli, prop, digest, tmp: str, device: str) -> dict:
         fail(f"fork tgen_1k: failed {fs['failed']}")
     if svc is None or svc["errors"]:
         fail(f"fork tgen_1k: draw service {svc}")
-    want = {k: svc["served"][k] + svc["attach_launches"][k] for k in n}
+    want = {k: svc["served"].get(k, 0) + svc["attach_launches"][k]
+            for k in n}
     if device == "cuda" and n != want:
         fail(f"fork tgen_1k: launches {n} != served {svc['served']} + the "
              f"attach's {svc['attach_launches']}")
@@ -5617,6 +5704,55 @@ def check_entry_exchange(torch, np, mesh, dev, rng, seeds) -> tuple:
     return err, n_cmp
 
 
+#: the entry counts and batch sizes draw_flags_entry and min_draw_entry are
+#: held at (sizes 1 and 7 leave every piece but the first empty)
+DRAW_ENTRY_COUNTS = (2, 3, 4, 8)
+DRAW_ENTRY_SIZES = (1, 7, 8, 33, 4096, 65536)
+
+
+def check_draw_entry(torch, np, prop, dev, rng) -> tuple:
+    """draw_flags_entry and min_draw_entry against their plain versions on
+    ``dev``, bit for bit, pads included: k entries in DRAW_ENTRY_COUNTS
+    over batches of DRAW_ENTRY_SIZES units, padded and split as
+    DeviceDrawPlane splits them (pieces past a small batch's end have no
+    real unit; k = 3 starts pieces off a 32-unit row), widths 10 and 33
+    (two lanes a thread), with the table of every piece (k entries on one
+    card) and of the even pieces (card 0 of an interleaved list
+    cuda:0,cuda:1,cuda:0,...). Returns (the largest absolute error per
+    kernel, the comparisons)."""
+    err = {"draw_flags_entry": 0, "min_draw_entry": 0}
+    n_cmp = 0
+    seed = (1 << 32) + 0x5EED
+    key = (seed & 0xFFFFFFFF, seed >> 32)
+    for k in DRAW_ENTRY_COUNTS:
+        for n in DRAW_ENTRY_SIZES:
+            piece = prop.piece_width(prop._bucket(n, 65536), k)
+            region = prop.region_width(piece)
+            x = np.zeros((4, k * piece), np.uint32)
+            x[:, :n] = sweep_inputs(rng, n, 4)
+            x = torch.from_numpy(x).to(dev)
+            inputs = {"draw_flags_entry": x,
+                      "min_draw_entry": x[:3].contiguous()}
+            for pieces in (range(k), range(0, k, 2)):
+                table = prop.piece_table(n, piece, pieces)
+                for width in (10, 33):
+                    for name, inp in inputs.items():
+                        got = getattr(prop, name)(inp, key, width, table,
+                                                  region)
+                        want = getattr(prop, f"{name}_plain")(
+                            inp, key, width, table, region)
+                        e = abs_err(torch, got.reshape(-1),
+                                    want.reshape(-1))
+                        err[name] = max(err[name], e)
+                        if not torch.equal(got, want):
+                            fail(f"{name}: k={k} n={n} pieces "
+                                 f"{list(pieces)} width={width} differs "
+                                 f"from the plain version (max abs err "
+                                 f"{e})")
+                        n_cmp += 1
+    return err, n_cmp
+
+
 def check_entry_kernels(torch, np, mesh, prop, dev) -> dict:
     """The per-entry kernels against their plain versions on ``dev``, bit
     for bit: mesh_exchange_entry (check_entry_exchange);
@@ -5625,8 +5761,10 @@ def check_entry_kernels(torch, np, mesh, prop, dev) -> dict:
     C = 257 at 20,000 hosts in device memory) and mesh_reduce of the
     gathered partials; then MeshDataPlane over 2 and 8 entries of the card
     (exchange_rounds over windows whose bucket grows and shrinks,
-    round_step, scan_rounds) and DeviceDrawPlane split over four entries
-    against CPU planes. Returns the largest absolute error per kernel (the
+    round_step, scan_rounds) against CPU planes; draw_flags_entry and
+    min_draw_entry (check_draw_entry), and DeviceDrawPlane split over three
+    and four entries of the card against a CPU plane, its handles read
+    last first. Returns the largest absolute error per kernel (the
     tolerance is 0)."""
     from shadow_tpu_torch.network.fluid import NetParams
 
@@ -5717,24 +5855,44 @@ def check_entry_kernels(torch, np, mesh, prop, dev) -> dict:
                 fail(f"MeshDataPlane over {n} entries: {k} rounds differ "
                      f"from the CPU entries'")
             n_cmp += 1
+    draw_err, n_draw = check_draw_entry(torch, np, prop, dev, rng)
+    err.update(draw_err)
+    n_cmp += n_draw
     seed = (1 << 32) + 77
-    card = prop.DeviceDrawPlane(seed, 65536, device=FOUR_ENTRIES, n_shards=4)
     host = prop.DeviceDrawPlane(seed, 65536, device="cpu")
-    for n in (1, 7, 8, 33, 4096, 65536):
-        b = sweep_inputs(rng, n, 4)
-        if not np.array_equal(card.dispatch(*b).read(),
-                              host.dispatch(*b).read()):
-            fail(f"DeviceDrawPlane over four entries: flags differ at n={n}")
-        for mb in (0, card.SPEC_BUCKET):
-            if not np.array_equal(
-                    card.dispatch_min(*b[:3], min_bucket=mb).read(),
-                    host.dispatch_min(*b[:3], min_bucket=mb).read()):
-                fail(f"DeviceDrawPlane over four entries: min_draw differs "
-                     f"at n={n}")
-        n_cmp += 3
+    for k in (3, 4):
+        card = prop.DeviceDrawPlane(seed, 65536,
+                                    device=",".join(["cuda:0"] * k),
+                                    n_shards=k)
+        before = dict(prop.LAUNCHES)
+        pending = []
+        for n in DRAW_ENTRY_SIZES:
+            b = sweep_inputs(rng, n, 4)
+            pending.append((n, "flags", card.dispatch(*b),
+                            host.dispatch(*b).read()))
+            for mb in (0, card.SPEC_BUCKET):
+                pending.append((n, f"min_draw (bucket {mb})",
+                                card.dispatch_min(*b[:3], min_bucket=mb),
+                                host.dispatch_min(*b[:3],
+                                                  min_bucket=mb).read()))
+        for n, what, h, want in reversed(pending):
+            if not np.array_equal(h.read(), want):
+                fail(f"DeviceDrawPlane over {k} entries: {what} differs at "
+                     f"n={n}")
+            n_cmp += 1
+        moved = {name: prop.LAUNCHES[name] - before[name]
+                 for name in prop.LAUNCHES}
+        want = {"draw_flags": 0, "min_draw": 0,
+                "draw_flags_entry": len(DRAW_ENTRY_SIZES),
+                "min_draw_entry": 2 * len(DRAW_ENTRY_SIZES)}
+        if moved != want:
+            fail(f"DeviceDrawPlane over {k} entries of one card launched "
+                 f"{moved}, want {want} (one entry launch a dispatch)")
     print(f"{n_cmp} per-entry kernel/plain and plane comparisons over "
-          f"{ENTRY_COUNTS} entries of {dev}, all bit-identical; launches "
-          f"{json.dumps(dict(mesh.LAUNCHES))}", flush=True)
+          f"{ENTRY_COUNTS} entries of {dev} (the draws over "
+          f"{DRAW_ENTRY_COUNTS}: {n_draw} kernel/plain), all bit-identical; "
+          f"launches {json.dumps(dict(mesh.LAUNCHES))}, draws "
+          f"{json.dumps(dict(prop.LAUNCHES))}", flush=True)
     return err
 
 
@@ -5762,27 +5920,34 @@ def recording_entry_windows(mesh, every: int = 180):
 def multi_device_legs(cli, mesh, prop, digest, tmp: str, devices: str,
                       one_entry: dict, label: str, twin: bool = False) -> dict:
     """tgen_1k on the C engine under tpu_mesh at tpu_mesh_floor 0 (shards:
-    one per entry of ``devices``) and under tpu_batch at tpu_device_floor 1
-    with tpu_mesh_shards = the entries: each must have the counts, tree
-    and state digest stream of the one-entry run named in ``one_entry``.
-    Launch counts reset before each leg and read after: under tpu_mesh
-    mesh_exchange_entry once a window a card, every entry's block once a
-    window and no other mesh kernel; under tpu_batch every entry launched,
-    the draws once a window a piece. ``twin``: the tpu_mesh leg is
-    followed by the same command on the one entry ``cuda:0`` (the same
-    engine, floor and digests), which must give the same streams, and the
-    two legs' walls are printed side by side. Returns the launches and the
-    recorded windows."""
+    one per entry of ``devices``) and under tpu_batch with tpu_mesh_shards
+    = the entries at tpu_device_floor 1, then at the auto floor twice (the
+    "user" leg attaches the split plane in the background, warming the
+    entry kernels at every bucket; the "cached" leg finds it attached, so
+    speculative min_draw_entry waves run from round 0): each must have the
+    counts, tree and state digest stream of the one-entry run named in
+    ``one_entry``. Launch counts reset before each leg and read after:
+    under tpu_mesh mesh_exchange_entry once a window a card, every entry's
+    block once a window and no other mesh kernel; under tpu_batch at floor
+    1 draw_flags_entry once a window a card, every entry's piece once a
+    window and no other draw kernel; at the auto floor only entry kernels,
+    every entry's pieces once a launch of its card. ``twin``: the tpu_mesh
+    and the floor-1 tpu_batch legs are each followed by the same command
+    on the one entry ``cuda:0`` (one_leg), and the walls and dispatch ms a
+    window are printed side by side. Returns the launches and the recorded
+    windows of both policies."""
     from shadow_tpu_torch.ops import devcfg
 
     n = len(devices.split(","))
     cards = len({d.index for d in devcfg.select_devices(devices)})
-    out = {}
-    for policy, extra in (
-            ("tpu_mesh", ["--set", "experimental.tpu_mesh_floor=0"]),
-            ("tpu_batch", ["--set", f"experimental.tpu_mesh_shards={n}",
-                           "--set", "experimental.tpu_device_floor=1"])):
-        d = os.path.join(tmp, f"md_{label}_{policy}")
+    out = {"draws": dict.fromkeys(prop.LAUNCHES, 0)}
+    batch = ["--set", f"experimental.tpu_mesh_shards={n}"]
+    for policy, leg, extra in (
+            ("tpu_mesh", "floor0", ["--set", "experimental.tpu_mesh_floor=0"]),
+            ("tpu_batch", "floor1",
+             batch + ["--set", "experimental.tpu_device_floor=1"]),
+            ("tpu_batch", "user", batch), ("tpu_batch", "cached", batch)):
+        d = os.path.join(tmp, f"md_{label}_{policy}_{leg}")
         argv = [str(EXAMPLES / "tgen_1k.yaml"), "--scheduler-policy",
                 policy, "--device", devices, "--data-directory", d,
                 *MD_DIGEST, *extra]
@@ -5793,10 +5958,15 @@ def multi_device_legs(cli, mesh, prop, digest, tmp: str, devices: str,
             with recording_entry_windows(mesh) as windows:
                 s = run_cli(cli, argv)
             out["windows"] = windows
+        elif leg == "floor1":
+            with recording_draws(prop, "draw_flags",
+                                 prop.SplitSlot) as draws:
+                s = run_cli(cli, argv)
+            out["draw_windows"] = draws
         else:
             s = run_cli(cli, argv)
         wall = time.perf_counter() - t0
-        what = f"tgen_1k {policy} over {devices} ({label})"
+        what = f"tgen_1k {policy} {leg} over {devices} ({label})"
         check_run(s, d, digest, TGEN1K_COUNTS, TGEN1K_TREE_DIGEST, what)
         want = open(os.path.join(one_entry[policy],
                                  "state_digests.jsonl")).read()
@@ -5823,41 +5993,68 @@ def multi_device_legs(cli, mesh, prop, digest, tmp: str, devices: str,
                   f"ms a window", flush=True)
         else:
             formed = s["device"]["windows_dispatched"]
-            counts = dict(prop.LAUNCHES)
+            counts = {k: v for k, v in prop.LAUNCHES.items() if v}
             entries = dict(prop.ENTRY_LAUNCHES)
-            if formed <= 0 or counts["draw_flags"] < n * formed:
-                fail(f"{what}: launches {counts} for {formed} windows split "
-                     f"over {n} entries")
-            out["draws"] = counts
-        if sorted(entries) != list(range(n)) or min(entries.values()) <= 0:
-            fail(f"{what}: launches by entry {entries}, want every one of "
-                 f"{n}")
+            split = sum(counts.get(k, 0) for k in ("draw_flags_entry",
+                                                   "min_draw_entry"))
+            if leg == "floor1" and (
+                    formed <= 0
+                    or counts != {"draw_flags_entry": cards * formed}
+                    or entries != dict.fromkeys(range(n), formed)):
+                fail(f"{what}: launches {counts}, pieces by entry "
+                     f"{entries} for {formed} windows over {n} entries on "
+                     f"{cards} card(s) (want draw_flags_entry once a window "
+                     f"a card, every entry's piece once a window, nothing "
+                     f"else)")
+            if leg != "floor1" and (
+                    set(counts) - {"draw_flags_entry", "min_draw_entry"}
+                    or split % cards
+                    or entries != dict.fromkeys(range(n), split // cards)):
+                fail(f"{what}: launches {counts}, pieces by entry "
+                     f"{entries} (want entry kernels only, every entry's "
+                     f"piece once a launch of its card)")
+            if leg == "cached" and not counts.get("min_draw_entry"):
+                fail(f"{what}: no speculative min_draw_entry wave was "
+                     f"launched")
+            for k, v in counts.items():
+                out["draws"][k] += v
+            print(f"{what}: window_dispatch "
+                  f"{s['phase_wall']['window_dispatch'] / max(formed, 1) * 1e3:.6f} "
+                  f"ms a window", flush=True)
         print(f"{what}: counts, tree and digest stream match the one-entry "
               f"run; wall {wall:.3f} s (controller {s['wall_seconds']:.3f} "
               f"s), {s['sim_sec_per_wall_sec']:.3f} sim-s/wall-s, {formed} "
               f"windows; launches {json.dumps(counts)}, by entry "
-              f"{json.dumps(entries)}; phase_wall "
-              f"{json.dumps(s['phase_wall'])}", flush=True)
-        if twin and policy == "tpu_mesh":
-            one_leg(cli, digest, argv, d, s, what)
+              f"{json.dumps(entries)}; device {json.dumps(s['device'])}; "
+              f"phase_wall {json.dumps(s['phase_wall'])}", flush=True)
+        if twin and leg in ("floor0", "floor1"):
+            one_leg(cli, prop, digest, argv, d, s, what)
     return out
 
 
-def one_leg(cli, digest, argv: list, d: str, s: dict, what: str) -> None:
+def one_leg(cli, prop, digest, argv: list, d: str, s: dict,
+            what: str) -> None:
     """The multi-entry leg ``argv`` (its summary ``s``, its data directory
     ``d``) run again on the one entry cuda:0: the same counts, tree and
-    digest stream, and both legs' controller wall, sim-s/wall-s and host
-    dispatch ms a window."""
+    digest stream (a tpu_batch twin launching draw_flags once a window and
+    no entry kernel), and both legs' controller wall, sim-s/wall-s and
+    host dispatch ms a window."""
     d1 = d + "_one"
     argv1 = list(argv)
     argv1[argv1.index("--device") + 1] = "cuda:0"
     argv1[argv1.index("--data-directory") + 1] = d1
+    prop.reset_launches()
     s1 = run_cli(cli, argv1)
     check_run(s1, d1, digest, TGEN1K_COUNTS, TGEN1K_TREE_DIGEST,
               f"{what}, one entry")
     if (open(os.path.join(d1, "state_digests.jsonl")).read()
             != open(os.path.join(d, "state_digests.jsonl")).read()):
         fail(f"{what}: the one-entry twin's digest stream differs")
+    counts = {k: v for k, v in prop.LAUNCHES.items() if v}
+    formed = s1["device"]["windows_dispatched"]
+    if "tpu_batch" in argv1 and counts != {"draw_flags": formed}:
+        fail(f"{what}, one entry: launches {counts} for {formed} windows "
+             f"(want draw_flags once a window, nothing else)")
 
     def per_window(x):
         pw = x["phase_wall"]
@@ -5871,7 +6068,8 @@ def one_leg(cli, digest, argv: list, d: str, s: dict, what: str) -> None:
           f"{s['sim_sec_per_wall_sec']:.3f} vs "
           f"{s1['sim_sec_per_wall_sec']:.3f} sim-s/wall-s, dispatch "
           f"{per_window(s):.6f} vs {per_window(s1):.6f} ms a window; one "
-          f"entry's phase_wall {json.dumps(s1['phase_wall'])}", flush=True)
+          f"entry's launches {json.dumps(counts)}, phase_wall "
+          f"{json.dumps(s1['phase_wall'])}", flush=True)
 
 
 def entry_standalone(torch, np, mesh, barriers, tmp: str, devices: str,
@@ -5987,14 +6185,61 @@ def round_entry_work(torch, prop, state, units_k, tables, t_now_k, s: int,
         seed, width)
 
 
-def time_entry_kernels(torch, np, prop, mesh, windows, sa, rate) -> dict:
+def split_slots(torch, prop, name: str, inputs: list, k: int) -> list:
+    """One SplitSlot a batch of ``inputs`` ((packed (rows, k * piece) on
+    the card, key, width, real units n)) over k entries of card 0, filled
+    with it: the plane's launch, one a card, in place."""
+    dev = torch.device("cuda", 0)
+    groups = ((dev, tuple(range(k))),)
+    calls = []
+    for x, key, width, n in inputs:
+        slot = prop.SplitSlot(name, x.shape[1], x.shape[1] // k, groups)
+        slot.inp[:] = x.cpu().numpy()
+        calls.append(lambda s=slot, n=n, key=key, w=width: s.launch(n, key,
+                                                                    w))
+    return calls
+
+
+def time_draw_entry(torch, prop, name: str, inputs: list, k: int,
+                    rate: float, what: str) -> dict:
+    """One row of the timing table for draw_flags_entry / min_draw_entry on
+    ``inputs`` split over k entries of card 0: the kernel as the plane
+    launches it (split_slots), its plain version on the same batches and
+    tables on the card, and the bound: each real unit's columns read once,
+    every region written once, 75 operations a lane the data needs (up to
+    the first hit for the flags)."""
+    base = name[:-len("_entry")]
+    plain = getattr(prop, f"{name}_plain")
+    nbytes = ops = 0
+    plain_calls = []
+    for x, key, width, n in inputs:
+        piece = x.shape[1] // k
+        region = prop.region_width(piece)
+        table = prop.piece_table(n, piece, range(k))
+        plain_calls.append(lambda x=x, key=key, w=width, t=table, r=region:
+                           plain(x, key, w, t, r))
+        nbytes += x.shape[0] * 4 * n + k * (region // 8 if
+                                            base == "draw_flags"
+                                            else 4 * region)
+        ops += OPS_PER_LANE * lanes_needed(torch, prop, x, key, width,
+                                           base == "draw_flags")
+    return measure_mesh(torch, name, split_slots(torch, prop, base, inputs, k),
+                        plain_calls, nbytes / len(inputs), ops / len(inputs),
+                        rate, what)
+
+
+def time_entry_kernels(torch, np, prop, mesh, windows, sa, draw_windows,
+                       rate) -> dict:
     """The per-entry kernels timed on the multi-entry runs' own inputs:
     mesh_exchange_entry on the tpu_mesh leg's recorded windows, launched as
     the plane launches it (each window in an EntryWindow over its N
     entries of card 0, read and written in place in page-locked memory,
     one launch a window, a fresh epoch each), mesh_rounds_entry and
-    mesh_reduce on the standalone calls over the entries; each beside its
-    plain version and its bound."""
+    mesh_reduce on the standalone calls over the entries; draw_flags_entry
+    on 64 of the four-entry tpu_batch floor-1 leg's windows, min_draw_entry
+    on a 16,384-unit batch of that leg's units split four ways (the pinned
+    speculative bucket), each launched as the plane launches it; each
+    beside its plain version and its bound."""
     import itertools
 
     out = {}
@@ -6037,6 +6282,21 @@ def time_entry_kernels(torch, np, prop, mesh, windows, sa, rate) -> dict:
         [lambda p=p: mesh.reduce_plain(p) for p in red],
         sum(p.numel() * 8 + p.shape[1] * 24 for p in red) / len(red), 0,
         rate, f"{len(red)} reductions, N={red[0].shape[0]}")]
+    k = 4
+    sel = evenly(draw_windows, 64)
+    buckets = sorted({x.shape[1] for x, *_ in sel})
+    out["draw_flags_entry"] = [time_draw_entry(
+        torch, prop, "draw_flags_entry", sel, k, rate,
+        f"{len(sel)} of the leg's {len(draw_windows)} windows, batch "
+        f"{buckets} split over {k} entries, one launch a window")]
+    # a window of the leg's median size
+    split_dispatch_breakdown(torch, prop, sorted(
+        draw_windows, key=lambda w: w[3])[len(draw_windows) // 2], k)
+    spec = prop.DeviceDrawPlane.SPEC_BUCKET
+    wave = spread_units(torch, draw_windows, spec, 3)
+    out["min_draw_entry"] = [time_draw_entry(
+        torch, prop, "min_draw_entry", [wave] * 16, k, rate,
+        f"a {spec}-unit batch of the leg's units split over {k} entries")]
     return out
 
 
@@ -6072,11 +6332,12 @@ def multi_device_path(cli, torch, np, prop, mesh, digest, tmp: str,
               f"where two cards are visible)", flush=True)
     launches = {"mesh_exchange_entry": legs["mesh"]["mesh_exchange_entry"],
                 **sa["launches"]}
+    draws = {k: v for k, v in legs["draws"].items() if v}
     print(f"per-entry launches on the multi-entry paths: "
-          f"{json.dumps(launches)}; draw_flags split over four entries "
-          f"{legs['draws']['draw_flags']}", flush=True)
+          f"{json.dumps(launches)}; draws split over four entries "
+          f"{json.dumps(draws)}", flush=True)
     return {"err": err, "launches": launches, "windows": legs["windows"],
-            "sa": sa, "draw_flags": legs["draws"]["draw_flags"]}
+            "sa": sa, "draws": draws, "draw_windows": legs["draw_windows"]}
 
 
 PHASES = ("kernels", "mesh kernels", "transport kernels", "apsp kernels",
@@ -6250,9 +6511,12 @@ def main(argv=None) -> int:
         py_launches = dict(prop.LAUNCHES)
         print(f"launches on the Python plane's main path: "
               f"{json.dumps(py_launches)}", flush=True)
-        for name, n in py_launches.items():
-            if n <= 0:
+        for name in ("draw_flags", "min_draw"):
+            if py_launches[name] <= 0:
                 fail(f"kernel {name} was never launched on the main path")
+        if py_launches["draw_flags_entry"] or py_launches["min_draw_entry"]:
+            fail(f"the one-entry main path launched an entry kernel: "
+                 f"{json.dumps(py_launches)}")
         floor1_windows = runs["floor1"]["device"]["windows_dispatched"]
         if py_launches["draw_flags"] < floor1_windows:
             fail(f"draw_flags launched {py_launches['draw_flags']} times, "
@@ -6361,11 +6625,12 @@ def main(argv=None) -> int:
             barriers)
         del barriers
         add(md["launches"])
-        launches["draw_flags"] += md["draw_flags"]
+        add(md["draws"])
         for name, e in md["err"].items():
             max_err[name] = max(max_err.get(name, 0), e)
         timing.update(time_entry_kernels(torch, np, prop, mesh,
                                          md["windows"], md["sa"],
+                                         md["draw_windows"],
                                          spin_rate(torch)))
         del md
     shutil.rmtree(tmp, ignore_errors=True)

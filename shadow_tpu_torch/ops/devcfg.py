@@ -43,6 +43,11 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 #: are c_void_p: ctypes would pass a bare int as 32 bits and cut it)
 _DEVICE_POINTER = (ctypes.c_int, [ctypes.c_void_p,
                                    ctypes.POINTER(ctypes.c_void_p)])
+#: (packed, P, piece rows, count, region, k0, k1, width, stream)
+_DRAW_ENTRY = (ctypes.c_int, [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+    ctypes.c_void_p])
 _SIGNATURES = {
     "draw": {
         "shadow_draw_flags": (ctypes.c_int, [
@@ -53,6 +58,8 @@ _SIGNATURES = {
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
             ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p]),
+        "shadow_draw_flags_entry": _DRAW_ENTRY,
+        "shadow_min_draw_entry": _DRAW_ENTRY,
         "shadow_threefry": (ctypes.c_int, [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
             ctypes.c_void_p, ctypes.c_void_p]),
@@ -196,6 +203,18 @@ def select_device(spec: str = "cuda"):
     """Entry 0 of ``spec`` (see select_devices): where single-device work
     (the transport's ack_advance, APSP, a one-entry plane) runs."""
     return select_devices(spec)[0]
+
+
+def group_entries(entries) -> tuple:
+    """The entries of each device among ``entries`` (device entries in
+    shard or piece order; a device may repeat): ((device, (entry, ...)),
+    ...), the devices in the order of their first entry, each one's
+    entries in order. One launch a device covers its group: mesh.entry_plan
+    for the exchange, DeviceDrawPlane for a split draw batch."""
+    groups: dict = {}
+    for i, d in enumerate(entries):
+        groups.setdefault(d, []).append(i)
+    return tuple((d, tuple(v)) for d, v in groups.items())
 
 
 def visible_devices(spec: str) -> int:

@@ -14,6 +14,11 @@ PyTorch version of the same function in this module:
   [uid_lo, uid_hi, npkts] -> (P,) uint32 minimum 24-bit draw over the first
   min(npkts, width) lanes, 0xFFFFFFFF when there is none.
 
+and, for a batch split over device entries, one launch a card for the
+pieces its entries hold (``draw_flags_entry``, ``min_draw_entry``: the
+same per-block body over a table of pieces, each into its entry's own
+output region; ``draw_flags_entry_plain``, ``min_draw_entry_plain``).
+
 Each wrapper checks dtype, shape, contiguity and device, runs the plain
 version for a CPU tensor, and for a CUDA tensor launches its kernel on the
 current stream or raises: there is no fallback. ``LAUNCHES`` counts the
@@ -62,10 +67,15 @@ SENTINEL = 0xFFFFFFFF
 
 #: kernel launches per kernel since the last reset_launches(); only CUDA
 #: launches count (the plain version on a CPU tensor is not a launch)
-LAUNCHES = {"draw_flags": 0, "min_draw": 0}
-#: DeviceDrawPlane's launches by device entry index since the last
-#: reset_launches(): a batch split over n entries launches once on each
+LAUNCHES = {"draw_flags": 0, "min_draw": 0, "draw_flags_entry": 0,
+            "min_draw_entry": 0}
+#: DeviceDrawPlane's pieces drawn on the card by device entry index since
+#: the last reset_launches(): a batch split over n entries counts once on
+#: each (one entry kernel launch a card draws its entries' pieces)
 ENTRY_LAUNCHES: dict = {}
+#: pieces one launch of an entry kernel draws: the size limit of the piece
+#: table it takes in its parameters (csrc/draw.cu kMaxPieces)
+MAX_PIECES = 32
 #: the fleet's DrawServer launches from one thread per member: the count's
 #: read-modify-write takes this lock so that no launch goes uncounted
 _LAUNCH_LOCK = threading.Lock()
@@ -146,9 +156,66 @@ def min_draw_plain(packed: torch.Tensor, seed_key, width: int = MAX_PKTS,
     return out.to(torch.uint32)
 
 
+def piece_width(p: int, k: int) -> int:
+    """Units a piece of a batch padded to bucket ``p`` and split over ``k``
+    entries: the batch pads to a multiple of 8 k (so each piece's
+    bit-packed flags start on a byte) and splits evenly, as the reference
+    shards it (shadow_tpu/ops/propagate.py:197)."""
+    q = 8 * k
+    return -(-max(p, q) // q) * q // k
+
+
+def region_width(piece: int) -> int:
+    """An entry's output region, in units: its piece rounded up to the
+    kernels' 32, so no flag word holds two pieces' bits."""
+    return -(-piece // 32) * 32
+
+
+def piece_table(n: int, piece: int, pieces) -> np.ndarray:
+    """(len(pieces), 2) int64 rows [first column, real units] of pieces
+    ``pieces`` (indices, in the order one launch draws them) of an
+    ``n``-unit batch split into pieces of ``piece`` units: a piece past the
+    batch's end has 0 real units."""
+    cols = np.asarray(pieces, dtype=np.int64) * piece
+    return np.stack([cols, np.clip(n - cols, 0, piece)], axis=1)
+
+
+def _entry_plain(plain, packed: torch.Tensor, seed_key, width: int, table,
+                 region: int) -> torch.Tensor:
+    rows = packed.shape[0]
+    outs = []
+    for col, n in np.asarray(table)[:, :2].tolist():
+        x = packed.new_zeros((rows, region))
+        x[:, :n] = packed[:, col:col + n]
+        outs.append(plain(x, seed_key, width, n))
+    return torch.stack(outs)
+
+
+def draw_flags_entry_plain(packed: torch.Tensor, seed_key,
+                           width: int = MAX_PKTS, table=None,
+                           region: int = 32) -> torch.Tensor:
+    """Plain version of the draw_flags_entry kernel: (len(table), region /
+    8) uint8, row i the draw_flags_plain flags of the piece of ``table``'s
+    row i ([first column, real units, ...]) of the (4, P) batch
+    ``packed``, padded to ``region`` units."""
+    return _entry_plain(draw_flags_plain, packed, seed_key, width, table,
+                        region)
+
+
+def min_draw_entry_plain(packed: torch.Tensor, seed_key,
+                         width: int = MAX_PKTS, table=None,
+                         region: int = 32) -> torch.Tensor:
+    """Plain version of the min_draw_entry kernel: (len(table), region)
+    uint32, row i the min_draw_plain minima of table row i's piece of the
+    (3, P) batch, padded to ``region`` units with SENTINEL."""
+    return _entry_plain(min_draw_plain, packed, seed_key, width, table,
+                        region)
+
+
 # -- wrappers -----------------------------------------------------------------
 
-def _check(packed: torch.Tensor, rows: int, width: int, n, what: str) -> int:
+def _check(packed: torch.Tensor, rows: int, width: int, n, what: str,
+           p_mult: int = 32) -> int:
     """Validate a wrapper's arguments; returns the real unit count."""
     if not isinstance(packed, torch.Tensor):
         raise TypeError(f"{what}: packed must be a torch.Tensor")
@@ -158,9 +225,9 @@ def _check(packed: torch.Tensor, rows: int, width: int, n, what: str) -> int:
         raise ValueError(
             f"{what}: packed must be ({rows}, P), got {tuple(packed.shape)}")
     p = packed.shape[1]
-    if p <= 0 or p % 32:
-        raise ValueError(f"{what}: P must be a positive multiple of 32, "
-                         f"got {p}")
+    if p <= 0 or p % p_mult:
+        raise ValueError(f"{what}: P must be a positive multiple of "
+                         f"{p_mult}, got {p}")
     if not packed.is_contiguous():
         raise ValueError(f"{what}: packed must be contiguous")
     if not 1 <= width <= 64:
@@ -218,6 +285,59 @@ def _wrapper(name: str, packed: torch.Tensor, seed_key, width: int,
     return out
 
 
+def _launch_entry_kernel(name: str, packed_ptr: int, p: int, rows_ptr: int,
+                         count: int, region: int, seed_key, width: int,
+                         stream: int, entries=()) -> None:
+    """Launch ``name`` (draw_flags_entry or min_draw_entry, csrc/draw.cu)
+    over the (rows, P) batch at ``packed_ptr`` for ``count`` pieces, whose
+    rows ((count, 3) int64 [first column, real units, output address]) are
+    at ``rows_ptr`` (the launch copies them into its parameters), and
+    count the launch and each of ``entries``' pieces, or raise."""
+    lib = devcfg.kernel_lib("draw")
+    k0, k1 = _key_words(seed_key)
+    code = getattr(lib, f"shadow_{name}")(packed_ptr, p, rows_ptr, count,
+                                          region, k0, k1, width, stream)
+    devcfg.check_launch(lib, code, name)
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+        for i in entries:
+            ENTRY_LAUNCHES[i] = ENTRY_LAUNCHES.get(i, 0) + 1
+
+
+def _entry_wrapper(name: str, packed: torch.Tensor, seed_key, width: int,
+                   table, region: int) -> torch.Tensor:
+    rows, dtype, out_len, plain = _KERNELS[name]
+    entry = f"{name}_entry"
+    _check(packed, rows, width, None, entry, p_mult=1)
+    table = np.asarray(table, dtype=np.int64).reshape(-1, 2)
+    p = packed.shape[1]
+    if region <= 0 or region % 32:
+        raise ValueError(f"{entry}: region must be a positive multiple of "
+                         f"32, got {region}")
+    if not 1 <= len(table) <= MAX_PIECES:
+        raise ValueError(f"{entry}: {len(table)} pieces, want 1.."
+                         f"{MAX_PIECES} (the launch's piece table)")
+    cols, ns = table[:, 0], table[:, 1]
+    if (cols < 0).any() or (ns < 0).any() or (ns > region).any() \
+            or (cols + ns > p).any():
+        raise ValueError(f"{entry}: a piece lies outside the batch of {p} "
+                         f"or its region of {region}: {table.tolist()}")
+    if packed.device.type == "cpu":
+        return _entry_plain(plain, packed, seed_key, width, table, region)
+    out = torch.empty((len(table), out_len(region)), dtype=dtype,
+                      device=packed.device)
+    full = np.empty((len(table), 3), dtype=np.int64)
+    full[:, :2] = table
+    full[:, 2] = out.data_ptr() + np.arange(len(table)) * out.stride(0) \
+        * out.element_size()
+    with devcfg.current(packed.device):
+        _launch_entry_kernel(
+            entry, packed.data_ptr(), p, full.ctypes.data, len(full), region,
+            seed_key, width,
+            torch.cuda.current_stream(packed.device).cuda_stream)
+    return out
+
+
 def draw_flags(packed: torch.Tensor, seed_key, width: int = MAX_PKTS,
                n: int | None = None) -> torch.Tensor:
     """Per-unit drop flags, bit-packed: (4, P) uint32 -> (P/8,) uint8, of
@@ -237,25 +357,43 @@ def min_draw(packed: torch.Tensor, seed_key, width: int = MAX_PKTS,
     return _wrapper("min_draw", packed, seed_key, width, n)
 
 
+def draw_flags_entry(packed: torch.Tensor, seed_key, width: int = MAX_PKTS,
+                     table=None, region: int = 32) -> torch.Tensor:
+    """The drop flags of pieces of a (4, P) batch: (len(table), region / 8)
+    uint8, row i for ``table`` row i ([first column, real units], at most
+    MAX_PIECES rows), each piece's flags padded to ``region`` units. CPU
+    tensor: the plain version. CUDA tensor: one draw_flags_entry launch on
+    the current stream, or an exception."""
+    return _entry_wrapper("draw_flags", packed, seed_key, width, table,
+                          region)
+
+
+def min_draw_entry(packed: torch.Tensor, seed_key, width: int = MAX_PKTS,
+                   table=None, region: int = 32) -> torch.Tensor:
+    """The minima of pieces of a (3, P) batch: (len(table), region) uint32,
+    as draw_flags_entry. CPU tensor: the plain version. CUDA tensor: one
+    min_draw_entry launch on the current stream, or an exception."""
+    return _entry_wrapper("min_draw", packed, seed_key, width, table,
+                          region)
+
+
 # -- page-locked slots and deferred-readback handles --------------------------
 
 class DrawSlot:
-    """The buffers of one dispatch of ``kernel`` at bucket ``p`` on device
-    entry ``entry`` (``device``), made once and reused: the packed (rows,
-    P) input (``inp``, a numpy view) and the output (``out``), in
-    page-locked host memory on a card (plain host memory on the CPU), and
-    one CUDA event. The kernel reads the input and writes the output in
-    place through their device addresses, so a dispatch queues no copy and
-    allocates nothing."""
+    """The buffers of one dispatch of ``kernel`` at bucket ``p`` on
+    ``device``, made once and reused: the packed (rows, P) input (``inp``,
+    a numpy view) and the output (``out``), in page-locked host memory on a
+    card (plain host memory on the CPU), and one CUDA event. The kernel
+    reads the input and writes the output in place through their device
+    addresses, so a dispatch queues no copy and allocates nothing."""
 
-    __slots__ = ("kernel", "p", "device", "entry", "host_in", "host_out",
-                 "inp", "out", "event", "_ptrs")
+    __slots__ = ("kernel", "p", "device", "host_in", "host_out", "inp",
+                 "out", "event", "_ptrs")
 
-    def __init__(self, kernel: str, p: int, device, entry: int = 0) -> None:
+    def __init__(self, kernel: str, p: int, device) -> None:
         rows, dtype, out_len, _ = _KERNELS[kernel]
         cuda = device.type == "cuda"
-        self.kernel, self.p = kernel, p
-        self.device, self.entry = device, entry
+        self.kernel, self.p, self.device = kernel, p, device
         self.host_in = torch.zeros((rows, p), dtype=torch.uint32,
                                    pin_memory=cuda)
         self.host_out = torch.zeros(out_len(p), dtype=dtype,
@@ -279,59 +417,131 @@ class DrawSlot:
             return
         with devcfg.current(self.device):
             _launch_kernel(self.kernel, self._ptrs[0], self.p, n, seed_key,
-                           width, self._ptrs[1], stream.cuda_stream,
-                           self.entry)
+                           width, self._ptrs[1], stream.cuda_stream, 0)
             self.event.record(stream)
+
+    def wait(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+    def done(self) -> bool:
+        return self.event is None or self.event.query()
+
+
+class SplitSlot:
+    """The buffers of one dispatch of ``kernel`` at bucket ``p`` split over
+    a plane's device entries (``groups``: devcfg.group_entries of them),
+    made once and reused: the whole padded batch, (rows, k * piece) in
+    ``inp``, and one output region an entry, row i of ``out``
+    (region_width(piece) units: no flag word holds two pieces' bits), in
+    page-locked host memory that every card maps (plain host memory on CPU
+    entries), and one CUDA event a card. A dispatch fills the batch once
+    and runs the entry kernel once a card, over a table of that card's
+    pieces (piece_table, with each region's address); the kernel reads the
+    batch and writes the regions in place. On CPU entries the plain entry
+    version runs once a group on the same table."""
+
+    __slots__ = ("kernel", "p", "piece", "region", "groups", "host_in",
+                 "host_out", "inp", "out", "_launches")
+
+    def __init__(self, kernel: str, p: int, piece: int, groups) -> None:
+        rows, dtype, out_len, _ = _KERNELS[kernel]
+        k = sum(len(ix) for _, ix in groups)
+        cuda = groups[0][0].type == "cuda"
+        self.kernel, self.p, self.piece = kernel, p, piece
+        self.region = region_width(piece)
+        self.groups = groups
+        self.host_in = torch.zeros((rows, k * piece), dtype=torch.uint32,
+                                   pin_memory=cuda)
+        self.host_out = torch.zeros((k, out_len(self.region)), dtype=dtype,
+                                    pin_memory=cuda)
+        self.inp = self.host_in.numpy()
+        self.out = self.host_out.numpy()
+        row_bytes = self.out.strides[0]
+        #: per group: (device, its entries, its rows [first column, real
+        #: units, output address], their address, the first columns as
+        #: ints, the batch's address on the device, the event)
+        self._launches = []
+        for dev, ix in groups:
+            table = np.zeros((len(ix), 3), dtype=np.int64)
+            table[:, :2] = piece_table(0, piece, ix)
+            in_ptr = event = None
+            if cuda:
+                with devcfg.current(dev):
+                    in_ptr = devcfg.device_pointer(self.host_in, "draw")
+                    out_ptr = devcfg.device_pointer(self.host_out, "draw")
+                table[:, 2] = out_ptr + np.asarray(ix) * row_bytes
+                event = torch.cuda.Event()
+            self._launches.append((dev, ix, table, table.ctypes.data,
+                                   table[:, 0].tolist(), in_ptr, event))
+
+    def launch(self, n: int, seed_key, width: int) -> None:
+        """Run the kernel on the first ``n`` units of ``inp``: one launch
+        a card on its current stream with its event recorded after it; on
+        CPU entries the plain version at once, one call a group."""
+        piece, p = self.piece, self.inp.shape[1]
+        entry = f"{self.kernel}_entry"
+        for dev, ix, table, table_ptr, cols, in_ptr, event in self._launches:
+            for j, col in enumerate(cols):  # piece_table's real units
+                table[j, 1] = min(max(n - col, 0), piece)
+            if event is None:
+                self.out[list(ix)] = _entry_plain(
+                    _KERNELS[self.kernel][3], self.host_in, seed_key, width,
+                    table, self.region).numpy()
+                continue
+            with devcfg.current(dev):
+                stream = torch.cuda.current_stream(dev)
+                _launch_entry_kernel(entry, in_ptr, p, table_ptr, len(ix),
+                                     self.region, seed_key, width,
+                                     stream.cuda_stream, ix)
+                event.record(stream)
+
+    def wait(self) -> None:
+        for *_, event in self._launches:
+            if event is not None:
+                event.synchronize()
+
+    def done(self) -> bool:
+        return all(event is None or event.query()
+                   for *_, event in self._launches)
 
 
 class _SlotHandle:
-    """An in-flight dispatch on a DrawSlot, or on a tuple of them (a batch
-    split over device entries: piece i, ``piece`` units, on entry i's
-    slot). read() waits for the kernels, copies the result out of the
-    slots (in entry order) and gives the slots back to their plane; a
-    handle dropped unread gives them back once the kernels are done."""
+    """An in-flight dispatch on a DrawSlot or a SplitSlot. read() waits for
+    the kernels (one event a card), copies the result out of the slot (a
+    split batch's pieces in entry order) and gives the slot back to its
+    plane; a handle dropped unread gives it back once the kernels are
+    done."""
 
-    __slots__ = ("_plane", "_slot", "_n", "_piece", "_result")
+    __slots__ = ("_plane", "_slot", "_n", "_result")
 
-    def __init__(self, plane, slot, n: int, piece: int = 0) -> None:
+    def __init__(self, plane, slot, n: int) -> None:
         self._plane = plane
         self._slot = slot
         self._n = n
-        self._piece = piece
         self._result = None
 
-    def _slots(self) -> tuple:
-        slot = self._slot
-        return slot if isinstance(slot, tuple) else (slot,)
-
-    def _copy_out(self, outs: list) -> np.ndarray:
+    def _copy_out(self, slot) -> np.ndarray:
         raise NotImplementedError
 
     def read(self) -> np.ndarray:
         if self._result is None:
-            slots = self._slots()
-            for slot in slots:
-                if slot.event is not None:
-                    slot.event.synchronize()
-            self._result = self._copy_out([slot.out for slot in slots])
+            slot = self._slot
+            slot.wait()
+            self._result = self._copy_out(slot)
             self._slot = None
-            for slot in slots:
-                self._plane._give(slot)
+            self._plane._give(slot)
         return self._result
 
     def is_ready(self) -> bool:
         """True when the device result has landed host-side — read() will
         not stall."""
-        return self._slot is None or all(
-            slot.event is None or slot.event.query()
-            for slot in self._slots())
+        return self._slot is None or self._slot.done()
 
     def __del__(self) -> None:
         if self._slot is not None:
-            for slot in self._slots():
-                if slot.event is not None:
-                    slot.event.synchronize()  # the kernel may still write it
-                self._plane._give(slot)
+            self._slot.wait()  # the kernel may still write it
+            self._plane._give(self._slot)
 
 
 class DrawHandle(_SlotHandle):
@@ -339,10 +549,10 @@ class DrawHandle(_SlotHandle):
 
     __slots__ = ()
 
-    def _copy_out(self, outs: list) -> np.ndarray:
+    def _copy_out(self, slot) -> np.ndarray:
         n = self._n
-        bits = (outs[0][:(n + 7) // 8] if len(outs) == 1 else
-                np.concatenate([o[:self._piece // 8] for o in outs]))
+        bits = (slot.out[:(n + 7) // 8] if slot.out.ndim == 1 else
+                slot.out[:, :slot.piece // 8].reshape(-1))
         return np.unpackbits(bits, bitorder="little")[:n].astype(bool)
 
 
@@ -353,10 +563,10 @@ class MinDrawHandle(_SlotHandle):
 
     __slots__ = ()
 
-    def _copy_out(self, outs: list) -> np.ndarray:
-        if len(outs) == 1:
-            return outs[0][:self._n].copy()
-        return np.concatenate([o[:self._piece] for o in outs])[:self._n]
+    def _copy_out(self, slot) -> np.ndarray:
+        if slot.out.ndim == 1:
+            return slot.out[:self._n].copy()
+        return slot.out[:, :slot.piece].flatten()[:self._n]
 
 
 class DeviceDrawPlane:
@@ -367,18 +577,21 @@ class DeviceDrawPlane:
     ``device``, clamped to them as the reference clamps to its devices)
     splits each batch along the unit axis over that many device entries
     (devcfg.select_devices): the batch pads to a multiple of 8 n, so each
-    piece's bit-packed flags start on a byte, and piece i runs on entry
-    i's own slots; the handle reads the pieces in order. The kernels are
-    elementwise along the unit axis, so the split changes no value.
+    piece's bit-packed flags start on a byte (piece_width), and piece i is
+    entry i's. The entries are grouped by device (devcfg.group_entries):
+    a dispatch is one draw_flags_entry (min_draw_entry) launch a card over
+    its entries' pieces, in a SplitSlot; the handle waits on one event a
+    card and reads the pieces in entry order. The kernels are elementwise
+    along the unit axis, so the split changes no value.
 
-    Each (kernel, bucket, entry) keeps a list of free DrawSlots. A dispatch takes
-    one (making another when all are in flight: up to
-    network.devroute.WINDOW_SLOTS windows, the chunks of an oversized
-    batch and the speculative waves can be in flight at once), fills the
-    real units' columns, launches and records the slot's event; reading
-    the handle gives the slot back. Units past the real ones are never
-    read, so a slot needs no clearing between batches of different
-    sizes.
+    Each (kernel, bucket) keeps a list of free slots (DrawSlots on one
+    entry, SplitSlots over several). A dispatch takes one (making another
+    when all are in flight: up to network.devroute.WINDOW_SLOTS windows,
+    the chunks of an oversized batch and the speculative waves can be in
+    flight at once), fills the real units' columns, launches and records
+    the slot's events; reading the handle gives the slot back. Units past
+    the real ones are never read, so a slot needs no clearing between
+    batches of different sizes.
 
     The numpy twin is fluid.loss_flags; tests/test_torch_propagate.py
     asserts the two produce identical flags for identical inputs.
@@ -397,11 +610,19 @@ class DeviceDrawPlane:
         self.entries = entries[:min(n, len(entries))]
         self.n_shards = len(self.entries)
         self.device = self.entries[0]
+        #: ((device, (entry, ...)), ...): one launch a device a split batch
+        self.groups = devcfg.group_entries(self.entries)
+        most = max(len(ix) for _, ix in self.groups)
+        if self.n_shards > 1 and self.device.type == "cuda" \
+                and most > MAX_PIECES:
+            raise ValueError(
+                f"DeviceDrawPlane: {most} entries on one card, more than "
+                f"the {MAX_PIECES} pieces one draw launch takes")
         self.seed = int(seed)
         self.max_batch = int(max_batch)
         self.max_pkts = int(max_pkts)  # kernel packet-lane width
         self._cuda = self.device.type == "cuda"
-        #: (kernel, P, entry) -> [DrawSlot] not in flight
+        #: (kernel, P) -> [DrawSlot or SplitSlot] not in flight
         self._free: dict = {}
         if self._cuda:
             devcfg.kernel_lib("draw")  # build or load now, not mid-round
@@ -414,49 +635,39 @@ class DeviceDrawPlane:
         return np.array([s & 0xFFFFFFFF, (s >> 32) & 0xFFFFFFFF],
                         dtype=np.uint32)
 
-    def slots(self, kernel: str, p: int, entry: int = 0) -> list:
-        """The free slots of bucket ``p`` of ``kernel`` on ``entry``."""
-        return self._free.setdefault((kernel, p, entry), [])
+    def slots(self, kernel: str, p: int) -> list:
+        """The free slots of bucket ``p`` of ``kernel``."""
+        return self._free.setdefault((kernel, p), [])
 
-    def _give(self, slot: DrawSlot) -> None:
-        self.slots(slot.kernel, slot.p, slot.entry).append(slot)
+    def _give(self, slot) -> None:
+        self.slots(slot.kernel, slot.p).append(slot)
 
-    def _launch(self, kernel: str, cols, p: int, seed,
-                entry: int = 0) -> DrawSlot:
-        """Fill a free slot of bucket ``p`` on ``entry`` with ``cols`` and
-        run ``kernel`` on it; returns the slot, in flight."""
-        free = self.slots(kernel, p, entry)
+    def _launch(self, kernel: str, cols, p: int, seed):
+        """Fill a free slot of bucket ``p`` with ``cols`` and run ``kernel``
+        on it, on the one entry or split over the entries; returns the
+        slot, in flight."""
+        free = self.slots(kernel, p)
         try:
             # atomic under the GIL: threads sharing the plane (the fleet's
             # DrawServer) never take one slot twice, and a slot returns to
             # the list only once its handle is read or dropped
             slot = free.pop()
         except IndexError:
-            slot = DrawSlot(kernel, p, self.entries[entry], entry)
+            slot = (DrawSlot(kernel, p, self.device) if self.n_shards == 1
+                    else SplitSlot(kernel, p,
+                                   piece_width(p, self.n_shards),
+                                   self.groups))
         n = cols[0].shape[0]
         a = slot.inp
         for r, col in enumerate(cols):
             a[r, :n] = col
-        slot.launch(n, self._seed_key(seed), self.max_pkts,
-                    torch.cuda.current_stream(slot.device)
-                    if self._cuda else None)
+        if self.n_shards > 1:
+            slot.launch(n, self._seed_key(seed), self.max_pkts)
+        else:
+            slot.launch(n, self._seed_key(seed), self.max_pkts,
+                        torch.cuda.current_stream(slot.device)
+                        if self._cuda else None)
         return slot
-
-    def _launch_all(self, kernel: str, cols, p: int, seed) -> tuple:
-        """Run ``kernel`` on a batch padded to bucket ``p``: (the slot, 0)
-        on one entry; split over n entries, (the n slots, the units a
-        piece): the batch pads to a multiple of 8 n and piece i, its units
-        [i * piece, (i + 1) * piece), runs on entry i in a slot of that
-        width rounded up to the kernels' 32."""
-        k = self.n_shards
-        if k == 1:
-            return self._launch(kernel, cols, p, seed), 0
-        q = 8 * k
-        piece = -(-max(p, q) // q) * q // k
-        return tuple(
-            self._launch(kernel, [c[i * piece:(i + 1) * piece] for c in cols],
-                         -(-piece // 32) * 32, seed, i)
-            for i in range(k)), piece
 
     def dispatch(self, uid_lo: np.ndarray, uid_hi: np.ndarray,
                  npkts: np.ndarray, thresh: np.ndarray,
@@ -466,9 +677,9 @@ class DeviceDrawPlane:
         batch."""
         n = uid_lo.shape[0]
         p = _bucket(n, self.max_batch)
-        slot, piece = self._launch_all(
-            "draw_flags", (uid_lo, uid_hi, npkts, thresh), p, seed)
-        return DrawHandle(self, slot, n, piece)
+        slot = self._launch("draw_flags", (uid_lo, uid_hi, npkts, thresh), p,
+                            seed)
+        return DrawHandle(self, slot, n)
 
     def dispatch_min(self, uid_lo: np.ndarray, uid_hi: np.ndarray,
                      npkts: np.ndarray, min_bucket: int = 0,
@@ -477,9 +688,8 @@ class DeviceDrawPlane:
         padded shape; ``seed`` overrides the plane's seed."""
         n = uid_lo.shape[0]
         p = max(_bucket(n, self.max_batch), min_bucket)
-        slot, piece = self._launch_all("min_draw", (uid_lo, uid_hi, npkts),
-                                       p, seed)
-        return MinDrawHandle(self, slot, n, piece)
+        slot = self._launch("min_draw", (uid_lo, uid_hi, npkts), p, seed)
+        return MinDrawHandle(self, slot, n)
 
     #: (seed, max_batch, max_pkts, device, n_shards) -> entry
     _cache: dict = {}
@@ -631,7 +841,7 @@ class DrawServer:
         #: launches the attach itself made (calibration and warm-up)
         self.attach_launches = {k: 0 for k in LAUNCHES}
         #: batches served per kernel, and their units
-        self.served = {k: 0 for k in LAUNCHES}
+        self.served = {"draw_flags": 0, "min_draw": 0}
         self.served_units = 0
         #: every failure sent to a member (attach, launch or read)
         self.errors: list = []

@@ -694,15 +694,12 @@ def entry_plan(entries, can_access, host_only: bool = False) -> EntryPlan:
         raise ValueError(f"mesh_exchange_entry: every entry must be a card "
                          f"with its index, got {entries}")
     cards = [d.index for d in entries]
-    groups: dict = {}
-    for s, c in enumerate(cards):
-        groups.setdefault(c, []).append(s)
     routes = tuple(tuple(
         "host" if host_only else "local" if a == b
         else "peer" if can_access(a, b) else "host" for b in cards)
         for a in cards)
-    return EntryPlan(tuple((c, tuple(v)) for c, v in groups.items()),
-                     routes)
+    return EntryPlan(tuple((d.index, ix) for d, ix in
+                           devcfg.group_entries(entries)), routes)
 
 
 #: ordered pairs of cards (source, destination) whose peer access is on

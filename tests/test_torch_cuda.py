@@ -139,7 +139,28 @@ def test_draw_slots_hazards_on_card(dev):
     before = dict(prop.LAUNCHES)
     plane.dispatch(z, z, z, z).read()
     plane.dispatch_min(z, z, z).read()
-    assert prop.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert prop.LAUNCHES == {k: v + (k in ("draw_flags", "min_draw"))
+                             for k, v in before.items()}
+
+
+@pytest.mark.cuda
+def test_draw_entry_kernels_match_plain_on_card(dev):
+    """draw_flags_entry and min_draw_entry against their plain versions
+    (chip_smoke.check_draw_entry: 2, 3, 4 and 8 entries, batches of 1 to
+    65,536 units with empty pieces, every piece's table and card 0's
+    pieces of an interleaved list, widths 10 and 33); each wrapper call is
+    one launch."""
+    cs = _smoke()
+    before = dict(prop.LAUNCHES)
+    err, n_cmp = cs.check_draw_entry(torch, np, prop, dev,
+                                     np.random.default_rng(3))
+    assert err == {"draw_flags_entry": 0, "min_draw_entry": 0}
+    assert n_cmp == 2 * 2 * 2 * len(cs.DRAW_ENTRY_COUNTS) \
+        * len(cs.DRAW_ENTRY_SIZES)
+    assert prop.LAUNCHES["draw_flags_entry"] \
+        - before["draw_flags_entry"] == n_cmp // 2
+    assert prop.LAUNCHES["min_draw_entry"] \
+        - before["min_draw_entry"] == n_cmp // 2
 
 
 @pytest.mark.cuda
@@ -407,6 +428,7 @@ def test_planes_over_card_entries_match_cpu_entries(dev):
     split = prop.DeviceDrawPlane(SEEDS[1], 65536,
                                  device=",".join(["cuda:0"] * 4), n_shards=4)
     one = prop.DeviceDrawPlane(SEEDS[1], 65536, device="cpu")
+    prop.reset_launches()
     for k in (1, 7, 33, 4096):
         cols = [rng.integers(0, 1 << 32, k, dtype=np.uint64).astype(
             np.uint32) for _ in range(3)]
@@ -416,3 +438,7 @@ def test_planes_over_card_entries_match_cpu_entries(dev):
                                       one.dispatch(*cols, th).read())
         np.testing.assert_array_equal(split.dispatch_min(*cols).read(),
                                       one.dispatch_min(*cols).read())
+    # one entry launch a dispatch for the card's four pieces
+    assert prop.LAUNCHES == {"draw_flags": 0, "min_draw": 0,
+                             "draw_flags_entry": 4, "min_draw_entry": 4}
+    assert prop.ENTRY_LAUNCHES == dict.fromkeys(range(4), 8)

@@ -309,7 +309,7 @@ def test_rounds_over_entries_match_the_reference(n):
 
 # -- (c) the draws split over entries -----------------------------------------
 
-@pytest.mark.parametrize("size", [1, 7, 8, 33, 4096])
+@pytest.mark.parametrize("size", [1, 7, 8, 33, 4096, 65536])
 def test_draws_split_over_entries_match_the_reference(size):
     """DeviceDrawPlane(n_shards=4) over four CPU entries against the
     reference's over four devices: the flags (at several thresholds) and
@@ -333,14 +333,18 @@ def test_draws_split_over_entries_match_the_reference(size):
     np.testing.assert_array_equal(
         port.dispatch_min(lo, hi, npk, min_bucket=spec, seed=9).read(),
         ref.dispatch_min(lo, hi, npk, min_bucket=spec, seed=9).read())
-    # each piece took a slot of its own entry and gave it back
-    assert {k[2] for k in port._free} == {0, 1, 2, 3}
+    # each dispatch took one split slot (the whole batch, an output region
+    # an entry, the four CPU entries one group) and gave it back
+    free = [slot for v in port._free.values() for slot in v]
+    assert free and all(
+        isinstance(slot, prop.SplitSlot) and slot.out.shape[0] == 4
+        and slot.groups == ((CPU, (0, 1, 2, 3)),) for slot in free)
     assert not prop.ENTRY_LAUNCHES
 
 
 def test_draw_split_clamps_to_the_entries_and_reuses_slots():
     """n_shards above the entries clamps (the reference clamps to its
-    devices); a smaller batch after a larger one reuses each entry's slot
+    devices); a smaller batch after a larger one reuses the split slot
     and reads no stale unit; handles read out of order."""
     one = prop.DeviceDrawPlane(3, 65536, device="cpu", n_shards=4)
     assert one.n_shards == 1
@@ -357,7 +361,7 @@ def test_draw_split_clamps_to_the_entries_and_reuses_slots():
     handles = [split.dispatch(*b) for b in batches]
     for b, h in reversed(list(zip(batches, handles))):
         np.testing.assert_array_equal(h.read(), one.dispatch(*b).read())
-    # the two 5,000-unit batches: one slot an entry at that width
+    # the two 5,000-unit batches: one split slot each at that bucket
     assert all(len(v) <= 2 for v in split._free.values())
 
 
