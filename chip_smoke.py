@@ -318,11 +318,14 @@ failure exits non-zero:
              host route forced through its plan, at N in {2, 4, 8} and
              once at 17 entries, the cooperative launch; then one window
              kept over several windows on each route, rising epochs and
-             fresh units, as the plane drives it; mesh_rounds_entry and
-             mesh_reduce) against their plain versions bit for bit on
-             entries of card 0; a source that never publishes ends in the
-             raised timeout; MeshDataPlane and DeviceDrawPlane over entries
-             against CPU planes; tgen_1k on the C engine over cuda:0 x 4
+             fresh units, as the plane drives it; mesh_rounds_entry on
+             both routes at N in {2, 4, 8, 17}, then one RoundStage a
+             route kept through calls that shrink and grow) against
+             their plain versions bit for bit on entries of card 0; a
+             source that never publishes ends in the raised timeout, for
+             each of the two kernels; MeshDataPlane and DeviceDrawPlane
+             over entries against CPU planes; tgen_1k on the C engine
+             over cuda:0 x 4
              under tpu_mesh at tpu_mesh_floor=0 and under tpu_batch at
              tpu_mesh_shards=4 and tpu_device_floor=1, each with the
              counts, tree and state digest stream of phase 9's and phase
@@ -334,10 +337,12 @@ failure exits non-zero:
              once a window a card, every entry's block once a window, no
              mesh_exchange; draw_flags once a window a piece; the
              standalone round API over four entries on phase 9's barriers
-             against CPU entries; where two cards are visible the same
+             against CPU entries and the one-entry twin,
+             mesh_rounds_entry once a card a call, each call's host wall
+             beside the twin's; where two cards are visible the same
              legs over cuda:0,cuda:1 with the route of each pair, else a
              line saying that leg did not run (not a failure); then the
-             three per-entry kernels timed on those runs' inputs.
+             four per-entry kernels timed on those runs' inputs.
 
 Prints a JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. The reference constants come from
@@ -738,10 +743,7 @@ PLAN = {
                             ("mesh_exchange_entry_kernel",)),
     "mesh_rounds_entry": ("shadow_tpu_torch/csrc/mesh.cu",
                           "shadow_tpu/parallel/mesh.py:202",
-                          ("mesh_rounds_kernel",)),
-    "mesh_reduce": ("shadow_tpu_torch/csrc/mesh.cu",
-                    "shadow_tpu/parallel/mesh.py:202",
-                    ("mesh_reduce_kernel",)),
+                          ("mesh_rounds_entry_kernel",)),
     "draw_flags_entry": ("shadow_tpu_torch/csrc/draw.cu",
                          "shadow_tpu/ops/propagate.py:85",
                          ("draw_flags_entry_kernel",)),
@@ -1326,7 +1328,9 @@ def check_mesh_kernels(torch, np, mesh, dev) -> dict:
     print(f"{n_cmp} mesh kernel/plain comparisons, all bit-identical; "
           f"launches {json.dumps(dict(mesh.LAUNCHES))}; paths "
           f"{json.dumps(paths)}", flush=True)
-    missed = [k for k, v in paths.items() if v <= 0]
+    # the entry kernels' paths are phase multi device's
+    missed = [k for k, v in paths.items()
+              if v <= 0 and not k.startswith("entry_")]
     if missed:
         fail(f"the mesh sweep never took the launch paths {missed}")
     return err
@@ -2230,11 +2234,12 @@ def round_work(torch, prop, state, units_k, tables, seed: int,
 
 
 def measure_mesh(torch, name: str, calls: list, plain_calls: list,
-                 nbytes: float, ops: float, rate: float, what: str) -> dict:
+                 nbytes: float, ops: float, rate: float, what: str,
+                 plain_reps: int = 5) -> dict:
     """One row of the timing table for a mesh kernel: card time per call
     (queued behind a spin kernel), the profiler's and the kernels it saw a
-    call, the plain version's, the host's launch cost, and the bound for
-    ``nbytes`` and ``ops`` a call."""
+    call, the plain version's (median of ``plain_reps`` runs), the host's
+    launch cost, and the bound for ``nbytes`` and ``ops`` a call."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
     seen: dict = {}
@@ -2244,7 +2249,7 @@ def measure_mesh(torch, name: str, calls: list, plain_calls: list,
         # the plain version is hundreds of small kernels a call (thousands
         # for a K-round scan, past the CUDA launch queue), so it is
         # timed back to back with the host's launch cost included
-        "plain_ms": host_ms(torch, plain_calls, reps=5),
+        "plain_ms": host_ms(torch, plain_calls, reps=plain_reps),
         "profiler_ms": profiler_ms(torch, calls, PLAN[name][2], seen),
         "kernels_a_call": seen,
         "launch_ms": host_ms(torch, calls),
@@ -5753,59 +5758,151 @@ def check_draw_entry(torch, np, prop, dev, rng) -> tuple:
     return err, n_cmp
 
 
+#: real units a shard a round in the calls of one kept RoundStage, in
+#: turn (None: a random count up to C): a large call, smaller ones over its
+#: rows, an empty one, then larger again
+ROUND_STAGE_CALLS = (None, 200, 3, 0, None, 1)
+
+
+def rounds_plain(torch, mesh, states, units, tables, t_nows, seed):
+    """mesh_rounds_entry's plain version on the same inputs (on their
+    device), its inboxes read as the wrapper reads them: ((received,
+    g_min, counters) on the CPU, the N new states)."""
+    rows, counts, new, g_min, counters = mesh.rounds_entries_plain(
+        states, units, tables, t_nows, seed, 10)
+    recv = mesh.read_rounds(rows.cpu().numpy(), counts.cpu().numpy())
+    return (torch.from_numpy(recv), g_min.cpu(), counters.cpu()), new
+
+
+def check_entry_rounds(torch, np, mesh, dev, rng, seeds) -> tuple:
+    """mesh_rounds_entry against its plain version (rounds_plain) on
+    ``dev``, bit for bit, the states included: N in ENTRY_COUNTS and
+    ENTRY_COOPERATIVE entries of the card (one cooperative launch); C = 64
+    over K = 8 and C = 2,048 over one round at 1,000 hosts (tables and
+    state in shared memory), C = 257 at 20,000 hosts (device memory); each
+    on the local route and with every pair forced through host memory by
+    the plan; one launch a call, one block an entry. Then, at N = 4 and on
+    each route, one RoundStage (N, 8, 256) kept through the calls of
+    ROUND_STAGE_CALLS with epochs 1, 2, ...: the inboxes
+    reused and never cleared, the flags never reset, the states advanced
+    in place. Then a call whose plan launches two of four entries: the two
+    blocks wait for sources that never publish and the wrapper must raise
+    mesh.ExchangeTimeout naming source 2 and epoch 1, within a second.
+    Returns (largest absolute error, comparisons)."""
+    err, n_cmp = 0, 0
+    access = torch.cuda.can_device_access_peer
+    t0 = 40 * 10 ** 9
+
+    def inputs(n, h, c, k, used=None):
+        tabs, hs = round_tables(np, rng, n, h, 32)
+        tables = tuple(torch.from_numpy(np.asarray(t, np.int64)).to(dev)
+                       for t in tabs)
+        state = torch.from_numpy(round_state(np, rng, tabs, n, hs,
+                                             t0)).to(dev)
+        return (tabs, hs, tables,
+                [state[:, s:s + 1].clone() for s in range(n)],
+                torch.from_numpy(np.stack([round_units(
+                    np, rng, n, hs, c, t0 + j * 2_000_000, used)
+                    for j in range(k)])).to(dev),
+                torch.arange(k, device=dev) * 2_000_000 + t0)
+
+    for n in ENTRY_COUNTS + (ENTRY_COOPERATIVE,):
+        for h, c, k in ((1000, 64, 8), (1000, 2048, 1), (20000, 257, 1)):
+            _tabs, _hs, tables, states, units, t_nows = inputs(n, h, c, k)
+            seed = seeds[k == 8]
+            want, after = rounds_plain(torch, mesh, states, units, tables,
+                                       t_nows, seed)
+            for host_only in (False, True):
+                plan = mesh.entry_plan((dev,) * n, access, host_only)
+                on_card = [x.clone() for x in states]
+                mesh.reset_launches()
+                got = mesh.mesh_rounds_entry(on_card, units, [tables] * n,
+                                             t_nows, seed, 10, plan=plan)
+                what = (f"mesh_rounds_entry n={n} hosts={h} c={c} k={k} "
+                        f"route={plan.routes[0][-1]}")
+                err = max(err, same(torch, got, want, what),
+                          same(torch, on_card, after, f"{what}, state"))
+                if (mesh.LAUNCHES["mesh_rounds_entry"] != 1
+                        or mesh.ENTRY_LAUNCHES != dict.fromkeys(range(n),
+                                                                1)):
+                    fail(f"{what}: launches {dict(mesh.LAUNCHES)}, blocks "
+                         f"{mesh.ENTRY_LAUNCHES} (want one launch, one "
+                         f"block an entry)")
+                n_cmp += 1
+    stream = [torch.cuda.current_stream(dev)]
+    for n in (4,):
+        for host_only in (False, True):
+            tabs, hs, tables, states, _u, _t = inputs(n, 1000, 256, 1)
+            plan = mesh.entry_plan((dev,) * n, access, host_only)
+            st = mesh.RoundStage((dev,) * n, n, 8, 256, states,
+                                 [tables] * n, plan)
+            t = t0
+            for epoch, used in enumerate(ROUND_STAGE_CALLS, start=1):
+                u = np.stack([round_units(np, rng, n, hs, 256,
+                                          t + j * 2_000_000, used)
+                              for j in range(8)])
+                t_nows = np.arange(8, dtype=np.int64) * 2_000_000 + t
+                seed = seeds[epoch % 2]
+                want, after = rounds_plain(
+                    torch, mesh, states, torch.from_numpy(u).to(dev),
+                    tables, torch.from_numpy(t_nows).to(dev), seed)
+                st.units[...] = u
+                st.t_now[...] = t_nows
+                st.run(seed, 10, epoch, stream)
+                what = (f"kept RoundStage n={n} route={plan.routes[0][-1]} "
+                        f"epoch={epoch} units={used}")
+                err = max(err, same(torch, tuple(
+                    torch.from_numpy(x) for x in st.read()), want, what),
+                          same(torch, states, after, f"{what}, state"))
+                t += 8 * 2_000_000
+                n_cmp += 1
+    _tabs, _hs, tables, states, units, t_nows = inputs(4, 1000, 256, 8)
+    full = mesh.entry_plan((dev,) * 4, access)
+    half = mesh.EntryPlan(((dev.index, (0, 1)),), full.routes)
+    t1 = time.perf_counter()
+    try:
+        mesh.mesh_rounds_entry(states, units, [tables] * 4, t_nows,
+                               seeds[0], 10, plan=half,
+                               timeout_ns=ENTRY_TIMEOUT_CHECK_NS)
+    except mesh.ExchangeTimeout as exc:
+        took = time.perf_counter() - t1
+        if "source 2's rows of call epoch 1" not in str(exc) or took > 1:
+            fail(f"the rounds' timeout check raised after {took:.3f} s: "
+                 f"{exc}")
+        print(f"a source of the rounds that never publishes: raised after "
+              f"{took:.3f} s (limit {ENTRY_TIMEOUT_CHECK_NS} ns): {exc}",
+              flush=True)
+    else:
+        fail("mesh_rounds_entry returned though two of its four sources "
+             "never published")
+    return err, n_cmp
+
+
 def check_entry_kernels(torch, np, mesh, prop, dev) -> dict:
     """The per-entry kernels against their plain versions on ``dev``, bit
-    for bit: mesh_exchange_entry (check_entry_exchange);
-    mesh_rounds_entry on every shard over N in ENTRY_COUNTS entries (C = 64
-    over K = 8 and C = 2,048 over one round with tables in shared memory,
-    C = 257 at 20,000 hosts in device memory) and mesh_reduce of the
-    gathered partials; then MeshDataPlane over 2 and 8 entries of the card
-    (exchange_rounds over windows whose bucket grows and shrinks,
-    round_step, scan_rounds) against CPU planes; draw_flags_entry and
-    min_draw_entry (check_draw_entry), and DeviceDrawPlane split over three
-    and four entries of the card against a CPU plane, its handles read
-    last first. Returns the largest absolute error per kernel (the
-    tolerance is 0)."""
+    for bit: mesh_exchange_entry (check_entry_exchange), mesh_rounds_entry
+    (check_entry_rounds; both launch paths must be taken); then
+    MeshDataPlane over 2 and 8 entries of the card (exchange_rounds over
+    windows whose bucket grows and shrinks, round_step, scan_rounds)
+    against CPU planes; draw_flags_entry and min_draw_entry
+    (check_draw_entry), and DeviceDrawPlane split over three and four
+    entries of the card against a CPU plane, its handles read last first.
+    Returns the largest absolute error per kernel (the tolerance is 0)."""
     from shadow_tpu_torch.network.fluid import NetParams
 
     rng = np.random.default_rng(20261019)
     seeds = (2, (1 << 32) + 0xDEADBEEF)
-    err = dict.fromkeys(("mesh_exchange_entry", "mesh_rounds_entry",
-                         "mesh_reduce"), 0)
+    err = {}
     err["mesh_exchange_entry"], n_cmp = check_entry_exchange(
         torch, np, mesh, dev, rng, seeds)
-    for n in ENTRY_COUNTS:
-        for h, cks in ((1000, ((64, 8), (2048, 1))), (20000, ((257, 1),))):
-            tabs, hs = round_tables(np, rng, n, h, 32)
-            tables = tuple(torch.from_numpy(np.asarray(t, np.int64)).to(dev)
-                           for t in tabs)
-            t0 = 40 * 10 ** 9
-            for c, k in cks:
-                state = torch.from_numpy(round_state(np, rng, tabs, n, hs,
-                                                     t0)).to(dev)
-                units = torch.from_numpy(np.stack([round_units(
-                    np, rng, n, hs, c, t0 + j * 2_000_000)
-                    for j in range(k)])).to(dev)
-                t_nows = torch.arange(k, device=dev) * 2_000_000 + t0
-                seed = seeds[k == 8]
-                parts = []
-                for s in range(n):
-                    st = state[:, s:s + 1].contiguous()
-                    u = units[:, :, s:s + 1].contiguous()
-                    got = mesh.mesh_rounds_entry(st, u, tables, t_nows, s,
-                                                 n, seed, 10)
-                    err["mesh_rounds_entry"] = max(
-                        err["mesh_rounds_entry"], same(
-                            torch, got, mesh.rounds_entry_plain(
-                                st, u, tables, t_nows, s, n, seed, 10),
-                            f"mesh_rounds_entry n={n} hosts={h} c={c} "
-                            f"k={k} s={s}"))
-                    parts.append(got[2])
-                got = mesh.mesh_reduce(torch.stack(parts))
-                err["mesh_reduce"] = max(err["mesh_reduce"], same(
-                    torch, got, mesh.reduce_plain(torch.stack(parts)),
-                    f"mesh_reduce n={n} k={k}"))
-                n_cmp += n + 1
+    paths = dict(mesh.PATHS)
+    err["mesh_rounds_entry"], n_rounds = check_entry_rounds(
+        torch, np, mesh, dev, rng, seeds)
+    n_cmp += n_rounds
+    taken = {k: mesh.PATHS[k] - paths[k] for k in
+             ("entry_rounds_cluster", "entry_rounds_cooperative")}
+    if min(taken.values()) <= 0:
+        fail(f"mesh_rounds_entry never took a launch path: {taken}")
     h, g = 1000, 32
     params = NetParams.build(
         host_node=rng.integers(0, g, h).astype(np.int32),
@@ -6078,8 +6175,13 @@ def entry_standalone(torch, np, mesh, barriers, tmp: str, devices: str,
     size (its params, one shard an entry): the floor-0 run's first
     ``steps`` barriers through round_step, then ``groups`` runs of 32
     through scan_rounds (K = 32), in order, the state carried, against the
-    same plane over CPU entries (the plain halves). Returns the launches
-    and the per-entry calls (for timing)."""
+    same plane over CPU entries (the plain halves) and the one-entry twin
+    (the same shards on cuda:0 in one launch: mesh_round_step,
+    mesh_scan). Fails unless mesh_rounds_entry launched once a card a
+    call, every entry's block once a call, and no other mesh kernel ran
+    (no reduction launch, no copy between entries: the module has neither
+    any more). Prints each call's host wall beside the twin's. Returns the
+    launches and each call's inputs (for timing)."""
     from shadow_tpu_torch.config import load_config
     from shadow_tpu_torch.core.controller import Controller
     from shadow_tpu_torch.ops import devcfg
@@ -6091,59 +6193,98 @@ def entry_standalone(torch, np, mesh, barriers, tmp: str, devices: str,
         "general.data_directory": os.path.join(tmp, "md_standalone")})
     ctrl = Controller(cfg, mirror_log=False, device=devices)
     card = ctrl.engine.mesh_plane
-    host = mesh.MeshDataPlane(card.params, n_shards=card.n_shards,
-                              units_per_shard=card.units_per_shard,
-                              devices=(torch.device("cpu"),) * card.n_shards,
-                              max_pkts=card._max_pkts)
-    calls, reduces = [], []
-    rounds_entry, reduce = mesh.mesh_rounds_entry, mesh.mesh_reduce
+    n = card.n_shards
 
-    def keep_rounds(state, units_k, tables, t_now_k, s, n, seed, mp,
-                    stream=None):
-        if state.device.type == "cuda":
-            calls.append((state, units_k, tables, t_now_k, s, n, seed, mp))
-        return rounds_entry(state, units_k, tables, t_now_k, s, n, seed, mp,
-                            stream)
+    def plane(**kw):
+        return mesh.MeshDataPlane(card.params, n_shards=n,
+                                  units_per_shard=card.units_per_shard,
+                                  max_pkts=card._max_pkts, **kw)
 
-    def keep_reduce(partials, stream=None):
-        if partials.device.type == "cuda":
-            reduces.append(partials)
-        return reduce(partials, stream)
+    host = plane(devices=(torch.device("cpu"),) * n)
+    twin = plane(device="cuda:0")
+    calls = []
+    run = mesh.RoundStage.run
+
+    def keep_run(stage, seed, max_pkts, epoch, streams=None,
+                 timeout_ns=mesh.ENTRY_TIMEOUT_NS):
+        if stage.cuda:
+            calls.append(([x.clone() for x in stage.states], stage.tables,
+                          stage.units.copy(), stage.t_now.copy(), seed,
+                          max_pkts))
+        return run(stage, seed, max_pkts, epoch, streams, timeout_ns)
+
+    walls = {"entries": {}, "twin": {}}
+
+    def timed(who, k, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[who].setdefault(k, []).append(time.perf_counter() - t0)
+        return out
 
     mesh.reset_launches()
-    mesh.mesh_rounds_entry, mesh.mesh_reduce = keep_rounds, keep_reduce
+    mesh.RoundStage.run = keep_run
     try:
         i = 0
         for j in range(steps + groups):
             if j < steps:
                 t_now, *cols = barriers[i]
                 units = card.shard_units_np(*cols)
-                got = card.round_step(units, t_now)
+                got = timed("entries", 1,
+                            lambda: card.round_step(units, t_now))
                 want = host.round_step(units, t_now)
+                one = timed("twin", 1, lambda: twin.round_step(units, t_now))
                 ok = all(np.array_equal(np.asarray(a), np.asarray(b))
-                         for a, b in zip(got, want))
+                         and np.array_equal(np.asarray(a), np.asarray(c))
+                         for a, b, c in zip(got, want, one))
                 i += 1
             else:
                 part = [(card.shard_units_np(*cols), t) for t, *cols in
                         barriers[i:i + card.SCAN_KMAX]]
-                got, want = card.scan_rounds(part), host.scan_rounds(part)
-                ok = all(np.array_equal(a, b) for a, b in zip(got, want))
+                got = timed("entries", 32, lambda: card.scan_rounds(part))
+                want = host.scan_rounds(part)
+                one = timed("twin", 32, lambda: twin.scan_rounds(part))
+                ok = all(np.array_equal(a, b) and np.array_equal(a, c)
+                         for a, b, c in zip(got, want, one))
                 i += len(part)
-            if not ok or not torch.equal(card.state, host.state):
+            if not ok or not (torch.equal(card.state, host.state)
+                              and torch.equal(twin.state.cpu(), host.state)):
                 fail(f"the standalone round API over {devices} differs from "
-                     f"the CPU entries' at barrier {i}")
+                     f"the CPU entries' or the one-entry twin's at barrier "
+                     f"{i}")
     finally:
-        mesh.mesh_rounds_entry, mesh.mesh_reduce = rounds_entry, reduce
-    launches = {k: mesh.LAUNCHES[k] for k in ("mesh_rounds_entry",
-                                              "mesh_reduce")}
+        mesh.RoundStage.run = run
+    cards = len(card._plan.groups)
+    launches = {"mesh_rounds_entry": mesh.LAUNCHES["mesh_rounds_entry"]}
+    twin_launches = {k: mesh.LAUNCHES[k]
+                     for k in ("mesh_round_step", "mesh_scan")}
+    others = {k: v for k, v in mesh.LAUNCHES.items()
+              if v and k not in (*launches, *twin_launches)}
+    if (launches["mesh_rounds_entry"] != cards * len(calls)
+            or len(calls) != steps + groups or others
+            or mesh.ENTRY_LAUNCHES != dict.fromkeys(range(n), len(calls))
+            or hasattr(mesh, "mesh_reduce") or hasattr(mesh, "gather")):
+        fail(f"the standalone round API over {devices}: {len(calls)} calls "
+             f"on {cards} card(s) launched {json.dumps(launches)}, other "
+             f"mesh kernels {json.dumps(others)}, blocks by entry "
+             f"{json.dumps(mesh.ENTRY_LAUNCHES)} (want one "
+             f"mesh_rounds_entry launch a card a call, one block an entry "
+             f"a call, nothing else)")
+    ratio = {}
+    for k in sorted(walls["entries"]):
+        a = statistics.median(walls["entries"][k]) * 1e3
+        b = statistics.median(walls["twin"][k]) * 1e3
+        ratio[k] = a / b
+        print(f"standalone API host wall a call, K={k} "
+              f"({len(walls['entries'][k])} calls): {n} entries {a:.4f} ms "
+              f"vs the one-entry twin {b:.4f} ms (median; {a / b:.3f}x)",
+              flush=True)
     print(f"standalone round API over {devices}: {steps} round_steps and "
           f"{groups} K=32 scans on the first {i} barriers, equal to the CPU "
-          f"entries' (state included); launches {json.dumps(launches)}, by "
-          f"entry {json.dumps(dict(mesh.ENTRY_LAUNCHES))}", flush=True)
-    if min(launches.values()) <= 0:
-        fail(f"the standalone round API over {devices} launched "
-             f"{launches}")
-    return {"launches": launches, "calls": calls, "reduces": reduces}
+          f"entries' and the one-entry twin's (state included); launches "
+          f"{json.dumps(launches)} ({len(calls)} calls, {cards} card(s)), "
+          f"the twin's {json.dumps(twin_launches)}, by entry "
+          f"{json.dumps(dict(mesh.ENTRY_LAUNCHES))}", flush=True)
+    return {"launches": launches, "calls": calls, "wall_ratio": ratio}
 
 
 def entry_work(torch, prop, units, seed: int, width: int, w: int) -> tuple:
@@ -6157,12 +6298,12 @@ def entry_work(torch, prop, units, seed: int, width: int, w: int) -> tuple:
 
 def round_entry_work(torch, prop, state, units_k, tables, t_now_k, s: int,
                      n: int, seed: int, width: int) -> tuple:
-    """(bytes, operations) of one mesh_rounds_entry call (shard s of n, K
-    rounds), counted as round_work counts the whole mesh's: the shard's
-    state, rate and cap read once and its state written once; its slots'
-    src_l column and the other fields of its units in use; the distinct
-    table entries its routed units gather; its (N, K, C, 4) rows and K
-    partials written once; 75 per threefry lane its routed units need."""
+    """(bytes, operations) of shard s of n's K rounds alone, counted as
+    round_work counts the whole mesh's: the shard's state, rate and cap
+    read once and its state written once; its slots' src_l column and the
+    other fields of its units in use; the distinct table entries its routed
+    units gather; its (N, K, C, 4) rows and K partials written once; 75 per
+    threefry lane its routed units need."""
     host_node, _lat, thresh = tables[:3]
     k, _, _, c = units_k.shape
     hs = state.shape[2]
@@ -6183,6 +6324,23 @@ def round_entry_work(torch, prop, state, units_k, tables, t_now_k, s: int,
     return nbytes, OPS_PER_LANE * mesh_lanes(
         torch, prop, uid[route], npk[route], thresh[sn, dn] & 0xFFFFFFFF,
         seed, width)
+
+
+def rounds_entry_work(torch, prop, states, units_k, tables, t_now_k,
+                      seed: int, width: int) -> tuple:
+    """(bytes, operations) of one mesh_rounds_entry call over N entries:
+    round_entry_work summed over the shards, plus the trailers (N N K rows
+    of 32 bytes) and the reduction's outputs (every entry's g_min and
+    counters, N K 24 bytes). The same work whatever implements it."""
+    n, k = len(states), units_k.shape[0]
+    nbytes = ops = 0
+    for s in range(n):
+        b, o = round_entry_work(torch, prop, states[s],
+                                units_k[:, :, s:s + 1], tables, t_now_k, s,
+                                n, seed, width)
+        nbytes += b
+        ops += o
+    return nbytes + n * n * k * 32 + n * k * 24, ops
 
 
 def split_slots(torch, prop, name: str, inputs: list, k: int) -> list:
@@ -6234,8 +6392,9 @@ def time_entry_kernels(torch, np, prop, mesh, windows, sa, draw_windows,
     mesh_exchange_entry on the tpu_mesh leg's recorded windows, launched as
     the plane launches it (each window in an EntryWindow over its N
     entries of card 0, read and written in place in page-locked memory,
-    one launch a window, a fresh epoch each), mesh_rounds_entry and
-    mesh_reduce on the standalone calls over the entries; draw_flags_entry
+    one launch a window, a fresh epoch each), mesh_rounds_entry on the
+    standalone calls over the entries (a row for K = 1, the head, and for
+    K = 32), launched as the plane launches them; draw_flags_entry
     on 64 of the four-entry tpu_batch floor-1 leg's windows, min_draw_entry
     on a 16,384-unit batch of that leg's units split four ways (the pinned
     speculative bucket), each launched as the plane launches it; each
@@ -6266,22 +6425,45 @@ def time_entry_kernels(torch, np, prop, mesh, windows, sa, draw_windows,
         sum(b for b, _ in work) / len(work),
         sum(o for _, o in work) / len(work), rate,
         f"{len(stages)} run windows, (N, m) {shape}, one launch a window")]
-    calls = sa["calls"]
-    work = [round_entry_work(torch, prop, *c) for c in calls]
-    ks = sorted({c[1].shape[0] for c in calls})
-    out["mesh_rounds_entry"] = [measure_mesh(
-        torch, "mesh_rounds_entry",
-        [lambda c=c: mesh.mesh_rounds_entry(*c) for c in calls],
-        [lambda c=c: mesh.rounds_entry_plain(*c) for c in calls[:16]],
-        sum(b for b, _ in work) / len(calls),
-        sum(o for _, o in work) / len(calls), rate,
-        f"{len(calls)} shard calls of the standalone API, K in {ks}")]
-    red = sa["reduces"]
-    out["mesh_reduce"] = [measure_mesh(
-        torch, "mesh_reduce", [lambda p=p: mesh.mesh_reduce(p) for p in red],
-        [lambda p=p: mesh.reduce_plain(p) for p in red],
-        sum(p.numel() * 8 + p.shape[1] * 24 for p in red) / len(red), 0,
-        rate, f"{len(red)} reductions, N={red[0].shape[0]}")]
+    # each standalone call in a RoundStage of its own over fresh copies of
+    # the states it started from, launched as the plane launches it (one
+    # launch a card, a fresh epoch each); beside it the one-entry twin's
+    # launch on the same inputs (mesh_round_step at K = 1, else mesh_scan)
+    rounds = {}
+    for states, tables, units, t_now, seed, mp in sa["calls"]:
+        n, k = len(states), units.shape[0]
+        st = mesh.RoundStage((dev,) * n, n, k, units.shape[3],
+                             [x.clone() for x in states], tables)
+        st.units[...] = units
+        st.t_now[...] = t_now
+        args = (states, torch.from_numpy(units).to(dev), tables[0],
+                torch.from_numpy(t_now).to(dev), seed, mp)
+        whole = torch.cat(states, dim=1)
+        twin = ((lambda a=(whole, args[1][0], tables[0], int(t_now[0]),
+                           seed, mp): mesh.mesh_round_step(*a)) if k == 1
+                else (lambda a=(whole, *args[1:]): mesh.mesh_scan(*a)))
+        rounds.setdefault(k, []).append((
+            lambda st=st, seed=seed, mp=mp: launch(st, seed, mp),
+            lambda a=args: mesh.rounds_entries_plain(*a),
+            rounds_entry_work(torch, prop, *args), twin))
+    out["mesh_rounds_entry"] = []
+    for k, got in sorted(rounds.items()):
+        plain = [c[1] for c in got]
+        if k > 1:  # the plain version of a K = 32 call takes most of a second
+            plain = plain[:1]
+        row = measure_mesh(
+            torch, "mesh_rounds_entry", [c[0] for c in got], plain,
+            sum(c[2][0] for c in got) / len(got),
+            sum(c[2][1] for c in got) / len(got), rate,
+            f"{len(got)} standalone calls over four entries, K={k}, one "
+            f"launch a call (plain: {len(plain)} of them)",
+            plain_reps=1)
+        row["twin_ms"] = card_ms(torch, [c[3] for c in got], rate)
+        print(f"  the one-entry twin on the same {len(got)} calls "
+              f"({'mesh_round_step' if k == 1 else 'mesh_scan'}, one launch "
+              f"of the four shards): card {row['twin_ms']:.6f} ms",
+              flush=True)
+        out["mesh_rounds_entry"].append(row)
     k = 4
     sel = evenly(draw_windows, 64)
     buckets = sorted({x.shape[1] for x, *_ in sel})
@@ -6637,6 +6819,7 @@ def main(argv=None) -> int:
 
     # the device function's launches are those of the kernels that run it
     launches["threefry2x32"] = sum(launches[k] for k in THREEFRY_INSIDE)
+    phase("end")
     print(card, flush=True)
     if timing:
         kernels = []

@@ -16,6 +16,8 @@
 //                      them
 //   mesh_exchange_entry <- _exchange_rounds over a mesh of several devices:
 //                      one shard a device entry, one launch a card (below)
+//   mesh_rounds_entry <- _round_step and _scan_rounds over a mesh of
+//                      several devices, the same way (below)
 //
 // The shard axis. JAX runs one program per device of a mesh and moves the
 // exchange table with lax.all_to_all. Here one block owns one source shard
@@ -118,14 +120,27 @@
 // 4) was the host; here a window is one launch, one event and one sync a
 // card. Launches on distinct cards depend only on each other's stores,
 // never on stream order.
-// shadow_mesh_rounds_entry runs mesh_rounds_kernel<false> for shard s with
-// its (3, 1, hs) state, writing a destination's rows of all K rounds as
-// one block (no step of a round reads what it received, so the copies,
-// shadow_mesh_gather, follow the K-round launch); shadow_mesh_reduce runs
-// mesh_reduce_kernel on every entry's partials gathered on entry 0. Each
-// entry point launches on the calling thread's current device, which the
-// caller makes the stream's card. cudaFuncSetAttribute applies to the
-// current device only, so prepared<> prepares a kernel once per device.
+// mesh_rounds_entry_kernel runs the standalone rounds (K rounds, the
+// bucket state carried) the same way: ONE launch a card, block s running
+// shard s's K rounds through the one-device kernels' shard body
+// (shard_rounds, its state in place on its entry). No step of a round
+// reads what it received, so the rows need no barrier: block s stores
+// round j's rows for destination d straight into d's rows inbox [s, j],
+// which lives in page-locked host memory because only the host reads it.
+// After the K rounds it stores one trailer [sent, dropped, min t_arr,
+// rows to d] a round into d's trailer inbox (on d's card, over NVLink, or
+// in mapped host memory, as the exchange's inboxes), publishes the call's
+// epoch into d's flag and waits for its own N flags as the exchange does;
+// then it reduces every source's trailers into its own g_min (k,) and
+// counters (k, 2) (each entry holds them, as the reference's all_gather
+// and psum give every shard) and copies the counts for the host, which
+// reads only counted rows (a reused inbox keeps older rows past them). It
+// replaces a launch an entry, a memset an entry, N^2 copies and a
+// reduction launch (the first per-entry form, about 45 host calls and
+// 4 syncs a call at N = 4). Each entry point launches on the calling
+// thread's current device, which the caller makes the stream's card.
+// cudaFuncSetAttribute applies to the current device only, so prepared<>
+// prepares a kernel once per device.
 //
 // Bit identity. All math is integer, held to the plain PyTorch versions in
 // shadow_tpu_torch/parallel/mesh.py with tolerance 0:
@@ -171,6 +186,9 @@ typedef unsigned long long u64;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxShards = 32;
+// rounds of one mesh_rounds_entry launch (parallel/mesh.py MAX_ROUNDS, the
+// plane's SCAN_KMAX)
+constexpr int kMaxRounds = 32;
 // devices a process may launch the round kernels on (prepared<>)
 constexpr int kMaxDevices = 64;
 // blocks in one cluster: 8 is portable; 16 needs the non-portable attribute
@@ -758,33 +776,46 @@ mesh_exchange_entry_kernel(const i64* __restrict__ units, i64 plane, int n,
 
 // -- mesh_round_step and mesh_scan -------------------------------------------
 
-// The launch's blocks are shards s0 .. s0 + rows - 1 of n: block b holds
-// row b of the state, the units and the partials. One cluster launch holds
-// every shard (s0 = 0, rows = n); a shard on its own device entry is one
-// block (s0 = its index, rows = 1).
+// The launch's shapes and, for the one-device kernel, its tensors: block b
+// of mesh_rounds_kernel is shard b of n, row b of the state, the units and
+// the partials. mesh_rounds_entry_kernel takes each block's state and
+// tables from its RoundBlock and reads only the shapes, units and t_now_k
+// here.
 struct RoundArgs {
-  const i64* state_in;  // (3, rows, hs) [t_base, tokens, debt]
-  i64* state_out;       // (3, rows, hs), the state after the last round
+  const i64* state_in;  // (3, n, hs) [t_base, tokens, debt]
+  i64* state_out;       // (3, n, hs), the state after the last round
   const i64* host_node;  // (h_pad,)
   const i64* lat;        // (g, g)
   const i64* thresh;     // (g, g)
   const i64* rate;       // (h_pad,)
   const i64* cap;        // (h_pad,)
-  const i64* units;      // (k, 6, rows, c)
+  const i64* units;      // (k, 6, n, c)
   const i64* t_now_k;    // (k,), or null: one round at t_now
   i64 t_now;
-  // round j's rows from block b to destination d: received + j * r_step +
-  // d * r_dst + b * c * 4 (one cluster launch: (k, n, n, c, 4); one entry:
-  // (n, k, c, 4), a destination's rows of every round in one block)
-  i64* received;
-  i64 r_step, r_dst;
-  i64* partials;  // (k, rows, 3) [sent, dropped, min t_arr] per shard
+  i64* received;  // (k, n, n, c, 4): round j's rows from s to d at [j, d, s]
+  i64* partials;  // (k, n, 3) [sent, dropped, min t_arr] per shard
   i64* g_min;     // (k,)
   i64* counters;  // (k, 2) [sent, dropped]
-  int k, n, s0, rows, hs, c, h_pad, g;
+  int k, n, hs, c, h_pad, g;
   int win, tile;  // prefetched slots: src_l up to win, the rest up to tile
   int resident;   // tables and state in shared memory
   uint32_t k0, k1, width;
+};
+
+// Where one block's shard lives: its state (three planes st_plane apart;
+// read from st_in, written to st_out, which may be the same memory), the
+// tables it gathers from (rate and cap strided n: shard s's local host h
+// at h * n + s) and its rounds' times (t_now_k[j], or null: a.t_now).
+struct ShardIO {
+  const i64* st_in;
+  i64* st_out;
+  i64 st_plane;
+  const i64* host_node;
+  const i64* lat;
+  const i64* thresh;
+  const i64* rate;
+  const i64* cap;
+  const i64* t_now_k;
 };
 
 // Where a block reads its shard's bucket state (indexed by local host) and
@@ -832,6 +863,28 @@ struct RoundScratch {
   i64 carry[2];  // running sum of sizes, running max of segment bases
 };
 
+// Where mesh_rounds_kernel's block b puts a round's results: round j's
+// rows to destination d in the (k, n, n, c, 4) table (zeroed before the
+// launch), its partials in (k, n, 3).
+struct TableSink {
+  i64* received;
+  i64* partials;
+  int n, c, b;
+  __device__ i64* row(int j, int d) const {
+    return received + ((static_cast<i64>(j) * n + d) * n + b) * c * 4;
+  }
+  // every thread calls it after the round; the sums are thread 0's
+  __device__ void round_end(int j, i64 sent, i64 dropped, i64 mn,
+                            const int*) const {
+    if (threadIdx.x == 0) {
+      i64* p = partials + (static_cast<i64>(j) * n + b) * 3;
+      p[0] = sent;
+      p[1] = dropped;
+      p[2] = mn;
+    }
+  }
+};
+
 // debt[sl] += size, exact modulo 2^64. In shared memory as two native
 // 32-bit atomics, the low word's carry added to the high word (the H100
 // has no 64-bit shared-memory add: the compiler spins on a
@@ -856,16 +909,16 @@ __device__ __forceinline__ void add_debt(const View& v, int resident, i64 sl,
                  : "memory");
 }
 
-// Round j of shard s = s0 + b, b = blockIdx.x. Units are src-sorted within
-// each shard, padding (src_l >= hs) last. Writes the counted rows of round
-// j from s to every destination d (the rest of the table was zeroed before
-// the launch) and partials[j, b].
+// Round j of shard s at t_now. Units are src-sorted within each shard,
+// padding (src_l >= hs) last. Writes the counted rows of round j from s
+// to every destination d at sink.row(j, d) (the sink's rows past the
+// count are not written), then calls sink.round_end with the round's
+// sums (valid in thread 0) and each destination's count.
+template <typename Sink>
 __device__ void round_body(const RoundArgs& a, const View& v, const Cols& u,
-                           int j, RoundScratch* rs) {
-  const int b = blockIdx.x;
-  const int s = a.s0 + b;
+                           int j, int s, i64 t_now, const Sink& sink,
+                           RoundScratch* rs) {
   const int n = a.n, hs = a.hs, c = a.c;
-  const i64 t_now = a.t_now_k ? a.t_now_k[j] : a.t_now;
   // lazy saturation rebase at the barrier (fluid.TokenBuckets.rebase), and
   // the real prefix: slots [0, p) hold every unit with src_l < hs
   for (int h = threadIdx.x; h < hs; h += kThreads) {
@@ -888,7 +941,6 @@ __device__ void round_body(const RoundArgs& a, const View& v, const Cols& u,
     rs->carry[1] = kNegInf;
   }
   const int p = block_max(last, rs->red_i) + 1;
-  i64* rcv = a.received + j * a.r_step + static_cast<i64>(b) * c * 4;
   i64 sent = 0, dropped_ct = 0, my_min = kInf;
   for (int base = 0; base < p; base += kThreads) {
     const int i = base + threadIdx.x;
@@ -957,7 +1009,7 @@ __device__ void round_body(const RoundArgs& a, const View& v, const Cols& u,
     }
     const int rank = tile_rank(ds, active, n, &rs->sc, one_warp);
     if (ds < n)
-      put_row(rcv + ds * a.r_dst + static_cast<i64>(rank) * 4,
+      put_row(sink.row(j, ds) + static_cast<i64>(rank) * 4,
               floordiv(dst_g, n), t_arr, uid, flags);
     if (threadIdx.x == 0) {
       rs->carry[0] = wadd(rs->carry[0], tile_sum);
@@ -976,52 +1028,21 @@ __device__ void round_body(const RoundArgs& a, const View& v, const Cols& u,
     }
   }
   block_sum_sum_min(&sent, &dropped_ct, &my_min, rs->red);
-  if (threadIdx.x == 0) {
-    i64* part = a.partials + (static_cast<i64>(j) * a.rows + b) * 3;
-    part[0] = sent;
-    part[1] = dropped_ct;
-    part[2] = my_min;
-  }
+  // rows to each destination: the ranks' running counts
+  sink.round_end(j, sent, dropped_ct, my_min, rs->sc.carry);
   __syncthreads();  // state, scratch and carries are reused by the next round
 }
 
-// n shards' partials of rounds [j0, k) -> g_min and counters, one round a
-// thread of the calling threads: round j of shard s at partials + (j * js +
-// s * ss) * 3 ((k, n, 3): js = n, ss = 1; gathered from n entries, (n, k,
-// 3): js = 1, ss = k).
-__device__ void reduce_rounds(const i64* __restrict__ partials, int n, int k,
-                              i64 js, i64 ss, int j0, int stride,
-                              i64* __restrict__ g_min,
-                              i64* __restrict__ counters) {
-  for (int j = j0; j < k; j += stride) {
-    i64 sent = 0, dropped = 0, g = kInf;
-    for (int s = 0; s < n; ++s) {
-      const i64* p = partials + (j * js + s * ss) * 3;
-      sent = wadd(sent, p[0]);
-      dropped = wadd(dropped, p[1]);
-      g = p[2] < g ? p[2] : g;
-    }
-    g_min[j] = g;
-    counters[2 * j] = sent;
-    counters[2 * j + 1] = dropped;
-  }
-}
-
-// K rounds (K = 1 for mesh_round_step) in one launch, block b = shard s0 +
-// b, its bucket state carried from round to round in shared memory
-// (resident) or in state_out. kCluster: the n blocks are one cluster and
-// block 0 reduces every round's partials after the last round; otherwise
-// mesh_reduce_kernel does, as a second launch (after the partials of
-// every entry are gathered, when each shard is a launch of its own).
-template <bool kCluster>
-__global__ void __launch_bounds__(kThreads) mesh_rounds_kernel(RoundArgs a) {
-  extern __shared__ __align__(16) i64 dyn[];
-  __shared__ RoundScratch rs;
-  const int b = blockIdx.x;
-  const int s = a.s0 + b;
+// The K rounds (K = 1 for mesh_round_step) of shard s, whose slots are row
+// `row` of the (k, 6, n, c) units, in one block: its bucket state carried
+// from round to round in shared memory (resident) or in io.st_out, the
+// rounds' results into `sink`. The body of both round kernels.
+template <typename Sink>
+__device__ void shard_rounds(const RoundArgs& a, const ShardIO& io, int row,
+                             int s, const Sink& sink, i64* dyn,
+                             RoundScratch* rs) {
   const int n = a.n, hs = a.hs, gg = a.g * a.g;
-  const i64 sh = static_cast<i64>(b) * hs;
-  const i64 st_plane = static_cast<i64>(a.rows) * hs;
+  const i64 sp = io.st_plane;
   View v;
   i64* bufs;
   if (a.resident) {
@@ -1036,17 +1057,17 @@ __global__ void __launch_bounds__(kThreads) mesh_rounds_kernel(RoundArgs a) {
     i64* th_s = lat_s + gg;
     bufs = th_s + gg;
     for (int h = threadIdx.x; h < hs; h += kThreads) {
-      cp_async8(v.tb + h, a.state_in + sh + h);
-      cp_async8(v.tok + h, a.state_in + st_plane + sh + h);
-      cp_async8(v.debt + h, a.state_in + 2 * st_plane + sh + h);
-      cp_async8(rate_s + h, a.rate + static_cast<i64>(h) * n + s);
-      cp_async8(cap_s + h, a.cap + static_cast<i64>(h) * n + s);
+      cp_async8(v.tb + h, io.st_in + h);
+      cp_async8(v.tok + h, io.st_in + sp + h);
+      cp_async8(v.debt + h, io.st_in + 2 * sp + h);
+      cp_async8(rate_s + h, io.rate + static_cast<i64>(h) * n + s);
+      cp_async8(cap_s + h, io.cap + static_cast<i64>(h) * n + s);
     }
     for (int i = threadIdx.x; i < a.h_pad; i += kThreads)
-      cp_async8(node_s + i, a.host_node + i);
+      cp_async8(node_s + i, io.host_node + i);
     for (int i = threadIdx.x; i < gg; i += kThreads) {
-      cp_async8(lat_s + i, a.lat + i);
-      cp_async8(th_s + i, a.thresh + i);
+      cp_async8(lat_s + i, io.lat + i);
+      cp_async8(th_s + i, io.thresh + i);
     }
     v.rate = rate_s;
     v.cap = cap_s;
@@ -1056,25 +1077,25 @@ __global__ void __launch_bounds__(kThreads) mesh_rounds_kernel(RoundArgs a) {
     v.thresh = th_s;
   } else {
     bufs = dyn;
-    v.tb = a.state_out + sh;
-    v.tok = a.state_out + st_plane + sh;
-    v.debt = a.state_out + 2 * st_plane + sh;
+    v.tb = io.st_out;
+    v.tok = io.st_out + sp;
+    v.debt = io.st_out + 2 * sp;
     for (int h = threadIdx.x; h < hs; h += kThreads) {
-      v.tb[h] = a.state_in[sh + h];
-      v.tok[h] = a.state_in[st_plane + sh + h];
-      v.debt[h] = a.state_in[2 * st_plane + sh + h];
+      v.tb[h] = io.st_in[h];
+      v.tok[h] = io.st_in[sp + h];
+      v.debt[h] = io.st_in[2 * sp + h];
     }
-    v.rate = a.rate + s;
-    v.cap = a.cap + s;
+    v.rate = io.rate + s;
+    v.cap = io.cap + s;
     v.rstride = n;
-    v.node = a.host_node;
-    v.lat = a.lat;
-    v.thresh = a.thresh;
+    v.node = io.host_node;
+    v.lat = io.lat;
+    v.thresh = io.thresh;
   }
-  const i64 plane = static_cast<i64>(a.rows) * a.c;
+  const i64 plane = static_cast<i64>(n) * a.c;
   const int bsz = a.win + 5 * a.tile;
   const int k = a.k > 0 ? a.k : 1;
-  const i64* u0 = a.units + static_cast<i64>(b) * a.c;
+  const i64* u0 = a.units + static_cast<i64>(row) * a.c;
   prefetch_round(u0, bufs, plane, a.win, a.tile);
   cp_async_commit();
   for (int j = 0; j < k; ++j) {
@@ -1086,32 +1107,215 @@ __global__ void __launch_bounds__(kThreads) mesh_rounds_kernel(RoundArgs a) {
     cp_async_commit();
     const Cols u{u0 + j * 6 * plane, bufs + (j & 1) * bsz, plane, a.win,
                  a.tile};
-    round_body(a, v, u, j, &rs);
+    round_body(a, v, u, j, s, io.t_now_k ? io.t_now_k[j] : a.t_now, sink,
+               rs);
   }
   if (a.resident) {
     for (int h = threadIdx.x; h < hs; h += kThreads) {
-      a.state_out[sh + h] = v.tb[h];
-      a.state_out[st_plane + sh + h] = v.tok[h];
-      a.state_out[2 * st_plane + sh + h] = v.debt[h];
+      io.st_out[h] = v.tb[h];
+      io.st_out[sp + h] = v.tok[h];
+      io.st_out[2 * sp + h] = v.debt[h];
     }
   }
+}
+
+// n shards' partials (k, n, 3) of rounds [j0, k) -> g_min and counters,
+// one round a thread of the calling threads.
+__device__ void reduce_rounds(const i64* __restrict__ partials, int n, int k,
+                              int j0, int stride, i64* __restrict__ g_min,
+                              i64* __restrict__ counters) {
+  for (int j = j0; j < k; j += stride) {
+    i64 sent = 0, dropped = 0, g = kInf;
+    for (int s = 0; s < n; ++s) {
+      const i64* p = partials + (static_cast<i64>(j) * n + s) * 3;
+      sent = wadd(sent, p[0]);
+      dropped = wadd(dropped, p[1]);
+      g = p[2] < g ? p[2] : g;
+    }
+    g_min[j] = g;
+    counters[2 * j] = sent;
+    counters[2 * j + 1] = dropped;
+  }
+}
+
+// K rounds (K = 1 for mesh_round_step) in one launch, block b = shard b.
+// kCluster: the n blocks are one cluster and block 0 reduces every round's
+// partials after the last round; otherwise mesh_reduce_kernel does, as a
+// second launch.
+template <bool kCluster>
+__global__ void __launch_bounds__(kThreads) mesh_rounds_kernel(RoundArgs a) {
+  extern __shared__ __align__(16) i64 dyn[];
+  __shared__ RoundScratch rs;
+  const int b = blockIdx.x;
+  const i64 sh = static_cast<i64>(b) * a.hs;
+  const ShardIO io{a.state_in + sh, a.state_out + sh,
+                   static_cast<i64>(a.n) * a.hs, a.host_node, a.lat,
+                   a.thresh, a.rate, a.cap, a.t_now_k};
+  shard_rounds(a, io, b, b, TableSink{a.received, a.partials, a.n, a.c, b},
+               dyn, &rs);
   if constexpr (kCluster) {
     __threadfence();
     cg::this_cluster().sync();
     if (b == 0)
-      reduce_rounds(a.partials, n, k, n, 1, threadIdx.x, kThreads, a.g_min,
-                    a.counters);
+      reduce_rounds(a.partials, a.n, a.k > 0 ? a.k : 1, threadIdx.x,
+                    kThreads, a.g_min, a.counters);
   }
 }
 
-// Partials -> g_min (k,) and counters (k, 2): N > kClusterMax (partials
-// (k, n, 3)), or every entry's (steps, 3) gathered on entry 0 ((n, k, 3)).
+// Partials (k, n, 3) -> g_min (k,) and counters (k, 2), N > kClusterMax.
 __global__ void mesh_reduce_kernel(const i64* __restrict__ partials, int n,
-                                   int k, i64 js, i64 ss,
-                                   i64* __restrict__ g_min,
+                                   int k, i64* __restrict__ g_min,
                                    i64* __restrict__ counters) {
-  reduce_rounds(partials, n, k, js, ss, blockIdx.x * blockDim.x + threadIdx.x,
+  reduce_rounds(partials, n, k, blockIdx.x * blockDim.x + threadIdx.x,
                 gridDim.x * blockDim.x, g_min, counters);
+}
+
+// -- mesh_rounds_entry -------------------------------------------------------
+
+// One block of a mesh_rounds_entry launch, in device memory on the
+// launch's card (parallel/mesh.py round_block_table; every address is a
+// card address, of device or mapped host memory).
+struct RoundBlock {
+  i64 shard;      // the entry's shard s
+  i64 state;      // its (3, 1, hs) state, advanced in place
+  i64 host_node;  // its copy of the tables
+  i64 lat;
+  i64 thresh;
+  i64 rate;
+  i64 cap;
+  i64 out;     // its g_min (k,), counters (k, 2), then counts (n, k)
+  i64 status;  // [code, late source, epoch, flag seen]
+  i64 pad;
+  i64 rows[kMaxShards];         // destination d's (k, c, 4) rows from s
+  i64 trailer[kMaxShards];      // destination d's (k, 4) trailers from s
+  i64 flag[kMaxShards];         // destination d's flag for source s
+  i64 own_trailer[kMaxShards];  // the entry's own trailers from source j
+  i64 own_flag[kMaxShards];     // the entry's own flag for source j
+};
+constexpr int kRoundBlockWords = 5 * kMaxShards + 10;
+static_assert(sizeof(RoundBlock) == 8 * kRoundBlockWords,
+              "RoundBlock is parallel/mesh.py ROUND_BLOCK_WORDS int64 words");
+
+// Where mesh_rounds_entry_kernel's block puts a round's results: its rows
+// to destination d straight into d's rows inbox (rows[d], shared), its
+// sums and counts into shared memory for the trailers.
+struct EntrySink {
+  i64* const* rows;
+  i64 (*part)[3];
+  int (*cnt)[kMaxShards];
+  int n, c;
+  __device__ i64* row(int j, int d) const {
+    return rows[d] + static_cast<i64>(j) * c * 4;
+  }
+  __device__ void round_end(int j, i64 sent, i64 dropped, i64 mn,
+                            const int* carry) const {
+    if (threadIdx.x == 0) {
+      part[j][0] = sent;
+      part[j][1] = dropped;
+      part[j][2] = mn;
+    }
+    if (threadIdx.x < n) cnt[j][threadIdx.x] = carry[threadIdx.x];
+  }
+};
+
+// Block b is the entry table[b].shard of n: it runs its shard's k rounds
+// (shard_rounds, its state in place), storing round j's rows for
+// destination d into rows[d] + j * c * 4; then, for every destination d,
+// the trailers [sent, dropped, min t_arr, rows to d] of its k rounds into
+// trailer[d]; publishes `epoch` into flag[d]; waits for its own n flags to
+// hold `epoch` (at most timeout_ns, else it writes status [kStatusLate,
+// source, epoch, flag seen] and returns); then reduces every source's
+// trailers into out: g_min (k,), counters (k, 2) [sent, dropped], and
+// copies the counts (source j's rows of round r at [j, r]) after them,
+// and writes kStatusOk.
+__global__ void __launch_bounds__(kThreads)
+mesh_rounds_entry_kernel(RoundArgs a, i64 epoch, i64 timeout_ns,
+                         const RoundBlock* __restrict__ table) {
+  extern __shared__ __align__(16) i64 dyn[];
+  __shared__ RoundScratch rs;
+  __shared__ i64* rows[kMaxShards];
+  __shared__ i64 t_now[kMaxRounds];
+  __shared__ i64 part[kMaxRounds][3];
+  __shared__ int cnt[kMaxRounds][kMaxShards];
+  __shared__ i64 seen[kMaxShards];
+  __shared__ int late;  // the first source whose flag never came, else n
+  const RoundBlock* e = table + blockIdx.x;
+  const int s = static_cast<int>(e->shard);
+  const int n = a.n, k = a.k;
+  if (threadIdx.x < n)
+    rows[threadIdx.x] = reinterpret_cast<i64*>(e->rows[threadIdx.x]);
+  // the times land with round 0's columns (the first wait in shard_rounds)
+  if (threadIdx.x < k)
+    cp_async8(t_now + threadIdx.x, a.t_now_k + threadIdx.x);
+  if (threadIdx.x == 0) late = n;
+  __syncthreads();
+  i64* st = reinterpret_cast<i64*>(e->state);
+  const ShardIO io{st,
+                   st,
+                   a.hs,
+                   reinterpret_cast<const i64*>(e->host_node),
+                   reinterpret_cast<const i64*>(e->lat),
+                   reinterpret_cast<const i64*>(e->thresh),
+                   reinterpret_cast<const i64*>(e->rate),
+                   reinterpret_cast<const i64*>(e->cap),
+                   t_now};
+  shard_rounds(a, io, s, s, EntrySink{rows, part, cnt, n, a.c}, dyn, &rs);
+  for (int i = threadIdx.x; i < n * k; i += kThreads) {
+    const int d = i / k, j = i - d * k;
+    put_row(reinterpret_cast<i64*>(e->trailer[d]) + j * 4, part[j][0],
+            part[j][1], part[j][2], cnt[j][d]);
+  }
+  // every row and trailer of this block reaches every destination before
+  // any flag says so
+  __threadfence_system();
+  __syncthreads();
+  if (threadIdx.x < n) {
+    store_release_sys(reinterpret_cast<i64*>(e->flag[threadIdx.x]), epoch);
+    const i64* f = reinterpret_cast<const i64*>(e->own_flag[threadIdx.x]);
+    const u64 t0 = global_ns();
+    i64 v;
+    while ((v = load_acquire_sys(f)) != epoch) {
+      if (global_ns() - t0 > static_cast<u64>(timeout_ns)) {
+        atomicMin(&late, static_cast<int>(threadIdx.x));
+        break;
+      }
+      __nanosleep(64);
+    }
+    seen[threadIdx.x] = v;
+  }
+  // the acquires above, then this barrier, order every source's trailers
+  // before the reads below
+  __syncthreads();
+  i64* status = reinterpret_cast<i64*>(e->status);
+  if (late < n) {
+    if (threadIdx.x == 0) {
+      status[1] = late;
+      status[2] = epoch;
+      status[3] = seen[late];
+      status[0] = kStatusLate;
+    }
+    return;
+  }
+  i64* out = reinterpret_cast<i64*>(e->out);
+  for (int j = threadIdx.x; j < k; j += kThreads) {
+    i64 sent = 0, dropped = 0, g = kInf;
+    for (int src = 0; src < n; ++src) {
+      const i64* t =
+          reinterpret_cast<const i64*>(e->own_trailer[src]) + j * 4;
+      sent = wadd(sent, t[0]);
+      dropped = wadd(dropped, t[1]);
+      g = t[2] < g ? t[2] : g;
+    }
+    out[j] = g;
+    out[k + 2 * j] = sent;
+    out[k + 2 * j + 1] = dropped;
+  }
+  for (int i = threadIdx.x; i < n * k; i += kThreads) {
+    const int src = i / k, j = i - src * k;
+    out[3 * k + i] =
+        reinterpret_cast<const i64*>(e->own_trailer[src])[j * 4 + 3];
+  }
+  if (threadIdx.x == 0) status[0] = kStatusOk;
 }
 
 // -- launch helpers ----------------------------------------------------------
@@ -1192,16 +1396,15 @@ bool misaligned(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
 }
 
-// The round kernel's arguments for shards s0 .. s0 + rows - 1 of n
-// (g_min and counters left null: only the cluster launch and
-// mesh_reduce_kernel write them).
-RoundArgs round_args(const void* state_in, void* state_out, int n, int s0,
-                     int rows, int hs, const void* units, int c, int k,
-                     long long t_now, const void* t_now_k,
-                     const void* host_node, int h_pad, const void* lat,
-                     const void* thresh, int g, const void* rate,
-                     const void* cap, uint32_t k0, uint32_t k1, int width,
-                     int resident, void* received, i64 r_step, i64 r_dst,
+// The round kernels' arguments (g_min and counters left null: only the
+// cluster launch and mesh_reduce_kernel write them; mesh_rounds_entry
+// passes no tensor but the units and t_now_k).
+RoundArgs round_args(const void* state_in, void* state_out, int n, int hs,
+                     const void* units, int c, int k, long long t_now,
+                     const void* t_now_k, const void* host_node, int h_pad,
+                     const void* lat, const void* thresh, int g,
+                     const void* rate, const void* cap, uint32_t k0,
+                     uint32_t k1, int width, int resident, void* received,
                      void* partials) {
   RoundArgs a;
   a.state_in = static_cast<const i64*>(state_in);
@@ -1215,15 +1418,11 @@ RoundArgs round_args(const void* state_in, void* state_out, int n, int s0,
   a.t_now_k = static_cast<const i64*>(t_now_k);
   a.t_now = t_now;
   a.received = static_cast<i64*>(received);
-  a.r_step = r_step;
-  a.r_dst = r_dst;
   a.partials = static_cast<i64*>(partials);
   a.g_min = nullptr;
   a.counters = nullptr;
   a.k = k;
   a.n = n;
-  a.s0 = s0;
-  a.rows = rows;
   a.hs = hs;
   a.c = c;
   a.h_pad = h_pad;
@@ -1314,11 +1513,9 @@ int shadow_mesh_rounds(const void* state_in, void* state_out, int n, int hs,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int steps = k == 0 ? 1 : k;
-  RoundArgs a = round_args(state_in, state_out, n, 0, n, hs, units, c, k,
-                           t_now, t_now_k, host_node, h_pad, lat, thresh, g,
-                           rate, cap, k0, k1, width, resident, received,
-                           static_cast<i64>(n) * n * c * 4,
-                           static_cast<i64>(n) * c * 4, partials);
+  RoundArgs a = round_args(state_in, state_out, n, hs, units, c, k, t_now,
+                           t_now_k, host_node, h_pad, lat, thresh, g, rate,
+                           cap, k0, k1, width, resident, received, partials);
   a.g_min = static_cast<i64*>(g_min);
   a.counters = static_cast<i64*>(counters);
   // the rows past each destination's count are zero: one memset over the
@@ -1335,7 +1532,7 @@ int shadow_mesh_rounds(const void* state_in, void* state_out, int n, int hs,
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   mesh_reduce_kernel<<<(steps + 127) / 128, 128, 0, st>>>(
-      a.partials, n, steps, n, 1, a.g_min, a.counters);
+      a.partials, n, steps, a.g_min, a.counters);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1381,73 +1578,38 @@ int shadow_mesh_enable_peer(int peer) {
   return static_cast<int>(e);
 }
 
-// Shard s of n, k >= 1 rounds (units (k, 6, 1, c) at t_now_k (k,)):
-// state_in (3, 1, hs) -> state_out; received (n, k, c, 4), destination d's
-// rows of every round in block d; partials (k, 3) [sent, dropped, min
-// t_arr]. The tables are whole (replicated on every entry); resident as
-// shadow_mesh_rounds.
-int shadow_mesh_rounds_entry(const void* state_in, void* state_out, int s,
-                             int n, int hs, const void* units, int c, int k,
-                             const void* t_now_k,
-                             const void* host_node, int h_pad,
-                             const void* lat, const void* thresh, int g,
-                             const void* rate, const void* cap, uint32_t k0,
-                             uint32_t k1, int width, int resident,
-                             void* received, void* partials, void* stream) {
+// K rounds of the n shards of a mesh over device entries, for the `blocks`
+// entries this card holds: table (blocks RoundBlocks in this card's
+// memory) names each block's shard, state, tables, inbox slots, flags,
+// output and status. units (k, 6, n, c), field f of shard s's slot i in
+// round j at units[(j * 6 + f) * n * c + s * c + i], and t_now_k (k,) are
+// read in place (the plane's page-locked stage). One launch of the blocks
+// that runs them all at once: one cluster, or with `cooperative` one
+// cooperative launch (every block resident, or the launch fails). epoch >=
+// 1 is the call's; a block waits at most timeout_ns for each source's
+// flag. resident: tables and state in shared memory (round_smem_bytes must
+// fit).
+int shadow_mesh_rounds_entry(const void* units, const void* t_now_k, int n,
+                             int hs, int c, int k, int h_pad, int g,
+                             uint32_t k0, uint32_t k1, int width,
+                             int resident, long long epoch,
+                             long long timeout_ns, const void* table,
+                             int blocks, int cooperative, void* stream) {
   const i64 smem = round_smem_bytes(hs, c, h_pad, g, resident != 0);
-  if (bad_shape(n, c, width) || s < 0 || s >= n || hs < 1 || k < 1 ||
-      g < 1 || h_pad != n * hs || smem > kDynSmemMax ||
-      misaligned(received) || t_now_k == nullptr)
+  if (bad_shape(n, c, width) || hs < 1 || k < 1 || k > kMaxRounds || g < 1 ||
+      h_pad != n * hs || smem > kDynSmemMax || blocks < 1 || blocks > n ||
+      (!cooperative && blocks > kClusterMax) || epoch < 1 ||
+      timeout_ns < 1 || units == nullptr || t_now_k == nullptr ||
+      table == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const RoundArgs a = round_args(
-      state_in, state_out, n, s, 1, hs, units, c, k, 0, t_now_k, host_node,
-      h_pad, lat, thresh, g, rate, cap, k0, k1, width, resident, received,
-      static_cast<i64>(c) * 4, static_cast<i64>(k) * c * 4, partials);
-  cudaError_t e = cudaMemsetAsync(received, 0, 32LL * n * k * c, st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = prepared<mesh_rounds_kernel<false>>(false);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  mesh_rounds_kernel<false><<<1, kThreads, smem, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Every entry's partials gathered on one entry, (n, k, 3) -> g_min (k,) and
-// counters (k, 2).
-int shadow_mesh_reduce(const void* partials, int n, int k, void* g_min,
-                       void* counters, void* stream) {
-  if (n < 1 || n > kMaxShards || k < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  mesh_reduce_kernel<<<(k + 127) / 128, 128, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const i64*>(partials), n, k, 1, k,
-      static_cast<i64*>(g_min), static_cast<i64*>(counters));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The copies between entries: dst + j * bytes <- srcs[j] + offset for the
-// n sources, on stream (the destination entry's), src_devs[j] and dst_dev
-// the cards that hold them. A copy between two cards is a peer copy, which
-// CUDA stages through host memory where the cards cannot reach each
-// other.
-int shadow_mesh_gather(void* dst, int dst_dev, void* const* srcs,
-                       const int* src_devs, int n, long long bytes,
-                       long long offset, void* stream) {
-  if (n < 1 || bytes < 0 || offset < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  char* to = static_cast<char*>(dst);
-  for (int j = 0; j < n; ++j) {
-    const char* from = static_cast<const char*>(srcs[j]) + offset;
-    const cudaError_t e =
-        src_devs[j] == dst_dev
-            ? cudaMemcpyAsync(to + j * bytes, from, bytes,
-                              cudaMemcpyDeviceToDevice, st)
-            : cudaMemcpyPeerAsync(to + j * bytes, dst_dev, from,
-                                  src_devs[j], bytes, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return 0;
+  const RoundArgs a = round_args(nullptr, nullptr, n, hs, units, c, k, 0,
+                                 t_now_k, nullptr, h_pad, nullptr, nullptr, g,
+                                 nullptr, nullptr, k0, k1, width, resident,
+                                 nullptr, nullptr);
+  return static_cast<int>(launch_together<mesh_rounds_entry_kernel>(
+      blocks, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream),
+      cooperative != 0, a, static_cast<i64>(epoch),
+      static_cast<i64>(timeout_ns), static_cast<const RoundBlock*>(table)));
 }
 
 const char* shadow_cuda_error_string(int code) {

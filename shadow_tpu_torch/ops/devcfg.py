@@ -88,19 +88,10 @@ _SIGNATURES = {
         "shadow_mesh_enable_peer": (ctypes.c_int, [ctypes.c_int]),
         "shadow_mesh_rounds_entry": (ctypes.c_int, [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
-            ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]),
-        "shadow_mesh_reduce": (ctypes.c_int, [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]),
-        "shadow_mesh_gather": (ctypes.c_int, [
-            ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_void_p]),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
         "shadow_device_pointer": _DEVICE_POINTER,
         "shadow_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },

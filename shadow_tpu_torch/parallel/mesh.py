@@ -33,12 +33,14 @@ exchange is ``mesh_exchange_entry``: one launch a card, one block an entry
 it holds, each block storing its rows straight into every destination's
 inbox (on its card, on a peer card over NVLink, or in mapped host memory:
 ``entry_plan`` gives each pair's route) and waiting on the other blocks'
-release/acquire flags before it receives. The standalone rounds run each
-shard's rounds on its entry (``mesh_rounds_entry``), copy each
-destination's rows between entries (``gather``) and reduce the barrier
-minimum and the counters on entry 0 (``mesh_reduce``); no step of a round
-reads what it received, so a K-round launch an entry is followed by one
-set of copies of all K tables.
+release/acquire flags before it receives. The standalone rounds are
+``mesh_rounds_entry``, the same way: one launch a card, one block an
+entry running its shard's K rounds on its state in place, storing each
+round's rows for every destination into that destination's rows inbox
+(page-locked: the host reads it) and one trailer a round into its trailer
+inbox, then waiting on the flags and reducing every source's trailers
+into its own barrier minima and counters (``RoundStage``, kept per
+(N, K, C) bucket).
 
 Launch paths of the one-device layout, chosen by shape alone
 (``exchange_path``, ``round_path``; csrc/mesh.cu says why): up to
@@ -64,7 +66,6 @@ holds the plain versions to the reference's programs with tolerance 0).
 
 from __future__ import annotations
 
-import ctypes
 import time as _walltime  # detlint: ok(wallclock): per-window wall attribution
 from typing import NamedTuple
 
@@ -97,18 +98,20 @@ _M32 = 0xFFFFFFFF
 #: kernel launches per wrapper since the last reset_launches(); only CUDA
 #: launches count (the plain version on a CPU tensor is not a launch)
 LAUNCHES = {"mesh_exchange": 0, "mesh_round_step": 0, "mesh_scan": 0,
-            "mesh_exchange_entry": 0, "mesh_rounds_entry": 0,
-            "mesh_reduce": 0}
+            "mesh_exchange_entry": 0, "mesh_rounds_entry": 0}
 #: the per-entry kernels' blocks by device entry index since the last
-#: reset_launches(): mesh_exchange_entry's block of every entry its launch
-#: holds, mesh_rounds_entry's of its shard, mesh_reduce's on entry 0
+#: reset_launches(): the block of every entry a mesh_exchange_entry or
+#: mesh_rounds_entry launch holds
 ENTRY_LAUNCHES: dict = {}
 #: wrapper calls per launch path since the last reset_launches(): the
-#: exchange's three paths, and the rounds' launch shape (cluster or pair)
-#: and where their tables live (shared or device memory)
+#: exchange's three paths, the rounds' launch shape (cluster or pair) and
+#: where their tables live (shared or device memory), and how a card's
+#: mesh_rounds_entry launch keeps its blocks together (cluster or
+#: cooperative; rounds_entry_path)
 PATHS = {"exchange_cluster_smem": 0, "exchange_cluster_global": 0,
          "exchange_pair": 0, "rounds_cluster": 0, "rounds_pair": 0,
-         "rounds_smem": 0, "rounds_global": 0}
+         "rounds_smem": 0, "rounds_global": 0, "entry_rounds_cluster": 0,
+         "entry_rounds_cooperative": 0}
 #: exchange_path's names, in csrc/mesh.cu's numbering of the paths
 _EXCHANGE_PATHS = ("pair", "cluster_global", "cluster_smem")
 #: int64 words of one block's table in mesh_exchange_entry (csrc/mesh.cu
@@ -118,10 +121,18 @@ ENTRY_BLOCK_WORDS = 4 * MAX_SHARDS + 4
 #: STATUS_PENDING (written by the host before a launch), STATUS_OK or
 #: STATUS_LATE (a source's flag never came)
 STATUS_PENDING, STATUS_OK, STATUS_LATE = -1, 0, 1
-#: how long a block of mesh_exchange_entry waits for a source's flag: far
-#: past a window's microseconds, so only a source that never publishes
-#: (a launch that never ran, a lost card) reaches it
+#: how long a block of mesh_exchange_entry or mesh_rounds_entry waits for
+#: a source's flag: far past a call's microseconds, so only a source that
+#: never publishes (a launch that never ran, a lost card) reaches it
 ENTRY_TIMEOUT_NS = 10 * NS_PER_SEC
+#: rounds of one mesh_rounds_entry call at most (csrc/mesh.cu kMaxRounds;
+#: MeshDataPlane.SCAN_KMAX)
+MAX_ROUNDS = 32
+#: int64 words of one block's table in mesh_rounds_entry (csrc/mesh.cu
+#: RoundBlock: shard, state, the five tables, output, status, pad, then
+#: MAX_SHARDS each of rows, trailer and flag addresses of the destinations
+#: and of its own trailers and flags)
+ROUND_BLOCK_WORDS = 5 * MAX_SHARDS + 10
 
 
 def reset_launches() -> None:
@@ -160,6 +171,14 @@ def round_path(n: int, hs: int, c: int, g: int) -> tuple:
     shards; tables and state in shared memory where they fit SMEM_MAX."""
     return (n <= CLUSTER_MAX,
             round_smem_bytes(hs, c, n * hs, g, True) <= SMEM_MAX)
+
+
+def rounds_entry_path(blocks: int) -> str:
+    """How a card's mesh_rounds_entry launch keeps its ``blocks`` blocks
+    resident together (they wait on each other's flags): ``cluster`` (one
+    thread block cluster, up to CLUSTER_MAX blocks) or ``cooperative``
+    (above it)."""
+    return "cluster" if blocks <= CLUSTER_MAX else "cooperative"
 
 
 # -- plain PyTorch versions ---------------------------------------------------
@@ -347,9 +366,10 @@ def scan_rounds_plain(state: torch.Tensor, units_k: torch.Tensor, tables,
 # -- plain versions of the per-entry halves ---------------------------------
 # One shard on its own device entry: the send half of exchange_rounds_plain
 # on the source's entry, the receive half on the destination's from the
-# blocks every source stored into its inbox; the rounds of one shard, then
-# the reduction of every entry's partials on entry 0. Composed over every
-# shard they give the whole-mesh versions above.
+# blocks every source stored into its inbox; the rounds of one shard, their
+# rows stored into every destination's inbox, then each entry's reduction
+# of every source's partials. Composed over every shard they give the
+# whole-mesh versions above.
 
 def send_plain(units: torch.Tensor, s: int, seed: int,
                max_pkts: int) -> torch.Tensor:
@@ -412,12 +432,12 @@ def exchange_entry_plain(units: torch.Tensor, seed: int, max_pkts: int,
 def rounds_entry_plain(state: torch.Tensor, units_k: torch.Tensor, tables,
                        t_now_k: torch.Tensor, s: int, n: int, seed: int,
                        max_pkts: int):
-    """Plain version of mesh_rounds_entry: shard s of n alone, K rounds.
+    """Shard s of n alone, K rounds (one block of mesh_rounds_entry).
     ``state``: (3, 1, Hs); ``units_k``: (K, 6, 1, C); ``t_now_k``: (K,);
     ``tables`` whole, as round_step_plain's. Returns (received (N, K, C,
-    4): [d, j] the rows shard s routed to shard d in round j; the state
-    after the last round; partials (K, 3) [sent, dropped, earliest t_arr of
-    a routed unit])."""
+    4): [d, j] the rows shard s routed to shard d in round j, zero rows
+    after them; the state after the last round; partials (K, 3) [sent,
+    dropped, earliest t_arr of a routed unit])."""
     recv, part = [], []
     shard = torch.tensor([s], dtype=torch.int64)
     for j in range(units_k.shape[0]):
@@ -429,11 +449,62 @@ def rounds_entry_plain(state: torch.Tensor, units_k: torch.Tensor, tables,
 
 
 def reduce_plain(partials: torch.Tensor):
-    """Plain version of mesh_reduce: every shard's partials (N, K, 3) ->
-    (g_min (K,), counters (K, 2) [sent, dropped])."""
+    """Every shard's partials (N, K, 3) -> (g_min (K,), counters (K, 2)
+    [sent, dropped]): the barrier minimum and the counters of each
+    round."""
     return (partials[..., 2].min(dim=0).values,
             torch.stack([partials[..., 0].sum(dim=0),
                          partials[..., 1].sum(dim=0)], dim=-1))
+
+
+def rounds_entries_plain(states, units_k: torch.Tensor, tables,
+                         t_now_k: torch.Tensor, seed: int, max_pkts: int,
+                         rows: torch.Tensor = None):
+    """Plain version of mesh_rounds_entry: every shard's K rounds alone
+    (rounds_entry_plain), its counted rows of round j for destination d
+    stored into d's rows inbox at ``rows[d, s, j]`` (only those rows, as
+    the kernel's stores: rows past a count keep what an earlier call
+    left) and their count at ``counts[d, s, j]``, then each entry's
+    reduction of every source's partials (reduce_plain; every entry's is
+    the same). ``states``: N (3, 1, Hs) int64; ``units_k``: (K, 6, N, C);
+    ``tables`` whole; all on one device. ``rows``: the (N, N, K, C, 4)
+    inboxes to store into, else fresh zeros. Returns (rows, counts (N, N,
+    K), the N new states, g_min (N, K), counters (N, K, 2))."""
+    k, _, n, c = units_k.shape
+    dev = units_k.device
+    if rows is None:
+        rows = torch.zeros((n, n, k, c, 4), dtype=torch.int64, device=dev)
+    counts = torch.zeros((n, n, k), dtype=torch.int64, device=dev)
+    new_states, parts = [], []
+    for s in range(n):
+        recv, state, part = rounds_entry_plain(
+            states[s], units_k[:, :, s:s + 1], tables, t_now_k, s, n, seed,
+            max_pkts)
+        # every routed row carries the valid bit, and they come first
+        cnt = (recv[..., F_FLAGS] >> 1).sum(dim=-1)
+        keep = torch.arange(c, device=dev) < cnt[..., None]
+        rows[:, s][keep] = recv[keep]
+        counts[:, s] = cnt
+        new_states.append(state)
+        parts.append(part)
+    g_min, counters = reduce_plain(torch.stack(parts))
+    return (rows, counts, new_states, g_min.expand(n, k),
+            counters.expand(n, k, 2))
+
+
+def read_rounds(rows: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """The received tables of a mesh_rounds_entry call from its inboxes:
+    (K, N, N, C, 4) [j, d, s] the first counts[d, s, j] rows of
+    rows[d, s, j], zero rows after them (a reused inbox holds older rows
+    there). ``rows``: (N, N, K, C, 4); ``counts``: (N, N, K)."""
+    n, _, k, c, _ = rows.shape
+    recv = np.zeros((k, n, n, c, 4), dtype=np.int64)
+    top = int(counts.max(initial=0))
+    if top:
+        keep = np.arange(top) < counts[..., None]
+        recv[:, :, :, :top] = np.where(keep[..., None], rows[:, :, :, :top],
+                                       0).transpose(2, 0, 1, 3, 4)
+    return recv
 
 
 # -- wrappers -----------------------------------------------------------------
@@ -624,43 +695,9 @@ def mesh_scan(state: torch.Tensor, units_k: torch.Tensor, tables,
 
 
 # -- the per-entry wrappers ---------------------------------------------------
-# One shard a device entry: each wrapper launches on the given stream (the
-# tensor's device's current stream by default) with that card current, as
-# the raw CUDA calls need, and counts the launch under its entry.
-
-def _count(name: str, entry: int) -> None:
-    LAUNCHES[name] += 1
-    ENTRY_LAUNCHES[entry] = ENTRY_LAUNCHES.get(entry, 0) + 1
-
-
-def _stream_of(dev, stream):
-    return (torch.cuda.current_stream(dev) if stream is None
-            else stream).cuda_stream
-
-
-def gather(dst: torch.Tensor, srcs, offset: int, nbytes: int,
-           stream=None) -> None:
-    """The standalone rounds' copies between entries: block j of ``dst``
-    (``nbytes`` each) gets ``nbytes`` of ``srcs[j]`` from byte ``offset``.
-    CUDA: one peer or device copy a source on ``dst``'s stream (csrc/mesh.cu
-    shadow_mesh_gather; the caller orders the stream after the sources'
-    writes). CPU: tensor copies."""
-    n = len(srcs)
-    if dst.device.type == "cpu":
-        flat = dst.view(torch.uint8).reshape(n, nbytes)
-        for j, src in enumerate(srcs):
-            flat[j].copy_(src.reshape(-1).view(torch.uint8)[
-                offset:offset + nbytes])
-        return
-    lib = devcfg.kernel_lib("mesh")
-    ptrs = (ctypes.c_void_p * n)(*[x.data_ptr() for x in srcs])
-    devs = (ctypes.c_int * n)(*[x.device.index for x in srcs])
-    with devcfg.current(dst.device):
-        code = lib.shadow_mesh_gather(dst.data_ptr(), dst.device.index, ptrs,
-                                      devs, n, nbytes, offset,
-                                      _stream_of(dst.device, stream))
-    devcfg.check_launch(lib, code, "mesh gather")
-
+# One shard a device entry: each launch runs on its card's stream with that
+# card current, as the raw CUDA calls need, and counts every block under
+# its entry.
 
 class EntryPlan(NamedTuple):
     """How mesh_exchange_entry runs over a tuple of card entries (see
@@ -719,29 +756,32 @@ def enable_peer(src: int, dst: int) -> None:
 
 
 class ExchangeTimeout(RuntimeError):
-    """A block of mesh_exchange_entry waited past its limit for a source's
-    rows: a source never published (its launch did not run, or its card
-    was lost). The window is not retried and never falls back."""
+    """A block of mesh_exchange_entry or mesh_rounds_entry waited past its
+    limit for a source's rows: a source never published (its launch did
+    not run, or its card was lost). The call is not retried and never
+    falls back."""
 
 
 def check_entry_status(status, epoch: int,
-                       timeout_ns: int = ENTRY_TIMEOUT_NS) -> None:
+                       timeout_ns: int = ENTRY_TIMEOUT_NS,
+                       what: str = "mesh_exchange_entry",
+                       of: str = "window") -> None:
     """Raise unless every entry's status words (N, 4) [code, late source,
-    epoch, flag seen] say its block received window ``epoch``:
-    ExchangeTimeout naming the entry, the source it waited for and the
-    epoch; RuntimeError for a block that did not run."""
+    epoch, flag seen] say its block of ``what`` received ``of`` (a window,
+    or a call of the rounds) ``epoch``: ExchangeTimeout naming the entry,
+    the source it waited for and the epoch; RuntimeError for a block that
+    did not run."""
     rows = np.asarray(status, dtype=np.int64).reshape(-1, 4).tolist()
     for t, (code, src, ep, seen) in enumerate(rows):
         if code == STATUS_LATE:
             raise ExchangeTimeout(
-                f"mesh_exchange_entry: entry {t} waited {timeout_ns} ns for "
-                f"source {src}'s rows of window epoch {ep} (its flag held "
-                f"{seen})")
+                f"{what}: entry {t} waited {timeout_ns} ns for source "
+                f"{src}'s rows of {of} epoch {ep} (its flag held {seen})")
     for t, (code, *_rest) in enumerate(rows):
         if code != STATUS_OK:
             raise RuntimeError(
-                f"mesh_exchange_entry: entry {t}'s block did not run for "
-                f"window epoch {epoch} (status {code})")
+                f"{what}: entry {t}'s block did not run for {of} epoch "
+                f"{epoch} (status {code})")
 
 
 def mesh_exchange_entry(units: torch.Tensor, seed: int, max_pkts: int,
@@ -776,80 +816,74 @@ def mesh_exchange_entry(units: torch.Tensor, seed: int, max_pkts: int,
     return recv.view(n, w, 4).to(units.device), g_min.to(units.device)
 
 
-def mesh_rounds_entry(state: torch.Tensor, units_k: torch.Tensor, tables,
-                      t_now_k: torch.Tensor, s: int, n: int, seed: int,
-                      max_pkts: int, stream=None):
-    """Shard s of n alone, K rounds; arguments and results as
-    rounds_entry_plain. CPU tensors: the plain version. CUDA tensors: the
-    kernel (tables and state in shared memory where they fit), or an
-    exception."""
+def _check_entry_tables(states, tables, n: int, what: str) -> None:
+    """Each of the N entries' state (3, 1, Hs) and its copy of the tables
+    (host tables (N Hs,), latency_ns and drop_thresh (G, G)), int64 and
+    contiguous on the entry's device, every entry a card or every entry
+    the CPU."""
+    if len(states) != n or len(tables) != n:
+        raise ValueError(f"{what}: {n} shards want {n} states and {n} "
+                         f"table sets, got {len(states)} and {len(tables)}")
+    if len({st.device.type for st in states}) != 1:
+        raise ValueError(f"{what}: the entries mix cpu and cuda")
+    hs = states[0].shape[-1]
+    g = tables[0][1].shape[0]
+    for t, (st, tab) in enumerate(zip(states, tables)):
+        _check(st, 3, what, f"states[{t}]")
+        if tuple(st.shape) != (3, 1, hs):
+            raise ValueError(f"{what}: states[{t}] must be (3, 1, {hs}), got "
+                             f"{tuple(st.shape)}")
+        if len(tab) != 5:
+            raise ValueError(f"{what}: tables[{t}] must be (host_node, "
+                             f"latency_ns, drop_thresh, rate, cap)")
+        for name, x, shape in zip(
+                ("host_node", "latency_ns", "drop_thresh", "rate", "cap"),
+                tab, ((n * hs,), (g, g), (g, g), (n * hs,), (n * hs,))):
+            _check(x, len(shape), what, name)
+            if tuple(x.shape) != shape or x.device != st.device:
+                raise ValueError(f"{what}: tables[{t}]'s {name} must be "
+                                 f"{shape} on {st.device}, got "
+                                 f"{tuple(x.shape)} on {x.device}")
+
+
+def mesh_rounds_entry(states, units_k: torch.Tensor, tables,
+                      t_now_k: torch.Tensor, seed: int, max_pkts: int,
+                      plan: EntryPlan = None,
+                      timeout_ns: int = ENTRY_TIMEOUT_NS):
+    """K rounds of N shards with one shard a device entry. ``states``: N
+    (3, 1, Hs) int64 tensors, shard t's on entry t's device, advanced in
+    place; ``units_k``: (K, 6, N, C) int64, K up to MAX_ROUNDS, shard s's
+    slots at [:, :, s] as shard_units_np packs them; ``tables``: N tuples
+    (host_node, latency_ns, drop_thresh, rate, cap), entry t's on its
+    device; ``t_now_k``: (K,). Returns (received (K, N, N, C, 4): [j, d,
+    s] the rows shard s routed to shard d in round j, zero rows after
+    them; g_min (N, K) and counters (N, K, 2) [sent, dropped] as entry t
+    reduced them, at [t]), on the CPU. CPU entries: the plain version
+    (rounds_entries_plain). Cards: the units staged into a fresh
+    RoundStage and mesh_rounds_entry run once as ``plan`` (default
+    entry_plan's) launches it, on each card's current stream, then one
+    sync a card; raises ExchangeTimeout when a source never publishes
+    within ``timeout_ns``."""
     what = "mesh_rounds_entry"
     _check(units_k, 4, what, "units_k")
-    _check(state, 3, what, "state")
-    if state.shape[:2] != (3, 1) or units_k.shape[1:3] != (6, 1):
-        raise ValueError(f"{what}: state must be (3, 1, Hs) and units_k "
-                         f"(K, 6, 1, C)")
-    if len(tables) != 5:
-        raise ValueError(f"{what}: tables must be (host_node, latency_ns, "
-                         f"drop_thresh, rate, cap)")
-    hs, c, k = state.shape[2], units_k.shape[-1], units_k.shape[0]
+    k, six, n, c = units_k.shape
+    if six != 6 or not 1 <= k <= MAX_ROUNDS:
+        raise ValueError(f"{what}: units_k must be (K, 6, N, C) with K in "
+                         f"1..{MAX_ROUNDS}, got {tuple(units_k.shape)}")
     _check_common(n, c, max_pkts, what)
-    if not 0 <= s < n:
-        raise ValueError(f"{what}: shard {s} of {n}")
     _check(t_now_k, 1, what, "t_now_k")
-    if k < 1 or t_now_k.shape != (k,):
+    if tuple(t_now_k.shape) != (k,):
         raise ValueError(f"{what}: t_now_k must be ({k},)")
-    dev = state.device
-    for t in (units_k, t_now_k, *tables):
-        if t.device != dev:
-            raise ValueError(f"{what}: every tensor must be on {dev}")
-    g = tables[1].shape[0]
-    if tables[0].shape != (n * hs,):
-        raise ValueError(f"{what}: host tables must be ({n * hs},)")
-    if dev.type == "cpu":
-        return rounds_entry_plain(state, units_k, tables, t_now_k, s, n,
-                                  seed, max_pkts)
-    resident = round_smem_bytes(hs, c, n * hs, g, True) <= SMEM_MAX
-    state_out = torch.empty_like(state)
-    received = torch.empty((n, k, c, 4), dtype=torch.int64, device=dev)
-    partials = torch.empty((k, 3), dtype=torch.int64, device=dev)
-    host_node, lat, thresh, rate, cap = tables
-    lib = devcfg.kernel_lib("mesh")
-    with devcfg.current(dev):
-        code = lib.shadow_mesh_rounds_entry(
-            state.data_ptr(), state_out.data_ptr(), s, n, hs,
-            units_k.data_ptr(), c, k, t_now_k.data_ptr(),
-            host_node.data_ptr(), n * hs, lat.data_ptr(), thresh.data_ptr(),
-            g, rate.data_ptr(), cap.data_ptr(), seed & _M32,
-            (seed >> 32) & _M32, max_pkts, int(resident),
-            received.data_ptr(), partials.data_ptr(), _stream_of(dev, stream))
-    devcfg.check_launch(lib, code, what)
-    _count(what, s)
-    return received, state_out, partials
-
-
-def mesh_reduce(partials: torch.Tensor, stream=None):
-    """Every entry's partials gathered on one, (N, K, 3) int64 -> (g_min
-    (K,), counters (K, 2)); see reduce_plain. CPU tensor: the plain
-    version. CUDA tensor: the kernel, or an exception."""
-    what = "mesh_reduce"
-    _check(partials, 3, what, "partials")
-    n, k, three = partials.shape
-    if three != 3 or not 1 <= n <= MAX_SHARDS or k < 1:
-        raise ValueError(f"{what}: partials must be (N, K, 3)")
-    if partials.device.type == "cpu":
-        return reduce_plain(partials)
-    dev = partials.device
-    out = torch.empty(3 * k, dtype=torch.int64, device=dev)
-    lib = devcfg.kernel_lib("mesh")
-    with devcfg.current(dev):
-        code = lib.shadow_mesh_reduce(partials.data_ptr(), n, k,
-                                      out.data_ptr(), out.data_ptr() + 8 * k,
-                                      _stream_of(dev, stream))
-    devcfg.check_launch(lib, code, what)
-    _count(what, 0)
-    return out[:k], out[k:].view(k, 2)
-
+    stage = RoundStage(tuple(st.device for st in states), n, k, c, states,
+                       tables, plan)
+    stage.units[...] = units_k.cpu().numpy()
+    stage.t_now[...] = t_now_k.cpu().numpy()
+    streams = None
+    if stage.cuda:
+        streams = [torch.cuda.current_stream(torch.device("cuda", card))
+                   for card, _ in stage.plan.groups]
+    stage.run(seed, max_pkts, 1, streams, timeout_ns)
+    return tuple(torch.from_numpy(x) for x in stage.read())
 
 # -- the plane ----------------------------------------------------------------
 
@@ -957,17 +991,9 @@ class EntryWindow:
             return
         if plan is None:
             plan = entry_plan(entries, torch.cuda.can_device_access_peer)
-        routes = plan.routes
-        if len(routes) != n or any(len(r) != n for r in routes) or any(
-                entries[s].index != card for card, shards in plan.groups
-                for s in shards):
-            raise ValueError(f"mesh_exchange_entry: the plan {plan} does not "
-                             f"fit {n} entries {entries}")
+        _prepare_plan(plan, entries, n, "mesh_exchange_entry")
         self.plan = plan
-        for i in range(n):
-            for d in range(n):
-                if routes[i][d] == "peer":
-                    enable_peer(entries[i].index, entries[d].index)
+        routes = plan.routes
         with devcfg.current(entries[0]):
             self.in_ptr = devcfg.device_pointer(self.host_in, "mesh")
         self.stages = [EntryStage(dev, n, m, w,
@@ -1030,6 +1056,221 @@ class EntryWindow:
                                epoch, timeout_ns)
 
 
+def _prepare_plan(plan: EntryPlan, entries: tuple, n: int,
+                  what: str) -> None:
+    """Raise unless ``plan`` fits the N ``entries``; enable peer access for
+    every pair it routes over NVLink."""
+    routes = plan.routes
+    if len(routes) != n or any(len(r) != n for r in routes) or any(
+            entries[s].index != card for card, shards in plan.groups
+            for s in shards):
+        raise ValueError(f"{what}: the plan {plan} does not fit {n} entries "
+                         f"{entries}")
+    for i in range(n):
+        for d in range(n):
+            if routes[i][d] == "peer":
+                enable_peer(entries[i].index, entries[d].index)
+
+
+class RoundAddrs(NamedTuple):
+    """The card addresses of one entry's part of a RoundStage (see
+    round_block_table)."""
+
+    #: its (3, 1, Hs) state
+    state: int
+    #: its host_node, latency_ns, drop_thresh, rate and cap
+    tables: tuple
+    #: its rows inbox (N, K, C, 4), source j's block at [j]
+    rows: int
+    #: (its trailer inbox (N, K, 4), its flags (N,)) on its card
+    card: tuple
+    #: the same in page-locked host memory, or None where no route into it
+    #: is ``host``
+    host: tuple
+    #: its output: g_min (K,), counters (K, 2), counts (N, K)
+    out: int
+    #: its status words [code, late source, epoch, flag seen]
+    status: int
+
+
+def round_block_table(shards, routes, addrs, k: int, c: int) -> np.ndarray:
+    """The block table of one card's mesh_rounds_entry launch (csrc/mesh.cu
+    RoundBlock, ROUND_BLOCK_WORDS int64 words a block): block b runs shard
+    ``shards[b]``. ``routes`` is entry_plan's; ``addrs`` every entry's
+    RoundAddrs, in shard order. A source s stores into destination d's
+    rows inbox at block s, and into d's trailer inbox and flag for s on
+    the route routes[s][d] (host: d's page-locked copies; else d's card)."""
+    n = len(addrs)
+    mx = MAX_SHARDS
+
+    def slot(t: int, j: int, route: str) -> tuple:
+        trailers, flags = addrs[t].host if route == "host" else addrs[t].card
+        return trailers + j * k * 32, flags + 8 * j
+
+    tab = np.zeros((len(shards), ROUND_BLOCK_WORDS), dtype=np.int64)
+    for b, s in enumerate(shards):
+        a = addrs[s]
+        tab[b, :9] = (s, a.state, *a.tables, a.out, a.status)
+        for d in range(n):
+            tab[b, 10 + d] = addrs[d].rows + s * k * c * 32
+            tab[b, [10 + mx + d, 10 + 2 * mx + d]] = slot(d, s, routes[s][d])
+            tab[b, [10 + 3 * mx + d, 10 + 4 * mx + d]] = slot(s, d,
+                                                              routes[d][s])
+    return tab
+
+
+class RoundStage:
+    """The buffers of round bucket (N, K, C) over device entries, made once
+    and kept, bound to the entries' ``states`` (N (3, 1, Hs), advanced in
+    place) and ``tables`` (N tuples, each entry's copy): the packed (K, 6,
+    N, C) units and t_now_k (``units``, ``t_now``); the rows inboxes
+    (``rows``, (N, N, K, C, 4): destination d's from source s at [d, s]);
+    one output row an entry (``out``, (N, 3 K + N K + 4): its g_min (K,),
+    counters (K, 2), the counts (N, K) of its rows inbox, status words).
+    On cards these are page-locked: the blocks read the units and store
+    their rows and outputs in place, and the host reads the rows (no copy
+    on either side). Also on cards: each entry's trailer inbox (N, K, 4)
+    and flags (N,) on its card, and in page-locked memory where a source
+    reaches it only through the host; each launch group's block table
+    (round_block_table) on its card; one event a group. The flags start
+    at 0 and are never reset (epochs start at 1). ``plan``
+    (entry_plan's by default) may launch fewer than every shard: the
+    others' blocks then never publish."""
+
+    def __init__(self, entries: tuple, n: int, k: int, c: int, states,
+                 tables, plan: EntryPlan = None) -> None:
+        _check_entry_tables(states, tables, n, "mesh_rounds_entry")
+        self.shape = (n, k, c)
+        self.states, self.tables = states, tables
+        self.cuda = entries[0].type == "cuda"
+        words = 3 * k + n * k + 4
+
+        def buf(*shape):
+            return torch.zeros(shape, dtype=torch.int64, pin_memory=self.cuda)
+
+        self.host_units = buf(k, 6, n, c)
+        self.host_t_now = buf(k)
+        # a call stores only its counted rows, and reads take only those
+        self.host_rows = buf(n, n, k, c, 4)
+        self.host_out = buf(n, words)
+        self.units, self.t_now, self.rows, self.out = (
+            t.numpy() for t in (self.host_units, self.host_t_now,
+                                self.host_rows, self.host_out))
+        self.status = self.out[:, words - 4:]
+        if not self.cuda:
+            return
+        what = "mesh_rounds_entry"
+        if plan is None:
+            plan = entry_plan(entries, torch.cuda.can_device_access_peer)
+        _prepare_plan(plan, entries, n, what)
+        self.plan = plan
+        hs, g = states[0].shape[2], tables[0][1].shape[0]
+        self._dims = (hs, n * hs, g, int(
+            round_smem_bytes(hs, c, n * hs, g, True) <= SMEM_MAX))
+        with devcfg.current(entries[0]):
+            units, t_now, rows, out = (devcfg.device_pointer(t, "mesh") for t
+                                       in (self.host_units, self.host_t_now,
+                                           self.host_rows, self.host_out))
+        self._in_ptrs = (units, t_now)
+        #: every trailer inbox and flag tensor, kept alive with the stage
+        self._inboxes = []
+        addrs = []
+        for t, dev in enumerate(entries):
+            card = (torch.zeros((n, k, 4), dtype=torch.int64, device=dev),
+                    torch.zeros(n, dtype=torch.int64, device=dev))
+            self._inboxes += card
+            host = None
+            if any(plan.routes[j][t] == "host" for j in range(n)):
+                pinned = (torch.zeros((n, k, 4), dtype=torch.int64,
+                                      pin_memory=True),
+                          torch.zeros(n, dtype=torch.int64, pin_memory=True))
+                self._inboxes += pinned
+                with devcfg.current(dev):
+                    host = tuple(devcfg.device_pointer(x, "mesh")
+                                 for x in pinned)
+            addrs.append(RoundAddrs(
+                states[t].data_ptr(), tuple(x.data_ptr() for x in tables[t]),
+                rows + t * n * k * c * 32, tuple(x.data_ptr() for x in card),
+                host, out + t * words * 8, out + (t * words + words - 4) * 8))
+        self.block_tables = [
+            torch.from_numpy(round_block_table(shards, plan.routes, addrs, k,
+                                               c)).to(torch.device("cuda",
+                                                                   card))
+            for card, shards in plan.groups]
+        self.events = [torch.cuda.Event() for _ in plan.groups]
+        for card, _ in plan.groups:
+            # the zeroed flags and the tables land before any launch
+            torch.cuda.synchronize(card)
+
+    def launch(self, seed: int, max_pkts: int, epoch: int, streams,
+               timeout_ns: int = ENTRY_TIMEOUT_NS) -> None:
+        """Queue mesh_rounds_entry on the staged units for call ``epoch``
+        (a value no flag of this stage holds yet), one launch a group of
+        the plan on its stream of ``streams`` (rounds_entry_path's), and
+        count it; every entry's status reads STATUS_PENDING until its
+        block ends."""
+        n, k, c = self.shape
+        hs, h_pad, g, resident = self._dims
+        lib = devcfg.kernel_lib("mesh")
+        self.status[:, 0] = STATUS_PENDING
+        for (_card, shards), tab, stream in zip(self.plan.groups,
+                                                self.block_tables, streams):
+            path = rounds_entry_path(len(shards))
+            with devcfg.current(tab.device):
+                code = lib.shadow_mesh_rounds_entry(
+                    *self._in_ptrs, n, hs, c, k, h_pad, g, seed & _M32,
+                    (seed >> 32) & _M32, max_pkts, resident, epoch,
+                    timeout_ns, tab.data_ptr(), len(shards),
+                    int(path == "cooperative"), stream.cuda_stream)
+            devcfg.check_launch(lib, code, "mesh_rounds_entry")
+            LAUNCHES["mesh_rounds_entry"] += 1
+            PATHS[f"entry_rounds_{path}"] += 1
+            for s in shards:
+                ENTRY_LAUNCHES[s] = ENTRY_LAUNCHES.get(s, 0) + 1
+
+    def finish(self, epoch: int, streams,
+               timeout_ns: int = ENTRY_TIMEOUT_NS) -> None:
+        """Wait for the launches of call ``epoch`` (one event a group on its
+        stream of ``streams``), then check every entry's status (see
+        check_entry_status)."""
+        for ev, stream in zip(self.events, streams):
+            ev.record(stream)
+        for ev in self.events:
+            ev.synchronize()
+        if (self.status[:, 0] != STATUS_OK).any():
+            check_entry_status(self.status, epoch, timeout_ns,
+                               "mesh_rounds_entry", "call")
+
+    def run(self, seed: int, max_pkts: int, epoch: int, streams=None,
+            timeout_ns: int = ENTRY_TIMEOUT_NS) -> None:
+        """One call on the staged units and times: on cards launch, then
+        finish; on CPU entries the plain version (rounds_entries_plain) into
+        the same inboxes and outputs, the states advanced in place."""
+        if self.cuda:
+            self.launch(seed, max_pkts, epoch, streams, timeout_ns)
+            self.finish(epoch, streams, timeout_ns)
+            return
+        n, k, _c = self.shape
+        _rows, counts, states, g_min, counters = rounds_entries_plain(
+            self.states, self.host_units, self.tables[0], self.host_t_now,
+            seed, max_pkts, self.host_rows)
+        for st, new in zip(self.states, states):
+            st.copy_(new)
+        self.out[:, :k] = g_min.numpy()
+        self.out[:, k:3 * k] = counters.reshape(n, 2 * k).numpy()
+        self.out[:, 3 * k:3 * k + n * k] = counts.reshape(n, n * k).numpy()
+        self.status[:] = (STATUS_OK, 0, epoch, epoch)
+
+    def read(self) -> tuple:
+        """The last call's results as numpy, the caller's own: (received
+        (K, N, N, C, 4) from the rows inboxes (read_rounds), g_min (N, K)
+        and counters (N, K, 2) as each entry reduced them)."""
+        n, k, _c = self.shape
+        counts = self.out[:, 3 * k:3 * k + n * k].reshape(n, n, k)
+        return (read_rounds(self.rows, counts), self.out[:, :k].copy(),
+                self.out[:, k:3 * k].reshape(n, k, 2).copy())
+
+
 class MeshDataPlane:
     """Host-sharded data plane over N shards.
 
@@ -1045,14 +1286,14 @@ class MeshDataPlane:
     mesh_scan). A ``devices`` tuple (entries of devcfg.select_devices; an
     entry may repeat): shard i on ``devices[i]``, N = n_shards or every
     entry, and more shards than entries raise, as the reference does. Each
-    entry holds the tables, its shard's state (3, 1, Hs), its own stream
-    and its EntryStages. A window is one mesh_exchange_entry launch a card
-    (the plan, entry_plan's, built once: each card's entries and each
-    pair's route), one event and one sync a card. The rounds run on every
-    entry, then the copies between entries, then the reduction on entry 0.
-    Entries that name the same card stay separate entries, each with its
-    own block, inbox and flags: nothing merges them. CPU entries run the
-    plain versions, the same halves.
+    entry holds the tables and its shard's state (3, 1, Hs), which the
+    rounds advance in place. A window is one mesh_exchange_entry launch a
+    card and a call of the rounds one mesh_rounds_entry launch a card (the
+    plan, entry_plan's, built once: each card's entries and each pair's
+    route), each with one event and one sync a card, on a stream of the
+    plane's a card. Entries that name the same card stay separate
+    entries, each with its own block, inboxes and flags: nothing merges
+    them. CPU entries run the plain versions, the same halves.
     """
 
     #: fused-launch cap: scan_rounds pads each group of round chunks to K in
@@ -1081,6 +1322,8 @@ class MeshDataPlane:
             raise ValueError(f"{n} shards (want 1..{MAX_SHARDS})")
         #: exchange buffers by (N, m, w): at most 16 shapes (the buckets)
         self._stages: dict = {}
+        #: over entries, the rounds' buffers by K in (1, 8, SCAN_KMAX)
+        self._round_stages: dict = {}
         self.n_shards = n
         self.units_per_shard = int(units_per_shard)
         self.params = params
@@ -1121,24 +1364,24 @@ class MeshDataPlane:
             self._tables = tuple(t.to(self.device) for t in tables)
             self._state = state.to(self.device)
         else:
-            #: per entry: the tables (replicated), its shard's state
-            #: (3, 1, Hs) and its stream
+            #: per entry: the tables (replicated) and its shard's state
+            #: (3, 1, Hs), which the rounds' stages hold the addresses of
             self._tables = [tuple(t.to(d) for t in tables)
                             for d in self.entries]
             self._states = [state[:, i:i + 1].clone().to(d)
                             for i, d in enumerate(self.entries)]
-            self._streams = [torch.cuda.Stream(d) if d.type == "cuda"
-                             else None for d in self.entries]
+            #: the last call's epoch (windows and rounds alike)
+            self._epoch = 0
         if self._cuda:
             devcfg.kernel_lib("mesh")  # build or load now, not mid-round
             if self.entries is not None:
-                #: mesh_exchange_entry's launch groups and routes, a stream
-                #: a group (its first entry's) and the last window's epoch
+                #: the launch groups and routes of the entry kernels, and a
+                #: stream a group
                 self._plan = entry_plan(self.entries,
                                         torch.cuda.can_device_access_peer)
-                self._group_streams = [self._streams[shards[0]]
-                                       for _, shards in self._plan.groups]
-                self._epoch = 0
+                self._group_streams = [
+                    torch.cuda.Stream(torch.device("cuda", card))
+                    for card, _ in self._plan.groups]
 
     @property
     def state(self) -> torch.Tensor:
@@ -1169,27 +1412,22 @@ class MeshDataPlane:
                              f"{state.dtype} {tuple(state.shape)}")
         if self.entries is None:
             self._state = state.to(self.device).clone()
-        else:
-            self._states = [state[:, i:i + 1].to(d).clone()
-                            for i, d in enumerate(self.entries)]
+        else:  # in place: the rounds' stages hold the states' addresses
+            for i, st in enumerate(self._states):
+                st.copy_(state[:, i:i + 1])
 
-    def _stream(self, i: int):
-        """A context running on entry i's card and stream (nothing on the
-        CPU)."""
-        import contextlib
-
-        st = self._streams[i]
-        return (torch.cuda.stream(st) if st is not None
-                else contextlib.nullcontext())
-
-    def _rounds(self, arrs: np.ndarray, t_nows: np.ndarray, single: bool):
-        """K rounds of (K, 6, N, C) int64 units at ``t_nows`` (K,), the
-        state carried: (received (K, N, N, C, 4), g_min (K,), counters
-        (K, 2)) as numpy. One device: one mesh_round_step (``single``) or
-        mesh_scan launch. Entries: mesh_rounds_entry on every entry, the
-        copies of each destination's rows and of the partials (onto entry
-        0), mesh_reduce on entry 0."""
+    def _rounds(self, rounds: list, t_nows: np.ndarray, single: bool):
+        """K rounds at ``t_nows`` (K,), the state carried: ``rounds`` holds
+        each round's six (N, C) int64 unit arrays (shard_units_np's).
+        Returns (received (K, N, N, C, 4), g_min (K,), counters (K, 2)) as
+        numpy. One device: one mesh_round_step (``single``) or mesh_scan
+        launch. Entries: the units packed into the (K, C) bucket's
+        RoundStage and one mesh_rounds_entry call for the next epoch (one
+        launch, one event and one sync a card; the plain version on CPU
+        entries); g_min and counters are entry 0's (every entry holds the
+        same)."""
         if self.entries is None:
+            arrs = np.stack([np.stack(r) for r in rounds])
             units = torch.from_numpy(arrs).to(self.device)
             if single:
                 recv, self._state, g_min, counters = mesh_round_step(
@@ -1203,48 +1441,27 @@ class MeshDataPlane:
                     self._max_pkts)
             return (recv.cpu().numpy(), g_min.cpu().numpy(),
                     counters.cpu().numpy())
-        n, k, c = self.n_shards, arrs.shape[0], arrs.shape[-1]
-        outs, events = [], []
-        for s, dev in enumerate(self.entries):
-            with devcfg.current(dev), self._stream(s):
-                u = torch.from_numpy(np.ascontiguousarray(
-                    arrs[:, :, s:s + 1])).to(dev)
-                tk = torch.from_numpy(t_nows).to(dev)
-                rec, self._states[s], part = mesh_rounds_entry(
-                    self._states[s], u, self._tables[s], tk, s, n,
-                    self._seed, self._max_pkts)
-                outs.append((rec, part, u, tk))
-                events.append(self._record(s))
-        gathered = []
-        for t, dev in enumerate(self.entries):
-            with devcfg.current(dev), self._stream(t):
-                self._wait(t, events)
-                g = torch.empty((n, k, c, 4), dtype=torch.int64, device=dev)
-                gather(g, [o[0] for o in outs], t * k * c * 32, k * c * 32)
-                if t == 0:
-                    parts = torch.empty((n, k, 3), dtype=torch.int64,
-                                        device=dev)
-                    gather(parts, [o[1] for o in outs], 0, k * 24)
-                    g_min, counters = mesh_reduce(parts)
-                gathered.append(g.cpu())
-        recv = torch.stack(gathered).permute(2, 0, 1, 3, 4)
-        return (recv.numpy(), g_min.cpu().numpy(), counters.cpu().numpy())
+        st = self.round_stage(len(rounds))
+        for j, cols in enumerate(rounds):
+            for f in range(6):
+                st.units[j, f] = cols[f]
+        st.t_now[:] = t_nows
+        self._epoch += 1
+        st.run(self._seed, self._max_pkts, self._epoch,
+               self._group_streams if self._cuda else None)
+        recv, g_min, counters = st.read()
+        return recv, g_min[0], counters[0]
 
-    def _record(self, i: int):
-        """An event after entry i's work queued so far (None on the CPU)."""
-        st = self._streams[i]
+    def round_stage(self, k: int) -> RoundStage:
+        """The rounds' buffers of bucket (N, K, C) over the entries, made on
+        first use and bound to the entries' states and tables."""
+        st = self._round_stages.get(k)
         if st is None:
-            return None
-        ev = torch.cuda.Event()
-        ev.record(st)
-        return ev
-
-    def _wait(self, i: int, events) -> None:
-        """Entry i's stream waits for every entry's event."""
-        st = self._streams[i]
-        if st is not None:
-            for ev in events:
-                st.wait_event(ev)
+            st = self._round_stages[k] = RoundStage(
+                self.entries, self.n_shards, k, self.units_per_shard,
+                self._states, self._tables,
+                self._plan if self._cuda else None)
+        return st
 
     def scan_rounds(self, chunks):
         """Fused execution of a backlog of round chunks.
@@ -1253,7 +1470,7 @@ class MeshDataPlane:
         (N, C) arrays from shard_units_np, t_now) in simulation order.
         Pads each group to K in (1, 8, SCAN_KMAX) with invalid units and
         runs ONE mesh_scan per group (on entries, one mesh_rounds_entry
-        an entry). Returns the list of materialized exchange tables
+        launch a card). Returns the list of materialized exchange tables
         ((N, N, C, 4) numpy) aligned with ``chunks``."""
         out = []
         i = 0
@@ -1266,11 +1483,10 @@ class MeshDataPlane:
                 self._pad_chunk = self.shard_units_np([], [], [], [], [])
             pads = K - k
             t_last = part[-1][1]
-            arrs = np.stack([np.stack(p[0]) for p in part]
-                            + [np.stack(self._pad_chunk)] * pads)
+            rounds = [p[0] for p in part] + [self._pad_chunk] * pads
             t_nows = np.array([p[1] for p in part] + [t_last] * pads,
                               dtype=np.int64)
-            recv, _gmin, _ct = self._rounds(arrs, t_nows, False)
+            recv, _gmin, _ct = self._rounds(rounds, t_nows, False)
             out.extend(recv[j] for j in range(k))
             i += k
         return out
@@ -1430,5 +1646,5 @@ class MeshDataPlane:
         if isinstance(units, torch.Tensor):
             units = units.cpu().numpy()
         received, g_min, counters = self._rounds(
-            np.stack(units)[None], np.array([t_now], dtype=np.int64), True)
+            [units], np.array([t_now], dtype=np.int64), True)
         return received[0], int(g_min[0]), counters[0]

@@ -351,9 +351,9 @@ def test_threefry_alone_matches_plain_on_card(dev):
 def test_entry_kernels_match_plain_on_card(dev, n):
     """The per-entry kernels on N entries of one card: mesh_exchange_entry
     (one launch, on the local route and on the host route forced through
-    its plan, then one EntryWindow kept through three epochs on each),
-    mesh_rounds_entry on every shard and mesh_reduce of the partials, each
-    against its plain version."""
+    its plan, then one EntryWindow kept through three epochs on each) and
+    mesh_rounds_entry (one launch on each route, the states advanced in
+    place), each against its plain version."""
     cs = _smoke()
     rng = np.random.default_rng(n)
     x = torch.from_numpy(cs.exchange_inputs(np, rng, n, 256, False))
@@ -388,19 +388,23 @@ def test_entry_kernels_match_plain_on_card(dev, n):
     units = torch.from_numpy(np.stack([cs.round_units(
         np, rng, n, hs, 300, 10 ** 10 + j * 2_000_000) for j in range(8)]))
     t_nows = torch.arange(8) * 2_000_000 + 10 ** 10
-    parts = []
-    for s in range(n):
-        st = state[:, s:s + 1].contiguous()
-        u = units[:, :, s:s + 1].contiguous()
+    rows, counts, states, g_min, counters = mesh.rounds_entries_plain(
+        [state[:, s:s + 1] for s in range(n)], units, tables, t_nows, seed,
+        10)
+    want = mesh.read_rounds(rows.numpy(), counts.numpy())
+    for host_only in (False, True):
+        plan = mesh.entry_plan(entries, torch.cuda.can_device_access_peer,
+                               host_only)
+        on_card = [state[:, s:s + 1].to(dev) for s in range(n)]
+        mesh.reset_launches()
         got = mesh.mesh_rounds_entry(
-            st.to(dev), u.to(dev), tuple(t.to(dev) for t in tables),
-            t_nows.to(dev), s, n, seed, 10)
-        want = mesh.rounds_entry_plain(st, u, tables, t_nows, s, n, seed, 10)
-        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
-        parts.append(got[2])
-    got = mesh.mesh_reduce(torch.stack(parts))
-    want = mesh.reduce_plain(torch.stack(parts).cpu())
-    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+            on_card, units, [tuple(t.to(dev) for t in tables)] * n, t_nows,
+            seed, 10, plan=plan)
+        assert np.array_equal(got[0].numpy(), want)
+        assert torch.equal(got[1], g_min) and torch.equal(got[2], counters)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(on_card, states))
+        assert mesh.LAUNCHES["mesh_rounds_entry"] == 1
+        assert mesh.ENTRY_LAUNCHES == dict.fromkeys(range(n), 1)
 
 
 @pytest.mark.cuda

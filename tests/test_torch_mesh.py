@@ -469,7 +469,7 @@ def test_cpu_plane_launches_no_kernel():
     port.round_step(port.shard_units([0], [1], [100], [0], [1]), 0)
     assert mesh.LAUNCHES == {"mesh_exchange": 0, "mesh_round_step": 0,
                              "mesh_scan": 0, "mesh_exchange_entry": 0,
-                             "mesh_rounds_entry": 0, "mesh_reduce": 0}
+                             "mesh_rounds_entry": 0}
     assert not any(mesh.PATHS.values()) and not mesh.ENTRY_LAUNCHES
 
 

@@ -10,12 +10,15 @@ it 8 virtual CPU devices. The port names its device entries with
 entry and exchanges a window's rows with one mesh_exchange_entry launch a
 card (each block storing into every destination's inbox), DeviceDrawPlane
 splits each batch over n entries. On CPU entries the per-entry halves run
-as plain PyTorch (send into the inboxes, receive; rounds, copies,
-reduction), the same split the card runs; entry_plan's launches and
+as plain PyTorch (send into the inboxes, receive; each shard's rounds
+stored into the inboxes, each entry's reduction), the same split the
+card runs; entry_plan's launches and
 routes are pure and tested with a fake peer-access table. The tolerance
 is zero throughout: every value is integer and the exchange only moves
 rows.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -207,31 +210,165 @@ def test_exchange_entry_wrapper_refusals(w, kwargs, err):
         mesh.mesh_exchange_entry(units, 3, kwargs.get("max_pkts", 10), w)
 
 
-@pytest.mark.parametrize("n, k", [(1, 1), (2, 1), (2, 8), (8, 3)])
+def _round_inputs(rng, port, h, k, counts=None):
+    """(units (K, 6, N, C), t_nows (K,)) of k random rounds for ``port``'s
+    shards: ``counts[j]`` units in round j (random below 60 if None)."""
+    units = torch.from_numpy(np.stack([np.stack(port.shard_units_np(
+        *random_batch(rng, h, 40 if counts is None else counts[j],
+                      j * 2_000_000, 1000 * j))) for j in range(k)]))
+    return units, torch.arange(k) * 2_000_000
+
+
+@pytest.mark.parametrize("n, k", [(1, 1), (2, 1), (2, 8), (8, 3), (17, 2),
+                                  (4, 32)])
 def test_round_halves_compose_to_the_scan(n, k):
+    """mesh_rounds_entry's plain version (every shard's rounds alone, its
+    counted rows stored into every destination's inbox, each entry's
+    reduction) against the whole-mesh scan_rounds_plain; on CPU entries
+    the wrapper is the plain version, advances the states in place and
+    launches nothing; every entry holds the same g_min and counters."""
     rng = np.random.default_rng(7 + n + k)
     port = MeshDataPlane(port_params(make_params(37)), n_shards=n,
                          units_per_shard=64, device="cpu")
-    h = 37
     state = port.state
-    units = torch.from_numpy(np.stack([np.stack(port.shard_units_np(
-        *random_batch(rng, h, 40, j * 2_000_000, 1000 * j)))
-        for j in range(k)]))
-    t_nows = torch.arange(k) * 2_000_000
+    units, t_nows = _round_inputs(rng, port, 37, k)
     want = mesh.scan_rounds_plain(state, units, port._tables, t_nows,
                                   port._seed, 10)
-    recv, parts, states = [], [], []
-    for s in range(n):
-        r, st, p = mesh.mesh_rounds_entry(
-            state[:, s:s + 1].contiguous(), units[:, :, s:s + 1].contiguous(),
-            port._tables, t_nows, s, n, port._seed, 10)
-        recv.append(r)
-        parts.append(p)
-        states.append(st)
-    g_min, counters = mesh.mesh_reduce(torch.stack(parts))
-    assert torch.equal(torch.stack(recv).permute(2, 1, 0, 3, 4), want[0])
+    rows, counts, states, g_min, counters = mesh.rounds_entries_plain(
+        [state[:, s:s + 1] for s in range(n)], units, port._tables, t_nows,
+        port._seed, 10)
+    assert rows.shape == (n, n, k, 64, 4) and counts.shape == (n, n, k)
+    assert np.array_equal(mesh.read_rounds(rows.numpy(), counts.numpy()),
+                          want[0].numpy())
     assert torch.equal(torch.cat(states, dim=1), want[1])
-    assert torch.equal(g_min, want[2]) and torch.equal(counters, want[3])
+    mesh.reset_launches()
+    states = [state[:, s:s + 1].clone() for s in range(n)]
+    got = mesh.mesh_rounds_entry(states, units, [port._tables] * n, t_nows,
+                                 port._seed, 10)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(torch.cat(states, dim=1), want[1])
+    for t in range(n):
+        assert torch.equal(got[1][t], want[2])
+        assert torch.equal(got[2][t], want[3])
+    assert not any(mesh.LAUNCHES.values()) and not mesh.ENTRY_LAUNCHES
+
+
+def test_round_stage_reused_after_a_larger_call():
+    """One RoundStage over four CPU entries kept through calls of 60, 3, 0
+    and 25 units a round with rising epochs: the inboxes keep the larger
+    calls' rows past each count, and every call still equals the
+    whole-mesh scan_rounds_plain from the state the last one left, with
+    each entry's status OK at its epoch."""
+    n, k, h = 4, 8, 37
+    rng = np.random.default_rng(44)
+    port = MeshDataPlane(port_params(make_params(h)), n_shards=n,
+                         units_per_shard=64, device="cpu")
+    state = port.state
+    states = [state[:, s:s + 1].clone() for s in range(n)]
+    stage = mesh.RoundStage(entries(n), n, k, 64, states,
+                            [port._tables] * n)
+    for epoch, used in enumerate((60, 3, 0, 25), start=1):
+        units, t_nows = _round_inputs(rng, port, h, k, [used] * k)
+        t_nows = t_nows + epoch * 10 ** 9
+        want = mesh.scan_rounds_plain(state, units, port._tables, t_nows,
+                                      port._seed, 10)
+        stage.units[...] = units.numpy()
+        stage.t_now[...] = t_nows.numpy()
+        stage.run(port._seed, 10, epoch)
+        recv, g_min, counters = stage.read()
+        np.testing.assert_array_equal(recv, want[0].numpy())
+        assert torch.equal(torch.cat(states, dim=1), want[1])
+        assert (g_min == want[2].numpy()).all()
+        assert (counters == want[3].numpy()).all()
+        assert stage.status.tolist() == [[mesh.STATUS_OK, 0, epoch,
+                                          epoch]] * n
+        state = want[1]
+    # the inboxes still hold rows of the larger calls past the last counts
+    counts = stage.out[:, 3 * k:3 * k + n * k].reshape(n, n, k)
+    stale = (np.arange(64) >= counts[..., None]) & (stage.rows[..., 3] >= 2)
+    assert stale.any()
+
+
+def _round_struct():
+    """csrc/mesh.cu's RoundBlock as [(field, int64 words)]."""
+    src = (mesh.devcfg.CSRC / "mesh.cu").read_text()
+    body = src[src.index("struct RoundBlock {"):]
+    body = body[:body.index("};")]
+    return [(name, mesh.MAX_SHARDS if arr else 1) for name, arr in
+            re.findall(r"^\s*i64 (\w+)(\[kMaxShards\])?;", body, re.M)]
+
+
+def test_round_block_table_layout():
+    """round_block_table for a fake plan whose pairs take all three routes
+    (cards 0, 0, 1; card 0 reaches card 1 over NVLink, card 1 reaches card
+    0 only through the host), on fake addresses: ROUND_BLOCK_WORDS words a
+    block in csrc/mesh.cu's RoundBlock order; each destination's rows
+    block for the source, its trailers and flag on the pair's route (its
+    page-locked copies for host, else its card's); the block's own
+    trailers and flags on each source's route; zero past N."""
+    fields = _round_struct()
+    assert sum(w for _, w in fields) == mesh.ROUND_BLOCK_WORDS
+    at, off = {}, 0
+    for name, w in fields:
+        at[name] = off
+        off += w
+    plan = mesh.entry_plan(_cards(0, 0, 1), lambda a, b: a < b)
+    assert plan.routes == (("local", "local", "peer"),
+                           ("local", "local", "peer"),
+                           ("host", "host", "local"))
+    n, k, c = 3, 8, 64
+
+    def addrs(t):
+        base = (t + 1) << 40
+        host = (base + (4 << 32), base + (5 << 32)) if t < 2 else None
+        return mesh.RoundAddrs(base, tuple(base + (1 << 32) + 8 * i
+                                           for i in range(5)),
+                               base + (2 << 32),
+                               (base + (3 << 32), base + (3 << 32) + 4096),
+                               host, base + (6 << 32), base + (7 << 32))
+
+    ad = [addrs(t) for t in range(n)]
+    for (_card, shards) in plan.groups:
+        tab = mesh.round_block_table(shards, plan.routes, ad, k, c)
+        assert tab.shape == (len(shards), mesh.ROUND_BLOCK_WORDS)
+        for b, s in enumerate(shards):
+            row, a = tab[b], ad[s]
+            assert row[at["shard"]] == s and row[at["state"]] == a.state
+            assert [row[at[f]] for f in ("host_node", "lat", "thresh",
+                                         "rate", "cap")] == list(a.tables)
+            assert row[at["out"]] == a.out and row[at["status"]] == a.status
+            assert row[at["pad"]] == 0
+            for d in range(n):
+                assert row[at["rows"] + d] == ad[d].rows + s * k * c * 32
+                dst = (ad[d].host if plan.routes[s][d] == "host"
+                       else ad[d].card)
+                assert row[at["trailer"] + d] == dst[0] + s * k * 32
+                assert row[at["flag"] + d] == dst[1] + 8 * s
+                own = (a.host if plan.routes[d][s] == "host" else a.card)
+                assert row[at["own_trailer"] + d] == own[0] + d * k * 32
+                assert row[at["own_flag"] + d] == own[1] + 8 * d
+            for name in ("rows", "trailer", "flag", "own_trailer",
+                         "own_flag"):
+                assert not row[at[name] + n:at[name] + mesh.MAX_SHARDS].any()
+
+
+@pytest.mark.parametrize("kwargs, err", [
+    ({"k": 33}, "K in 1..32"), ({"states": 3}, "4 shards want 4 states"),
+    ({"max_pkts": 65}, "max_pkts"), ({"hs": 9}, "must be \\(3, 1, 10\\)")])
+def test_rounds_entry_wrapper_refusals(kwargs, err):
+    n, k, hs, c = 4, kwargs.get("k", 2), 10, 16
+    port = MeshDataPlane(port_params(make_params(n * hs)), n_shards=n,
+                         units_per_shard=c, device="cpu")
+    states = [port.state[:, s:s + 1].clone() for s in range(n)]
+    if "hs" in kwargs:
+        states[2] = torch.zeros((3, 1, kwargs["hs"]), dtype=torch.int64)
+    states = states[:kwargs.get("states", n)]
+    with pytest.raises(ValueError, match=err):
+        mesh.mesh_rounds_entry(states, torch.zeros((k, 6, n, c),
+                                                   dtype=torch.int64),
+                               [port._tables] * n,
+                               torch.zeros(k, dtype=torch.int64), 3,
+                               kwargs.get("max_pkts", 10))
 
 
 # -- (a) the exchange over entries --------------------------------------------
@@ -271,7 +408,7 @@ def test_shards_above_the_entries_raise_as_the_reference():
 
 # -- (b) the rounds over entries ----------------------------------------------
 
-@pytest.mark.parametrize("n", [2, 8])
+@pytest.mark.parametrize("n", [2, 4, 8])
 def test_rounds_over_entries_match_the_reference(n):
     """round_step and scan_rounds (K = 1 and 8, and a backlog past
     SCAN_KMAX) over n CPU entries against the reference's plane, the bucket
