@@ -1,0 +1,9 @@
+"""Put the checkout's root on the path, so the tests import ``portbench``
+and ``shadow_tpu_torch`` as ``portbench/run.py`` does."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
