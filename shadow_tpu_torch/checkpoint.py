@@ -700,6 +700,7 @@ def _apply_telemetry_resume(controller, want, now: int) -> None:
 
     if have is None:
         tel = TelemetryCollector(want)
+        controller.spans.totals.setdefault("telemetry", 0.0)
         tel.next_sample = ((now // tel.sample_every) + 1) * tel.sample_every
         controller.telemetry = tel
         for h in controller.hosts:

@@ -50,7 +50,6 @@ from __future__ import annotations
 
 from functools import partial
 
-import time as _walltime  # detlint: ok(wallclock): phase_wall + heartbeat wall costs
 from pathlib import Path
 
 import numpy as np
@@ -65,6 +64,7 @@ from shadow_tpu_torch.network.engine import NetworkEngine
 from shadow_tpu_torch.network.fluid import MTU, NetParams
 from shadow_tpu_torch.network.graph import load_graph
 from shadow_tpu_torch.utils.counters import Counters
+from shadow_tpu_torch.utils import spans as _sp
 from shadow_tpu_torch.utils.logging import SimLogger
 from shadow_tpu_torch.utils.units import parse_bandwidth
 
@@ -84,6 +84,8 @@ VOLATILE_SUMMARY_KEYS = ("wall_seconds", "sim_sec_per_wall_sec",
                          "shards", "device_transport",
                          "device_transport_engaged", "supervisor",
                          "native_colcore")
+#: phases the summary's phase_wall reports and the heartbeat's leaves out
+SUMMARY_ONLY_PHASES = ("telemetry", "checkpoint")
 
 
 class Controller:
@@ -133,11 +135,20 @@ class Controller:
         return "shadow.log"
 
     def __init__(self, cfg: ConfigOptions, mirror_log: bool = True,
-                 device: str = "cuda") -> None:
+                 device: str = "cuda", record_spans: bool = False) -> None:
+        """``record_spans`` keeps a record of every span of the host's
+        phases (utils/spans.py) until ``spans.take()``; off, only the
+        phase totals (``phase_wall``) are kept."""
         from shadow_tpu_torch.ops import devcfg
 
+        t_construct = _sp.now() if record_spans else 0
         devcfg.require_device(device)  # "cuda" without a card: fail now
         self.cfg = cfg
+        #: the host phases' timer, shared with the data plane, whose
+        #: phase_wall is its totals dict (events first, as the summary
+        #: lists them)
+        self.spans = _sp.Spans(record_spans)
+        self.spans.totals["events"] = 0.0
         if cfg.general.checkpoint_every:
             # fail at build, not at the first checkpoint boundary 40
             # minutes in (checkpoint.py owns the policy)
@@ -228,7 +239,7 @@ class Controller:
                 self.graph, params, self.hosts, self.round_ns,
                 backend=backend, tpu_options=cfg.experimental,
                 bootstrap_end=cfg.general.bootstrap_end_time,
-                device=device,
+                device=device, spans=self.spans,
             )
             self.engine.activate = self._active.add
         else:
@@ -239,7 +250,7 @@ class Controller:
                 self.graph, params, self.hosts, self.round_ns,
                 backend=backend, tpu_options=cfg.experimental,
                 bootstrap_end=cfg.general.bootstrap_end_time,
-                device=device,
+                device=device, spans=self.spans,
             )
         for h in self.hosts:
             h.engine = self.engine
@@ -335,6 +346,7 @@ class Controller:
             from shadow_tpu_torch.telemetry import TelemetryCollector
 
             self.telemetry = TelemetryCollector(cfg.telemetry)
+            self.spans.totals["telemetry"] = 0.0
             for h in self.hosts:
                 h.telemetry = self.telemetry
             if self.faults is not None:
@@ -344,8 +356,6 @@ class Controller:
         self.rounds = 0
         self.events = 0
         self.wall_seconds = 0.0
-        self._events_wall = 0.0  # scheduler.run_round wall (phase timing)
-        self._ckpt_wall = 0.0  # save_checkpoint wall (phase timing)
         # checkpoint/restore + determinism sentinel (checkpoint.py)
         self.ckpt_every: SimTime = cfg.general.checkpoint_every or 0
         self.ckpt_dir = (Path(cfg.general.checkpoint_dir)
@@ -379,6 +389,8 @@ class Controller:
         self._init_live()
         for w in cfg.warnings:
             self.log.warning(w)
+        if record_spans:
+            self.spans.add(_sp.CONSTRUCT, t_construct, _sp.now())
 
     def _init_live(self) -> None:
         """Build the live operations plane (live.py): load the replay
@@ -599,6 +611,9 @@ class Controller:
         (engine, queues, fault cursor, active set, counters) came back
         through the snapshot, so the continuation is byte-identical to the
         uninterrupted run."""
+        sp = self.spans
+        if sp.on:
+            sp.open(_sp.RUN)
         cfg = self.cfg
         stop = cfg.general.stop_time
         w = self.round_ns
@@ -697,7 +712,9 @@ class Controller:
 
             self._chaos = ChaosInjector.from_env(
                 self.data_dir, shard=self.shard_id, in_process=True)
-        t0 = _walltime.perf_counter()
+        t0 = _sp.now()
+        if sp.on:
+            sp.open(_sp.LOOP, t0)
         try:
             now = self._round_loop(now, stop, w, next_hb, hb_interval,
                                    next_prog, prog_step, next_ckpt,
@@ -723,13 +740,20 @@ class Controller:
                     self.live.publish({"type": "checkpoint",
                                        "path": str(path), "t": now,
                                        "round": self.rounds})
+        if sp.on:
+            sp.open(_sp.GC)
         _gc.collect()
+        if sp.on:
+            sp.close()
         self.engine.flush_all()  # finalize counters for in-flight batches
         if cfg.general.progress:
             import sys as _sys
 
             print(file=_sys.stderr)  # end the \r status line
-        self.wall_seconds = _walltime.perf_counter() - t0
+        t1 = _sp.now()
+        self.wall_seconds = (t1 - t0) / 1e9
+        if sp.on:
+            sp.close(t1)
         self.scheduler.shutdown()
         try:
             result = self._finalize(min(now, stop))
@@ -741,6 +765,8 @@ class Controller:
                                "exit_reason": result["exit_reason"],
                                "rounds": self.rounds, "t": min(now, stop)})
             self.live.close()
+        if sp.on:
+            sp.close()
         return result
 
     def _round_loop(self, now, stop, w, next_hb, hb_interval, next_prog,
@@ -759,6 +785,8 @@ class Controller:
         # are the scalar twin's
         devt = getattr(self.engine, "devt", None)
         faults = self.faults
+        sp = self.spans
+        pw = sp.totals
         while now < stop:
             if self._chaos is not None:
                 self._chaos.maybe_fire(self.rounds, self)
@@ -794,7 +822,9 @@ class Controller:
                 self._verify_reexec(now)
             if now >= next_ckpt or self._ckpt_now:
                 self._ckpt_now = False
-                t_ck = _walltime.perf_counter()
+                t_ck = _sp.now()
+                if sp.on:
+                    sp.open(_sp.CHECKPOINT, t_ck)
                 if tel is not None:
                     tel.sync(self)  # streams complete at the boundary
                 path = _ckpt.save_checkpoint(self, now)
@@ -813,7 +843,11 @@ class Controller:
                 # snapshot wall is attributed like any other phase: it is
                 # plane-independent (the pickler walks the same graph fast
                 # plane or slow)
-                self._ckpt_wall += _walltime.perf_counter() - t_ck
+                t1 = _sp.now()
+                pw["checkpoint"] = pw.get("checkpoint", 0.0) + (
+                    t1 - t_ck) / 1e9
+                if sp.on:
+                    sp.close(t1)
             if faults is not None:
                 # fault transitions apply at round starts: an action at
                 # time t takes effect at the first boundary >= t — the
@@ -826,8 +860,12 @@ class Controller:
                 w = max(self.round_ns,
                         min(self.engine.min_used_latency, 10 * self.round_ns))
             round_end = min(now + w, stop)
+            if sp.on:
+                sp.open(_sp.ROUND_START)
             self.engine.start_of_round(now, round_end)
-            t_ev = _walltime.perf_counter()
+            t_ev = _sp.now()
+            if sp.on:
+                sp.close(t_ev)
             if self._c_core is not None:
                 # the C loop snapshots + sorts the active set, merges each
                 # host's inbox/heap, and discards drained hosts itself
@@ -838,8 +876,14 @@ class Controller:
                 for h in active:
                     if not h.equeue._heap:
                         self._active.discard(h.id)
-            self._events_wall += _walltime.perf_counter() - t_ev
+            t1 = _sp.now()
+            pw["events"] += (t1 - t_ev) / 1e9
+            if sp.on:
+                sp.add(_sp.EVENTS, t_ev, t1)
+                sp.open(_sp.ROUND_END, t1)
             self.engine.end_of_round(now, round_end)
+            if sp.on:
+                sp.close()
             if devt is not None:
                 executed += devt.take_executed()
             self.rounds += 1
@@ -855,7 +899,14 @@ class Controller:
                 # annotations; take a sample when the sim-time grid says
                 # so (the round grid is policy-independent, so the
                 # streams are too). Idle rounds skip the call entirely.
+                t_tel = _sp.now()
+                if sp.on:
+                    sp.open(_sp.TELEMETRY, t_tel)
                 tel.on_round_end(self, round_end)
+                t1 = _sp.now()
+                pw["telemetry"] += (t1 - t_tel) / 1e9
+                if sp.on:
+                    sp.close(t1)
             if (self.stop_after_round is not None
                     and self.rounds >= self.stop_after_round):
                 # time-travel inspection (live.py jump): halt AT this
@@ -866,7 +917,11 @@ class Controller:
                 now = round_end
                 break
             if round_end >= next_hb:
+                if sp.on:
+                    sp.open(_sp.HEARTBEAT)
                 self._heartbeat(round_end, t0)
+                if sp.on:
+                    sp.close()
                 # grid-snap, not +=: skip-ahead can cross several
                 # intervals at once
                 next_hb = ((round_end // hb_interval) + 1) * hb_interval
@@ -875,7 +930,11 @@ class Controller:
                 next_prog = round_end + prog_step
             if self.rounds >= next_gc:
                 next_gc = self.rounds + _GC_EVERY_ROUNDS
+                if sp.on:
+                    sp.open(_sp.GC)
                 _gc.collect()
+                if sp.on:
+                    sp.close()
             if executed == 0 and not self.engine.has_immediate_work():
                 # provably idle: materialize any in-flight draw batch that
                 # could produce an event before the next queued one, then
@@ -901,10 +960,14 @@ class Controller:
                         nq = min(nq, faults.next_time())
                     return nq
 
+                if sp.on:
+                    sp.open(_sp.IDLE_SKIP)
                 nt = _next_queued()
                 while self.engine.earliest_outstanding() < nt:
                     self.engine.flush_due(nt)
                     nt = _next_queued()
+                if sp.on:
+                    sp.close()
                 if nt >= T_NEVER:
                     self.log.info(
                         f"no further events at {format_time(round_end)}; ending early"
@@ -1009,11 +1072,11 @@ class Controller:
                                    "paused": self._live_paused})
         return faults
 
-    def _progress(self, sim_now: SimTime, stop: SimTime, t0: float) -> None:
+    def _progress(self, sim_now: SimTime, stop: SimTime, t0: int) -> None:
         """Terminal status line (reference: the status bar, SURVEY.md §2)."""
         import sys as _sys
 
-        wall = _walltime.perf_counter() - t0
+        wall = (_sp.now() - t0) / 1e9
         pct = 100 * sim_now // stop
         rate = (sim_now / NS_PER_SEC) / wall if wall > 0 else 0.0
         eta = (stop - sim_now) / NS_PER_SEC / rate if rate > 0 else 0.0
@@ -1021,8 +1084,8 @@ class Controller:
               f"{format_time(stop)}  {rate:.2f} sim-s/s  eta {eta:.0f}s   ",
               end="", file=_sys.stderr, flush=True)
 
-    def _heartbeat(self, sim_now: SimTime, t0: float) -> None:
-        wall = _walltime.perf_counter() - t0
+    def _heartbeat(self, sim_now: SimTime, t0: int) -> None:
+        wall = (_sp.now() - t0) / 1e9
         rate = (sim_now / NS_PER_SEC) / wall if wall > 0 else 0.0
         # the device-window routing decision rides the heartbeat so a
         # silently clamped/starved device is visible mid-run
@@ -1041,10 +1104,8 @@ class Controller:
                 "wall": {
                     "seconds": round(wall, 3), "rate": round(rate, 3),
                     "phase": {
-                        "events": round(self._events_wall, 4),
-                        **{k: round(v, 4)
-                           for k, v in self.engine.phase_wall.items()},
-                    },
+                        k: round(v, 4) for k, v in self.spans.totals.items()
+                        if k not in SUMMARY_ONLY_PHASES},
                 },
             })
         self.log.info(
@@ -1056,10 +1117,15 @@ class Controller:
         )
 
     def _finalize(self, end_time: SimTime) -> dict:
+        sp = self.spans
+        if sp.on:
+            sp.open(_sp.FINALIZE)
         if self.telemetry is not None:
             # flush the final round's flow closes (records already
             # buffered; reaping adds none) and close the stream handles
             self.telemetry.finalize(self)
+        if sp.on:
+            sp.open(_sp.FINALIZE_REAP)
         errors = []
         for p in self.processes:
             err = p.check_final_state()
@@ -1075,10 +1141,16 @@ class Controller:
                 # crash-killed guests that were never rebooted still hold
                 # an open journal stream; flush + close it here
                 j.close()
+        if sp.on:
+            t = sp.close()
+            sp.open(_sp.FINALIZE_FOLD, t)
         for h in self.hosts:  # merge AFTER reaping so its counters land
             h.fold_counters()
             self.counters.merge(h.counters)
         self.engine.close()  # join the device-attach thread before teardown
+        if sp.on:
+            t = sp.close()
+            sp.open(_sp.FINALIZE_LOG, t)
         devt = getattr(self.engine, "devt", None)  # the columnar plane's
         sim_sec = end_time / NS_PER_SEC
         rate = sim_sec / self.wall_seconds if self.wall_seconds > 0 else float("inf")
@@ -1090,15 +1162,23 @@ class Controller:
             f"{self.engine.units_dropped} dropped"
         )
         self.log.info(self.counters.summary())
+        if sp.on:
+            t = sp.close()
+            sp.open(_sp.FINALIZE_FLUSH_LOGS, t)
         self.data_dir.mkdir(parents=True, exist_ok=True)
         for h in self.hosts:
             h.flush_logs(self.data_dir)
             if h.pcap is not None:
                 h.pcap.close()
+        if sp.on:
+            t = sp.close()
+            sp.open(_sp.FINALIZE_LOG, t)
         self.log.flush()
+        if sp.on:
+            sp.close()
         import resource
 
-        return {
+        summary = {
             "sim_seconds": sim_sec,
             "wall_seconds": self.wall_seconds,
             "sim_sec_per_wall_sec": rate,
@@ -1121,16 +1201,12 @@ class Controller:
             "process_errors": errors,
             # per-phase wall breakdown: events = host event execution; the
             # engine contributes its own phases (barrier / draw_flush /
-            # extract / window_*)
+            # extract / window_* / spec_install), then telemetry while a
+            # collector runs and checkpoint once one was written
             "phase_wall": {
-                "events": round(self._events_wall, 4),
-                **{k: round(v, 4)
-                   for k, v in self.engine.phase_wall.items()},
-                **({"telemetry": round(self.telemetry.wall, 4)}
-                   if self.telemetry is not None else {}),
-                **({"checkpoint": round(self._ckpt_wall, 4)}
-                   if self._ckpt_wall else {}),
-            },
+                k: round(v, 4) for k, v in self.spans.totals.items()
+                if (k != "telemetry" or self.telemetry is not None)
+                and (k != "checkpoint" or v)},
             # fused device windows: zero here on a tpu_batch run means the
             # device never served a window — the host twin carried the
             # whole run. Wall-clock routing telemetry only: never
@@ -1155,6 +1231,9 @@ class Controller:
             **({"telemetry": self.telemetry.summary()}
                if self.telemetry is not None else {}),
         }
+        if sp.on:
+            sp.close()
+        return summary
 
 
 def _default_ip(host_id: int) -> str:

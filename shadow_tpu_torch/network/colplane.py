@@ -61,7 +61,6 @@ tgt/peer = dst/src of the unit.
 
 from __future__ import annotations
 
-import time as _walltime  # detlint: ok(wallclock): phase_wall routing telemetry
 from bisect import bisect_left
 from collections import deque
 
@@ -78,6 +77,7 @@ from shadow_tpu_torch.network.fluid import (
 )
 from shadow_tpu_torch.network.devroute import WINDOW_SLOTS, DeviceRoutedPlane
 from shadow_tpu_torch.network.graph import INF_I64, NetworkGraph
+from shadow_tpu_torch.utils import spans as _sp
 
 # egress row field indices (tuples appended by Host.emit_msg)
 E_KIND, E_DST, E_SIZE, E_TEMIT, E_SPORT, E_DPORT = 0, 1, 2, 3, 4, 5
@@ -136,7 +136,7 @@ class ColumnarPlane(DeviceRoutedPlane):
     def __init__(self, graph: NetworkGraph, params: NetParams, hosts,
                  round_ns: SimTime, backend: str = "numpy",
                  tpu_options=None, bootstrap_end: SimTime = 0,
-                 device: str = "cuda") -> None:
+                 device: str = "cuda", spans: _sp.Spans = None) -> None:
         self.graph = graph
         self.params = params
         self.hosts = hosts
@@ -177,15 +177,20 @@ class ColumnarPlane(DeviceRoutedPlane):
         #: windows resolve on the numpy twin (identical flags)
         _mf = getattr(tpu_options, "tpu_mesh_floor", None)
         self.mesh_floor = 2048 if _mf is None else int(_mf)
-        #: per-phase wall-clock breakdown, merged into the run summary by
-        #: the controller. window_* phases attribute the fused multi-round
-        #: device windows: host-side array build vs async dispatch vs
-        #: realized readback stalls (a pipelined window shows
-        #: build+dispatch but ~zero readback).
-        self.phase_wall = {"barrier": 0.0, "draw_flush": 0.0,
-                           "extract": 0.0, "ingress_deferred": 0.0,
-                           "window_build": 0.0, "window_dispatch": 0.0,
-                           "window_readback": 0.0, "transport_tick": 0.0}
+        #: the controller's span recorder (utils/spans.py), or one of
+        #: this plane's own when it is built alone
+        self.spans = spans if spans is not None else _sp.Spans()
+        #: per-phase wall-clock breakdown (the recorder's totals), which
+        #: the run summary reports. window_* phases attribute the fused
+        #: multi-round device windows: host-side array build vs async
+        #: dispatch vs realized readback stalls (a pipelined window shows
+        #: build+dispatch but ~zero readback); spec_install is the
+        #: speculative waves' hand-off to the C engine.
+        self.phase_wall = self.spans.totals
+        self.phase_wall.update(dict.fromkeys((
+            "barrier", "draw_flush", "extract", "ingress_deferred",
+            "window_build", "window_dispatch", "window_readback",
+            "transport_tick", "spec_install"), 0.0))
         for h in hosts:
             h.colplane = self
         self._init_device_routing(backend, tpu_options, params, device)
@@ -265,18 +270,24 @@ class ColumnarPlane(DeviceRoutedPlane):
                 add_down = clamped_refill(p.rate_down, p.cap_down, dt)
                 self.tokens_down += np.minimum(
                     add_down, p.cap_down - self.tokens_down)
+        sp = self.spans
         if self._deferred:
-            t0 = _walltime.perf_counter()
+            t0 = _sp.now()
             self._drain_deferred(round_start)
-            self.phase_wall["ingress_deferred"] += (
-                _walltime.perf_counter() - t0)
+            t1 = _sp.now()
+            self.phase_wall["ingress_deferred"] += (t1 - t0) / 1e9
+            if sp.on:
+                sp.add(_sp.INGRESS_DEFERRED, t0, t1)
         if self.pending:
-            t0 = _walltime.perf_counter()
+            t0 = _sp.now()
             if self._c is not None:
                 self._c.extract(round_end)
             else:
                 self._extract(round_end)
-            self.phase_wall["extract"] += _walltime.perf_counter() - t0
+            t1 = _sp.now()
+            self.phase_wall["extract"] += (t1 - t0) / 1e9
+            if sp.on:
+                sp.add(_sp.EXTRACT, t0, t1)
 
     def _extract(self, round_end: SimTime) -> None:
         """Hand every store row with t < round_end to its destination
@@ -352,11 +363,16 @@ class ColumnarPlane(DeviceRoutedPlane):
             # live-dispatched ones would have
             self.devt.flush_round(round_end)
         self._barrier_round(round_start, round_end)
+        sp = self.spans
+        if sp.on:
+            sp.open(_sp.WINDOW_TICK)
         self._window_tick(round_end)
+        if sp.on:
+            sp.close()
 
     def _barrier_round(self, round_start: SimTime,
                        round_end: SimTime) -> None:
-        t0 = _walltime.perf_counter()
+        t0 = _sp.now()
         acks = self.ack_hosts
         if acks:
             self.ack_hosts = []
@@ -390,7 +406,10 @@ class ColumnarPlane(DeviceRoutedPlane):
                     self._dispatch_device_batch(r, round_end)
             elif r and self.device is not None:
                 self._floor_cooldown_tick()
-            self.phase_wall["barrier"] += _walltime.perf_counter() - t0
+            t1 = _sp.now()
+            self.phase_wall["barrier"] += (t1 - t0) / 1e9
+            if self.spans.on:
+                self.spans.add(_sp.BARRIER, t0, t1)
             return
         if self._c is not None:
             # fault_filter rounds run the Python barrier below: flush the
@@ -438,7 +457,10 @@ class ColumnarPlane(DeviceRoutedPlane):
             self._barrier_scalar(rows, segs, round_start, round_end, uids_l)
         else:
             self._barrier_vector(rows, segs, round_start, round_end, uids_l)
-        self.phase_wall["barrier"] += _walltime.perf_counter() - t0
+        t1 = _sp.now()
+        self.phase_wall["barrier"] += (t1 - t0) / 1e9
+        if self.spans.on:
+            self.spans.add(_sp.BARRIER, t0, t1)
 
     def _mesh_materialize(self) -> None:
         """Resolve EVERY lazily-accumulated mesh barrier in one fused
@@ -771,7 +793,7 @@ class ColumnarPlane(DeviceRoutedPlane):
         and reads it — for free, once the shared readback landed — at its
         own causal deadline. Readback is deferred exactly as before; only
         the dispatch count changes (one per window, not one per barrier)."""
-        t0 = _walltime.perf_counter()
+        t0 = _sp.now()
         mb = self.max_batch
         groups: list = []
         cur: list = []
@@ -784,7 +806,8 @@ class ColumnarPlane(DeviceRoutedPlane):
             cur.append(b)
             cur_n += n
         groups.append((cur, cur_n))
-        t1 = _walltime.perf_counter()
+        t1 = _sp.now()
+        win = self.dev_windows  # this window's id (spans)
         for batches, n_g in groups:
             self._win_inflight += 1
             if len(batches) == 1 and n_g > mb:
@@ -797,7 +820,7 @@ class ColumnarPlane(DeviceRoutedPlane):
                                          b.npk[i:i + mb],
                                          b.thresh[i:i + mb])
                     for i in range(0, n_g, mb)]
-                b.handle = _ConcatHandle(self, handles)
+                b.handle = _ConcatHandle(self, handles, win)
                 continue
             if len(batches) == 1:
                 b = batches[0]
@@ -807,18 +830,23 @@ class ColumnarPlane(DeviceRoutedPlane):
                 hi = np.concatenate([b.uid_hi for b in batches])
                 npk = np.concatenate([b.npk for b in batches])
                 th = np.concatenate([b.thresh for b in batches])
-            wh = _WindowHandle(self, self.device.dispatch(lo, hi, npk, th))
+            wh = _WindowHandle(self, self.device.dispatch(lo, hi, npk, th),
+                               win)
             off = 0
             for b in batches:
                 n = len(b.keys)
                 b.handle = _WindowSlice(wh, off, n)
                 off += n
         self._win_open_rounds = 0
-        t2 = _walltime.perf_counter()
-        self.phase_wall["window_build"] += t1 - t0
-        self.phase_wall["window_dispatch"] += t2 - t1
+        t2 = _sp.now()
+        self.phase_wall["window_build"] += (t1 - t0) / 1e9
+        self.phase_wall["window_dispatch"] += (t2 - t1) / 1e9
+        sp = self.spans
+        if sp.on:
+            sp.add(_sp.DRAW_BUILD, t0, t1, win)
+            sp.add(_sp.DRAW_LAUNCH, t1, t2, win)
         self._note_window_units(units)
-        self._record_window(units, t2 - t0)
+        self._record_window(units, (t2 - t0) / 1e9)
 
     def _window_done(self) -> None:
         """A dispatched window's last deferred readback was consumed: its
@@ -829,10 +857,36 @@ class ColumnarPlane(DeviceRoutedPlane):
     def _stall_sample(self, dt: float) -> None:
         """A window readback stalled for dt seconds: fold it into the
         break-even EMA (a stalling window costs host wall exactly like
-        dispatch does) and the phase attribution."""
-        self.phase_wall["window_readback"] += dt
+        dispatch does)."""
         if dt > 2e-5:
             self._win_cost_ema += 0.25 * dt
+
+    def _read_card(self, dh, window: int) -> tuple:
+        """Read one card result ``dh`` of window ``window``: (its value,
+        the seconds the read took), billed to window_readback. Recording,
+        the wait for the card (draw.wait) and the copy out (draw.copy_out)
+        are spans of their own, and a wait that found the kernel still
+        running counts in ``waits_blocked``."""
+        self.waits += 1
+        sp = self.spans
+        t0 = _sp.now()
+        if sp.on and hasattr(dh, "wait"):
+            if not dh.is_ready():
+                self.waits_blocked += 1
+            dh.wait()
+            tw = _sp.now()
+            value = dh.read()
+            t1 = _sp.now()
+            sp.add(_sp.DRAW_WAIT, t0, tw, window)
+            sp.add(_sp.DRAW_COPY_OUT, tw, t1, window)
+        else:
+            value = dh.read()
+            t1 = _sp.now()
+            if sp.on:
+                sp.add(_sp.DRAW_WAIT, t0, t1, window)
+        dt = (t1 - t0) / 1e9
+        self.phase_wall["window_readback"] += dt
+        return value, dt
 
     # -- speculative forward windows (C plane) -------------------------------
     def _spec_enable(self) -> None:
@@ -925,7 +979,7 @@ class ColumnarPlane(DeviceRoutedPlane):
                 hosts[g], u0[g], n[g], npk_a[g], npk_b[g])
 
     def _dispatch_spec_group(self, hosts, u0, n, npk_a, npk_b) -> None:
-        t0 = _walltime.perf_counter()
+        t0 = _sp.now()
         n64 = n.astype(np.int64)
         parts_lo: list = []
         parts_hi: list = []
@@ -951,34 +1005,42 @@ class ColumnarPlane(DeviceRoutedPlane):
             off += total
         if off == 0:
             return
-        t1 = _walltime.perf_counter()
+        t1 = _sp.now()
+        win = self.dev_windows  # this wave's id (spans)
         dh = self.device.dispatch_min(
             np.concatenate(parts_lo), np.concatenate(parts_hi),
             np.concatenate(parts_npk),
             min_bucket=self.device.SPEC_BUCKET)
         self._spec_pending.append(
-            (dh, (hosts, u0, n, npk_a, npk_b), off_a, off_b))
+            (dh, (hosts, u0, n, npk_a, npk_b), off_a, off_b, win))
         self.dev_windows += 1
         self.dev_window_units += off
         self._spec_units += off
-        t2 = _walltime.perf_counter()
-        self.phase_wall["window_build"] += t1 - t0
-        self.phase_wall["window_dispatch"] += t2 - t1
+        t2 = _sp.now()
+        self.phase_wall["window_build"] += (t1 - t0) / 1e9
+        self.phase_wall["window_dispatch"] += (t2 - t1) / 1e9
+        sp = self.spans
+        if sp.on:
+            sp.add(_sp.SPEC_BUILD, t0, t1, win)
+            sp.add(_sp.SPEC_LAUNCH, t1, t2, win)
         # the economics clamp compares speculation's OWN spend against its
         # hits; deferred-window walls must not be billed to it
-        self._spec_spend += t2 - t0
+        self._spec_spend += (t2 - t0) / 1e9
 
     def _install_spec(self, wave) -> None:
         """A speculative wave's min-draws landed: hand them to the C
         consult table in one call (per-host slices by unit offset)."""
-        t0 = _walltime.perf_counter()
-        dh, d, off_a, off_b = wave
+        t0 = _sp.now()
+        dh, d, off_a, off_b, win = wave
         mins = dh.read()
         hosts, u0, n, npk_a, npk_b = d
         self._c.spec_install(hosts, u0, n, npk_a, npk_b, off_a, off_b,
                              np.ascontiguousarray(mins))
-        dt = _walltime.perf_counter() - t0
-        self.phase_wall["window_build"] += dt
+        t1 = _sp.now()
+        dt = (t1 - t0) / 1e9
+        self.phase_wall["spec_install"] += dt
+        if self.spans.on:
+            self.spans.add(_sp.SPEC_INSTALL, t0, t1, win)
         self._spec_spend += dt
 
     # result consumption ----------------------------------------------------
@@ -993,7 +1055,13 @@ class ColumnarPlane(DeviceRoutedPlane):
             return
         if not any(b.deadline < limit for b in self.outstanding):
             return
-        t0 = _walltime.perf_counter()
+        sp = self.spans
+        t0 = _sp.now()
+        if sp.on:
+            sp.open(_sp.DRAW_FLUSH, t0)
+        # why a window resolves on the host twin, if one does (counted in
+        # host_windows): its units under the gate (or no device plane)
+        host_reason = "below_floor"
         if self.mesh_plane is not None:
             self._mesh_materialize()
         if self.device is not None:
@@ -1013,16 +1081,24 @@ class ColumnarPlane(DeviceRoutedPlane):
                 # unbounded device memory behind unread handles)
                 slot_free = self._win_inflight < WINDOW_SLOTS
                 if self.window_rounds > 0:
-                    engage = slot_free and units >= self.device_floor
+                    gate = units >= self.device_floor
                 else:
-                    engage = (slot_free and not self._probe_clamped
-                              and units >= self.window_gate_units(
-                                  self._win_engaged))
+                    gate = (not self._probe_clamped
+                            and units >= self.window_gate_units(
+                                self._win_engaged))
+                engage = slot_free and gate
                 self._win_engaged = engage
                 if engage:
                     self._dispatch_window(lazy_all, units)
                 else:
                     self._floor_cooldown_tick()
+                    if gate:
+                        # both slots busy: a window that is itself due, or
+                        # one still open that this flush takes early
+                        host_reason = (
+                            "slots_busy" if any(b.deadline < limit
+                                                for b in lazy_all)
+                            else "flushed_open")
         take = [b for b in self.outstanding
                 if b.handle is None or b.deadline < limit]
         self.outstanding = deque(
@@ -1033,6 +1109,9 @@ class ColumnarPlane(DeviceRoutedPlane):
             self._win_open_rounds = 0  # flush truncated the open window
         it = None
         if lazy:
+            self.host_windows[host_reason] += 1
+            if sp.on:
+                sp.open(_sp.DRAW_HOST)
             if len(lazy) == 1:
                 b = lazy[0]
                 lz = [loss_flags(self.params.seed, b.uid_lo, b.uid_hi,
@@ -1046,6 +1125,8 @@ class ColumnarPlane(DeviceRoutedPlane):
                 lz = np.split(
                     flat, np.cumsum([len(b.keys) for b in lazy])[:-1])
             it = iter(lz)
+            if sp.on:
+                sp.close()
         for b in take:
             if b.handle is None:
                 flags = next(it)
@@ -1055,10 +1136,9 @@ class ColumnarPlane(DeviceRoutedPlane):
                 b.arrival = arrival_a.tolist()
                 flags_l = mflags.tolist() if mflags.any() else None
             else:
-                r0 = _walltime.perf_counter()
+                r0 = _sp.now()
                 flags = b.handle.read()
-                self._record_dev_read(_walltime.perf_counter() - r0,
-                                      len(b.keys))
+                self._record_dev_read((_sp.now() - r0) / 1e9, len(b.keys))
                 flags_l = flags.tolist() if flags.any() else None
             if b.forced is not None:
                 # the fault filter's forced drops join every route's flags
@@ -1066,10 +1146,17 @@ class ColumnarPlane(DeviceRoutedPlane):
                     flags_l = b.forced
                 else:
                     flags_l = [a or f for a, f in zip(flags_l, b.forced)]
+            if sp.on:
+                sp.open(_sp.DRAW_STORE)
             self._store_resolved(b.rows, b.src, b.arrival, b.keys, flags_l,
                                  b.round_end)
+            if sp.on:
+                sp.close()
         self._floor_settle()
-        self.phase_wall["draw_flush"] += _walltime.perf_counter() - t0
+        t1 = _sp.now()
+        self.phase_wall["draw_flush"] += (t1 - t0) / 1e9
+        if sp.on:
+            sp.close(t1)
 
     def flush_all(self) -> None:
         self.flush_due(T_NEVER + 1)
@@ -1184,19 +1271,19 @@ class _WindowHandle:
     window_readback) and every batch slices it for free at its own causal
     deadline. Frees its pipeline slot when the last slice is consumed."""
 
-    __slots__ = ("plane", "flags", "_dh", "_left")
+    __slots__ = ("plane", "flags", "_dh", "_left", "window")
 
-    def __init__(self, plane, dh, n_slices: int = 0) -> None:
+    def __init__(self, plane, dh, window: int = -1) -> None:
         self.plane = plane
         self.flags = None
         self._dh = dh
-        self._left = n_slices
+        self._left = 0
+        self.window = window  # the window's id (spans)
 
     def read_full(self) -> np.ndarray:
         if self.flags is None:
-            t0 = _walltime.perf_counter()
-            self.flags = self._dh.read()
-            self.plane._stall_sample(_walltime.perf_counter() - t0)
+            self.flags, dt = self.plane._read_card(self._dh, self.window)
+            self.plane._stall_sample(dt)
         return self.flags
 
     def slice_consumed(self) -> None:
@@ -1226,17 +1313,20 @@ class _ConcatHandle:
     """An oversized single batch dispatched as several chunks (legacy
     tpu_max_batch split), read back as one flag array."""
 
-    __slots__ = ("plane", "handles")
+    __slots__ = ("plane", "handles", "window")
 
-    def __init__(self, plane, handles) -> None:
+    def __init__(self, plane, handles, window: int = -1) -> None:
         self.plane = plane
         self.handles = handles
+        self.window = window  # the window's id (spans)
 
     def read(self) -> np.ndarray:
-        t0 = _walltime.perf_counter()
-        flags = np.concatenate([h.read() for h in self.handles])
-        self.plane._stall_sample(_walltime.perf_counter() - t0)
-        self.plane._window_done()
+        plane = self.plane
+        t0 = _sp.now()
+        flags = np.concatenate([plane._read_card(h, self.window)[0]
+                                for h in self.handles])
+        plane._stall_sample((_sp.now() - t0) / 1e9)
+        plane._window_done()
         return flags
 
 

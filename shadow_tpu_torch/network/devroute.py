@@ -93,6 +93,17 @@ class DeviceRoutedPlane:
         self.dev_window_units = 0  # units those windows carried
         self.spec_hits = 0  # C-plane speculative-window consults served
         self.spec_draws = 0  # C-plane inline draws (speculation missed)
+        #: windows (per-unit plane: batches) whose draws the host twin
+        #: resolved, by why: under the gate or no device plane
+        #: (below_floor), both in-flight slots busy when the window was
+        #: due (slots_busy), or taken before its own deadline by another
+        #: window's flush while both slots were busy (flushed_open)
+        self.host_windows = {"below_floor": 0, "slots_busy": 0,
+                             "flushed_open": 0}
+        #: card results read, and (counted while spans are recorded)
+        #: those whose kernel was still running when the read began
+        self.waits = 0
+        self.waits_blocked = 0
         self._max_window_units = 0  # biggest window this run has seen
         self._probe_clamped = False  # probing suppressed
         #: speculative forward windows (C plane only; colplane drives)
@@ -443,6 +454,9 @@ class DeviceRoutedPlane:
             "probe_clamped": self._probe_clamped,
             "spec_clamped": self._spec_clamped,
             "window_rounds": self.window_rounds or "auto",
+            "host_windows": dict(self.host_windows),
+            "waits": self.waits,
+            "waits_blocked": self.waits_blocked,
         }
 
     def heartbeat_note(self) -> str:

@@ -54,7 +54,6 @@ as in the reference.
 
 from __future__ import annotations
 
-import time as _walltime  # detlint: ok(wallclock): engagement economics + phase_wall
 from typing import Optional
 
 import numpy as np
@@ -62,6 +61,7 @@ import numpy as np
 from shadow_tpu_torch.network import unit as U
 from shadow_tpu_torch.network.transport import ESTABLISHED, StreamEndpoint
 from shadow_tpu_torch.ops import transport_kernels as TK
+from shadow_tpu_torch.utils import spans as _sp
 
 # store-row field indices (colplane.py row layout)
 _R_T, _R_KEY, _R_TGT, _R_KIND = 0, 1, 2, 3
@@ -277,7 +277,7 @@ class DeviceTransport:
             return
         self.staged = []
         self._flushes += 1
-        t0 = _walltime.perf_counter()
+        t0 = _sp.now()
         probe = (self._flushes & 15) == 0 and self._warm
         # both EMAs divide the whole-flush wall by the SAME denominator:
         # the clean-looking ack rows the intercept scan already counted
@@ -291,7 +291,7 @@ class DeviceTransport:
             self.scalar_probes += 1
             for host, rows, end, _n in staged:
                 self.executed += self._replay(host, rows, end, None)
-            dt = _walltime.perf_counter() - t0
+            dt = (_sp.now() - t0) / 1e9
             if nacks:
                 self._scalar_ema = _ema(self._scalar_ema, dt / nacks)
         else:
@@ -311,14 +311,16 @@ class DeviceTransport:
             for (host, rows, end, _n), fm in zip(staged, fast_maps):
                 self.executed += self._replay(host, rows, end,
                                               fm or None)
-            dt = _walltime.perf_counter() - t0
+            dt = (_sp.now() - t0) / 1e9
             if not self._warm:
                 self._warm = True  # kernel warmup flush: not signal
             elif nacks:
                 self._batch_ema = _ema(self._batch_ema, dt / nacks)
         self._decide()
-        self.plane.phase_wall["transport_tick"] += (
-            _walltime.perf_counter() - t0)
+        t1 = _sp.now()
+        self.plane.phase_wall["transport_tick"] += (t1 - t0) / 1e9
+        if self.plane.spans.on:
+            self.plane.spans.add(_sp.TRANSPORT_TICK, t0, t1)
 
     def _decide(self) -> None:
         """Engage/release with the devroute hysteresis bands: both paths

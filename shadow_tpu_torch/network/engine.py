@@ -41,7 +41,6 @@ counted, then silently discarded — matching IP semantics for no-route.
 
 from __future__ import annotations
 
-import time as _walltime  # detlint: ok(wallclock): phase_wall + device break-even routing
 from collections import deque
 from dataclasses import dataclass
 from functools import partial
@@ -59,6 +58,7 @@ from shadow_tpu_torch.network.fluid import (
 from shadow_tpu_torch.network.devroute import DeviceRoutedPlane
 from shadow_tpu_torch.network.graph import INF_I64, NetworkGraph
 from shadow_tpu_torch.network.unit import Unit
+from shadow_tpu_torch.utils import spans as _sp
 
 
 @dataclass
@@ -77,7 +77,7 @@ class NetworkEngine(DeviceRoutedPlane):
     def __init__(self, graph: NetworkGraph, params: NetParams, hosts,
                  round_ns: SimTime, backend: str = "numpy",
                  tpu_options=None, bootstrap_end: SimTime = 0,
-                 device: str = "cuda") -> None:
+                 device: str = "cuda", spans: _sp.Spans = None) -> None:
         self.graph = graph
         self.params = params
         self.hosts = hosts
@@ -104,7 +104,11 @@ class NetworkEngine(DeviceRoutedPlane):
         #: a faults: config section exists (shadow_tpu/faults.py): hosts
         #: may crash, links may cut; enables per-host blackhole accounting
         self.faults_active = False
-        self.phase_wall: dict = {}  # per-phase timing lives in colplane
+        #: the controller's span recorder (utils/spans.py), or one of
+        #: this plane's own when it is built alone; its totals are the
+        #: phase_wall (per-phase timing lives in colplane)
+        self.spans = spans if spans is not None else _sp.Spans()
+        self.phase_wall = self.spans.totals
         #: multi-process sharding (parallel/shards.py): when bound, rows
         #: resolved here whose destination lives on another shard divert
         #: into xout[dst_shard] (13-field store rows) instead of the local
@@ -250,6 +254,7 @@ class NetworkEngine(DeviceRoutedPlane):
         )
         if not use_device:
             self._floor_cooldown_tick()
+            self.host_windows["below_floor"] += 1
             flags = loss_flags(self.params.seed, *_uid_arrays(units, n), thresh)
             if forced is not None:
                 flags = flags | forced
@@ -279,9 +284,9 @@ class NetworkEngine(DeviceRoutedPlane):
             return
         self.outstanding = deque(b for b in self.outstanding if b.deadline >= limit)
         for b in due:
-            t0 = _walltime.perf_counter()
+            t0 = _sp.now()
             flags = b.handle.read()
-            self._record_dev_read(_walltime.perf_counter() - t0,
+            self._record_dev_read((_sp.now() - t0) / 1e9,
                                   len(b.units))
             self._schedule_batch(b.units, b.arrival,
                                  flags, b.keys, b.round_end)

@@ -538,6 +538,12 @@ class _SlotHandle:
         not stall."""
         return self._slot is None or self._slot.done()
 
+    def wait(self) -> None:
+        """Block until the kernels have written the result; read() then
+        only copies it out."""
+        if self._slot is not None:
+            self._slot.wait()
+
     def __del__(self) -> None:
         if self._slot is not None:
             self._slot.wait()  # the kernel may still write it

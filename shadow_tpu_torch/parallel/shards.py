@@ -89,7 +89,8 @@ from pathlib import Path
 
 import numpy as np
 
-from shadow_tpu_torch.core.controller import Controller, _GC_EVERY_ROUNDS
+from shadow_tpu_torch.core.controller import (SUMMARY_ONLY_PHASES, Controller,
+                                              _GC_EVERY_ROUNDS)
 from shadow_tpu_torch.core.time import (NS_PER_SEC, NS_PER_US, T_NEVER,
                                         format_time)
 from shadow_tpu_torch.host.process import PluginProcess
@@ -586,7 +587,7 @@ class _ShardWorker:
                 for h in active:
                     if not h.equeue._heap:
                         ctl._active.discard(h.id)
-            ctl._events_wall += _walltime.perf_counter() - t_ev
+            ctl.spans.totals["events"] += _walltime.perf_counter() - t_ev
             eng.end_of_round(now, round_end)
             devt = getattr(eng, "devt", None)
             if devt is not None:
@@ -670,7 +671,10 @@ class _ShardWorker:
                                 _ckpt.shard_digest_partial(ctl, round_end)))
             if tel is not None and (tel.dirty
                                     or round_end >= tel.next_sample):
+                t_tel = _walltime.perf_counter()
                 tel.on_round_end(ctl, round_end)
+                ctl.spans.totals["telemetry"] += (
+                    _walltime.perf_counter() - t_tel)
                 parts = tel.drain_partials()
                 if parts:
                     self.conn.send(("tel", ctl.rounds, parts))
@@ -682,9 +686,9 @@ class _ShardWorker:
                     "units_dropped": eng.units_dropped,
                     **({"dev": note()} if note is not None else {}),
                     "phase_wall": {
-                        "events": round(ctl._events_wall, 4),
-                        **{pk: round(pv, 4)
-                           for pk, pv in eng.phase_wall.items()}}}))
+                        pk: round(pv, 4)
+                        for pk, pv in ctl.spans.totals.items()
+                        if pk not in SUMMARY_ONLY_PHASES}}))
                 # grid-snap (not +=): skip-ahead can jump several
                 # heartbeat periods; the next beat lands on the grid so
                 # every shard fires on the same sim-time cadence
@@ -951,7 +955,9 @@ class _ShardWorker:
         self._prog.stamp(self.k, ctl.rounds)  # a long save is not a stall
         path = _ckpt.save_checkpoint(ctl, now)
         self._prog.stamp(self.k, ctl.rounds)
-        ctl._ckpt_wall += _walltime.perf_counter() - t0
+        pw = ctl.spans.totals
+        pw["checkpoint"] = pw.get("checkpoint", 0.0) + (
+            _walltime.perf_counter() - t0)
         self.conn.send(("ckpt_done", ctl.rounds, now, str(path)))
 
     def _finalize(self, end_time: int) -> dict:
@@ -990,15 +996,16 @@ class _ShardWorker:
         ctl.log.flush()
         import resource
 
+        pw = ctl.spans.totals
         phase = {
-            "events": round(ctl._events_wall, 4),
-            **{k: round(v, 4) for k, v in eng.phase_wall.items()},
+            **{k: round(v, 4) for k, v in pw.items()
+               if k not in SUMMARY_ONLY_PHASES},
             "exchange": round(self._exchange_wall, 4),
             "sync": round(self._sync_wall, 4),
-            **({"telemetry": round(ctl.telemetry.wall, 4)}
+            **({"telemetry": round(pw["telemetry"], 4)}
                if ctl.telemetry is not None else {}),
-            **({"checkpoint": round(ctl._ckpt_wall, 4)}
-               if ctl._ckpt_wall else {}),
+            **({"checkpoint": round(pw["checkpoint"], 4)}
+               if pw.get("checkpoint") else {}),
         }
         return {
             "events": ctl.events,

@@ -65,7 +65,6 @@ runs: no per-event work, no per-round work beyond one None check.
 from __future__ import annotations
 
 import json
-import time as _walltime  # detlint: ok(wallclock): collector overhead accounting (wall field)
 from pathlib import Path
 
 from shadow_tpu_torch.telemetry.histogram import LogHistogram
@@ -173,10 +172,6 @@ class TelemetryCollector:
         self.next_sample = self.sample_every
         self.samples = 0
         self.flows_written = 0
-        #: wall seconds spent inside telemetry (sampling + flow flushes)
-        #: — surfaces as phase_wall["telemetry"] so the <=5% budget is
-        #: directly attributable, independent of shared-machine noise
-        self.wall = 0.0
         #: anything buffered for the next round-end flush (flow records,
         #: fault annotations). THE contract with the controller's round
         #: loop: every producer of pending records sets this, and the
@@ -362,7 +357,10 @@ class TelemetryCollector:
 
     # -- per-round hook (controller round loop) ----------------------------
     def on_round_end(self, controller, round_end) -> None:
-        t0 = _walltime.perf_counter()
+        """Flush the round's records and take a due sample. The round
+        loop times the call (sampling + flow flushes) as
+        phase_wall["telemetry"], so the <=5% budget is directly
+        attributable, independent of shared-machine noise."""
         self.dirty = False
         if self._fault_pending:
             self._flush_faults(controller)
@@ -372,7 +370,6 @@ class TelemetryCollector:
             self._sample(controller, round_end)
             self.next_sample = (
                 (round_end // self.sample_every) + 1) * self.sample_every
-        self.wall += _walltime.perf_counter() - t0
 
     def _enc_str(self, v) -> str:
         """Canonical JSON encoding of a (small-cardinality) value — host

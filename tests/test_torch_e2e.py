@@ -127,6 +127,17 @@ def _set_plane_clock(monkeypatch, colplane, step: float) -> None:
         perf_counter=lambda: next(ticks) * step))
 
 
+def _set_port_clock(monkeypatch, step: float) -> None:
+    """The port's phase clock (utils/spans.py, ns), which its columnar
+    plane times window reads by, advancing ``step`` seconds at every
+    reading, as _set_plane_clock does for a reference plane."""
+    from shadow_tpu_torch.utils import spans
+
+    ticks = itertools.count()
+    monkeypatch.setattr(spans, "now",
+                        lambda: next(ticks) * round(step * 1e9))
+
+
 def _floor1_argv(engine=None):
     argv = ["--set", "experimental.tpu_device_floor=1",
             "--state-digest-every", "50"]
@@ -144,9 +155,7 @@ def test_forced_floor_window_count_ignores_read_stalls(tmp_path,
     that backed off after slow reads would dispatch fewer windows on a
     loaded host, and the identity test's count would vary with the
     load.)"""
-    from shadow_tpu_torch.network import colplane
-
-    _set_plane_clock(monkeypatch, colplane, 0.03)
+    _set_port_clock(monkeypatch, 0.03)
     port = _run(port_cli.main, EX / "tgen_100host.yaml", tmp_path / "port",
                 _floor1_argv(engine))
     assert port["native_colcore"] is (engine == "c_engine")
